@@ -1,0 +1,16 @@
+"""neural_speech_decoder_tpu_torch — the PyTorch/CUDA port of
+``neural_speech_decoder_tpu`` for one NVIDIA H100.
+
+It imports torch and never jax; the JAX package is the reference each part
+is tested against. Its layout mirrors the JAX package's:
+
+  ops/           smoothing, day affine, unfold, greedy decode
+  ops/kernels/   the hand-written CUDA kernels' wrappers, each beside its
+                 plain PyTorch version, and their build (``_build.py``)
+  csrc/          the CUDA C++ sources (sm_90a)
+  models/        the GRU decoder (``gru.py``), its model interface
+                 (``api.py``) and weight conversion from/to JAX (``convert.py``)
+  serving/       batch inference on one device (``model.py``)
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,204 @@
+"""Stacked (bi)GRU CTC decoder, inference forward.
+
+Port of ``neural_speech_decoder_tpu/models/gru.py``: Gaussian smoothing
+(20 taps, torch-"same" padding) -> per-day affine -> Softsign -> temporal
+unfold (k=32, s=4) fused into layer 0's input projection -> stacked
+(bi)GRU -> linear head to ``n_classes + 1`` CTC logits.
+
+Parameters keep the JAX package's layout (``init_gru_params``), so weights
+move between the two as they are (``models/convert.py``): per layer
+``w_ih [D, in, 3H]``, ``w_hh [D, H, 3H]``, ``b_ih``/``b_hh [D, 3H]``, gate
+order r, z, n.
+
+On the serving path the frontend (when ``sigma > 0``) and each layer's time
+scan run the hand-written kernels of ``ops/kernels``; layer 0's projection
+is a strided convolution, layers 1+ and the head are ``torch.matmul``, as
+the JAX package leaves them to XLA. ``plain=True`` runs the kernels' plain
+PyTorch versions instead, as the reference a card run is checked against.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.day_affine import day_affine, init_day_affine
+from ..ops.gaussian import gaussian_smooth
+from ..ops.kernels.frontend import fused_frontend, fused_frontend_plain
+from ..ops.kernels.gru_scan import gru_cell, gru_sequence, gru_sequence_plain
+from ..ops.unfold import unfold_matmul, unfold_output_length
+from .common import orthogonal, torch_linear_init, uniform_bound, xavier_uniform
+
+Params = dict
+
+
+@dataclasses.dataclass(frozen=True)
+class GRUConfig:
+    neural_dim: int = 256
+    n_classes: int = 40  # excl. blank; the head outputs n_classes + 1
+    hidden_dim: int = 1024
+    num_layers: int = 5
+    n_days: int = 24
+    dropout: float = 0.4  # training only; the inference forward ignores it
+    stride_len: int = 4
+    kernel_len: int = 32
+    gaussian_smooth_width: float = 2.0
+    gaussian_kernel_size: int = 20
+    bidirectional: bool = True
+    dtype: torch.dtype = torch.float32  # parameter dtype
+    compute_dtype: torch.dtype = torch.float32  # activation/matmul dtype
+
+    @property
+    def num_dirs(self) -> int:
+        return 2 if self.bidirectional else 1
+
+    @property
+    def input_dim(self) -> int:
+        return self.neural_dim * self.kernel_len
+
+    @property
+    def n_out(self) -> int:
+        return self.n_classes + 1
+
+
+def init_gru_params(cfg: GRUConfig, generator: torch.Generator) -> Params:
+    """The full parameter tree, drawn on the generator's device:
+    xavier-uniform ``w_ih``, orthogonal ``w_hh`` (orthogonalized as torch's
+    ``[3H, H]`` and stored transposed), ``U(-1/sqrt(H), 1/sqrt(H))`` GRU
+    biases, torch ``nn.Linear`` init for the head, identity day affines."""
+    h = cfg.hidden_dim
+    d = cfg.num_dirs
+    bound = 1.0 / math.sqrt(h)
+    layers = []
+    for li in range(cfg.num_layers):
+        in_dim = cfg.input_dim if li == 0 else h * d
+        w_ih, w_hh, b_ih, b_hh = [], [], [], []
+        for _ in range(d):
+            w_ih.append(xavier_uniform((in_dim, 3 * h), generator, cfg.dtype))
+            w_hh.append(orthogonal((3 * h, h), generator).T.to(cfg.dtype))
+            b_ih.append(uniform_bound((3 * h,), bound, generator, cfg.dtype))
+            b_hh.append(uniform_bound((3 * h,), bound, generator, cfg.dtype))
+        layers.append({
+            "w_ih": torch.stack(w_ih),
+            "w_hh": torch.stack(w_hh).contiguous(),
+            "b_ih": torch.stack(b_ih),
+            "b_hh": torch.stack(b_hh),
+        })
+    fc_w, fc_b = torch_linear_init(h * d, cfg.n_out, generator, cfg.dtype)
+    return {
+        "day": init_day_affine(
+            cfg.n_days, cfg.neural_dim, cfg.dtype, generator.device
+        ),
+        "gru": {"layers": layers},
+        "fc": {"weight": fc_w, "bias": fc_b},
+    }
+
+
+def gru_layer(
+    xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor, h0: torch.Tensor
+) -> torch.Tensor:
+    """One (bi)GRU layer stepped in plain PyTorch, as the JAX package's
+    ``_gru_layer`` forward: ``xp [L, D, B, 3H]`` with direction 1 already
+    time-flipped, ``h0 [D, B, H]`` -> ``[L, D, B, H]`` (direction 1 still
+    flipped). The carry is rounded to xp's dtype after every step."""
+    h = h0
+    ys = []
+    for t in range(xp.shape[0]):
+        h = gru_cell(xp[t], h, w_hh, b_hh).to(xp.dtype)
+        ys.append(h)
+    return torch.stack(ys)
+
+
+def gru_encode(
+    params: Params, cfg: GRUConfig, x: torch.Tensor, *, plain: bool = False
+) -> torch.Tensor:
+    """The stacked GRU over frontend output ``x [B, T, C]`` ->
+    ``[B, L, H*D]`` with ``L = (T - k) // s + 1``."""
+    b = x.shape[0]
+    h = cfg.hidden_dim
+    d = cfg.num_dirs
+    cdt = cfg.compute_dtype
+    scan = gru_sequence_plain if plain else gru_sequence
+    out = x.to(cdt)
+    for li, lp in enumerate(params["gru"]["layers"]):
+        # all directions' projections as one product: directions
+        # concatenated on the output axis
+        w_cat = torch.cat([lp["w_ih"][i] for i in range(d)], dim=-1).to(cdt)
+        if li == 0:
+            xp = unfold_matmul(out, w_cat, cfg.kernel_len, cfg.stride_len)
+        else:
+            xp = torch.matmul(out, w_cat)
+        xp = (xp.float().reshape(b, -1, d, 3 * h) + lp["b_ih"].float()).to(cdt)
+        xp = xp.permute(1, 2, 0, 3).contiguous()  # [L, D, B, 3H]
+        ys = scan(xp, lp["w_hh"], lp["b_hh"])  # [L, D, B, H]
+        out = ys.permute(2, 0, 1, 3).reshape(b, -1, d * h)
+    return out
+
+
+def gru_forward(
+    params: Params,
+    cfg: GRUConfig,
+    x: torch.Tensor,
+    day_idx: torch.Tensor,
+    *,
+    plain: bool = False,
+) -> torch.Tensor:
+    """Inference forward: ``[B, T, C]`` features -> ``[B, L, n_classes+1]``
+    float32 logits."""
+    x = x.to(cfg.compute_dtype)
+    if cfg.gaussian_smooth_width > 0:
+        front = fused_frontend_plain if plain else fused_frontend
+        x = front(
+            x, params["day"]["weight"], params["day"]["bias"], day_idx,
+            kernel_size=cfg.gaussian_kernel_size,
+            sigma=cfg.gaussian_smooth_width,
+        )
+    else:
+        # sigma <= 0: no smoothing, and the fused kernel's taps would be 0/0
+        x = gaussian_smooth(
+            x, cfg.gaussian_kernel_size, cfg.gaussian_smooth_width
+        )
+        x = F.softsign(day_affine(params["day"], x, day_idx))
+    enc = gru_encode(params, cfg, x, plain=plain)
+    logits = torch.matmul(enc, params["fc"]["weight"].to(enc.dtype))
+    return logits.float() + params["fc"]["bias"].float()
+
+
+def gru_output_length(cfg: GRUConfig, t: int) -> int:
+    return unfold_output_length(t, cfg.kernel_len, cfg.stride_len)
+
+
+class GRUDecoder(nn.Module):
+    """The decoder as an ``nn.Module`` holding ``init_gru_params``' tree:
+    ``module.params`` is that tree of its own parameters, and
+    ``module(x, day_idx)`` is ``gru_forward``."""
+
+    def __init__(self, cfg: GRUConfig, params: Params):
+        super().__init__()
+        self.cfg = cfg
+
+        def pdict(tree):
+            return nn.ParameterDict(
+                {k: nn.Parameter(v, requires_grad=False) for k, v in tree.items()}
+            )
+
+        self.day = pdict(params["day"])
+        self.layers = nn.ModuleList(pdict(lp) for lp in params["gru"]["layers"])
+        self.fc = pdict(params["fc"])
+
+    @property
+    def params(self) -> Params:
+        return {
+            "day": dict(self.day.items()),
+            "gru": {"layers": [dict(lp.items()) for lp in self.layers]},
+            "fc": dict(self.fc.items()),
+        }
+
+    def forward(
+        self, x: torch.Tensor, day_idx: torch.Tensor, *, plain: bool = False
+    ) -> torch.Tensor:
+        return gru_forward(self.params, self.cfg, x, day_idx, plain=plain)

@@ -1,0 +1,109 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+The ``.cu`` sources under ``neural_speech_decoder_tpu_torch/csrc/`` are
+compiled with ``nvcc`` for ``sm_90a`` (H100) into one shared library with a
+plain C interface, at first use, into ``neural_speech_decoder_tpu_torch/
+_build/`` (git-ignored). The library's name carries a hash of the sources
+and flags, so an edited source builds anew and a built one is reused. The
+library is loaded with ``ctypes``; every pointer and the stream are passed
+as ``c_void_p``, and every entry point returns a ``cudaError_t`` (0 = ok).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "nsd_frontend_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                         ctypes.POINTER(ctypes.c_float), _I, _I, _P],
+    "nsd_gru_scan_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+}
+_SIGNATURES["nsd_frontend_bf16"] = _SIGNATURES["nsd_frontend_f32"]
+_SIGNATURES["nsd_gru_scan_bf16"] = _SIGNATURES["nsd_gru_scan_f32"]
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in (
+        Path(home) / "bin" / "nvcc" if home else None,
+        shutil.which("nvcc"),
+        Path("/usr/local/cuda/bin/nvcc"),
+    ):
+        if cand and Path(cand).is_file():
+            return str(cand)
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def library_path() -> Path:
+    """Where the library for the current sources lives (built or not)."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.iterdir()):
+        if f.suffix in (".cu", ".cuh"):
+            h.update(f.name.encode())
+            h.update(f.read_bytes())
+    return BUILD_DIR / f"libnsd_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the sources unless the library for them exists already.
+    The compiler's report (``-Xptxas -v``: registers, shared memory,
+    spills per kernel) is kept beside the library as ``<name>.log``."""
+    so = library_path()
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so")
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    so.with_suffix(".log").write_text(
+        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+    )
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
+    return so
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    """Build if needed, then load the library once per process."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.nsd_error_string.argtypes = [ctypes.c_int]
+    lib.nsd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a kernel entry point returned a CUDA error."""
+    if rc != 0:
+        msg = load_library().nsd_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
