@@ -1,21 +1,36 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's serving path (``neural_speech_decoder_tpu_torch``) once,
-at the full width of ``neural_speech_decoder_tpu/configs/gru_baseline.yaml``
-with seeded random weights:
+Drives the port's serving path and its training path
+(``neural_speech_decoder_tpu_torch``) at the full width of
+``neural_speech_decoder_tpu/configs/gru_baseline.yaml`` with seeded random
+weights:
 
 1. Device: requires CUDA, prints the card's name and power limit, the torch
    and CUDA versions, and builds the kernels from ``csrc/``.
-2. Kernels: each hand-written kernel against its plain PyTorch version on
-   the card at the serving path's shapes, in float32 and bfloat16, with
-   the max abs error, the tolerance, and both times.
+2. Serving kernels: the frontend and the inference scan against their plain
+   PyTorch versions on the card at the serving path's shapes, in float32
+   and bfloat16, with the max abs error, the tolerance, and both times.
 3. Serving: ``InferenceModel`` answers 3 float32 requests of random
    trials (pad -> forward -> greedy decode); checks finite log-probs, empty
    decodes for padded rows, the kernels' launch counts, and the float32
    logits against the same model run through the plain versions; prints
    the median request latency and sequences per second. Then one request
    in the recipe's bfloat16 compute, with the same checks.
+4. Training kernels: the gates-storing scan, the scan's backward and the
+   CTC alpha and beta recursions against their plain versions at the train
+   step's shapes (L=313, B=64, H=1024, U=64), in float32 and bfloat16, with
+   errors, tolerances and times; ``F.ctc_loss`` timed as the CTC rows'
+   library call.
+5. Train step: ``make_train_step`` at bench.py's shapes and ``GRU_ARGS``
+   (B=64, T=1280, U=64, bfloat16, dropout and noise on): 2 warm-up and 10
+   timed steps, the median step time and seq/s, a finite loss, moved
+   parameters, the launches per step; then one float32 step without noise
+   and dropout whose every gradient leaf is checked against the plain path.
+6. ``train_model`` at full width on the port's synthetic dataset (20 steps,
+   evals and checkpoints every 10), then ``load_model``, an eval pass
+   (checked to launch the frontend, the inference scan and alpha, and not
+   beta) and a greedy decode.
 
 Run from the repository root:  python3 chip_smoke.py
 It imports no jax. It exits non-zero without a result when there is no
@@ -27,26 +42,58 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
+from neural_speech_decoder_tpu_torch.data.batching import choose_envelope
+from neural_speech_decoder_tpu_torch.data.dataset import pack_days
+from neural_speech_decoder_tpu_torch.data.synthetic import synthetic_dataset
+from neural_speech_decoder_tpu_torch.models.api import build_model
+from neural_speech_decoder_tpu_torch.models.api import forward as model_forward
 from neural_speech_decoder_tpu_torch.models.common import orthogonal, uniform_bound
 from neural_speech_decoder_tpu_torch.models.gru import GRUConfig, init_gru_params
+from neural_speech_decoder_tpu_torch.ops.decode import greedy_decode
 from neural_speech_decoder_tpu_torch.ops.kernels import _build
+from neural_speech_decoder_tpu_torch.ops.kernels.ctc import (
+    ctc_alpha,
+    ctc_alpha_plain,
+    ctc_beta,
+    ctc_beta_plain,
+    prepare,
+)
 from neural_speech_decoder_tpu_torch.ops.kernels.frontend import (
     fused_frontend,
     fused_frontend_plain,
 )
 from neural_speech_decoder_tpu_torch.ops.kernels.gru_scan import (
     gru_sequence,
+    gru_sequence_bwd,
+    gru_sequence_bwd_plain,
+    gru_sequence_gates,
+    gru_sequence_gates_plain,
     gru_sequence_plain,
 )
 from neural_speech_decoder_tpu_torch.serving.model import InferenceModel
+from neural_speech_decoder_tpu_torch.training.optim import make_optimizer
+from neural_speech_decoder_tpu_torch.training.profile import BENCH_ARGS, bench_batch
+from neural_speech_decoder_tpu_torch.training.trainer import (
+    _loss_and_metrics,
+    batch_tensors,
+    load_model,
+    make_eval_step,
+    make_train_step,
+    run_eval,
+    step_generator,
+    train_model,
+)
 
 # The serving path's shapes: B=64 trials in a T=1280 envelope, C=256
 # channels, 24 days, H=1024, both directions, L=(1280-32)//4+1=313 frames.
@@ -75,12 +122,54 @@ LOGITS_TOL = 2e-3
 # path, measured on the same request, stands for each; the bound is twice it.
 BF16_LOGITS_FACTOR = 2.0
 
+# The train step's kernels, against their plain versions on the same
+# inputs. The gates-storing scan shares the inference scan's arithmetic, so
+# its ys tolerance is the scan's; its gates include hp_n, an H=1024-long sum
+# (|hp_n| up to ~4, where one bf16 step is 2**-6 and a flipped rounding of
+# h upstream moves it by a step or two). The backward's outputs are
+# compared relative to each output's largest entry: float32 differs by
+# summation order over 3H-long products carried 313 steps and L*B = 20032
+# row sums; bfloat16 also by roundings of dhp to bf16 (2**-8 relative)
+# that fall the other way. CTC alpha and beta are float32 whatever the
+# input's dtype; they are compared on the live lanes (the -1e30 sentinel
+# lanes must agree exactly) relative to max(1, |value|): each is a sum over
+# up to 313 frames of log-adds, and the card's exp/log in the kernel and in
+# torch may differ by an ulp.
+TRAIN_TOL = {
+    ("gru_scan_gates", "float32"): 1e-4,
+    ("gru_scan_gates", "bfloat16"): 3e-2,
+    ("gru_scan_gates.gates", "float32"): 1e-4,
+    ("gru_scan_gates.gates", "bfloat16"): 3.125e-2,
+    ("gru_scan_bwd", "float32"): 1e-4,
+    ("gru_scan_bwd", "bfloat16"): 1e-2,
+    ("ctc", "float32"): 1e-5,
+    ("ctc", "bfloat16"): 1e-5,
+}
+# One float32 train step (noise and dropout off), kernel path vs plain
+# path, every gradient leaf relative to its largest entry: five layers of
+# recurrences and 313-step CTC recursions summed in other orders.
+GRAD_TOL = 5e-4
+U = 64  # labels per row in the train step (bench.py's u)
+
 SOURCES = {
     "frontend": ("neural_speech_decoder_tpu_torch/csrc/frontend.cu",
                  "neural_speech_decoder_tpu/ops/pallas/frontend_kernel.py:56"),
     "gru_scan": ("neural_speech_decoder_tpu_torch/csrc/gru_scan.cu",
                  "neural_speech_decoder_tpu/ops/pallas/gru_scan.py:58"),
+    "gru_scan_gates": ("neural_speech_decoder_tpu_torch/csrc/gru_scan.cu",
+                       "neural_speech_decoder_tpu/ops/pallas/gru_scan.py:69"),
+    "gru_scan_bwd": ("neural_speech_decoder_tpu_torch/csrc/gru_scan_bwd.cu",
+                     "neural_speech_decoder_tpu/ops/pallas/gru_scan.py:88"),
+    "ctc_alpha": ("neural_speech_decoder_tpu_torch/csrc/ctc.cu",
+                  "neural_speech_decoder_tpu/ops/pallas/ctc_kernel.py:63"),
+    "ctc_beta": ("neural_speech_decoder_tpu_torch/csrc/ctc.cu",
+                 "neural_speech_decoder_tpu/ops/pallas/ctc_kernel.py:84"),
 }
+KERNELS = tuple(SOURCES)
+# Published H100 SXM peaks (NVIDIA data sheet; dense, at 700 W): HBM bytes/s,
+# FP32 FMA flop/s outside the tensor cores, bf16 tensor-core flop/s.
+HBM_BPS = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 
 failures: list[str] = []
 
@@ -103,6 +192,18 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound_ms(n_bytes: float, flops: float, dtype: str) -> tuple[float, str]:
+    """The least time the card could take: the larger of bytes over the HBM
+    rate and flops over the peak of the dtype's units."""
+    t_bytes = n_bytes / HBM_BPS * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def compare(name, kernel, plain, reps_kernel, reps_plain) -> dict:
@@ -148,6 +249,11 @@ def kernel_phase() -> list[dict]:
         lambda d: fused_frontend_plain(xs[d], day_w, day_b, day, **fe),
         reps_kernel=20, reps_plain=20,
     )
+    # x read and the output written once, every day's matrix and bias read
+    # once; the product and the 20-tap smoothing, float32
+    front["bound_ms"], front["bound_by"] = bound_ms(
+        nbytes(x, x, day_w, day_b, day),
+        2 * B * T * C * C + 2 * fe["kernel_size"] * B * T * C, "float32")
     xp = torch.randn((L, D, B, 3 * H), generator=g, device="cuda")
     w_hh = torch.stack([orthogonal((3 * H, H), g).T for _ in range(D)])
     b_hh = uniform_bound((D, 3 * H), 1 / H**0.5, g)
@@ -158,7 +264,21 @@ def kernel_phase() -> list[dict]:
         lambda d: gru_sequence_plain(xps[d], w_hh, b_hh),
         reps_kernel=3, reps_plain=2,
     )
+    # xp, W_hh, b_hh read once, ys written once; h @ W_hh every step
+    scan["bound_ms"], scan["bound_by"] = bound_ms(
+        nbytes(xp, w_hh, b_hh) + xp.numel() // 3 * 4, scan_flops(), "float32")
+    for row in (front, scan):
+        # no single PyTorch call computes either function on these inputs:
+        # the frontend's smooth + per-day product + Softsign is three calls;
+        # cuDNN's GRU takes the layer input, not the projections xp
+        row["library_ms"] = None
+        row["dtype"] = "float32"
     return [front, scan]
+
+
+def scan_flops() -> int:
+    """One layer's recurrent products at the main path's shapes."""
+    return 2 * L * D * B * H * 3 * H
 
 
 def check_request(tag: str, n: int, log_probs, out_lens, decoded) -> None:
@@ -172,14 +292,23 @@ def check_request(tag: str, n: int, log_probs, out_lens, decoded) -> None:
           f"{n} real rows have frames")
 
 
+WRAPPERS = {
+    "frontend": fused_frontend,
+    "gru_scan": gru_sequence,
+    "gru_scan_gates": gru_sequence_gates,
+    "gru_scan_bwd": gru_sequence_bwd,
+    "ctc_alpha": ctc_alpha,
+    "ctc_beta": ctc_beta,
+}
+
+
 def reset_launches() -> None:
-    fused_frontend.launches = 0
-    gru_sequence.launches = 0
+    for fn in WRAPPERS.values():
+        fn.launches = 0
 
 
-def read_launches() -> dict:
-    return {"frontend": fused_frontend.launches,
-            "gru_scan": gru_sequence.launches}
+def read_launches(names=("frontend", "gru_scan")) -> dict:
+    return {k: WRAPPERS[k].launches for k in names}
 
 
 def serving_phase(card: str) -> dict:
@@ -270,6 +399,284 @@ def serving_phase(card: str) -> dict:
     return launches
 
 
+def time_turns(kernel, plain, reps_kernel, reps_plain):
+    """(kernel ms, plain ms, readings) with the runs taken in turns
+    plain, kernel, kernel, plain."""
+    p1 = time_ms(plain, reps_plain)
+    k1 = time_ms(kernel, reps_kernel)
+    k2 = time_ms(kernel, reps_kernel)
+    p2 = time_ms(plain, reps_plain)
+    return (k1 + k2) / 2, (p1 + p2) / 2, (k1, k2, p1, p2)
+
+
+def rel_err(got, ref) -> float:
+    """Max abs error relative to the reference's largest entry."""
+    ref = ref.float()
+    return ((got.float() - ref).abs().max() / ref.abs().max().clamp_min(1e-30)).item()
+
+
+def train_kernel_phase() -> dict:
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    g = torch.Generator(device="cuda").manual_seed(2)
+    xp = torch.randn((L, D, B, 3 * H), generator=g, device="cuda")
+    w_hh = torch.stack([orthogonal((3 * H, H), g).T for _ in range(D)])
+    b_hh = uniform_bound((D, 3 * H), 1 / H**0.5, g)
+    dys = torch.randn((L, D, B, H), generator=g, device="cuda")
+    rows = {"gru_scan_gates": {}, "gru_scan_bwd": {}, "ctc_alpha": {},
+            "ctc_beta": {}}
+    inputs = {}
+    for name in ("float32", "bfloat16"):
+        x, dy = xp.to(dt[name]), dys.to(dt[name])
+        with torch.inference_mode():
+            ys, gates = gru_sequence_gates(x, w_hh, b_hh)
+            ys_p, gates_p = gru_sequence_gates_plain(x, w_hh, b_hh)
+            ys_i = gru_sequence(x, w_hh, b_hh)
+            # the backward from the same (plain) gates on both sides
+            dxp, dw, db = gru_sequence_bwd(gates_p, w_hh, ys_p, dy)
+            dxp_p, dw_p, db_p = gru_sequence_bwd_plain(gates_p, w_hh, ys_p, dy)
+        torch.cuda.synchronize()
+        inputs[name] = (x, dy, gates_p, ys_p)
+        check(torch.equal(ys, ys_i),
+              f"gru_scan_gates {name}: ys equal to the inference scan's bit for bit")
+        err_y = (ys.float() - ys_p.float()).abs().max().item()
+        err_g = (gates.float() - gates_p.float()).abs().max().item()
+        tol_y = TRAIN_TOL[("gru_scan_gates", name)]
+        tol_g = TRAIN_TOL[("gru_scan_gates.gates", name)]
+        check(err_y <= tol_y and err_g <= tol_g,
+              f"gru_scan_gates {name}: max abs err ys {err_y:.3e} <= {tol_y:.3g}, "
+              f"gates {err_g:.3e} <= {tol_g:.3g}")
+        errs = {k: rel_err(a, b) for k, a, b in (
+            ("dxp", dxp, dxp_p), ("dW_hh", dw, dw_p), ("db_hh", db, db_p))}
+        tol = TRAIN_TOL[("gru_scan_bwd", name)]
+        check(max(errs.values()) <= tol,
+              f"gru_scan_bwd {name}: max abs err / max |ref| "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + f" <= {tol:.3g}")
+        if name == "float32":
+            rows["gru_scan_gates"]["max_abs_err"] = max(err_y, err_g)
+            rows["gru_scan_bwd"]["max_abs_err"] = max(
+                (a.float() - b.float()).abs().max().item()
+                for a, b in ((dxp, dxp_p), (dw, dw_p), (db, db_p)))
+    for name in ("float32", "bfloat16"):
+        x, dy, gates_p, ys_p = inputs[name]
+        with torch.inference_mode():
+            fg = time_turns(lambda: gru_sequence_gates(x, w_hh, b_hh),
+                            lambda: gru_sequence_gates_plain(x, w_hh, b_hh), 3, 2)
+            fb = time_turns(lambda: gru_sequence_bwd(gates_p, w_hh, ys_p, dy),
+                            lambda: gru_sequence_bwd_plain(gates_p, w_hh, ys_p, dy),
+                            3, 2)
+        for key, (k, p, turns) in (("gru_scan_gates", fg), ("gru_scan_bwd", fb)):
+            print(f"time  {key} {name}: kernel {turns[0]:.4f}/{turns[1]:.4f} ms, "
+                  f"plain {turns[2]:.4f}/{turns[3]:.4f} ms", flush=True)
+            if name == "float32":
+                rows[key].update(ms=k, plain_ms=p)
+    x, dy, gates_p, ys_p = inputs["float32"]
+    rows["gru_scan_gates"]["bound_ms"], rows["gru_scan_gates"]["bound_by"] = bound_ms(
+        nbytes(x, w_hh, b_hh, ys_p, gates_p), scan_flops(), "float32")
+    # gates, W_hh, ys, dys read once, dxp, dW_hh, db_hh written once; the
+    # step products dhp @ W^T and the dW_hh contraction, each as many
+    # flops as the forward's products
+    rows["gru_scan_bwd"]["bound_ms"], rows["gru_scan_bwd"]["bound_by"] = bound_ms(
+        nbytes(gates_p, w_hh, ys_p, dy, x) + 4 * (D * H * 3 * H + D * 3 * H),
+        2 * scan_flops(), "float32")
+
+    # CTC at the train step's shapes: T = L frames, B rows, U labels, 41
+    # classes, with an empty target, an infeasible target and a row of
+    # length 0
+    logits = torch.randn((B, L, N_OUT), generator=g, device="cuda")
+    labels = torch.randint(1, N_OUT, (B, U), generator=g, device="cuda")
+    label_lens = torch.randint(20, U + 1, (B,), generator=g, device="cuda")
+    input_lens = torch.randint(92, L + 1, (B,), generator=g, device="cuda")
+    label_lens[0] = 0
+    input_lens[1], label_lens[1] = 40, U
+    input_lens[2] = 0
+    input_lens[3] = L
+    prepared = {}
+    for name in ("float32", "bfloat16"):
+        _, lpz, _, skip, s_end, lens = prepare(logits.to(dt[name]), labels,
+                                               label_lens, input_lens)
+        prepared[name] = (lpz, skip, s_end, lens)
+        for key, got, ref in (
+                ("ctc_alpha", ctc_alpha(lpz, skip, lens),
+                 ctc_alpha_plain(lpz, skip, lens)),
+                ("ctc_beta", ctc_beta(lpz, skip, lens, s_end),
+                 ctc_beta_plain(lpz, skip, lens, s_end))):
+            same_dead = torch.equal(got <= -1e29, ref <= -1e29)
+            live = ref > -1e29
+            err = ((got[live] - ref[live]).abs()
+                   / ref[live].abs().clamp_min(1.0)).max().item()
+            tol = TRAIN_TOL[("ctc", name)]
+            check(same_dead and err <= tol,
+                  f"{key} ({name} log-probs): sentinel lanes equal {same_dead}, "
+                  f"max abs err / max(1, |ref|) {err:.3e} <= {tol:.3g}")
+            if name == "float32":
+                rows[key]["max_abs_err"] = (got[live] - ref[live]).abs().max().item()
+    lpz, skip, s_end, lens = prepared["float32"]
+    fa = time_turns(lambda: ctc_alpha(lpz, skip, lens),
+                    lambda: ctc_alpha_plain(lpz, skip, lens), 20, 3)
+    fb = time_turns(lambda: ctc_beta(lpz, skip, lens, s_end),
+                    lambda: ctc_beta_plain(lpz, skip, lens, s_end), 20, 3)
+    # the library yardstick: torch's own CTC loss on the same rows, forward
+    # (alpha's work) and backward alone (beta's), and both
+    lp = torch.log_softmax(logits, -1).transpose(0, 1).detach().requires_grad_()
+    ctc_args = (labels, input_lens, label_lens)
+    lib_f = lambda: torch.nn.functional.ctc_loss(
+        lp, *ctc_args, reduction="none", zero_infinity=True)
+    lib_loss = lib_f().sum()
+    lib_b = lambda: torch.autograd.grad(lib_loss, lp, retain_graph=True)
+    lib_fb = lambda: torch.autograd.grad(lib_f().sum(), lp)
+    lib = {"ctc_alpha": time_ms(lib_f, 20), "ctc_beta": time_ms(lib_b, 20)}
+    lib_both = time_ms(lib_fb, 20)
+    for key, (k, p, turns) in (("ctc_alpha", fa), ("ctc_beta", fb)):
+        print(f"time  {key} float32: kernel {turns[0]:.4f}/{turns[1]:.4f} ms, "
+              f"plain {turns[2]:.4f}/{turns[3]:.4f} ms, F.ctc_loss "
+              f"{'forward' if key == 'ctc_alpha' else 'backward'} "
+              f"{lib[key]:.4f} ms", flush=True)
+        rows[key].update(ms=k, plain_ms=p, library_ms=lib[key])
+    print(f"time  F.ctc_loss forward+backward {lib_both:.4f} ms", flush=True)
+    # lpz, skip, lens read once and the recursion written once (beta also
+    # reads s_end); a logsum3 (3 exp, 1 log, ~8 adds and compares) per
+    # state and frame
+    flops = 12 * lpz.numel()
+    rows["ctc_alpha"]["bound_ms"], rows["ctc_alpha"]["bound_by"] = bound_ms(
+        nbytes(lpz, skip, lens, lpz), flops, "float32")
+    rows["ctc_beta"]["bound_ms"], rows["ctc_beta"]["bound_by"] = bound_ms(
+        nbytes(lpz, skip, lens, s_end, lpz), flops, "float32")
+    for key in ("gru_scan_gates", "gru_scan_bwd"):
+        # cuDNN's GRU backward is tied to its own forward over the layer
+        # input, not to projections and stored gates
+        rows[key]["library_ms"] = None
+    for row in rows.values():
+        row["dtype"] = "float32"
+    return rows
+
+
+def train_step_phase(card: str) -> dict:
+    """bench.py's train step at full width in bf16; then one float32 step
+    checked leaf by leaf against the plain path."""
+    device = torch.device("cuda")
+    args = dict(BENCH_ARGS)
+    model = build_model(args, N_DAYS, device, seed=0)
+    opt, sched = make_optimizer(args, model.parameters())
+    step = make_train_step(args, model, opt, sched)
+    batch = batch_tensors(bench_batch(B, T, U), device)
+    before = [p.detach().clone() for p in model.parameters()]
+    losses = []
+    for i in range(2):  # warm-up
+        losses.append(float(step(batch, step_generator(device, 0, i))["train/loss"]))
+    torch.cuda.synchronize()
+    n = 10
+    reset_launches()
+    times = []
+    for i in range(n):
+        t0 = time.perf_counter()
+        metrics = step(batch, step_generator(device, 0, 2 + i))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(metrics["train/loss"]))
+    launches = read_launches(KERNELS)
+    want = {"frontend": 0, "gru_scan": 0, "gru_scan_gates": 5 * n,
+            "gru_scan_bwd": 5 * n, "ctc_alpha": n, "ctc_beta": n}
+    check(launches == want, f"launches over {n} bf16 train steps {launches} "
+          f"== per step 5 gates-forward, 5 backward, 1 alpha, 1 beta, no "
+          f"frontend or inference scan")
+    check(all(math.isfinite(v) for v in losses),
+          f"bf16 train losses finite: {', '.join(f'{v:.4f}' for v in losses)}")
+    moved = [not torch.equal(a, p.detach()) for a, p in zip(before, model.parameters())]
+    check(all(moved), f"all {len(moved)} parameter leaves moved after "
+          f"{n + 2} steps ({sum(moved)} moved)")
+    med = statistics.median(times)
+    print(f"train step bf16 B={B} T={T} U={U} (dropout 0.4, noise 0.8/0.2): "
+          f"steps {', '.join(f'{t * 1e3:.2f}' for t in times)} ms, median "
+          f"{med * 1e3:.2f} ms, {B / med:.2f} seq/s ({card})", flush=True)
+    del model, opt, sched, step, before
+
+    # one float32 step without noise and dropout: kernel path vs plain path
+    args32 = {**BENCH_ARGS, "compute_dtype": "float32", "dropout": 0.0,
+              "whiteNoiseSD": 0.0, "constantOffsetSD": 0.0}
+    model = build_model(args32, N_DAYS, device, seed=1)
+    out = {}
+    for plain in (False, True):
+        model.zero_grad(set_to_none=True)
+        reset_launches()
+        loss, _ = _loss_and_metrics(args32, model, batch,
+                                    step_generator(device, 0, 0), plain=plain)
+        loss.backward()
+        torch.cuda.synchronize()
+        out[plain] = (loss.item(), [p.grad.clone() for p in model.parameters()],
+                      read_launches(KERNELS))
+    (loss_k, grads_k, launch_k), (loss_p, grads_p, launch_p) = out[False], out[True]
+    check(launch_k == {k: v // n for k, v in want.items()}
+          and not any(launch_p.values()),
+          f"float32 step launches: kernel path {launch_k}, plain path {launch_p}")
+    errs = [rel_err(a, b) for a, b in zip(grads_k, grads_p)]
+    check(abs(loss_k - loss_p) <= GRAD_TOL * abs(loss_p) and max(errs) <= GRAD_TOL,
+          f"float32 train step, kernels vs plain: loss {loss_k:.6f} vs "
+          f"{loss_p:.6f}; {len(errs)} gradient leaves, max abs err / max |ref| "
+          f"{max(errs):.3e} <= {GRAD_TOL:g}")
+    return {k: launches[k] for k in ("gru_scan_gates", "gru_scan_bwd",
+                                     "ctc_alpha", "ctc_beta")}
+
+
+def train_model_phase(card: str) -> None:
+    """train_model at full width on synthetic data, then load_model, an
+    eval pass and a greedy decode."""
+    out_dir = Path("runs") / "chip_smoke_train"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    ds = synthetic_dataset(seed=0, n_days=N_DAYS, trials_per_day=8,
+                           n_channels=C, min_t=400, max_t=1200, min_u=20,
+                           max_u=U)
+    args = {**BENCH_ARGS, "outputDir": str(out_dir), "device": "cuda",
+            "dataset": ds, "batchSize": B, "nBatch": 20, "evalEvery": 10,
+            "checkpointEvery": 10, "wandb_mode": "offline"}
+    t0 = time.perf_counter()
+    summary = train_model(args)
+    print(f"train_model: 20 steps with 2 evals and 2 checkpoints in "
+          f"{time.perf_counter() - t0:.1f} s; {summary} ({card})", flush=True)
+    names = ("args", "trainingStats", "modelState", "lastState", "trainerState",
+             "metrics.jsonl")
+    present = [n for n in names if (out_dir / n).is_file()]
+    recs = [json.loads(line) for line in
+            (out_dir / "metrics.jsonl").read_text().splitlines()]
+    n_train = sum("train/loss" in r for r in recs)
+    n_eval = sum("eval/cer" in r for r in recs)
+    check(len(present) == len(names) and n_train == 20 and n_eval == 2,
+          f"artifacts {present}; metrics.jsonl has {n_train} train and "
+          f"{n_eval} eval records")
+
+    model, run_args = load_model(str(out_dir), device="cuda")
+    train_ds, test_ds = pack_days(ds["train"]), pack_days(ds["test"])
+    t_max, u_max = choose_envelope(train_ds, test_ds)
+    reset_launches()
+    _, per, _, _ = run_eval(make_eval_step(model), test_ds, B, t_max, u_max,
+                            torch.device("cuda"))
+    launches = read_launches(KERNELS)
+    n_batches = -(-test_ds.n_trials // B)
+    want = {"frontend": n_batches, "gru_scan": 5 * n_batches,
+            "gru_scan_gates": 0, "gru_scan_bwd": 0, "ctc_alpha": n_batches,
+            "ctc_beta": 0}
+    check(launches == want, f"eval of the reloaded model over {n_batches} "
+          f"batch(es) launched {launches}: frontend, inference scan and alpha, "
+          f"not beta")
+    best = float(summary["summary/best_cer"])
+    check(math.isfinite(per) and abs(per - best) <= 0.02,
+          f"reloaded best model's PER {per:.6f} vs the run's best {best:.6f}")
+    trial = test_ds.trial(0)
+    x = torch.zeros((1, t_max, C), device="cuda")
+    x[0, : len(trial)] = torch.from_numpy(trial).to(x.device)
+    with torch.inference_mode():
+        log_probs, out_lens = model_forward(
+            model, x, torch.as_tensor(test_ds.days[:1], device="cuda"),
+            torch.tensor([len(trial)], device="cuda"))
+        tokens, lens = greedy_decode(log_probs, out_lens)
+    ref = test_ds.labels[0, : test_ds.label_lens[0]].tolist()
+    hyp = tokens[0, : lens[0]].tolist()
+    check(bool(torch.isfinite(log_probs).all()) and out_lens.item() > 0,
+          f"load_model -> greedy decode of one test trial: {len(hyp)} labels "
+          f"decoded, {len(ref)} in the reference")
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -292,16 +699,28 @@ def main() -> int:
     _build.load_library()
     print(f"built {so.name} in {time.perf_counter() - t0:.1f} s", flush=True)
     for line in so.with_suffix(".log").read_text().splitlines():
-        if "Used" in line or "spill" in line:
-            print("ptxas " + line.strip(), flush=True)
+        if "Compiling entry" in line or "Used" in line or "spill" in line:
+            print(line.strip(), flush=True)
 
-    rows = kernel_phase()
+    t0 = time.perf_counter()
+    rows = dict(zip(("frontend", "gru_scan"), kernel_phase()))
     launches = serving_phase(card)
+    print(f"phase serving: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    rows.update(train_kernel_phase())
+    print(f"phase train kernels: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    launches.update(train_step_phase(card))
+    print(f"phase train step: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    train_model_phase(card)
+    print(f"phase train_model: {time.perf_counter() - t0:.1f} s", flush=True)
     out = []
-    for name, row in zip(("frontend", "gru_scan"), rows):
+    for name in KERNELS:
         source, replaces = SOURCES[name]
         out.append({"name": name, "route": "cuda", "source": source,
-                    "replaces": replaces, "launches": launches[name], **row})
+                    "replaces": replaces, "launches": launches[name],
+                    **rows[name]})
     print(json.dumps({"kernels": out}), flush=True)
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed", file=sys.stderr)

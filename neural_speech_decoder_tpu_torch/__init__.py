@@ -4,12 +4,17 @@
 It imports torch and never jax; the JAX package is the reference each part
 is tested against. Its layout mirrors the JAX package's:
 
-  ops/           smoothing, day affine, unfold, greedy decode
+  ops/           smoothing, day affine, unfold, noise, CTC loss, greedy
+                 decode
   ops/kernels/   the hand-written CUDA kernels' wrappers, each beside its
-                 plain PyTorch version, and their build (``_build.py``)
+                 plain PyTorch version, their autograd Functions, and their
+                 build (``_build.py``)
   csrc/          the CUDA C++ sources (sm_90a)
   models/        the GRU decoder (``gru.py``), its model interface
                  (``api.py``) and weight conversion from/to JAX (``convert.py``)
+  data/          the port's copies of the numpy-only data modules
+  training/      optimizer, trainer, checkpoints, train-step profile
+  utils/         metric logging
   serving/       batch inference on one device (``model.py``)
 """
 

@@ -1,7 +1,9 @@
 // Forward time scan of one (bi)directional GRU layer from precomputed input
-// projections, for inference:
+// projections, for inference and for training:
 //   xp [L, D, B, 3H] (b_ih already added, natural time order for both
-//   directions), w_hh [D, H, 3H], b_hh [D, 3H] f32  ->  ys [L, D, B, H].
+//   directions), w_hh [D, H, 3H], b_hh [D, 3H] f32  ->  ys [L, D, B, H],
+//   and for training also gates [L, D, B, 4H] = (r, z, n, hp_n) in xp's type,
+//   what the backward (gru_scan_bwd.cu) reads instead of recomputing them.
 // Gate order r, z, n (torch nn.GRU). Each step, for every direction:
 //   hp = h @ W_hh + b_hh
 //   r = sigmoid(x_r + hp_r);  z = sigmoid(x_z + hp_z)
@@ -10,10 +12,13 @@
 // with h0 = 0. Direction 1 walks time in reverse through the kernel's
 // indexing and writes its states back in natural order: no flip copies.
 //
-// Replaces the Pallas TPU kernel
+// Replaces the Pallas TPU kernels
 // neural_speech_decoder_tpu/ops/pallas/gru_scan.py::_fwd_kernel (reached via
-// gru_sequence -> _forward(with_gates=False)), which keeps W_hh resident in
-// VMEM for a whole direction and carries h in a float32 VMEM scratch.
+// gru_sequence -> _forward(with_gates=False)) and ::_fwd_gates_kernel
+// (_gru_sequence_fwd -> _forward(with_gates=True)), which keep W_hh resident
+// in VMEM for a whole direction and carry h in a float32 VMEM scratch. Both
+// are one step kernel here, templated on whether it also writes the gates;
+// everything else is shared, so the two give ys bit for bit alike.
 //
 // Numerics, as in the TPU kernel: the carry h is float32 across steps; the
 // product takes h rounded to the weight's type (bf16 when xp is bf16) and
@@ -61,13 +66,14 @@ __device__ __forceinline__ float sigmoid_f32(float v) {
   return 1.f / (1.f + expf(-v));
 }
 
-template <typename T>
+template <typename T, bool kGates>
 __global__ void __launch_bounds__(kLanes * kSplit)
     gru_step_kernel(const T* __restrict__ xp, const T* __restrict__ w,
                     const float* __restrict__ bias,
                     const float* __restrict__ h_prev,
-                    float* __restrict__ h_next, T* __restrict__ ys, int step,
-                    int n_steps, int n_dirs, int batch, int hidden) {
+                    float* __restrict__ h_next, T* __restrict__ ys,
+                    T* __restrict__ gates, int step, int n_steps, int n_dirs,
+                    int batch, int hidden) {
   // hs is stored k-major so that a thread's 4 batch rows are one 16-byte
   // load (the same address for the whole warp: a broadcast).
   __shared__ __align__(16) float hs_parts[kSplit][kK][kRowsB + 4];
@@ -196,14 +202,22 @@ __global__ void __launch_bounds__(kLanes * kSplit)
       h_next[((size_t)d * batch + bb) * hidden + j] = h;
       ys[(((size_t)t * n_dirs + d) * batch + bb) * hidden + j] =
           nsd::from_f32<T>(h);
+      if (kGates) {
+        T* g = gates + (((size_t)t * n_dirs + d) * batch + bb) * 4 * hidden;
+        g[j] = nsd::from_f32<T>(r);
+        g[hidden + j] = nsd::from_f32<T>(z);
+        g[2 * hidden + j] = nsd::from_f32<T>(n);
+        g[3 * hidden + j] = nsd::from_f32<T>(hp_n);
+      }
     }
   }
 }
 
+// gates == nullptr: the inference kernel; otherwise the training kernel.
 template <typename T>
 cudaError_t run_scan(const void* xp, const void* w, const void* bias,
-                     void* ys, void* carry, int n_steps, int n_dirs, int batch,
-                     int hidden, cudaStream_t stream) {
+                     void* ys, void* gates, void* carry, int n_steps,
+                     int n_dirs, int batch, int hidden, cudaStream_t stream) {
   if (n_steps < 1 || n_dirs < 1 || n_dirs > 2 || batch < 1 || hidden < 1) {
     return cudaErrorInvalidValue;
   }
@@ -214,10 +228,18 @@ cudaError_t run_scan(const void* xp, const void* w, const void* bias,
   for (int s = 0; s < n_steps; ++s) {
     const float* h_prev = (s & 1) ? h1 : h0;
     float* h_next = (s & 1) ? h0 : h1;
-    gru_step_kernel<T><<<grid, dim3(kLanes, kSplit), 0, stream>>>(
-        static_cast<const T*>(xp), static_cast<const T*>(w),
-        static_cast<const float*>(bias), h_prev, h_next, static_cast<T*>(ys),
-        s, n_steps, n_dirs, batch, hidden);
+    if (gates == nullptr) {
+      gru_step_kernel<T, false><<<grid, dim3(kLanes, kSplit), 0, stream>>>(
+          static_cast<const T*>(xp), static_cast<const T*>(w),
+          static_cast<const float*>(bias), h_prev, h_next,
+          static_cast<T*>(ys), nullptr, s, n_steps, n_dirs, batch, hidden);
+    } else {
+      gru_step_kernel<T, true><<<grid, dim3(kLanes, kSplit), 0, stream>>>(
+          static_cast<const T*>(xp), static_cast<const T*>(w),
+          static_cast<const float*>(bias), h_prev, h_next,
+          static_cast<T*>(ys), static_cast<T*>(gates), s, n_steps, n_dirs,
+          batch, hidden);
+    }
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
@@ -231,16 +253,34 @@ extern "C" {
 int nsd_gru_scan_f32(const void* xp, const void* w, const void* bias,
                      void* ys, void* carry, int n_steps, int n_dirs,
                      int batch, int hidden, void* stream) {
-  return static_cast<int>(run_scan<float>(xp, w, bias, ys, carry, n_steps,
-                                          n_dirs, batch, hidden,
-                                          static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(run_scan<float>(
+      xp, w, bias, ys, nullptr, carry, n_steps, n_dirs, batch, hidden,
+      static_cast<cudaStream_t>(stream)));
 }
 
 int nsd_gru_scan_bf16(const void* xp, const void* w, const void* bias,
                       void* ys, void* carry, int n_steps, int n_dirs,
                       int batch, int hidden, void* stream) {
   return static_cast<int>(run_scan<__nv_bfloat16>(
-      xp, w, bias, ys, carry, n_steps, n_dirs, batch, hidden,
+      xp, w, bias, ys, nullptr, carry, n_steps, n_dirs, batch, hidden,
+      static_cast<cudaStream_t>(stream)));
+}
+
+int nsd_gru_scan_gates_f32(const void* xp, const void* w, const void* bias,
+                           void* ys, void* gates, void* carry, int n_steps,
+                           int n_dirs, int batch, int hidden, void* stream) {
+  if (gates == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(run_scan<float>(
+      xp, w, bias, ys, gates, carry, n_steps, n_dirs, batch, hidden,
+      static_cast<cudaStream_t>(stream)));
+}
+
+int nsd_gru_scan_gates_bf16(const void* xp, const void* w, const void* bias,
+                            void* ys, void* gates, void* carry, int n_steps,
+                            int n_dirs, int batch, int hidden, void* stream) {
+  if (gates == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(run_scan<__nv_bfloat16>(
+      xp, w, bias, ys, gates, carry, n_steps, n_dirs, batch, hidden,
       static_cast<cudaStream_t>(stream)));
 }
 

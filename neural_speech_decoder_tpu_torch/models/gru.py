@@ -1,4 +1,4 @@
-"""Stacked (bi)GRU CTC decoder, inference forward.
+"""Stacked (bi)GRU CTC decoder: the serving forward and the train forward.
 
 Port of ``neural_speech_decoder_tpu/models/gru.py``: Gaussian smoothing
 (20 taps, torch-"same" padding) -> per-day affine -> Softsign -> temporal
@@ -10,11 +10,22 @@ move between the two as they are (``models/convert.py``): per layer
 ``w_ih [D, in, 3H]``, ``w_hh [D, H, 3H]``, ``b_ih``/``b_hh [D, 3H]``, gate
 order r, z, n.
 
-On the serving path the frontend (when ``sigma > 0``) and each layer's time
-scan run the hand-written kernels of ``ops/kernels``; layer 0's projection
-is a strided convolution, layers 1+ and the head are ``torch.matmul``, as
-the JAX package leaves them to XLA. ``plain=True`` runs the kernels' plain
-PyTorch versions instead, as the reference a card run is checked against.
+On the serving path (``train=False``) the frontend (when ``sigma > 0``) and
+each layer's time scan run the hand-written kernels of ``ops/kernels``.
+Training (``train=True``) runs the unfused frontend chain under autograd,
+as the JAX package does, each scan through the ``GRUScan`` autograd
+Function (gates-storing forward and backward kernels), and inter-layer
+dropout. Layer 0's projection is a strided convolution, layers 1+ and the
+head are ``torch.matmul``, as the JAX package leaves them to XLA.
+``plain=True`` runs the kernels' plain PyTorch versions instead, as the
+reference a card run is checked against.
+
+Precision in bfloat16 compute: the head multiplies the bf16 encoder states
+and weights with float32 accumulation and output, as the JAX package does
+(``preferred_element_type=float32``). Layers 1+ round their projection to
+bf16 before adding the float32 bias, and then once more: PyTorch has no
+bf16-in, f32-out product with a backward (``torch.mm(..., out_dtype=)``
+has none), and a float32 GEMM would cost far more than the rounding.
 """
 
 from __future__ import annotations
@@ -29,7 +40,7 @@ import torch.nn.functional as F
 from ..ops.day_affine import day_affine, init_day_affine
 from ..ops.gaussian import gaussian_smooth
 from ..ops.kernels.frontend import fused_frontend, fused_frontend_plain
-from ..ops.kernels.gru_scan import gru_cell, gru_sequence, gru_sequence_plain
+from ..ops.kernels.gru_scan import gru_cell, gru_scan
 from ..ops.unfold import unfold_matmul, unfold_output_length
 from .common import orthogonal, torch_linear_init, uniform_bound, xavier_uniform
 
@@ -43,7 +54,7 @@ class GRUConfig:
     hidden_dim: int = 1024
     num_layers: int = 5
     n_days: int = 24
-    dropout: float = 0.4  # training only; the inference forward ignores it
+    dropout: float = 0.4  # between layers, training only
     stride_len: int = 4
     kernel_len: int = 32
     gaussian_smooth_width: float = 2.0
@@ -114,15 +125,25 @@ def gru_layer(
 
 
 def gru_encode(
-    params: Params, cfg: GRUConfig, x: torch.Tensor, *, plain: bool = False
+    params: Params,
+    cfg: GRUConfig,
+    x: torch.Tensor,
+    *,
+    train: bool = False,
+    generator: torch.Generator | None = None,
+    plain: bool = False,
 ) -> torch.Tensor:
     """The stacked GRU over frontend output ``x [B, T, C]`` ->
-    ``[B, L, H*D]`` with ``L = (T - k) // s + 1``."""
+    ``[B, L, H*D]`` with ``L = (T - k) // s + 1``. With ``train`` and
+    ``cfg.dropout > 0``, every layer's output but the last's is dropped at
+    rate p and scaled by 1/(1-p), drawn from ``generator``."""
     b = x.shape[0]
     h = cfg.hidden_dim
     d = cfg.num_dirs
     cdt = cfg.compute_dtype
-    scan = gru_sequence_plain if plain else gru_sequence
+    p = cfg.dropout if train else 0.0
+    if p > 0 and generator is None:
+        raise ValueError("gru_encode: training with dropout needs a generator")
     out = x.to(cdt)
     for li, lp in enumerate(params["gru"]["layers"]):
         # all directions' projections as one product: directions
@@ -134,9 +155,27 @@ def gru_encode(
             xp = torch.matmul(out, w_cat)
         xp = (xp.float().reshape(b, -1, d, 3 * h) + lp["b_ih"].float()).to(cdt)
         xp = xp.permute(1, 2, 0, 3).contiguous()  # [L, D, B, 3H]
-        ys = scan(xp, lp["w_hh"], lp["b_hh"])  # [L, D, B, H]
+        ys = gru_scan(xp, lp["w_hh"], lp["b_hh"], plain=plain)  # [L, D, B, H]
         out = ys.permute(2, 0, 1, 3).reshape(b, -1, d * h)
+        if p > 0 and li < cfg.num_layers - 1:
+            out = dropout(out, p, generator)
     return out
+
+
+def dropout(x: torch.Tensor, p: float, generator: torch.Generator) -> torch.Tensor:
+    """Inverted dropout: each entry kept with probability 1-p and scaled by
+    1/(1-p), else 0 (the JAX package's ``jnp.where(keep, x / (1-p), 0)``)."""
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - p
+    return torch.where(keep, x / (1.0 - p), 0.0)
+
+
+def gru_head(params: Params, enc: torch.Tensor) -> torch.Tensor:
+    """``enc [B, L, H*D] @ fc.weight + fc.bias`` -> float32 logits: the
+    operands in enc's dtype, the product accumulated and kept in float32
+    (in bfloat16 compute, a float32 product of the bf16-rounded operands,
+    exact per term)."""
+    w = params["fc"]["weight"].to(enc.dtype)
+    return torch.matmul(enc.float(), w.float()) + params["fc"]["bias"].float()
 
 
 def gru_forward(
@@ -145,12 +184,15 @@ def gru_forward(
     x: torch.Tensor,
     day_idx: torch.Tensor,
     *,
+    train: bool = False,
+    generator: torch.Generator | None = None,
     plain: bool = False,
 ) -> torch.Tensor:
-    """Inference forward: ``[B, T, C]`` features -> ``[B, L, n_classes+1]``
-    float32 logits."""
+    """``[B, T, C]`` features -> ``[B, L, n_classes+1]`` float32 logits.
+    Training takes the unfused frontend chain (autograd reaches the day
+    affine) and dropout from ``generator``; inference the fused frontend."""
     x = x.to(cfg.compute_dtype)
-    if cfg.gaussian_smooth_width > 0:
+    if cfg.gaussian_smooth_width > 0 and not train:
         front = fused_frontend_plain if plain else fused_frontend
         x = front(
             x, params["day"]["weight"], params["day"]["bias"], day_idx,
@@ -158,24 +200,34 @@ def gru_forward(
             sigma=cfg.gaussian_smooth_width,
         )
     else:
-        # sigma <= 0: no smoothing, and the fused kernel's taps would be 0/0
+        # training, or sigma <= 0 (no smoothing: the fused kernel's taps
+        # would be 0/0)
         x = gaussian_smooth(
             x, cfg.gaussian_kernel_size, cfg.gaussian_smooth_width
         )
         x = F.softsign(day_affine(params["day"], x, day_idx))
-    enc = gru_encode(params, cfg, x, plain=plain)
-    logits = torch.matmul(enc, params["fc"]["weight"].to(enc.dtype))
-    return logits.float() + params["fc"]["bias"].float()
+    enc = gru_encode(params, cfg, x, train=train, generator=generator,
+                     plain=plain)
+    return gru_head(params, enc)
 
 
 def gru_output_length(cfg: GRUConfig, t: int) -> int:
     return unfold_output_length(t, cfg.kernel_len, cfg.stride_len)
 
 
+def _leaves(tree) -> list[torch.Tensor]:
+    """The tensors of a parameter tree in a fixed order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree]
+
+
 class GRUDecoder(nn.Module):
-    """The decoder as an ``nn.Module`` holding ``init_gru_params``' tree:
-    ``module.params`` is that tree of its own parameters, and
-    ``module(x, day_idx)`` is ``gru_forward``."""
+    """The decoder as an ``nn.Module`` holding ``init_gru_params``' tree as
+    trainable parameters: ``module.params`` is that tree of its own
+    parameters, and ``module(x, day_idx, ...)`` is ``gru_forward``."""
 
     def __init__(self, cfg: GRUConfig, params: Params):
         super().__init__()
@@ -183,7 +235,7 @@ class GRUDecoder(nn.Module):
 
         def pdict(tree):
             return nn.ParameterDict(
-                {k: nn.Parameter(v, requires_grad=False) for k, v in tree.items()}
+                {k: nn.Parameter(v) for k, v in tree.items()}
             )
 
         self.day = pdict(params["day"])
@@ -198,7 +250,24 @@ class GRUDecoder(nn.Module):
             "fc": dict(self.fc.items()),
         }
 
+    @torch.no_grad()
+    def load_params(self, params: Params) -> None:
+        """Copy a parameter tree of ``init_gru_params``' layout into this
+        module's parameters (on their device and dtype)."""
+        for mine, theirs in zip(_leaves(self.params), _leaves(params), strict=True):
+            if mine.shape != theirs.shape:
+                raise ValueError(f"load_params: {tuple(theirs.shape)} for a "
+                                 f"parameter of shape {tuple(mine.shape)}")
+            mine.copy_(theirs)
+
     def forward(
-        self, x: torch.Tensor, day_idx: torch.Tensor, *, plain: bool = False
+        self,
+        x: torch.Tensor,
+        day_idx: torch.Tensor,
+        *,
+        train: bool = False,
+        generator: torch.Generator | None = None,
+        plain: bool = False,
     ) -> torch.Tensor:
-        return gru_forward(self.params, self.cfg, x, day_idx, plain=plain)
+        return gru_forward(self.params, self.cfg, x, day_idx, train=train,
+                           generator=generator, plain=plain)

@@ -1,9 +1,10 @@
 """Build and load the port's hand-written CUDA kernels.
 
 The ``.cu`` sources under ``neural_speech_decoder_tpu_torch/csrc/`` are
-compiled with ``nvcc`` for ``sm_90a`` (H100) into one shared library with a
-plain C interface, at first use, into ``neural_speech_decoder_tpu_torch/
-_build/`` (git-ignored). The library's name carries a hash of the sources
+compiled with ``nvcc`` for ``sm_90a`` (H100), one ``nvcc`` per source, all
+started together, and linked into one shared library with a plain C
+interface, at first use, into ``neural_speech_decoder_tpu_torch/_build/``
+(git-ignored). The library's name carries a hash of the sources
 and flags, so an edited source builds anew and a built one is reused. The
 library is loaded with ``ctypes``; every pointer and the stream are passed
 as ``c_void_p``, and every entry point returns a ``cudaError_t`` (0 = ok).
@@ -25,7 +26,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -34,9 +35,14 @@ _SIGNATURES = {
     "nsd_frontend_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                          ctypes.POINTER(ctypes.c_float), _I, _I, _P],
     "nsd_gru_scan_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "nsd_gru_scan_gates_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "nsd_gru_bwd_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _I, _I, _I, _I, _P],
+    "nsd_ctc_alpha": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "nsd_ctc_beta": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
-_SIGNATURES["nsd_frontend_bf16"] = _SIGNATURES["nsd_frontend_f32"]
-_SIGNATURES["nsd_gru_scan_bf16"] = _SIGNATURES["nsd_gru_scan_f32"]
+for _name in ("frontend", "gru_scan", "gru_scan_gates", "gru_bwd"):
+    _SIGNATURES[f"nsd_{_name}_bf16"] = _SIGNATURES[f"nsd_{_name}_f32"]
 
 
 def _sources() -> list[Path]:
@@ -66,26 +72,39 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the sources unless the library for them exists already.
-    The compiler's report (``-Xptxas -v``: registers, shared memory,
-    spills per kernel) is kept beside the library as ``<name>.log``."""
+    """Compile the sources unless the library for them exists already:
+    one ``nvcc -c`` per source, all running at once, then one link. The
+    compiler's report (``-Xptxas -v``: registers, shared memory, spills per
+    kernel) is kept beside the library as ``<name>.log``."""
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so")
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    so.with_suffix(".log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    )
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(Path(work) / f"{src.stem}.o"),
+                 str(src)] for src in _sources()]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        outs = [p.communicate()[0] for p in procs]
+        link = [nvcc, "-shared", "-o", str(Path(work) / "lib.so"),
+                *(c[c.index("-o") + 1] for c in cmds)]
+        failed = [(" ".join(c), p.returncode, o)
+                  for c, p, o in zip(cmds, procs, outs) if p.returncode]
+        log = [" ".join(c) + "\n" + o for c, o in zip(cmds, outs)]
+        if not failed:
+            proc = subprocess.run(link, capture_output=True, text=True)
+            log.append(" ".join(link) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode:
+                failed.append((" ".join(link), proc.returncode,
+                               proc.stdout + proc.stderr))
+        so.with_suffix(".log").write_text("".join(log))
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"{c} ({rc}):\n{o}" for c, rc, o in failed))
+        # atomic: a concurrent loader sees all or nothing
+        os.replace(Path(work) / "lib.so", so)
     return so
 
 

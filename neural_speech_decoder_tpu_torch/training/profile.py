@@ -1,0 +1,113 @@
+"""Where a train step's time goes on the card.
+
+Runs ``make_train_step`` at bench.py's shapes and ``GRU_ARGS`` (the GRU
+baseline at full width, B=64, T=1280, U=64, bfloat16 compute, dropout and
+noise on; random weights and batch from a seed) under ``torch.profiler``
+and prints the device time by kernel, the device's busy share of the
+steps' wall time, and the host-clock time of each step.
+
+    python -m neural_speech_decoder_tpu_torch.training.profile [--dtype float32]
+
+It needs a CUDA device and fails without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from ..data.batching import Batch
+from ..models.api import build_model
+from .optim import make_optimizer
+from .trainer import batch_tensors, make_train_step, step_generator
+
+# bench.py's GRU_ARGS: the recipe (configs/gru_baseline.yaml) at 24 days
+BENCH_ARGS = {
+    "model_type": "gru_baseline",
+    "nInputFeatures": 256,
+    "nClasses": 40,
+    "nUnits": 1024,
+    "nLayers": 5,
+    "dropout": 0.4,
+    "strideLen": 4,
+    "kernelLen": 32,
+    "gaussianSmoothWidth": 2.0,
+    "bidirectional": True,
+    "whiteNoiseSD": 0.8,
+    "constantOffsetSD": 0.2,
+    "lrStart": 0.02,
+    "lrEnd": 0.02,
+    "l2_decay": 1e-5,
+    "nBatch": 10000,
+    "seed": 0,
+    "compute_dtype": "bfloat16",
+    "watch_log_freq": 0,
+}
+N_DAYS = 24
+
+
+def bench_batch(
+    b: int = 64, t: int = 1280, u: int = 64, c: int = 256, seed: int = 0
+) -> Batch:
+    """bench.py's random batch: Gaussian features, labels in [1, 40],
+    lengths of 400-1280 bins and 20-64 labels, days in [0, 24)."""
+    rng = np.random.default_rng(seed)
+    return Batch(
+        x=rng.standard_normal((b, t, c)).astype(np.float32),
+        y=rng.integers(1, 41, size=(b, u)).astype(np.int32),
+        x_lens=rng.integers(min(400, max(t // 2, 1)), t + 1, size=(b,)).astype(np.int32),
+        y_lens=rng.integers(20, u + 1, size=(b,)).astype(np.int32),
+        days=rng.integers(0, N_DAYS, size=(b,)).astype(np.int32),
+        weight=np.ones((b,), np.float32),
+    )
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--dtype", default="bfloat16", choices=["float32", "bfloat16"])
+    ap.add_argument("--steps", type=int, default=3)
+    args_cli = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile: no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda")
+    args = {**BENCH_ARGS, "compute_dtype": args_cli.dtype}
+    model = build_model(args, N_DAYS, device, seed=0)
+    opt, sched = make_optimizer(args, model.parameters())
+    step = make_train_step(args, model, opt, sched)
+    batch = batch_tensors(bench_batch(), device)
+
+    def run(i):
+        t0 = time.perf_counter()
+        metrics = step(batch, step_generator(device, 0, i))
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, float(metrics["train/loss"])
+
+    for i in range(2):
+        run(i)
+    walls = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(args_cli.steps):
+            walls.append(run(2 + i)[0])
+        wall_us = (time.perf_counter() - t0) * 1e6
+    print(f"{args_cli.dtype} train step B=64 T=1280 "
+          f"{torch.cuda.get_device_name(0)}: step wall "
+          f"{', '.join(f'{w:.3f}' for w in walls)} ms (under the profiler)")
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in events)
+    print(f"device busy {busy_us / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms wall "
+          f"over {args_cli.steps} steps ({100 * busy_us / wall_us:.1f}%)")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:25]:
+        print(f"  {e.self_device_time_total / 1e3 / args_cli.steps:9.3f} ms/step "
+              f"{e.count // args_cli.steps:6d}x/step  {e.key[:90]}")
+
+
+if __name__ == "__main__":
+    main()

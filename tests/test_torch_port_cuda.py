@@ -18,8 +18,22 @@ from neural_speech_decoder_tpu_torch.ops.kernels.frontend import (
     fused_frontend,
     fused_frontend_plain,
 )
+from neural_speech_decoder_tpu_torch.ops.ctc import ctc_feasible
+from neural_speech_decoder_tpu_torch.ops.kernels.ctc import (
+    ctc_alpha,
+    ctc_alpha_plain,
+    ctc_beta,
+    ctc_beta_plain,
+    ctc_loss_kernel,
+    prepare,
+)
 from neural_speech_decoder_tpu_torch.ops.kernels.gru_scan import (
+    GRUScan,
     gru_sequence,
+    gru_sequence_bwd,
+    gru_sequence_bwd_plain,
+    gru_sequence_gates,
+    gru_sequence_gates_plain,
     gru_sequence_plain,
 )
 
@@ -88,3 +102,155 @@ def test_kernels_refuse_unsupported_dtype(cuda):
     with pytest.raises(TypeError):
         gru_sequence(xp, torch.zeros((1, 4, 12), device=cuda),
                      torch.zeros((1, 12), device=cuda))
+
+
+def _scan_case(cuda, dtype, d, length=9, b=40, h=40):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    xp = torch.randn((length, d, b, 3 * h), generator=g, device=cuda).to(dtype)
+    w = 0.2 * torch.randn((d, h, 3 * h), generator=g, device=cuda)
+    bias = 0.1 * torch.randn((d, 3 * h), generator=g, device=cuda)
+    dys = torch.randn((length, d, b, h), generator=g, device=cuda).to(dtype)
+    return xp, w, bias, dys
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("d", [1, 2])
+def test_gru_gates_kernel_matches_plain(cuda, dtype, tol, d):
+    xp, w, bias, _ = _scan_case(cuda, dtype, d)
+    before = gru_sequence_gates.launches
+    ys, gates = gru_sequence_gates(xp, w, bias)
+    ys_ref, gates_ref = gru_sequence_gates_plain(xp, w, bias)
+    ys_inf = gru_sequence(xp, w, bias)
+    torch.cuda.synchronize()
+    assert gru_sequence_gates.launches == before + 1
+    assert gates.dtype == dtype and gates.shape == xp.shape[:3] + (4 * 40,)
+    # the training and inference kernels share their arithmetic
+    assert torch.equal(ys, ys_inf)
+    assert (ys.float() - ys_ref.float()).abs().max().item() <= tol
+    # hp_n is a sum of 40 products of size ~0.5: its bf16 step is ~2**-6
+    assert (gates.float() - gates_ref.float()).abs().max().item() <= 4 * tol
+
+
+# dW_hh and db_hh sum L*B = 360 products of size ~1 in float32, in another
+# order than the plain version; relative to their largest entry.
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("d", [1, 2])
+def test_gru_bwd_kernel_matches_plain(cuda, dtype, tol, d):
+    xp, w, bias, dys = _scan_case(cuda, dtype, d)
+    ys, gates = gru_sequence_gates_plain(xp, w, bias)
+    before = gru_sequence_bwd.launches
+    dxp, dw, db = gru_sequence_bwd(gates, w, ys, dys)
+    dxp_ref, dw_ref, db_ref = gru_sequence_bwd_plain(gates, w, ys, dys)
+    torch.cuda.synchronize()
+    assert gru_sequence_bwd.launches == before + 1
+    assert dxp.dtype == dtype and dw.dtype == db.dtype == torch.float32
+    scale = dxp_ref.float().abs().max().item()
+    assert (dxp.float() - dxp_ref.float()).abs().max().item() <= tol * scale
+    for got, ref in ((dw, dw_ref), (db, db_ref)):
+        err = (got - ref).abs().max().item()
+        assert err <= tol * ref.abs().max().item(), err
+
+
+def test_gru_scan_function_grads_match_plain(cuda):
+    xp, w, bias, dys = _scan_case(cuda, torch.float32, 2, length=7, b=5)
+    grads = []
+    for plain in (False, True):
+        leaves = [t.clone().requires_grad_() for t in (xp, w, bias)]
+        ys = GRUScan.apply(*leaves, plain)
+        (ys * dys).sum().backward()
+        grads.append([t.grad for t in leaves])
+    for got, ref in zip(*grads):
+        assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+def _ctc_case(cuda, b=40, t=37, k=11, u=6):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    logits = torch.randn((b, t, k), generator=g, device=cuda)
+    labels = torch.randint(1, k, (b, u), generator=g, device=cuda)
+    labels[:, 1] = labels[:, 0]  # a repeat: needs a blank between
+    label_lens = torch.randint(1, u + 1, (b,), generator=g, device=cuda)
+    input_lens = torch.randint(u + 2, t + 1, (b,), generator=g, device=cuda)
+    label_lens[0] = 0    # empty target
+    input_lens[1] = 3    # infeasible: 3 frames for up to 6 labels + repeat
+    label_lens[1] = u
+    input_lens[2] = 0    # no frames at all
+    input_lens[3] = t    # full length
+    return logits, labels, label_lens, input_lens
+
+
+# alpha and beta are sums of a few log-adds per frame over 37 frames; the
+# card's expf/logf and the CPU's agree to a few float32 ulps of values up
+# to ~100.
+CTC_TOL = 1e-4
+
+
+def test_ctc_alpha_beta_kernels_match_plain(cuda):
+    logits, labels, label_lens, input_lens = _ctc_case(cuda)
+    _, lpz, _, skip, s_end, lens = prepare(logits, labels, label_lens, input_lens)
+    before = (ctc_alpha.launches, ctc_beta.launches)
+    alpha = ctc_alpha(lpz, skip, lens)
+    beta = ctc_beta(lpz, skip, lens, s_end)
+    torch.cuda.synchronize()
+    assert (ctc_alpha.launches, ctc_beta.launches) == (before[0] + 1, before[1] + 1)
+    for got, ref in ((alpha, ctc_alpha_plain(lpz, skip, lens)),
+                     (beta, ctc_beta_plain(lpz, skip, lens, s_end))):
+        # the sentinel lanes must match exactly, the rest within CTC_TOL
+        assert torch.equal(got <= -1e29, ref <= -1e29)
+        live = ref > -1e29
+        assert (got[live] - ref[live]).abs().max().item() <= CTC_TOL
+
+
+def test_ctc_loss_kernel_matches_plain_and_torch(cuda):
+    logits, labels, label_lens, input_lens = _ctc_case(cuda)
+    out = []
+    for plain in (False, True):
+        lg = logits.clone().requires_grad_()
+        loss = ctc_loss_kernel(lg, input_lens, labels, label_lens, plain=plain)
+        loss.sum().backward()
+        out.append((loss.detach(), lg.grad))
+    (loss, grad), (loss_ref, grad_ref) = out
+    assert loss[1].item() >= 1e29  # the sentinel, not inf
+    assert torch.isfinite(grad).all()
+    assert (loss - loss_ref).abs().max().item() <= CTC_TOL * 10
+    assert (grad - grad_ref).abs().max().item() <= CTC_TOL
+    # feasible rows against torch's own CTC loss
+    ok = ctc_feasible(labels, label_lens, input_lens)
+    assert not ok[1] and not ok[2] and ok[0]
+    ref = torch.nn.functional.ctc_loss(
+        torch.log_softmax(logits[ok], -1).transpose(0, 1), labels[ok],
+        input_lens[ok], label_lens[ok], reduction="none", zero_infinity=True)
+    assert (loss[ok] - ref).abs().max().item() <= 1e-3
+
+
+def test_train_step_is_reproducible(cuda):
+    """Two runs of three bf16 train steps (dropout and noise on) from one
+    seed give bit-equal losses and parameters: every kernel of the step
+    sums in a fixed order (the CTC gradient gathers its extended states
+    with a one-hot product, not with atomics)."""
+    from neural_speech_decoder_tpu_torch.models.api import build_model
+    from neural_speech_decoder_tpu_torch.training.optim import make_optimizer
+    from neural_speech_decoder_tpu_torch.training.profile import (
+        BENCH_ARGS,
+        bench_batch,
+    )
+    from neural_speech_decoder_tpu_torch.training.trainer import (
+        batch_tensors,
+        make_train_step,
+        step_generator,
+    )
+
+    args = {**BENCH_ARGS, "nInputFeatures": 64, "nUnits": 96, "nLayers": 2}
+    batch = batch_tensors(bench_batch(b=40, t=301, u=24, c=64), cuda)
+    runs = []
+    for _ in range(2):
+        model = build_model(args, 24, cuda, seed=0)
+        opt, sched = make_optimizer(args, model.parameters())
+        step = make_train_step(args, model, opt, sched)
+        losses = [step(batch, step_generator(cuda, 0, i))["train/loss"].item()
+                  for i in range(3)]
+        runs.append((losses, [p.detach().clone() for p in model.parameters()]))
+    (l1, p1), (l2, p2) = runs
+    assert l1 == l2
+    assert all(torch.equal(a, b) for a, b in zip(p1, p2))

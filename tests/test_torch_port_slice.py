@@ -63,7 +63,8 @@ def _compare(args, n_days, b, t, lens=None):
     model, params, module = _both(args, n_days)
     x, day, lens = _inputs(b, t, args["nInputFeatures"], n_days, lens=lens)
     ref_lp, ref_len, _ = model.forward(params, x, day, lens, train=False, key=None)
-    lp, out_len = forward(module, *(torch.from_numpy(a) for a in (x, day, lens)))
+    with torch.no_grad():  # the module's parameters are trainable
+        lp, out_len = forward(module, *(torch.from_numpy(a) for a in (x, day, lens)))
     assert lp.shape == ref_lp.shape and lp.dtype == torch.float32
     np.testing.assert_allclose(lp.numpy(), np.asarray(ref_lp), atol=LOGP_TOL)
     np.testing.assert_array_equal(out_len.numpy(), np.asarray(ref_len))
@@ -102,7 +103,8 @@ def test_slice_bf16_matches_jax_pallas_path():
     for dt in ("float32", "bfloat16"):
         model, params, module = _both(_args(compute_dtype=dt, use_pallas=True), 3)
         ref_lp, ref_len, _ = model.forward(params, x, day, lens, train=False, key=None)
-        lp, out_len = forward(module, *(torch.from_numpy(a) for a in (x, day, lens)))
+        with torch.no_grad():  # the module's parameters are trainable
+            lp, out_len = forward(module, *(torch.from_numpy(a) for a in (x, day, lens)))
         np.testing.assert_array_equal(out_len.numpy(), np.asarray(ref_len))
         out[dt] = np.asarray(ref_lp, np.float32), lp.numpy()
     (ref32, ours32), (ref16, ours16) = out["float32"], out["bfloat16"]
@@ -152,20 +154,35 @@ def test_config_from_args_matches_build_model():
 
 
 _NO_JAX = """
-import json, sys
+import json, sys, tempfile
 import numpy as np, torch
+from neural_speech_decoder_tpu_torch.data.synthetic import synthetic_dataset
 from neural_speech_decoder_tpu_torch.models.gru import GRUConfig, init_gru_params
 from neural_speech_decoder_tpu_torch.serving.model import InferenceModel
+from neural_speech_decoder_tpu_torch.training.trainer import load_model, train_model
 cfg = GRUConfig(neural_dim=32, hidden_dim=16, num_layers=2, n_days=2, kernel_len=8)
 server = InferenceModel(init_gru_params(cfg, torch.Generator().manual_seed(0)),
                         cfg, "cpu", batch_size=2, t_max=40)
 x, d, n = server.pad_batch([np.ones((40, 32), np.float32)], days=[1])
 lp, lens = server(x, d, n)
 out = server.decode(lp, lens)
+with tempfile.TemporaryDirectory() as run:
+    summary = train_model({
+        "outputDir": run, "device": "cpu", "batchSize": 2, "nBatch": 2,
+        "dataset": synthetic_dataset(seed=0, n_days=1, trials_per_day=4,
+                                     n_channels=8, min_t=24, max_t=40,
+                                     min_u=2, max_u=3),
+        "lrStart": 0.01, "lrEnd": 0.01, "l2_decay": 0.0, "evalEvery": 1,
+        "whiteNoiseSD": 0.1, "constantOffsetSD": 0.1, "gaussianSmoothWidth": 2.0,
+        "nUnits": 8, "nLayers": 2, "nInputFeatures": 8, "nClasses": 40,
+        "dropout": 0.2, "strideLen": 2, "kernelLen": 4, "bidirectional": True,
+        "wandb_mode": "disabled", "time_multiple": 16})
+    model, args = load_model(run)
 mods = [m for m in sys.modules
         if m.split(".")[0] in ("jax", "jaxlib", "neural_speech_decoder_tpu")]
 print(json.dumps({"mods": mods, "finite": bool(torch.isfinite(lp).all()),
-                  "empty": out[1]}))
+                  "empty": out[1], "trained": "summary/final_cer" in summary,
+                  "reloaded": args["nDays"] == 1}))
 """
 
 
@@ -176,4 +193,5 @@ def test_port_never_imports_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     res = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert res == {"mods": [], "finite": True, "empty": []}
+    assert res == {"mods": [], "finite": True, "empty": [], "trained": True,
+                   "reloaded": True}
