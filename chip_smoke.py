@@ -3,8 +3,9 @@
 
 Drives the port's serving path and its training path
 (``neural_speech_decoder_tpu_torch``) at the full width of
-``neural_speech_decoder_tpu/configs/gru_baseline.yaml`` with seeded random
-weights:
+``neural_speech_decoder_tpu/configs/gru_baseline.yaml`` and of the Conformer
+(``configs/conformer.yaml``, bench.py's ``CONFORMER_ARGS``) with seeded
+random weights:
 
 1. Device: requires CUDA, prints the card's name and power limit, the torch
    and CUDA versions, and builds the kernels from ``csrc/``.
@@ -31,6 +32,23 @@ weights:
    evals and checkpoints every 10), then ``load_model``, an eval pass
    (checked to launch the frontend, the inference scan and alpha, and not
    beta) and a greedy decode.
+7. Attention kernels: the forward, the backward (dqkv) and the dropout masks
+   against their plain versions at B=64, T'=313, H=8, dh=128 in float32 and
+   bfloat16, at dropout rates 0 and 0.3 (masks bit-equal), and once each
+   with a band (``left_context=128``), interleaved qkv columns, T'=1250 and
+   a row of length 0; times of kernel, plain version and
+   ``F.scaled_dot_product_attention`` (forward and backward) as the library
+   yardstick.
+8. Conformer train step at ``CONFORMER_ARGS`` (8 blocks, D=1024, bfloat16,
+   label smoothing, InterCTC, AdamW; B=64, T=1280, U=64): 2 warm-up and 10
+   timed steps, median and seq/s, 8 attention forward and backward, 2 CTC
+   alpha and beta launches per step; one float32 step (dropout, DropPath,
+   SpecAugment and noise on: both paths draw the same bits) whose every
+   gradient leaf is checked against the plain path; two bf16 runs of two
+   steps from one seed, bit-equal.
+9. ``train_model`` of the Conformer at full width (10 steps, evals and
+   checkpoints every 5), ``load_model``, an eval pass that re-scores the
+   best PER exactly (8 attention launches per eval batch), a greedy decode.
 
 Run from the repository root:  python3 chip_smoke.py
 It imports no jax. It exits non-zero without a result when there is no
@@ -62,6 +80,14 @@ from neural_speech_decoder_tpu_torch.models.common import orthogonal, uniform_bo
 from neural_speech_decoder_tpu_torch.models.gru import GRUConfig, init_gru_params
 from neural_speech_decoder_tpu_torch.ops.decode import greedy_decode
 from neural_speech_decoder_tpu_torch.ops.kernels import _build
+from neural_speech_decoder_tpu_torch.ops.kernels.attention import (
+    dropout_masks,
+    dropout_masks_plain,
+    mhsa_qkv,
+    mhsa_qkv_bwd,
+    mhsa_qkv_bwd_plain,
+    mhsa_qkv_plain,
+)
 from neural_speech_decoder_tpu_torch.ops.kernels.ctc import (
     ctc_alpha,
     ctc_alpha_plain,
@@ -83,7 +109,11 @@ from neural_speech_decoder_tpu_torch.ops.kernels.gru_scan import (
 )
 from neural_speech_decoder_tpu_torch.serving.model import InferenceModel
 from neural_speech_decoder_tpu_torch.training.optim import make_optimizer
-from neural_speech_decoder_tpu_torch.training.profile import BENCH_ARGS, bench_batch
+from neural_speech_decoder_tpu_torch.training.profile import (
+    BENCH_ARGS,
+    CONFORMER_ARGS,
+    bench_batch,
+)
 from neural_speech_decoder_tpu_torch.training.trainer import (
     _loss_and_metrics,
     batch_tensors,
@@ -164,6 +194,12 @@ SOURCES = {
                   "neural_speech_decoder_tpu/ops/pallas/ctc_kernel.py:63"),
     "ctc_beta": ("neural_speech_decoder_tpu_torch/csrc/ctc.cu",
                  "neural_speech_decoder_tpu/ops/pallas/ctc_kernel.py:84"),
+    "mhsa_qkv": ("neural_speech_decoder_tpu_torch/csrc/attention.cu",
+                 "neural_speech_decoder_tpu/ops/pallas/attention_kernel.py:179"),
+    "mhsa_qkv_bwd": ("neural_speech_decoder_tpu_torch/csrc/attention.cu",
+                     "neural_speech_decoder_tpu/ops/pallas/attention_kernel.py:195"),
+    "dropout_masks": ("neural_speech_decoder_tpu_torch/csrc/attention.cu",
+                      "neural_speech_decoder_tpu/ops/pallas/attention_kernel.py:270"),
 }
 KERNELS = tuple(SOURCES)
 # Published H100 SXM peaks (NVIDIA data sheet; dense, at 700 W): HBM bytes/s,
@@ -299,7 +335,14 @@ WRAPPERS = {
     "gru_scan_bwd": gru_sequence_bwd,
     "ctc_alpha": ctc_alpha,
     "ctc_beta": ctc_beta,
+    "mhsa_qkv": mhsa_qkv,
+    "mhsa_qkv_bwd": mhsa_qkv_bwd,
+    "dropout_masks": dropout_masks,
 }
+
+
+NO_ATTENTION = {"mhsa_qkv": 0, "mhsa_qkv_bwd": 0, "dropout_masks": 0}
+NO_GRU = {"frontend": 0, "gru_scan": 0, "gru_scan_gates": 0, "gru_scan_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -576,7 +619,8 @@ def train_step_phase(card: str) -> dict:
         losses.append(float(metrics["train/loss"]))
     launches = read_launches(KERNELS)
     want = {"frontend": 0, "gru_scan": 0, "gru_scan_gates": 5 * n,
-            "gru_scan_bwd": 5 * n, "ctc_alpha": n, "ctc_beta": n}
+            "gru_scan_bwd": 5 * n, "ctc_alpha": n, "ctc_beta": n,
+            **NO_ATTENTION}
     check(launches == want, f"launches over {n} bf16 train steps {launches} "
           f"== per step 5 gates-forward, 5 backward, 1 alpha, 1 beta, no "
           f"frontend or inference scan")
@@ -654,7 +698,7 @@ def train_model_phase(card: str) -> None:
     n_batches = -(-test_ds.n_trials // B)
     want = {"frontend": n_batches, "gru_scan": 5 * n_batches,
             "gru_scan_gates": 0, "gru_scan_bwd": 0, "ctc_alpha": n_batches,
-            "ctc_beta": 0}
+            "ctc_beta": 0, **NO_ATTENTION}
     check(launches == want, f"eval of the reloaded model over {n_batches} "
           f"batch(es) launched {launches}: frontend, inference scan and alpha, "
           f"not beta")
@@ -665,7 +709,7 @@ def train_model_phase(card: str) -> None:
     x = torch.zeros((1, t_max, C), device="cuda")
     x[0, : len(trial)] = torch.from_numpy(trial).to(x.device)
     with torch.inference_mode():
-        log_probs, out_lens = model_forward(
+        log_probs, out_lens, _ = model_forward(
             model, x, torch.as_tensor(test_ds.days[:1], device="cuda"),
             torch.tensor([len(trial)], device="cuda"))
         tokens, lens = greedy_decode(log_probs, out_lens)
@@ -674,6 +718,304 @@ def train_model_phase(card: str) -> None:
     check(bool(torch.isfinite(log_probs).all()) and out_lens.item() > 0,
           f"load_model -> greedy decode of one test trial: {len(hyp)} labels "
           f"decoded, {len(ref)} in the reference")
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+
+# ----------------------------------------------------------- the Conformer
+
+# Attention at the Conformer's train step: B=64, T'=313 frames, 8 heads of
+# dh=128 (D=1024).
+A_HEADS, A_DH = 8, 128
+# Kernel vs plain, max abs error relative to the output's largest entry.
+# Float32: the same float32 sums in another order (T-long softmax sums and
+# 128- or T-long products). Bfloat16: p and dS are rounded to bf16 before
+# their products, and the outputs too; a rounding that falls the other way
+# moves an entry by one bf16 step (2**-8 relative), and up to four such
+# steps of the largest entry are allowed.
+ATTN_TOL = {"float32": 1e-5, "bfloat16": 2.0**-6}
+# One float32 Conformer train step, kernel path vs plain path, every
+# gradient leaf relative to its largest entry: 8 blocks of attention whose
+# sums run in other orders, the CTC recursions, and 128M parameters' worth
+# of products shared by both paths.
+CONFORMER_GRAD_TOL = 5e-4
+CONFORMER_LAYERS = 8
+
+
+def attention_inputs(g, b, t, dtype, lens=None):
+    d = A_HEADS * A_DH
+    qkv = torch.randn((b, t, 3 * d), generator=g, device="cuda").to(dtype)
+    gout = torch.randn((b, t, d), generator=g, device="cuda").to(dtype)
+    if lens is None:
+        # the frames of bench.py's trials (400-1280 bins): (len - 32) // 4
+        lens = (torch.randint(400, 1281, (b,), generator=g, device="cuda") - 32) // 4
+        lens[1] = t
+    lens = torch.as_tensor(lens, device="cuda").to(torch.int32)
+    seed = torch.randint(0, 2**31 - 1, (1,), generator=g, device="cuda",
+                         dtype=torch.int32)
+    return qkv, gout, lens, seed
+
+
+def attention_check(tag, qkv, gout, lens, seed, **kw) -> tuple[float, float]:
+    """Forward and dqkv, kernel vs plain; returns their abs errors."""
+    kw = dict(num_heads=A_HEADS, **kw)
+    with torch.inference_mode():
+        out, ref = mhsa_qkv(qkv, lens, seed, **kw), mhsa_qkv_plain(qkv, lens, seed, **kw)
+        dq, dref = (mhsa_qkv_bwd(qkv, lens, seed, gout, **kw),
+                    mhsa_qkv_bwd_plain(qkv, lens, seed, gout, **kw))
+    torch.cuda.synchronize()
+    name = "float32" if qkv.dtype == torch.float32 else "bfloat16"
+    e_f, e_b = rel_err(out, ref), rel_err(dq, dref)
+    dead = lens <= 0
+    zero_rows = not bool(out[dead].any()) if bool(dead.any()) else True
+    tol = ATTN_TOL[name]
+    check(e_f <= tol and e_b <= tol and zero_rows,
+          f"attention {tag} {name}: max abs err / max |ref| forward {e_f:.3e}, "
+          f"dqkv {e_b:.3e} <= {tol:.3g}; rows of length 0 are zero {zero_rows}")
+    return ((out.float() - ref.float()).abs().max().item(),
+            (dq.float() - dref.float()).abs().max().item())
+
+
+def attention_flops(lens, t, n_products) -> float:
+    """Each of ``n_products`` [T x keys x dh] products per (batch, head),
+    over the keys each row's length lets in."""
+    keys = lens.clamp(0, t).sum().item()
+    return n_products * 2.0 * A_DH * A_HEADS * t * keys
+
+
+def attention_kernel_phase() -> dict:
+    g = torch.Generator(device="cuda").manual_seed(3)
+    t = L
+    rows = {"mhsa_qkv": {}, "mhsa_qkv_bwd": {}, "dropout_masks": {}}
+    inputs = {}
+    for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        qkv, gout, lens, seed = attention_inputs(g, B, t, dt)
+        inputs[name] = (qkv, gout, lens, seed)
+        for rate in (0.0, 0.3):
+            errs = attention_check(f"B={B} T'={t} rate {rate}", qkv, gout, lens,
+                                   seed, rate=rate)
+            if name == "float32" and rate > 0:
+                rows["mhsa_qkv"]["max_abs_err"] = errs[0]
+                rows["mhsa_qkv_bwd"]["max_abs_err"] = errs[1]
+            masks = dropout_masks(B * A_HEADS, t, seed, rate)
+            same = torch.equal(masks, dropout_masks_plain(B * A_HEADS, t, seed, rate))
+            check(same, f"dropout_masks {B * A_HEADS}x{t}x{t} rate {rate}: "
+                  f"bit-equal to the plain version {same}")
+            rows["dropout_masks"]["max_abs_err"] = 0.0 if same else 1.0
+        # the edge cases, each once
+        attention_check("band left_context=128", qkv, gout, lens, seed,
+                        rate=0.3, left_context=128)
+        attention_check("interleaved columns", qkv, gout, lens, seed,
+                        rate=0.3, interleaved=True)
+        zq, zg, zl, zs = attention_inputs(g, 4, t, dt, lens=[t, 0, 17, 0])
+        attention_check("with rows of length 0", zq, zg, zl, zs, rate=0.3)
+        lq, lg, ll, ls = attention_inputs(g, 4, 1250, dt, lens=[1250, 1000, 700, 1249])
+        attention_check("T'=1250", lq, lg, ll, ls, rate=0.3)
+        attention_check("T'=1250 band", lq, lg, ll, ls, rate=0.3, left_context=128)
+        del zq, zg, lq, lg
+
+    for name in ("float32", "bfloat16"):
+        qkv, gout, lens, seed = inputs[name]
+        kw = dict(num_heads=A_HEADS, rate=0.3)
+        with torch.inference_mode():
+            ff = time_turns(lambda: mhsa_qkv(qkv, lens, seed, **kw),
+                            lambda: mhsa_qkv_plain(qkv, lens, seed, **kw), 10, 3)
+            fb = time_turns(lambda: mhsa_qkv_bwd(qkv, lens, seed, gout, **kw),
+                            lambda: mhsa_qkv_bwd_plain(qkv, lens, seed, gout, **kw),
+                            10, 3)
+            fm = time_turns(lambda: dropout_masks(B * A_HEADS, t, seed, 0.3),
+                            lambda: dropout_masks_plain(B * A_HEADS, t, seed, 0.3),
+                            10, 3)
+        # the library yardstick: F.scaled_dot_product_attention on the same
+        # q, k, v (head-split copies) with the key-padding mask and dropout
+        b_, t_, d3 = qkv.shape
+        q, k, v = (z.transpose(1, 2).contiguous().requires_grad_() for z in
+                   qkv.detach().reshape(b_, t_, 3, A_HEADS, A_DH).unbind(2))
+        keep = (torch.arange(t_, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=keep, dropout_p=0.3)
+        go = gout.reshape(b_, t_, A_HEADS, A_DH).transpose(1, 2)
+        lib_f = time_ms(sdpa, 10)
+        out = sdpa()
+        lib_b = time_ms(lambda: torch.autograd.grad(out, (q, k, v), go,
+                                                    retain_graph=True), 10)
+        del out, q, k, v
+        for key, (kt, pt, turns), lib in (("mhsa_qkv", ff, lib_f),
+                                          ("mhsa_qkv_bwd", fb, lib_b),
+                                          ("dropout_masks", fm, None)):
+            print(f"time  {key} {name} B={B} T'={t} rate 0.3: kernel "
+                  f"{turns[0]:.4f}/{turns[1]:.4f} ms, plain {turns[2]:.4f}/"
+                  f"{turns[3]:.4f} ms" + (f", F.scaled_dot_product_attention "
+                  f"{'forward' if key == 'mhsa_qkv' else 'backward'} {lib:.4f} ms"
+                  if lib is not None else ""), flush=True)
+            if name == "float32":
+                rows[key].update(ms=kt, plain_ms=pt, library_ms=lib)
+        # qkv read once and out written once (the backward also reads g and
+        # writes dqkv); the forward's two products (scores, p @ V), the
+        # backward's five (scores, dP, dV, dQ, dK), over the unmasked keys
+        fwd_b = bound_ms(nbytes(qkv, lens, seed) + qkv.numel() // 3 * qkv.element_size(),
+                         attention_flops(lens, t, 2), name)
+        bwd_b = bound_ms(nbytes(qkv, gout, lens, seed, qkv), attention_flops(lens, t, 5),
+                         name)
+        print(f"bound mhsa_qkv {name}: {fwd_b[0]:.4f} ms ({fwd_b[1]}), "
+              f"{attention_flops(lens, t, 2) / 1e9:.2f} GFLOP; mhsa_qkv_bwd "
+              f"{bwd_b[0]:.4f} ms ({bwd_b[1]}), {attention_flops(lens, t, 5) / 1e9:.2f} "
+              f"GFLOP", flush=True)
+        if name == "float32":
+            rows["mhsa_qkv"]["bound_ms"], rows["mhsa_qkv"]["bound_by"] = fwd_b
+            rows["mhsa_qkv_bwd"]["bound_ms"], rows["mhsa_qkv_bwd"]["bound_by"] = bwd_b
+            # one bool written per entry; the hash's integer work is not
+            # counted (the table of peaks has no integer rate)
+            rows["dropout_masks"]["bound_ms"], rows["dropout_masks"]["bound_by"] = (
+                bound_ms(B * A_HEADS * t * t + 4, 0, name))
+    for row in rows.values():
+        row["dtype"] = "float32"
+    return rows
+
+
+def conformer_step(args, seed, batch, n_warm, n_timed):
+    """A fresh Conformer from ``seed`` and ``n_warm + n_timed`` train steps:
+    (model, losses, step times of the timed steps, launches over them)."""
+    device = torch.device("cuda")
+    model = build_model(args, N_DAYS, device, seed=seed)
+    opt, sched = make_optimizer(args, model.parameters())
+    step = make_train_step(args, model, opt, sched)
+    losses, times = [], []
+    launches = None
+    for i in range(n_warm + n_timed):
+        if i == n_warm:
+            torch.cuda.synchronize()
+            reset_launches()
+        t0 = time.perf_counter()
+        metrics = step(batch, step_generator(device, 0, i))
+        torch.cuda.synchronize()
+        if i >= n_warm:
+            times.append(time.perf_counter() - t0)
+        losses.append(float(metrics["train/loss"]))
+    launches = read_launches(KERNELS)
+    return model, losses, times, launches
+
+
+def conformer_train_step_phase(card: str) -> dict:
+    """The Conformer's bf16 train step at bench.py's shapes; one float32
+    step checked leaf by leaf against the plain path; two seeded runs
+    bit-equal."""
+    device = torch.device("cuda")
+    batch = batch_tensors(bench_batch(B, T, U), device)
+    n = 10
+    model, losses, times, launches = conformer_step(dict(CONFORMER_ARGS), 0, batch, 2, n)
+    want = {**NO_GRU, "ctc_alpha": 2 * n, "ctc_beta": 2 * n,
+            "mhsa_qkv": CONFORMER_LAYERS * n, "mhsa_qkv_bwd": CONFORMER_LAYERS * n,
+            "dropout_masks": 0}
+    check(launches == want, f"launches over {n} bf16 Conformer train steps "
+          f"{launches} == per step 8 attention forward, 8 backward, 2 alpha, "
+          f"2 beta (main and InterCTC heads)")
+    check(all(math.isfinite(v) for v in losses),
+          f"bf16 Conformer train losses finite: {', '.join(f'{v:.4f}' for v in losses)}")
+    n_params = sum(p.numel() for p in model.parameters())
+    med = statistics.median(times)
+    print(f"conformer train step bf16 B={B} T={T} U={U} ({n_params:,} parameters; "
+          f"dropout 0.3, DropPath 0.1, SpecAugment, noise 1.0/0.2, label "
+          f"smoothing 0.1, InterCTC): steps {', '.join(f'{t * 1e3:.2f}' for t in times)} "
+          f"ms, median {med * 1e3:.2f} ms, {B / med:.2f} seq/s ({card})", flush=True)
+    del model
+
+    # one float32 step of the full recipe (its randomness on), kernel path
+    # vs plain path: both draw the same seeds, DropPath rows and SpecAugment
+    # masks from the step's generator, and the plain attention the same bits
+    args32 = {**CONFORMER_ARGS, "compute_dtype": "float32"}
+    model = build_model(args32, N_DAYS, device, seed=1)
+    out = {}
+    for plain in (False, True):
+        model.zero_grad(set_to_none=True)
+        reset_launches()
+        loss, _ = _loss_and_metrics(args32, model, batch,
+                                    step_generator(device, 0, 0), plain=plain)
+        loss.backward()
+        torch.cuda.synchronize()
+        out[plain] = (loss.item(), [p.grad.clone() for p in model.parameters()],
+                      read_launches(KERNELS))
+    (loss_k, grads_k, launch_k), (loss_p, grads_p, launch_p) = out[False], out[True]
+    check(launch_k == {k: v // n for k, v in want.items()}
+          and not any(launch_p.values()),
+          f"float32 Conformer step launches: kernel path {launch_k}, plain path "
+          f"{launch_p}")
+    errs = [rel_err(a, b) for a, b in zip(grads_k, grads_p)]
+    check(abs(loss_k - loss_p) <= CONFORMER_GRAD_TOL * abs(loss_p)
+          and max(errs) <= CONFORMER_GRAD_TOL,
+          f"float32 Conformer train step, kernels vs plain: loss {loss_k:.6f} vs "
+          f"{loss_p:.6f}; {len(errs)} gradient leaves, max abs err / max |ref| "
+          f"{max(errs):.3e} <= {CONFORMER_GRAD_TOL:g}")
+    del model, out, grads_k, grads_p
+
+    # reproducibility: two runs of two bf16 steps from one seed
+    runs = []
+    for _ in range(2):
+        model, losses, _, _ = conformer_step(dict(CONFORMER_ARGS), 0, batch, 0, 2)
+        runs.append((losses, [p.detach().clone() for p in model.parameters()]))
+        del model
+    (l1, p1), (l2, p2) = runs
+    same = l1 == l2 and all(torch.equal(a, b) for a, b in zip(p1, p2))
+    check(same, f"two bf16 Conformer runs of 2 steps from one seed bit-equal: "
+          f"losses {l1} / {l2}")
+    return {k: launches[k] for k in ("mhsa_qkv", "mhsa_qkv_bwd", "dropout_masks")}
+
+
+def conformer_train_model_phase(card: str) -> None:
+    """train_model of the Conformer at full width on synthetic data, then
+    load_model, an eval pass that re-scores the best PER, a greedy decode."""
+    out_dir = Path("runs") / "chip_smoke_conformer"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    ds = synthetic_dataset(seed=0, n_days=N_DAYS, trials_per_day=8,
+                           n_channels=C, min_t=400, max_t=1200, min_u=20,
+                           max_u=U)
+    n_steps = 10
+    args = {**CONFORMER_ARGS, "outputDir": str(out_dir), "device": "cuda",
+            "dataset": ds, "batchSize": B, "nBatch": n_steps, "evalEvery": 5,
+            "checkpointEvery": 5, "warmup_steps": 2, "wandb_mode": "offline"}
+    t0 = time.perf_counter()
+    summary = train_model(args)
+    print(f"conformer train_model: {n_steps} steps with 2 evals and 2 "
+          f"checkpoints in {time.perf_counter() - t0:.1f} s; {summary} ({card})",
+          flush=True)
+    recs = [json.loads(line) for line in
+            (out_dir / "metrics.jsonl").read_text().splitlines()]
+    n_train = sum("train/loss" in r for r in recs)
+    keys = {k for r in recs for k in r}
+    want_keys = {"train/ctc_loss", "train/kl_loss", "train/inter_ctc_loss",
+                 "train/main_loss", "train/grad_norm"}
+    check(n_train == n_steps and want_keys <= keys
+          and (out_dir / "modelState").is_file(),
+          f"conformer metrics.jsonl has {n_train} train records with "
+          f"{sorted(want_keys & keys)}; modelState written")
+
+    model, _ = load_model(str(out_dir), device="cuda")
+    train_ds, test_ds = pack_days(ds["train"]), pack_days(ds["test"])
+    t_max, u_max = choose_envelope(train_ds, test_ds)
+    reset_launches()
+    _, per, _, _ = run_eval(make_eval_step(model), test_ds, B, t_max, u_max,
+                            torch.device("cuda"), torch_mean_semantics=False)
+    launches = read_launches(KERNELS)
+    n_batches = -(-test_ds.n_trials // B)
+    want = {**NO_GRU, "ctc_alpha": n_batches, "ctc_beta": 0,
+            "mhsa_qkv": CONFORMER_LAYERS * n_batches, "mhsa_qkv_bwd": 0,
+            "dropout_masks": 0}
+    check(launches == want, f"eval of the reloaded Conformer over {n_batches} "
+          f"batch(es) launched {launches}")
+    best = float(summary["summary/best_cer"])
+    check(per == best, f"reloaded best Conformer's PER {per:.6f} == the run's "
+          f"best {best:.6f}")
+    trial = test_ds.trial(0)
+    x = torch.zeros((1, t_max, C), device="cuda")
+    x[0, : len(trial)] = torch.from_numpy(trial).to(x.device)
+    with torch.inference_mode():
+        log_probs, out_lens, _ = model_forward(
+            model, x, torch.as_tensor(test_ds.days[:1], device="cuda"),
+            torch.tensor([len(trial)], device="cuda"))
+        tokens, lens = greedy_decode(log_probs, out_lens)
+    check(bool(torch.isfinite(log_probs).all()) and out_lens.item() > 0,
+          f"Conformer load_model -> greedy decode of one test trial: "
+          f"{int(lens[0])} labels decoded, {int(test_ds.label_lens[0])} in the "
+          f"reference")
     shutil.rmtree(out_dir, ignore_errors=True)
 
 
@@ -715,6 +1057,19 @@ def main() -> int:
     t0 = time.perf_counter()
     train_model_phase(card)
     print(f"phase train_model: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    rows.update(attention_kernel_phase())
+    print(f"phase attention kernels: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    launches.update(conformer_train_step_phase(card))
+    print(f"phase conformer train step: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    conformer_train_model_phase(card)
+    print(f"phase conformer train_model: {time.perf_counter() - t0:.1f} s", flush=True)
+    # every kernel of the main paths ran there (dropout_masks is the masks'
+    # test hook: the attention kernels draw their masks themselves)
+    idle = [k for k in KERNELS if k != "dropout_masks" and not launches[k]]
+    check(not idle, f"every kernel of the main paths launched there; idle: {idle}")
     out = []
     for name in KERNELS:
         source, replaces = SOURCES[name]

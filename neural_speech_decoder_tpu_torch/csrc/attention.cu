@@ -1,0 +1,672 @@
+// Multi-head self-attention of the Conformer, read straight from the qkv
+// projection, with its backward and the dropout masks they draw.
+//
+//   qkv [B, T, 3D] (float32 or bfloat16; D = H * dh, dh 64 or 128), columns
+//   ({q,k,v}, head, dh) or, interleaved, (head, {q,k,v}, dh); lens [B] int32;
+//   seed [1] int32 -> out [B, T, D], head-major (head h in columns h*dh..).
+//   For each (batch b, head h), query row i and key column j:
+//     s[i,j] = (q_i . k_j, accumulated in float32) * scale;
+//     s[i,j] = -1e9 where j >= min(len_b, T), and, with a band (left >= 0),
+//              where j > i or i - j > left;
+//     p[i,:] = softmax(s[i,:]) in float32, and 0 for a row whose maximum is
+//              <= -1e9 (every key masked);
+//     dropout (rate > 0): p[i,j] * 1/(1-rate) where
+//              uniform2d(seed, b*H + h, i, j) >= rate, else 0 (hashrng.cuh);
+//     out_i = sum_j round(p[i,j]) v_j, accumulated in float32, where round
+//              casts to the input's type; stored in the input's type.
+//   The backward takes g [B, T, D] (out's cotangent) and gives dqkv [B, T,
+//   3D] in qkv's column layout:
+//     dv_j = sum_i round(dropped p[i,j]) g_i;
+//     dP[i,j] = g_i . v_j, masked and scaled like p by the dropout;
+//     dS = round(p * (dP - rowsum(dP * p)));
+//     dq = (dS k) * scale, dk = (dS^T q) * scale, rounded to the input's type.
+//
+// Replaces the Pallas TPU kernels of
+// neural_speech_decoder_tpu/ops/pallas/attention_kernel.py: _fwd_kernel
+// (via fused_mhsa_qkv -> _call_fwd), _bwd_kernel (via _fused_bwd) and the
+// dropout_masks test hook. Their semantics are kept: the order of the score
+// product and the scale, the -1e9 mask constant, zero rows where every key
+// is masked (F.scaled_dot_product_attention gives NaN or uniform rows), the
+// casts of p and dS to the input's type before their products, and the
+// interpret-mode dropout bits (the murmur3 hash; the compiled TPU path's
+// hardware PRNG bits cannot be reproduced off the TPU). Each bit is a
+// function of (seed, b*H+h, row, col) alone, so T needs no padding to 128.
+//
+// What bounds it on an H100: the operations. At B=64, T=313, H=8, dh=128 the
+// forward's two products are 2 * 2*T*T*dh per (b, h), 12.8 GFLOP each over
+// the 512 programs, against 0.12 GB (bf16) of qkv and out; the backward's
+// five products (dV, dP, dS, dQ, dK) are 32 GFLOP. The kernels run all their
+// products on float32 FMAs (bf16 operands widened as they are loaded), so
+// the FMA rate (67 TFLOP/s) is their floor; tensor cores (mma/wgmma) are
+// later work.
+//
+// Design: the TPU kernel keeps a whole [Tp, Tp] float32 score tile per
+// (b, h) in VMEM (576 KB at Tp=384), more than a block's 227 KB of shared
+// memory. Here a block takes 64 query rows of one (b, h) and walks the keys
+// in tiles of 64: a first pass forms each row's max and sum (online, with
+// rescaling), a second recomputes the scores and forms p, its dropout and
+// the product with V. The backward is two kernels: the dQ kernel (per query
+// tile) forms the row statistics again, then rowsum(dP * p) over all keys,
+// then dS and dQ, and stores the three statistics; the dK/dV kernel (per key
+// tile) walks the query tiles with them. No atomics: every sum has a fixed
+// order, so a run is reproducible bit for bit. Tiles of keys that every row
+// of the block masks (past min(len, T), or outside the band) are skipped;
+// they add exact zeros. All operands stay in shared memory in their natural
+// [rows][dh] layout, padded to dh+4 floats so that the strided float4 reads
+// of the three product shapes (A.B^T, A.B, A^T.B) hit distinct banks.
+#include <math.h>
+#include <stdint.h>
+
+#include "common.cuh"
+#include "hashrng.cuh"
+
+namespace {
+
+constexpr int kTile = 64;  // query rows and key columns per tile
+constexpr int kThreads = 256;
+constexpr int kLDP = kTile + 4;  // row stride of the [64][64] p/dS tiles
+constexpr float kNeg = -1e9f;
+
+struct Params {
+  int batch, n_time, heads, left;  // left < 0: no band
+  float scale, rate, inv_keep;
+  int interleaved;
+};
+
+template <typename T>
+__device__ __forceinline__ float4 load4(const T* p);
+template <>
+__device__ __forceinline__ float4 load4<float>(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+template <>
+__device__ __forceinline__ float4 load4<__nv_bfloat16>(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+template <typename T>
+__device__ __forceinline__ void store4(T* p, float a, float b, float c, float d);
+template <>
+__device__ __forceinline__ void store4<float>(float* p, float a, float b, float c,
+                                              float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+template <>
+__device__ __forceinline__ void store4<__nv_bfloat16>(__nv_bfloat16* p, float a,
+                                                      float b, float c, float d) {
+  uint2 u;
+  *reinterpret_cast<__nv_bfloat162*>(&u.x) = __floats2bfloat162_rn(a, b);
+  *reinterpret_cast<__nv_bfloat162*>(&u.y) = __floats2bfloat162_rn(c, d);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+__device__ __forceinline__ float comp(const float4& v, int k) {
+  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+
+// Columns of head h's q, k and v in a qkv row.
+__device__ __forceinline__ int qkv_col(const Params& p, int which, int h, int dh) {
+  return (p.interleaved ? 3 * h + which : which * p.heads + h) * dh;
+}
+
+// Rows [row0, row0+64) of a row-major matrix with row stride ld, columns
+// [col, col+DH), as float into dst [64][DH+4]; rows >= n_rows are 0.
+template <typename T, int DH>
+__device__ __forceinline__ void load_tile(float* dst, const T* src, int row0,
+                                          int n_rows, size_t ld, int col) {
+  constexpr int C4 = DH / 4;
+  for (int idx = threadIdx.x; idx < kTile * C4; idx += kThreads) {
+    const int r = idx / C4;
+    const int c = (idx % C4) * 4;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row0 + r < n_rows) v = load4(src + (size_t)(row0 + r) * ld + col + c);
+    *reinterpret_cast<float4*>(dst + r * (DH + 4) + c) = v;
+  }
+}
+
+// acc[r][c] += sum_k A[ty*4+r][k] * B[tx+16c][k]  (A.B^T, both [64][DH+4])
+template <int DH>
+__device__ __forceinline__ void mm_abt(const float* A, const float* B,
+                                       float acc[4][4], int ty, int tx) {
+  constexpr int LD = DH + 4;
+#pragma unroll 2
+  for (int k = 0; k < DH; k += 4) {
+    float4 a[4], b[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[r] = *reinterpret_cast<const float4*>(A + (ty * 4 + r) * LD + k);
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      b[c] = *reinterpret_cast<const float4*>(B + (tx + 16 * c) * LD + k);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float s = acc[r][c];
+        s = fmaf(a[r].x, b[c].x, s);
+        s = fmaf(a[r].y, b[c].y, s);
+        s = fmaf(a[r].z, b[c].z, s);
+        s = fmaf(a[r].w, b[c].w, s);
+        acc[r][c] = s;
+      }
+    }
+  }
+}
+
+// acc[r][g*4+e] += sum_k P[ty*4+r][k] * X[k][g*64+tx*4+e]
+// (P [64][64+4] . X [64][DH+4])
+template <int DH>
+__device__ __forceinline__ void mm_ab(const float* P, const float* X,
+                                      float acc[4][DH / 16], int ty, int tx) {
+  constexpr int LD = DH + 4;
+#pragma unroll 2
+  for (int k = 0; k < kTile; k += 4) {
+    float4 a[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[r] = *reinterpret_cast<const float4*>(P + (ty * 4 + r) * kLDP + k);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int g = 0; g < DH / 64; ++g) {
+        const float4 b =
+            *reinterpret_cast<const float4*>(X + (k + kk) * LD + g * 64 + tx * 4);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float av = comp(a[r], kk);
+          acc[r][g * 4 + 0] = fmaf(av, b.x, acc[r][g * 4 + 0]);
+          acc[r][g * 4 + 1] = fmaf(av, b.y, acc[r][g * 4 + 1]);
+          acc[r][g * 4 + 2] = fmaf(av, b.z, acc[r][g * 4 + 2]);
+          acc[r][g * 4 + 3] = fmaf(av, b.w, acc[r][g * 4 + 3]);
+        }
+      }
+    }
+  }
+}
+
+// acc[r][g*4+e] += sum_q P[q][ty*4+r] * X[q][g*64+tx*4+e]
+// (P^T . X with P [64][64+4], X [64][DH+4])
+template <int DH>
+__device__ __forceinline__ void mm_atb(const float* P, const float* X,
+                                       float acc[4][DH / 16], int ty, int tx) {
+  constexpr int LD = DH + 4;
+#pragma unroll 4
+  for (int q = 0; q < kTile; ++q) {
+    const float4 a = *reinterpret_cast<const float4*>(P + q * kLDP + ty * 4);
+#pragma unroll
+    for (int g = 0; g < DH / 64; ++g) {
+      const float4 b =
+          *reinterpret_cast<const float4*>(X + q * LD + g * 64 + tx * 4);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float av = comp(a, r);
+        acc[r][g * 4 + 0] = fmaf(av, b.x, acc[r][g * 4 + 0]);
+        acc[r][g * 4 + 1] = fmaf(av, b.y, acc[r][g * 4 + 1]);
+        acc[r][g * 4 + 2] = fmaf(av, b.z, acc[r][g * 4 + 2]);
+        acc[r][g * 4 + 3] = fmaf(av, b.w, acc[r][g * 4 + 3]);
+      }
+    }
+  }
+}
+
+// Sum or max over the 16 lanes (tx) that share a row.
+__device__ __forceinline__ float row_sum(float v) {
+#pragma unroll
+  for (int o = 8; o >= 1; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+__device__ __forceinline__ float row_max(float v) {
+#pragma unroll
+  for (int o = 8; o >= 1; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ bool masked(const Params& p, int i, int j, int limit) {
+  return j >= limit || (p.left >= 0 && (j > i || i - j > p.left));
+}
+
+// The softmax probability of score product acc at (i, j), given the row's
+// max m and sum l: 0 past the keys, in a fully masked row, or at i >= T
+// (m is -inf there).
+__device__ __forceinline__ float prob(const Params& p, float acc, int i, int j,
+                                      int limit, float m, float l) {
+  if (j >= p.n_time || m <= kNeg) return 0.f;
+  const float s = masked(p, i, j, limit) ? kNeg : acc * p.scale;
+  return expf(s - m) / l;
+}
+
+__device__ __forceinline__ bool keep(const Params& p, int seed, int pid, int i,
+                                     int j) {
+  return p.rate <= 0.f || nsd::hash_uniform(seed, pid, i, j) >= p.rate;
+}
+
+// Key tiles [kt0, kt1) that hold an unmasked key of some row in
+// [q0, q0+64): keys below limit and, with a band, in [q0-left, q0+63].
+__device__ __forceinline__ void key_tiles(const Params& p, int q0, int limit,
+                                          int& kt0, int& kt1) {
+  kt0 = 0;
+  kt1 = (max(limit, 0) + kTile - 1) / kTile;
+  if (p.left >= 0) {
+    kt0 = max(q0 - p.left, 0) / kTile;
+    kt1 = min(kt1, min(q0 + kTile - 1, p.n_time - 1) / kTile + 1);
+  }
+}
+
+// Each of the thread's four rows' softmax max m and sum l over key tiles
+// [kt0, kt1) (online: the running sum is rescaled when the max grows). Ks is
+// scratch for the key tiles.
+template <typename T, int DH>
+__device__ void row_stats(const Params& p, const float* Qs, float* Ks,
+                          const T* base, size_t ld, int kcol, int q0, int kt0,
+                          int kt1, int limit, float m[4], float l[4]) {
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    m[r] = -INFINITY;
+    l[r] = 0.f;
+  }
+  for (int kt = kt0; kt < kt1; ++kt) {
+    const int k0 = kt * kTile;
+    load_tile<T, DH>(Ks, base, k0, p.n_time, ld, kcol);
+    __syncthreads();
+    float s[4][4] = {};
+    mm_abt<DH>(Qs, Ks, s, ty, tx);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int i = q0 + ty * 4 + r;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int j = k0 + tx + 16 * c;
+        s[r][c] = j >= p.n_time ? -INFINITY
+                  : masked(p, i, j, limit) ? kNeg
+                                           : s[r][c] * p.scale;
+        mx = fmaxf(mx, s[r][c]);
+      }
+      const float m_new = fmaxf(m[r], row_max(mx));
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) sum += expf(s[r][c] - m_new);
+      l[r] = l[r] * expf(m[r] - m_new) + row_sum(sum);
+      m[r] = m_new;
+    }
+    __syncthreads();
+  }
+}
+
+template <typename T, int DH>
+__global__ void __launch_bounds__(kThreads, 2)
+    attn_fwd_kernel(const T* __restrict__ qkv, const int32_t* __restrict__ lens,
+                    const int32_t* __restrict__ seed_ptr, T* __restrict__ out,
+                    Params p) {
+  constexpr int LD = DH + 4;
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);
+  float* KVs = Qs + kTile * LD;
+  float* Ps = KVs + kTile * LD;
+  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int d = p.heads * DH;
+  const size_t ld = 3 * (size_t)d;
+  const T* base = qkv + (size_t)b * p.n_time * ld;
+  const int limit = min(lens[b], p.n_time);
+  const int seed = *seed_ptr, pid = b * p.heads + h;
+  int kt0, kt1;
+  key_tiles(p, q0, limit, kt0, kt1);
+  const int kcol = qkv_col(p, 1, h, DH), vcol = qkv_col(p, 2, h, DH);
+
+  load_tile<T, DH>(Qs, base, q0, p.n_time, ld, qkv_col(p, 0, h, DH));
+  float m[4], l[4];
+  row_stats<T, DH>(p, Qs, KVs, base, ld, kcol, q0, kt0, kt1, limit, m, l);
+
+  float o[4][DH / 16] = {};
+  for (int kt = kt0; kt < kt1; ++kt) {
+    const int k0 = kt * kTile;
+    load_tile<T, DH>(KVs, base, k0, p.n_time, ld, kcol);
+    __syncthreads();
+    float s[4][4] = {};
+    mm_abt<DH>(Qs, KVs, s, ty, tx);
+    __syncthreads();
+    load_tile<T, DH>(KVs, base, k0, p.n_time, ld, vcol);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int i = q0 + ty * 4 + r;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int j = k0 + tx + 16 * c;
+        float pr = prob(p, s[r][c], i, j, limit, m[r], l[r]);
+        if (p.rate > 0.f) pr = keep(p, seed, pid, i, j) ? pr * p.inv_keep : 0.f;
+        Ps[(ty * 4 + r) * kLDP + tx + 16 * c] = nsd::round_to<T>(pr);
+      }
+    }
+    __syncthreads();
+    mm_ab<DH>(Ps, KVs, o, ty, tx);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int i = q0 + ty * 4 + r;
+    if (i >= p.n_time) continue;
+    T* row = out + ((size_t)b * p.n_time + i) * d + h * DH;
+#pragma unroll
+    for (int g = 0; g < DH / 64; ++g)
+      store4<T>(row + g * 64 + tx * 4, o[r][g * 4], o[r][g * 4 + 1],
+                o[r][g * 4 + 2], o[r][g * 4 + 3]);
+  }
+}
+
+// dQ per query tile; stores each row's (max, sum, rowsum(dP * p)) in
+// stats [3][B*H][T] for the dK/dV kernel.
+template <typename T, int DH>
+__global__ void __launch_bounds__(kThreads, 1)
+    attn_bwd_dq_kernel(const T* __restrict__ qkv, const int32_t* __restrict__ lens,
+                       const int32_t* __restrict__ seed_ptr,
+                       const T* __restrict__ gout, T* __restrict__ dqkv,
+                       float* __restrict__ stats, Params p) {
+  constexpr int LD = DH + 4;
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);
+  float* Gs = Qs + kTile * LD;
+  float* Ks = Gs + kTile * LD;
+  float* Vs = Ks + kTile * LD;
+  float* Ss = Vs + kTile * LD;
+  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int d = p.heads * DH;
+  const size_t ld = 3 * (size_t)d;
+  const T* base = qkv + (size_t)b * p.n_time * ld;
+  const int limit = min(lens[b], p.n_time);
+  const int seed = *seed_ptr, pid = b * p.heads + h;
+  int kt0, kt1;
+  key_tiles(p, q0, limit, kt0, kt1);
+  const int kcol = qkv_col(p, 1, h, DH), vcol = qkv_col(p, 2, h, DH);
+
+  load_tile<T, DH>(Qs, base, q0, p.n_time, ld, qkv_col(p, 0, h, DH));
+  load_tile<T, DH>(Gs, gout + (size_t)b * p.n_time * d, q0, p.n_time, d, h * DH);
+  float m[4], l[4];
+  row_stats<T, DH>(p, Qs, Ks, base, ld, kcol, q0, kt0, kt1, limit, m, l);
+
+  float dsum[4] = {};   // rowsum(dP * p), per thread, then over the row
+  float dq[4][DH / 16] = {};
+  for (int pass = 0; pass < 2; ++pass) {
+    for (int kt = kt0; kt < kt1; ++kt) {
+      const int k0 = kt * kTile;
+      load_tile<T, DH>(Ks, base, k0, p.n_time, ld, kcol);
+      load_tile<T, DH>(Vs, base, k0, p.n_time, ld, vcol);
+      __syncthreads();
+      float s[4][4] = {}, dp[4][4] = {};
+      mm_abt<DH>(Qs, Ks, s, ty, tx);
+      mm_abt<DH>(Gs, Vs, dp, ty, tx);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = q0 + ty * 4 + r;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int j = k0 + tx + 16 * c;
+          const float pr = prob(p, s[r][c], i, j, limit, m[r], l[r]);
+          float dpr = dp[r][c];
+          if (p.rate > 0.f) dpr = keep(p, seed, pid, i, j) ? dpr * p.inv_keep : 0.f;
+          if (pass == 0) {
+            dsum[r] += dpr * pr;
+          } else {
+            Ss[(ty * 4 + r) * kLDP + tx + 16 * c] =
+                nsd::round_to<T>(pr * (dpr - dsum[r]));
+          }
+        }
+      }
+      if (pass == 1) {
+        __syncthreads();
+        mm_ab<DH>(Ss, Ks, dq, ty, tx);
+      }
+      __syncthreads();
+    }
+    if (pass == 0) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) dsum[r] = row_sum(dsum[r]);
+    }
+  }
+  const size_t bh = (size_t)b * p.heads + h;
+  const size_t plane = (size_t)p.batch * p.heads * p.n_time;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int i = q0 + ty * 4 + r;
+    if (i >= p.n_time) continue;
+    if (tx == 0) {
+      stats[bh * p.n_time + i] = m[r];
+      stats[plane + bh * p.n_time + i] = l[r];
+      stats[2 * plane + bh * p.n_time + i] = dsum[r];
+    }
+    T* row = dqkv + ((size_t)b * p.n_time + i) * ld + qkv_col(p, 0, h, DH);
+#pragma unroll
+    for (int g = 0; g < DH / 64; ++g)
+      store4<T>(row + g * 64 + tx * 4, dq[r][g * 4] * p.scale,
+                dq[r][g * 4 + 1] * p.scale, dq[r][g * 4 + 2] * p.scale,
+                dq[r][g * 4 + 3] * p.scale);
+  }
+}
+
+// dK and dV per key tile, walking the query tiles that see its keys.
+template <typename T, int DH>
+__global__ void __launch_bounds__(kThreads, 1)
+    attn_bwd_dkv_kernel(const T* __restrict__ qkv, const int32_t* __restrict__ lens,
+                        const int32_t* __restrict__ seed_ptr,
+                        const T* __restrict__ gout, T* __restrict__ dqkv,
+                        const float* __restrict__ stats, Params p) {
+  constexpr int LD = DH + 4;
+  extern __shared__ float4 smem4[];
+  float* Ks = reinterpret_cast<float*>(smem4);
+  float* Vs = Ks + kTile * LD;
+  float* Qs = Vs + kTile * LD;
+  float* Gs = Qs + kTile * LD;
+  float* Ps = Gs + kTile * LD;
+  float* Ss = Ps + kTile * kLDP;
+  const int k0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int d = p.heads * DH;
+  const size_t ld = 3 * (size_t)d;
+  const T* base = qkv + (size_t)b * p.n_time * ld;
+  const T* gbase = gout + (size_t)b * p.n_time * d;
+  const int limit = min(lens[b], p.n_time);
+  const int seed = *seed_ptr, pid = b * p.heads + h;
+  const size_t bh = (size_t)b * p.heads + h;
+  const size_t plane = (size_t)p.batch * p.heads * p.n_time;
+  // query tiles whose rows see an unmasked key of this tile
+  int qt0 = 0, qt1 = (p.n_time + kTile - 1) / kTile;
+  if (k0 >= limit) qt1 = 0;
+  if (p.left >= 0) {
+    qt0 = k0 / kTile;
+    qt1 = min(qt1, (k0 + kTile - 1 + p.left) / kTile + 1);
+  }
+  const int qcol = qkv_col(p, 0, h, DH);
+
+  load_tile<T, DH>(Ks, base, k0, p.n_time, ld, qkv_col(p, 1, h, DH));
+  load_tile<T, DH>(Vs, base, k0, p.n_time, ld, qkv_col(p, 2, h, DH));
+  float dk[4][DH / 16] = {}, dv[4][DH / 16] = {};
+  for (int qt = qt0; qt < qt1; ++qt) {
+    const int q0 = qt * kTile;
+    load_tile<T, DH>(Qs, base, q0, p.n_time, ld, qcol);
+    load_tile<T, DH>(Gs, gbase, q0, p.n_time, d, h * DH);
+    float m[4], l[4], dsum[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int i = q0 + ty * 4 + r;
+      const bool row = i < p.n_time;
+      m[r] = row ? stats[bh * p.n_time + i] : -INFINITY;
+      l[r] = row ? stats[plane + bh * p.n_time + i] : 1.f;
+      dsum[r] = row ? stats[2 * plane + bh * p.n_time + i] : 0.f;
+    }
+    __syncthreads();
+    float s[4][4] = {}, dp[4][4] = {};
+    mm_abt<DH>(Qs, Ks, s, ty, tx);
+    mm_abt<DH>(Gs, Vs, dp, ty, tx);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int i = q0 + ty * 4 + r;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int j = k0 + tx + 16 * c;
+        const float pr = prob(p, s[r][c], i, j, limit, m[r], l[r]);
+        float dropped = pr, dpr = dp[r][c];
+        if (p.rate > 0.f) {
+          const bool kept = keep(p, seed, pid, i, j);
+          dropped = kept ? pr * p.inv_keep : 0.f;
+          dpr = kept ? dpr * p.inv_keep : 0.f;
+        }
+        Ps[(ty * 4 + r) * kLDP + tx + 16 * c] = nsd::round_to<T>(dropped);
+        Ss[(ty * 4 + r) * kLDP + tx + 16 * c] =
+            nsd::round_to<T>(pr * (dpr - dsum[r]));
+      }
+    }
+    __syncthreads();
+    mm_atb<DH>(Ps, Gs, dv, ty, tx);
+    mm_atb<DH>(Ss, Qs, dk, ty, tx);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int j = k0 + ty * 4 + r;
+    if (j >= p.n_time) continue;
+    T* row = dqkv + ((size_t)b * p.n_time + j) * ld;
+    T* krow = row + qkv_col(p, 1, h, DH);
+    T* vrow = row + qkv_col(p, 2, h, DH);
+#pragma unroll
+    for (int g = 0; g < DH / 64; ++g) {
+      store4<T>(krow + g * 64 + tx * 4, dk[r][g * 4] * p.scale,
+                dk[r][g * 4 + 1] * p.scale, dk[r][g * 4 + 2] * p.scale,
+                dk[r][g * 4 + 3] * p.scale);
+      store4<T>(vrow + g * 64 + tx * 4, dv[r][g * 4], dv[r][g * 4 + 1],
+                dv[r][g * 4 + 2], dv[r][g * 4 + 3]);
+    }
+  }
+}
+
+__global__ void dropout_masks_kernel(const int32_t* __restrict__ seed_ptr,
+                                     uint8_t* __restrict__ out, int bh, int t,
+                                     float rate) {
+  const int seed = *seed_ptr;
+  const size_t n = (size_t)bh * t * t;
+  for (size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x; idx < n;
+       idx += (size_t)gridDim.x * blockDim.x) {
+    const int col = idx % t;
+    const int row = (idx / t) % t;
+    const int prog = idx / ((size_t)t * t);
+    out[idx] = nsd::hash_uniform(seed, prog, row, col) >= rate ? 1 : 0;
+  }
+}
+
+cudaError_t set_smem(const void* kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+Params make_params(int batch, int n_time, int heads, int left, float scale,
+                   float rate, float inv_keep, int interleaved) {
+  Params p;
+  p.batch = batch;
+  p.n_time = n_time;
+  p.heads = heads;
+  p.left = left;
+  p.scale = scale;
+  p.rate = rate;
+  p.inv_keep = inv_keep;
+  p.interleaved = interleaved;
+  return p;
+}
+
+template <typename T, int DH>
+cudaError_t launch_fwd(const void* qkv, const void* lens, const void* seed,
+                       void* out, const Params& p, cudaStream_t stream) {
+  constexpr size_t smem = sizeof(float) * (2 * kTile * (DH + 4) + kTile * kLDP);
+  auto kernel = attn_fwd_kernel<T, DH>;
+  cudaError_t err = set_smem(reinterpret_cast<const void*>(kernel), smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.n_time + kTile - 1) / kTile, p.heads, p.batch);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(qkv), static_cast<const int32_t*>(lens),
+      static_cast<const int32_t*>(seed), static_cast<T*>(out), p);
+  return cudaGetLastError();
+}
+
+template <typename T, int DH>
+cudaError_t launch_bwd(const void* qkv, const void* lens, const void* seed,
+                       const void* g, void* dqkv, void* stats, const Params& p,
+                       cudaStream_t stream) {
+  constexpr size_t smem_dq = sizeof(float) * (4 * kTile * (DH + 4) + kTile * kLDP);
+  constexpr size_t smem_dkv =
+      sizeof(float) * (4 * kTile * (DH + 4) + 2 * kTile * kLDP);
+  auto dq_kernel = attn_bwd_dq_kernel<T, DH>;
+  auto dkv_kernel = attn_bwd_dkv_kernel<T, DH>;
+  cudaError_t err = set_smem(reinterpret_cast<const void*>(dq_kernel), smem_dq);
+  if (err == cudaSuccess)
+    err = set_smem(reinterpret_cast<const void*>(dkv_kernel), smem_dkv);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.n_time + kTile - 1) / kTile, p.heads, p.batch);
+  dq_kernel<<<grid, kThreads, smem_dq, stream>>>(
+      static_cast<const T*>(qkv), static_cast<const int32_t*>(lens),
+      static_cast<const int32_t*>(seed), static_cast<const T*>(g),
+      static_cast<T*>(dqkv), static_cast<float*>(stats), p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dkv_kernel<<<grid, kThreads, smem_dkv, stream>>>(
+      static_cast<const T*>(qkv), static_cast<const int32_t*>(lens),
+      static_cast<const int32_t*>(seed), static_cast<const T*>(g),
+      static_cast<T*>(dqkv), static_cast<const float*>(stats), p);
+  return cudaGetLastError();
+}
+
+bool bad_shape(int batch, int n_time, int heads, int dh) {
+  return batch < 1 || n_time < 1 || heads < 1 || (dh != 64 && dh != 128);
+}
+
+}  // namespace
+
+extern "C" {
+
+#define NSD_ATTN_ENTRIES(SUFFIX, T)                                            \
+  int nsd_attn_fwd_##SUFFIX(const void* qkv, const void* lens,                 \
+                            const void* seed, void* out, int batch,            \
+                            int n_time, int heads, int dh, int left,           \
+                            float scale, float rate, float inv_keep,           \
+                            int interleaved, void* stream) {                   \
+    if (bad_shape(batch, n_time, heads, dh))                                   \
+      return static_cast<int>(cudaErrorInvalidValue);                          \
+    const Params p = make_params(batch, n_time, heads, left, scale, rate,      \
+                                 inv_keep, interleaved);                       \
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);                  \
+    return static_cast<int>(                                                   \
+        dh == 64 ? launch_fwd<T, 64>(qkv, lens, seed, out, p, s)               \
+                 : launch_fwd<T, 128>(qkv, lens, seed, out, p, s));            \
+  }                                                                            \
+  int nsd_attn_bwd_##SUFFIX(const void* qkv, const void* lens,                 \
+                            const void* seed, const void* g, void* dqkv,       \
+                            void* stats, int batch, int n_time, int heads,     \
+                            int dh, int left, float scale, float rate,         \
+                            float inv_keep, int interleaved, void* stream) {   \
+    if (bad_shape(batch, n_time, heads, dh))                                   \
+      return static_cast<int>(cudaErrorInvalidValue);                          \
+    const Params p = make_params(batch, n_time, heads, left, scale, rate,      \
+                                 inv_keep, interleaved);                       \
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);                  \
+    return static_cast<int>(                                                   \
+        dh == 64 ? launch_bwd<T, 64>(qkv, lens, seed, g, dqkv, stats, p, s)    \
+                 : launch_bwd<T, 128>(qkv, lens, seed, g, dqkv, stats, p, s)); \
+  }
+
+NSD_ATTN_ENTRIES(f32, float)
+NSD_ATTN_ENTRIES(bf16, __nv_bfloat16)
+
+int nsd_attn_dropout_masks(const void* seed, void* out, int bh, int t,
+                           float rate, void* stream) {
+  if (bh < 1 || t < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t n = (size_t)bh * t * t;
+  const size_t want = (n + 255) / 256;
+  const int blocks = static_cast<int>(want < 65535 ? want : 65535);
+  dropout_masks_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(seed), static_cast<uint8_t*>(out), bh, t, rate);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

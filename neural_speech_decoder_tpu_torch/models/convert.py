@@ -1,9 +1,12 @@
-"""Move GRU decoder weights between the JAX package and the port.
+"""Move decoder weights between the JAX package and the port.
 
-Both keep ``init_gru_params``' tree (``{"day": {...}, "gru": {"layers":
-[...]}, "fc": {...}}``) with the same array layouts, so conversion is a
-copy of each leaf. The JAX side is given as numpy arrays (what
-``jax.tree.map(np.asarray, params)`` returns); nothing here imports jax.
+Both keep the JAX package's trees with the same array layouts:
+``init_gru_params``' (``{"day": {...}, "gru": {"layers": [...]}, "fc":
+{...}}``) and ``init_conformer_params``' (``day``, ``frontend``,
+``bottleneck``, ``blocks`` [...], ``head`` and, with InterCTC,
+``inter_out``), so conversion is a copy of each leaf. The JAX side is given
+as numpy arrays (what ``jax.tree.map(np.asarray, params)`` returns); nothing
+here imports jax.
 """
 
 from __future__ import annotations
@@ -11,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .conformer import ConformerDecoder
 from .gru import GRUDecoder, Params
 
 
@@ -22,14 +26,18 @@ def _map(tree, fn):
     return fn(tree)
 
 
-def gru_params_from_jax(tree: dict) -> Params:
+def params_from_jax(tree: dict) -> Params:
     """A JAX parameter tree of numpy arrays -> the port's tree of CPU
     tensors (copies; float32 leaves stay float32)."""
     return _map(tree, lambda a: torch.from_numpy(np.array(a, copy=True)))
 
 
-def gru_params_to_numpy(module: GRUDecoder | Params) -> dict:
-    """A ``GRUDecoder`` (or its parameter tree) -> a tree of numpy arrays in
+def params_to_numpy(module: GRUDecoder | ConformerDecoder | Params) -> dict:
+    """A decoder module (or its parameter tree) -> a tree of numpy arrays in
     the JAX package's layout."""
-    params = module.params if isinstance(module, GRUDecoder) else module
+    params = module.params if isinstance(module, torch.nn.Module) else module
     return _map(params, lambda t: t.detach().cpu().numpy())
+
+
+gru_params_from_jax = conformer_params_from_jax = params_from_jax
+gru_params_to_numpy = conformer_params_to_numpy = params_to_numpy

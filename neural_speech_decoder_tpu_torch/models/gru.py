@@ -15,17 +15,17 @@ each layer's time scan run the hand-written kernels of ``ops/kernels``.
 Training (``train=True``) runs the unfused frontend chain under autograd,
 as the JAX package does, each scan through the ``GRUScan`` autograd
 Function (gates-storing forward and backward kernels), and inter-layer
-dropout. Layer 0's projection is a strided convolution, layers 1+ and the
-head are ``torch.matmul``, as the JAX package leaves them to XLA.
+dropout. Layer 0's projection is a strided convolution (cuDNN), layers 1+
+and the head are cuBLAS products, as the JAX package leaves them to XLA.
 ``plain=True`` runs the kernels' plain PyTorch versions instead, as the
 reference a card run is checked against.
 
 Precision in bfloat16 compute: the head multiplies the bf16 encoder states
 and weights with float32 accumulation and output, as the JAX package does
-(``preferred_element_type=float32``). Layers 1+ round their projection to
-bf16 before adding the float32 bias, and then once more: PyTorch has no
-bf16-in, f32-out product with a backward (``torch.mm(..., out_dtype=)``
-has none), and a float32 GEMM would cost far more than the rounding.
+(``preferred_element_type=float32``). Layers 1+ take their projection
+through ``models/common.py::linear``: float32 accumulation, the float32
+bias, one rounding to bf16, as JAX. Layer 0's strided convolution rounds
+its bf16 output before the float32 bias and after it, as JAX's does.
 """
 
 from __future__ import annotations
@@ -42,7 +42,7 @@ from ..ops.gaussian import gaussian_smooth
 from ..ops.kernels.frontend import fused_frontend, fused_frontend_plain
 from ..ops.kernels.gru_scan import gru_cell, gru_scan
 from ..ops.unfold import unfold_matmul, unfold_output_length
-from .common import orthogonal, torch_linear_init, uniform_bound, xavier_uniform
+from .common import linear, orthogonal, torch_linear_init, uniform_bound, xavier_uniform
 
 Params = dict
 
@@ -151,9 +151,9 @@ def gru_encode(
         w_cat = torch.cat([lp["w_ih"][i] for i in range(d)], dim=-1).to(cdt)
         if li == 0:
             xp = unfold_matmul(out, w_cat, cfg.kernel_len, cfg.stride_len)
+            xp = (xp.float().reshape(b, -1, d, 3 * h) + lp["b_ih"].float()).to(cdt)
         else:
-            xp = torch.matmul(out, w_cat)
-        xp = (xp.float().reshape(b, -1, d, 3 * h) + lp["b_ih"].float()).to(cdt)
+            xp = linear(out, w_cat, lp["b_ih"].reshape(-1)).reshape(b, -1, d, 3 * h)
         xp = xp.permute(1, 2, 0, 3).contiguous()  # [L, D, B, 3H]
         ys = gru_scan(xp, lp["w_hh"], lp["b_hh"], plain=plain)  # [L, D, B, H]
         out = ys.permute(2, 0, 1, 3).reshape(b, -1, d * h)

@@ -1,7 +1,8 @@
 """Gaussian temporal smoothing as a depthwise 1-D convolution.
 
 Port of ``neural_speech_decoder_tpu/ops/gaussian.py``: the same normalized
-taps, the same torch-"same" padding (20 taps pad (9, 10)), ``[B, T, C]``
+taps, the GRU's 20 taps with torch-"same" padding ((9, 10)) and the
+Conformer's ``int(4 sigma) + 1`` taps with symmetric padding, ``[B, T, C]``
 layout at the interface.
 """
 
@@ -29,16 +30,29 @@ def same_padding(kernel_size: int) -> tuple[int, int]:
 
 
 def gaussian_smooth(
-    x: torch.Tensor, kernel_size: int, sigma: float
+    x: torch.Tensor,
+    kernel_size: int,
+    sigma: float,
+    *,
+    padding: tuple[int, int] | None = None,
 ) -> torch.Tensor:
     """Depthwise Gaussian smoothing along time of ``[B, T, C]`` features,
-    "same" padded, computed in x's dtype. A no-op for ``sigma <= 0``."""
+    computed in x's dtype, padded by ``padding`` (left, right), by default
+    torch "same". A no-op for ``sigma <= 0``."""
     if sigma <= 0:
         return x
+    if padding is None:
+        padding = same_padding(kernel_size)
     c = x.shape[-1]
     taps = torch.as_tensor(
         gaussian_kernel(kernel_size, sigma), dtype=x.dtype, device=x.device
     )
-    xt = F.pad(x.transpose(1, 2), same_padding(kernel_size))  # [B, C, T+k-1]
+    xt = F.pad(x.transpose(1, 2), padding)  # [B, C, T + pad]
     y = F.conv1d(xt, taps.expand(c, 1, kernel_size), groups=c)
     return y.transpose(1, 2)
+
+
+def conformer_kernel_size(sigma: float) -> int:
+    """The Conformer's tap count, ``int(4 * sigma) + 1`` (9 at sigma 2); it
+    pads ``kernel_size // 2`` on both sides."""
+    return int(sigma * 4) + 1

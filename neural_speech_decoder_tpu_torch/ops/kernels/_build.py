@@ -31,6 +31,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     "nsd_frontend_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                          ctypes.POINTER(ctypes.c_float), _I, _I, _P],
@@ -40,8 +41,13 @@ _SIGNATURES = {
                         _I, _I, _I, _I, _P],
     "nsd_ctc_alpha": [_P, _P, _P, _P, _I, _I, _I, _P],
     "nsd_ctc_beta": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "nsd_attn_fwd_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _I, _P],
+    "nsd_attn_bwd_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                         _F, _F, _F, _I, _P],
+    "nsd_attn_dropout_masks": [_P, _P, _I, _I, _F, _P],
 }
-for _name in ("frontend", "gru_scan", "gru_scan_gates", "gru_bwd"):
+for _name in ("frontend", "gru_scan", "gru_scan_gates", "gru_bwd", "attn_fwd",
+              "attn_bwd"):
     _SIGNATURES[f"nsd_{_name}_bf16"] = _SIGNATURES[f"nsd_{_name}_f32"]
 
 

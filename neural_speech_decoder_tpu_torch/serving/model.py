@@ -68,7 +68,7 @@ class InferenceModel:
         want = (self.batch_size, self.t_max, self.cfg.neural_dim)
         if tuple(x.shape) != want:
             raise ValueError(f"x {tuple(x.shape)} != envelope {want}")
-        return forward(self.module, x, days, x_lens)
+        return forward(self.module, x, days, x_lens)[:2]
 
     @torch.inference_mode()
     def decode(

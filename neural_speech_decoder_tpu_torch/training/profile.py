@@ -1,12 +1,15 @@
 """Where a train step's time goes on the card.
 
-Runs ``make_train_step`` at bench.py's shapes and ``GRU_ARGS`` (the GRU
-baseline at full width, B=64, T=1280, U=64, bfloat16 compute, dropout and
-noise on; random weights and batch from a seed) under ``torch.profiler``
-and prints the device time by kernel, the device's busy share of the
-steps' wall time, and the host-clock time of each step.
+Runs ``make_train_step`` at bench.py's shapes and its ``GRU_ARGS`` (the GRU
+baseline at full width) or ``CONFORMER_ARGS`` (the Conformer at full
+width: 8 blocks, D=1024, 8 heads, FF 2048, label smoothing, InterCTC,
+AdamW), B=64, T=1280, U=64, bfloat16 compute, dropout and noise on, random
+weights and batch from a seed, under ``torch.profiler`` and prints the
+device time by kernel, the device's busy share of the steps' wall time,
+and the host-clock time of each step.
 
-    python -m neural_speech_decoder_tpu_torch.training.profile [--dtype float32]
+    python -m neural_speech_decoder_tpu_torch.training.profile \
+        [--model gru|conformer] [--dtype float32]
 
 It needs a CUDA device and fails without one.
 """
@@ -47,6 +50,25 @@ BENCH_ARGS = {
     "compute_dtype": "bfloat16",
     "watch_log_freq": 0,
 }
+# bench.py's CONFORMER_ARGS: the Conformer's defaults (configs/conformer.yaml's
+# widths) with its recipe's loss and optimizer
+CONFORMER_ARGS = {
+    "model_type": "transformer_ctc",
+    "nInputFeatures": 256,
+    "nClasses": 40,
+    "gaussianSmoothWidth": 2.0,
+    "whiteNoiseSD": 1.0,
+    "constantOffsetSD": 0.2,
+    "lrStart": 4e-4,
+    "lrEnd": 4e-4,
+    "l2_decay": 1e-3,
+    "nBatch": 15000,
+    "seed": 0,
+    "compute_dtype": "bfloat16",
+    "watch_log_freq": 0,
+    "label_smoothing": 0.1,
+    "optimizer": "adamw",
+}
 N_DAYS = 24
 
 
@@ -68,6 +90,7 @@ def bench_batch(
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", default="gru", choices=["gru", "conformer"])
     ap.add_argument("--dtype", default="bfloat16", choices=["float32", "bfloat16"])
     ap.add_argument("--steps", type=int, default=3)
     args_cli = ap.parse_args()
@@ -76,7 +99,8 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
-    args = {**BENCH_ARGS, "compute_dtype": args_cli.dtype}
+    recipe = CONFORMER_ARGS if args_cli.model == "conformer" else BENCH_ARGS
+    args = {**recipe, "compute_dtype": args_cli.dtype}
     model = build_model(args, N_DAYS, device, seed=0)
     opt, sched = make_optimizer(args, model.parameters())
     step = make_train_step(args, model, opt, sched)
@@ -96,7 +120,7 @@ def main() -> None:
         for i in range(args_cli.steps):
             walls.append(run(2 + i)[0])
         wall_us = (time.perf_counter() - t0) * 1e6
-    print(f"{args_cli.dtype} train step B=64 T=1280 "
+    print(f"{args_cli.model} {args_cli.dtype} train step B=64 T=1280 "
           f"{torch.cuda.get_device_name(0)}: step wall "
           f"{', '.join(f'{w:.3f}' for w in walls)} ms (under the profiler)")
     events = [e for e in prof.key_averages()

@@ -1,12 +1,14 @@
 """Training and eval loop with the reference's ``trainModel(args)`` surface,
 on one device.
 
-Port of ``neural_speech_decoder_tpu/training/trainer.py`` for the GRU
-baseline: per-step uniformly random batches (``data/batching.py``), noise
-augmentation, the train forward with dropout, the CTC loss with the
-reference's reductions, Adam with L2 and LinearLR (or AdamW with
-warmup-cosine and clipping), eval every ``evalEvery`` steps (mean CTC loss
-and greedy PER), the best-CER ``modelState``, the periodic ``lastState``,
+Port of ``neural_speech_decoder_tpu/training/trainer.py`` for both model
+families (``model_type`` ``gru_baseline`` or ``transformer_ctc``): per-step
+uniformly random batches (``data/batching.py``), noise augmentation, the
+train forward with its dropout, the CTC loss with the reference's
+reductions, label smoothing and InterCTC blending, Adam with L2 and
+LinearLR (or AdamW with warmup-cosine, the Conformer's, with its gradients
+clipped to norm 1.0), eval every ``evalEvery`` steps (CTC loss and greedy
+PER), the best-CER ``modelState``, the periodic ``lastState``,
 SIGTERM/SIGUSR1 preemption and an exact ``resume``.
 
 Left out, as the port runs on one device: the mesh, tensor parallelism,
@@ -19,6 +21,7 @@ step into its key, so a resumed run draws what an uninterrupted one would.
 
 from __future__ import annotations
 
+import math
 import signal
 import threading
 import time
@@ -36,8 +39,7 @@ from ..data.batching import (
     sample_batch,
 )
 from ..data.dataset import PackedDataset, load_pickle_dataset, pack_days
-from ..models.api import build_model, forward
-from ..models.gru import GRUDecoder
+from ..models.api import Decoder, build_model, forward
 from ..ops.ctc import ctc_loss
 from ..ops.decode import batch_per, greedy_decode
 from ..ops.noise import apply_noise
@@ -74,25 +76,54 @@ def batch_tensors(batch: Batch, device: torch.device) -> tuple[torch.Tensor, ...
 
 def _loss_and_metrics(
     args: dict,
-    model: GRUDecoder,
+    model: Decoder,
     batch: tuple[torch.Tensor, ...],
     generator: torch.Generator,
     *,
     plain: bool = False,
 ) -> tuple[torch.Tensor, dict]:
-    """Training loss of the GRU recipe (the GRU branch of
-    ``trainer.py::_loss_and_metrics``, without label smoothing): the
-    length-normalized batch-mean CTC loss of the noisy batch."""
+    """Training loss with the reference's blending (``trainer.py::
+    _loss_and_metrics``) of the noisy batch. Without label smoothing: the
+    length-normalized batch-mean CTC loss. With ``label_smoothing`` s:
+    ``(1-s)`` times the batch mean of the per-sequence CTC losses plus ``s``
+    times the KL to the uniform distribution, summed over every frame
+    (padding included) and divided by the frame count T'. With an InterCTC
+    head (the Conformer): ``(1-w)`` times that plus ``w`` times the same
+    CTC reduction of the InterCTC log-probs, ``w = interctc_weight``."""
     x, y, x_lens, y_lens, days = batch
     x = apply_noise(generator, x, args["whiteNoiseSD"], args["constantOffsetSD"])
-    log_probs, out_lens = forward(model, x, days, x_lens, train=True,
-                                  generator=generator, plain=plain)
-    loss = ctc_loss(log_probs, out_lens, y, y_lens, reduction="mean", plain=plain)
+    log_probs, out_lens, inter_log_probs = forward(
+        model, x, days, x_lens, train=True, generator=generator, plain=plain)
+    smoothing = args.get("label_smoothing", 0.0)
+    metrics = {}
+
+    def ctc(lp):
+        if smoothing > 0:
+            return ctc_loss(lp, out_lens, y, y_lens, reduction="none",
+                            plain=plain).mean()
+        return ctc_loss(lp, out_lens, y, y_lens, reduction="mean", plain=plain)
+
+    main_loss = ctc(log_probs)
+    if smoothing > 0:
+        n_classes = args["nClasses"] + 1
+        uni = -math.log(n_classes)
+        kl = ((1.0 / n_classes) * (uni - log_probs)).sum() / log_probs.shape[1]
+        metrics["train/ctc_loss"] = main_loss
+        metrics["train/kl_loss"] = kl
+        main_loss = (1 - smoothing) * main_loss + smoothing * kl
+    loss = main_loss
+    if inter_log_probs is not None:
+        inter = ctc(inter_log_probs)
+        w = args.get("interctc_weight", 0.3)
+        loss = (1.0 - w) * main_loss + w * inter
+        metrics["train/inter_ctc_loss"] = inter
+        metrics["train/main_loss"] = main_loss
     # tokens-constant bucketing: a batch of B_k rows weighs B_k / batchSize,
     # so every trial's gradient weight stays what it is at fixed B
     if args.get("tokensPerBatch", 0) and args.get("tokensLossScale", True):
         loss = loss * (x.shape[0] / int(args.get("batchSize", x.shape[0])))
-    return loss, {"train/loss": loss}
+    metrics["train/loss"] = loss
+    return loss, metrics
 
 
 def _named_leaves(tree, prefix: str) -> list[tuple[str, torch.Tensor]]:
@@ -106,7 +137,7 @@ def _named_leaves(tree, prefix: str) -> list[tuple[str, torch.Tensor]]:
 
 def make_train_step(
     args: dict,
-    model: GRUDecoder,
+    model: Decoder,
     optimizer: torch.optim.Optimizer,
     scheduler: torch.optim.lr_scheduler.LRScheduler,
 ) -> Callable[[tuple, torch.Generator], dict]:
@@ -139,14 +170,14 @@ def make_train_step(
     return train_step
 
 
-def make_eval_step(model: GRUDecoder) -> Callable[..., tuple]:
+def make_eval_step(model: Decoder) -> Callable[..., tuple]:
     """``eval_step(x, y, x_lens, y_lens, days) -> (per_seq_loss [B],
     tokens [B, L], decoded_lens [B])``: the eval forward, the per-sequence
     CTC loss (alpha only: no gradient) and the greedy decode."""
 
     @torch.inference_mode()
     def eval_step(x, y, x_lens, y_lens, days):
-        log_probs, out_lens = forward(model, x, days, x_lens, train=False)
+        log_probs, out_lens, _ = forward(model, x, days, x_lens, train=False)
         per_seq = ctc_loss(log_probs, out_lens, y, y_lens, reduction="none")
         tokens, dec_lens = greedy_decode(log_probs, out_lens)
         return per_seq, tokens, dec_lens
@@ -163,11 +194,14 @@ def run_eval(
     device: torch.device,
     *,
     buckets: list[int] | None = None,
+    torch_mean_semantics: bool = True,
 ) -> tuple[float, float, int, int]:
     """Full test pass: ``(avg_day_loss, per, edit_dist, seq_len)``.
 
-    ``avg_day_loss`` follows the reference: per batch the mean over real
-    rows of the length-normalized loss, then the mean over batches."""
+    ``avg_day_loss`` follows the reference: per batch a scalar, then the
+    mean over batches. The scalar is the mean over real rows of the
+    length-normalized loss (``torch_mean_semantics``, the runs without
+    label smoothing) or the sum of the real rows' losses."""
     batch_scalars = []
     total_dist = 0
     total_len = 0
@@ -175,8 +209,11 @@ def run_eval(
         per_seq, tokens, dec_lens = eval_step(*batch_tensors(batch, device))
         per_seq = per_seq.cpu().numpy()
         w = batch.weight
-        norm = per_seq / np.maximum(batch.y_lens, 1)
-        batch_scalars.append(float((norm * w).sum() / max(w.sum(), 1)))
+        if torch_mean_semantics:
+            norm = per_seq / np.maximum(batch.y_lens, 1)
+            batch_scalars.append(float((norm * w).sum() / max(w.sum(), 1)))
+        else:
+            batch_scalars.append(float((per_seq * w).sum()))
         real = w > 0
         d, n = batch_per(tokens.cpu().numpy()[real], dec_lens.cpu().numpy()[real],
                          batch.y[real], batch.y_lens[real])
@@ -213,9 +250,6 @@ def train_model(args: dict) -> dict:
 
 
 def _train_model_impl(args: dict, preempt_requested: threading.Event) -> dict:
-    if args.get("label_smoothing", 0.0) > 0:
-        raise NotImplementedError(
-            "label_smoothing: the port trains the GRU recipe's CTC loss only")
     device = resolve_device(args)
     output_dir = args["outputDir"]
     seed = int(args.get("seed", 0))
@@ -251,6 +285,7 @@ def _train_model_impl(args: dict, preempt_requested: threading.Event) -> dict:
     schedule = lr_schedule(args)
     train_step = make_train_step(args, model, optimizer, scheduler)
     eval_step = make_eval_step(model)
+    torch_mean = args.get("label_smoothing", 0.0) == 0
 
     n_batch = int(args["nBatch"])
     eval_every = int(args.get("evalEvery", 100))
@@ -336,7 +371,7 @@ def _train_model_impl(args: dict, preempt_requested: threading.Event) -> dict:
             pending = None
             avg_loss, cer, edit_dist, seq_len = run_eval(
                 eval_step, test_ds, batch_size, t_max, u_max, device,
-                buckets=buckets)
+                buckets=buckets, torch_mean_semantics=torch_mean)
             time_per_batch = (time.time() - start_time) / eval_every
             print(f"batch {step}, ctc loss: {avg_loss:>7f}, cer: {cer:>7f}, "
                   f"time/batch: {time_per_batch:>7.3f}")
@@ -394,7 +429,7 @@ def load_model(
     model_dir: str,
     n_input_layers: int | None = None,
     device: torch.device | str | None = None,
-) -> tuple[GRUDecoder, dict]:
+) -> tuple[Decoder, dict]:
     """Rebuild a trained model from a run directory: ``(model, args)``,
     with the best-CER ``modelState`` weights (or ``lastState``'s). The
     device is ``device``, else the run's ``args["device"]`` (default

@@ -14,6 +14,15 @@ path's full shapes.
 import pytest
 import torch
 
+from neural_speech_decoder_tpu_torch.ops.kernels.attention import (
+    MHSA,
+    dropout_masks,
+    dropout_masks_plain,
+    mhsa_qkv,
+    mhsa_qkv_bwd,
+    mhsa_qkv_bwd_plain,
+    mhsa_qkv_plain,
+)
 from neural_speech_decoder_tpu_torch.ops.kernels.frontend import (
     fused_frontend,
     fused_frontend_plain,
@@ -224,15 +233,19 @@ def test_ctc_loss_kernel_matches_plain_and_torch(cuda):
     assert (loss[ok] - ref).abs().max().item() <= 1e-3
 
 
-def test_train_step_is_reproducible(cuda):
-    """Two runs of three bf16 train steps (dropout and noise on) from one
-    seed give bit-equal losses and parameters: every kernel of the step
-    sums in a fixed order (the CTC gradient gathers its extended states
-    with a one-hot product, not with atomics)."""
+@pytest.mark.parametrize("model_type", ["gru_baseline", "transformer_ctc"])
+def test_train_step_is_reproducible(cuda, model_type):
+    """Two runs of three bf16 train steps (dropout and noise on; for the
+    Conformer also DropPath, SpecAugment, label smoothing and InterCTC)
+    from one seed give bit-equal losses and parameters: every kernel of the
+    step sums in a fixed order (the CTC gradient gathers its extended
+    states with a one-hot product, the attention backward has no
+    atomics)."""
     from neural_speech_decoder_tpu_torch.models.api import build_model
     from neural_speech_decoder_tpu_torch.training.optim import make_optimizer
     from neural_speech_decoder_tpu_torch.training.profile import (
         BENCH_ARGS,
+        CONFORMER_ARGS,
         bench_batch,
     )
     from neural_speech_decoder_tpu_torch.training.trainer import (
@@ -241,7 +254,12 @@ def test_train_step_is_reproducible(cuda):
         step_generator,
     )
 
-    args = {**BENCH_ARGS, "nInputFeatures": 64, "nUnits": 96, "nLayers": 2}
+    if model_type == "gru_baseline":
+        args = {**BENCH_ARGS, "nInputFeatures": 64, "nUnits": 96, "nLayers": 2}
+    else:
+        args = {**CONFORMER_ARGS, "nInputFeatures": 64, "frontend_dim": 128,
+                "latent_dim": 256, "transformer_n_heads": 2,
+                "transformer_num_layers": 6, "transformer_dim_ff": 256}
     batch = batch_tensors(bench_batch(b=40, t=301, u=24, c=64), cuda)
     runs = []
     for _ in range(2):
@@ -254,3 +272,75 @@ def test_train_step_is_reproducible(cuda):
     (l1, p1), (l2, p2) = runs
     assert l1 == l2
     assert all(torch.equal(a, b) for a, b in zip(p1, p2))
+
+
+# Attention: relative to the output's largest entry, float32 differs by
+# summation order only; bfloat16 by roundings of p, dS and the outputs that
+# fall the other way (a bf16 step is 2**-8 relative).
+ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0**-6}
+
+
+def _rel(a, b):
+    b = b.float()
+    return ((a.float() - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,h,dh,lens,rate,left,interleaved", [
+    (3, 37, 2, 128, [37, 0, 20], 0.0, None, False),
+    (3, 130, 2, 128, [130, 5, 64], 0.3, None, True),
+    (2, 200, 3, 64, [200, 150], 0.3, 40, False),
+    (2, 70, 1, 64, [0, 0], 0.1, 8, True),
+])
+def test_attention_kernels_match_plain(cuda, dtype, b, t, h, dh, lens, rate, left,
+                                       interleaved):
+    """Ragged T (not a multiple of the 64-row tiles), lengths of 0 (zero
+    rows), a band, both column layouts, both head widths."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    qkv = torch.randn((b, t, 3 * h * dh), generator=g, device=cuda).to(dtype)
+    gout = torch.randn((b, t, h * dh), generator=g, device=cuda).to(dtype)
+    lens = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    seed = torch.tensor([-123], dtype=torch.int32, device=cuda)
+    kw = dict(num_heads=h, rate=rate, left_context=left, interleaved=interleaved)
+    f0, b0 = mhsa_qkv.launches, mhsa_qkv_bwd.launches
+    out, ref = mhsa_qkv(qkv, lens, seed, **kw), mhsa_qkv_plain(qkv, lens, seed, **kw)
+    d, dref = (mhsa_qkv_bwd(qkv, lens, seed, gout, **kw),
+               mhsa_qkv_bwd_plain(qkv, lens, seed, gout, **kw))
+    torch.cuda.synchronize()
+    assert (mhsa_qkv.launches, mhsa_qkv_bwd.launches) == (f0 + 1, b0 + 1)
+    assert out.dtype == dtype and d.dtype == dtype and d.shape == qkv.shape
+    assert _rel(out, ref) <= ATTN_TOL[dtype] and _rel(d, dref) <= ATTN_TOL[dtype]
+    assert not out[lens == 0].any()
+
+
+def test_dropout_masks_kernel_equals_plain(cuda):
+    seed = torch.tensor([2**31 - 1], dtype=torch.int32, device=cuda)
+    for rate in (0.0, 0.3, 0.9):
+        m = dropout_masks(7, 131, seed, rate)
+        torch.cuda.synchronize()
+        assert m.dtype == torch.bool and torch.equal(m, dropout_masks_plain(7, 131, seed, rate))
+
+
+def test_attention_function_grads_match_plain(cuda):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    qkv = torch.randn((2, 90, 3 * 256), generator=g, device=cuda)
+    lens = torch.tensor([90, 33], dtype=torch.int32, device=cuda)
+    seed = torch.tensor([7], dtype=torch.int32, device=cuda)
+    w = torch.randn((2, 90, 256), generator=g, device=cuda)
+    grads = []
+    for plain in (False, True):
+        x = qkv.clone().requires_grad_()
+        out = MHSA.apply(x, lens, seed, 2, 0.3, None, False, plain)
+        (out * w).sum().backward()
+        grads.append(x.grad)
+    assert _rel(grads[0], grads[1]) <= 1e-5
+
+
+def test_attention_kernels_refuse_unsupported_shapes(cuda):
+    qkv = torch.zeros((1, 8, 3 * 96), device=cuda)  # dh = 96
+    lens = torch.tensor([8], dtype=torch.int32, device=cuda)
+    seed = torch.zeros(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="head widths"):
+        mhsa_qkv(qkv, lens, seed, num_heads=1)
+    with pytest.raises(ValueError, match="lens"):
+        mhsa_qkv(torch.zeros((1, 8, 384), device=cuda), lens.cpu(), seed, num_heads=1)

@@ -64,7 +64,7 @@ def _compare(args, n_days, b, t, lens=None):
     x, day, lens = _inputs(b, t, args["nInputFeatures"], n_days, lens=lens)
     ref_lp, ref_len, _ = model.forward(params, x, day, lens, train=False, key=None)
     with torch.no_grad():  # the module's parameters are trainable
-        lp, out_len = forward(module, *(torch.from_numpy(a) for a in (x, day, lens)))
+        lp, out_len, _ = forward(module, *(torch.from_numpy(a) for a in (x, day, lens)))
     assert lp.shape == ref_lp.shape and lp.dtype == torch.float32
     np.testing.assert_allclose(lp.numpy(), np.asarray(ref_lp), atol=LOGP_TOL)
     np.testing.assert_array_equal(out_len.numpy(), np.asarray(ref_len))
@@ -91,27 +91,29 @@ def test_slice_matches_jax_full_width():
     _compare(args, n_days=24, b=2, t=160, lens=[160, 131])
 
 
-def test_slice_bf16_matches_jax_pallas_path():
+def test_slice_bf16_matches_jax_pallas_path(monkeypatch):
     """The recipe's bfloat16 compute against the JAX package's Pallas path
     (``use_pallas=True``, its kernels in interpret mode), which keeps a
-    float32 scan carry as the port does. The two round the same float32
-    function to bf16 in different places, so their log-probs may differ by
-    the sum of their distances from it: the bound is twice the JAX bf16
-    path's distance from its float32 path on the same inputs."""
+    float32 scan carry as the port does. Both round to bf16 at the same
+    places (layers 1+ take their projection rounded once), so their
+    log-probs differ by float32 summation order only: within 1e-5, where
+    the JAX bf16 path is ~2e-3 from its float32 path."""
+    # one device, so that the JAX kernel call sites take the Pallas kernels
+    monkeypatch.setattr(jax, "device_count", lambda *a, **k: 1)
     x, day, lens = _inputs(3, 100, 128, 3, lens=[100, 77, 20])
     out = {}
     for dt in ("float32", "bfloat16"):
         model, params, module = _both(_args(compute_dtype=dt, use_pallas=True), 3)
         ref_lp, ref_len, _ = model.forward(params, x, day, lens, train=False, key=None)
         with torch.no_grad():  # the module's parameters are trainable
-            lp, out_len = forward(module, *(torch.from_numpy(a) for a in (x, day, lens)))
+            lp, out_len, _ = forward(module, *(torch.from_numpy(a) for a in (x, day, lens)))
         np.testing.assert_array_equal(out_len.numpy(), np.asarray(ref_len))
         out[dt] = np.asarray(ref_lp, np.float32), lp.numpy()
     (ref32, ours32), (ref16, ours16) = out["float32"], out["bfloat16"]
     np.testing.assert_allclose(ours32, ref32, atol=LOGP_TOL)
     dist = np.abs(ref16 - ref32).max()
-    assert dist > 0 and np.abs(ours16 - ours32).max() > 0  # both really round
-    np.testing.assert_allclose(ours16, ref16, atol=2 * dist)
+    assert dist > 1e-4 and np.abs(ours16 - ours32).max() > 1e-4  # both really round
+    np.testing.assert_allclose(ours16, ref16, atol=LOGP_TOL / 10)
 
 
 def test_inference_model_serves_padded_requests_like_jax():

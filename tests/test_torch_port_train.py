@@ -26,6 +26,7 @@ import torch
 from neural_speech_decoder_tpu.data import batching as jax_batching
 from neural_speech_decoder_tpu.data.dataset import pack_days as jax_pack_days
 from neural_speech_decoder_tpu.data.synthetic import synthetic_dataset as jax_synthetic
+from neural_speech_decoder_tpu.models.gru import gru_forward as jax_gru_forward
 from neural_speech_decoder_tpu.training.optim import make_optimizer as jax_make_optimizer
 from neural_speech_decoder_tpu.training.trainer import (
     _loss_and_metrics as jax_loss_and_metrics,
@@ -161,6 +162,29 @@ def test_gru_head_keeps_float32_accumulation():
     ref = enc.double() @ w.to(torch.bfloat16).double() + b.double()
     err = (logits.double() - ref).abs().max().item()
     assert err <= 1e-5 * ref.abs().max().item(), err
+
+
+def test_gru_bf16_projection_rounds_once(monkeypatch):
+    """Layers 1+ of the bf16 GRU take their input projection through the
+    single-rounding ``linear`` (float32 product and bias, one bf16
+    rounding), as the JAX package: at C=128/H=64 the port's eval logits
+    agree with the JAX Pallas path's (kernels in interpret mode) within
+    1e-6, where a bf16 product rounded again after the float32 bias put
+    them 9.156e-4 apart (logits up to ~0.4)."""
+    monkeypatch.setattr(jax, "device_count", lambda *a, **k: 1)
+    args = _args(nInputFeatures=128, nUnits=64, kernelLen=32,
+                 compute_dtype="bfloat16", use_pallas=True)
+    model = jax_build_model(args, 3)
+    params = model.init(jax.random.key(0))
+    x, _, _, _, day = _batch(b=3, t=100, c=128)
+    ref = jax_gru_forward(params, model.config, jnp.asarray(x), jnp.asarray(day))
+    module = GRUDecoder(config_from_args(args, 3),
+                        gru_params_from_jax(jax.tree.map(np.asarray, params)))
+    with torch.no_grad():
+        ours = module(torch.from_numpy(x), torch.from_numpy(day))
+    assert ours.dtype == torch.float32
+    err = np.abs(ours.numpy() - np.asarray(ref, np.float32)).max()
+    assert err <= 1e-6, err
 
 
 # ------------------------------------------------------------ data copies
