@@ -49,6 +49,20 @@ random weights:
 9. ``train_model`` of the Conformer at full width (10 steps, evals and
    checkpoints every 5), ``load_model``, an eval pass that re-scores the
    best PER exactly (8 attention launches per eval batch), a greedy decode.
+10. Fused FF and conv-module kernels (``fused_ffn``, ``fused_conv``): the
+    forward and backward of each and the FF's dropout masks against their
+    plain versions at B=64, T'=313, D=1024, F=2048, k=31 in float32 and
+    bfloat16, at rates 0 and 0.3 (masks bit-equal), and a causal conv;
+    times of kernel, plain version and the unfused module (forward and
+    backward) as the yardstick, and the bounds.
+11. The bf16 Conformer train step with both fused flags: 2 warm-up and 10
+    timed steps, median and seq/s, 16 FF and 8 conv forward and backward
+    launches per step; one float32 step (randomness on) checked leaf by
+    leaf against the plain path; two bf16 runs of 2 steps from one seed
+    bit-equal; one eval forward launching 16 FF and 8 conv forwards and no
+    backward.
+The default GRU and Conformer phases check that the fused kernels launch
+no time there.
 
 Run from the repository root:  python3 chip_smoke.py
 It imports no jax. It exits non-zero without a result when there is no
@@ -76,6 +90,7 @@ from neural_speech_decoder_tpu_torch.data.dataset import pack_days
 from neural_speech_decoder_tpu_torch.data.synthetic import synthetic_dataset
 from neural_speech_decoder_tpu_torch.models.api import build_model
 from neural_speech_decoder_tpu_torch.models.api import forward as model_forward
+from neural_speech_decoder_tpu_torch.models import conformer as port_conformer
 from neural_speech_decoder_tpu_torch.models.common import orthogonal, uniform_bound
 from neural_speech_decoder_tpu_torch.models.gru import GRUConfig, init_gru_params
 from neural_speech_decoder_tpu_torch.ops.decode import greedy_decode
@@ -88,12 +103,26 @@ from neural_speech_decoder_tpu_torch.ops.kernels.attention import (
     mhsa_qkv_bwd_plain,
     mhsa_qkv_plain,
 )
+from neural_speech_decoder_tpu_torch.ops.kernels.conv_module import (
+    conv_module,
+    conv_module_bwd,
+    conv_module_bwd_plain,
+    conv_module_plain,
+)
 from neural_speech_decoder_tpu_torch.ops.kernels.ctc import (
     ctc_alpha,
     ctc_alpha_plain,
     ctc_beta,
     ctc_beta_plain,
     prepare,
+)
+from neural_speech_decoder_tpu_torch.ops.kernels.ffn import (
+    ffn,
+    ffn_bwd,
+    ffn_bwd_plain,
+    ffn_dropout_masks,
+    ffn_dropout_masks_plain,
+    ffn_plain,
 )
 from neural_speech_decoder_tpu_torch.ops.kernels.frontend import (
     fused_frontend,
@@ -200,6 +229,16 @@ SOURCES = {
                      "neural_speech_decoder_tpu/ops/pallas/attention_kernel.py:195"),
     "dropout_masks": ("neural_speech_decoder_tpu_torch/csrc/attention.cu",
                       "neural_speech_decoder_tpu/ops/pallas/attention_kernel.py:270"),
+    "ffn": ("neural_speech_decoder_tpu_torch/csrc/ffn.cu",
+            "neural_speech_decoder_tpu/ops/pallas/ffn_kernel.py:103"),
+    "ffn_bwd": ("neural_speech_decoder_tpu_torch/csrc/ffn.cu",
+                "neural_speech_decoder_tpu/ops/pallas/ffn_kernel.py:136"),
+    "ffn_dropout_masks": ("neural_speech_decoder_tpu_torch/csrc/ffn.cu",
+                          "neural_speech_decoder_tpu/ops/pallas/ffn_kernel.py:341"),
+    "conv_module": ("neural_speech_decoder_tpu_torch/csrc/conv_module.cu",
+                    "neural_speech_decoder_tpu/ops/pallas/conv_module_kernel.py:104"),
+    "conv_module_bwd": ("neural_speech_decoder_tpu_torch/csrc/conv_module.cu",
+                        "neural_speech_decoder_tpu/ops/pallas/conv_module_kernel.py:135"),
 }
 KERNELS = tuple(SOURCES)
 # Published H100 SXM peaks (NVIDIA data sheet; dense, at 700 W): HBM bytes/s,
@@ -338,11 +377,20 @@ WRAPPERS = {
     "mhsa_qkv": mhsa_qkv,
     "mhsa_qkv_bwd": mhsa_qkv_bwd,
     "dropout_masks": dropout_masks,
+    "ffn": ffn,
+    "ffn_bwd": ffn_bwd,
+    "ffn_dropout_masks": ffn_dropout_masks,
+    "conv_module": conv_module,
+    "conv_module_bwd": conv_module_bwd,
 }
 
 
-NO_ATTENTION = {"mhsa_qkv": 0, "mhsa_qkv_bwd": 0, "dropout_masks": 0}
+NO_FUSED = {"ffn": 0, "ffn_bwd": 0, "ffn_dropout_masks": 0, "conv_module": 0,
+            "conv_module_bwd": 0}
+NO_ATTENTION = {"mhsa_qkv": 0, "mhsa_qkv_bwd": 0, "dropout_masks": 0, **NO_FUSED}
 NO_GRU = {"frontend": 0, "gru_scan": 0, "gru_scan_gates": 0, "gru_scan_bwd": 0}
+# the test hooks: the kernels of the main paths draw the same bits themselves
+HOOKS = ("dropout_masks", "ffn_dropout_masks")
 
 
 def reset_launches() -> None:
@@ -350,7 +398,7 @@ def reset_launches() -> None:
         fn.launches = 0
 
 
-def read_launches(names=("frontend", "gru_scan")) -> dict:
+def read_launches(names=KERNELS) -> dict:
     return {k: WRAPPERS[k].launches for k in names}
 
 
@@ -385,10 +433,11 @@ def serving_phase(card: str) -> dict:
         torch.cuda.synchronize()
         latencies.append(time.perf_counter() - t0)
         lo += n
-    launches = read_launches()
-    check(launches == {"frontend": 3, "gru_scan": 15},
+    launches = read_launches(KERNELS)
+    want = {k: 0 for k in KERNELS} | {"frontend": 3, "gru_scan": 15}
+    check(launches == want,
           f"launches over 3 requests {launches} == 1 frontend and "
-          f"{cfg.num_layers} scans per request")
+          f"{cfg.num_layers} scans per request, no other kernel")
     for n, (_, _, log_probs, out_lens, decoded) in zip(sizes, results):
         check_request("float32", n, log_probs, out_lens, decoded)
 
@@ -421,10 +470,11 @@ def serving_phase(card: str) -> dict:
     x, dd, log_probs, out_lens, decoded = request(model16, lo, n)
     torch.cuda.synchronize()
     latency = time.perf_counter() - t0
-    launches16 = read_launches()
-    check(launches16 == {"frontend": 1, "gru_scan": cfg.num_layers},
+    launches16 = read_launches(KERNELS)
+    check(launches16 == {k: 0 for k in KERNELS} | {"frontend": 1,
+                                                    "gru_scan": cfg.num_layers},
           f"bfloat16 request launches {launches16} == 1 frontend and "
-          f"{cfg.num_layers} scans")
+          f"{cfg.num_layers} scans, no other kernel")
     check_request("bfloat16", n, log_probs, out_lens, decoded)
     with torch.inference_mode():
         logits = model16.module(x, dd)
@@ -903,12 +953,12 @@ def conformer_train_step_phase(card: str) -> dict:
     batch = batch_tensors(bench_batch(B, T, U), device)
     n = 10
     model, losses, times, launches = conformer_step(dict(CONFORMER_ARGS), 0, batch, 2, n)
-    want = {**NO_GRU, "ctc_alpha": 2 * n, "ctc_beta": 2 * n,
+    want = {**NO_GRU, **NO_FUSED, "ctc_alpha": 2 * n, "ctc_beta": 2 * n,
             "mhsa_qkv": CONFORMER_LAYERS * n, "mhsa_qkv_bwd": CONFORMER_LAYERS * n,
             "dropout_masks": 0}
     check(launches == want, f"launches over {n} bf16 Conformer train steps "
           f"{launches} == per step 8 attention forward, 8 backward, 2 alpha, "
-          f"2 beta (main and InterCTC heads)")
+          f"2 beta (main and InterCTC heads), no fused FF or conv kernel")
     check(all(math.isfinite(v) for v in losses),
           f"bf16 Conformer train losses finite: {', '.join(f'{v:.4f}' for v in losses)}")
     n_params = sum(p.numel() for p in model.parameters())
@@ -996,7 +1046,7 @@ def conformer_train_model_phase(card: str) -> None:
                             torch.device("cuda"), torch_mean_semantics=False)
     launches = read_launches(KERNELS)
     n_batches = -(-test_ds.n_trials // B)
-    want = {**NO_GRU, "ctc_alpha": n_batches, "ctc_beta": 0,
+    want = {**NO_GRU, **NO_FUSED, "ctc_alpha": n_batches, "ctc_beta": 0,
             "mhsa_qkv": CONFORMER_LAYERS * n_batches, "mhsa_qkv_bwd": 0,
             "dropout_masks": 0}
     check(launches == want, f"eval of the reloaded Conformer over {n_batches} "
@@ -1017,6 +1067,254 @@ def conformer_train_model_phase(card: str) -> None:
           f"{int(lens[0])} labels decoded, {int(test_ds.label_lens[0])} in the "
           f"reference")
     shutil.rmtree(out_dir, ignore_errors=True)
+
+# ------------------------------------------ the fused FF and conv module
+
+# The fused modules at the Conformer's train step: B=64, T'=313, D=1024,
+# F=2048, conv k=31.
+F_FF, KW = 2048, 31
+# Kernel vs plain, max abs error relative to each output's largest entry,
+# for the output and every gradient. Float32: the same float32 sums in
+# another order (D-, F- and B*T'-long). Bfloat16: s, h, the GLU, the conv
+# output, the norms and dW are rounded to bf16, and a rounding that falls
+# the other way moves an entry by a bf16 step (2**-8 relative); up to four
+# such steps of the largest entry are allowed, as for the attention.
+FUSED_TOL = {"float32": 1e-5, "bfloat16": 2.0**-6}
+FF_NAMES = ("dx", "dscale", "dbias", "dw1", "db1", "dw2", "db2")
+CONV_NAMES = ("dx", "dln_s", "dln_b", "dw1", "db1", "ddw_w", "ddw_b", "dln2_s",
+              "dln2_b", "dw2", "db2")
+
+
+def fused_inputs(g, dtype):
+    """x, the cotangent, the FF's and the conv module's parameters (vectors
+    and taps float32, weights in dtype), as the model passes them."""
+    r = lambda *s, sc=1.0: sc * torch.randn(s, generator=g, device="cuda")
+    d, f = A_HEADS * A_DH, F_FF
+    x, gout = r(B, L, d).to(dtype), r(B, L, d).to(dtype)
+    ff = (1.0 + r(d, sc=0.1), r(d, sc=0.1), r(d, f, sc=d**-0.5).to(dtype),
+          r(f, sc=0.1), r(f, d, sc=f**-0.5).to(dtype), r(d, sc=0.1))
+    conv = (1.0 + r(d, sc=0.1), r(d, sc=0.1), r(d, 2 * d, sc=d**-0.5).to(dtype),
+            r(2 * d, sc=0.1), r(KW, d, sc=KW**-0.5), r(d, sc=0.1), 1.0 + r(d, sc=0.1),
+            r(d, sc=0.1), r(d, d, sc=d**-0.5).to(dtype), r(d, sc=0.1))
+    return x, gout, ff, conv
+
+
+def fused_check(tag, name, fwd, fwd_plain, bwd, bwd_plain, names) -> tuple[float, float]:
+    """One module's forward and backward, kernel vs plain: (output abs
+    error, largest gradient abs error)."""
+    with torch.inference_mode():
+        out, ref = fwd(), fwd_plain()
+        grads, refs = bwd(), bwd_plain()
+    torch.cuda.synchronize()
+    tol = FUSED_TOL[name]
+    errs = {"out": rel_err(out, ref)} | {k: rel_err(a, b)
+                                         for k, a, b in zip(names, grads, refs)}
+    dtypes = all(a.dtype == b.dtype for a, b in zip(grads, refs)) and out.dtype == ref.dtype
+    check(max(errs.values()) <= tol and dtypes,
+          f"{tag} {name}: max abs err / max |ref| " + ", ".join(
+              f"{k} {v:.3e}" for k, v in errs.items()) + f" <= {tol:.3g}; dtypes equal "
+          f"{dtypes}")
+    return ((out.float() - ref.float()).abs().max().item(),
+            max((a.float() - b.float()).abs().max().item() for a, b in zip(grads, refs)))
+
+
+def unfused_module(kind, x, gout, params, rate, causal=False):
+    """The model's unfused module (``_ff_module`` or ``_conv_module`` with
+    both flags off) on the same inputs, forward then backward: the
+    yardstick the fused kernels replace (no single PyTorch call computes
+    either)."""
+    d = x.shape[-1]
+    cfg = port_conformer.ConformerConfig(latent_dim=d, ff_dim=F_FF, conv_kernel=KW,
+                                         compute_dtype=x.dtype)
+    leaves = [v.detach().clone().requires_grad_() for v in params]
+    xg = x.detach().clone().requires_grad_()
+    rng = port_conformer._Draws(torch.Generator(device="cuda").manual_seed(0), True)
+    if kind == "ffn":
+        sc, bi, w1, b1, w2, b2 = leaves
+        tree = {"ln": {"scale": sc, "bias": bi}, "lin1": {"w": w1, "b": b1},
+                "lin2": {"w": w2, "b": b2}}
+        out = port_conformer._ff_module(tree, xg, rng, rate, cfg, False)
+    else:
+        s1, c1, w1, b1, dww, dwb, s2, c2, w2, b2 = leaves
+        tree = {"ln": {"scale": s1, "bias": c1}, "pw1": {"w": w1, "b": b1},
+                "dw_w": dww, "dw_b": dwb, "ln_conv": {"scale": s2, "bias": c2},
+                "pw2": {"w": w2, "b": b2}}
+        out = port_conformer._conv_module(tree, xg, rng, rate, causal, cfg, False) - xg
+    return torch.autograd.grad(out, [xg, *leaves], gout)
+
+
+def fused_kernel_phase() -> dict:
+    g = torch.Generator(device="cuda").manual_seed(4)
+    rows = {k: {} for k in NO_FUSED}
+    seed = torch.randint(0, 2**31 - 1, (1,), generator=g, device="cuda", dtype=torch.int32)
+    d, f = A_HEADS * A_DH, F_FF
+    for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        x, gout, ff, conv = fused_inputs(g, dt)
+        for rate in (0.0, 0.3):
+            kw = dict(rate=rate)
+            e_ff = fused_check(
+                f"ffn B={B} T'={L} D={d} F={f} rate {rate}", name,
+                lambda: ffn(x, *ff, seed, **kw), lambda: ffn_plain(x, *ff, seed, **kw),
+                lambda: ffn_bwd(x, *ff[:5], seed, gout, **kw),
+                lambda: ffn_bwd_plain(x, *ff[:5], seed, gout, **kw), FF_NAMES)
+            e_conv = []
+            for causal in ((False, True) if rate > 0 else (False,)):
+                ck = dict(rate=rate, causal=causal)
+                e_conv.append(fused_check(
+                    f"conv_module B={B} T'={L} D={d} k={KW} rate {rate}"
+                    + (" causal" if causal else ""), name,
+                    lambda: conv_module(x, *conv, seed, **ck),
+                    lambda: conv_module_plain(x, *conv, seed, **ck),
+                    lambda: conv_module_bwd(x, *conv[:9], seed, gout, **ck),
+                    lambda: conv_module_bwd_plain(x, *conv[:9], seed, gout, **ck),
+                    CONV_NAMES))
+            if name == "float32" and rate > 0:
+                rows["ffn"]["max_abs_err"], rows["ffn_bwd"]["max_abs_err"] = e_ff
+                rows["conv_module"]["max_abs_err"] = max(e[0] for e in e_conv)
+                rows["conv_module_bwd"]["max_abs_err"] = max(e[1] for e in e_conv)
+            if name == "float32":
+                m1, m2 = ffn_dropout_masks(B, L, d, f, seed, rate)
+                r1, r2 = ffn_dropout_masks_plain(B, L, d, f, seed, rate)
+                same = torch.equal(m1, r1) and torch.equal(m2, r2)
+                check(same, f"ffn_dropout_masks {B}x{L}x({f}, {d}) rate {rate}: "
+                      f"bit-equal to the plain version {same}")
+                rows["ffn_dropout_masks"]["max_abs_err"] = 0.0 if same else 1.0
+
+        kw = dict(rate=0.3)
+        with torch.inference_mode():
+            t_ff = time_turns(lambda: ffn(x, *ff, seed, **kw),
+                              lambda: ffn_plain(x, *ff, seed, **kw), 5, 3)
+            t_ffb = time_turns(lambda: ffn_bwd(x, *ff[:5], seed, gout, **kw),
+                               lambda: ffn_bwd_plain(x, *ff[:5], seed, gout, **kw), 3, 3)
+            t_cv = time_turns(lambda: conv_module(x, *conv, seed, **kw),
+                              lambda: conv_module_plain(x, *conv, seed, **kw), 5, 3)
+            t_cvb = time_turns(lambda: conv_module_bwd(x, *conv[:9], seed, gout, **kw),
+                               lambda: conv_module_bwd_plain(x, *conv[:9], seed, gout,
+                                                             **kw), 3, 3)
+            t_m = time_turns(lambda: ffn_dropout_masks(B, L, d, f, seed, 0.3),
+                             lambda: ffn_dropout_masks_plain(B, L, d, f, seed, 0.3), 10, 3)
+        # the yardstick: the unfused modules, forward and backward (autograd)
+        ref_ff = time_ms(lambda: unfused_module("ffn", x, gout, ff, 0.3), 3)
+        ref_cv = time_ms(lambda: unfused_module("conv", x, gout, conv, 0.3), 3)
+        fused_ff = time_ms(lambda: (ffn(x, *ff, seed, **kw),
+                                    ffn_bwd(x, *ff[:5], seed, gout, **kw)), 3)
+        fused_cv = time_ms(lambda: (conv_module(x, *conv, seed, **kw),
+                                    conv_module_bwd(x, *conv[:9], seed, gout, **kw)), 3)
+        for key, (kt, pt, turns) in (("ffn", t_ff), ("ffn_bwd", t_ffb),
+                                     ("conv_module", t_cv), ("conv_module_bwd", t_cvb),
+                                     ("ffn_dropout_masks", t_m)):
+            print(f"time  {key} {name} B={B} T'={L} rate 0.3: kernel {turns[0]:.4f}/"
+                  f"{turns[1]:.4f} ms, plain {turns[2]:.4f}/{turns[3]:.4f} ms", flush=True)
+            if name == "float32":
+                rows[key].update(ms=kt, plain_ms=pt, library_ms=None)
+        print(f"time  {name} forward+backward, fused kernels vs the unfused module "
+              f"(autograd): FF {fused_ff:.4f} vs {ref_ff:.4f} ms, conv {fused_cv:.4f} vs "
+              f"{ref_cv:.4f} ms", flush=True)
+        # x read and out written once, the weights and vectors read once (the
+        # backward also reads g and writes dx, dW and the vectors); the
+        # products (2 forward, 5 backward) and the conv's k taps per element
+        m = B * L
+        vec_ff = 4 * (3 * d + f)
+        vec_cv = 4 * (8 * d + KW * d)
+        bounds = {
+            "ffn": bound_ms(nbytes(x, x, *ff), 2 * 2.0 * m * d * f, name),
+            "ffn_bwd": bound_ms(nbytes(x, gout, x, *ff[:5], ff[2], ff[4]) + vec_ff,
+                                5 * 2.0 * m * d * f, name),
+            "conv_module": bound_ms(nbytes(x, x, *conv),
+                                    2.0 * m * d * (2 * d + d) + 2.0 * m * d * KW, name),
+            "conv_module_bwd": bound_ms(nbytes(x, gout, x, *conv[:9], conv[2], conv[8])
+                                        + vec_cv, 2.0 * m * d * (3 * 2 * d + 2 * d)
+                                        + 3 * 2.0 * m * d * KW, name),
+            # one bool written per entry; the hash's integer work is not counted
+            "ffn_dropout_masks": bound_ms(m * (d + f) + 4, 0, name),
+        }
+        for key, (bt, by) in bounds.items():
+            print(f"bound {key} {name}: {bt:.4f} ms ({by})", flush=True)
+            if name == "float32":
+                rows[key]["bound_ms"], rows[key]["bound_by"] = bt, by
+        del x, gout, ff, conv
+    for row in rows.values():
+        row["dtype"] = "float32"
+    return rows
+
+
+FUSED_ARGS = {**CONFORMER_ARGS, "fused_ffn": True, "fused_conv": True}
+
+
+def fused_conformer_phase(card: str) -> dict:
+    """The bf16 Conformer train step with the fused FF and conv modules;
+    one float32 step against the plain path; two seeded runs bit-equal; one
+    eval forward."""
+    device = torch.device("cuda")
+    batch = batch_tensors(bench_batch(B, T, U), device)
+    n = 10
+    model, losses, times, launches = conformer_step(dict(FUSED_ARGS), 0, batch, 2, n)
+    per_step = {"ffn": 2 * CONFORMER_LAYERS, "ffn_bwd": 2 * CONFORMER_LAYERS,
+                "conv_module": CONFORMER_LAYERS, "conv_module_bwd": CONFORMER_LAYERS,
+                "ffn_dropout_masks": 0, "mhsa_qkv": CONFORMER_LAYERS,
+                "mhsa_qkv_bwd": CONFORMER_LAYERS, "dropout_masks": 0, "ctc_alpha": 2,
+                "ctc_beta": 2, **NO_GRU}
+    want = {k: v * n for k, v in per_step.items()}
+    check(launches == want, f"launches over {n} fused bf16 Conformer train steps "
+          f"{launches} == per step 16 FF forward and backward, 8 conv forward and "
+          f"backward, 8/8 attention, 2/2 CTC")
+    check(all(math.isfinite(v) for v in losses),
+          f"fused bf16 Conformer train losses finite: "
+          f"{', '.join(f'{v:.4f}' for v in losses)}")
+    med = statistics.median(times)
+    print(f"conformer train step fused FF + conv bf16 B={B} T={T} U={U} (the recipe of "
+          f"phase 8): steps {', '.join(f'{t * 1e3:.2f}' for t in times)} ms, median "
+          f"{med * 1e3:.2f} ms, {B / med:.2f} seq/s ({card})", flush=True)
+
+    # one eval forward of the fused model: forwards only
+    reset_launches()
+    with torch.inference_mode():
+        log_probs, _, _ = model_forward(model, batch[0], batch[4], batch[2])
+    torch.cuda.synchronize()
+    ev = read_launches()
+    want_ev = {k: 0 for k in KERNELS} | {"ffn": 2 * CONFORMER_LAYERS,
+                                         "conv_module": CONFORMER_LAYERS,
+                                         "mhsa_qkv": CONFORMER_LAYERS}
+    check(ev == want_ev and bool(torch.isfinite(log_probs).all()),
+          f"eval forward of the fused model launched {ev}: 16 FF and 8 conv forwards, "
+          f"8 attention forwards, no backward; log-probs finite")
+    del model
+
+    args32 = {**FUSED_ARGS, "compute_dtype": "float32"}
+    model = build_model(args32, N_DAYS, device, seed=1)
+    out = {}
+    for plain in (False, True):
+        model.zero_grad(set_to_none=True)
+        reset_launches()
+        loss, _ = _loss_and_metrics(args32, model, batch, step_generator(device, 0, 0),
+                                    plain=plain)
+        loss.backward()
+        torch.cuda.synchronize()
+        out[plain] = (loss.item(), [p.grad.clone() for p in model.parameters()],
+                      read_launches())
+    (loss_k, grads_k, launch_k), (loss_p, grads_p, launch_p) = out[False], out[True]
+    check(launch_k == per_step and not any(launch_p.values()),
+          f"float32 fused Conformer step launches: kernel path {launch_k}, plain path "
+          f"{launch_p}")
+    errs = [rel_err(a, b) for a, b in zip(grads_k, grads_p)]
+    check(abs(loss_k - loss_p) <= CONFORMER_GRAD_TOL * abs(loss_p)
+          and max(errs) <= CONFORMER_GRAD_TOL,
+          f"float32 fused Conformer train step (dropout, DropPath, SpecAugment, noise "
+          f"on), kernels vs plain: loss {loss_k:.6f} vs {loss_p:.6f}; {len(errs)} "
+          f"gradient leaves, max abs err / max |ref| {max(errs):.3e} <= "
+          f"{CONFORMER_GRAD_TOL:g}")
+    del model, out, grads_k, grads_p
+
+    runs = []
+    for _ in range(2):
+        model, losses, _, _ = conformer_step(dict(FUSED_ARGS), 0, batch, 0, 2)
+        runs.append((losses, [p.detach().clone() for p in model.parameters()]))
+        del model
+    (l1, p1), (l2, p2) = runs
+    same = l1 == l2 and all(torch.equal(a, b) for a, b in zip(p1, p2))
+    check(same, f"two fused bf16 Conformer runs of 2 steps from one seed bit-equal: "
+          f"losses {l1} / {l2}")
+    return {k: launches[k] for k in NO_FUSED}
 
 
 def main() -> int:
@@ -1066,9 +1364,15 @@ def main() -> int:
     t0 = time.perf_counter()
     conformer_train_model_phase(card)
     print(f"phase conformer train_model: {time.perf_counter() - t0:.1f} s", flush=True)
-    # every kernel of the main paths ran there (dropout_masks is the masks'
-    # test hook: the attention kernels draw their masks themselves)
-    idle = [k for k in KERNELS if k != "dropout_masks" and not launches[k]]
+    t0 = time.perf_counter()
+    rows.update(fused_kernel_phase())
+    print(f"phase fused FF and conv kernels: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    launches.update(fused_conformer_phase(card))
+    print(f"phase fused conformer: {time.perf_counter() - t0:.1f} s", flush=True)
+    # every kernel of the main paths ran there (the mask hooks excepted: the
+    # attention and FF kernels draw their masks themselves)
+    idle = [k for k in KERNELS if k not in HOOKS and not launches[k]]
     check(not idle, f"every kernel of the main paths launched there; idle: {idle}")
     out = []
     for name in KERNELS:

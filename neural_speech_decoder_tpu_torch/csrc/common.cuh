@@ -1,10 +1,17 @@
 // Shared helpers for the port's hand-written kernels: element-type
 // conversions between the storage type (float or bfloat16) and the float32
-// the kernels compute in.
+// the kernels compute in, and NSD_TRY for host code that launches several.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+// Return the CUDA error of expr, if any, from the calling function.
+#define NSD_TRY(expr)                 \
+  do {                                \
+    const cudaError_t e_ = (expr);    \
+    if (e_ != cudaSuccess) return e_; \
+  } while (0)
 
 namespace nsd {
 

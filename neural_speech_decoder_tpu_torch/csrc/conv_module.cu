@@ -1,0 +1,403 @@
+// The Conformer's convolution module (without its residual) and its
+// backward.
+//
+//   x [B, T, D] (float32 or bfloat16, the compute type cdt), ln_s, ln_b [D]
+//   f32, W1 [D, 2D] cdt, b1 [2D] f32, taps [k, D] f32, dw_b [D] f32, ln2_s,
+//   ln2_b [D] f32, W2 [D, D] cdt, b2 [D] f32, seed [1] int32; per row b:
+//     xn  = cdt(LN(x))                 (float32 statistics)
+//     hq  = cdt(xn . W1 + b1)          (float32 accumulation)
+//     glu = a * sigmoid(g) in float32, (a, g) the halves of hq; gluq = cdt(glu)
+//     c   = sum_k gluq[t + k - pad_l] * taps[k] + dw_b   (float32 taps, zero
+//           outside [0, T); pad_l = k//2, or k-1 when causal)
+//     cq  = cdt(c); cn = cdt(LN2(cq)); s = cdt(cn * sigmoid(cn))
+//     o   = s . W2 + b2; dropout: o = keep ? o * 1/(1-rate) : 0; out = cdt(o)
+//   keep at (b, t, d) is uniform2d(seed, b, t, d) >= rate (hashrng.cuh).
+//   The backward takes g [B, T, D], recomputes the forward and gives dx (x's
+//   type), dW1 and dW2 in cdt, and ln_s, ln_b, b1, taps, dw_b, ln2_s,
+//   ln2_b, b2 gradients in float32; the taps' gradient multiplies the
+//   unrounded float32 glu (the TPU kernel's `glup`), not the gluq that the
+//   forward convolved.
+//
+// Replaces the Pallas TPU kernels of
+// neural_speech_decoder_tpu/ops/pallas/conv_module_kernel.py: _fwd_kernel
+// (via fused_conv_module -> _conv_mod_fwd) and _bwd_kernel (via
+// _conv_mod_bwd).
+//
+// What bounds it on an H100: the operations. At B=64, T'=313, D=1024, k=31
+// the forward's products are 84 + 42 GFLOP and the depthwise conv 1.3; the
+// backward's five products 336 GFLOP. The design is the FF module's
+// (csrc/ffn.cu): the module is cut at its products, each with its prologue
+// (the first norm; the second norm and SiLU) applied as the A tile is loaded
+// and its epilogue (bias, rounding, dropout) applied as it is stored; the
+// GLU and the depthwise conv are one kernel over a (time, channel) window in
+// shared memory, and their backward (dglu by the flipped taps, the GLU's
+// backward, the taps' gradient) another. Every sum has a fixed order.
+#include <stdint.h>
+
+#include "common.cuh"
+#include "gemm_tile.cuh"
+#include "hashrng.cuh"
+#include "rowops.cuh"
+
+namespace {
+
+using nsd::Carve;
+using nsd::LnLoad;
+using nsd::Mat;
+using nsd::Tr;
+
+constexpr int kMaxTaps = 64;
+constexpr int kTimeTile = 64;
+constexpr int kChanTile = 32;
+
+struct Shape {
+  int b, t, d, kw, pad_l;
+  float rate, inv;
+  __host__ __device__ int m() const { return b * t; }
+};
+
+// s = cdt(SiLU(cn)), cn = cdt(LN2(cq)): element (m, k) of the second
+// product's A operand.
+template <typename T>
+struct LnSiluLoad {
+  LnLoad<T> ln;
+  static constexpr bool kColContig = true;
+  __device__ __forceinline__ float operator()(int m, int k) const {
+    const float cn = ln(m, k);
+    return nsd::round_to<T>(cn * nsd::sigmoid(cn));
+  }
+  __device__ __forceinline__ void load8(int m, int k, float* v) const {
+    ln.load8(m, k, v);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = nsd::round_to<T>(v[e] * nsd::sigmoid(v[e]));
+  }
+};
+
+// hq = cdt(acc + b1).
+template <typename T>
+struct BiasRoundEpi {
+  const float* bias;
+  T* out;
+  int ld;
+  __device__ __forceinline__ void operator()(int m, int n, float acc, int) const {
+    out[(size_t)m * ld + n] = nsd::from_f32<T>(acc + bias[n]);
+  }
+};
+
+// o = acc + b2 through the output dropout, out = cdt(o).
+template <typename T>
+struct OutEpi {
+  const float* b2;
+  const int32_t* seed;
+  T* out;
+  int n_time, ld;
+  float rate, inv;
+  __device__ __forceinline__ void operator()(int m, int n, float acc, int) const {
+    float o = acc + b2[n];
+    if (rate > 0.f) {
+      const int bb = m / n_time;
+      o = nsd::hash_uniform(*seed, bb, m - bb * n_time, n) >= rate ? o * inv : 0.f;
+    }
+    out[(size_t)m * ld + n] = nsd::from_f32<T>(o);
+  }
+};
+
+// dcn = acc * SiLU'(cn), cn recomputed from cq: stored in float32.
+template <typename T>
+struct DcnEpi {
+  LnLoad<T> ln2;
+  float* dcn;
+  __device__ __forceinline__ void operator()(int m, int n, float acc, int) const {
+    const float cn = ln2(m, n);
+    const float sig = nsd::sigmoid(cn);
+    dcn[(size_t)m * ln2.ld + n] = acc * sig * (1.f + cn * (1.f - sig));
+  }
+};
+
+// glu at (row m, channel ch) from hq [M, 2D], float32.
+template <typename T>
+__device__ __forceinline__ float glu_at(const T* hq, int m, int ch, int d) {
+  const float a = nsd::to_f32(hq[(size_t)m * 2 * d + ch]);
+  const float g = nsd::to_f32(hq[(size_t)m * 2 * d + d + ch]);
+  return a * nsd::sigmoid(g);
+}
+
+// cq = cdt(sum_k gluq[t + k - pad_l] * taps[k] + dw_b) for a tile of 64
+// frames by 32 channels of one batch row; the window of gluq (64 + k - 1
+// frames) sits in shared memory.
+template <typename T>
+__global__ void __launch_bounds__(256)
+    glu_dwconv_kernel(const T* __restrict__ hq, const float* __restrict__ taps,
+                      const float* __restrict__ dw_b, T* __restrict__ cq, Shape p) {
+  extern __shared__ float win[];  // [64 + k - 1][32]
+  const int c0 = blockIdx.x * kChanTile, t0 = blockIdx.y * kTimeTile, b = blockIdx.z;
+  const int lane = threadIdx.x % 32, g = threadIdx.x / 32;
+  const int rows = kTimeTile + p.kw - 1;
+  for (int i = threadIdx.x; i < rows * kChanTile; i += 256) {
+    const int r = i / kChanTile, c = i % kChanTile;
+    const int tt = t0 - p.pad_l + r, ch = c0 + c;
+    win[i] = (tt >= 0 && tt < p.t && ch < p.d)
+                 ? nsd::round_to<T>(glu_at(hq, b * p.t + tt, ch, p.d))
+                 : 0.f;
+  }
+  __syncthreads();
+  const int ch = c0 + lane;
+  if (ch >= p.d) return;
+  for (int r = g; r < kTimeTile && t0 + r < p.t; r += 8) {
+    float acc = win[r * kChanTile + lane] * taps[ch];
+    for (int k = 1; k < p.kw; ++k)
+      acc = acc + win[(r + k) * kChanTile + lane] * taps[(size_t)k * p.d + ch];
+    cq[((size_t)b * p.t + t0 + r) * p.d + ch] = nsd::from_f32<T>(acc + dw_b[ch]);
+  }
+}
+
+// The depthwise conv's and the GLU's backward for 32 channels of one batch
+// row, walking the frames in tiles of 64:
+//   dglu[t] = sum_k dc[t + pad_l - k] * taps[k]  (the flipped taps, k = 0 up)
+//   dh = (dglu * sig(g), dglu * a * sig(g) * (1 - sig(g)))  in float32
+//   part[b][k][ch] = sum_t dc[t] * glu[t + k - pad_l]  (unrounded glu)
+template <typename T>
+__global__ void __launch_bounds__(256)
+    dwconv_bwd_kernel(const T* __restrict__ hq, const float* __restrict__ dc,
+                      const float* __restrict__ taps, float* __restrict__ dh,
+                      float* __restrict__ part, Shape p) {
+  extern __shared__ float smem[];
+  const int rows = kTimeTile + p.kw - 1;
+  float* dcw = smem;                        // dc[t0 - pad_r + r]
+  float* gluw = smem + rows * kChanTile;    // glu[t0 - pad_l + r]
+  const int c0 = blockIdx.x * kChanTile, b = blockIdx.y;
+  const int lane = threadIdx.x % 32, g = threadIdx.x / 32;
+  const int pad_r = p.kw - 1 - p.pad_l;
+  const int n_pairs = p.kw * kChanTile;  // (tap, channel) pairs of the taps' gradient
+  float acc[kMaxTaps * kChanTile / 256];
+#pragma unroll
+  for (int i = 0; i < kMaxTaps * kChanTile / 256; ++i) acc[i] = 0.f;
+  for (int t0 = 0; t0 < p.t; t0 += kTimeTile) {
+    for (int i = threadIdx.x; i < rows * kChanTile; i += 256) {
+      const int r = i / kChanTile, c = i % kChanTile, ch = c0 + c;
+      const int td = t0 - pad_r + r, tg = t0 - p.pad_l + r;
+      dcw[i] = (td >= 0 && td < p.t && ch < p.d) ? dc[((size_t)b * p.t + td) * p.d + ch]
+                                                 : 0.f;
+      gluw[i] = (tg >= 0 && tg < p.t && ch < p.d) ? glu_at(hq, b * p.t + tg, ch, p.d)
+                                                  : 0.f;
+    }
+    __syncthreads();
+    const int ch = c0 + lane;
+    if (ch < p.d) {
+      for (int r = g; r < kTimeTile && t0 + r < p.t; r += 8) {
+        float dg = dcw[(r + p.kw - 1) * kChanTile + lane] * taps[ch];
+        for (int k = 1; k < p.kw; ++k)
+          dg = dg + dcw[(r + p.kw - 1 - k) * kChanTile + lane] * taps[(size_t)k * p.d + ch];
+        const size_t m = (size_t)b * p.t + t0 + r;
+        const float a = nsd::to_f32(hq[m * 2 * p.d + ch]);
+        const float sg = nsd::sigmoid(nsd::to_f32(hq[m * 2 * p.d + p.d + ch]));
+        dh[m * 2 * p.d + ch] = dg * sg;
+        dh[m * 2 * p.d + p.d + ch] = dg * a * sg * (1.f - sg);
+      }
+    }
+    // the taps' gradient: pair i = (tap i / 32, channel i % 32)
+    const int n_rows = min(kTimeTile, p.t - t0);
+#pragma unroll
+    for (int j = 0; j < kMaxTaps * kChanTile / 256; ++j) {
+      const int i = threadIdx.x + j * 256;
+      if (i >= n_pairs) break;
+      const int k = i / kChanTile, c = i % kChanTile;
+      float s = acc[j];
+      for (int r = 0; r < n_rows; ++r)
+        s += dcw[(r + pad_r) * kChanTile + c] * gluw[(r + k) * kChanTile + c];
+      acc[j] = s;
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int j = 0; j < kMaxTaps * kChanTile / 256; ++j) {
+    const int i = threadIdx.x + j * 256;
+    if (i >= n_pairs) break;
+    const int k = i / kChanTile, ch = c0 + i % kChanTile;
+    if (ch < p.d) part[((size_t)b * p.kw + k) * p.d + ch] = acc[j];
+  }
+}
+
+template <typename T>
+struct Work {
+  float2 *st1, *st2;
+  T *hq, *cq;
+  float *gm, *dcn, *dc, *dh, *split, *part, *taps_part;
+  size_t bytes;
+  Work(const Shape& p, bool bwd, char* base) {
+    Carve c;
+    c.base = base;
+    const size_t m = p.m(), d = p.d;
+    st1 = c.take<float2>(m);
+    st2 = c.take<float2>(m);
+    hq = c.take<T>(m * 2 * d);
+    cq = c.take<T>(m * d);
+    gm = dcn = dc = dh = split = part = taps_part = nullptr;
+    if (bwd) {
+      gm = c.take<float>(m * d);
+      dcn = c.take<float>(m * d);
+      dc = c.take<float>(m * d);
+      dh = c.take<float>(m * 2 * d);
+      const int s1 = nsd::gemm_splits(p.d, 2 * p.d, p.m());
+      const int s2 = nsd::gemm_splits(p.d, p.d, p.m());
+      const size_t n1 = (size_t)s1 * 2 * d * d, n2 = (size_t)s2 * d * d;
+      split = c.take<float>(n1 > n2 ? n1 : n2);
+      part = c.take<float>((size_t)nsd::kColChunks * 2 * d);
+      taps_part = c.take<float>((size_t)p.b * p.kw * d);
+    }
+    bytes = c.off;
+  }
+};
+
+size_t window_bytes(const Shape& p, int n) {
+  return sizeof(float) * n * (kTimeTile + p.kw - 1) * kChanTile;
+}
+
+// Forward up to cq and the second norm's statistics (shared by both
+// directions).
+template <typename T>
+cudaError_t conv_front(const T* x, const float* lns, const float* lnb, const T* w1,
+                       const float* b1, const float* taps, const float* dwb,
+                       const Work<T>& w, const Shape& p, cudaStream_t st) {
+  constexpr bool bf16 = sizeof(T) == 2;
+  const int M = p.m();
+  NSD_TRY(nsd::ln_stats(x, w.st1, M, p.d, st));
+  NSD_TRY(nsd::gemm(bf16, M, 2 * p.d, p.d, 1, LnLoad<T>{x, w.st1, lns, lnb, p.d},
+                    Mat<T, T>{w1, 2 * p.d}, BiasRoundEpi<T>{b1, w.hq, 2 * p.d}, st));
+  const dim3 grid((p.d + kChanTile - 1) / kChanTile, (p.t + kTimeTile - 1) / kTimeTile, p.b);
+  glu_dwconv_kernel<T><<<grid, 256, window_bytes(p, 1), st>>>(w.hq, taps, dwb, w.cq, p);
+  NSD_TRY(cudaGetLastError());
+  return nsd::ln_stats(w.cq, w.st2, M, p.d, st);
+}
+
+template <typename T>
+cudaError_t conv_fwd(const T* x, const float* lns, const float* lnb, const T* w1,
+                     const float* b1, const float* taps, const float* dwb,
+                     const float* ln2s, const float* ln2b, const T* w2, const float* b2,
+                     const int32_t* seed, T* out, char* ws, const Shape& p,
+                     cudaStream_t st) {
+  constexpr bool bf16 = sizeof(T) == 2;
+  Work<T> w(p, false, ws);
+  NSD_TRY(conv_front(x, lns, lnb, w1, b1, taps, dwb, w, p, st));
+  return nsd::gemm(bf16, p.m(), p.d, p.d, 1,
+                   LnSiluLoad<T>{{w.cq, w.st2, ln2s, ln2b, p.d}}, Mat<T, T>{w2, p.d},
+                   OutEpi<T>{b2, seed, out, p.t, p.d, p.rate, p.inv}, st);
+}
+
+template <typename T>
+cudaError_t conv_bwd(const T* x, const float* lns, const float* lnb, const T* w1,
+                     const float* b1, const float* taps, const float* dwb,
+                     const float* ln2s, const float* ln2b, const T* w2,
+                     const int32_t* seed, const T* g, T* dx, float* dlns, float* dlnb,
+                     T* dw1, float* db1, float* dtaps, float* ddwb, float* dln2s,
+                     float* dln2b, T* dw2, float* db2, char* ws, const Shape& p,
+                     cudaStream_t st) {
+  constexpr bool bf16 = sizeof(T) == 2;
+  Work<T> w(p, true, ws);
+  const int M = p.m(), D = p.d;
+  NSD_TRY(conv_front(x, lns, lnb, w1, b1, taps, dwb, w, p, st));
+  const LnLoad<T> ln2{w.cq, w.st2, ln2s, ln2b, D};
+  // through the output dropout; db2; dW2 = s^T . cdt(gm)
+  NSD_TRY(nsd::mask_grad(g, seed, w.gm, p.b, p.t, D, 0, p.rate, p.inv, st));
+  NSD_TRY(nsd::colsum(nsd::Elem{w.gm, D}, w.part, db2, M, D, st));
+  const Mat<float, T> gq{w.gm, D};
+  NSD_TRY(nsd::gemm_split_sum<T>(bf16, D, D, M, Tr<LnSiluLoad<T>>{{ln2}}, gq, w.split, dw2,
+                                 st));
+  // ds = cdt(gm) . W2^T -> dcn through SiLU'; the second norm's backward
+  NSD_TRY(nsd::gemm(bf16, M, D, D, 1, gq, Tr<Mat<T, T>>{{w2, D}}, DcnEpi<T>{ln2, w.dcn},
+                    st));
+  NSD_TRY(nsd::colsum(nsd::ElemTimesXhat<T>{w.dcn, w.cq, w.st2, D}, w.part, dln2s, M, D,
+                      st));
+  NSD_TRY(nsd::colsum(nsd::Elem{w.dcn, D}, w.part, dln2b, M, D, st));
+  NSD_TRY(nsd::ln_bwd(w.dcn, w.cq, w.st2, ln2s, w.dc, M, D, st));
+  NSD_TRY(nsd::colsum(nsd::Elem{w.dc, D}, w.part, ddwb, M, D, st));
+  // the depthwise conv's and the GLU's backward; the taps' gradient
+  dwconv_bwd_kernel<T><<<dim3((D + kChanTile - 1) / kChanTile, p.b), 256,
+                         window_bytes(p, 2), st>>>(w.hq, w.dc, taps, w.dh, w.taps_part, p);
+  NSD_TRY(cudaGetLastError());
+  NSD_TRY(nsd::sum_parts(w.taps_part, dtaps, p.b, p.kw * D, st));
+  // db1; dW1 = xn^T . cdt(dh); dxn = cdt(dh) . W1^T (into gm's room)
+  NSD_TRY(nsd::colsum(nsd::Elem{w.dh, 2 * D}, w.part, db1, M, 2 * D, st));
+  const LnLoad<T> xn{x, w.st1, lns, lnb, D};
+  const Mat<float, T> dhq{w.dh, 2 * D};
+  NSD_TRY(nsd::gemm_split_sum<T>(bf16, D, 2 * D, M, Tr<LnLoad<T>>{xn}, dhq, w.split, dw1,
+                                 st));
+  float* dxn = w.gm;
+  NSD_TRY(nsd::gemm(bf16, M, D, 2 * D, 1, dhq, Tr<Mat<T, T>>{{w1, 2 * D}},
+                    nsd::StoreF32{dxn, D}, st));
+  NSD_TRY(nsd::colsum(nsd::ElemTimesXhat<T>{dxn, x, w.st1, D}, w.part, dlns, M, D, st));
+  NSD_TRY(nsd::colsum(nsd::Elem{dxn, D}, w.part, dlnb, M, D, st));
+  return nsd::ln_bwd(dxn, x, w.st1, lns, dx, M, D, st);
+}
+
+bool bad_shape(int b, int t, int d, int kw, int pad_l) {
+  return b < 1 || t < 1 || d < 1 || kw < 1 || kw > kMaxTaps || pad_l < 0 || pad_l >= kw;
+}
+
+Shape make_shape(int b, int t, int d, int kw, int pad_l, float rate, float inv) {
+  Shape p;
+  p.b = b;
+  p.t = t;
+  p.d = d;
+  p.kw = kw;
+  p.pad_l = pad_l;
+  p.rate = rate;
+  p.inv = inv;
+  return p;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Bytes of workspace the forward (bwd = 0) or backward (bwd = 1) takes.
+long long nsd_conv_workspace(int b, int t, int d, int kw, int bf16, int bwd) {
+  const Shape p = make_shape(b, t, d, kw, 0, 0.f, 1.f);
+  return static_cast<long long>(bf16 ? Work<__nv_bfloat16>(p, bwd, nullptr).bytes
+                                     : Work<float>(p, bwd, nullptr).bytes);
+}
+
+#define NSD_CONV_ENTRIES(SUFFIX, T)                                                         \
+  int nsd_conv_fwd_##SUFFIX(const void* x, const void* lns, const void* lnb,                \
+                            const void* w1, const void* b1, const void* taps,               \
+                            const void* dwb, const void* ln2s, const void* ln2b,            \
+                            const void* w2, const void* b2, const void* seed, void* out,    \
+                            void* ws, int b, int t, int d, int kw, int pad_l, float rate,   \
+                            float inv, void* stream) {                                      \
+    if (bad_shape(b, t, d, kw, pad_l)) return static_cast<int>(cudaErrorInvalidValue);      \
+    return static_cast<int>(conv_fwd<T>(                                                    \
+        static_cast<const T*>(x), static_cast<const float*>(lns),                           \
+        static_cast<const float*>(lnb), static_cast<const T*>(w1),                          \
+        static_cast<const float*>(b1), static_cast<const float*>(taps),                     \
+        static_cast<const float*>(dwb), static_cast<const float*>(ln2s),                    \
+        static_cast<const float*>(ln2b), static_cast<const T*>(w2),                         \
+        static_cast<const float*>(b2), static_cast<const int32_t*>(seed),                   \
+        static_cast<T*>(out), static_cast<char*>(ws),                                       \
+        make_shape(b, t, d, kw, pad_l, rate, inv), static_cast<cudaStream_t>(stream)));     \
+  }                                                                                         \
+  int nsd_conv_bwd_##SUFFIX(                                                                \
+      const void* x, const void* lns, const void* lnb, const void* w1, const void* b1,      \
+      const void* taps, const void* dwb, const void* ln2s, const void* ln2b,                \
+      const void* w2, const void* seed, const void* g, void* dx, void* dlns, void* dlnb,    \
+      void* dw1, void* db1, void* dtaps, void* ddwb, void* dln2s, void* dln2b, void* dw2,   \
+      void* db2, void* ws, int b, int t, int d, int kw, int pad_l, float rate, float inv,   \
+      void* stream) {                                                                       \
+    if (bad_shape(b, t, d, kw, pad_l)) return static_cast<int>(cudaErrorInvalidValue);      \
+    return static_cast<int>(conv_bwd<T>(                                                    \
+        static_cast<const T*>(x), static_cast<const float*>(lns),                           \
+        static_cast<const float*>(lnb), static_cast<const T*>(w1),                          \
+        static_cast<const float*>(b1), static_cast<const float*>(taps),                     \
+        static_cast<const float*>(dwb), static_cast<const float*>(ln2s),                    \
+        static_cast<const float*>(ln2b), static_cast<const T*>(w2),                         \
+        static_cast<const int32_t*>(seed), static_cast<const T*>(g), static_cast<T*>(dx),   \
+        static_cast<float*>(dlns), static_cast<float*>(dlnb), static_cast<T*>(dw1),         \
+        static_cast<float*>(db1), static_cast<float*>(dtaps), static_cast<float*>(ddwb),    \
+        static_cast<float*>(dln2s), static_cast<float*>(dln2b), static_cast<T*>(dw2),       \
+        static_cast<float*>(db2), static_cast<char*>(ws),                                   \
+        make_shape(b, t, d, kw, pad_l, rate, inv), static_cast<cudaStream_t>(stream)));     \
+  }
+
+NSD_CONV_ENTRIES(f32, float)
+NSD_CONV_ENTRIES(bf16, __nv_bfloat16)
+
+}  // extern "C"

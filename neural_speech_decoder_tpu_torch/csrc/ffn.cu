@@ -1,0 +1,303 @@
+// The Conformer's half-step feed-forward module, its backward and the
+// dropout masks they draw.
+//
+//   x [B, T, D] (float32 or bfloat16, the compute type cdt), scale, bias [D]
+//   f32, W1 [D, F] cdt, b1 [F] f32, W2 [F, D] cdt, b2 [D] f32, seed [1]
+//   int32; per row (b, t):
+//     xn = cdt((x - mean) * rstd * scale + bias)    (float32 statistics)
+//     s  = cdt(xn . W1 + b1)                          (float32 accumulation)
+//     h  = cdt(s * sigmoid(s))                        (SiLU in float32 on s)
+//     dropout site 0: h = keep0 ? cdt(h * cdt(1/(1-rate))) : 0
+//     o  = h . W2 + b2;  dropout site 1: o = keep1 ? o * 1/(1-rate) : 0
+//     out = cdt(o)
+//   keep0 at (b, t, f) is uniform2d(seed, b, t, f) >= rate and keep1 at
+//   (b, t, d) is uniform2d(seed, b + B, t, d) >= rate (hashrng.cuh). Site 0
+//   scales by the inverse keep rate rounded to cdt, as the TPU kernel's cdt
+//   multiply by a weak-typed constant does (1/0.7 -> 1.4296875 in bf16).
+//   The backward takes g [B, T, D] and recomputes the forward, then
+//     gm = keep1 ? g * inv : 0; db2 = sum gm; dW2 = cdt(hq^T . cdt(gm));
+//     dh = cdt(gm) . W2^T, through site 0 (f32 inv); ds = dh * SiLU'(s);
+//     db1 = sum ds; dW1 = cdt(xn^T . cdt(ds)); dxn = cdt(ds) . W1^T;
+//     dscale = sum dxn * xhat; dbias = sum dxn; dx = the norm's backward.
+//   dW1, dW2 are in cdt (the TPU kernel returns them in the cast weights'
+//   type); the vector gradients are float32; dx is in x's type.
+//
+// Replaces the Pallas TPU kernels of
+// neural_speech_decoder_tpu/ops/pallas/ffn_kernel.py: _fwd_kernel (via
+// fused_ffn -> _ffn_fwd), _bwd_kernel (via _ffn_bwd) and the dropout_masks
+// test hook, with their interpret-mode dropout bits (the compiled TPU path's
+// hardware PRNG cannot be reproduced off the TPU).
+//
+// What bounds it on an H100: the operations. At B=64, T'=313, D=1024,
+// F=2048 each product is 84 GFLOP: the forward has 2 (0.17 ms at the bf16
+// tensor-core peak, 2.5 ms on float32 FMAs), the backward 5 (the recompute,
+// dW2, dh, dW1, dxn). The TPU kernel keeps a batch row's [T, F]
+// intermediate and both weights in VMEM and runs one program per row; a
+// block here has 227 KB of shared memory and the card 132 SMs, so the module
+// is cut at its products instead: the layer-norm statistics, the first
+// product with the norm applied as its A tile is loaded and bias, SiLU and
+// dropout in its epilogue (h [B*T, F] goes to device memory), the second
+// product with bias and dropout in its epilogue. The backward's dW products
+// (K = B*T rows) are cut into K ranges summed in a fixed order, and the
+// vector gradients are column sums in a fixed order: no atomics, so a run
+// repeats bit for bit (csrc/gemm_tile.cuh, csrc/rowops.cuh).
+#include <stdint.h>
+
+#include "common.cuh"
+#include "gemm_tile.cuh"
+#include "hashrng.cuh"
+#include "rowops.cuh"
+
+namespace {
+
+using nsd::Carve;
+using nsd::LnLoad;
+using nsd::Mat;
+using nsd::Tr;
+
+struct Shape {
+  int b, t, d, f;
+  float rate, inv, inv_h;  // inv_h: the inverse keep rate rounded to cdt
+  __host__ __device__ int m() const { return b * t; }
+};
+
+__device__ __forceinline__ bool keep(const int32_t* seed, int salt, int row, int col,
+                                     float rate) {
+  return nsd::hash_uniform(*seed, salt, row, col) >= rate;
+}
+
+// The first product's epilogue: s = cdt(acc + b1), h = cdt(SiLU(s)), dropout
+// site 0; stores h (and, in the backward's recompute, s).
+template <typename T>
+struct Lin1Epi {
+  const float* b1;
+  const int32_t* seed;
+  T* h;
+  T* s_out;
+  int n_time, ld;
+  float rate, inv_h;
+  __device__ __forceinline__ void operator()(int m, int n, float acc, int) const {
+    const float s = nsd::round_to<T>(acc + b1[n]);
+    float hv = nsd::round_to<T>(s * nsd::sigmoid(s));
+    if (rate > 0.f) {
+      const int bb = m / n_time;
+      hv = keep(seed, bb, m - bb * n_time, n, rate) ? nsd::round_to<T>(hv * inv_h) : 0.f;
+    }
+    h[(size_t)m * ld + n] = nsd::from_f32<T>(hv);
+    if (s_out) s_out[(size_t)m * ld + n] = nsd::from_f32<T>(s);
+  }
+};
+
+// The second product's epilogue: o = acc + b2, dropout site 1, out = cdt(o).
+template <typename T>
+struct Lin2Epi {
+  const float* b2;
+  const int32_t* seed;
+  T* out;
+  int n_time, batch, ld;
+  float rate, inv;
+  __device__ __forceinline__ void operator()(int m, int n, float acc, int) const {
+    float o = acc + b2[n];
+    if (rate > 0.f) {
+      const int bb = m / n_time;
+      o = keep(seed, bb + batch, m - bb * n_time, n, rate) ? o * inv : 0.f;
+    }
+    out[(size_t)m * ld + n] = nsd::from_f32<T>(o);
+  }
+};
+
+// dh = acc through dropout site 0 (float32 inv), then ds = dh * SiLU'(s)
+// with s the rounded pre-activation; stored in float32.
+template <typename T>
+struct DsEpi {
+  const T* s;
+  const int32_t* seed;
+  float* ds;
+  int n_time, ld;
+  float rate, inv;
+  __device__ __forceinline__ void operator()(int m, int n, float acc, int) const {
+    float dh = acc;
+    if (rate > 0.f) {
+      const int bb = m / n_time;
+      dh = keep(seed, bb, m - bb * n_time, n, rate) ? dh * inv : 0.f;
+    }
+    const float sc = nsd::to_f32(s[(size_t)m * ld + n]);
+    const float sig = nsd::sigmoid(sc);
+    ds[(size_t)m * ld + n] = dh * sig * (1.f + sc * (1.f - sig));
+  }
+};
+
+// The pieces of the workspace (pointers from base, or sizes from nullptr).
+template <typename T>
+struct Work {
+  float2* stats;
+  T* h;       // forward: h; backward: hq, the dropped h that W2 multiplied
+  T* s;       // backward: the rounded pre-activation
+  float* gm;  // backward: g through site 1; later dxn
+  float* ds;
+  float* split;
+  float* part;
+  size_t bytes;
+  Work(const Shape& p, bool bwd, char* base) {
+    Carve c;
+    c.base = base;
+    const size_t m = p.m();
+    stats = c.take<float2>(m);
+    h = c.take<T>(m * p.f);
+    s = nullptr;
+    gm = ds = split = part = nullptr;
+    if (bwd) {
+      s = c.take<T>(m * p.f);
+      gm = c.take<float>(m * p.d);
+      ds = c.take<float>(m * p.f);
+      const int sp = nsd::gemm_splits(p.d, p.f, p.m()) > nsd::gemm_splits(p.f, p.d, p.m())
+                         ? nsd::gemm_splits(p.d, p.f, p.m())
+                         : nsd::gemm_splits(p.f, p.d, p.m());
+      split = c.take<float>((size_t)sp * p.d * p.f);
+      part = c.take<float>((size_t)nsd::kColChunks * (p.f > p.d ? p.f : p.d));
+    }
+    bytes = c.off;
+  }
+};
+
+template <typename T>
+cudaError_t ffn_fwd(const T* x, const float* scale, const float* bias, const T* w1,
+                    const float* b1, const T* w2, const float* b2, const int32_t* seed,
+                    T* out, char* ws, const Shape& p, cudaStream_t st) {
+  constexpr bool bf16 = sizeof(T) == 2;
+  Work<T> w(p, false, ws);
+  const int M = p.m();
+  NSD_TRY(nsd::ln_stats(x, w.stats, M, p.d, st));
+  NSD_TRY(nsd::gemm(bf16, M, p.f, p.d, 1, LnLoad<T>{x, w.stats, scale, bias, p.d},
+                    Mat<T, T>{w1, p.f},
+                    Lin1Epi<T>{b1, seed, w.h, nullptr, p.t, p.f, p.rate, p.inv_h}, st));
+  return nsd::gemm(bf16, M, p.d, p.f, 1, Mat<T, T>{w.h, p.f}, Mat<T, T>{w2, p.d},
+                   Lin2Epi<T>{b2, seed, out, p.t, p.b, p.d, p.rate, p.inv}, st);
+}
+
+template <typename T>
+cudaError_t ffn_bwd(const T* x, const float* scale, const float* bias, const T* w1,
+                    const float* b1, const T* w2, const int32_t* seed, const T* g, T* dx,
+                    float* dscale, float* dbias, T* dw1, float* db1, T* dw2, float* db2,
+                    char* ws, const Shape& p, cudaStream_t st) {
+  constexpr bool bf16 = sizeof(T) == 2;
+  Work<T> w(p, true, ws);
+  const int M = p.m();
+  const LnLoad<T> xn{x, w.stats, scale, bias, p.d};
+  // the forward again, keeping s and the dropped h
+  NSD_TRY(nsd::ln_stats(x, w.stats, M, p.d, st));
+  NSD_TRY(nsd::gemm(bf16, M, p.f, p.d, 1, xn, Mat<T, T>{w1, p.f},
+                    Lin1Epi<T>{b1, seed, w.h, w.s, p.t, p.f, p.rate, p.inv_h}, st));
+  // through the output dropout; db2, dW2 = hq^T . cdt(gm)
+  NSD_TRY(nsd::mask_grad(g, seed, w.gm, p.b, p.t, p.d, p.b, p.rate, p.inv, st));
+  NSD_TRY(nsd::colsum(nsd::Elem{w.gm, p.d}, w.part, db2, M, p.d, st));
+  const Mat<float, T> gq{w.gm, p.d};
+  NSD_TRY(nsd::gemm_split_sum<T>(bf16, p.f, p.d, M, Tr<Mat<T, T>>{{w.h, p.f}}, gq,
+                                 w.split, dw2, st));
+  // dh = cdt(gm) . W2^T -> ds; db1; dW1 = xn^T . cdt(ds)
+  NSD_TRY(nsd::gemm(bf16, M, p.f, p.d, 1, gq, Tr<Mat<T, T>>{{w2, p.d}},
+                    DsEpi<T>{w.s, seed, w.ds, p.t, p.f, p.rate, p.inv}, st));
+  NSD_TRY(nsd::colsum(nsd::Elem{w.ds, p.f}, w.part, db1, M, p.f, st));
+  const Mat<float, T> dsq{w.ds, p.f};
+  NSD_TRY(nsd::gemm_split_sum<T>(bf16, p.d, p.f, M, Tr<LnLoad<T>>{xn}, dsq, w.split, dw1,
+                                 st));
+  // dxn = cdt(ds) . W1^T (into gm's room), then the norm's backward
+  float* dxn = w.gm;
+  NSD_TRY(nsd::gemm(bf16, M, p.d, p.f, 1, dsq, Tr<Mat<T, T>>{{w1, p.f}},
+                    nsd::StoreF32{dxn, p.d}, st));
+  NSD_TRY(nsd::colsum(nsd::ElemTimesXhat<T>{dxn, x, w.stats, p.d}, w.part, dscale, M, p.d,
+                      st));
+  NSD_TRY(nsd::colsum(nsd::Elem{dxn, p.d}, w.part, dbias, M, p.d, st));
+  return nsd::ln_bwd(dxn, x, w.stats, scale, dx, M, p.d, st);
+}
+
+__global__ void ffn_masks_kernel(const int32_t* __restrict__ seed, uint8_t* __restrict__ m1,
+                                 uint8_t* __restrict__ m2, int batch, int n_time, int d,
+                                 int f, float rate) {
+  const size_t n1 = (size_t)batch * n_time * f, n2 = (size_t)batch * n_time * d;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n1 + n2;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const bool first = i < n1;
+    const size_t j = first ? i : i - n1;
+    const int w = first ? f : d;
+    const int col = j % w;
+    const int m = j / w;
+    const int bb = m / n_time;
+    const uint8_t k = keep(seed, first ? bb : bb + batch, m - bb * n_time, col, rate);
+    (first ? m1 : m2)[j] = k;
+  }
+}
+
+bool bad_shape(int b, int t, int d, int f) { return b < 1 || t < 1 || d < 1 || f < 1; }
+
+Shape make_shape(int b, int t, int d, int f, float rate, float inv, float inv_h) {
+  Shape p;
+  p.b = b;
+  p.t = t;
+  p.d = d;
+  p.f = f;
+  p.rate = rate;
+  p.inv = inv;
+  p.inv_h = inv_h;
+  return p;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Bytes of workspace the forward (bwd = 0) or backward (bwd = 1) takes.
+long long nsd_ffn_workspace(int b, int t, int d, int f, int bf16, int bwd) {
+  const Shape p = make_shape(b, t, d, f, 0.f, 1.f, 1.f);
+  return static_cast<long long>(bf16 ? Work<__nv_bfloat16>(p, bwd, nullptr).bytes
+                                     : Work<float>(p, bwd, nullptr).bytes);
+}
+
+#define NSD_FFN_ENTRIES(SUFFIX, T)                                                     \
+  int nsd_ffn_fwd_##SUFFIX(const void* x, const void* scale, const void* bias,         \
+                           const void* w1, const void* b1, const void* w2,             \
+                           const void* b2, const void* seed, void* out, void* ws,      \
+                           int b, int t, int d, int f, float rate, float inv,          \
+                           float inv_h, void* stream) {                                \
+    if (bad_shape(b, t, d, f)) return static_cast<int>(cudaErrorInvalidValue);         \
+    return static_cast<int>(ffn_fwd<T>(                                                \
+        static_cast<const T*>(x), static_cast<const float*>(scale),                    \
+        static_cast<const float*>(bias), static_cast<const T*>(w1),                    \
+        static_cast<const float*>(b1), static_cast<const T*>(w2),                      \
+        static_cast<const float*>(b2), static_cast<const int32_t*>(seed),              \
+        static_cast<T*>(out), static_cast<char*>(ws),                                  \
+        make_shape(b, t, d, f, rate, inv, inv_h), static_cast<cudaStream_t>(stream))); \
+  }                                                                                    \
+  int nsd_ffn_bwd_##SUFFIX(const void* x, const void* scale, const void* bias,         \
+                           const void* w1, const void* b1, const void* w2,             \
+                           const void* seed, const void* g, void* dx, void* dscale,    \
+                           void* dbias, void* dw1, void* db1, void* dw2, void* db2,    \
+                           void* ws, int b, int t, int d, int f, float rate,           \
+                           float inv, float inv_h, void* stream) {                     \
+    if (bad_shape(b, t, d, f)) return static_cast<int>(cudaErrorInvalidValue);         \
+    return static_cast<int>(ffn_bwd<T>(                                                \
+        static_cast<const T*>(x), static_cast<const float*>(scale),                    \
+        static_cast<const float*>(bias), static_cast<const T*>(w1),                    \
+        static_cast<const float*>(b1), static_cast<const T*>(w2),                      \
+        static_cast<const int32_t*>(seed), static_cast<const T*>(g),                   \
+        static_cast<T*>(dx), static_cast<float*>(dscale), static_cast<float*>(dbias),  \
+        static_cast<T*>(dw1), static_cast<float*>(db1), static_cast<T*>(dw2),          \
+        static_cast<float*>(db2), static_cast<char*>(ws),                              \
+        make_shape(b, t, d, f, rate, inv, inv_h), static_cast<cudaStream_t>(stream))); \
+  }
+
+NSD_FFN_ENTRIES(f32, float)
+NSD_FFN_ENTRIES(bf16, __nv_bfloat16)
+
+int nsd_ffn_dropout_masks(const void* seed, void* m1, void* m2, int b, int t, int d, int f,
+                          float rate, void* stream) {
+  if (bad_shape(b, t, d, f)) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t want = ((size_t)b * t * (d + f) + 255) / 256;
+  ffn_masks_kernel<<<(unsigned)(want < 65535 ? want : 65535), 256, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(seed), static_cast<uint8_t*>(m1),
+      static_cast<uint8_t*>(m2), b, t, d, f, rate);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

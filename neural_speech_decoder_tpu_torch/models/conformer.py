@@ -18,8 +18,13 @@ The attention is the TPU kernel's (``ops/kernels/attention.py``, the
 bfloat16, its plain version on the CPU or with ``plain=True``. A row whose
 every key is masked gives 0 (the JAX package's einsum path, which it takes
 off the TPU, gives a uniform row instead), and its dropout is drawn inside
-the kernel. The fused FF and conv-module kernels of the JAX package are not
-ported yet: ``fused_ffn`` or ``fused_conv`` raise.
+the kernel. ``fused_ffn`` and ``fused_conv`` (off by default, as in the JAX
+package) route the FF modules and the conv module through the fused
+kernels (``ops/kernels/ffn.py``, ``ops/kernels/conv_module.py``), which
+draw their dropout inside from one seed per module call; they run in
+float32 and bfloat16 alike (JAX's gate takes them only for bfloat16 on a
+TPU), and ``fused_conv`` refuses an even ``conv_kernel``, where JAX's gate
+falls back to the unfused module.
 
 Randomness in training (dropout seeds, DropPath, SpecAugment) is drawn from
 one ``torch.Generator`` in a fixed order; the JAX package's ``jax.random``
@@ -41,6 +46,8 @@ from ..ops.day_affine import day_affine, init_day_affine
 from ..ops.gaussian import conformer_kernel_size, gaussian_smooth
 from ..ops.hashrng import draw_seed, hash_dropout
 from ..ops.kernels.attention import mhsa
+from ..ops.kernels.conv_module import fused_conv_module
+from ..ops.kernels.ffn import fused_ffn
 from ..ops.specaugment import spec_augment
 from .common import linear, torch_linear_init, uniform_bound, xavier_uniform
 
@@ -72,7 +79,7 @@ class ConformerConfig:
     # the attention kernel; False (the JAX package's einsum path) is not
     # ported
     fused_attention: bool = True
-    # the JAX package's opt-in fused FF and conv-module kernels, not ported
+    # the JAX package's opt-in fused FF and conv-module kernels
     fused_ffn: bool = False
     fused_conv: bool = False
     # qkv columns per head, (head, {q,k,v}, dh), instead of ({q,k,v}, head, dh)
@@ -98,13 +105,12 @@ class ConformerConfig:
 
 
 def check_config(cfg: ConformerConfig) -> None:
-    """Raise for the JAX package's options the port does not have."""
-    for flag, what in (("fused_ffn", "the fused FF kernel (ffn_kernel.py)"),
-                       ("fused_conv", "the fused conv-module kernel "
-                                      "(conv_module_kernel.py)")):
-        if getattr(cfg, flag):
-            raise NotImplementedError(
-                f"{flag}=True: {what} is not ported yet (ROADMAP.md queue 2)")
+    """Raise for the JAX package's options the port does not have, and for
+    a fused conv module with an even kernel (its 'same' padding (k//2,
+    k-1-k//2) would differ from the unfused module's (k//2, k//2); JAX's
+    gate leaves the kernel there, the port refuses)."""
+    if cfg.fused_conv and cfg.conv_kernel % 2 == 0:
+        raise ValueError(f"fused_conv needs an odd conv_kernel, got {cfg.conv_kernel}")
     if not cfg.fused_attention:
         raise NotImplementedError(
             "fused_attention=False: the port's attention is the kernel's; the "
@@ -260,7 +266,21 @@ class _Draws:
         return draw_seed(self.generator)
 
 
-def _ff_module(p, x, rng, rate):
+def _module_seed(rng, rate, device):
+    """One dropout seed for a kernel (attention, fused FF or conv module),
+    drawn only when it drops."""
+    if rng.train and rate > 0:
+        return rng.seed()
+    return torch.zeros(1, dtype=torch.int32, device=device)
+
+
+def _ff_module(p, x, rng, rate, cfg, plain):
+    """LN -> Linear(D->F) -> SiLU -> dropout -> Linear(F->D) -> dropout."""
+    if cfg.fused_ffn:
+        r = rate if rng.train else 0.0
+        return fused_ffn(x, p["ln"]["scale"], p["ln"]["bias"], p["lin1"]["w"],
+                         p["lin1"]["b"], p["lin2"]["w"], p["lin2"]["b"],
+                         _module_seed(rng, r, x.device), rate=r, plain=plain)
     h = F.silu(_lin_apply(p["lin1"], layer_norm(p["ln"], x)))
     h = _dropout(rng, h, rate)
     return _dropout(rng, _lin_apply(p["lin2"], h), rate)
@@ -269,18 +289,24 @@ def _ff_module(p, x, rng, rate):
 def _attention(p, cfg, x, lens, rng, plain):
     qkv = linear(layer_norm(p["ln"], x), p["in_proj_w"], p["in_proj_b"])
     rate = cfg.dropout if rng.train else 0.0
-    seed = rng.seed() if rate > 0 else torch.zeros(1, dtype=torch.int32,
-                                                    device=x.device)
+    seed = _module_seed(rng, rate, x.device)
     out = mhsa(qkv, lens, seed, num_heads=cfg.num_heads, rate=rate,
                left_context=cfg.attn_left_context if cfg.causal else None,
                interleaved=cfg.qkv_interleaved, plain=plain)
     return _lin_apply(p["out"], out)
 
 
-def _conv_module(p, x, rng, rate, causal):
+def _conv_module(p, x, rng, rate, causal, cfg, plain):
     """LN -> pointwise 2x -> GLU -> depthwise conv ('same', or causal
     (k-1, 0)) with a float32 bias -> LN -> SiLU -> pointwise -> dropout,
     plus the residual."""
+    if cfg.fused_conv:
+        r = rate if rng.train else 0.0
+        return x + fused_conv_module(
+            x, p["ln"]["scale"], p["ln"]["bias"], p["pw1"]["w"], p["pw1"]["b"],
+            p["dw_w"], p["dw_b"], p["ln_conv"]["scale"], p["ln_conv"]["bias"],
+            p["pw2"]["w"], p["pw2"]["b"], _module_seed(rng, r, x.device), rate=r,
+            causal=causal, plain=plain)
     h = _lin_apply(p["pw1"], layer_norm(p["ln"], x))  # [B, T, 2D]
     a, g = h.chunk(2, dim=-1)
     h = a * torch.sigmoid(g)
@@ -295,13 +321,13 @@ def _conv_module(p, x, rng, rate, causal):
 
 
 def _block(p, cfg, x, lens, rng, plain):
-    x = x + _drop_path(rng, 0.5 * _ff_module(p["ff1"], x, rng, cfg.dropout),
-                       cfg.drop_path_prob)
+    ff = _ff_module(p["ff1"], x, rng, cfg.dropout, cfg, plain)
+    x = x + _drop_path(rng, 0.5 * ff, cfg.drop_path_prob)
     attn = _dropout(rng, _attention(p["attn"], cfg, x, lens, rng, plain), cfg.dropout)
     x = x + _drop_path(rng, attn, cfg.drop_path_prob)
-    x = _conv_module(p["conv"], x, rng, cfg.dropout, cfg.causal)
-    x = x + _drop_path(rng, 0.5 * _ff_module(p["ff2"], x, rng, cfg.dropout),
-                       cfg.drop_path_prob)
+    x = _conv_module(p["conv"], x, rng, cfg.dropout, cfg.causal, cfg, plain)
+    ff = _ff_module(p["ff2"], x, rng, cfg.dropout, cfg, plain)
+    x = x + _drop_path(rng, 0.5 * ff, cfg.drop_path_prob)
     return layer_norm(p["ln_final"], x)
 
 
@@ -348,8 +374,8 @@ def conformer_forward(
     """``[B, T, C]`` features -> ``(log_probs [B, T', n_out] float32,
     out_lens [B] int32, inter_log_probs or None)``; the InterCTC head's
     log-probs only in training. ``train`` draws dropout, DropPath and
-    SpecAugment from ``generator``; ``plain`` runs the attention's plain
-    version."""
+    SpecAugment from ``generator``; ``plain`` runs the kernels' plain
+    versions."""
     check_config(cfg)
     rng = _Draws(generator, train)
     x = day_affine(params["day"], x.to(cfg.compute_dtype), day_idx)

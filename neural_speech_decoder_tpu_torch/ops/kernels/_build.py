@@ -7,7 +7,9 @@ interface, at first use, into ``neural_speech_decoder_tpu_torch/_build/``
 (git-ignored). The library's name carries a hash of the sources
 and flags, so an edited source builds anew and a built one is reused. The
 library is loaded with ``ctypes``; every pointer and the stream are passed
-as ``c_void_p``, and every entry point returns a ``cudaError_t`` (0 = ok).
+as ``c_void_p``, and every entry point returns a ``cudaError_t`` (0 = ok),
+except the ``*_workspace`` queries, which return the bytes of scratch a
+kernel needs (the wrapper allocates it).
 """
 
 from __future__ import annotations
@@ -45,10 +47,17 @@ _SIGNATURES = {
     "nsd_attn_bwd_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _F, _F, _F, _I, _P],
     "nsd_attn_dropout_masks": [_P, _P, _I, _I, _F, _P],
+    "nsd_ffn_fwd_f32": [_P] * 10 + [_I] * 4 + [_F] * 3 + [_P],
+    "nsd_ffn_bwd_f32": [_P] * 16 + [_I] * 4 + [_F] * 3 + [_P],
+    "nsd_ffn_dropout_masks": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "nsd_conv_fwd_f32": [_P] * 14 + [_I] * 5 + [_F] * 2 + [_P],
+    "nsd_conv_bwd_f32": [_P] * 24 + [_I] * 5 + [_F] * 2 + [_P],
 }
 for _name in ("frontend", "gru_scan", "gru_scan_gates", "gru_bwd", "attn_fwd",
-              "attn_bwd"):
+              "attn_bwd", "ffn_fwd", "ffn_bwd", "conv_fwd", "conv_bwd"):
     _SIGNATURES[f"nsd_{_name}_bf16"] = _SIGNATURES[f"nsd_{_name}_f32"]
+# workspace sizes in bytes: (b, t, d, f or k, bf16, bwd) -> long long
+_SIZES = {"nsd_ffn_workspace": [_I] * 6, "nsd_conv_workspace": [_I] * 6}
 
 
 def _sources() -> list[Path]:
@@ -122,6 +131,10 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    for name, argtypes in _SIZES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_longlong
     lib.nsd_error_string.argtypes = [ctypes.c_int]
     lib.nsd_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,0 +1,312 @@
+"""The Conformer's half-step feed-forward module as one fused operation,
+hand-written in CUDA (``csrc/ffn.cu``), with its backward and dropout masks.
+
+Replaces ``neural_speech_decoder_tpu/ops/pallas/ffn_kernel.py``:
+
+- ``ffn``: ``fused_ffn``'s forward (``_fwd_kernel``);
+- ``ffn_bwd``: its custom VJP's backward (``_bwd_kernel``): dx and all six
+  parameter gradients;
+- ``ffn_dropout_masks``: the two keep masks both kernels draw (the test
+  hook ``dropout_masks``).
+
+Each launches its kernel for a CUDA tensor and runs its ``*_plain`` twin,
+the same function in plain PyTorch written step by step as the TPU kernel,
+for a CPU tensor; it raises for any other device or a shape the kernel does
+not take. ``<wrapper>.launches`` counts its calls that launched the kernel
+(one call runs several kernels: the norm's statistics, the products, the
+column sums). ``FFN`` is the ``torch.autograd.Function``: it saves
+``(x, scale, bias, w1, b1, w2, seed)``, as the TPU kernel's residuals, and
+the backward recomputes the forward.
+
+Semantics, the TPU kernel's (``models/conformer.py::_ff_module`` without the
+0.5 half-step scale, DropPath and residual): layer norm with float32
+statistics, ``xn`` cast to x's dtype (cdt); ``s = xn @ W1 + b1`` with float32
+accumulation rounded once to cdt; SiLU in float32 on that rounded value,
+rounded to cdt; dropout site 0 keeps ``h`` where ``uniform2d(seed, b, t, f)
+>= rate`` and multiplies it *in cdt* by the inverse keep rate rounded to
+cdt (JAX's weak-typed scalar: 1/0.7 -> 1.4296875 in bf16); ``o = h @ W2 +
+b2``; dropout site 1 keeps ``o`` where ``uniform2d(seed, b + B, t, d) >=
+rate`` and scales it by the float32 inverse keep rate. The backward's ``g *
+inv`` and ``dh * inv`` are float32; dW1 and dW2 are rounded to the weights'
+dtype (cdt), the vector gradients stay float32, dx is in x's dtype.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..hashrng import uniform
+from ._build import check, load_library
+
+LN_EPS = 1e-5  # models/conformer.py::layer_norm
+_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a [N, K] @ b [K, M]`` of operands in one dtype, accumulated and
+    returned in float32 (bf16 on the card: ``torch.mm(out_dtype=float32)``;
+    on the CPU the float32 product of the same values, exact per term)."""
+    if a.dtype == torch.float32:
+        return a @ b
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+def norm(xf: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor):
+    """``(xhat * scale + bias, xhat, rstd)`` over the last axis, float32
+    (the TPU kernels' ``_norm``)."""
+    mean = xf.mean(-1, keepdim=True)
+    var = ((xf - mean) ** 2).mean(-1, keepdim=True)
+    rstd = torch.rsqrt(var + LN_EPS)
+    xhat = (xf - mean) * rstd
+    return xhat * scale + bias, xhat, rstd
+
+
+def keep_mask(seed, salt0: int, b: int, t: int, n: int, rate: float) -> torch.Tensor:
+    """``bool [b, t, n]``: ``uniform2d(seed, salt0 + i, t, n) >= rate`` for
+    batch row i, on seed's device."""
+    seed = torch.as_tensor(seed).reshape(-1)[0]
+    dev = seed.device
+    salt = torch.arange(b, device=dev)[:, None, None] + salt0
+    rows = torch.arange(t, device=dev)[None, :, None]
+    cols = torch.arange(n, device=dev)[None, None, :]
+    return uniform(seed, salt, rows, cols) >= rate
+
+
+def inv_keep(rate: float, dtype: torch.dtype = torch.float32) -> float:
+    """1 / (1 - rate) rounded to ``dtype`` (what a weak-typed Python scalar
+    becomes in a JAX product of that dtype)."""
+    return float(torch.tensor(1.0 / (1.0 - rate), dtype=torch.float64).to(dtype))
+
+
+def check_rate(rate: float) -> None:
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout rate must lie in [0, 1), got {rate}")
+
+
+def check_args(what: str, x: torch.Tensor, specs) -> None:
+    """Raise unless x is float32 or bfloat16 ``[B, T, D]`` and each
+    ``(name, tensor, shape, dtype)`` of ``specs`` matches, on x's device."""
+    if x.dtype not in _DTYPES or x.dim() != 3 or min(x.shape) < 1:
+        raise ValueError(f"{what}: x must be float32 or bfloat16 [B, T, D], got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    for name, v, shape, dtype in specs:
+        if tuple(v.shape) != tuple(shape) or v.dtype != dtype or v.device != x.device:
+            raise ValueError(f"{what}: {name} must be {dtype} {tuple(shape)} on "
+                             f"{x.device}, got {v.dtype} {tuple(v.shape)} on {v.device}")
+
+
+def on_cuda(what: str, x: torch.Tensor) -> bool:
+    """False for a CPU tensor (run the plain version), True for CUDA; raise
+    for any other device."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    return True
+
+
+def _specs(x, scale, bias, w1, b1, w2, b2=None, seed=None, g=None):
+    b, t, d = x.shape
+    f = w1.shape[-1]
+    f32 = torch.float32
+    specs = [("scale", scale, (d,), f32), ("bias", bias, (d,), f32),
+             ("w1", w1, (d, f), x.dtype), ("b1", b1, (f,), f32),
+             ("w2", w2, (f, d), x.dtype)]
+    for name, v, shape, dtype in (("b2", b2, (d,), f32),
+                                  ("seed", seed, (1,), torch.int32),
+                                  ("g", g, (b, t, d), x.dtype)):
+        if v is not None:
+            specs.append((name, v, shape, dtype))
+    return specs
+
+
+def ffn_plain(x, scale, bias, w1, b1, w2, b2, seed, *, rate: float = 0.0) -> torch.Tensor:
+    """``ffn`` in plain PyTorch, step by step as ``_fwd_kernel``."""
+    check_rate(rate)
+    b, t, d = x.shape
+    f = w1.shape[-1]
+    cdt = x.dtype
+    xn, _, _ = norm(x.float(), scale, bias)
+    s = mm_f32(xn.to(cdt).reshape(-1, d), w1) + b1
+    sb = s.to(cdt).float()
+    h = (sb * torch.sigmoid(sb)).to(cdt)
+    if rate > 0:
+        m1, m2 = ffn_dropout_masks_plain(b, t, d, f, seed, rate)
+        h = torch.where(m1.reshape(-1, f), (h.float() * inv_keep(rate, cdt)).to(cdt), 0.0)
+    o = mm_f32(h, w2) + b2
+    if rate > 0:
+        o = torch.where(m2.reshape(-1, d), o * inv_keep(rate), 0.0)
+    return o.to(cdt).reshape(b, t, d)
+
+
+def ffn_bwd_plain(x, scale, bias, w1, b1, w2, seed, g, *, rate: float = 0.0):
+    """``ffn_bwd`` in plain PyTorch, step by step as ``_bwd_kernel``:
+    ``(dx, dscale, dbias, dw1, db1, dw2, db2)``."""
+    check_rate(rate)
+    b, t, d = x.shape
+    f = w1.shape[-1]
+    cdt = x.dtype
+    xf = x.float().reshape(-1, d)
+    _, xhat, rstd = norm(xf, scale, bias)
+    xn = (xhat * scale + bias).to(cdt)
+    sc = (mm_f32(xn, w1) + b1).to(cdt).float()  # SiLU sees the rounded value
+    sig = torch.sigmoid(sc)
+    hq = (sc * sig).to(cdt)
+    gf = g.float().reshape(-1, d)
+    if rate > 0:
+        m1, m2 = (m.reshape(-1, m.shape[-1])
+                  for m in ffn_dropout_masks_plain(b, t, d, f, seed, rate))
+        inv = inv_keep(rate)
+        # the forward's cdt product with the cdt-rounded inverse
+        hq = torch.where(m1, (hq.float() * inv_keep(rate, cdt)).to(cdt), 0.0)
+        gf = torch.where(m2, gf * inv, 0.0)
+    db2 = gf.sum(0)
+    gq = gf.to(cdt)
+    dw2 = mm_f32(hq.T, gq)
+    dh = mm_f32(gq, w2.T)
+    if rate > 0:
+        dh = torch.where(m1, dh * inv, 0.0)
+    ds = dh * sig * (1.0 + sc * (1.0 - sig))
+    db1 = ds.sum(0)
+    dsb = ds.to(cdt)
+    dw1 = mm_f32(xn.T, dsb)
+    dxn = mm_f32(dsb, w1.T)
+    dscale = (dxn * xhat).sum(0)
+    dbias = dxn.sum(0)
+    dxhat = dxn * scale
+    dx = rstd * (dxhat - dxhat.mean(-1, keepdim=True)
+                 - xhat * (dxhat * xhat).mean(-1, keepdim=True))
+    return (dx.to(x.dtype).reshape(b, t, d), dscale, dbias, dw1.to(w1.dtype), db1,
+            dw2.to(w2.dtype), db2)
+
+
+def ffn_dropout_masks_plain(b: int, t: int, d: int, f: int, seed, rate: float):
+    """``ffn_dropout_masks`` in plain PyTorch (on seed's device)."""
+    return keep_mask(seed, 0, b, t, f, rate), keep_mask(seed, b, b, t, d, rate)
+
+
+def _scalars(rate: float, dtype: torch.dtype):
+    """rate, the float32 inverse keep rate, and the one rounded to dtype."""
+    if rate <= 0:
+        return 0.0, 1.0, 1.0
+    return float(rate), inv_keep(rate), inv_keep(rate, dtype)
+
+
+def _workspace(b, t, d, f, x, bwd: bool) -> torch.Tensor:
+    n = load_library().nsd_ffn_workspace(b, t, d, f, int(x.dtype == torch.bfloat16),
+                                         int(bwd))
+    return torch.empty(n, dtype=torch.uint8, device=x.device)
+
+
+def ffn(x, scale, bias, w1, b1, w2, b2, seed, *, rate: float = 0.0) -> torch.Tensor:
+    """The FF module over ``x [B, T, D]`` (float32 or bfloat16): ``scale,
+    bias [D]``, ``b1 [F]``, ``b2 [D]`` float32, ``w1 [D, F]``, ``w2 [F, D]``
+    in x's dtype, dropout ``rate`` drawn from ``seed [1]`` int32 -> ``[B, T,
+    D]`` in x's dtype."""
+    check_rate(rate)
+    if not on_cuda("ffn", x):
+        return ffn_plain(x, scale, bias, w1, b1, w2, b2, seed, rate=rate)
+    check_args("ffn", x, _specs(x, scale, bias, w1, b1, w2, b2, seed))
+    b, t, d = x.shape
+    f = w1.shape[-1]
+    x, w1, w2 = x.contiguous(), w1.contiguous(), w2.contiguous()
+    out = torch.empty_like(x)
+    r, inv, inv_h = _scalars(rate, x.dtype)
+    with torch.cuda.device(x.device):
+        ws = _workspace(b, t, d, f, x, False)
+        rc = getattr(load_library(), f"nsd_ffn_fwd_{_DTYPES[x.dtype]}")(
+            x.data_ptr(), scale.data_ptr(), bias.data_ptr(), w1.data_ptr(),
+            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), seed.data_ptr(),
+            out.data_ptr(), ws.data_ptr(), b, t, d, f, r, inv, inv_h,
+            torch.cuda.current_stream().cuda_stream)
+    check(rc, "ffn")
+    ffn.launches += 1
+    return out
+
+
+def ffn_bwd(x, scale, bias, w1, b1, w2, seed, g, *, rate: float = 0.0):
+    """The gradients of ``ffn``'s output with cotangent ``g [B, T, D]``:
+    ``(dx, dscale, dbias, dw1, db1, dw2, db2)``; dx in x's dtype, dw1 and
+    dw2 in the weights' dtype, the vectors float32."""
+    check_rate(rate)
+    if not on_cuda("ffn_bwd", x):
+        return ffn_bwd_plain(x, scale, bias, w1, b1, w2, seed, g, rate=rate)
+    check_args("ffn_bwd", x, _specs(x, scale, bias, w1, b1, w2, seed=seed, g=g))
+    b, t, d = x.shape
+    f = w1.shape[-1]
+    x, w1, w2, g = x.contiguous(), w1.contiguous(), w2.contiguous(), g.contiguous()
+    dx, dw1, dw2 = torch.empty_like(x), torch.empty_like(w1), torch.empty_like(w2)
+    vec = torch.empty(3 * d + f, dtype=torch.float32, device=x.device)
+    dscale, dbias, db2, db1 = vec[:d], vec[d:2 * d], vec[2 * d:3 * d], vec[3 * d:]
+    r, inv, inv_h = _scalars(rate, x.dtype)
+    with torch.cuda.device(x.device):
+        ws = _workspace(b, t, d, f, x, True)
+        rc = getattr(load_library(), f"nsd_ffn_bwd_{_DTYPES[x.dtype]}")(
+            x.data_ptr(), scale.data_ptr(), bias.data_ptr(), w1.data_ptr(),
+            b1.data_ptr(), w2.data_ptr(), seed.data_ptr(), g.data_ptr(),
+            dx.data_ptr(), dscale.data_ptr(), dbias.data_ptr(), dw1.data_ptr(),
+            db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(), ws.data_ptr(),
+            b, t, d, f, r, inv, inv_h, torch.cuda.current_stream().cuda_stream)
+    check(rc, "ffn_bwd")
+    ffn_bwd.launches += 1
+    return dx, dscale, dbias, dw1, db1, dw2, db2
+
+
+def ffn_dropout_masks(b: int, t: int, d: int, f: int, seed: torch.Tensor, rate: float):
+    """The keep masks of both dropout sites, ``(bool [b, t, f], bool [b, t,
+    d])``: site 0's entry ``[i, r, c]`` is ``uniform2d(seed, i, r, c) >=
+    rate``, site 1's ``uniform2d(seed, b + i, r, c) >= rate``. ``seed [1]``
+    int32 picks the device."""
+    if not on_cuda("ffn_dropout_masks", seed):
+        return ffn_dropout_masks_plain(b, t, d, f, seed, rate)
+    if tuple(seed.shape) != (1,) or seed.dtype != torch.int32 or min(b, t, d, f) < 1:
+        raise ValueError(f"ffn_dropout_masks: seed must be int32 [1] and the shape "
+                         f"positive, got {seed.dtype} {tuple(seed.shape)}, "
+                         f"{(b, t, d, f)}")
+    m1 = torch.empty((b, t, f), dtype=torch.bool, device=seed.device)
+    m2 = torch.empty((b, t, d), dtype=torch.bool, device=seed.device)
+    with torch.cuda.device(seed.device):
+        rc = load_library().nsd_ffn_dropout_masks(
+            seed.data_ptr(), m1.data_ptr(), m2.data_ptr(), b, t, d, f, float(rate),
+            torch.cuda.current_stream().cuda_stream)
+    check(rc, "ffn_dropout_masks")
+    ffn_dropout_masks.launches += 1
+    return m1, m2
+
+
+ffn.launches = 0
+ffn_bwd.launches = 0
+ffn_dropout_masks.launches = 0
+
+
+class FFN(torch.autograd.Function):
+    """``ffn`` with its backward kernel (``fused_ffn``'s custom VJP). Saves
+    ``(x, scale, bias, w1, b1, w2, seed)``; the backward recomputes the
+    forward. ``plain`` runs the plain versions (the reference a card run is
+    checked against)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, w1, b1, w2, b2, seed, rate, plain):
+        out = (ffn_plain if plain else ffn)(x, scale, bias, w1, b1, w2, b2, seed,
+                                            rate=rate)
+        ctx.save_for_backward(x, scale, bias, w1, b1, w2, seed)
+        ctx.rate, ctx.plain = rate, plain
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        bwd = ffn_bwd_plain if ctx.plain else ffn_bwd
+        grads = bwd(*ctx.saved_tensors, g.contiguous(), rate=ctx.rate)
+        return (*grads, None, None, None)
+
+
+def fused_ffn(x, scale, bias, w1, b1, w2, b2, seed, *, rate: float = 0.0,
+              plain: bool = False) -> torch.Tensor:
+    """``FFN`` under autograd, with the parameters cast as ``fused_ffn``
+    casts them: the vectors to float32, the weights to x's dtype (their
+    gradients flow back through the casts)."""
+    f32 = torch.float32
+    return FFN.apply(x, scale.to(f32), bias.to(f32), w1.to(x.dtype), b1.to(f32),
+                     w2.to(x.dtype), b2.to(f32), seed, float(rate), plain)

@@ -9,7 +9,10 @@ device time by kernel, the device's busy share of the steps' wall time,
 and the host-clock time of each step.
 
     python -m neural_speech_decoder_tpu_torch.training.profile \
-        [--model gru|conformer] [--dtype float32]
+        [--model gru|conformer] [--dtype float32] [--fused]
+
+``--fused`` (Conformer only) sets ``fused_ffn`` and ``fused_conv``: the FF
+and conv modules run through their fused kernels.
 
 It needs a CUDA device and fails without one.
 """
@@ -93,7 +96,11 @@ def main() -> None:
     ap.add_argument("--model", default="gru", choices=["gru", "conformer"])
     ap.add_argument("--dtype", default="bfloat16", choices=["float32", "bfloat16"])
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--fused", action="store_true",
+                    help="the Conformer's fused FF and conv-module kernels")
     args_cli = ap.parse_args()
+    if args_cli.fused and args_cli.model != "conformer":
+        ap.error("--fused needs --model conformer")
     if not torch.cuda.is_available():
         raise SystemExit("profile: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -101,6 +108,8 @@ def main() -> None:
     device = torch.device("cuda")
     recipe = CONFORMER_ARGS if args_cli.model == "conformer" else BENCH_ARGS
     args = {**recipe, "compute_dtype": args_cli.dtype}
+    if args_cli.fused:
+        args.update(fused_ffn=True, fused_conv=True)
     model = build_model(args, N_DAYS, device, seed=0)
     opt, sched = make_optimizer(args, model.parameters())
     step = make_train_step(args, model, opt, sched)
@@ -120,7 +129,8 @@ def main() -> None:
         for i in range(args_cli.steps):
             walls.append(run(2 + i)[0])
         wall_us = (time.perf_counter() - t0) * 1e6
-    print(f"{args_cli.model} {args_cli.dtype} train step B=64 T=1280 "
+    print(f"{args_cli.model}{' fused' if args_cli.fused else ''} {args_cli.dtype} "
+          f"train step B=64 T=1280 "
           f"{torch.cuda.get_device_name(0)}: step wall "
           f"{', '.join(f'{w:.3f}' for w in walls)} ms (under the profiler)")
     events = [e for e in prof.key_averages()

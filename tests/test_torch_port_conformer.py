@@ -43,7 +43,7 @@ from neural_speech_decoder_tpu.training.trainer import make_train_step as jax_ma
 from neural_speech_decoder_tpu_torch.data.synthetic import synthetic_dataset
 from neural_speech_decoder_tpu_torch.data import batching
 from neural_speech_decoder_tpu_torch.data.dataset import pack_days
-from neural_speech_decoder_tpu_torch.models.api import build_model, config_from_args, forward
+from neural_speech_decoder_tpu_torch.models.api import config_from_args, forward
 from neural_speech_decoder_tpu_torch.models.conformer import (
     ConformerDecoder,
     init_conformer_params,
@@ -248,12 +248,6 @@ def test_module_params_round_trip():
         assert torch.equal(x, y)
     with pytest.raises(ValueError):
         other.load_params({"day": module.params["day"]})
-
-
-@pytest.mark.parametrize("flag", ["fused_ffn", "fused_conv"])
-def test_unported_fused_kernels_raise(flag):
-    with pytest.raises(NotImplementedError, match="queue 2"):
-        build_model(_args(**{flag: True}), N_DAYS, "cpu")
 
 
 # ---------------------------------------------------------------- trainer

@@ -23,6 +23,22 @@ from neural_speech_decoder_tpu_torch.ops.kernels.attention import (
     mhsa_qkv_bwd_plain,
     mhsa_qkv_plain,
 )
+from neural_speech_decoder_tpu_torch.ops.kernels.conv_module import (
+    conv_module,
+    conv_module_bwd,
+    conv_module_bwd_plain,
+    conv_module_plain,
+    fused_conv_module,
+)
+from neural_speech_decoder_tpu_torch.ops.kernels.ffn import (
+    ffn,
+    ffn_bwd,
+    ffn_bwd_plain,
+    ffn_dropout_masks,
+    ffn_dropout_masks_plain,
+    ffn_plain,
+    fused_ffn,
+)
 from neural_speech_decoder_tpu_torch.ops.kernels.frontend import (
     fused_frontend,
     fused_frontend_plain,
@@ -344,3 +360,116 @@ def test_attention_kernels_refuse_unsupported_shapes(cuda):
         mhsa_qkv(qkv, lens, seed, num_heads=1)
     with pytest.raises(ValueError, match="lens"):
         mhsa_qkv(torch.zeros((1, 8, 384), device=cuda), lens.cpu(), seed, num_heads=1)
+
+
+# The fused FF and conv-module kernels against their plain versions, output
+# and every gradient relative to its largest entry. Float32: the same sums
+# in another order. Bfloat16: the intermediates (s, h, the GLU, the conv
+# output, the norms) and dW are rounded to bf16, and a rounding that falls
+# the other way moves an entry by a bf16 step (2**-8 relative); up to four
+# steps of the largest entry are allowed, as for the attention.
+FUSED_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0**-6}
+# Gradients: float32 sums over all B*T rows (the dW products, the column
+# sums) in another order; bfloat16 also dW rounded to bf16 and the
+# cotangents rounded before their products.
+FUSED_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0**-5}
+
+
+def _ffn_case(cuda, dtype, b, t, d, f):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    r = lambda *s, sc=1.0: sc * torch.randn(s, generator=g, device=cuda)
+    x = r(b, t, d).to(dtype)
+    params = (1.0 + r(d, sc=0.1), r(d, sc=0.1), r(d, f, sc=d**-0.5).to(dtype),
+              r(f, sc=0.1), r(f, d, sc=f**-0.5).to(dtype), r(d, sc=0.1))
+    return x, params, r(b, t, d).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,d,f,rate", [(3, 37, 96, 200, 0.0), (2, 70, 128, 256, 0.3),
+                                          (1, 300, 256, 512, 0.1)])
+def test_ffn_kernels_match_plain(cuda, dtype, b, t, d, f, rate):
+    """Ragged shapes (not multiples of the 128-wide product tiles)."""
+    x, (sc, bi, w1, b1, w2, b2), gout = _ffn_case(cuda, dtype, b, t, d, f)
+    seed = torch.tensor([-77], dtype=torch.int32, device=cuda)
+    f0, b0 = ffn.launches, ffn_bwd.launches
+    out = ffn(x, sc, bi, w1, b1, w2, b2, seed, rate=rate)
+    ref = ffn_plain(x, sc, bi, w1, b1, w2, b2, seed, rate=rate)
+    grads = ffn_bwd(x, sc, bi, w1, b1, w2, seed, gout, rate=rate)
+    refs = ffn_bwd_plain(x, sc, bi, w1, b1, w2, seed, gout, rate=rate)
+    torch.cuda.synchronize()
+    assert (ffn.launches, ffn_bwd.launches) == (f0 + 1, b0 + 1)
+    assert out.dtype == dtype and _rel(out, ref) <= FUSED_TOL[dtype]
+    for name, a, r in zip(("dx", "dscale", "dbias", "dw1", "db1", "dw2", "db2"),
+                          grads, refs):
+        assert a.dtype == r.dtype and a.shape == r.shape, name
+        assert _rel(a, r) <= FUSED_GRAD_TOL[dtype], (name, _rel(a, r))
+
+
+def test_ffn_dropout_masks_kernel_equals_plain(cuda):
+    seed = torch.tensor([2**31 - 1], dtype=torch.int32, device=cuda)
+    for rate in (0.0, 0.3, 0.9):
+        m1, m2 = ffn_dropout_masks(3, 41, 96, 200, seed, rate)
+        r1, r2 = ffn_dropout_masks_plain(3, 41, 96, 200, seed, rate)
+        torch.cuda.synchronize()
+        assert torch.equal(m1, r1) and torch.equal(m2, r2)
+
+
+def _conv_case(cuda, dtype, b, t, d, kw):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    r = lambda *s, sc=1.0: sc * torch.randn(s, generator=g, device=cuda)
+    x = r(b, t, d).to(dtype)
+    params = (1.0 + r(d, sc=0.1), r(d, sc=0.1), r(d, 2 * d, sc=d**-0.5).to(dtype),
+              r(2 * d, sc=0.1), r(kw, d, sc=kw**-0.5), r(d, sc=0.1), 1.0 + r(d, sc=0.1),
+              r(d, sc=0.1), r(d, d, sc=d**-0.5).to(dtype), r(d, sc=0.1))
+    return x, params, r(b, t, d).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,d,kw,causal,rate", [(3, 37, 96, 7, False, 0.0),
+                                                  (2, 70, 128, 31, True, 0.3),
+                                                  (2, 150, 256, 31, False, 0.1)])
+def test_conv_module_kernels_match_plain(cuda, dtype, b, t, d, kw, causal, rate):
+    x, params, gout = _conv_case(cuda, dtype, b, t, d, kw)
+    seed = torch.tensor([913], dtype=torch.int32, device=cuda)
+    kwargs = dict(rate=rate, causal=causal)
+    f0, b0 = conv_module.launches, conv_module_bwd.launches
+    out = conv_module(x, *params, seed, **kwargs)
+    ref = conv_module_plain(x, *params, seed, **kwargs)
+    bwd_in = params[:-1]  # not b2
+    grads = conv_module_bwd(x, *bwd_in, seed, gout, **kwargs)
+    refs = conv_module_bwd_plain(x, *bwd_in, seed, gout, **kwargs)
+    torch.cuda.synchronize()
+    assert (conv_module.launches, conv_module_bwd.launches) == (f0 + 1, b0 + 1)
+    assert out.dtype == dtype and _rel(out, ref) <= FUSED_TOL[dtype]
+    names = ("dx", "dln_s", "dln_b", "dw1", "db1", "ddw_w", "ddw_b", "dln2_s", "dln2_b",
+             "dw2", "db2")
+    for name, a, r in zip(names, grads, refs):
+        assert a.dtype == r.dtype and a.shape == r.shape, name
+        assert _rel(a, r) <= FUSED_GRAD_TOL[dtype], (name, _rel(a, r))
+
+
+def test_fused_functions_grads_match_plain(cuda):
+    x, p, gout = _ffn_case(cuda, torch.float32, 2, 50, 128, 256)
+    xc, pc, _ = _conv_case(cuda, torch.float32, 2, 50, 128, 15)
+    seed = torch.tensor([3], dtype=torch.int32, device=cuda)
+    grads = []
+    for plain in (False, True):
+        leaves = [v.clone().requires_grad_() for v in (x, *p, xc, *pc)]
+        out = fused_ffn(*leaves[:7], seed, rate=0.2, plain=plain)
+        out2 = fused_conv_module(*leaves[7:], seed, rate=0.2, causal=True, plain=plain)
+        ((out + out2) * gout).sum().backward()
+        grads.append([v.grad for v in leaves])
+    for a, b in zip(*grads):
+        assert _rel(a, b) <= 1e-4
+
+
+def test_fused_kernels_refuse_unsupported_shapes(cuda):
+    x, (sc, bi, w1, b1, w2, b2), _ = _ffn_case(cuda, torch.float32, 1, 8, 32, 64)
+    seed = torch.zeros(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="w1"):
+        ffn(x, sc, bi, w1.bfloat16(), b1, w2, b2, seed)
+    with pytest.raises(ValueError, match="seed"):
+        ffn(x, sc, bi, w1, b1, w2, b2, seed.cpu())
+    xc, pc, _ = _conv_case(cuda, torch.float32, 1, 8, 32, 65)
+    with pytest.raises(ValueError, match="taps"):
+        conv_module(xc, *pc, seed)
