@@ -61,8 +61,27 @@ random weights:
     leaf against the plain path; two bf16 runs of 2 steps from one seed
     bit-equal; one eval forward launching 16 FF and 8 conv forwards and no
     backward.
-The default GRU and Conformer phases check that the fused kernels launch
-no time there.
+12. The GRU's opt-in kernels (``fused_optimizer``, ``use_pallas_matmul``):
+    the projection matmul in its three layouts (``nn`` with the bias, ``nt``,
+    ``tn``) at M=B*L=20032, K=2048, N=6144 and at a ragged M=1001, and Adam
+    over the GRU's 24 leaves (133,845,033 parameters), against their plain
+    versions in float32 and bfloat16, with errors, tolerances, times of
+    kernel, plain version and ``torch.mm`` / ``torch.optim.Adam(fused=True)``
+    as the library yardsticks, and the bounds; reruns bit-equal.
+13. The bf16 GRU train step with both flags (``BENCH_ARGS`` + the flags): 2
+    warm-up and 10 timed steps, median and seq/s beside phase 5's, 12
+    matmul and 1 Adam launches per step; one float32 step without noise and
+    dropout (kernel path vs plain path: every gradient leaf and every
+    parameter after the update); two seeded bf16 runs of 2 steps bit-equal.
+14. ``nsd-train`` end to end: ``training/cli.py::main`` on
+    ``configs/gru_baseline.yaml`` with a pickled synthetic dataset at C=256,
+    20 steps, evals and checkpoints every 10, the three flags
+    (``deviceResidentData`` too) and a profile window over steps 12-14: both
+    new kernels launched as counted, the trace written with them, the
+    device-assembled batches bit-equal to the host's, then ``load_model`` ->
+    eval -> greedy decode.
+The default GRU and Conformer phases check that the fused kernels and the
+GRU's opt-in kernels launch no time there. Each phase prints its seconds.
 
 Run from the repository root:  python3 chip_smoke.py
 It imports no jax. It exits non-zero without a result when there is no
@@ -75,6 +94,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import pickle
 import shutil
 import statistics
 import subprocess
@@ -86,7 +106,9 @@ import numpy as np
 import torch
 
 from neural_speech_decoder_tpu_torch.data.batching import choose_envelope
+from neural_speech_decoder_tpu_torch.data.batching import eval_batches, sample_batch
 from neural_speech_decoder_tpu_torch.data.dataset import pack_days
+from neural_speech_decoder_tpu_torch.data.device_data import DeviceData
 from neural_speech_decoder_tpu_torch.data.synthetic import synthetic_dataset
 from neural_speech_decoder_tpu_torch.models.api import build_model
 from neural_speech_decoder_tpu_torch.models.api import forward as model_forward
@@ -95,6 +117,11 @@ from neural_speech_decoder_tpu_torch.models.common import orthogonal, uniform_bo
 from neural_speech_decoder_tpu_torch.models.gru import GRUConfig, init_gru_params
 from neural_speech_decoder_tpu_torch.ops.decode import greedy_decode
 from neural_speech_decoder_tpu_torch.ops.kernels import _build
+from neural_speech_decoder_tpu_torch.ops.kernels.adam import (
+    adam_scalars,
+    adam_update,
+    adam_update_plain,
+)
 from neural_speech_decoder_tpu_torch.ops.kernels.attention import (
     dropout_masks,
     dropout_masks_plain,
@@ -136,11 +163,17 @@ from neural_speech_decoder_tpu_torch.ops.kernels.gru_scan import (
     gru_sequence_gates_plain,
     gru_sequence_plain,
 )
+from neural_speech_decoder_tpu_torch.ops.kernels.matmul import (
+    tiled_matmul,
+    tiled_matmul_plain,
+)
 from neural_speech_decoder_tpu_torch.serving.model import InferenceModel
-from neural_speech_decoder_tpu_torch.training.optim import make_optimizer
+from neural_speech_decoder_tpu_torch.training import cli as train_cli
+from neural_speech_decoder_tpu_torch.training.optim import FusedAdam, make_optimizer
 from neural_speech_decoder_tpu_torch.training.profile import (
     BENCH_ARGS,
     CONFORMER_ARGS,
+    FUSED_FLAGS,
     bench_batch,
 )
 from neural_speech_decoder_tpu_torch.training.trainer import (
@@ -239,6 +272,10 @@ SOURCES = {
                     "neural_speech_decoder_tpu/ops/pallas/conv_module_kernel.py:104"),
     "conv_module_bwd": ("neural_speech_decoder_tpu_torch/csrc/conv_module.cu",
                         "neural_speech_decoder_tpu/ops/pallas/conv_module_kernel.py:135"),
+    "adam_update": ("neural_speech_decoder_tpu_torch/csrc/adam.cu",
+                    "neural_speech_decoder_tpu/ops/pallas/adam_kernel.py:65"),
+    "tiled_matmul": ("neural_speech_decoder_tpu_torch/csrc/matmul.cu",
+                     "neural_speech_decoder_tpu/ops/pallas/matmul.py:61"),
 }
 KERNELS = tuple(SOURCES)
 # Published H100 SXM peaks (NVIDIA data sheet; dense, at 700 W): HBM bytes/s,
@@ -382,13 +419,18 @@ WRAPPERS = {
     "ffn_dropout_masks": ffn_dropout_masks,
     "conv_module": conv_module,
     "conv_module_bwd": conv_module_bwd,
+    "adam_update": adam_update,
+    "tiled_matmul": tiled_matmul,
 }
 
 
 NO_FUSED = {"ffn": 0, "ffn_bwd": 0, "ffn_dropout_masks": 0, "conv_module": 0,
             "conv_module_bwd": 0}
 NO_ATTENTION = {"mhsa_qkv": 0, "mhsa_qkv_bwd": 0, "dropout_masks": 0, **NO_FUSED}
-NO_GRU = {"frontend": 0, "gru_scan": 0, "gru_scan_gates": 0, "gru_scan_bwd": 0}
+# the GRU's opt-in kernels (fused_optimizer, use_pallas_matmul)
+NO_GRU_FUSED = {"adam_update": 0, "tiled_matmul": 0}
+NO_GRU = {"frontend": 0, "gru_scan": 0, "gru_scan_gates": 0, "gru_scan_bwd": 0,
+          **NO_GRU_FUSED}
 # the test hooks: the kernels of the main paths draw the same bits themselves
 HOOKS = ("dropout_masks", "ffn_dropout_masks")
 
@@ -644,9 +686,10 @@ def train_kernel_phase() -> dict:
     return rows
 
 
-def train_step_phase(card: str) -> dict:
+def train_step_phase(card: str) -> tuple[dict, float]:
     """bench.py's train step at full width in bf16; then one float32 step
-    checked leaf by leaf against the plain path."""
+    checked leaf by leaf against the plain path. Returns the launches and
+    the bf16 step's median seconds."""
     device = torch.device("cuda")
     args = dict(BENCH_ARGS)
     model = build_model(args, N_DAYS, device, seed=0)
@@ -670,10 +713,10 @@ def train_step_phase(card: str) -> dict:
     launches = read_launches(KERNELS)
     want = {"frontend": 0, "gru_scan": 0, "gru_scan_gates": 5 * n,
             "gru_scan_bwd": 5 * n, "ctc_alpha": n, "ctc_beta": n,
-            **NO_ATTENTION}
+            **NO_ATTENTION, **NO_GRU_FUSED}
     check(launches == want, f"launches over {n} bf16 train steps {launches} "
           f"== per step 5 gates-forward, 5 backward, 1 alpha, 1 beta, no "
-          f"frontend or inference scan")
+          f"frontend, inference scan, fused Adam or projection matmul")
     check(all(math.isfinite(v) for v in losses),
           f"bf16 train losses finite: {', '.join(f'{v:.4f}' for v in losses)}")
     moved = [not torch.equal(a, p.detach()) for a, p in zip(before, model.parameters())]
@@ -709,7 +752,7 @@ def train_step_phase(card: str) -> dict:
           f"{loss_p:.6f}; {len(errs)} gradient leaves, max abs err / max |ref| "
           f"{max(errs):.3e} <= {GRAD_TOL:g}")
     return {k: launches[k] for k in ("gru_scan_gates", "gru_scan_bwd",
-                                     "ctc_alpha", "ctc_beta")}
+                                     "ctc_alpha", "ctc_beta")}, med
 
 
 def train_model_phase(card: str) -> None:
@@ -748,7 +791,7 @@ def train_model_phase(card: str) -> None:
     n_batches = -(-test_ds.n_trials // B)
     want = {"frontend": n_batches, "gru_scan": 5 * n_batches,
             "gru_scan_gates": 0, "gru_scan_bwd": 0, "ctc_alpha": n_batches,
-            "ctc_beta": 0, **NO_ATTENTION}
+            "ctc_beta": 0, **NO_ATTENTION, **NO_GRU_FUSED}
     check(launches == want, f"eval of the reloaded model over {n_batches} "
           f"batch(es) launched {launches}: frontend, inference scan and alpha, "
           f"not beta")
@@ -922,8 +965,8 @@ def attention_kernel_phase() -> dict:
     return rows
 
 
-def conformer_step(args, seed, batch, n_warm, n_timed):
-    """A fresh Conformer from ``seed`` and ``n_warm + n_timed`` train steps:
+def train_steps(args, seed, batch, n_warm, n_timed):
+    """A fresh model of ``args`` from ``seed`` and ``n_warm + n_timed`` train steps:
     (model, losses, step times of the timed steps, launches over them)."""
     device = torch.device("cuda")
     model = build_model(args, N_DAYS, device, seed=seed)
@@ -952,7 +995,7 @@ def conformer_train_step_phase(card: str) -> dict:
     device = torch.device("cuda")
     batch = batch_tensors(bench_batch(B, T, U), device)
     n = 10
-    model, losses, times, launches = conformer_step(dict(CONFORMER_ARGS), 0, batch, 2, n)
+    model, losses, times, launches = train_steps(dict(CONFORMER_ARGS), 0, batch, 2, n)
     want = {**NO_GRU, **NO_FUSED, "ctc_alpha": 2 * n, "ctc_beta": 2 * n,
             "mhsa_qkv": CONFORMER_LAYERS * n, "mhsa_qkv_bwd": CONFORMER_LAYERS * n,
             "dropout_masks": 0}
@@ -1000,7 +1043,7 @@ def conformer_train_step_phase(card: str) -> dict:
     # reproducibility: two runs of two bf16 steps from one seed
     runs = []
     for _ in range(2):
-        model, losses, _, _ = conformer_step(dict(CONFORMER_ARGS), 0, batch, 0, 2)
+        model, losses, _, _ = train_steps(dict(CONFORMER_ARGS), 0, batch, 0, 2)
         runs.append((losses, [p.detach().clone() for p in model.parameters()]))
         del model
     (l1, p1), (l2, p2) = runs
@@ -1238,7 +1281,7 @@ def fused_kernel_phase() -> dict:
     return rows
 
 
-FUSED_ARGS = {**CONFORMER_ARGS, "fused_ffn": True, "fused_conv": True}
+FUSED_ARGS = {**CONFORMER_ARGS, **FUSED_FLAGS["conformer"]}
 
 
 def fused_conformer_phase(card: str) -> dict:
@@ -1248,7 +1291,7 @@ def fused_conformer_phase(card: str) -> dict:
     device = torch.device("cuda")
     batch = batch_tensors(bench_batch(B, T, U), device)
     n = 10
-    model, losses, times, launches = conformer_step(dict(FUSED_ARGS), 0, batch, 2, n)
+    model, losses, times, launches = train_steps(dict(FUSED_ARGS), 0, batch, 2, n)
     per_step = {"ffn": 2 * CONFORMER_LAYERS, "ffn_bwd": 2 * CONFORMER_LAYERS,
                 "conv_module": CONFORMER_LAYERS, "conv_module_bwd": CONFORMER_LAYERS,
                 "ffn_dropout_masks": 0, "mhsa_qkv": CONFORMER_LAYERS,
@@ -1307,7 +1350,7 @@ def fused_conformer_phase(card: str) -> dict:
 
     runs = []
     for _ in range(2):
-        model, losses, _, _ = conformer_step(dict(FUSED_ARGS), 0, batch, 0, 2)
+        model, losses, _, _ = train_steps(dict(FUSED_ARGS), 0, batch, 0, 2)
         runs.append((losses, [p.detach().clone() for p in model.parameters()]))
         del model
     (l1, p1), (l2, p2) = runs
@@ -1315,6 +1358,307 @@ def fused_conformer_phase(card: str) -> dict:
     check(same, f"two fused bf16 Conformer runs of 2 steps from one seed bit-equal: "
           f"losses {l1} / {l2}")
     return {k: launches[k] for k in NO_FUSED}
+
+
+# ------------------------------- the GRU's opt-in kernels: Adam and the matmul
+
+# The projection of GRU layers 1-4 at the train step: M = B*L = 20032 rows,
+# K = H*D = 2048, N = 3H*D = 6144.
+MM_M, MM_K, MM_N = B * L, H * D, 3 * H * D
+MM_RAGGED_M = 1001  # M % 128 = 105
+# Kernel vs plain, max abs error relative to the output's largest entry.
+# Float32: the same float32 products summed in another order (2048-, 6144-
+# and 20032-long sums). Bfloat16: both round the same float32 sums once to
+# bf16, and a sum that falls the other way moves an entry by one bf16 step,
+# at most 2**-7 of the largest entry.
+MM_TOL = {"float32": 1e-5, "bfloat16": 2.0**-7}
+# Adam, kernel vs plain: the same float32 operations in the same order, each
+# rounded once (the kernel's _rn intrinsics forbid FMA contraction), so equal
+# up to the card's correctly rounded sqrt and division; the bounds are one
+# float32 ulp of |p| < 8 and of the moments (|m| < 1, v < 1).
+ADAM_TOL = {"p": 1e-6, "m": 1e-7, "v": 1e-7}
+ADAM_HYPER = dict(b1=0.9, b2=0.999, eps=0.1, l2=1e-5)  # the GRU recipe's
+
+
+def mm_library(a, b, kind):
+    """One PyTorch call for the same product (bias and rounding left out):
+    ``torch.mm`` in the layout, float32 out for bf16 operands."""
+    x, y = {"nn": (a, b), "nt": (a, b.T), "tn": (a.T, b)}[kind]
+    if x.dtype == torch.bfloat16:
+        return torch.mm(x, y, out_dtype=torch.float32)
+    return torch.mm(x, y)
+
+
+def matmul_kernel_phase() -> dict:
+    """The projection matmul, kernel vs plain, at the train step's shapes
+    and at a ragged M, float32 and bfloat16; times and bounds."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((MM_M, MM_K), generator=g, device="cuda")
+    w = MM_K**-0.5 * torch.randn((MM_K, MM_N), generator=g, device="cuda")
+    gout = torch.randn((MM_M, MM_N), generator=g, device="cuda")
+    bias = 0.1 * torch.randn((MM_N,), generator=g, device="cuda")
+    row = {}
+    for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        ops = {"nn": (x.to(dt), w.to(dt)), "nt": (gout.to(dt), w.to(dt)),
+               "tn": (x.to(dt), gout.to(dt))}
+        for kind, (a, b) in ops.items():
+            bb = bias if kind == "nn" else None
+            for m in (MM_M, MM_RAGGED_M):
+                ak, bk = (a[:m], b) if kind != "tn" else (a[:m], b[:m])
+                with torch.inference_mode():
+                    out = tiled_matmul(ak, bk, kind=kind, bias=bb)
+                    ref = tiled_matmul_plain(ak, bk, kind=kind, bias=bb)
+                    again = tiled_matmul(ak, bk, kind=kind, bias=bb)
+                torch.cuda.synchronize()
+                err, same = rel_err(out, ref), torch.equal(out, again)
+                check(err <= MM_TOL[name] and same and out.dtype == ref.dtype,
+                      f"tiled_matmul {kind} {name} M={m} K={MM_K} N={MM_N}"
+                      f"{' + bias' if bb is not None else ''}: max abs err / max |ref| "
+                      f"{err:.3e} <= {MM_TOL[name]:.3g}; rerun bit-equal {same}")
+                if name == "bfloat16" and kind == "nn" and m == MM_M:
+                    row["max_abs_err"] = (out.float() - ref.float()).abs().max().item()
+                del out, ref, again
+            with torch.inference_mode():
+                kt, pt, turns = time_turns(lambda: tiled_matmul(a, b, kind=kind, bias=bb),
+                                           lambda: tiled_matmul_plain(a, b, kind=kind,
+                                                                      bias=bb), 3, 3)
+                lib = time_ms(lambda: mm_library(a, b, kind), 5)
+            out_bytes = {"nn": MM_M * MM_N, "nt": MM_M * MM_K, "tn": MM_K * MM_N}[kind]
+            bt, by = bound_ms(nbytes(a, b) + out_bytes * a.element_size()
+                              + (nbytes(bb) if bb is not None else 0),
+                              2.0 * MM_M * MM_K * MM_N, name)
+            tflops = 2.0 * MM_M * MM_K * MM_N / kt / 1e9
+            print(f"time  tiled_matmul {kind} {name} M={MM_M} K={MM_K} N={MM_N}: kernel "
+                  f"{turns[0]:.4f}/{turns[1]:.4f} ms ({tflops:.1f} TFLOP/s), plain "
+                  f"{turns[2]:.4f}/{turns[3]:.4f} ms, torch.mm {lib:.4f} ms; bound "
+                  f"{bt:.4f} ms ({by})", flush=True)
+            if name == "bfloat16" and kind == "nn":
+                row.update(ms=kt, plain_ms=pt, library_ms=lib, bound_ms=bt, bound_by=by)
+        del ops
+    # the main path's dtype (the recipe's bf16) and its forward layout
+    row.update(dtype="bfloat16", layout="nn + bias")
+    return row
+
+
+def adam_kernel_phase() -> dict:
+    """Adam over the GRU baseline's 24 leaves, kernel vs plain; times and
+    the bound; ``torch.optim.Adam(fused=True)`` as the library yardstick."""
+    g = torch.Generator(device="cuda").manual_seed(6)
+    shapes = [p.shape for p in build_model(BENCH_ARGS, N_DAYS, "cuda").parameters()]
+    n = sum(math.prod(s) for s in shapes)
+    grads = [torch.randn(s, generator=g, device="cuda") for s in shapes]
+    base = [[torch.randn(s, generator=g, device="cuda") for s in shapes],
+            [0.1 * torch.randn(s, generator=g, device="cuda") for s in shapes],
+            [0.01 * torch.rand(s, generator=g, device="cuda") for s in shapes]]
+    c1, c2 = adam_scalars(4, 0.9, 0.999)
+    hyper = dict(lr=0.02, c1=c1, c2=c2, **ADAM_HYPER)
+    kern = [[t.clone() for t in leaves] for leaves in base]
+    plain = [[t.clone() for t in leaves] for leaves in base]
+    before = adam_update.launches
+    adam_update(grads, *kern, **hyper)
+    adam_update_plain(grads, *plain, **hyper)
+    torch.cuda.synchronize()
+    one_launch = adam_update.launches - before == 1
+    errs = {k: max((a - b).abs().max().item() for a, b in zip(ka, pa))
+            for k, ka, pa in zip("pmv", kern, plain)}
+    check(all(errs[k] <= ADAM_TOL[k] for k in errs) and len(shapes) == 24 and one_launch,
+          f"adam_update over the GRU's {len(shapes)} leaves ({n:,} parameters) in one "
+          f"launch {one_launch}: max abs err p {errs['p']:.3e} <= {ADAM_TOL['p']:g}, m "
+          f"{errs['m']:.3e} <= {ADAM_TOL['m']:g}, v {errs['v']:.3e} <= {ADAM_TOL['v']:g}")
+    kt, pt, turns = time_turns(lambda: adam_update(grads, *kern, **hyper),
+                               lambda: adam_update_plain(grads, *plain, **hyper), 20, 5)
+    del plain
+    lib = {}
+    for impl in ("fused", "foreach"):
+        leaves = [torch.nn.Parameter(t.clone()) for t in base[0]]
+        for p, gr in zip(leaves, grads):
+            p.grad = gr
+        opt = torch.optim.Adam(leaves, lr=0.02, betas=(0.9, 0.999), eps=0.1,
+                               weight_decay=ADAM_HYPER["l2"], **{impl: True})
+        lib[impl] = time_ms(opt.step, 20)
+        del leaves, opt
+    # g, p, m, v read once and p, m, v written once; ~16 float32 operations
+    # an element
+    bt, by = bound_ms(28.0 * n, 16.0 * n, "float32")
+    print(f"time  adam_update over {n:,} parameters: kernel {turns[0]:.4f}/{turns[1]:.4f} "
+          f"ms, plain {turns[2]:.4f}/{turns[3]:.4f} ms, torch.optim.Adam fused "
+          f"{lib['fused']:.4f} ms, foreach {lib['foreach']:.4f} ms; bound {bt:.4f} ms "
+          f"({by})", flush=True)
+    return {"max_abs_err": max(errs.values()), "ms": kt, "plain_ms": pt,
+            "library_ms": lib["fused"], "bound_ms": bt, "bound_by": by, "dtype": "float32"}
+
+
+GRU_FUSED_ARGS = {**BENCH_ARGS, **FUSED_FLAGS["gru"]}
+GRU_FUSED_PER_STEP = {"gru_scan_gates": 5, "gru_scan_bwd": 5, "ctc_alpha": 1, "ctc_beta": 1,
+                      "tiled_matmul": 12, "adam_update": 1}
+
+
+def gru_fused_step_phase(card: str, default_median: float) -> dict:
+    """The bf16 GRU step with ``fused_optimizer`` and ``use_pallas_matmul``;
+    one float32 step (gradients and the update) against the plain path; two
+    seeded runs bit-equal."""
+    device = torch.device("cuda")
+    batch = batch_tensors(bench_batch(B, T, U), device)
+    n = 10
+    model, losses, times, launches = train_steps(dict(GRU_FUSED_ARGS), 0, batch, 2, n)
+    per_step = {k: 0 for k in KERNELS} | GRU_FUSED_PER_STEP
+    check(launches == {k: v * n for k, v in per_step.items()},
+          f"launches over {n} flagged bf16 GRU train steps {launches} == per step 12 "
+          f"projection matmuls (4 layers x nn, nt, tn), 1 Adam, 5/5 scan, 1/1 CTC")
+    check(all(math.isfinite(v) for v in losses),
+          f"flagged bf16 GRU train losses finite: {', '.join(f'{v:.4f}' for v in losses)}")
+    med = statistics.median(times)
+    print(f"train step bf16 with fused_optimizer + use_pallas_matmul B={B} T={T} U={U}: "
+          f"steps {', '.join(f'{t * 1e3:.2f}' for t in times)} ms, median "
+          f"{med * 1e3:.2f} ms, {B / med:.2f} seq/s; the default step (phase 5) "
+          f"{default_median * 1e3:.2f} ms, {B / default_median:.2f} seq/s; ratio "
+          f"{med / default_median:.3f} ({card})", flush=True)
+    del model
+
+    # one float32 step without noise and dropout, kernel path vs plain path:
+    # the gradients, then the update (FusedAdam on the kernel; the plain
+    # update on the plain path's gradients). The first update is
+    # lr * g / (|g| + eps) (c1, c2 undo the moments' decay), which moves by
+    # at most lr / eps = 0.2 times a change of g: each updated parameter may
+    # differ by 0.2 times its leaf's largest gradient difference, plus its
+    # float32 rounding (1e-6).
+    args32 = {**GRU_FUSED_ARGS, "compute_dtype": "float32", "dropout": 0.0,
+              "whiteNoiseSD": 0.0, "constantOffsetSD": 0.0}
+    model = build_model(args32, N_DAYS, device, seed=1)
+    start = [p.detach().clone() for p in model.parameters()]
+    out = {}
+    for plain in (False, True):
+        with torch.no_grad():
+            for p, p0 in zip(model.parameters(), start):
+                p.copy_(p0)
+        model.zero_grad(set_to_none=True)
+        reset_launches()
+        loss, _ = _loss_and_metrics(args32, model, batch, step_generator(device, 0, 0),
+                                    plain=plain)
+        loss.backward()
+        ps = list(model.parameters())
+        if plain:
+            c1, c2 = adam_scalars(0, 0.9, 0.999)
+            with torch.no_grad():
+                adam_update_plain([p.grad for p in ps], ps, [torch.zeros_like(p) for p in ps],
+                                  [torch.zeros_like(p) for p in ps], lr=args32["lrStart"],
+                                  c1=c1, c2=c2, **ADAM_HYPER)
+        else:
+            opt, _ = make_optimizer(args32, ps)
+            check(type(opt) is FusedAdam, f"fused_optimizer gives {type(opt).__name__}")
+            opt.step()
+        torch.cuda.synchronize()
+        out[plain] = (loss.item(), [p.grad.clone() for p in ps],
+                      [p.detach().clone() for p in ps], read_launches())
+    (loss_k, grads_k, new_k, launch_k), (loss_p, grads_p, new_p, launch_p) = (out[False],
+                                                                               out[True])
+    check(launch_k == per_step and not any(launch_p.values()),
+          f"float32 flagged step launches: kernel path {launch_k}, plain path {launch_p}")
+    errs = [rel_err(a, b) for a, b in zip(grads_k, grads_p)]
+    check(abs(loss_k - loss_p) <= GRAD_TOL * abs(loss_p) and max(errs) <= GRAD_TOL,
+          f"float32 flagged GRU train step, kernels vs plain: loss {loss_k:.6f} vs "
+          f"{loss_p:.6f}; {len(errs)} gradient leaves, max abs err / max |ref| "
+          f"{max(errs):.3e} <= {GRAD_TOL:g}")
+    slack = [(a - b).abs().max().item() - (0.2 * (ga - gb).abs().max().item() + 1e-6)
+             for a, b, ga, gb in zip(new_k, new_p, grads_k, grads_p)]
+    worst = max((a - b).abs().max().item() for a, b in zip(new_k, new_p))
+    check(max(slack) <= 0, f"float32 flagged step, parameters after the update, kernels vs "
+          f"plain: max abs err {worst:.3e}; every leaf within 0.2 x its largest gradient "
+          f"difference + 1e-6 (worst margin {max(slack):.3e})")
+    del model, out, grads_k, grads_p, new_k, new_p
+
+    runs = []
+    for _ in range(2):
+        model, losses, _, _ = train_steps(dict(GRU_FUSED_ARGS), 0, batch, 0, 2)
+        runs.append((losses, [p.detach().clone() for p in model.parameters()]))
+        del model
+    (l1, p1), (l2, p2) = runs
+    same = l1 == l2 and all(torch.equal(a, b) for a, b in zip(p1, p2))
+    check(same, f"two flagged bf16 GRU runs of 2 steps from one seed bit-equal: losses "
+          f"{l1} / {l2}")
+    return {k: launches[k] for k in NO_GRU_FUSED}
+
+
+def cli_phase(card: str) -> None:
+    """``nsd-train`` (``training/cli.py::main``) on the recipe's config with
+    the three flags and a profile window, then load_model -> eval -> decode."""
+    out_dir = Path("runs") / "chip_smoke_cli"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    ds = synthetic_dataset(seed=0, n_days=N_DAYS, trials_per_day=8, n_channels=C,
+                           min_t=400, max_t=1200, min_u=20, max_u=U)
+    data = out_dir / "dataset.pkl"
+    data.write_bytes(pickle.dumps(ds))
+    run = out_dir / "run"
+    n_steps, n_evals = 20, 2
+    reset_launches()
+    t0 = time.perf_counter()
+    summary = train_cli.main([
+        "--config", "neural_speech_decoder_tpu/configs/gru_baseline.yaml",
+        f"outputDir={run}", f"datasetPath={data}", f"nBatch={n_steps}", "evalEvery=10",
+        "checkpointEvery=10", "fused_optimizer=true", "use_pallas_matmul=true",
+        "deviceResidentData=true", "profile_steps=[12,14]", "wandb_mode=disabled"])
+    launches = read_launches()
+    print(f"nsd-train (training/cli.py) on configs/gru_baseline.yaml with the three flags: "
+          f"{n_steps} steps with {n_evals} evals and 2 checkpoints in "
+          f"{time.perf_counter() - t0:.1f} s; {summary} ({card})", flush=True)
+    train_ds, test_ds = pack_days(ds["train"]), pack_days(ds["test"])
+    nb = -(-test_ds.n_trials // B)
+    per_step = {k: v * n_steps for k, v in GRU_FUSED_PER_STEP.items()}
+    want = {k: 0 for k in KERNELS} | per_step | {
+        "tiled_matmul": per_step["tiled_matmul"] + 4 * nb * n_evals,
+        "frontend": nb * n_evals, "gru_scan": 5 * nb * n_evals,
+        "ctc_alpha": per_step["ctc_alpha"] + nb * n_evals}
+    check(launches == want, f"nsd-train launched {launches} == {n_steps} flagged steps "
+          f"and {n_evals} evals of {nb} batch(es) (4 forward projections each)")
+    traces = list((run / "profile").glob("*.json"))
+    text = traces[0].read_text() if traces else ""
+    check(len(traces) == 1 and "adam_kernel" in text and "gemm_wmma_kernel" in text,
+          f"profile window trace {[t.name for t in traces]} ({len(text):,} bytes) holds "
+          f"the Adam and projection kernels")
+    names = ("args", "trainingStats", "modelState", "lastState")
+    check(all((run / k).is_file() for k in names), f"artifacts {names} written")
+
+    # the device-assembled batches against the host path's, bit for bit
+    t_max, u_max = choose_envelope(train_ds, test_ds, max_time=1200)
+    device = torch.device("cuda")
+    r1, r2 = np.random.default_rng(1), np.random.default_rng(1)
+    pairs = [(sample_batch(train_ds, r1, B, t_max, u_max),
+              sample_batch(train_ds, r2, B, t_max, u_max, materialize_x=False),
+              DeviceData(train_ds, device))]
+    test_dd = DeviceData(test_ds, device)
+    pairs += [(h, i, test_dd) for h, i in zip(
+        eval_batches(test_ds, B, t_max, u_max),
+        eval_batches(test_ds, B, t_max, u_max, materialize_x=False))]
+    same = all(torch.equal(a, b) and a.dtype == b.dtype
+               for host, idx, dd in pairs
+               for a, b in zip(batch_tensors(host, device), dd.assemble(idx)))
+    check(same, f"{len(pairs)} device-assembled batches (1 train, {len(pairs) - 1} eval "
+          f"with padded rows) bit-equal to the host path's")
+
+    model, _ = load_model(str(run), device="cuda")
+    reset_launches()
+    _, per, _, _ = run_eval(make_eval_step(model), test_ds, B, t_max, u_max, device,
+                            device_data=test_dd)
+    ev = read_launches()
+    best = float(summary["summary/best_cer"])
+    check(ev["tiled_matmul"] == 4 * nb and ev["adam_update"] == 0
+          and math.isfinite(per) and abs(per - best) <= 0.02,
+          f"reloaded best model (use_pallas_matmul from its args): eval launched "
+          f"{ev['tiled_matmul']} projection matmuls; PER {per:.6f} vs the run's best "
+          f"{best:.6f}")
+    trial = test_ds.trial(0)
+    x = torch.zeros((1, t_max, C), device="cuda")
+    x[0, : len(trial)] = torch.from_numpy(trial).to(x.device)
+    with torch.inference_mode():
+        log_probs, out_lens, _ = model_forward(
+            model, x, torch.as_tensor(test_ds.days[:1], device="cuda"),
+            torch.tensor([len(trial)], device="cuda"))
+        tokens, lens = greedy_decode(log_probs, out_lens)
+    check(bool(torch.isfinite(log_probs).all()) and out_lens.item() > 0,
+          f"nsd-train run -> load_model -> greedy decode of one test trial: "
+          f"{int(lens[0])} labels decoded, {int(test_ds.label_lens[0])} in the reference")
+    shutil.rmtree(out_dir, ignore_errors=True)
 
 
 def main() -> int:
@@ -1350,7 +1694,8 @@ def main() -> int:
     rows.update(train_kernel_phase())
     print(f"phase train kernels: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    launches.update(train_step_phase(card))
+    step_launches, gru_median = train_step_phase(card)
+    launches.update(step_launches)
     print(f"phase train step: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     train_model_phase(card)
@@ -1370,6 +1715,16 @@ def main() -> int:
     t0 = time.perf_counter()
     launches.update(fused_conformer_phase(card))
     print(f"phase fused conformer: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    rows["tiled_matmul"] = matmul_kernel_phase()
+    rows["adam_update"] = adam_kernel_phase()
+    print(f"phase GRU opt-in kernels: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    launches.update(gru_fused_step_phase(card, gru_median))
+    print(f"phase flagged GRU train step: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    cli_phase(card)
+    print(f"phase nsd-train: {time.perf_counter() - t0:.1f} s", flush=True)
     # every kernel of the main paths ran there (the mask hooks excepted: the
     # attention and FF kernels draw their masks themselves)
     idle = [k for k in KERNELS if k not in HOOKS and not launches[k]]

@@ -67,6 +67,7 @@ def config_from_args(args: dict, n_days: int) -> GRUConfig | ConformerConfig:
         gaussian_smooth_width=args["gaussianSmoothWidth"],
         bidirectional=args["bidirectional"],
         compute_dtype=cdt,
+        use_pallas_matmul=bool(args.get("use_pallas_matmul") or False),
     )
 
 

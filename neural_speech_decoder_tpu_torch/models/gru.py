@@ -17,6 +17,11 @@ as the JAX package does, each scan through the ``GRUScan`` autograd
 Function (gates-storing forward and backward kernels), and inter-layer
 dropout. Layer 0's projection is a strided convolution (cuDNN), layers 1+
 and the head are cuBLAS products, as the JAX package leaves them to XLA.
+With ``use_pallas_matmul`` (off by default, as in the JAX package) layers
+1+ take their projection, forward and backward, through the hand-written
+product of ``ops/kernels/matmul.py`` (``projection_matmul``) where K and N
+are multiples of 128; elsewhere they warn once and keep ``linear``, as the
+JAX package's call site does.
 ``plain=True`` runs the kernels' plain PyTorch versions instead, as the
 reference a card run is checked against.
 
@@ -32,6 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 
 import torch
 import torch.nn as nn
@@ -41,10 +47,13 @@ from ..ops.day_affine import day_affine, init_day_affine
 from ..ops.gaussian import gaussian_smooth
 from ..ops.kernels.frontend import fused_frontend, fused_frontend_plain
 from ..ops.kernels.gru_scan import gru_cell, gru_scan
+from ..ops.kernels.matmul import projection_kernel_viable, projection_matmul
 from ..ops.unfold import unfold_matmul, unfold_output_length
 from .common import linear, orthogonal, torch_linear_init, uniform_bound, xavier_uniform
 
 Params = dict
+
+_warned_matmul_fallback = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,6 +71,8 @@ class GRUConfig:
     bidirectional: bool = True
     dtype: torch.dtype = torch.float32  # parameter dtype
     compute_dtype: torch.dtype = torch.float32  # activation/matmul dtype
+    # layers 1+ project through the hand-written product (forward, dX, dW)
+    use_pallas_matmul: bool = False
 
     @property
     def num_dirs(self) -> int:
@@ -152,6 +163,10 @@ def gru_encode(
         if li == 0:
             xp = unfold_matmul(out, w_cat, cfg.kernel_len, cfg.stride_len)
             xp = (xp.float().reshape(b, -1, d, 3 * h) + lp["b_ih"].float()).to(cdt)
+        elif _use_matmul_kernel(cfg, li, out.shape[-1], 3 * h * d):
+            xp = projection_matmul(out.reshape(-1, out.shape[-1]), w_cat,
+                                   lp["b_ih"].reshape(-1).float(), plain=plain)
+            xp = xp.reshape(b, -1, d, 3 * h)
         else:
             xp = linear(out, w_cat, lp["b_ih"].reshape(-1)).reshape(b, -1, d, 3 * h)
         xp = xp.permute(1, 2, 0, 3).contiguous()  # [L, D, B, 3H]
@@ -160,6 +175,24 @@ def gru_encode(
         if p > 0 and li < cfg.num_layers - 1:
             out = dropout(out, p, generator)
     return out
+
+
+def _use_matmul_kernel(cfg: GRUConfig, li: int, k: int, n: int) -> bool:
+    """Layer ``li`` (1+) takes the hand-written projection: the JAX
+    package's call-site gate. Layer 0 never does (its projection is the
+    strided conv). K or N not a multiple of 128 warns once and keeps
+    ``linear``."""
+    global _warned_matmul_fallback
+    if not cfg.use_pallas_matmul or li == 0:
+        return False
+    if projection_kernel_viable(k, n):
+        return True
+    if not _warned_matmul_fallback:
+        _warned_matmul_fallback = True
+        warnings.warn(
+            f"use_pallas_matmul=True but layer-{li} GEMM dims (K={k}, N={n}) are "
+            f"not multiples of 128; using linear instead.", stacklevel=3)
+    return False
 
 
 def dropout(x: torch.Tensor, p: float, generator: torch.Generator) -> torch.Tensor:

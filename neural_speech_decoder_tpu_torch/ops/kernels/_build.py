@@ -9,7 +9,8 @@ and flags, so an edited source builds anew and a built one is reused. The
 library is loaded with ``ctypes``; every pointer and the stream are passed
 as ``c_void_p``, and every entry point returns a ``cudaError_t`` (0 = ok),
 except the ``*_workspace`` queries, which return the bytes of scratch a
-kernel needs (the wrapper allocates it).
+kernel needs (the wrapper allocates it), and ``nsd_adam_max_leaves``, the
+most leaves one Adam launch takes.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_PP = ctypes.POINTER(ctypes.c_void_p)
 _SIGNATURES = {
     "nsd_frontend_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                          ctypes.POINTER(ctypes.c_float), _I, _I, _P],
@@ -52,12 +54,17 @@ _SIGNATURES = {
     "nsd_ffn_dropout_masks": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
     "nsd_conv_fwd_f32": [_P] * 14 + [_I] * 5 + [_F] * 2 + [_P],
     "nsd_conv_bwd_f32": [_P] * 24 + [_I] * 5 + [_F] * 2 + [_P],
+    "nsd_adam_max_leaves": [],
+    "nsd_adam_f32": [_PP] * 4 + [ctypes.POINTER(ctypes.c_longlong), _I] + [_F] * 9 + [_P],
+    "nsd_matmul_f32": [_P] * 5 + [_I] * 4 + [_P],
 }
 for _name in ("frontend", "gru_scan", "gru_scan_gates", "gru_bwd", "attn_fwd",
-              "attn_bwd", "ffn_fwd", "ffn_bwd", "conv_fwd", "conv_bwd"):
+              "attn_bwd", "ffn_fwd", "ffn_bwd", "conv_fwd", "conv_bwd", "matmul"):
     _SIGNATURES[f"nsd_{_name}_bf16"] = _SIGNATURES[f"nsd_{_name}_f32"]
-# workspace sizes in bytes: (b, t, d, f or k, bf16, bwd) -> long long
-_SIZES = {"nsd_ffn_workspace": [_I] * 6, "nsd_conv_workspace": [_I] * 6}
+# workspace sizes in bytes -> long long: (b, t, d, f or k, bf16, bwd), and
+# (kind, rows, cols, red) for the matmul
+_SIZES = {"nsd_ffn_workspace": [_I] * 6, "nsd_conv_workspace": [_I] * 6,
+          "nsd_matmul_workspace": [_I] * 4}
 
 
 def _sources() -> list[Path]:

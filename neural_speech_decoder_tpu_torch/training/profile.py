@@ -11,8 +11,10 @@ and the host-clock time of each step.
     python -m neural_speech_decoder_tpu_torch.training.profile \
         [--model gru|conformer] [--dtype float32] [--fused]
 
-``--fused`` (Conformer only) sets ``fused_ffn`` and ``fused_conv``: the FF
-and conv modules run through their fused kernels.
+``--fused`` sets the model's opt-in kernel flags: for the GRU
+``fused_optimizer`` and ``use_pallas_matmul`` (Adam and the layer 1-4
+projections on their hand-written kernels), for the Conformer ``fused_ffn``
+and ``fused_conv`` (the FF and conv modules through their fused kernels).
 
 It needs a CUDA device and fails without one.
 """
@@ -73,6 +75,9 @@ CONFORMER_ARGS = {
     "optimizer": "adamw",
 }
 N_DAYS = 24
+# --fused: each model's opt-in kernel flags
+FUSED_FLAGS = {"gru": {"fused_optimizer": True, "use_pallas_matmul": True},
+               "conformer": {"fused_ffn": True, "fused_conv": True}}
 
 
 def bench_batch(
@@ -97,10 +102,9 @@ def main() -> None:
     ap.add_argument("--dtype", default="bfloat16", choices=["float32", "bfloat16"])
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--fused", action="store_true",
-                    help="the Conformer's fused FF and conv-module kernels")
+                    help="the model's opt-in kernels: the GRU's fused Adam and "
+                         "projection matmul, the Conformer's fused FF and conv")
     args_cli = ap.parse_args()
-    if args_cli.fused and args_cli.model != "conformer":
-        ap.error("--fused needs --model conformer")
     if not torch.cuda.is_available():
         raise SystemExit("profile: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -109,7 +113,7 @@ def main() -> None:
     recipe = CONFORMER_ARGS if args_cli.model == "conformer" else BENCH_ARGS
     args = {**recipe, "compute_dtype": args_cli.dtype}
     if args_cli.fused:
-        args.update(fused_ffn=True, fused_conv=True)
+        args.update(FUSED_FLAGS[args_cli.model])
     model = build_model(args, N_DAYS, device, seed=0)
     opt, sched = make_optimizer(args, model.parameters())
     step = make_train_step(args, model, opt, sched)

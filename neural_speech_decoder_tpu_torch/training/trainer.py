@@ -9,14 +9,19 @@ reductions, label smoothing and InterCTC blending, Adam with L2 and
 LinearLR (or AdamW with warmup-cosine, the Conformer's, with its gradients
 clipped to norm 1.0), eval every ``evalEvery`` steps (CTC loss and greedy
 PER), the best-CER ``modelState``, the periodic ``lastState``,
-SIGTERM/SIGUSR1 preemption and an exact ``resume``.
+SIGTERM/SIGUSR1 preemption and an exact ``resume``, device-resident data
+(``deviceResidentData``: ``data/device_data.py``) and a ``torch.profiler``
+trace of the steps ``profile_steps = [start, stop]`` into
+``outputDir/profile``.
 
-Left out, as the port runs on one device: the mesh, tensor parallelism,
-multi-host staging, device-resident data and the profiler window. The
-device comes from ``args["device"]`` (default ``"cuda"``, which raises
-without a card). The noise and dropout of step ``i`` come from a
-``torch.Generator`` seeded from ``(seed, i)``, as the JAX package folds the
-step into its key, so a resumed run draws what an uninterrupted one would.
+The port runs on one device: the mesh, tensor parallelism and multi-host
+staging are not ported (ROADMAP queue 1 item 10), and a run that asks for
+them (``n_data_devices`` or ``n_model_devices`` > 1, ``multihost_staging``)
+raises ``NotImplementedError``. The device comes from ``args["device"]``
+(default ``"cuda"``, which raises without a card). The noise and dropout of
+step ``i`` come from a ``torch.Generator`` seeded from ``(seed, i)``, as the
+JAX package folds the step into its key, so a resumed run draws what an
+uninterrupted one would.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import math
 import signal
 import threading
 import time
+from pathlib import Path
 from typing import Any, Callable
 
 import numpy as np
@@ -39,6 +45,7 @@ from ..data.batching import (
     sample_batch,
 )
 from ..data.dataset import PackedDataset, load_pickle_dataset, pack_days
+from ..data.device_data import DeviceData
 from ..models.api import Decoder, build_model, forward
 from ..ops.ctc import ctc_loss
 from ..ops.decode import batch_per, greedy_decode
@@ -59,6 +66,20 @@ def resolve_device(args: dict) -> torch.device:
             f"device {device} asked for, but torch.cuda.is_available() is "
             f"False; pass device: cpu to train on the CPU")
     return device
+
+
+def check_single_device(args: dict) -> None:
+    """Raise ``NotImplementedError`` for the multi-device args the port does
+    not implement (the JAX trainer's mesh, tensor parallelism and multi-host
+    staging)."""
+    asked = [f"{k}={args[k]}" for k in ("n_data_devices", "n_model_devices")
+             if int(args.get(k) or 1) > 1]
+    if args.get("multihost_staging"):
+        asked.append(f"multihost_staging={args['multihost_staging']}")
+    if asked:
+        raise NotImplementedError(
+            f"{', '.join(asked)}: the port trains on one device; the mesh, tensor "
+            f"parallelism and multi-host staging are ROADMAP queue 1 item 10")
 
 
 def step_generator(device: torch.device, seed: int, step: int) -> torch.Generator:
@@ -195,18 +216,24 @@ def run_eval(
     *,
     buckets: list[int] | None = None,
     torch_mean_semantics: bool = True,
+    device_data: DeviceData | None = None,
 ) -> tuple[float, float, int, int]:
     """Full test pass: ``(avg_day_loss, per, edit_dist, seq_len)``.
 
     ``avg_day_loss`` follows the reference: per batch a scalar, then the
     mean over batches. The scalar is the mean over real rows of the
     length-normalized loss (``torch_mean_semantics``, the runs without
-    label smoothing) or the sum of the real rows' losses."""
+    label smoothing) or the sum of the real rows' losses. With
+    ``device_data`` (``test_ds`` on the device) the batches are assembled
+    there."""
     batch_scalars = []
     total_dist = 0
     total_len = 0
-    for batch in eval_batches(test_ds, batch_size, t_max, u_max, buckets=buckets):
-        per_seq, tokens, dec_lens = eval_step(*batch_tensors(batch, device))
+    for batch in eval_batches(test_ds, batch_size, t_max, u_max, buckets=buckets,
+                              materialize_x=device_data is None):
+        tensors = (batch_tensors(batch, device) if device_data is None
+                   else device_data.assemble(batch))
+        per_seq, tokens, dec_lens = eval_step(*tensors)
         per_seq = per_seq.cpu().numpy()
         w = batch.weight
         if torch_mean_semantics:
@@ -249,7 +276,30 @@ def train_model(args: dict) -> dict:
             signal.signal(sig, h)
 
 
+def _start_profile(device: torch.device) -> torch.profiler.profile:
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def _stop_profile(prof, device: torch.device, output_dir: str, first: int,
+                  last: int) -> None:
+    """Wait for the device, stop the trace and write it as a Chrome trace
+    ``outputDir/profile/trace_steps_<first>-<last>.json``."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    prof.stop()
+    path = Path(output_dir) / "profile" / f"trace_steps_{first}-{last}.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    print(f"profile of steps {first}-{last} written to {path}")
+
+
 def _train_model_impl(args: dict, preempt_requested: threading.Event) -> dict:
+    check_single_device(args)
     device = resolve_device(args)
     output_dir = args["outputDir"]
     seed = int(args.get("seed", 0))
@@ -335,6 +385,18 @@ def _train_model_impl(args: dict, preempt_requested: threading.Event) -> dict:
         if buckets is not None and token_budget > 0 else None
     )
 
+    # device-resident data: the packed features on the device once, each
+    # batch gathered there from the host-sampled indices
+    device_data = bool(args.get("deviceResidentData", False))
+    train_dd = DeviceData(train_ds, device) if device_data else None
+    test_dd = DeviceData(test_ds, device) if device_data else None
+
+    def put_batch(batch: Batch) -> tuple[torch.Tensor, ...]:
+        return train_dd.assemble(batch) if device_data else batch_tensors(batch, device)
+
+    profile_start, profile_stop = args.get("profile_steps") or (None, None)
+    prof = None
+
     watch_freq = int(args.get("watch_log_freq", 100))
 
     def flush_metrics(pending):
@@ -357,10 +419,15 @@ def _train_model_impl(args: dict, preempt_requested: threading.Event) -> dict:
         if preempt_requested.is_set():
             preempted_at = step
             break
+        if step == profile_start:
+            prof = _start_profile(device)
         batch = sample_batch(train_ds, np_rng, batch_size, t_max, u_max,
-                             buckets=buckets, bucket_sizes=bucket_sizes)
-        metrics = train_step(batch_tensors(batch, device),
-                             step_generator(device, seed, step))
+                             buckets=buckets, bucket_sizes=bucket_sizes,
+                             materialize_x=not device_data)
+        metrics = train_step(put_batch(batch), step_generator(device, seed, step))
+        if step == profile_stop and prof is not None:
+            _stop_profile(prof, device, output_dir, profile_start, step)
+            prof = None
         # reading the metrics waits for the device: read the previous
         # step's after this one is queued, so host batch prep overlaps it
         flush_metrics(pending)
@@ -371,7 +438,8 @@ def _train_model_impl(args: dict, preempt_requested: threading.Event) -> dict:
             pending = None
             avg_loss, cer, edit_dist, seq_len = run_eval(
                 eval_step, test_ds, batch_size, t_max, u_max, device,
-                buckets=buckets, torch_mean_semantics=torch_mean)
+                buckets=buckets, torch_mean_semantics=torch_mean,
+                device_data=test_dd)
             time_per_batch = (time.time() - start_time) / eval_every
             print(f"batch {step}, ctc loss: {avg_loss:>7f}, cer: {cer:>7f}, "
                   f"time/batch: {time_per_batch:>7.3f}")
@@ -395,6 +463,9 @@ def _train_model_impl(args: dict, preempt_requested: threading.Event) -> dict:
 
         if ckpt_every and (step + 1) % ckpt_every == 0:
             save_last(step)
+
+    if prof is not None:  # the run ended inside the window
+        _stop_profile(prof, device, output_dir, profile_start, step)
 
     if preempted_at is not None:
         # steps [0, preempted_at) are done; the sidecar's step is preempted_at

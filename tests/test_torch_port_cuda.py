@@ -473,3 +473,117 @@ def test_fused_kernels_refuse_unsupported_shapes(cuda):
     xc, pc, _ = _conv_case(cuda, torch.float32, 1, 8, 32, 65)
     with pytest.raises(ValueError, match="taps"):
         conv_module(xc, *pc, seed)
+
+
+# ------------------------------------------------- fused Adam, projection matmul
+
+from neural_speech_decoder_tpu_torch.ops.kernels.adam import (  # noqa: E402
+    adam_scalars,
+    adam_update,
+    adam_update_plain,
+)
+from neural_speech_decoder_tpu_torch.ops.kernels.matmul import (  # noqa: E402
+    ProjectionMatmul,
+    tiled_matmul,
+    tiled_matmul_plain,
+)
+from neural_speech_decoder_tpu_torch.training.optim import FusedAdam  # noqa: E402
+
+ADAM_HYPER = dict(lr=0.02, b1=0.9, b2=0.999, eps=0.1, l2=1e-3)
+
+
+def _adam_leaves(cuda, sizes, seed=3):
+    """(g, p, m, v) per size; the last leaf is a view one float past an
+    aligned start (not 16-byte aligned), so it takes the scalar path."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    leaves = []
+    for i, n in enumerate(sizes):
+        quad = [torch.randn((n + 1,), generator=g, device=cuda) for _ in range(4)]
+        quad[3] = quad[3].abs()
+        leaves.append([q[1:] if i == len(sizes) - 1 else q[:n] for q in quad])
+    return leaves
+
+
+def test_adam_kernel_matches_plain(cuda):
+    """One launch per 48 leaves, any size (ragged ends, an unaligned leaf):
+    the same float32 operations, each rounded once, as the plain version."""
+    sizes = [7, 41, 4096, 4097, 3000, 1] + [130] * 44
+    ref = _adam_leaves(cuda, sizes)
+    got = [[t.clone() for t in quad] for quad in ref]
+    c1, c2 = adam_scalars(2, 0.9, 0.999)
+    before = adam_update.launches
+    adam_update(*zip(*got), c1=c1, c2=c2, **ADAM_HYPER)
+    adam_update_plain(*zip(*ref), c1=c1, c2=c2, **ADAM_HYPER)
+    torch.cuda.synchronize()
+    assert adam_update.launches == before + 2  # 50 leaves
+    for a, b in zip(got, ref):
+        for x, y, tol in zip(a[1:], b[1:], (1e-6, 1e-7, 1e-7)):
+            assert (x - y).abs().max().item() <= tol
+
+
+def test_fused_adam_steps_on_the_kernel(cuda):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    ps = [torch.nn.Parameter(torch.randn(s, generator=g, device=cuda))
+          for s in ((64, 96), (5,), (3, 7))]
+    ref = [p.detach().clone() for p in ps]
+    m, v = [torch.zeros_like(p) for p in ref], [torch.zeros_like(p) for p in ref]
+    opt = FusedAdam(ps, lr=0.02, eps=0.1, weight_decay=1e-3)
+    before = adam_update.launches
+    for step in range(3):
+        grads = [torch.randn(p.shape, generator=g, device=cuda) for p in ps]
+        for p, gr in zip(ps, grads):
+            p.grad = gr
+        opt.step()
+        c1, c2 = adam_scalars(step, 0.9, 0.999)
+        adam_update_plain(grads, ref, m, v, c1=c1, c2=c2, **ADAM_HYPER)
+    torch.cuda.synchronize()
+    assert adam_update.launches == before + 3
+    for p, r in zip(ps, ref):
+        assert (p.detach() - r).abs().max().item() <= 1e-6
+
+
+MM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0**-7}
+
+
+def _mm_case(cuda, kind, dtype, m=1000, k=136, n=72):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    shapes = {"nn": ((m, k), (k, n)), "nt": ((m, n), (k, n)), "tn": ((m, k), (m, n))}[kind]
+    return [torch.randn(s, generator=g, device=cuda).to(dtype) for s in shapes]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind, bias", [("nn", True), ("nn", False), ("nt", False),
+                                        ("tn", False)])
+def test_matmul_kernel_matches_plain(cuda, dtype, kind, bias):
+    """Ragged M=1000, K=136, N=72 (no dim a multiple of the 128 tile; tn
+    cuts its 1000-long sum into ranges added in order)."""
+    a, b = _mm_case(cuda, kind, dtype)
+    cols = {"nn": 72, "nt": 136, "tn": 72}[kind]
+    bb = torch.randn((cols,), device=cuda) if bias else None
+    before = tiled_matmul.launches
+    out = tiled_matmul(a, b, kind=kind, bias=bb)
+    ref = tiled_matmul_plain(a, b, kind=kind, bias=bb)
+    again = tiled_matmul(a, b, kind=kind, bias=bb)
+    torch.cuda.synchronize()
+    assert tiled_matmul.launches == before + 2
+    assert out.dtype == dtype and out.shape == ref.shape and torch.equal(out, again)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= MM_TOL[dtype] * ref.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_projection_matmul_function_grads_match_plain(cuda, dtype):
+    x, w = _mm_case(cuda, "nn", dtype, m=333, k=256, n=384)
+    bias = torch.randn((384,), device=cuda)
+    cot = torch.randn((333, 384), device=cuda).to(dtype)
+    outs = []
+    for plain in (False, True):
+        leaves = [t.clone().requires_grad_() for t in (x, w, bias)]
+        y = ProjectionMatmul.apply(*leaves, plain)
+        y.backward(cot)
+        outs.append([y.detach()] + [t.grad for t in leaves])
+    for got, ref in zip(*outs):
+        assert got.dtype == ref.dtype
+        tol = 1e-5 if ref.dtype == torch.float32 else MM_TOL[dtype]
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err <= tol * ref.float().abs().max().item(), err

@@ -162,6 +162,10 @@ from neural_speech_decoder_tpu_torch.data.synthetic import synthetic_dataset
 from neural_speech_decoder_tpu_torch.models.gru import GRUConfig, init_gru_params
 from neural_speech_decoder_tpu_torch.serving.model import InferenceModel
 from neural_speech_decoder_tpu_torch.training.trainer import load_model, train_model
+from neural_speech_decoder_tpu_torch.training import cli
+from neural_speech_decoder_tpu_torch.utils import config
+from neural_speech_decoder_tpu_torch.data import device_data
+from neural_speech_decoder_tpu_torch.ops.kernels import adam, matmul
 cfg = GRUConfig(neural_dim=32, hidden_dim=16, num_layers=2, n_days=2, kernel_len=8)
 server = InferenceModel(init_gru_params(cfg, torch.Generator().manual_seed(0)),
                         cfg, "cpu", batch_size=2, t_max=40)
@@ -178,7 +182,8 @@ with tempfile.TemporaryDirectory() as run:
         "whiteNoiseSD": 0.1, "constantOffsetSD": 0.1, "gaussianSmoothWidth": 2.0,
         "nUnits": 8, "nLayers": 2, "nInputFeatures": 8, "nClasses": 40,
         "dropout": 0.2, "strideLen": 2, "kernelLen": 4, "bidirectional": True,
-        "wandb_mode": "disabled", "time_multiple": 16})
+        "wandb_mode": "disabled", "time_multiple": 16, "fused_optimizer": True,
+        "use_pallas_matmul": True, "deviceResidentData": True})
     model, args = load_model(run)
 mods = [m for m in sys.modules
         if m.split(".")[0] in ("jax", "jaxlib", "neural_speech_decoder_tpu")]
