@@ -38,7 +38,8 @@ random weights:
    with a band (``left_context=128``), interleaved qkv columns, T'=1250 and
    a row of length 0; times of kernel, plain version and
    ``F.scaled_dot_product_attention`` (forward and backward) as the library
-   yardstick.
+   yardstick, in both dtypes. The bfloat16 backward runs on the tensor
+   cores, and its row in the kernels line reports bfloat16.
 8. Conformer train step at ``CONFORMER_ARGS`` (8 blocks, D=1024, bfloat16,
    label smoothing, InterCTC, AdamW; B=64, T=1280, U=64): 2 warm-up and 10
    timed steps, median and seq/s, 8 attention forward and backward, 2 CTC
@@ -67,12 +68,16 @@ random weights:
     over the GRU's 24 leaves (133,845,033 parameters), against their plain
     versions in float32 and bfloat16, with errors, tolerances, times of
     kernel, plain version and ``torch.mm`` / ``torch.optim.Adam(fused=True)``
-    as the library yardsticks, and the bounds; reruns bit-equal.
+    as the library yardsticks, and the bounds; reruns bit-equal. The
+    matmul's launches are counted by body: every bf16 product on the sm90
+    body (TMA + wgmma), every float32 one on the tile body, and a bf16
+    product with K=2044 (a row stride TMA cannot read) on the tile body.
 13. The bf16 GRU train step with both flags (``BENCH_ARGS`` + the flags): 2
     warm-up and 10 timed steps, median and seq/s beside phase 5's, 12
-    matmul and 1 Adam launches per step; one float32 step without noise and
-    dropout (kernel path vs plain path: every gradient leaf and every
-    parameter after the update); two seeded bf16 runs of 2 steps bit-equal.
+    matmul (all on the sm90 body) and 1 Adam launches per step; one float32
+    step without noise and dropout (kernel path vs plain path: every
+    gradient leaf and every parameter after the update); two seeded bf16
+    runs of 2 steps bit-equal.
 14. ``nsd-train`` end to end: ``training/cli.py::main`` on
     ``configs/gru_baseline.yaml`` with a pickled synthetic dataset at C=256,
     20 steps, evals and checkpoints every 10, the three flags
@@ -438,6 +443,8 @@ HOOKS = ("dropout_masks", "ffn_dropout_masks")
 def reset_launches() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+    for body in tiled_matmul.launches_by_body:
+        tiled_matmul.launches_by_body[body] = 0
 
 
 def read_launches(names=KERNELS) -> dict:
@@ -875,6 +882,12 @@ def attention_flops(lens, t, n_products) -> float:
     return n_products * 2.0 * A_DH * A_HEADS * t * keys
 
 
+# The dtype each attention row of the kernels line reports: the backward's
+# bf16 body (tensor cores) is the one the recipe runs; the forward and the
+# mask hook report float32.
+ROW_DTYPE = {"mhsa_qkv": "float32", "mhsa_qkv_bwd": "bfloat16", "dropout_masks": "float32"}
+
+
 def attention_kernel_phase() -> dict:
     g = torch.Generator(device="cuda").manual_seed(3)
     t = L
@@ -886,8 +899,9 @@ def attention_kernel_phase() -> dict:
         for rate in (0.0, 0.3):
             errs = attention_check(f"B={B} T'={t} rate {rate}", qkv, gout, lens,
                                    seed, rate=rate)
-            if name == "float32" and rate > 0:
+            if rate > 0 and name == ROW_DTYPE["mhsa_qkv"]:
                 rows["mhsa_qkv"]["max_abs_err"] = errs[0]
+            if rate > 0 and name == ROW_DTYPE["mhsa_qkv_bwd"]:
                 rows["mhsa_qkv_bwd"]["max_abs_err"] = errs[1]
             masks = dropout_masks(B * A_HEADS, t, seed, rate)
             same = torch.equal(masks, dropout_masks_plain(B * A_HEADS, t, seed, rate))
@@ -938,9 +952,9 @@ def attention_kernel_phase() -> dict:
             print(f"time  {key} {name} B={B} T'={t} rate 0.3: kernel "
                   f"{turns[0]:.4f}/{turns[1]:.4f} ms, plain {turns[2]:.4f}/"
                   f"{turns[3]:.4f} ms" + (f", F.scaled_dot_product_attention "
-                  f"{'forward' if key == 'mhsa_qkv' else 'backward'} {lib:.4f} ms"
-                  if lib is not None else ""), flush=True)
-            if name == "float32":
+                  f"{'forward' if key == 'mhsa_qkv' else 'backward'} {lib:.4f} ms "
+                  f"(kernel / SDPA {kt / lib:.2f})" if lib is not None else ""), flush=True)
+            if name == ROW_DTYPE[key]:
                 rows[key].update(ms=kt, plain_ms=pt, library_ms=lib)
         # qkv read once and out written once (the backward also reads g and
         # writes dqkv); the forward's two products (scores, p @ V), the
@@ -953,15 +967,16 @@ def attention_kernel_phase() -> dict:
               f"{attention_flops(lens, t, 2) / 1e9:.2f} GFLOP; mhsa_qkv_bwd "
               f"{bwd_b[0]:.4f} ms ({bwd_b[1]}), {attention_flops(lens, t, 5) / 1e9:.2f} "
               f"GFLOP", flush=True)
-        if name == "float32":
+        if name == ROW_DTYPE["mhsa_qkv"]:
             rows["mhsa_qkv"]["bound_ms"], rows["mhsa_qkv"]["bound_by"] = fwd_b
-            rows["mhsa_qkv_bwd"]["bound_ms"], rows["mhsa_qkv_bwd"]["bound_by"] = bwd_b
             # one bool written per entry; the hash's integer work is not
             # counted (the table of peaks has no integer rate)
             rows["dropout_masks"]["bound_ms"], rows["dropout_masks"]["bound_by"] = (
                 bound_ms(B * A_HEADS * t * t + 4, 0, name))
-    for row in rows.values():
-        row["dtype"] = "float32"
+        if name == ROW_DTYPE["mhsa_qkv_bwd"]:
+            rows["mhsa_qkv_bwd"]["bound_ms"], rows["mhsa_qkv_bwd"]["bound_by"] = bwd_b
+    for key, row in rows.items():
+        row["dtype"] = ROW_DTYPE[key]
     return rows
 
 
@@ -1372,6 +1387,8 @@ MM_RAGGED_M = 1001  # M % 128 = 105
 # bf16, and a sum that falls the other way moves an entry by one bf16 step,
 # at most 2**-7 of the largest entry.
 MM_TOL = {"float32": 1e-5, "bfloat16": 2.0**-7}
+# The body each dtype takes at these shapes (ops/kernels/matmul.py::matmul_body).
+MM_BODY = {"float32": "tile", "bfloat16": "sm90"}
 # Adam, kernel vs plain: the same float32 operations in the same order, each
 # rounded once (the kernel's _rn intrinsics forbid FMA contraction), so equal
 # up to the card's correctly rounded sqrt and division; the bounds are one
@@ -1391,8 +1408,12 @@ def mm_library(a, b, kind):
 
 def matmul_kernel_phase() -> dict:
     """The projection matmul, kernel vs plain, at the train step's shapes
-    and at a ragged M, float32 and bfloat16; times and bounds."""
+    and at a ragged M, float32 and bfloat16; times and bounds. Every bf16
+    product here takes the sm90 body (TMA + wgmma), every float32 one the
+    tile body, and a bf16 product whose K is not a multiple of 8 the tile
+    body (the per-body launch counts)."""
     g = torch.Generator(device="cuda").manual_seed(5)
+    reset_launches()
     x = torch.randn((MM_M, MM_K), generator=g, device="cuda")
     w = MM_K**-0.5 * torch.randn((MM_K, MM_N), generator=g, device="cuda")
     gout = torch.randn((MM_M, MM_N), generator=g, device="cuda")
@@ -1405,16 +1426,20 @@ def matmul_kernel_phase() -> dict:
             bb = bias if kind == "nn" else None
             for m in (MM_M, MM_RAGGED_M):
                 ak, bk = (a[:m], b) if kind != "tn" else (a[:m], b[:m])
+                before = dict(tiled_matmul.launches_by_body)
                 with torch.inference_mode():
                     out = tiled_matmul(ak, bk, kind=kind, bias=bb)
                     ref = tiled_matmul_plain(ak, bk, kind=kind, bias=bb)
                     again = tiled_matmul(ak, bk, kind=kind, bias=bb)
                 torch.cuda.synchronize()
                 err, same = rel_err(out, ref), torch.equal(out, again)
-                check(err <= MM_TOL[name] and same and out.dtype == ref.dtype,
+                body = MM_BODY[name]
+                took = tiled_matmul.launches_by_body[body] - before[body]
+                check(err <= MM_TOL[name] and same and out.dtype == ref.dtype and took == 2,
                       f"tiled_matmul {kind} {name} M={m} K={MM_K} N={MM_N}"
                       f"{' + bias' if bb is not None else ''}: max abs err / max |ref| "
-                      f"{err:.3e} <= {MM_TOL[name]:.3g}; rerun bit-equal {same}")
+                      f"{err:.3e} <= {MM_TOL[name]:.3g}; rerun bit-equal {same}; "
+                      f"{took} of 2 launches on the {body} body")
                 if name == "bfloat16" and kind == "nn" and m == MM_M:
                     row["max_abs_err"] = (out.float() - ref.float()).abs().max().item()
                 del out, ref, again
@@ -1435,8 +1460,21 @@ def matmul_kernel_phase() -> dict:
             if name == "bfloat16" and kind == "nn":
                 row.update(ms=kt, plain_ms=pt, library_ms=lib, bound_ms=bt, bound_by=by)
         del ops
+    # K = 2044: a row stride TMA cannot take sends bf16 to the tile body
+    a, b = x[:MM_RAGGED_M, :2044].bfloat16(), w[:2044].bfloat16()
+    before = dict(tiled_matmul.launches_by_body)
+    with torch.inference_mode():
+        out = tiled_matmul(a, b, kind="nn", bias=bias)
+        err = rel_err(out, tiled_matmul_plain(a, b, kind="nn", bias=bias))
+    torch.cuda.synchronize()
+    took = {k: v - before[k] for k, v in tiled_matmul.launches_by_body.items()}
+    check(err <= MM_TOL["bfloat16"] and took == {"sm90": 0, "tile": 1},
+          f"tiled_matmul nn bfloat16 M={MM_RAGGED_M} K=2044 N={MM_N} + bias: max abs err / "
+          f"max |ref| {err:.3e} <= {MM_TOL['bfloat16']:.3g}; launches by body {took}")
+    print(f"tiled_matmul launches by body in this phase: {tiled_matmul.launches_by_body}",
+          flush=True)
     # the main path's dtype (the recipe's bf16) and its forward layout
-    row.update(dtype="bfloat16", layout="nn + bias")
+    row.update(dtype="bfloat16", layout="nn + bias", body="sm90")
     return row
 
 
@@ -1502,9 +1540,13 @@ def gru_fused_step_phase(card: str, default_median: float) -> dict:
     n = 10
     model, losses, times, launches = train_steps(dict(GRU_FUSED_ARGS), 0, batch, 2, n)
     per_step = {k: 0 for k in KERNELS} | GRU_FUSED_PER_STEP
+    by_body = dict(tiled_matmul.launches_by_body)
     check(launches == {k: v * n for k, v in per_step.items()},
           f"launches over {n} flagged bf16 GRU train steps {launches} == per step 12 "
           f"projection matmuls (4 layers x nn, nt, tn), 1 Adam, 5/5 scan, 1/1 CTC")
+    check(by_body == {"sm90": 12 * n, "tile": 0},
+          f"projection matmul launches by body over the {n} steps {by_body}: all 12 a "
+          f"step on the sm90 body (TMA + wgmma)")
     check(all(math.isfinite(v) for v in losses),
           f"flagged bf16 GRU train losses finite: {', '.join(f'{v:.4f}' for v in losses)}")
     med = statistics.median(times)
@@ -1609,11 +1651,13 @@ def cli_phase(card: str) -> None:
         "tiled_matmul": per_step["tiled_matmul"] + 4 * nb * n_evals,
         "frontend": nb * n_evals, "gru_scan": 5 * nb * n_evals,
         "ctc_alpha": per_step["ctc_alpha"] + nb * n_evals}
-    check(launches == want, f"nsd-train launched {launches} == {n_steps} flagged steps "
-          f"and {n_evals} evals of {nb} batch(es) (4 forward projections each)")
+    check(launches == want and tiled_matmul.launches_by_body["tile"] == 0,
+          f"nsd-train launched {launches} == {n_steps} flagged steps and {n_evals} evals "
+          f"of {nb} batch(es) (4 forward projections each); projection launches by body "
+          f"{tiled_matmul.launches_by_body}")
     traces = list((run / "profile").glob("*.json"))
     text = traces[0].read_text() if traces else ""
-    check(len(traces) == 1 and "adam_kernel" in text and "gemm_wmma_kernel" in text,
+    check(len(traces) == 1 and "adam_kernel" in text and "gemm_sm90_kernel" in text,
           f"profile window trace {[t.name for t in traces]} ({len(text):,} bytes) holds "
           f"the Adam and projection kernels")
     names = ("args", "trainingStats", "modelState", "lastState")

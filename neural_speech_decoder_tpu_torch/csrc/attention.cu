@@ -35,10 +35,14 @@
 // What bounds it on an H100: the operations. At B=64, T=313, H=8, dh=128 the
 // forward's two products are 2 * 2*T*T*dh per (b, h), 12.8 GFLOP each over
 // the 512 programs, against 0.12 GB (bf16) of qkv and out; the backward's
-// five products (dV, dP, dS, dQ, dK) are 32 GFLOP. The kernels run all their
-// products on float32 FMAs (bf16 operands widened as they are loaded), so
-// the FMA rate (67 TFLOP/s) is their floor; tensor cores (mma/wgmma) are
-// later work.
+// five products (dV, dP, dS, dQ, dK) are 32 GFLOP. The forward and the
+// float32 backward run their products on float32 FMAs (bf16 operands
+// widened as they are loaded), so the FMA rate (67 TFLOP/s) is their floor
+// (TF32 would change the numbers); the bfloat16 backward runs on the tensor
+// cores (namespace tc below). At T'=313 its 2560 blocks of small tiles are
+// bound by latency and occupancy more than by the tensor-core peak, so it
+// uses mma.sync, whose register fragments keep the elementwise dS step
+// simple, rather than wgmma.
 //
 // Design: the TPU kernel keeps a whole [Tp, Tp] float32 score tile per
 // (b, h) in VMEM (576 KB at Tp=384), more than a block's 227 KB of shared
@@ -590,31 +594,462 @@ cudaError_t launch_fwd(const void* qkv, const void* lens, const void* seed,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The bfloat16 backward on tensor cores. The same two kernels, tiles and
+// skipped tiles as above (the dQ kernel walks the keys twice, not three
+// times: the row sum of dP * p is formed online beside the softmax's max and
+// sum), with every product an mma.sync.m16n8k16 of
+// bf16 operands into float32 (the TPU kernel's products are bf16 x bf16 into
+// float32 too, so only the order of addition differs). Tiles stay bf16 in
+// shared memory ([64][dh+8]: the 16-byte pad puts the 8 rows an ldmatrix
+// reads on distinct banks), filled by cp.async, double-buffered along the
+// walk. 128 threads, four warps of 16 rows each (query rows in the dQ
+// kernel, keys in the dK/dV kernel); a warp keeps its score and dP tiles in
+// registers as mma accumulators, forms p and dS there, and feeds them, cast
+// to bf16, straight back as the A operand of dQ = dS K, dV = P^T g and
+// dK = dS^T q (the accumulator of two n8 tiles is the A fragment of one k16
+// step). The B operands come from shared memory by ldmatrix, transposed
+// (.trans) where the tile is [k][n]. 104 KB of shared memory at dh=128 (two
+// blocks an SM), 55 KB at 64.
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int kTcThreads = 128;
+
+template <int DH>
+constexpr int kTileElems = kTile * (DH + 8);  // a [64][DH+8] bf16 tile
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from src to shared dst, or 16 zero bytes when !valid.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [row0, row0+64) of a row-major bf16 matrix (row stride ld), columns
+// [col, col+DH), into dst [64][DH+8]; rows >= n_rows are 0.
+template <int DH>
+__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src, int row0,
+                                                int n_rows, size_t ld, int col) {
+  constexpr int C8 = DH / 8;
+  for (int idx = threadIdx.x; idx < kTile * C8; idx += kTcThreads) {
+    const int r = idx / C8, c = (idx % C8) * 8;
+    const bool ok = row0 + r < n_rows;
+    cp_async16(dst + r * (DH + 8) + c, src + (size_t)(ok ? row0 + r : 0) * ld + col + c, ok);
+  }
+}
+
+__device__ __forceinline__ void ldsm_x4(const bf16* p, uint32_t* r) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(const bf16* p, uint32_t* r) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// c += a (16x16, row) . b (16x8, col), bf16 operands, float32 sums.
+__device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// acc[j] (keys 8j..8j+7 of the tile) += A[r0..r0+16) . B[0..64)^T, summed
+// over DH; A and B are [.][DH+8] shared tiles. Accumulator layout of each
+// n8 tile (lane = 4g + t): [0] (row g, col 2t), [1] (g, 2t+1), [2] (g+8,
+// 2t), [3] (g+8, 2t+1).
+template <int DH>
+__device__ __forceinline__ void mma_abt(float acc[8][4], const bf16* A, int r0, const bf16* B,
+                                        int lane) {
+  constexpr int LD = DH + 8;
+#pragma unroll
+  for (int k = 0; k < DH; k += 16) {
+    uint32_t a[4];
+    ldsm_x4(A + (r0 + lane % 16) * LD + k + 8 * (lane / 16), a);
+#pragma unroll
+    for (int j = 0; j < 8; j += 2) {
+      uint32_t b[4];  // n tiles j and j+1, k halves 0 and 1
+      ldsm_x4(B + (8 * j + lane % 8 + 8 * (lane / 16)) * LD + k + 8 * ((lane / 8) % 2), b);
+      mma(acc[j], a, b[0], b[1]);
+      mma(acc[j + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// acc[j] (columns 8j..8j+7 of DH) += P (16 x 64, as four k16 A fragments
+// pa) . X[0..64)[0..DH); X is a [64][DH+8] shared tile read transposed.
+template <int DH>
+__device__ __forceinline__ void mma_px(float acc[DH / 8][4], const uint32_t pa[4][4],
+                                       const bf16* X, int lane) {
+  constexpr int LD = DH + 8;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int j = 0; j < DH / 8; j += 2) {
+      uint32_t b[4];  // k halves 0 and 1 of n tile j, then of n tile j+1
+      ldsm_x4_t(X + (16 * kk + lane % 8 + 8 * ((lane / 8) % 2)) * LD + 8 * j + 8 * (lane / 16),
+                b);
+      mma(acc[j], pa[kk], b[0], b[1]);
+      mma(acc[j + 1], pa[kk], b[2], b[3]);
+    }
+  }
+}
+
+// The A fragments of a 16 x 64 accumulator tile, rounded to bf16.
+__device__ __forceinline__ void to_a(const float c[8][4], uint32_t pa[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    pa[kk][0] = pack(c[2 * kk][0], c[2 * kk][1]);
+    pa[kk][1] = pack(c[2 * kk][2], c[2 * kk][3]);
+    pa[kk][2] = pack(c[2 * kk + 1][0], c[2 * kk + 1][1]);
+    pa[kk][3] = pack(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+  }
+}
+
+// Sum or max over the 4 lanes (t) that share a row.
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+// A warp's 16 x DH accumulator times scale, as bf16 into rows row0.. of dst
+// (row stride ld), those below n_time; entry (j, 2e + c) is row row0 + g +
+// 8e, column 8j + 2t + c.
+template <int DH>
+__device__ __forceinline__ void store_rows(bf16* dst, size_t ld, int row0, int n_time,
+                                           const float acc[DH / 8][4], float scale, int lane) {
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int i = row0 + lane / 4 + 8 * e;
+    if (i >= n_time) continue;
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)i * ld + 8 * j + 2 * (lane % 4)) =
+          __floats2bfloat162_rn(acc[j][2 * e] * scale, acc[j][2 * e + 1] * scale);
+  }
+}
+
+// dQ per query tile, in two walks over the key tiles: each row's softmax max
+// and sum and rowsum(dP * p), online (the running sums rescaled when the
+// max grows, the last divided by the sum at the end), then dS and dQ;
+// stores the three statistics in stats [3][B*H][T] for the dK/dV kernel.
+template <int DH>
+__global__ void __launch_bounds__(kTcThreads, 2)
+    attn_bwd_dq_tc(const bf16* __restrict__ qkv, const int32_t* __restrict__ lens,
+                   const int32_t* __restrict__ seed_ptr, const bf16* __restrict__ gout,
+                   bf16* __restrict__ dqkv, float* __restrict__ stats, Params p) {
+  constexpr int TE = kTileElems<DH>;
+  extern __shared__ float4 smem4[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem4);
+  bf16* Gs = Qs + TE;
+  bf16* Ks = Gs + TE;      // two buffers
+  bf16* Vs = Ks + 2 * TE;  // two buffers
+  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int d = p.heads * DH;
+  const size_t ld = 3 * (size_t)d;
+  const bf16* base = qkv + (size_t)b * p.n_time * ld;
+  const int limit = min(lens[b], p.n_time);
+  const int seed = *seed_ptr, pid = b * p.heads + h;
+  int kt0, kt1;
+  key_tiles(p, q0, limit, kt0, kt1);
+  const int nt = max(kt1 - kt0, 0), steps = 2 * nt;
+  const int kcol = qkv_col(p, 1, h, DH), vcol = qkv_col(p, 2, h, DH);
+  const int r0 = warp * 16, row[2] = {q0 + r0 + lane / 4, q0 + r0 + lane / 4 + 8};
+
+  load_tile_async<DH>(Qs, base, q0, p.n_time, ld, qkv_col(p, 0, h, DH));
+  load_tile_async<DH>(Gs, gout + (size_t)b * p.n_time * d, q0, p.n_time, d, h * DH);
+  // step s: walk s / nt over key tile kt0 + s % nt
+  auto issue = [&](int s) {
+    const int k0 = (kt0 + s % nt) * kTile, buf = s & 1;
+    load_tile_async<DH>(Ks + buf * TE, base, k0, p.n_time, ld, kcol);
+    load_tile_async<DH>(Vs + buf * TE, base, k0, p.n_time, ld, vcol);
+  };
+  if (steps > 0) issue(0);
+  cp_async_commit();
+
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, dsum[2] = {0.f, 0.f};
+  float dq[DH / 8][4] = {};
+  for (int s = 0; s < steps; ++s) {
+    if (s + 1 < steps) {
+      issue(s + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int walk = s / nt, k0 = (kt0 + s % nt) * kTile, buf = s & 1;
+    const bf16* K = Ks + buf * TE;
+    float sc[8][4] = {}, dp[8][4] = {};
+    mma_abt<DH>(sc, Qs, r0, K, lane);
+    mma_abt<DH>(dp, Gs, r0, Vs + buf * TE, lane);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = row[r / 2], key = k0 + 8 * j + 2 * (lane % 4) + r % 2;
+        if (p.rate > 0.f) dp[j][r] = keep(p, seed, pid, i, key) ? dp[j][r] * p.inv_keep : 0.f;
+      }
+    }
+    if (walk == 0) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int key = k0 + 8 * j + 2 * (lane % 4) + c;
+            float& v = sc[j][2 * e + c];
+            v = key >= p.n_time ? -INFINITY : masked(p, row[e], key, limit) ? kNeg : v * p.scale;
+            mx = fmaxf(mx, v);
+          }
+        }
+        const float m_new = fmaxf(m[e], quad_max(mx));
+        float sum = 0.f, dot = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const float x = expf(sc[j][2 * e + c] - m_new);
+            sum += x;
+            dot += dp[j][2 * e + c] * x;
+          }
+        }
+        const float rescale = expf(m[e] - m_new);
+        l[e] = l[e] * rescale + quad_sum(sum);
+        dsum[e] = dsum[e] * rescale + quad_sum(dot);
+        m[e] = m_new;
+      }
+      if (s == nt - 1) {
+        // rowsum(dP * p); 0 in a row whose every key is masked (p = 0)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) dsum[e] = m[e] <= kNeg ? 0.f : dsum[e] / l[e];
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int e = r / 2, key = k0 + 8 * j + 2 * (lane % 4) + r % 2;
+          const float pr = prob(p, sc[j][r], row[e], key, limit, m[e], l[e]);
+          sc[j][r] = pr * (dp[j][r] - dsum[e]);
+        }
+      }
+      uint32_t pa[4][4];
+      to_a(sc, pa);
+      mma_px<DH>(dq, pa, K, lane);
+    }
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+  const size_t bh = (size_t)b * p.heads + h;
+  const size_t plane = (size_t)p.batch * p.heads * p.n_time;
+  if (lane % 4 == 0) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      if (row[e] >= p.n_time) continue;
+      stats[bh * p.n_time + row[e]] = m[e];
+      stats[plane + bh * p.n_time + row[e]] = l[e];
+      stats[2 * plane + bh * p.n_time + row[e]] = dsum[e];
+    }
+  }
+  store_rows<DH>(dqkv + (size_t)b * p.n_time * ld + qkv_col(p, 0, h, DH), ld, q0 + r0,
+                 p.n_time, dq, p.scale, lane);
+}
+
+// dK and dV per key tile, walking the query tiles that see its keys; each
+// warp takes 16 keys and forms S^T and dP^T (keys by queries) directly.
+template <int DH>
+__global__ void __launch_bounds__(kTcThreads, 2)
+    attn_bwd_dkv_tc(const bf16* __restrict__ qkv, const int32_t* __restrict__ lens,
+                    const int32_t* __restrict__ seed_ptr, const bf16* __restrict__ gout,
+                    bf16* __restrict__ dqkv, const float* __restrict__ stats, Params p) {
+  constexpr int TE = kTileElems<DH>;
+  extern __shared__ float4 smem4[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem4);
+  bf16* Vs = Ks + TE;
+  bf16* Qs = Vs + TE;      // two buffers
+  bf16* Gs = Qs + 2 * TE;  // two buffers
+  float* St = reinterpret_cast<float*>(Gs + 2 * TE);  // [2][3][64]: m, l, dsum
+  const int k0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int d = p.heads * DH;
+  const size_t ld = 3 * (size_t)d;
+  const bf16* base = qkv + (size_t)b * p.n_time * ld;
+  const bf16* gbase = gout + (size_t)b * p.n_time * d;
+  const int limit = min(lens[b], p.n_time);
+  const int seed = *seed_ptr, pid = b * p.heads + h;
+  const size_t bh = (size_t)b * p.heads + h;
+  const size_t plane = (size_t)p.batch * p.heads * p.n_time;
+  // query tiles whose rows see an unmasked key of this tile
+  int qt0 = 0, qt1 = (p.n_time + kTile - 1) / kTile;
+  if (k0 >= limit) qt1 = 0;
+  if (p.left >= 0) {
+    qt0 = k0 / kTile;
+    qt1 = min(qt1, (k0 + kTile - 1 + p.left) / kTile + 1);
+  }
+  const int steps = max(qt1 - qt0, 0);
+  const int qcol = qkv_col(p, 0, h, DH);
+  const int r0 = warp * 16, key[2] = {k0 + r0 + lane / 4, k0 + r0 + lane / 4 + 8};
+
+  load_tile_async<DH>(Ks, base, k0, p.n_time, ld, qkv_col(p, 1, h, DH));
+  load_tile_async<DH>(Vs, base, k0, p.n_time, ld, qkv_col(p, 2, h, DH));
+  auto issue = [&](int s) {
+    const int q0 = (qt0 + s) * kTile, buf = s & 1;
+    load_tile_async<DH>(Qs + buf * TE, base, q0, p.n_time, ld, qcol);
+    load_tile_async<DH>(Gs + buf * TE, gbase, q0, p.n_time, d, h * DH);
+    if (threadIdx.x < kTile) {
+      const int i = q0 + threadIdx.x;
+      const bool ok = i < p.n_time;
+      float* st = St + buf * 3 * kTile + threadIdx.x;
+      st[0] = ok ? stats[bh * p.n_time + i] : -INFINITY;
+      st[kTile] = ok ? stats[plane + bh * p.n_time + i] : 1.f;
+      st[2 * kTile] = ok ? stats[2 * plane + bh * p.n_time + i] : 0.f;
+    }
+  };
+  if (steps > 0) issue(0);
+  cp_async_commit();
+
+  float dk[DH / 8][4] = {}, dv[DH / 8][4] = {};
+  for (int s = 0; s < steps; ++s) {
+    if (s + 1 < steps) {
+      issue(s + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int q0 = (qt0 + s) * kTile, buf = s & 1;
+    const bf16* Q = Qs + buf * TE;
+    const bf16* G = Gs + buf * TE;
+    const float* st = St + buf * 3 * kTile;
+    float pr[8][4] = {};  // S^T, then p^T
+    mma_abt<DH>(pr, Ks, r0, Q, lane);
+    uint32_t pa[4][4], kept = 0xffffffffu;  // bit 4j + r: entry (j, r) kept
+    {
+      float dropped[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int qi = 8 * j + 2 * (lane % 4) + r % 2, i = q0 + qi, jj = key[r / 2];
+          pr[j][r] = prob(p, pr[j][r], i, jj, limit, st[qi], st[kTile + qi]);
+          dropped[j][r] = pr[j][r];
+          if (p.rate > 0.f) {
+            const bool k = keep(p, seed, pid, i, jj);
+            if (!k) kept &= ~(1u << (4 * j + r));
+            dropped[j][r] = k ? pr[j][r] * p.inv_keep : 0.f;
+          }
+        }
+      }
+      to_a(dropped, pa);
+    }
+    mma_px<DH>(dv, pa, G, lane);
+    {
+      float ds[8][4] = {};  // dP^T, then dS^T
+      mma_abt<DH>(ds, Vs, r0, G, lane);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int qi = 8 * j + 2 * (lane % 4) + r % 2;
+          float dpr = ds[j][r];
+          if (p.rate > 0.f) dpr = (kept >> (4 * j + r)) & 1u ? dpr * p.inv_keep : 0.f;
+          ds[j][r] = pr[j][r] * (dpr - st[2 * kTile + qi]);
+        }
+      }
+      to_a(ds, pa);
+    }
+    mma_px<DH>(dk, pa, Q, lane);
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+  bf16* rows = dqkv + (size_t)b * p.n_time * ld;
+  store_rows<DH>(rows + qkv_col(p, 1, h, DH), ld, k0 + r0, p.n_time, dk, p.scale, lane);
+  store_rows<DH>(rows + qkv_col(p, 2, h, DH), ld, k0 + r0, p.n_time, dv, 1.f, lane);
+}
+
+template <int DH>
+cudaError_t launch_bwd(const void* qkv, const void* lens, const void* seed, const void* g,
+                       void* dqkv, void* stats, const Params& p, cudaStream_t stream) {
+  constexpr size_t smem_dq = sizeof(bf16) * 6 * kTileElems<DH>;
+  constexpr size_t smem_dkv = smem_dq + sizeof(float) * 2 * 3 * kTile;
+  auto dq_kernel = attn_bwd_dq_tc<DH>;
+  auto dkv_kernel = attn_bwd_dkv_tc<DH>;
+  NSD_TRY(set_smem(reinterpret_cast<const void*>(dq_kernel), smem_dq));
+  NSD_TRY(set_smem(reinterpret_cast<const void*>(dkv_kernel), smem_dkv));
+  const dim3 grid((p.n_time + kTile - 1) / kTile, p.heads, p.batch);
+  dq_kernel<<<grid, kTcThreads, smem_dq, stream>>>(
+      static_cast<const bf16*>(qkv), static_cast<const int32_t*>(lens),
+      static_cast<const int32_t*>(seed), static_cast<const bf16*>(g), static_cast<bf16*>(dqkv),
+      static_cast<float*>(stats), p);
+  NSD_TRY(cudaGetLastError());
+  dkv_kernel<<<grid, kTcThreads, smem_dkv, stream>>>(
+      static_cast<const bf16*>(qkv), static_cast<const int32_t*>(lens),
+      static_cast<const int32_t*>(seed), static_cast<const bf16*>(g), static_cast<bf16*>(dqkv),
+      static_cast<const float*>(stats), p);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
 template <typename T, int DH>
 cudaError_t launch_bwd(const void* qkv, const void* lens, const void* seed,
                        const void* g, void* dqkv, void* stats, const Params& p,
                        cudaStream_t stream) {
-  constexpr size_t smem_dq = sizeof(float) * (4 * kTile * (DH + 4) + kTile * kLDP);
-  constexpr size_t smem_dkv =
-      sizeof(float) * (4 * kTile * (DH + 4) + 2 * kTile * kLDP);
-  auto dq_kernel = attn_bwd_dq_kernel<T, DH>;
-  auto dkv_kernel = attn_bwd_dkv_kernel<T, DH>;
-  cudaError_t err = set_smem(reinterpret_cast<const void*>(dq_kernel), smem_dq);
-  if (err == cudaSuccess)
-    err = set_smem(reinterpret_cast<const void*>(dkv_kernel), smem_dkv);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.n_time + kTile - 1) / kTile, p.heads, p.batch);
-  dq_kernel<<<grid, kThreads, smem_dq, stream>>>(
-      static_cast<const T*>(qkv), static_cast<const int32_t*>(lens),
-      static_cast<const int32_t*>(seed), static_cast<const T*>(g),
-      static_cast<T*>(dqkv), static_cast<float*>(stats), p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  dkv_kernel<<<grid, kThreads, smem_dkv, stream>>>(
-      static_cast<const T*>(qkv), static_cast<const int32_t*>(lens),
-      static_cast<const int32_t*>(seed), static_cast<const T*>(g),
-      static_cast<T*>(dqkv), static_cast<const float*>(stats), p);
-  return cudaGetLastError();
+  if constexpr (sizeof(T) == 2) {
+    return tc::launch_bwd<DH>(qkv, lens, seed, g, dqkv, stats, p, stream);
+  } else {
+    constexpr size_t smem_dq = sizeof(float) * (4 * kTile * (DH + 4) + kTile * kLDP);
+    constexpr size_t smem_dkv =
+        sizeof(float) * (4 * kTile * (DH + 4) + 2 * kTile * kLDP);
+    auto dq_kernel = attn_bwd_dq_kernel<T, DH>;
+    auto dkv_kernel = attn_bwd_dkv_kernel<T, DH>;
+    cudaError_t err = set_smem(reinterpret_cast<const void*>(dq_kernel), smem_dq);
+    if (err == cudaSuccess)
+      err = set_smem(reinterpret_cast<const void*>(dkv_kernel), smem_dkv);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((p.n_time + kTile - 1) / kTile, p.heads, p.batch);
+    dq_kernel<<<grid, kThreads, smem_dq, stream>>>(
+        static_cast<const T*>(qkv), static_cast<const int32_t*>(lens),
+        static_cast<const int32_t*>(seed), static_cast<const T*>(g),
+        static_cast<T*>(dqkv), static_cast<float*>(stats), p);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    dkv_kernel<<<grid, kThreads, smem_dkv, stream>>>(
+        static_cast<const T*>(qkv), static_cast<const int32_t*>(lens),
+        static_cast<const int32_t*>(seed), static_cast<const T*>(g),
+        static_cast<T*>(dqkv), static_cast<const float*>(stats), p);
+    return cudaGetLastError();
+  }
 }
 
 bool bad_shape(int batch, int n_time, int heads, int dh) {

@@ -1,36 +1,45 @@
 // The GRU's input-projection product and the two products of its backward,
-// on the hand-written tile of gemm_tile.cuh (float32 FMAs, or bf16 wmma with
-// float32 accumulators), in one of three layouts:
+// in one of three layouts:
 //   nn: out [rows, cols] = a [rows, red] . b [red, cols] + bias   (forward)
 //   nt: out [rows, cols] = a [rows, red] . b [cols, red]^T        (dX = g . W^T)
 //   tn: out [rows, cols] = a [red, rows]^T . b [red, cols]        (dW = x^T . g)
+// Two bodies. nsd_matmul_sm90_bf16: bfloat16 on gemm_sm90.cuh (TMA and
+// wgmma), for operands whose base pointers are 16-byte aligned and whose
+// contiguous extents and cols are multiples of 8 (what TMA takes); the caller
+// (ops/kernels/matmul.py::matmul_body) sends every other product to
+// nsd_matmul_{f32,bf16}, the tile of gemm_tile.cuh (float32 FMAs, or bf16
+// wmma with float32 accumulators).
 // a, b and out share one storage type T (float32 or bfloat16); every sum is
 // accumulated in float32, the float32 bias [cols] (nn only; may be null) is
 // added to the float32 sum, and the result is rounded once to T. The
 // transposed layouts read their operands where they lie (Tr<>), so no
 // transposed copy is made. The ragged edge (rows, cols or red not a
 // multiple of the tile) is masked in the tile loads and the stores. tn sums
-// over the long axis (red = B*L = 20032 rows): where gemm_splits cuts it into
-// ranges, their float32 partial sums are added in order (split_sum). No
-// atomics: a rerun gives the same bits.
+// over the long axis (red = B*L = 20032 rows): the sm90 body in one range per
+// output tile; the tile body where gemm_splits cuts it into ranges adds
+// their float32 partial sums in order (split_sum). No atomics: a rerun gives
+// the same bits.
 //
 // Replaces the Pallas TPU kernel of
 // neural_speech_decoder_tpu/ops/pallas/matmul.py (_make_kernel, reached
 // through tiled_matmul from projection_matmul and its custom VJP). The TPU
 // kernel zero-pads the rows to its (512, 2048, 512) VMEM tile and needs the
-// other dims to be multiples of 128; here a block's tile is 128 x 128 of
-// the output and nothing is padded in memory.
+// other dims to be multiples of 128; here a block's tile is 128 x 256 (sm90)
+// or 128 x 128 of the output and nothing is padded in memory.
 //
 // What bounds it on an H100: the operations. At the GRU baseline's shapes
 // (rows, cols, red) = (20032, 6144, 2048) and its two backward layouts each
 // product is 504.1 GFLOP: 0.510 ms at the bf16 tensor-core peak of 989
 // TFLOP/s, 7.524 ms on float32 FMAs at 67 TFLOP/s; its bf16 bytes (82.0 MB
-// of A, 25.2 MB of B, 246.1 MB of float32-sized output at most) take 0.105
-// ms. The tile is the simple one of gemm_tile.cuh (one stage, no cp.async,
-// TMA or wgmma): it is right, not yet fast.
+// of A, 25.2 MB of B, 246.1 MB of bf16 output at most) take 0.105 ms. The
+// bf16 body keeps the tensor cores fed from a 4-stage TMA ring (see
+// gemm_sm90.cuh); the tile of gemm_tile.cuh (one stage, no cp.async, TMA or
+// wgmma) stays for float32 (wgmma's float32 is TF32, which would change the
+// numbers) and for operands TMA cannot read.
 #include <stdint.h>
 
 #include "common.cuh"
+#include "gemm_sm90.cuh"
 #include "gemm_tile.cuh"
 
 namespace {
@@ -104,5 +113,25 @@ long long nsd_matmul_workspace(int kind, int rows, int cols, int red) {
 
 NSD_MATMUL_ENTRY(f32, float)
 NSD_MATMUL_ENTRY(bf16, __nv_bfloat16)
+
+// The bf16 product on gemm_sm90.cuh; the same arguments but no workspace.
+int nsd_matmul_sm90_bf16(const void* a, const void* b, const void* bias, void* out, int kind,
+                         int rows, int cols, int red, void* stream) {
+  if (bad_args(kind, rows, cols, red, bias)) return static_cast<int>(cudaErrorInvalidValue);
+  using bf = __nv_bfloat16;
+  const bf* pa = static_cast<const bf*>(a);
+  const bf* pb = static_cast<const bf*>(b);
+  const float* pbias = static_cast<const float*>(bias);
+  bf* po = static_cast<bf*>(out);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (kind == kNN)
+    err = nsd::sm90::gemm<false, true>(pa, pb, pbias, po, rows, cols, red, st);
+  else if (kind == kNT)
+    err = nsd::sm90::gemm<false, false>(pa, pb, pbias, po, rows, cols, red, st);
+  else
+    err = nsd::sm90::gemm<true, true>(pa, pb, pbias, po, rows, cols, red, st);
+  return static_cast<int>(err);
+}
 
 }  // extern "C"

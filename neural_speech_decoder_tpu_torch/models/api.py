@@ -68,6 +68,7 @@ def config_from_args(args: dict, n_days: int) -> GRUConfig | ConformerConfig:
         bidirectional=args["bidirectional"],
         compute_dtype=cdt,
         use_pallas_matmul=bool(args.get("use_pallas_matmul") or False),
+        use_pallas=None if args.get("use_pallas") is None else bool(args["use_pallas"]),
     )
 
 

@@ -23,7 +23,9 @@ product of ``ops/kernels/matmul.py`` (``projection_matmul``) where K and N
 are multiples of 128; elsewhere they warn once and keep ``linear``, as the
 JAX package's call site does.
 ``plain=True`` runs the kernels' plain PyTorch versions instead, as the
-reference a card run is checked against.
+reference a card run is checked against. ``use_pallas=False`` in the config
+(the run's ``use_pallas: false``) runs the plain versions of the time scan
+and the serving frontend only, as the JAX package's ``use_pallas`` does.
 
 Precision in bfloat16 compute: the head multiplies the bf16 encoder states
 and weights with float32 accumulation and output, as the JAX package does
@@ -73,6 +75,10 @@ class GRUConfig:
     compute_dtype: torch.dtype = torch.float32  # activation/matmul dtype
     # layers 1+ project through the hand-written product (forward, dX, dW)
     use_pallas_matmul: bool = False
+    # False: the time scan and the serving frontend run their plain PyTorch
+    # versions (the JAX package's lax.scan twin and unfused chain); None and
+    # True keep the kernels. The other kernels are not affected.
+    use_pallas: bool | None = None
 
     @property
     def num_dirs(self) -> int:
@@ -170,7 +176,8 @@ def gru_encode(
         else:
             xp = linear(out, w_cat, lp["b_ih"].reshape(-1)).reshape(b, -1, d, 3 * h)
         xp = xp.permute(1, 2, 0, 3).contiguous()  # [L, D, B, 3H]
-        ys = gru_scan(xp, lp["w_hh"], lp["b_hh"], plain=plain)  # [L, D, B, H]
+        ys = gru_scan(xp, lp["w_hh"], lp["b_hh"],  # [L, D, B, H]
+                      plain=plain or cfg.use_pallas is False)
         out = ys.permute(2, 0, 1, 3).reshape(b, -1, d * h)
         if p > 0 and li < cfg.num_layers - 1:
             out = dropout(out, p, generator)
@@ -226,7 +233,8 @@ def gru_forward(
     affine) and dropout from ``generator``; inference the fused frontend."""
     x = x.to(cfg.compute_dtype)
     if cfg.gaussian_smooth_width > 0 and not train:
-        front = fused_frontend_plain if plain else fused_frontend
+        front = (fused_frontend_plain if plain or cfg.use_pallas is False
+                 else fused_frontend)
         x = front(
             x, params["day"]["weight"], params["day"]["bias"], day_idx,
             kernel_size=cfg.gaussian_kernel_size,

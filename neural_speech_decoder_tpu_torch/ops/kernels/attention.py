@@ -9,6 +9,10 @@ Replaces ``neural_speech_decoder_tpu/ops/pallas/attention_kernel.py``:
   gradient with respect to qkv in qkv's column layout;
 - ``dropout_masks``: the keep masks both kernels draw (the test hook).
 
+The forward and the float32 backward run their products on FMAs; the
+bfloat16 backward runs them on the tensor cores (``mma.sync``, bf16
+operands, float32 sums), as the TPU kernel's bf16 products do.
+
 Each launches its kernel for a CUDA tensor and runs its ``*_plain`` twin,
 the same function in plain PyTorch, for a CPU tensor; it raises for any
 other device. ``<wrapper>.launches`` counts its calls that launched the

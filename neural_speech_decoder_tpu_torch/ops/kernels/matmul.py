@@ -14,13 +14,19 @@ Replaces ``neural_speech_decoder_tpu/ops/pallas/matmul.py``:
   bias), dX (``nt``) and dW (``tn``) on the kernel, ``db = g.float().sum(0)``
   in plain PyTorch (the JAX package sums it outside its kernel too).
 
-``tiled_matmul`` launches the kernel for CUDA tensors and runs
+``tiled_matmul`` launches a kernel for CUDA tensors and runs
 ``tiled_matmul_plain`` for CPU tensors; it raises for any other device, a
 contraction whose dims disagree, mixed or other dtypes, or a bias on the
-transposed layouts. Any M, K and N take the kernel (the ragged edge is
+transposed layouts. Any M, K and N take a kernel (the ragged edge is
 masked); the JAX package's K, N % 128 rule is its call site's gate
 (``projection_kernel_viable``), kept in ``models/gru.py``.
-``tiled_matmul.launches`` counts the kernel's launches.
+
+Two hand-written bodies, chosen by ``matmul_body``: ``"sm90"``
+(``csrc/gemm_sm90.cuh``: TMA and wgmma) for bfloat16 operands that TMA can
+read (16-byte aligned, contiguous extents and cols multiples of 8), and
+``"tile"`` (``csrc/gemm_tile.cuh``) for float32 and every other bfloat16
+product. ``tiled_matmul.launches`` counts the launches,
+``tiled_matmul.launches_by_body`` them by body.
 """
 
 from __future__ import annotations
@@ -55,6 +61,19 @@ def _dims(kind: str, a: torch.Tensor, b: torch.Tensor) -> tuple[int, int, int]:
         raise ValueError(f"tiled_matmul(kind={kind!r}): contracted dims disagree: "
                          f"a={tuple(a.shape)} b={tuple(b.shape)}")
     return rows, cols, red
+
+
+def matmul_body(dtype: torch.dtype, kind: str, rows: int, cols: int, red: int, *,
+                aligned: bool = True) -> str:
+    """Which kernel body computes a product: ``"sm90"`` (TMA + wgmma) for
+    bfloat16 whose operands' contiguous extents and ``cols`` are multiples of
+    8 (TMA's 16-byte row strides) with 16-byte aligned pointers
+    (``aligned``), else ``"tile"``. Float32 always takes ``"tile"``: wgmma's
+    float32 is TF32, which would change the numbers."""
+    contiguous = {"nn": (red, cols), "nt": (red, cols), "tn": (rows, cols)}[kind]
+    if dtype == torch.bfloat16 and aligned and all(n % 8 == 0 for n in contiguous):
+        return "sm90"
+    return "tile"
 
 
 def _check_bias(kind, bias, cols, device):
@@ -93,20 +112,30 @@ def tiled_matmul(a, b, *, kind: str = "nn", bias=None) -> torch.Tensor:
         raise ValueError(f"tiled_matmul: empty product {(rows, cols, red)}")
     a, b = a.contiguous(), b.contiguous()
     out = torch.empty((rows, cols), dtype=a.dtype, device=a.device)
+    body = matmul_body(a.dtype, kind, rows, cols, red,
+                       aligned=all(t.data_ptr() % 16 == 0 for t in (a, b, out)))
+    bias_ptr = None if bias is None else bias.data_ptr()
     lib = load_library()
     with torch.cuda.device(a.device):
-        ws = torch.empty(lib.nsd_matmul_workspace(KINDS[kind], rows, cols, red),
-                         dtype=torch.uint8, device=a.device)
-        rc = getattr(lib, f"nsd_matmul_{_DTYPES[a.dtype]}")(
-            a.data_ptr(), b.data_ptr(), None if bias is None else bias.data_ptr(),
-            out.data_ptr(), ws.data_ptr(), KINDS[kind], rows, cols, red,
-            torch.cuda.current_stream().cuda_stream)
-    check(rc, "tiled_matmul")
+        stream = torch.cuda.current_stream().cuda_stream
+        if body == "sm90":
+            rc = lib.nsd_matmul_sm90_bf16(a.data_ptr(), b.data_ptr(), bias_ptr,
+                                          out.data_ptr(), KINDS[kind], rows, cols, red,
+                                          stream)
+        else:
+            ws = torch.empty(lib.nsd_matmul_workspace(KINDS[kind], rows, cols, red),
+                             dtype=torch.uint8, device=a.device)
+            rc = getattr(lib, f"nsd_matmul_{_DTYPES[a.dtype]}")(
+                a.data_ptr(), b.data_ptr(), bias_ptr, out.data_ptr(), ws.data_ptr(),
+                KINDS[kind], rows, cols, red, stream)
+    check(rc, f"tiled_matmul ({body})")
     tiled_matmul.launches += 1
+    tiled_matmul.launches_by_body[body] += 1
     return out
 
 
 tiled_matmul.launches = 0
+tiled_matmul.launches_by_body = {"sm90": 0, "tile": 0}
 
 
 class ProjectionMatmul(torch.autograd.Function):

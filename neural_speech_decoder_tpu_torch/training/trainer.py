@@ -30,6 +30,7 @@ import math
 import signal
 import threading
 import time
+import warnings
 from pathlib import Path
 from typing import Any, Callable
 
@@ -82,6 +83,29 @@ def check_single_device(args: dict) -> None:
             f"parallelism and multi-host staging are ROADMAP queue 1 item 10")
 
 
+_warned_rng_impl = False
+
+
+def warn_unused_args(args: dict) -> None:
+    """Warn, once per process, about ``rng_impl``: the JAX trainer picks its
+    key's PRNG with it (``jax.random.key(seed, impl=...)``); the port draws
+    from ``torch.Generator`` seeded per step, which is bit-reproducible
+    already, so the arg changes nothing here."""
+    global _warned_rng_impl
+    if args.get("rng_impl") is not None and not _warned_rng_impl:
+        _warned_rng_impl = True
+        warnings.warn(
+            f"rng_impl={args['rng_impl']!r} has no effect in the PyTorch port: it draws "
+            f"its noise and dropout from torch.Generator seeded per step, which is "
+            f"bit-reproducible whatever the JAX key's implementation", stacklevel=2)
+
+
+def ctc_plain(args: dict | None) -> bool:
+    """``ctc_use_kernel: false`` runs the CTC loss's plain version (the JAX
+    trainer takes optax's CTC there); None and True keep the kernels."""
+    return (args or {}).get("ctc_use_kernel") is False
+
+
 def step_generator(device: torch.device, seed: int, step: int) -> torch.Generator:
     """The noise and dropout generator of one train step."""
     return torch.Generator(device=device).manual_seed(
@@ -117,12 +141,13 @@ def _loss_and_metrics(
         model, x, days, x_lens, train=True, generator=generator, plain=plain)
     smoothing = args.get("label_smoothing", 0.0)
     metrics = {}
+    plain_ctc = plain or ctc_plain(args)
 
     def ctc(lp):
         if smoothing > 0:
             return ctc_loss(lp, out_lens, y, y_lens, reduction="none",
-                            plain=plain).mean()
-        return ctc_loss(lp, out_lens, y, y_lens, reduction="mean", plain=plain)
+                            plain=plain_ctc).mean()
+        return ctc_loss(lp, out_lens, y, y_lens, reduction="mean", plain=plain_ctc)
 
     main_loss = ctc(log_probs)
     if smoothing > 0:
@@ -191,15 +216,18 @@ def make_train_step(
     return train_step
 
 
-def make_eval_step(model: Decoder) -> Callable[..., tuple]:
+def make_eval_step(model: Decoder, args: dict | None = None) -> Callable[..., tuple]:
     """``eval_step(x, y, x_lens, y_lens, days) -> (per_seq_loss [B],
     tokens [B, L], decoded_lens [B])``: the eval forward, the per-sequence
-    CTC loss (alpha only: no gradient) and the greedy decode."""
+    CTC loss (alpha only: no gradient; its plain version with the run's
+    ``ctc_use_kernel: false``) and the greedy decode."""
+    plain_ctc = ctc_plain(args)
 
     @torch.inference_mode()
     def eval_step(x, y, x_lens, y_lens, days):
         log_probs, out_lens, _ = forward(model, x, days, x_lens, train=False)
-        per_seq = ctc_loss(log_probs, out_lens, y, y_lens, reduction="none")
+        per_seq = ctc_loss(log_probs, out_lens, y, y_lens, reduction="none",
+                           plain=plain_ctc)
         tokens, dec_lens = greedy_decode(log_probs, out_lens)
         return per_seq, tokens, dec_lens
 
@@ -300,6 +328,7 @@ def _stop_profile(prof, device: torch.device, output_dir: str, first: int,
 
 def _train_model_impl(args: dict, preempt_requested: threading.Event) -> dict:
     check_single_device(args)
+    warn_unused_args(args)
     device = resolve_device(args)
     output_dir = args["outputDir"]
     seed = int(args.get("seed", 0))
@@ -334,7 +363,7 @@ def _train_model_impl(args: dict, preempt_requested: threading.Event) -> dict:
     optimizer, scheduler = make_optimizer(args, model.parameters())
     schedule = lr_schedule(args)
     train_step = make_train_step(args, model, optimizer, scheduler)
-    eval_step = make_eval_step(model)
+    eval_step = make_eval_step(model, args)
     torch_mean = args.get("label_smoothing", 0.0) == 0
 
     n_batch = int(args["nBatch"])

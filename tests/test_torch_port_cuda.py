@@ -352,6 +352,31 @@ def test_attention_function_grads_match_plain(cuda):
     assert _rel(grads[0], grads[1]) <= 1e-5
 
 
+@pytest.mark.parametrize("dh", [128, 64])
+@pytest.mark.parametrize("left", [None, 128])
+def test_attention_bf16_grads_at_conformer_length(cuda, dh, left):
+    """The bf16 backward (tensor cores) through ``MHSA.apply`` at the
+    Conformer's T'=313, 8 heads, rate 0.3, with and without the band, and
+    a row of length 0 (its gradient is zero), against the plain path."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    b, t, h = 3, 313, 8
+    qkv = torch.randn((b, t, 3 * h * dh), generator=g, device=cuda).bfloat16()
+    w = torch.randn((b, t, h * dh), generator=g, device=cuda).bfloat16()
+    lens = torch.tensor([t, 0, 200], dtype=torch.int32, device=cuda)
+    seed = torch.tensor([11], dtype=torch.int32, device=cuda)
+    grads = []
+    for plain in (False, True):
+        before = mhsa_qkv_bwd.launches
+        x = qkv.clone().requires_grad_()
+        out = MHSA.apply(x, lens, seed, h, 0.3, left, False, plain)
+        (out * w).sum().backward()
+        torch.cuda.synchronize()
+        assert mhsa_qkv_bwd.launches == before + (0 if plain else 1)
+        grads.append(x.grad)
+    assert grads[0].dtype == torch.bfloat16 and not grads[0][1].any()
+    assert _rel(grads[0], grads[1]) <= ATTN_TOL[torch.bfloat16]
+
+
 def test_attention_kernels_refuse_unsupported_shapes(cuda):
     qkv = torch.zeros((1, 8, 3 * 96), device=cuda)  # dh = 96
     lens = torch.tensor([8], dtype=torch.int32, device=cuda)
@@ -555,8 +580,9 @@ def _mm_case(cuda, kind, dtype, m=1000, k=136, n=72):
 @pytest.mark.parametrize("kind, bias", [("nn", True), ("nn", False), ("nt", False),
                                         ("tn", False)])
 def test_matmul_kernel_matches_plain(cuda, dtype, kind, bias):
-    """Ragged M=1000, K=136, N=72 (no dim a multiple of the 128 tile; tn
-    cuts its 1000-long sum into ranges added in order)."""
+    """Ragged M=1000, K=136, N=72 (no dim a multiple of the 128 tile; on the
+    float32 tile body tn cuts its 1000-long sum into ranges added in
+    order)."""
     a, b = _mm_case(cuda, kind, dtype)
     cols = {"nn": 72, "nt": 136, "tn": 72}[kind]
     bb = torch.randn((cols,), device=cuda) if bias else None
@@ -567,6 +593,46 @@ def test_matmul_kernel_matches_plain(cuda, dtype, kind, bias):
     torch.cuda.synchronize()
     assert tiled_matmul.launches == before + 2
     assert out.dtype == dtype and out.shape == ref.shape and torch.equal(out, again)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= MM_TOL[dtype] * ref.float().abs().max().item(), err
+
+
+def _by_body_since(before):
+    return {k: v - before[k] for k, v in tiled_matmul.launches_by_body.items()}
+
+
+@pytest.mark.parametrize("kind, bias", [("nn", True), ("nn", False), ("nt", False),
+                                        ("tn", False)])
+@pytest.mark.parametrize("m, k, n", [(40, 72, 264), (1001, 200, 136), (300, 2048, 384)])
+def test_matmul_sm90_body_matches_plain(cuda, kind, bias, m, k, n):
+    """bfloat16 products on the sm90 body (TMA + wgmma): M < 64, M ragged
+    against the 128-row block tile, K not a multiple of the 64-deep k-step
+    (each layout contracts over a different one of m, k, n), all three
+    layouts; reruns bit-equal."""
+    a, b = _mm_case(cuda, kind, torch.bfloat16, m=m, k=k, n=n)
+    cols = {"nn": n, "nt": k, "tn": n}[kind]
+    bb = torch.randn((cols,), device=cuda) if bias else None
+    before = dict(tiled_matmul.launches_by_body)
+    out = tiled_matmul(a, b, kind=kind, bias=bb)
+    ref = tiled_matmul_plain(a, b, kind=kind, bias=bb)
+    again = tiled_matmul(a, b, kind=kind, bias=bb)
+    torch.cuda.synchronize()
+    assert _by_body_since(before) == {"sm90": 2, "tile": 0}
+    assert out.dtype == torch.bfloat16 and out.shape == ref.shape and torch.equal(out, again)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= MM_TOL[torch.bfloat16] * ref.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("dtype, k", [(torch.bfloat16, 130), (torch.float32, 136)])
+def test_matmul_tile_body_takes_what_tma_cannot(cuda, dtype, k):
+    """A bf16 row stride that is not a multiple of 8 (K=130), and float32,
+    take the tile body of gemm_tile.cuh."""
+    a, b = _mm_case(cuda, "nn", dtype, m=100, k=k, n=72)
+    before = dict(tiled_matmul.launches_by_body)
+    out = tiled_matmul(a, b, kind="nn")
+    ref = tiled_matmul_plain(a, b, kind="nn")
+    torch.cuda.synchronize()
+    assert _by_body_since(before) == {"sm90": 0, "tile": 1}
     err = (out.float() - ref.float()).abs().max().item()
     assert err <= MM_TOL[dtype] * ref.float().abs().max().item(), err
 
