@@ -36,14 +36,15 @@ random weights:
    against their plain versions at B=64, T'=313, H=8, dh=128 in float32 and
    bfloat16, at dropout rates 0 and 0.3 (masks bit-equal), and once each
    with a band (``left_context=128``), interleaved qkv columns, T'=1250 and
-   a row of length 0; times of kernel, plain version and
-   ``F.scaled_dot_product_attention`` (forward and backward) as the library
-   yardstick, in both dtypes. The bfloat16 backward runs on the tensor
-   cores, and its row in the kernels line reports bfloat16.
+   a row of length 0, forward reruns bit-equal; times of kernel, plain
+   version and ``F.scaled_dot_product_attention`` (forward and backward) as
+   the library yardstick, in both dtypes. The bfloat16 forward and backward
+   run on the tensor cores (every bf16 forward launch counted on the ``tc``
+   body), and their rows in the kernels line report bfloat16.
 8. Conformer train step at ``CONFORMER_ARGS`` (8 blocks, D=1024, bfloat16,
    label smoothing, InterCTC, AdamW; B=64, T=1280, U=64): 2 warm-up and 10
-   timed steps, median and seq/s, 8 attention forward and backward, 2 CTC
-   alpha and beta launches per step; one float32 step (dropout, DropPath,
+   timed steps, median and seq/s, 8 attention forward (on the ``tc`` body)
+   and backward, 2 CTC alpha and beta launches per step; one float32 step (dropout, DropPath,
    SpecAugment and noise on: both paths draw the same bits) whose every
    gradient leaf is checked against the plain path; two bf16 runs of two
    steps from one seed, bit-equal.
@@ -70,14 +71,18 @@ random weights:
     kernel, plain version and ``torch.mm`` / ``torch.optim.Adam(fused=True)``
     as the library yardsticks, and the bounds; reruns bit-equal. The
     matmul's launches are counted by body: every bf16 product on the sm90
-    body (TMA + wgmma), every float32 one on the tile body, and a bf16
-    product with K=2044 (a row stride TMA cannot read) on the tile body.
+    body (TMA + wgmma), every float32 one on the f32 body (the pipelined
+    FMA tile), and a bf16 product with K=2044 (a row stride TMA cannot read)
+    on the tile body; kernel / ``torch.mm`` for each layout and dtype.
 13. The bf16 GRU train step with both flags (``BENCH_ARGS`` + the flags): 2
     warm-up and 10 timed steps, median and seq/s beside phase 5's, 12
     matmul (all on the sm90 body) and 1 Adam launches per step; one float32
     step without noise and dropout (kernel path vs plain path: every
-    gradient leaf and every parameter after the update); two seeded bf16
-    runs of 2 steps bit-equal.
+    gradient leaf and every parameter after the update; its 12 projections
+    on the f32 body); two seeded bf16 runs of 2 steps bit-equal.
+    Then the float32 GRU step at full width, default and flagged (2 warm-up
+    and 5 timed steps each, the flagged one's 12 projections a step on the
+    f32 body), with their medians and ratio.
 14. ``nsd-train`` end to end: ``training/cli.py::main`` on
     ``configs/gru_baseline.yaml`` with a pickled synthetic dataset at C=256,
     20 steps, evals and checkpoints every 10, the three flags
@@ -443,8 +448,9 @@ HOOKS = ("dropout_masks", "ffn_dropout_masks")
 def reset_launches() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
-    for body in tiled_matmul.launches_by_body:
-        tiled_matmul.launches_by_body[body] = 0
+    for counts in (tiled_matmul.launches_by_body, mhsa_qkv.launches_by_body):
+        for body in counts:
+            counts[body] = 0
 
 
 def read_launches(names=KERNELS) -> dict:
@@ -833,6 +839,9 @@ A_HEADS, A_DH = 8, 128
 # moves an entry by one bf16 step (2**-8 relative), and up to four such
 # steps of the largest entry are allowed.
 ATTN_TOL = {"float32": 1e-5, "bfloat16": 2.0**-6}
+# The forward's body each dtype takes (mhsa_qkv.launches_by_body): the
+# tensor cores in bf16, FMAs in float32.
+ATTN_FWD_BODY = {"float32": "fma", "bfloat16": "tc"}
 # One float32 Conformer train step, kernel path vs plain path, every
 # gradient leaf relative to its largest entry: 8 blocks of attention whose
 # sums run in other orders, the CTC recursions, and 128M parameters' worth
@@ -858,19 +867,26 @@ def attention_inputs(g, b, t, dtype, lens=None):
 def attention_check(tag, qkv, gout, lens, seed, **kw) -> tuple[float, float]:
     """Forward and dqkv, kernel vs plain; returns their abs errors."""
     kw = dict(num_heads=A_HEADS, **kw)
+    name = "float32" if qkv.dtype == torch.float32 else "bfloat16"
+    body = ATTN_FWD_BODY[name]
+    before = mhsa_qkv.launches_by_body[body]
     with torch.inference_mode():
         out, ref = mhsa_qkv(qkv, lens, seed, **kw), mhsa_qkv_plain(qkv, lens, seed, **kw)
+        again = mhsa_qkv(qkv, lens, seed, **kw)
         dq, dref = (mhsa_qkv_bwd(qkv, lens, seed, gout, **kw),
                     mhsa_qkv_bwd_plain(qkv, lens, seed, gout, **kw))
     torch.cuda.synchronize()
-    name = "float32" if qkv.dtype == torch.float32 else "bfloat16"
+    took = mhsa_qkv.launches_by_body[body] - before
     e_f, e_b = rel_err(out, ref), rel_err(dq, dref)
     dead = lens <= 0
     zero_rows = not bool(out[dead].any()) if bool(dead.any()) else True
+    same = torch.equal(out, again)
     tol = ATTN_TOL[name]
-    check(e_f <= tol and e_b <= tol and zero_rows,
+    check(e_f <= tol and e_b <= tol and zero_rows and same and took == 2,
           f"attention {tag} {name}: max abs err / max |ref| forward {e_f:.3e}, "
-          f"dqkv {e_b:.3e} <= {tol:.3g}; rows of length 0 are zero {zero_rows}")
+          f"dqkv {e_b:.3e} <= {tol:.3g}; rows of length 0 are zero {zero_rows}; "
+          f"forward rerun bit-equal {same}; {took} of 2 forward launches on the "
+          f"{body} body")
     return ((out.float() - ref.float()).abs().max().item(),
             (dq.float() - dref.float()).abs().max().item())
 
@@ -882,10 +898,10 @@ def attention_flops(lens, t, n_products) -> float:
     return n_products * 2.0 * A_DH * A_HEADS * t * keys
 
 
-# The dtype each attention row of the kernels line reports: the backward's
-# bf16 body (tensor cores) is the one the recipe runs; the forward and the
-# mask hook report float32.
-ROW_DTYPE = {"mhsa_qkv": "float32", "mhsa_qkv_bwd": "bfloat16", "dropout_masks": "float32"}
+# The dtype each attention row of the kernels line reports: the forward's and
+# the backward's bf16 bodies (tensor cores) are the ones the recipe runs; the
+# mask hook reports float32.
+ROW_DTYPE = {"mhsa_qkv": "bfloat16", "mhsa_qkv_bwd": "bfloat16", "dropout_masks": "float32"}
 
 
 def attention_kernel_phase() -> dict:
@@ -969,6 +985,7 @@ def attention_kernel_phase() -> dict:
               f"GFLOP", flush=True)
         if name == ROW_DTYPE["mhsa_qkv"]:
             rows["mhsa_qkv"]["bound_ms"], rows["mhsa_qkv"]["bound_by"] = fwd_b
+        if name == ROW_DTYPE["dropout_masks"]:
             # one bool written per entry; the hash's integer work is not
             # counted (the table of peaks has no integer rate)
             rows["dropout_masks"]["bound_ms"], rows["dropout_masks"]["bound_by"] = (
@@ -1014,9 +1031,12 @@ def conformer_train_step_phase(card: str) -> dict:
     want = {**NO_GRU, **NO_FUSED, "ctc_alpha": 2 * n, "ctc_beta": 2 * n,
             "mhsa_qkv": CONFORMER_LAYERS * n, "mhsa_qkv_bwd": CONFORMER_LAYERS * n,
             "dropout_masks": 0}
-    check(launches == want, f"launches over {n} bf16 Conformer train steps "
-          f"{launches} == per step 8 attention forward, 8 backward, 2 alpha, "
-          f"2 beta (main and InterCTC heads), no fused FF or conv kernel")
+    fwd_bodies = dict(mhsa_qkv.launches_by_body)
+    check(launches == want and fwd_bodies == {"tc": CONFORMER_LAYERS * n, "fma": 0},
+          f"launches over {n} bf16 Conformer train steps {launches} == per step 8 "
+          f"attention forward (by body {fwd_bodies}: all on the tensor cores), 8 "
+          f"backward, 2 alpha, 2 beta (main and InterCTC heads), no fused FF or conv "
+          f"kernel")
     check(all(math.isfinite(v) for v in losses),
           f"bf16 Conformer train losses finite: {', '.join(f'{v:.4f}' for v in losses)}")
     n_params = sum(p.numel() for p in model.parameters())
@@ -1388,7 +1408,7 @@ MM_RAGGED_M = 1001  # M % 128 = 105
 # at most 2**-7 of the largest entry.
 MM_TOL = {"float32": 1e-5, "bfloat16": 2.0**-7}
 # The body each dtype takes at these shapes (ops/kernels/matmul.py::matmul_body).
-MM_BODY = {"float32": "tile", "bfloat16": "sm90"}
+MM_BODY = {"float32": "f32", "bfloat16": "sm90"}
 # Adam, kernel vs plain: the same float32 operations in the same order, each
 # rounded once (the kernel's _rn intrinsics forbid FMA contraction), so equal
 # up to the card's correctly rounded sqrt and division; the bounds are one
@@ -1453,9 +1473,10 @@ def matmul_kernel_phase() -> dict:
                               + (nbytes(bb) if bb is not None else 0),
                               2.0 * MM_M * MM_K * MM_N, name)
             tflops = 2.0 * MM_M * MM_K * MM_N / kt / 1e9
-            print(f"time  tiled_matmul {kind} {name} M={MM_M} K={MM_K} N={MM_N}: kernel "
-                  f"{turns[0]:.4f}/{turns[1]:.4f} ms ({tflops:.1f} TFLOP/s), plain "
-                  f"{turns[2]:.4f}/{turns[3]:.4f} ms, torch.mm {lib:.4f} ms; bound "
+            print(f"time  tiled_matmul {kind} {name} M={MM_M} K={MM_K} N={MM_N} "
+                  f"({MM_BODY[name]} body): kernel {turns[0]:.4f}/{turns[1]:.4f} ms "
+                  f"({tflops:.1f} TFLOP/s), plain {turns[2]:.4f}/{turns[3]:.4f} ms, "
+                  f"torch.mm {lib:.4f} ms (kernel / torch.mm {kt / lib:.2f}); bound "
                   f"{bt:.4f} ms ({by})", flush=True)
             if name == "bfloat16" and kind == "nn":
                 row.update(ms=kt, plain_ms=pt, library_ms=lib, bound_ms=bt, bound_by=by)
@@ -1468,7 +1489,7 @@ def matmul_kernel_phase() -> dict:
         err = rel_err(out, tiled_matmul_plain(a, b, kind="nn", bias=bias))
     torch.cuda.synchronize()
     took = {k: v - before[k] for k, v in tiled_matmul.launches_by_body.items()}
-    check(err <= MM_TOL["bfloat16"] and took == {"sm90": 0, "tile": 1},
+    check(err <= MM_TOL["bfloat16"] and took == {"sm90": 0, "f32": 0, "tile": 1},
           f"tiled_matmul nn bfloat16 M={MM_RAGGED_M} K=2044 N={MM_N} + bias: max abs err / "
           f"max |ref| {err:.3e} <= {MM_TOL['bfloat16']:.3g}; launches by body {took}")
     print(f"tiled_matmul launches by body in this phase: {tiled_matmul.launches_by_body}",
@@ -1544,7 +1565,7 @@ def gru_fused_step_phase(card: str, default_median: float) -> dict:
     check(launches == {k: v * n for k, v in per_step.items()},
           f"launches over {n} flagged bf16 GRU train steps {launches} == per step 12 "
           f"projection matmuls (4 layers x nn, nt, tn), 1 Adam, 5/5 scan, 1/1 CTC")
-    check(by_body == {"sm90": 12 * n, "tile": 0},
+    check(by_body == {"sm90": 12 * n, "f32": 0, "tile": 0},
           f"projection matmul launches by body over the {n} steps {by_body}: all 12 a "
           f"step on the sm90 body (TMA + wgmma)")
     check(all(math.isfinite(v) for v in losses),
@@ -1592,10 +1613,14 @@ def gru_fused_step_phase(card: str, default_median: float) -> dict:
         torch.cuda.synchronize()
         out[plain] = (loss.item(), [p.grad.clone() for p in ps],
                       [p.detach().clone() for p in ps], read_launches())
+        if not plain:
+            by_body = dict(tiled_matmul.launches_by_body)
     (loss_k, grads_k, new_k, launch_k), (loss_p, grads_p, new_p, launch_p) = (out[False],
                                                                                out[True])
-    check(launch_k == per_step and not any(launch_p.values()),
-          f"float32 flagged step launches: kernel path {launch_k}, plain path {launch_p}")
+    check(launch_k == per_step and not any(launch_p.values())
+          and by_body == {"sm90": 0, "f32": 12, "tile": 0},
+          f"float32 flagged step launches: kernel path {launch_k} (projections by body "
+          f"{by_body}: all 12 on the f32 body), plain path {launch_p}")
     errs = [rel_err(a, b) for a, b in zip(grads_k, grads_p)]
     check(abs(loss_k - loss_p) <= GRAD_TOL * abs(loss_p) and max(errs) <= GRAD_TOL,
           f"float32 flagged GRU train step, kernels vs plain: loss {loss_k:.6f} vs "
@@ -1619,6 +1644,31 @@ def gru_fused_step_phase(card: str, default_median: float) -> dict:
     check(same, f"two flagged bf16 GRU runs of 2 steps from one seed bit-equal: losses "
           f"{l1} / {l2}")
     return {k: launches[k] for k in NO_GRU_FUSED}
+
+
+def gru_float32_steps_phase(card: str) -> None:
+    """The float32 GRU train step at full width (``BENCH_ARGS`` in float32,
+    the JAX trainer's default dtype), default and with both flags, timed one
+    after the other: the flagged step's 12 projections on the f32 body."""
+    batch = batch_tensors(bench_batch(B, T, U), torch.device("cuda"))
+    n = 5
+    medians = {}
+    for tag, args in (("default", BENCH_ARGS), ("flagged", GRU_FUSED_ARGS)):
+        model, losses, times, launches = train_steps(
+            {**args, "compute_dtype": "float32"}, 0, batch, 2, n)
+        del model
+        by_body = dict(tiled_matmul.launches_by_body)
+        mm = 12 * n if tag == "flagged" else 0
+        check(launches["tiled_matmul"] == mm and by_body == {"sm90": 0, "f32": mm, "tile": 0}
+              and all(math.isfinite(v) for v in losses),
+              f"{n} {tag} float32 GRU train steps: projection matmul launches by body "
+              f"{by_body}; losses finite {', '.join(f'{v:.4f}' for v in losses)}")
+        medians[tag] = statistics.median(times)
+        print(f"train step float32 {tag} B={B} T={T} U={U}: steps "
+              f"{', '.join(f'{t * 1e3:.2f}' for t in times)} ms, median "
+              f"{medians[tag] * 1e3:.2f} ms, {B / medians[tag]:.2f} seq/s ({card})", flush=True)
+    print(f"train step float32: flagged / default {medians['flagged'] / medians['default']:.3f}",
+          flush=True)
 
 
 def cli_phase(card: str) -> None:
@@ -1766,6 +1816,9 @@ def main() -> int:
     t0 = time.perf_counter()
     launches.update(gru_fused_step_phase(card, gru_median))
     print(f"phase flagged GRU train step: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    gru_float32_steps_phase(card)
+    print(f"phase float32 GRU train steps: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     cli_phase(card)
     print(f"phase nsd-train: {time.perf_counter() - t0:.1f} s", flush=True)

@@ -35,14 +35,13 @@
 // What bounds it on an H100: the operations. At B=64, T=313, H=8, dh=128 the
 // forward's two products are 2 * 2*T*T*dh per (b, h), 12.8 GFLOP each over
 // the 512 programs, against 0.12 GB (bf16) of qkv and out; the backward's
-// five products (dV, dP, dS, dQ, dK) are 32 GFLOP. The forward and the
-// float32 backward run their products on float32 FMAs (bf16 operands
-// widened as they are loaded), so the FMA rate (67 TFLOP/s) is their floor
-// (TF32 would change the numbers); the bfloat16 backward runs on the tensor
-// cores (namespace tc below). At T'=313 its 2560 blocks of small tiles are
-// bound by latency and occupancy more than by the tensor-core peak, so it
-// uses mma.sync, whose register fragments keep the elementwise dS step
-// simple, rather than wgmma.
+// five products (dV, dP, dS, dQ, dK) are 32 GFLOP. The float32 kernels run
+// their products on float32 FMAs, so the FMA rate (67 TFLOP/s) is their
+// floor (TF32 would change the numbers); the bfloat16 forward and backward
+// run on the tensor cores (namespace tc below). At T'=313 their 2560 blocks
+// of small tiles are bound by latency and occupancy more than by the
+// tensor-core peak, so they use mma.sync, whose register fragments keep the
+// elementwise softmax and dS steps simple, rather than wgmma.
 //
 // Design: the TPU kernel keeps a whole [Tp, Tp] float32 score tile per
 // (b, h) in VMEM (576 KB at Tp=384), more than a block's 227 KB of shared
@@ -83,13 +82,6 @@ template <>
 __device__ __forceinline__ float4 load4<float>(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
-template <>
-__device__ __forceinline__ float4 load4<__nv_bfloat16>(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
 
 template <typename T>
 __device__ __forceinline__ void store4(T* p, float a, float b, float c, float d);
@@ -97,14 +89,6 @@ template <>
 __device__ __forceinline__ void store4<float>(float* p, float a, float b, float c,
                                               float d) {
   *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
-}
-template <>
-__device__ __forceinline__ void store4<__nv_bfloat16>(__nv_bfloat16* p, float a,
-                                                      float b, float c, float d) {
-  uint2 u;
-  *reinterpret_cast<__nv_bfloat162*>(&u.x) = __floats2bfloat162_rn(a, b);
-  *reinterpret_cast<__nv_bfloat162*>(&u.y) = __floats2bfloat162_rn(c, d);
-  *reinterpret_cast<uint2*>(p) = u;
 }
 
 __device__ __forceinline__ float comp(const float4& v, int k) {
@@ -581,8 +565,8 @@ Params make_params(int batch, int n_time, int heads, int left, float scale,
 }
 
 template <typename T, int DH>
-cudaError_t launch_fwd(const void* qkv, const void* lens, const void* seed,
-                       void* out, const Params& p, cudaStream_t stream) {
+cudaError_t launch_fwd_fma(const void* qkv, const void* lens, const void* seed,
+                           void* out, const Params& p, cudaStream_t stream) {
   constexpr size_t smem = sizeof(float) * (2 * kTile * (DH + 4) + kTile * kLDP);
   auto kernel = attn_fwd_kernel<T, DH>;
   cudaError_t err = set_smem(reinterpret_cast<const void*>(kernel), smem);
@@ -595,8 +579,8 @@ cudaError_t launch_fwd(const void* qkv, const void* lens, const void* seed,
 }
 
 // ---------------------------------------------------------------------------
-// The bfloat16 backward on tensor cores. The same two kernels, tiles and
-// skipped tiles as above (the dQ kernel walks the keys twice, not three
+// The bfloat16 forward and backward on tensor cores. The same kernels, tiles
+// and skipped tiles as above (the dQ kernel walks the keys twice, not three
 // times: the row sum of dP * p is formed online beside the softmax's max and
 // sum), with every product an mma.sync.m16n8k16 of
 // bf16 operands into float32 (the TPU kernel's products are bf16 x bf16 into
@@ -606,11 +590,12 @@ cudaError_t launch_fwd(const void* qkv, const void* lens, const void* seed,
 // walk. 128 threads, four warps of 16 rows each (query rows in the dQ
 // kernel, keys in the dK/dV kernel); a warp keeps its score and dP tiles in
 // registers as mma accumulators, forms p and dS there, and feeds them, cast
-// to bf16, straight back as the A operand of dQ = dS K, dV = P^T g and
-// dK = dS^T q (the accumulator of two n8 tiles is the A fragment of one k16
-// step). The B operands come from shared memory by ldmatrix, transposed
-// (.trans) where the tile is [k][n]. 104 KB of shared memory at dh=128 (two
-// blocks an SM), 55 KB at 64.
+// to bf16, straight back as the A operand of out = P V, dQ = dS K,
+// dV = P^T g and dK = dS^T q (the accumulator of two n8 tiles is the A
+// fragment of one k16 step). The B operands come from shared memory by
+// ldmatrix, transposed (.trans) where the tile is [k][n]. The backward takes
+// 104 KB of shared memory at dh=128 (two blocks an SM), 55 KB at 64; the
+// forward 85 KB and 45 KB.
 namespace tc {
 
 using bf16 = __nv_bfloat16;
@@ -619,23 +604,10 @@ constexpr int kTcThreads = 128;
 template <int DH>
 constexpr int kTileElems = kTile * (DH + 8);  // a [64][DH+8] bf16 tile
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from src to shared dst, or 16 zero bytes when !valid.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+using nsd::cp_async16;
+using nsd::cp_async_commit;
+using nsd::cp_async_wait;
+using nsd::smem_u32;
 
 // Rows [row0, row0+64) of a row-major bf16 matrix (row stride ld), columns
 // [col, col+DH), into dst [64][DH+8]; rows >= n_rows are 0.
@@ -675,6 +647,21 @@ __device__ __forceinline__ uint32_t pack(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// acc[j] (keys 8j..8j+7 of the tile) += a (one k16 step, columns k..k+15 of
+// 16 rows) . B[0..64)[k..k+16)^T; B is a [64][DH+8] shared tile.
+template <int DH>
+__device__ __forceinline__ void mma_bt_k16(float acc[8][4], const uint32_t a[4], const bf16* B,
+                                           int k, int lane) {
+  constexpr int LD = DH + 8;
+#pragma unroll
+  for (int j = 0; j < 8; j += 2) {
+    uint32_t b[4];  // n tiles j and j+1, k halves 0 and 1
+    ldsm_x4(B + (8 * j + lane % 8 + 8 * (lane / 16)) * LD + k + 8 * ((lane / 8) % 2), b);
+    mma(acc[j], a, b[0], b[1]);
+    mma(acc[j + 1], a, b[2], b[3]);
+  }
+}
+
 // acc[j] (keys 8j..8j+7 of the tile) += A[r0..r0+16) . B[0..64)^T, summed
 // over DH; A and B are [.][DH+8] shared tiles. Accumulator layout of each
 // n8 tile (lane = 4g + t): [0] (row g, col 2t), [1] (g, 2t+1), [2] (g+8,
@@ -687,14 +674,26 @@ __device__ __forceinline__ void mma_abt(float acc[8][4], const bf16* A, int r0, 
   for (int k = 0; k < DH; k += 16) {
     uint32_t a[4];
     ldsm_x4(A + (r0 + lane % 16) * LD + k + 8 * (lane / 16), a);
-#pragma unroll
-    for (int j = 0; j < 8; j += 2) {
-      uint32_t b[4];  // n tiles j and j+1, k halves 0 and 1
-      ldsm_x4(B + (8 * j + lane % 8 + 8 * (lane / 16)) * LD + k + 8 * ((lane / 8) % 2), b);
-      mma(acc[j], a, b[0], b[1]);
-      mma(acc[j + 1], a, b[2], b[3]);
-    }
+    mma_bt_k16<DH>(acc, a, B, k, lane);
   }
+}
+
+// mma_abt with A's rows held in registers: qa[k / 16] is the A fragment of
+// columns k..k+15 (a_frags).
+template <int DH>
+__device__ __forceinline__ void mma_abt_regs(float acc[8][4], const uint32_t qa[DH / 16][4],
+                                             const bf16* B, int lane) {
+#pragma unroll
+  for (int k = 0; k < DH; k += 16) mma_bt_k16<DH>(acc, qa[k / 16], B, k, lane);
+}
+
+// The A fragments of rows r0..r0+15 of a [64][DH+8] shared tile.
+template <int DH>
+__device__ __forceinline__ void a_frags(uint32_t qa[DH / 16][4], const bf16* A, int r0,
+                                        int lane) {
+#pragma unroll
+  for (int k = 0; k < DH; k += 16)
+    ldsm_x4(A + (r0 + lane % 16) * (DH + 8) + k + 8 * (lane / 16), qa[k / 16]);
 }
 
 // acc[j] (columns 8j..8j+7 of DH) += P (16 x 64, as four k16 A fragments
@@ -752,6 +751,119 @@ __device__ __forceinline__ void store_rows(bf16* dst, size_t ld, int row0, int n
       *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)i * ld + 8 * j + 2 * (lane % 4)) =
           __floats2bfloat162_rn(acc[j][2 * e] * scale, acc[j][2 * e + 1] * scale);
   }
+}
+
+// The forward per query tile, in two walks over the key tiles (the TPU
+// kernel's p carries the final max and sum when it is rounded to bf16, so an
+// online rescaling of out would give other bits): each row's softmax max and
+// sum, online, then p, its dropout and out += round(p) V. The Q tile is read
+// once and its A fragments stay in registers for both walks; the key tiles
+// (and, in the second walk, the value tiles) are double-buffered by cp.async,
+// the next tile's copies in flight while this one's products run.
+template <int DH>
+__global__ void __launch_bounds__(kTcThreads, 2)
+    attn_fwd_tc(const bf16* __restrict__ qkv, const int32_t* __restrict__ lens,
+                const int32_t* __restrict__ seed_ptr, bf16* __restrict__ out, Params p) {
+  constexpr int TE = kTileElems<DH>;
+  extern __shared__ float4 smem4[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem4);
+  bf16* Ks = Qs + TE;      // two buffers
+  bf16* Vs = Ks + 2 * TE;  // two buffers
+  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int d = p.heads * DH;
+  const size_t ld = 3 * (size_t)d;
+  const bf16* base = qkv + (size_t)b * p.n_time * ld;
+  const int limit = min(lens[b], p.n_time);
+  const int seed = *seed_ptr, pid = b * p.heads + h;
+  int kt0, kt1;
+  key_tiles(p, q0, limit, kt0, kt1);
+  const int nt = max(kt1 - kt0, 0), steps = 2 * nt;
+  const int kcol = qkv_col(p, 1, h, DH), vcol = qkv_col(p, 2, h, DH);
+  const int r0 = warp * 16, row[2] = {q0 + r0 + lane / 4, q0 + r0 + lane / 4 + 8};
+
+  load_tile_async<DH>(Qs, base, q0, p.n_time, ld, qkv_col(p, 0, h, DH));
+  // step s: walk s / nt over key tile kt0 + s % nt; the second walk reads V too
+  auto issue = [&](int s) {
+    const int k0 = (kt0 + s % nt) * kTile, buf = s & 1;
+    load_tile_async<DH>(Ks + buf * TE, base, k0, p.n_time, ld, kcol);
+    if (s >= nt) load_tile_async<DH>(Vs + buf * TE, base, k0, p.n_time, ld, vcol);
+  };
+  if (steps > 0) issue(0);
+  cp_async_commit();
+
+  uint32_t qa[DH / 16][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float o[DH / 8][4] = {};
+  for (int s = 0; s < steps; ++s) {
+    if (s + 1 < steps) {
+      issue(s + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (s == 0) a_frags<DH>(qa, Qs, r0, lane);
+    const int k0 = (kt0 + s % nt) * kTile, buf = s & 1;
+    float sc[8][4] = {};
+    mma_abt_regs<DH>(sc, qa, Ks + buf * TE, lane);
+    if (s < nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int key = k0 + 8 * j + 2 * (lane % 4) + c;
+            float& v = sc[j][2 * e + c];
+            v = key >= p.n_time ? -INFINITY : masked(p, row[e], key, limit) ? kNeg : v * p.scale;
+            mx = fmaxf(mx, v);
+          }
+        }
+        const float m_new = fmaxf(m[e], quad_max(mx));
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int c = 0; c < 2; ++c) sum += expf(sc[j][2 * e + c] - m_new);
+        }
+        l[e] = l[e] * expf(m[e] - m_new) + quad_sum(sum);
+        m[e] = m_new;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int e = r / 2, key = k0 + 8 * j + 2 * (lane % 4) + r % 2;
+          float pr = prob(p, sc[j][r], row[e], key, limit, m[e], l[e]);
+          if (p.rate > 0.f) pr = keep(p, seed, pid, row[e], key) ? pr * p.inv_keep : 0.f;
+          sc[j][r] = pr;
+        }
+      }
+      uint32_t pa[4][4];
+      to_a(sc, pa);
+      mma_px<DH>(o, pa, Vs + buf * TE, lane);
+    }
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+  store_rows<DH>(out + (size_t)b * p.n_time * d + h * DH, d, q0 + r0, p.n_time, o, 1.f, lane);
+}
+
+template <int DH>
+cudaError_t launch_fwd(const void* qkv, const void* lens, const void* seed, void* out,
+                       const Params& p, cudaStream_t stream) {
+  constexpr size_t smem = sizeof(bf16) * 5 * kTileElems<DH>;
+  auto kernel = attn_fwd_tc<DH>;
+  NSD_TRY(set_smem(reinterpret_cast<const void*>(kernel), smem));
+  const dim3 grid((p.n_time + kTile - 1) / kTile, p.heads, p.batch);
+  kernel<<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const bf16*>(qkv), static_cast<const int32_t*>(lens),
+      static_cast<const int32_t*>(seed), static_cast<bf16*>(out), p);
+  return cudaGetLastError();
 }
 
 // dQ per query tile, in two walks over the key tiles: each row's softmax max
@@ -1020,6 +1132,16 @@ cudaError_t launch_bwd(const void* qkv, const void* lens, const void* seed, cons
 }
 
 }  // namespace tc
+
+template <typename T, int DH>
+cudaError_t launch_fwd(const void* qkv, const void* lens, const void* seed, void* out,
+                       const Params& p, cudaStream_t stream) {
+  if constexpr (sizeof(T) == 2) {
+    return tc::launch_fwd<DH>(qkv, lens, seed, out, p, stream);
+  } else {
+    return launch_fwd_fma<T, DH>(qkv, lens, seed, out, p, stream);
+  }
+}
 
 template <typename T, int DH>
 cudaError_t launch_bwd(const void* qkv, const void* lens, const void* seed,

@@ -1,10 +1,12 @@
 // Shared helpers for the port's hand-written kernels: element-type
 // conversions between the storage type (float or bfloat16) and the float32
-// the kernels compute in, and NSD_TRY for host code that launches several.
+// the kernels compute in, the cp.async copies into shared memory, and
+// NSD_TRY for host code that launches several.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 // Return the CUDA error of expr, if any, from the calling function.
 #define NSD_TRY(expr)                 \
@@ -36,6 +38,27 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
 template <typename T>
 __device__ __forceinline__ float round_to(float v) {
   return to_f32(from_f32<T>(v));
+}
+
+// The shared-memory address of p, as the PTX instructions take it.
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global src to shared dst, or 16 zero bytes when !valid (src
+// must still be a mapped address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N committed groups of this thread are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 }  // namespace nsd

@@ -43,6 +43,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace nsd {
 namespace sm90 {
 
@@ -55,10 +57,6 @@ constexpr int kBox = 64 * 64 * 2;        // one 64 x 64 MN-major box, 8 KB
 // the ring, its barriers, the block's bias columns, and room to align the
 // ring to 1024 bytes (the 128-byte swizzle's period)
 constexpr size_t kSmemBytes = kStages * kStageBytes + 2 * kStages * 8 + kBN * 4 + 1024;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)

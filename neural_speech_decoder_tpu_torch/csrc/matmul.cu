@@ -3,9 +3,12 @@
 //   nn: out [rows, cols] = a [rows, red] . b [red, cols] + bias   (forward)
 //   nt: out [rows, cols] = a [rows, red] . b [cols, red]^T        (dX = g . W^T)
 //   tn: out [rows, cols] = a [red, rows]^T . b [red, cols]        (dW = x^T . g)
-// Two bodies. nsd_matmul_sm90_bf16: bfloat16 on gemm_sm90.cuh (TMA and
+// Three bodies. nsd_matmul_sm90_bf16: bfloat16 on gemm_sm90.cuh (TMA and
 // wgmma), for operands whose base pointers are 16-byte aligned and whose
-// contiguous extents and cols are multiples of 8 (what TMA takes); the caller
+// contiguous extents and cols are multiples of 8 (what TMA takes);
+// nsd_matmul_pipelined_f32: float32 on gemm_f32.cuh (a two-stage SIMT tile
+// fed by cp.async and register prefetch), for 16-byte aligned operands whose
+// contiguous extents are multiples of 4; the caller
 // (ops/kernels/matmul.py::matmul_body) sends every other product to
 // nsd_matmul_{f32,bf16}, the tile of gemm_tile.cuh (float32 FMAs, or bf16
 // wmma with float32 accumulators).
@@ -15,10 +18,10 @@
 // transposed layouts read their operands where they lie (Tr<>), so no
 // transposed copy is made. The ragged edge (rows, cols or red not a
 // multiple of the tile) is masked in the tile loads and the stores. tn sums
-// over the long axis (red = B*L = 20032 rows): the sm90 body in one range per
-// output tile; the tile body where gemm_splits cuts it into ranges adds
-// their float32 partial sums in order (split_sum). No atomics: a rerun gives
-// the same bits.
+// over the long axis (red = B*L = 20032 rows): the sm90 and the pipelined
+// float32 bodies in one range per output tile; the tile body where
+// gemm_splits cuts it into ranges adds their float32 partial sums in order
+// (split_sum). No atomics: a rerun gives the same bits.
 //
 // Replaces the Pallas TPU kernel of
 // neural_speech_decoder_tpu/ops/pallas/matmul.py (_make_kernel, reached
@@ -33,12 +36,14 @@
 // TFLOP/s, 7.524 ms on float32 FMAs at 67 TFLOP/s; its bf16 bytes (82.0 MB
 // of A, 25.2 MB of B, 246.1 MB of bf16 output at most) take 0.105 ms. The
 // bf16 body keeps the tensor cores fed from a 4-stage TMA ring (see
-// gemm_sm90.cuh); the tile of gemm_tile.cuh (one stage, no cp.async, TMA or
-// wgmma) stays for float32 (wgmma's float32 is TF32, which would change the
-// numbers) and for operands TMA cannot read.
+// gemm_sm90.cuh); float32 stays on FMAs (wgmma's float32 is TF32, which
+// would change the numbers), in two stages whose next slab is in flight
+// during the FMAs (gemm_f32.cuh); the tile of gemm_tile.cuh (one stage, no
+// cp.async, TMA or wgmma) stays for operands neither can read.
 #include <stdint.h>
 
 #include "common.cuh"
+#include "gemm_f32.cuh"
 #include "gemm_sm90.cuh"
 #include "gemm_tile.cuh"
 
@@ -131,6 +136,26 @@ int nsd_matmul_sm90_bf16(const void* a, const void* b, const void* bias, void* o
     err = nsd::sm90::gemm<false, false>(pa, pb, pbias, po, rows, cols, red, st);
   else
     err = nsd::sm90::gemm<true, true>(pa, pb, pbias, po, rows, cols, red, st);
+  return static_cast<int>(err);
+}
+
+// The float32 product on gemm_f32.cuh; the same arguments as the sm90 entry.
+int nsd_matmul_pipelined_f32(const void* a, const void* b, const void* bias, void* out,
+                             int kind, int rows, int cols, int red, void* stream) {
+  if (bad_args(kind, rows, cols, red, bias)) return static_cast<int>(cudaErrorInvalidValue);
+  const float* pa = static_cast<const float*>(a);
+  const float* pb = static_cast<const float*>(b);
+  const float* pbias = static_cast<const float*>(bias);
+  float* po = static_cast<float*>(out);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  // A (k, m) and B (k, n): k-major (true) or m/n-major (false)
+  if (kind == kNN)
+    err = nsd::f32::gemm<false, true>(pa, red, pb, cols, pbias, po, rows, cols, red, st);
+  else if (kind == kNT)
+    err = nsd::f32::gemm<false, false>(pa, red, pb, red, pbias, po, rows, cols, red, st);
+  else
+    err = nsd::f32::gemm<true, true>(pa, rows, pb, cols, pbias, po, rows, cols, red, st);
   return static_cast<int>(err);
 }
 

@@ -58,6 +58,7 @@ _SIGNATURES = {
     "nsd_adam_f32": [_PP] * 4 + [ctypes.POINTER(ctypes.c_longlong), _I] + [_F] * 9 + [_P],
     "nsd_matmul_f32": [_P] * 5 + [_I] * 4 + [_P],
     "nsd_matmul_sm90_bf16": [_P] * 4 + [_I] * 4 + [_P],
+    "nsd_matmul_pipelined_f32": [_P] * 4 + [_I] * 4 + [_P],
 }
 for _name in ("frontend", "gru_scan", "gru_scan_gates", "gru_bwd", "attn_fwd",
               "attn_bwd", "ffn_fwd", "ffn_bwd", "conv_fwd", "conv_bwd", "matmul"):

@@ -9,15 +9,17 @@ Replaces ``neural_speech_decoder_tpu/ops/pallas/attention_kernel.py``:
   gradient with respect to qkv in qkv's column layout;
 - ``dropout_masks``: the keep masks both kernels draw (the test hook).
 
-The forward and the float32 backward run their products on FMAs; the
-bfloat16 backward runs them on the tensor cores (``mma.sync``, bf16
-operands, float32 sums), as the TPU kernel's bf16 products do.
+The float32 kernels run their products on FMAs; the bfloat16 forward and
+backward run them on the tensor cores (``mma.sync``, bf16 operands, float32
+sums), as the TPU kernel's bf16 products do.
 
 Each launches its kernel for a CUDA tensor and runs its ``*_plain`` twin,
 the same function in plain PyTorch, for a CPU tensor; it raises for any
 other device. ``<wrapper>.launches`` counts its calls that launched the
 kernel (``mhsa_qkv_bwd`` launches two, the dQ and the dK/dV kernel, per
-call). ``MHSA`` is the ``torch.autograd.Function``: it saves
+call), and ``mhsa_qkv.launches_by_body`` the forward's by body (``"tc"``
+for bfloat16, ``"fma"`` for float32). ``MHSA`` is the
+``torch.autograd.Function``: it saves
 ``(qkv, lens, seed)`` and the backward regenerates the probabilities and
 the dropout mask from them.
 
@@ -201,6 +203,7 @@ def mhsa_qkv(qkv, lens, seed, *, num_heads: int, rate: float = 0.0,
             torch.cuda.current_stream().cuda_stream)
     check(rc, "mhsa_qkv")
     mhsa_qkv.launches += 1
+    mhsa_qkv.launches_by_body["tc" if qkv.dtype == torch.bfloat16 else "fma"] += 1
     return out
 
 
@@ -261,6 +264,7 @@ def dropout_masks(bh: int, t: int, seed: torch.Tensor, rate: float) -> torch.Ten
 
 
 mhsa_qkv.launches = 0
+mhsa_qkv.launches_by_body = {"tc": 0, "fma": 0}
 mhsa_qkv_bwd.launches = 0
 dropout_masks.launches = 0
 

@@ -21,12 +21,14 @@ transposed layouts. Any M, K and N take a kernel (the ragged edge is
 masked); the JAX package's K, N % 128 rule is its call site's gate
 (``projection_kernel_viable``), kept in ``models/gru.py``.
 
-Two hand-written bodies, chosen by ``matmul_body``: ``"sm90"``
+Three hand-written bodies, chosen by ``matmul_body``: ``"sm90"``
 (``csrc/gemm_sm90.cuh``: TMA and wgmma) for bfloat16 operands that TMA can
-read (16-byte aligned, contiguous extents and cols multiples of 8), and
-``"tile"`` (``csrc/gemm_tile.cuh``) for float32 and every other bfloat16
-product. ``tiled_matmul.launches`` counts the launches,
-``tiled_matmul.launches_by_body`` them by body.
+read (16-byte aligned, contiguous extents and cols multiples of 8),
+``"f32"`` (``csrc/gemm_f32.cuh``: a two-stage float32 FMA tile fed by
+cp.async and register prefetch) for float32 operands that it can read
+(16-byte aligned, contiguous extents multiples of 4), and ``"tile"``
+(``csrc/gemm_tile.cuh``) for every other product. ``tiled_matmul.launches``
+counts the launches, ``tiled_matmul.launches_by_body`` them by body.
 """
 
 from __future__ import annotations
@@ -65,14 +67,18 @@ def _dims(kind: str, a: torch.Tensor, b: torch.Tensor) -> tuple[int, int, int]:
 
 def matmul_body(dtype: torch.dtype, kind: str, rows: int, cols: int, red: int, *,
                 aligned: bool = True) -> str:
-    """Which kernel body computes a product: ``"sm90"`` (TMA + wgmma) for
-    bfloat16 whose operands' contiguous extents and ``cols`` are multiples of
-    8 (TMA's 16-byte row strides) with 16-byte aligned pointers
-    (``aligned``), else ``"tile"``. Float32 always takes ``"tile"``: wgmma's
-    float32 is TF32, which would change the numbers."""
+    """Which kernel body computes a product, given 16-byte aligned pointers
+    (``aligned``) and the operands' contiguous extents (``cols`` among
+    them): ``"sm90"`` (TMA + wgmma) for bfloat16 whose extents are
+    multiples of 8 (TMA's 16-byte row strides); ``"f32"`` (the pipelined
+    float32 FMA tile, 16-byte copies) for float32 whose extents are multiples
+    of 4; else ``"tile"``. Float32 never takes wgmma: its float32 is TF32,
+    which would change the numbers."""
     contiguous = {"nn": (red, cols), "nt": (red, cols), "tn": (rows, cols)}[kind]
     if dtype == torch.bfloat16 and aligned and all(n % 8 == 0 for n in contiguous):
         return "sm90"
+    if dtype == torch.float32 and aligned and all(n % 4 == 0 for n in contiguous):
+        return "f32"
     return "tile"
 
 
@@ -118,10 +124,10 @@ def tiled_matmul(a, b, *, kind: str = "nn", bias=None) -> torch.Tensor:
     lib = load_library()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if body == "sm90":
-            rc = lib.nsd_matmul_sm90_bf16(a.data_ptr(), b.data_ptr(), bias_ptr,
-                                          out.data_ptr(), KINDS[kind], rows, cols, red,
-                                          stream)
+        if body in ("sm90", "f32"):
+            entry = lib.nsd_matmul_sm90_bf16 if body == "sm90" else lib.nsd_matmul_pipelined_f32
+            rc = entry(a.data_ptr(), b.data_ptr(), bias_ptr, out.data_ptr(), KINDS[kind],
+                       rows, cols, red, stream)
         else:
             ws = torch.empty(lib.nsd_matmul_workspace(KINDS[kind], rows, cols, red),
                              dtype=torch.uint8, device=a.device)
@@ -135,7 +141,7 @@ def tiled_matmul(a, b, *, kind: str = "nn", bias=None) -> torch.Tensor:
 
 
 tiled_matmul.launches = 0
-tiled_matmul.launches_by_body = {"sm90": 0, "tile": 0}
+tiled_matmul.launches_by_body = {"sm90": 0, "f32": 0, "tile": 0}
 
 
 class ProjectionMatmul(torch.autograd.Function):

@@ -142,7 +142,7 @@ def main() -> None:
     busy_us = sum(e.self_device_time_total for e in events)
     print(f"device busy {busy_us / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms wall "
           f"over {args_cli.steps} steps ({100 * busy_us / wall_us:.1f}%)")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:25]:
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:40]:
         print(f"  {e.self_device_time_total / 1e3 / args_cli.steps:9.3f} ms/step "
               f"{e.count // args_cli.steps:6d}x/step  {e.key[:90]}")
 

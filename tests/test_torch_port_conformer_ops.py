@@ -6,7 +6,11 @@
 - ``mhsa_qkv_plain`` and its backward against JAX ``fused_mhsa_qkv`` in
   interpret mode (its Pallas kernels run by the interpreter, with the
   counter-hash dropout bits), in float32: forward and dqkv within 1e-5 of
-  their largest entry (T-long float32 sums taken in other orders).
+  their largest entry (T-long float32 sums taken in other orders); the
+  forward also in bfloat16 (the tensor-core kernel's oracle on the card),
+  within 2**-7 of the largest output entry (p and the output are rounded to
+  bf16, and a rounding that falls the other way moves an entry by one bf16
+  step, 2**-8 relative).
 - The single-rounding ``linear`` against the JAX package's ``_linear`` in
   bfloat16, the Conformer's 9-tap smoothing, its positional encoding and
   its output lengths.
@@ -158,6 +162,44 @@ def test_mhsa_plain_and_grad_match_pallas_interpret(t, lens, left, interleaved, 
                                atol=ATTN_TOL * np.abs(ref_grad).max())
     dead = lens_np <= 0
     assert not out[torch.from_numpy(dead)].any()  # fully masked rows give 0
+
+
+ATTN_BF16_TOL = 2.0**-7
+
+ATTN_BF16_CASES = [
+    # (t, dh, lens, left_context, interleaved, rate)
+    (37, 128, [37, 0, 20], None, False, 0.0),
+    (37, 64, [37, 12, 1], 8, False, 0.3),
+    (130, 128, [130, 0, 77], None, True, 0.3),
+    (130, 64, [130, 64, 9], 40, True, 0.0),
+    (130, 128, [100, 130, 5], 16, False, 0.3),
+    (37, 64, [0, 37, 30], None, True, 0.3),
+]
+
+
+@pytest.mark.parametrize("t,dh,lens,left,interleaved,rate", ATTN_BF16_CASES)
+def test_mhsa_plain_bf16_matches_pallas_interpret(t, dh, lens, left, interleaved, rate):
+    """The bfloat16 forward, 2 heads: ``mhsa_qkv_plain`` on bf16 qkv against
+    ``fused_mhsa_qkv`` run in bfloat16 by the interpreter (scores summed in
+    float32, p rounded to bf16 before ``p @ V``, one rounding of the output);
+    lengths of 0 give zero rows."""
+    b, h = 3, 2
+    qkv = jnp.asarray(_qkv(b, t, h, dh, seed=2), jnp.bfloat16)
+    lens_np = np.asarray(lens, np.int32)
+    key = jax.random.key(5)
+    ref = np.asarray(jax_fused_mhsa_qkv(
+        qkv, jnp.asarray(lens_np), key, num_heads=h, dropout_rate=rate, train=rate > 0,
+        interpret=True, left_context=left, interleaved=interleaved).astype(jnp.float32))
+    seed = (jax.random.randint(key, (1,), 0, jnp.iinfo(jnp.int32).max, dtype=jnp.int32)
+            if rate > 0 else jnp.zeros((1,), jnp.int32))
+    x = torch.from_numpy(np.array(qkv.astype(jnp.float32))).bfloat16()
+    out = attention.mhsa_qkv_plain(x, torch.from_numpy(lens_np), torch.from_numpy(np.array(seed)),
+                                   num_heads=h, rate=rate, left_context=left,
+                                   interleaved=interleaved)
+    assert out.dtype == torch.bfloat16 and out.shape == (b, t, h * dh)
+    np.testing.assert_allclose(out.float().numpy(), ref,
+                               atol=ATTN_BF16_TOL * np.abs(ref).max())
+    assert not out[torch.from_numpy(lens_np <= 0)].any()
 
 
 @pytest.mark.parametrize("rate", [0.1, 0.3])

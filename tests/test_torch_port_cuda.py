@@ -319,13 +319,39 @@ def test_attention_kernels_match_plain(cuda, dtype, b, t, h, dh, lens, rate, lef
     seed = torch.tensor([-123], dtype=torch.int32, device=cuda)
     kw = dict(num_heads=h, rate=rate, left_context=left, interleaved=interleaved)
     f0, b0 = mhsa_qkv.launches, mhsa_qkv_bwd.launches
+    by_body = dict(mhsa_qkv.launches_by_body)
     out, ref = mhsa_qkv(qkv, lens, seed, **kw), mhsa_qkv_plain(qkv, lens, seed, **kw)
     d, dref = (mhsa_qkv_bwd(qkv, lens, seed, gout, **kw),
                mhsa_qkv_bwd_plain(qkv, lens, seed, gout, **kw))
     torch.cuda.synchronize()
     assert (mhsa_qkv.launches, mhsa_qkv_bwd.launches) == (f0 + 1, b0 + 1)
+    # the bf16 forward runs on the tensor cores, the float32 one on FMAs
+    body = "tc" if dtype == torch.bfloat16 else "fma"
+    assert {k: v - by_body[k] for k, v in mhsa_qkv.launches_by_body.items()} == {
+        k: int(k == body) for k in by_body}
     assert out.dtype == dtype and d.dtype == dtype and d.shape == qkv.shape
     assert _rel(out, ref) <= ATTN_TOL[dtype] and _rel(d, dref) <= ATTN_TOL[dtype]
+    assert not out[lens == 0].any()
+
+
+def test_attention_bf16_forward_reruns_bit_equal(cuda):
+    """The tensor-core forward at the Conformer's shapes (B=64, T'=313, 8
+    heads of dh=128, rate 0.3, two rows of length 0): two runs give the same
+    bits, within the tolerance of the plain version, zero rows zero."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    b, t, h, dh = 64, 313, 8, 128
+    qkv = torch.randn((b, t, 3 * h * dh), generator=g, device=cuda).bfloat16()
+    lens = ((torch.randint(400, 1281, (b,), generator=g, device=cuda) - 32) // 4).int()
+    lens[1], lens[2], lens[3] = t, 0, 0
+    seed = torch.tensor([987654], dtype=torch.int32, device=cuda)
+    kw = dict(num_heads=h, rate=0.3)
+    before = mhsa_qkv.launches_by_body["tc"]
+    out, again = mhsa_qkv(qkv, lens, seed, **kw), mhsa_qkv(qkv, lens, seed, **kw)
+    ref = mhsa_qkv_plain(qkv, lens, seed, **kw)
+    torch.cuda.synchronize()
+    assert mhsa_qkv.launches_by_body["tc"] == before + 2
+    assert torch.equal(out, again)
+    assert _rel(out, ref) <= ATTN_TOL[torch.bfloat16]
     assert not out[lens == 0].any()
 
 
@@ -576,29 +602,35 @@ def _mm_case(cuda, kind, dtype, m=1000, k=136, n=72):
     return [torch.randn(s, generator=g, device=cuda).to(dtype) for s in shapes]
 
 
+def _by_body_since(before):
+    return {k: v - before[k] for k, v in tiled_matmul.launches_by_body.items()}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("kind, bias", [("nn", True), ("nn", False), ("nt", False),
                                         ("tn", False)])
-def test_matmul_kernel_matches_plain(cuda, dtype, kind, bias):
-    """Ragged M=1000, K=136, N=72 (no dim a multiple of the 128 tile; on the
-    float32 tile body tn cuts its 1000-long sum into ranges added in
-    order)."""
-    a, b = _mm_case(cuda, kind, dtype)
-    cols = {"nn": 72, "nt": 136, "tn": 72}[kind]
+@pytest.mark.parametrize("m, k, n", [(1000, 136, 72), (1001, 2048, 384), (333, 2044, 136)])
+def test_matmul_kernel_matches_plain(cuda, dtype, kind, bias, m, k, n):
+    """Ragged M=1000, K=136, N=72 (no dim a multiple of the 128 tile), M=1001
+    with K=2048, and K=2044 (4 mod 8: a stride TMA cannot take in bf16, a
+    ragged last k slab in float32). Float32 takes the pipelined f32 body in
+    every layout, bf16 the sm90 body unless K=2044 (the tile body); reruns
+    bit-equal."""
+    a, b = _mm_case(cuda, kind, dtype, m=m, k=k, n=n)
+    cols = {"nn": n, "nt": k, "tn": n}[kind]
     bb = torch.randn((cols,), device=cuda) if bias else None
+    body = "f32" if dtype == torch.float32 else "tile" if k % 8 else "sm90"
     before = tiled_matmul.launches
+    by_body = dict(tiled_matmul.launches_by_body)
     out = tiled_matmul(a, b, kind=kind, bias=bb)
     ref = tiled_matmul_plain(a, b, kind=kind, bias=bb)
     again = tiled_matmul(a, b, kind=kind, bias=bb)
     torch.cuda.synchronize()
     assert tiled_matmul.launches == before + 2
+    assert _by_body_since(by_body) == {key: 2 * (key == body) for key in by_body}
     assert out.dtype == dtype and out.shape == ref.shape and torch.equal(out, again)
     err = (out.float() - ref.float()).abs().max().item()
     assert err <= MM_TOL[dtype] * ref.float().abs().max().item(), err
-
-
-def _by_body_since(before):
-    return {k: v - before[k] for k, v in tiled_matmul.launches_by_body.items()}
 
 
 @pytest.mark.parametrize("kind, bias", [("nn", True), ("nn", False), ("nt", False),
@@ -617,22 +649,23 @@ def test_matmul_sm90_body_matches_plain(cuda, kind, bias, m, k, n):
     ref = tiled_matmul_plain(a, b, kind=kind, bias=bb)
     again = tiled_matmul(a, b, kind=kind, bias=bb)
     torch.cuda.synchronize()
-    assert _by_body_since(before) == {"sm90": 2, "tile": 0}
+    assert _by_body_since(before) == {"sm90": 2, "f32": 0, "tile": 0}
     assert out.dtype == torch.bfloat16 and out.shape == ref.shape and torch.equal(out, again)
     err = (out.float() - ref.float()).abs().max().item()
     assert err <= MM_TOL[torch.bfloat16] * ref.float().abs().max().item(), err
 
 
-@pytest.mark.parametrize("dtype, k", [(torch.bfloat16, 130), (torch.float32, 136)])
+@pytest.mark.parametrize("dtype, k", [(torch.bfloat16, 130), (torch.float32, 134)])
 def test_matmul_tile_body_takes_what_tma_cannot(cuda, dtype, k):
-    """A bf16 row stride that is not a multiple of 8 (K=130), and float32,
-    take the tile body of gemm_tile.cuh."""
+    """A bf16 row stride that is not a multiple of 8 (K=130), and a float32
+    one that is not a multiple of 4 (K=134: the f32 body's 16-byte copies
+    cannot read it), take the tile body of gemm_tile.cuh."""
     a, b = _mm_case(cuda, "nn", dtype, m=100, k=k, n=72)
     before = dict(tiled_matmul.launches_by_body)
     out = tiled_matmul(a, b, kind="nn")
     ref = tiled_matmul_plain(a, b, kind="nn")
     torch.cuda.synchronize()
-    assert _by_body_since(before) == {"sm90": 0, "tile": 1}
+    assert _by_body_since(before) == {"sm90": 0, "f32": 0, "tile": 1}
     err = (out.float() - ref.float()).abs().max().item()
     assert err <= MM_TOL[dtype] * ref.float().abs().max().item(), err
 

@@ -14,7 +14,8 @@ port, on the CPU.
   CTC at both).
 - ``rng_impl`` warns once that it changes nothing in the port.
 - ``ops/kernels/matmul.py::matmul_body``: aligned bfloat16 to the sm90 body
-  (TMA + wgmma), a stride TMA cannot take and float32 to the tile body.
+  (TMA + wgmma), aligned float32 with contiguous extents that are multiples
+  of 4 to the pipelined float32 body, everything else to the tile body.
 """
 
 import warnings
@@ -244,9 +245,23 @@ def test_rng_impl_warns_once_and_says_why(monkeypatch):
     (torch.bfloat16, "tn", 100, 72, 40, True, "tile"),
     # a pointer off the 16-byte grid
     (torch.bfloat16, "nn", 20032, 6144, 2048, False, "tile"),
-    # float32: wgmma would be TF32
-    (torch.float32, "nn", 20032, 6144, 2048, True, "tile"),
-    (torch.float32, "tn", 2048, 6144, 20032, True, "tile"),
+    # float32 never takes wgmma (TF32): aligned, with contiguous extents
+    # that are multiples of 4, the pipelined float32 body, at the recipe's
+    # shapes and at a ragged M (rows, or the long axis of tn)
+    (torch.float32, "nn", 20032, 6144, 2048, True, "f32"),
+    (torch.float32, "nt", 20032, 2048, 6144, True, "f32"),
+    (torch.float32, "tn", 2048, 6144, 20032, True, "f32"),
+    (torch.float32, "nn", 1001, 6144, 2048, True, "f32"),
+    (torch.float32, "nt", 1001, 2048, 6144, True, "f32"),
+    (torch.float32, "tn", 2048, 6144, 1001, True, "f32"),
+    # float32 with a contiguous extent not a multiple of 4, or off the
+    # 16-byte grid: the tile body
+    (torch.float32, "nn", 1001, 6144, 2046, True, "tile"),
+    (torch.float32, "nt", 1001, 2046, 6144, True, "tile"),
+    (torch.float32, "tn", 2046, 6144, 1001, True, "tile"),
+    (torch.float32, "tn", 2048, 6142, 20032, True, "tile"),
+    (torch.float32, "nn", 20032, 6144, 2048, False, "tile"),
+    (torch.float32, "tn", 2048, 6144, 1001, False, "tile"),
 ])
 def test_matmul_body_dispatch(dtype, kind, rows, cols, red, aligned, body):
     assert port_mm.matmul_body(dtype, kind, rows, cols, red, aligned=aligned) == body
@@ -258,4 +273,4 @@ def test_matmul_on_the_cpu_counts_no_launch():
     out = port_mm.tiled_matmul(a, b, kind="nn")
     assert torch.equal(out, torch.full((16, 24), 8.0, dtype=torch.bfloat16))
     assert port_mm.tiled_matmul.launches_by_body == before == {
-        "sm90": before["sm90"], "tile": before["tile"]}
+        "sm90": before["sm90"], "f32": before["f32"], "tile": before["tile"]}
