@@ -11,7 +11,11 @@ random weights:
    and CUDA versions, and builds the kernels from ``csrc/``.
 2. Serving kernels: the frontend and the inference scan against their plain
    PyTorch versions on the card at the serving path's shapes, in float32
-   and bfloat16, with the max abs error, the tolerance, and both times.
+   and bfloat16, with the max abs error, the tolerance, and both times. The
+   bfloat16 scan runs on the persistent body (reruns bit-equal), timed in
+   turns with its plain version, beside the step body at the same
+   shapes and cuDNN's bidirectional layer (``torch.nn.GRU``, context: it
+   also does the input projection).
 3. Serving: ``InferenceModel`` answers 3 float32 requests of random
    trials (pad -> forward -> greedy decode); checks finite log-probs, empty
    decodes for padded rows, the kernels' launch counts, and the float32
@@ -22,7 +26,10 @@ random weights:
    CTC alpha and beta recursions against their plain versions at the train
    step's shapes (L=313, B=64, H=1024, U=64), in float32 and bfloat16, with
    errors, tolerances and times; ``F.ctc_loss`` timed as the CTC rows'
-   library call.
+   library call. The bfloat16 scans run on the persistent bodies (reruns
+   bit-equal); the backward's dW_hh contraction alone on the tensor cores
+   against its plain version; the step bodies and
+   cuDNN's layer forward + backward timed beside them.
 5. Train step: ``make_train_step`` at bench.py's shapes and ``GRU_ARGS``
    (B=64, T=1280, U=64, bfloat16, dropout and noise on): 2 warm-up and 10
    timed steps, the median step time and seq/s, a finite loss, moved
@@ -91,7 +98,9 @@ random weights:
     device-assembled batches bit-equal to the host's, then ``load_model`` ->
     eval -> greedy decode.
 The default GRU and Conformer phases check that the fused kernels and the
-GRU's opt-in kernels launch no time there. Each phase prints its seconds.
+GRU's opt-in kernels launch no time there. Every GRU phase checks the scan
+launches by body: all bfloat16 scans at full width on the persistent body,
+all float32 ones on the step body. Each phase prints its seconds.
 
 Run from the repository root:  python3 chip_smoke.py
 It imports no jax. It exits non-zero without a result when there is no
@@ -166,12 +175,17 @@ from neural_speech_decoder_tpu_torch.ops.kernels.frontend import (
     fused_frontend_plain,
 )
 from neural_speech_decoder_tpu_torch.ops.kernels.gru_scan import (
+    bwd_recurrence_plain,
     gru_sequence,
     gru_sequence_bwd,
     gru_sequence_bwd_plain,
     gru_sequence_gates,
     gru_sequence_gates_plain,
     gru_sequence_plain,
+    dw_contraction,
+    hh_grads_plain,
+    scan_backward,
+    scan_forward,
 )
 from neural_speech_decoder_tpu_torch.ops.kernels.matmul import (
     tiled_matmul,
@@ -223,6 +237,11 @@ LOGITS_TOL = 2e-3
 # distances from it. The plain bf16 path's distance from the plain float32
 # path, measured on the same request, stands for each; the bound is twice it.
 BF16_LOGITS_FACTOR = 2.0
+# One bf16 train step (noise and dropout off), kernel path vs plain path, by
+# the same rule, leaf by leaf: each gradient leaf's max abs error relative to
+# its largest entry, against the plain bf16 leaf's distance from the plain
+# float32 one.
+BF16_GRAD_FACTOR = 2.0
 
 # The train step's kernels, against their plain versions on the same
 # inputs. The gates-storing scan shares the inference scan's arithmetic, so
@@ -386,15 +405,47 @@ def kernel_phase() -> list[dict]:
         lambda d: gru_sequence_plain(xps[d], w_hh, b_hh),
         reps_kernel=3, reps_plain=2,
     )
+    # bfloat16, the recipe's compute: the persistent body, reruns bit-equal;
+    # its times beside the plain version's (in turns), the step body's
+    # and cuDNN's whole layer
+    xb = xps["bfloat16"]
+    reset_launches()
+    with torch.inference_mode():
+        y1, y2 = gru_sequence(xb, w_hh, b_hh), gru_sequence(xb, w_hh, b_hh)
+        y_step = scan_forward(xb, w_hh, b_hh, gates=False, plan="step")[0]
+        y_ref = gru_sequence_plain(xb, w_hh, b_hh)
+    torch.cuda.synchronize()
+    check(torch.equal(y1, y2) and gru_sequence.launches_by_body == {"persistent": 2,
+                                                                    "step": 1},
+          f"gru_scan bfloat16: persistent body reruns bit-equal; launches by body "
+          f"{gru_sequence.launches_by_body}")
+    # PR 1-2's step body, kept for the shapes the persistent body cannot
+    # hold, against the plain version as before
+    err_step = (y_step.float() - y_ref.float()).abs().max().item()
+    tol = TOL[("gru_scan", "bfloat16")]
+    check(err_step <= tol, f"gru_scan bfloat16 step body: max abs err {err_step:.3e} <= "
+          f"{tol:.2g} (persistent {(y1.float() - y_ref.float()).abs().max().item():.3e})")
+    with torch.inference_mode():
+        k, p, turns = time_turns(lambda: gru_sequence(xb, w_hh, b_hh),
+                                 lambda: gru_sequence_plain(xb, w_hh, b_hh), 5, 2)
+        step_ms = time_ms(lambda: scan_forward(xb, w_hh, b_hh, gates=False, plan="step"), 3)
+    cudnn_ms = cudnn_gru_ms(backward=False)
+    print(f"time  gru_scan bfloat16: persistent {turns[0]:.4f}/{turns[1]:.4f} ms, plain "
+          f"{turns[2]:.4f}/{turns[3]:.4f} ms, step body {step_ms:.4f} ms; cuDNN's "
+          f"bidirectional layer (torch.nn.GRU, 2H -> H, projection included) {cudnn_ms:.4f} ms",
+          flush=True)
+    scan.update(ms=k, plain_ms=p, step_ms=step_ms, cudnn_layer_ms=cudnn_ms,
+                max_abs_err=(y1.float() - y_ref.float()).abs().max().item())
     # xp, W_hh, b_hh read once, ys written once; h @ W_hh every step
     scan["bound_ms"], scan["bound_by"] = bound_ms(
-        nbytes(xp, w_hh, b_hh) + xp.numel() // 3 * 4, scan_flops(), "float32")
-    for row in (front, scan):
-        # no single PyTorch call computes either function on these inputs:
-        # the frontend's smooth + per-day product + Softsign is three calls;
-        # cuDNN's GRU takes the layer input, not the projections xp
-        row["library_ms"] = None
-        row["dtype"] = "float32"
+        nbytes(xb, w_hh.to(torch.bfloat16), b_hh) + xb.numel() // 3 * 2, scan_flops(),
+        "bfloat16")
+    front["library_ms"] = None
+    front["dtype"] = "float32"
+    # no single PyTorch call computes the scan on these inputs: cuDNN's GRU
+    # takes the layer input, not the projections xp (its time is context)
+    scan["library_ms"] = None
+    scan["dtype"] = "bfloat16"
     return [front, scan]
 
 
@@ -445,16 +496,51 @@ NO_GRU = {"frontend": 0, "gru_scan": 0, "gru_scan_gates": 0, "gru_scan_bwd": 0,
 HOOKS = ("dropout_masks", "ffn_dropout_masks")
 
 
+SCANS = ("gru_scan", "gru_scan_gates", "gru_scan_bwd")
+
+
 def reset_launches() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
-    for counts in (tiled_matmul.launches_by_body, mhsa_qkv.launches_by_body):
+    for counts in (tiled_matmul.launches_by_body, mhsa_qkv.launches_by_body,
+                   *(WRAPPERS[k].launches_by_body for k in SCANS)):
         for body in counts:
             counts[body] = 0
 
 
 def read_launches(names=KERNELS) -> dict:
     return {k: WRAPPERS[k].launches for k in names}
+
+
+def check_scan_bodies(tag: str, body: str) -> None:
+    """Every GRU scan launch since the last reset ran on ``body``
+    (``"persistent"`` for bfloat16 at full width, ``"step"`` for float32),
+    and there was one."""
+    bodies = {k: dict(WRAPPERS[k].launches_by_body) for k in SCANS}
+    ok = (all(n == 0 for c in bodies.values() for b, n in c.items() if b != body)
+          and any(c[body] for c in bodies.values()))
+    check(ok, f"{tag}: GRU scan launches by body {bodies}, all on the {body} body")
+
+
+def cudnn_gru_ms(backward: bool) -> float:
+    """cuDNN's bidirectional bf16 GRU layer (``torch.nn.GRU``, input 2H ->
+    H, L steps, B rows): the input projection and the recurrence, with
+    ``backward`` also their gradients. A superset of a scan's work, timed
+    as context for the scan rows, never called by the port."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    gru = torch.nn.GRU(2 * H, H, bidirectional=True).cuda().to(torch.bfloat16)
+    x = torch.randn((L, B, 2 * H), generator=g, device="cuda").to(torch.bfloat16)
+    if not backward:
+        with torch.inference_mode():
+            return time_ms(lambda: gru(x), 5)
+    x.requires_grad_()
+    gy = torch.randn((L, B, 2 * H), generator=g, device="cuda").to(torch.bfloat16)
+
+    def fwd_bwd():
+        y, _ = gru(x)
+        y.backward(gy)
+
+    return time_ms(fwd_bwd, 5)
 
 
 def serving_phase(card: str) -> dict:
@@ -489,6 +575,7 @@ def serving_phase(card: str) -> dict:
         latencies.append(time.perf_counter() - t0)
         lo += n
     launches = read_launches(KERNELS)
+    check_scan_bodies("float32 serving", "step")
     want = {k: 0 for k in KERNELS} | {"frontend": 3, "gru_scan": 15}
     check(launches == want,
           f"launches over 3 requests {launches} == 1 frontend and "
@@ -526,6 +613,7 @@ def serving_phase(card: str) -> dict:
     torch.cuda.synchronize()
     latency = time.perf_counter() - t0
     launches16 = read_launches(KERNELS)
+    check_scan_bodies("bfloat16 serving", "persistent")
     check(launches16 == {k: 0 for k in KERNELS} | {"frontend": 1,
                                                     "gru_scan": cfg.num_layers},
           f"bfloat16 request launches {launches16} == 1 frontend and "
@@ -584,6 +672,26 @@ def train_kernel_phase() -> dict:
             dxp_p, dw_p, db_p = gru_sequence_bwd_plain(gates_p, w_hh, ys_p, dy)
         torch.cuda.synchronize()
         inputs[name] = (x, dy, gates_p, ys_p)
+        if name == "bfloat16":
+            # PR 1-2's step bodies, kept for the shapes the persistent body
+            # cannot hold, against the plain versions as before
+            with torch.inference_mode():
+                ys_s, gates_s = scan_forward(x, w_hh, b_hh, gates=True, plan="step")
+                bwd_s = scan_backward(gates_p, w_hh, ys_p, dy, plan="step")
+            torch.cuda.synchronize()
+            err_y = (ys_s.float() - ys_p.float()).abs().max().item()
+            err_g = (gates_s.float() - gates_p.float()).abs().max().item()
+            errs = {k: rel_err(a, b) for k, a, b in zip(("dxp", "dW_hh", "db_hh"), bwd_s,
+                                                        (dxp_p, dw_p, db_p))}
+            tol_y = TRAIN_TOL[("gru_scan_gates", name)]
+            tol_g = TRAIN_TOL[("gru_scan_gates.gates", name)]
+            tol = TRAIN_TOL[("gru_scan_bwd", name)]
+            check(err_y <= tol_y and err_g <= tol_g and max(errs.values()) <= tol,
+                  f"gru_scan_gates and gru_scan_bwd {name} step bodies: max abs err ys "
+                  f"{err_y:.3e} <= {tol_y:.3g}, gates {err_g:.3e} <= {tol_g:.3g}; backward "
+                  "max abs err / max |ref| " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+                  + f" <= {tol:.3g}")
+            del ys_s, gates_s, bwd_s
         check(torch.equal(ys, ys_i),
               f"gru_scan_gates {name}: ys equal to the inference scan's bit for bit")
         err_y = (ys.float() - ys_p.float()).abs().max().item()
@@ -600,11 +708,18 @@ def train_kernel_phase() -> dict:
               f"gru_scan_bwd {name}: max abs err / max |ref| "
               + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
               + f" <= {tol:.3g}")
-        if name == "float32":
+        if name == "bfloat16":
             rows["gru_scan_gates"]["max_abs_err"] = max(err_y, err_g)
             rows["gru_scan_bwd"]["max_abs_err"] = max(
                 (a.float() - b.float()).abs().max().item()
                 for a, b in ((dxp, dxp_p), (dw, dw_p), (db, db_p)))
+            with torch.inference_mode():
+                ys2, gates2 = gru_sequence_gates(x, w_hh, b_hh)
+                again = gru_sequence_bwd(gates_p, w_hh, ys_p, dy)
+            torch.cuda.synchronize()
+            check(torch.equal(ys, ys2) and torch.equal(gates, gates2)
+                  and all(torch.equal(a, b) for a, b in zip((dxp, dw, db), again)),
+                  "gru_scan_gates and gru_scan_bwd bfloat16: reruns bit-equal")
     for name in ("float32", "bfloat16"):
         x, dy, gates_p, ys_p = inputs[name]
         with torch.inference_mode():
@@ -616,17 +731,49 @@ def train_kernel_phase() -> dict:
         for key, (k, p, turns) in (("gru_scan_gates", fg), ("gru_scan_bwd", fb)):
             print(f"time  {key} {name}: kernel {turns[0]:.4f}/{turns[1]:.4f} ms, "
                   f"plain {turns[2]:.4f}/{turns[3]:.4f} ms", flush=True)
-            if name == "float32":
+            if name == "bfloat16":
                 rows[key].update(ms=k, plain_ms=p)
-    x, dy, gates_p, ys_p = inputs["float32"]
+    # bfloat16: the step bodies at the same shapes, the contraction
+    # alone against its plain version, and cuDNN's layer forward + backward
+    x, dy, gates_p, ys_p = inputs["bfloat16"]
+    with torch.inference_mode():
+        step_fwd = time_ms(lambda: scan_forward(x, w_hh, b_hh, gates=True, plan="step"), 3)
+        step_bwd = time_ms(lambda: scan_backward(gates_p, w_hh, ys_p, dy, plan="step"), 3)
+        dxp_r, dhp_n_r = bwd_recurrence_plain(gates_p, w_hh, ys_p, dy)
+        dw_c = dw_contraction(ys_p, dxp_r, dhp_n_r)
+        dw_c2 = dw_contraction(ys_p, dxp_r, dhp_n_r)
+        dw_cp = hh_grads_plain(ys_p, dxp_r, dhp_n_r)[0]
+    torch.cuda.synchronize()
+    # exact products of bf16 values summed in float32 in another order
+    tol = TRAIN_TOL[("gru_scan_bwd", "float32")]
+    err = rel_err(dw_c, dw_cp)
+    check(err <= tol and torch.equal(dw_c, dw_c2),
+          f"gru_scan_bwd bfloat16 dW_hh contraction alone (tensor cores): {err:.3e} <= "
+          f"{tol:.3g} of max |ref|; reruns bit-equal")
+    with torch.inference_mode():
+        kc, pc, turns = time_turns(lambda: dw_contraction(ys_p, dxp_r, dhp_n_r),
+                                   lambda: hh_grads_plain(ys_p, dxp_r, dhp_n_r), 10, 3)
+    contraction_flops = 2 * D * L * B * H * 3 * H
+    print(f"time  gru_scan_bwd bfloat16 contraction: tensor cores {turns[0]:.4f}/"
+          f"{turns[1]:.4f} ms ({contraction_flops / kc / 1e9:.1f} TFLOP/s), plain "
+          f"{turns[2]:.4f}/{turns[3]:.4f} ms", flush=True)
+    del dxp_r, dhp_n_r
+    cudnn_ms = cudnn_gru_ms(backward=True)
+    print(f"time  bfloat16 step bodies (a launch a step): gates forward {step_fwd:.4f} ms, backward "
+          f"{step_bwd:.4f} ms; cuDNN's bidirectional layer forward + backward "
+          f"(torch.nn.GRU, 2H -> H, projection included) {cudnn_ms:.4f} ms", flush=True)
+    rows["gru_scan_gates"]["step_ms"] = step_fwd
+    rows["gru_scan_bwd"].update(step_ms=step_bwd, contraction_ms=kc,
+                                cudnn_layer_fwd_bwd_ms=cudnn_ms)
+    w16 = w_hh.to(torch.bfloat16)
     rows["gru_scan_gates"]["bound_ms"], rows["gru_scan_gates"]["bound_by"] = bound_ms(
-        nbytes(x, w_hh, b_hh, ys_p, gates_p), scan_flops(), "float32")
+        nbytes(x, w16, b_hh, ys_p, gates_p), scan_flops(), "bfloat16")
     # gates, W_hh, ys, dys read once, dxp, dW_hh, db_hh written once; the
     # step products dhp @ W^T and the dW_hh contraction, each as many
     # flops as the forward's products
     rows["gru_scan_bwd"]["bound_ms"], rows["gru_scan_bwd"]["bound_by"] = bound_ms(
-        nbytes(gates_p, w_hh, ys_p, dy, x) + 4 * (D * H * 3 * H + D * 3 * H),
-        2 * scan_flops(), "float32")
+        nbytes(gates_p, w16, ys_p, dy, x) + 4 * (D * H * 3 * H + D * 3 * H),
+        2 * scan_flops(), "bfloat16")
 
     # CTC at the train step's shapes: T = L frames, B rows, U labels, 41
     # classes, with an empty target, an infeasible target and a row of
@@ -692,17 +839,18 @@ def train_kernel_phase() -> dict:
         nbytes(lpz, skip, lens, s_end, lpz), flops, "float32")
     for key in ("gru_scan_gates", "gru_scan_bwd"):
         # cuDNN's GRU backward is tied to its own forward over the layer
-        # input, not to projections and stored gates
+        # input, not to projections and stored gates (its time is context)
         rows[key]["library_ms"] = None
-    for row in rows.values():
-        row["dtype"] = "float32"
+    for key, row in rows.items():
+        row["dtype"] = "bfloat16" if key.startswith("gru") else "float32"
     return rows
 
 
 def train_step_phase(card: str) -> tuple[dict, float]:
-    """bench.py's train step at full width in bf16; then one float32 step
-    checked leaf by leaf against the plain path. Returns the launches and
-    the bf16 step's median seconds."""
+    """bench.py's train step at full width in bf16; then one float32 and
+    one bf16 step without noise and dropout, each checked leaf by leaf
+    against the plain path. Returns the launches and the bf16 step's median
+    seconds."""
     device = torch.device("cuda")
     args = dict(BENCH_ARGS)
     model = build_model(args, N_DAYS, device, seed=0)
@@ -724,6 +872,7 @@ def train_step_phase(card: str) -> tuple[dict, float]:
         times.append(time.perf_counter() - t0)
         losses.append(float(metrics["train/loss"]))
     launches = read_launches(KERNELS)
+    check_scan_bodies(f"{n} bf16 train steps", "persistent")
     want = {"frontend": 0, "gru_scan": 0, "gru_scan_gates": 5 * n,
             "gru_scan_bwd": 5 * n, "ctc_alpha": n, "ctc_beta": n,
             **NO_ATTENTION, **NO_GRU_FUSED}
@@ -755,6 +904,8 @@ def train_step_phase(card: str) -> tuple[dict, float]:
         torch.cuda.synchronize()
         out[plain] = (loss.item(), [p.grad.clone() for p in model.parameters()],
                       read_launches(KERNELS))
+        if not plain:
+            check_scan_bodies("float32 train step", "step")
     (loss_k, grads_k, launch_k), (loss_p, grads_p, launch_p) = out[False], out[True]
     check(launch_k == {k: v // n for k, v in want.items()}
           and not any(launch_p.values()),
@@ -764,6 +915,42 @@ def train_step_phase(card: str) -> tuple[dict, float]:
           f"float32 train step, kernels vs plain: loss {loss_k:.6f} vs "
           f"{loss_p:.6f}; {len(errs)} gradient leaves, max abs err / max |ref| "
           f"{max(errs):.3e} <= {GRAD_TOL:g}")
+
+    # the same step in bf16, the recipe's compute, on the same weights and
+    # batch: kernel path vs plain path, leaf by leaf, against the plain bf16
+    # path's distance from the plain float32 one (grads_p)
+    model16 = build_model({**args32, "compute_dtype": "bfloat16"}, N_DAYS, device, seed=1)
+    with torch.no_grad():
+        for a, b in zip(model16.parameters(), model.parameters()):
+            a.copy_(b)
+    out16 = {}
+    for plain in (False, True):
+        model16.zero_grad(set_to_none=True)
+        reset_launches()
+        loss, _ = _loss_and_metrics(args32, model16, batch,
+                                    step_generator(device, 0, 0), plain=plain)
+        loss.backward()
+        torch.cuda.synchronize()
+        out16[plain] = (loss.item(), [p.grad.clone() for p in model16.parameters()],
+                        read_launches(KERNELS))
+        if not plain:
+            check_scan_bodies("bf16 train step without noise and dropout", "persistent")
+    (loss_k, grads_k, launch_k), (loss_p16, grads_p16, launch_p) = out16[False], out16[True]
+    check(launch_k == {k: v // n for k, v in want.items()}
+          and not any(launch_p.values()),
+          f"bf16 step launches: kernel path {launch_k}, plain path {launch_p}")
+    errs = [rel_err(a, b) for a, b in zip(grads_k, grads_p16)]
+    dists = [rel_err(a, b) for a, b in zip(grads_p16, grads_p)]
+    names = [name for name, _ in model16.named_parameters()]
+    worst = max(range(len(errs)), key=lambda i: errs[i] / max(dists[i], 1e-30))
+    check(math.isfinite(loss_k) and all(e <= BF16_GRAD_FACTOR * dd
+                                        for e, dd in zip(errs, dists)),
+          f"bf16 train step, kernels vs plain: loss {loss_k:.6f} vs {loss_p16:.6f} "
+          f"(float32 {loss_p:.6f}); {len(errs)} gradient leaves, each max abs err / "
+          f"max |ref| <= {BF16_GRAD_FACTOR:g} x the plain bf16 leaf's distance from "
+          f"float32: errors {min(errs):.3e}..{max(errs):.3e}, distances "
+          f"{min(dists):.3e}..{max(dists):.3e}; tightest leaf {names[worst]}: "
+          f"{errs[worst]:.3e} vs {dists[worst]:.3e}")
     return {k: launches[k] for k in ("gru_scan_gates", "gru_scan_bwd",
                                      "ctc_alpha", "ctc_beta")}, med
 
@@ -801,6 +988,7 @@ def train_model_phase(card: str) -> None:
     _, per, _, _ = run_eval(make_eval_step(model), test_ds, B, t_max, u_max,
                             torch.device("cuda"))
     launches = read_launches(KERNELS)
+    check_scan_bodies("eval of the reloaded bf16 model", "persistent")
     n_batches = -(-test_ds.n_trials // B)
     want = {"frontend": n_batches, "gru_scan": 5 * n_batches,
             "gru_scan_gates": 0, "gru_scan_bwd": 0, "ctc_alpha": n_batches,
@@ -1561,6 +1749,7 @@ def gru_fused_step_phase(card: str, default_median: float) -> dict:
     n = 10
     model, losses, times, launches = train_steps(dict(GRU_FUSED_ARGS), 0, batch, 2, n)
     per_step = {k: 0 for k in KERNELS} | GRU_FUSED_PER_STEP
+    check_scan_bodies(f"{n} flagged bf16 GRU train steps", "persistent")
     by_body = dict(tiled_matmul.launches_by_body)
     check(launches == {k: v * n for k, v in per_step.items()},
           f"launches over {n} flagged bf16 GRU train steps {launches} == per step 12 "
@@ -1615,6 +1804,7 @@ def gru_fused_step_phase(card: str, default_median: float) -> dict:
                       [p.detach().clone() for p in ps], read_launches())
         if not plain:
             by_body = dict(tiled_matmul.launches_by_body)
+            check_scan_bodies("float32 flagged GRU step", "step")
     (loss_k, grads_k, new_k, launch_k), (loss_p, grads_p, new_p, launch_p) = (out[False],
                                                                                out[True])
     check(launch_k == per_step and not any(launch_p.values())
@@ -1657,6 +1847,7 @@ def gru_float32_steps_phase(card: str) -> None:
         model, losses, times, launches = train_steps(
             {**args, "compute_dtype": "float32"}, 0, batch, 2, n)
         del model
+        check_scan_bodies(f"{n} {tag} float32 GRU train steps", "step")
         by_body = dict(tiled_matmul.launches_by_body)
         mm = 12 * n if tag == "flagged" else 0
         check(launches["tiled_matmul"] == mm and by_body == {"sm90": 0, "f32": mm, "tile": 0}
@@ -1691,6 +1882,7 @@ def cli_phase(card: str) -> None:
         "checkpointEvery=10", "fused_optimizer=true", "use_pallas_matmul=true",
         "deviceResidentData=true", "profile_steps=[12,14]", "wandb_mode=disabled"])
     launches = read_launches()
+    check_scan_bodies("nsd-train (bf16 steps and evals)", "persistent")
     print(f"nsd-train (training/cli.py) on configs/gru_baseline.yaml with the three flags: "
           f"{n_steps} steps with {n_evals} evals and 2 checkpoints in "
           f"{time.perf_counter() - t0:.1f} s; {summary} ({card})", flush=True)

@@ -622,30 +622,10 @@ __device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src, int 
   }
 }
 
-__device__ __forceinline__ void ldsm_x4(const bf16* p, uint32_t* r) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(const bf16* p, uint32_t* r) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// c += a (16x16, row) . b (16x8, col), bf16 operands, float32 sums.
-__device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
+using nsd::ldsm_x4;
+using nsd::ldsm_x4_t;
+using nsd::mma;
+using nsd::pack;
 
 // acc[j] (keys 8j..8j+7 of the tile) += a (one k16 step, columns k..k+15 of
 // 16 rows) . B[0..64)[k..k+16)^T; B is a [64][DH+8] shared tile.

@@ -36,9 +36,14 @@
 // FP32 FMAs, so a step is bound by FMA throughput and by streaming W_hh out
 // of L2, plus one launch per step.
 //
-// Design (the floor design): the host function loops over the L steps on
-// the caller's stream and launches one step kernel per step, so the launch
-// boundary is the grid-wide barrier between steps. A step's grid covers both
+// Two bodies. The step body (the floor design) runs float32, and the
+// bf16 shapes that the persistent body cannot hold; the persistent body runs
+// every other bf16 scan. The caller (ops/kernels/gru_scan.py::scan_plan)
+// chooses from the shape before the launch.
+//
+// Step body: the host function loops over the L steps on the caller's
+// stream and launches one step kernel per step, so the launch boundary is
+// the grid-wide barrier between steps. A step's grid covers both
 // directions, all hidden units and all batch rows: one block per
 // (32 hidden units, direction, 32 batch rows). A block computes the r, z and
 // n pre-activations of its 32 units for its 32 rows over the full H
@@ -52,6 +57,28 @@
 // (24 MB in f32) stay in the 50 MB L2 across steps. The float32 carry
 // ping-pongs between two [D, B, H] buffers that the caller allocates; step 0
 // reads no carry.
+//
+// Persistent body (bf16): one cooperative launch a layer, at most one block
+// an SM, walks all L steps. A block owns U hidden units (a multiple of 8) of
+// one direction and all three gates of them; its slice of W_hh, [H, 3U]
+// bf16 (96 KB at H=1024, U=16), is loaded into shared memory once,
+// transposed to [3U][H] so that ldmatrix reads it as mma's B operand, and
+// stays there for the whole walk. Each step the block copies h_{t-1}, all
+// B rows of its direction, out of L2 into shared memory (cp.async.cg, in
+// four column chunks, the first chunk's products starting while the rest
+// arrive) and forms its [B, 3U] pre-activations on mma.sync m16n8k16
+// (bf16 x bf16 -> float32: the TPU kernel's product, in another order). A
+// warp owns one 16-row tile and 8 units, and its r, z and n accumulators
+// hold the same (row, unit) elements, so the gate math runs on them in
+// registers and the float32 carry of those elements never leaves the
+// thread. ys[t] is round_to<bf16>(h_t), exactly the next step's product
+// input, so the next step reads h_{t-1} from ys (direction 0 at ys[t-1],
+// direction 1 at ys[t+1]) and no carry buffer exists. The blocks of a
+// direction meet at a barrier on a counter between steps (a release
+// arrival and an acquire wait; the directions do not wait for each other).
+// Per step a block reads 2*B*H bytes of h from L2 (128 KB at B=64, H=1024,
+// 16.8 MB over 128 blocks) for 2*B*H*3U flops: the L2 traffic and the
+// barrier set the pace, not the tensor cores.
 #include "common.cuh"
 
 namespace {
@@ -246,6 +273,200 @@ cudaError_t run_scan(const void* xp, const void* w, const void* bias,
   return cudaSuccess;
 }
 
+// ---------------------------------------------------------------------------
+// The persistent bf16 body.
+
+using bf16 = __nv_bfloat16;
+constexpr int kChunks = 4;  // column chunks of h per step
+
+using nsd::round_up;
+
+// Dynamic shared memory of the persistent forward: W's slice [3U][Hp+8] and
+// h [16*ceil(B/16)][Hp+8], bf16, Hp = H rounded up to 16 (the 8-element pad
+// puts the 8 rows an ldmatrix reads on distinct banks).
+__host__ __device__ constexpr int fwd_smem_bytes(int units, int batch, int hidden) {
+  return 2 * (3 * units + round_up(batch, 16)) * (round_up(hidden, 16) + 8);
+}
+
+template <bool kGates>
+__global__ void __launch_bounds__(256, 1)
+    gru_fwd_persistent(const bf16* __restrict__ xp, const bf16* __restrict__ w,
+                       const float* __restrict__ bias, bf16* __restrict__ ys,
+                       bf16* __restrict__ gates, unsigned* __restrict__ sync,
+                       int n_steps, int n_dirs, int batch, int hidden, int units) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int n_blk = (hidden + units - 1) / units;  // blocks of a direction
+  const int d = blockIdx.x / n_blk;
+  const int j0 = (blockIdx.x % n_blk) * units;
+  const int hp = round_up(hidden, 16);
+  const int ld = hp + 8;
+  const int rows = round_up(batch, 16);
+  const int three_h = 3 * hidden;
+  bf16* ws = reinterpret_cast<bf16*>(smem_raw);  // [3U][ld]
+  bf16* hs = ws + 3 * units * ld;                 // [rows][ld]
+  const int tid = threadIdx.x;
+  const int n_thr = blockDim.x;
+
+  // W's slice, transposed: ws[g*U + u][k] = W[d][k][g*H + j0 + u], zero
+  // past H (k) and past the last unit; hs zero, of which the rows past B
+  // and the columns past H stay so.
+  for (int i = tid; i < 3 * units * hp; i += n_thr) {
+    const int n = i % (3 * units), k = i / (3 * units);
+    const int g = n / units, j = j0 + n % units;
+    ws[n * ld + k] = k < hidden && j < hidden
+                         ? w[((size_t)d * hidden + k) * three_h + g * hidden + j]
+                         : __float2bfloat16(0.f);
+  }
+  for (int i = tid; i < rows * ld; i += n_thr) hs[i] = __float2bfloat16(0.f);
+
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const int ug = warp % (units / 8);  // the warp's 8 units
+  const int mt = warp / (units / 8);  // and its 16 rows
+  const int jj = j0 + 8 * ug + 2 * (lane % 4);  // units jj, jj+1 of the thread
+  const bool j_ok = jj < hidden;                // hidden % 8 == 0: both or neither
+  int bb[2];
+  bool b_ok[2];
+  for (int e = 0; e < 2; ++e) {
+    bb[e] = 16 * mt + lane / 4 + 8 * e;
+    b_ok[e] = j_ok && bb[e] < batch;
+  }
+  float bias_g[3][2] = {};
+  if (j_ok) {
+    for (int g = 0; g < 3; ++g) {
+      bias_g[g][0] = bias[(size_t)d * three_h + g * hidden + jj];
+      bias_g[g][1] = bias[(size_t)d * three_h + g * hidden + jj + 1];
+    }
+  }
+  // column chunks of h: kChunks of kc columns (a multiple of 16), the last
+  // ones possibly empty
+  const int kc = round_up((hp + kChunks - 1) / kChunks, 16);
+  float carry[4] = {0.f, 0.f, 0.f, 0.f};  // f32 h of (row bb[e/2], unit jj + e%2)
+  // a step's inputs x_r, x_z, x_n of the thread's elements, independent of
+  // the other blocks: loaded before the barrier that precedes their step
+  float2 x[3][2];
+  auto load_x = [&](int s) {
+    const int t = d == 0 ? s : n_steps - 1 - s;
+    for (int e = 0; e < 2; ++e) {
+      const bf16* xr = xp + (((size_t)t * n_dirs + d) * batch + bb[e]) * three_h + jj;
+      for (int g = 0; g < 3; ++g) {
+        x[g][e] = b_ok[e] ? __bfloat1622float2(
+                                *reinterpret_cast<const __nv_bfloat162*>(xr + g * hidden))
+                          : make_float2(0.f, 0.f);
+      }
+    }
+  };
+  load_x(0);
+  __syncthreads();
+
+  for (int s = 0; s < n_steps; ++s) {
+    const int t = d == 0 ? s : n_steps - 1 - s;
+    float acc[3][4] = {};
+    if (s > 0) {
+      const int tp = d == 0 ? s - 1 : n_steps - s;  // scan position s-1
+      const bf16* hsrc = ys + ((size_t)tp * n_dirs + d) * batch * hidden;
+      const int pieces = kc / 8;
+      for (int c = 0; c < kChunks; ++c) {
+        const int k0 = c * kc;
+        for (int i = tid; i < batch * pieces; i += n_thr) {
+          const int b = i / pieces, k = k0 + 8 * (i % pieces);
+          if (!nsd::kCutLoad && k < hidden) {
+            nsd::cp_async16(hs + b * ld + k, hsrc + (size_t)b * hidden + k, true);
+          }
+        }
+        nsd::cp_async_commit();
+      }
+      for (int c = 0; c < kChunks; ++c) {
+        nsd::cp_async_wait_upto(kChunks - 1 - c);
+        __syncthreads();
+        const int k_end = min(hp, (c + 1) * kc);
+        for (int k = c * kc; k < k_end; k += 16) {
+          uint32_t a[4];
+          nsd::ldsm_x4(hs + (16 * mt + lane % 16) * ld + k + 8 * (lane / 16), a);
+#pragma unroll
+          for (int g = 0; g < 3; ++g) {
+            uint32_t b[2];
+            nsd::ldsm_x2(ws + (g * units + 8 * ug + lane % 8) * ld + k + 8 * ((lane / 8) % 2), b);
+            if (!nsd::kCutMma) nsd::mma(acc[g], a, b[0], b[1]);
+          }
+        }
+      }
+    }
+    for (int e = 0; e < 2; ++e) {
+      if (!b_ok[e]) continue;
+      const size_t row = ((size_t)t * n_dirs + d) * batch + bb[e];
+      float h2[2], gate[4][2];
+      for (int q = 0; q < 2; ++q) {
+        const int i = 2 * e + q;
+        float hp_g[3];
+        for (int g = 0; g < 3; ++g) hp_g[g] = acc[g][i] + bias_g[g][q];
+        const float xr = q ? x[0][e].y : x[0][e].x;
+        const float xz = q ? x[1][e].y : x[1][e].x;
+        const float xn = q ? x[2][e].y : x[2][e].x;
+        const float r = sigmoid_f32(xr + hp_g[0]);
+        const float z = sigmoid_f32(xz + hp_g[1]);
+        const float n = tanhf(xn + r * hp_g[2]);
+        const float h = (1.f - z) * n + z * carry[i];
+        carry[i] = h;
+        h2[q] = h;
+        gate[0][q] = r;
+        gate[1][q] = z;
+        gate[2][q] = n;
+        gate[3][q] = hp_g[2];
+      }
+      *reinterpret_cast<__nv_bfloat162*>(ys + row * hidden + jj) =
+          __floats2bfloat162_rn(h2[0], h2[1]);
+      if (kGates) {
+        bf16* gr = gates + row * 4 * hidden + jj;
+        for (int g = 0; g < 4; ++g) {
+          *reinterpret_cast<__nv_bfloat162*>(gr + g * hidden) =
+              __floats2bfloat162_rn(gate[g][0], gate[g][1]);
+        }
+      }
+    }
+    if (s + 1 < n_steps) {
+      load_x(s + 1);
+      if (!nsd::kCutBarrier) nsd::group_barrier(sync + d, (unsigned)(s + 1) * n_blk);
+    }
+  }
+}
+
+// Checks a persistent launch's arguments against the kernel's arithmetic.
+cudaError_t check_persistent(int n_dirs, int batch, int hidden, int units, int threads,
+                             int smem) {
+  if (n_dirs < 1 || n_dirs > 2 || batch < 1 || hidden < 8 || hidden % 8 || units < 8 ||
+      units % 8 || threads != 32 * (round_up(batch, 16) / 16) * (units / 8) ||
+      threads > 256 || smem != fwd_smem_bytes(units, batch, hidden)) {
+    return cudaErrorInvalidValue;
+  }
+  return cudaSuccess;
+}
+
+template <bool kGates>
+cudaError_t run_persistent(const void* xp, const void* w, const void* bias, void* ys,
+                           void* gates, void* sync, int n_steps, int n_dirs, int batch,
+                           int hidden, int units, int threads, int smem,
+                           cudaStream_t stream) {
+  if (n_steps < 1) return cudaErrorInvalidValue;
+  NSD_TRY(check_persistent(n_dirs, batch, hidden, units, threads, smem));
+  const void* kernel = reinterpret_cast<const void*>(&gru_fwd_persistent<kGates>);
+  const int blocks = n_dirs * ((hidden + units - 1) / units);
+  if (nsd::coresident_blocks(kernel, threads, smem) < blocks) {
+    return cudaErrorCooperativeLaunchTooLarge;
+  }
+  NSD_TRY(cudaMemsetAsync(sync, 0, 2 * sizeof(unsigned), stream));
+  const bf16* xp_ = static_cast<const bf16*>(xp);
+  const bf16* w_ = static_cast<const bf16*>(w);
+  const float* bias_ = static_cast<const float*>(bias);
+  bf16* ys_ = static_cast<bf16*>(ys);
+  bf16* gates_ = static_cast<bf16*>(gates);
+  unsigned* sync_ = static_cast<unsigned*>(sync);
+  void* args[] = {&xp_, &w_, &bias_, &ys_, &gates_, &sync_,
+                  &n_steps, &n_dirs, &batch, &hidden, &units};
+  return cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(threads), args,
+                                     (size_t)smem, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -282,6 +503,37 @@ int nsd_gru_scan_gates_bf16(const void* xp, const void* w, const void* bias,
   return static_cast<int>(run_scan<__nv_bfloat16>(
       xp, w, bias, ys, gates, carry, n_steps, n_dirs, batch, hidden,
       static_cast<cudaStream_t>(stream)));
+}
+
+// The persistent bf16 body (gates == nullptr: the inference scan). sync is
+// two unsigned counters, zeroed here on the stream. units, threads and smem
+// come from the caller's plan and are checked against the kernel's own
+// arithmetic; a grid that the card cannot hold at once returns
+// cudaErrorCooperativeLaunchTooLarge and launches nothing.
+int nsd_gru_scan_persistent_bf16(const void* xp, const void* w, const void* bias,
+                                 void* ys, void* gates, void* sync, int n_steps,
+                                 int n_dirs, int batch, int hidden, int units,
+                                 int threads, int smem, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      gates == nullptr
+          ? run_persistent<false>(xp, w, bias, ys, nullptr, sync, n_steps, n_dirs, batch,
+                                  hidden, units, threads, smem, st)
+          : run_persistent<true>(xp, w, bias, ys, gates, sync, n_steps, n_dirs, batch,
+                                 hidden, units, threads, smem, st));
+}
+
+// The card's SM count and the shared memory one block may opt in to.
+int nsd_device_limits(int* n_sms, int* smem_optin) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(n_sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

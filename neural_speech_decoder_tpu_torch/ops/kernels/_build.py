@@ -59,6 +59,10 @@ _SIGNATURES = {
     "nsd_matmul_f32": [_P] * 5 + [_I] * 4 + [_P],
     "nsd_matmul_sm90_bf16": [_P] * 4 + [_I] * 4 + [_P],
     "nsd_matmul_pipelined_f32": [_P] * 4 + [_I] * 4 + [_P],
+    "nsd_gru_scan_persistent_bf16": [_P] * 6 + [_I] * 7 + [_P],
+    "nsd_gru_bwd_persistent_bf16": [_P] * 9 + [_I] * 7 + [_P],
+    "nsd_gru_dw_bf16": [_P] * 4 + [_I] * 4 + [_P],
+    "nsd_device_limits": [ctypes.POINTER(_I)] * 2,
 }
 for _name in ("frontend", "gru_scan", "gru_scan_gates", "gru_bwd", "attn_fwd",
               "attn_bwd", "ffn_fwd", "ffn_bwd", "conv_fwd", "conv_bwd", "matmul"):

@@ -54,12 +54,19 @@ from neural_speech_decoder_tpu_torch.ops.kernels.ctc import (
 )
 from neural_speech_decoder_tpu_torch.ops.kernels.gru_scan import (
     GRUScan,
+    device_limits,
     gru_sequence,
     gru_sequence_bwd,
     gru_sequence_bwd_plain,
     gru_sequence_gates,
     gru_sequence_gates_plain,
     gru_sequence_plain,
+    dw_contraction,
+    hh_grads_plain,
+    plan_for,
+    scan_backward,
+    scan_forward,
+    scan_plan,
 )
 
 pytestmark = pytest.mark.cuda
@@ -188,6 +195,178 @@ def test_gru_scan_function_grads_match_plain(cuda):
         grads.append([t.grad for t in leaves])
     for got, ref in zip(*grads):
         assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+# The persistent bf16 bodies (one cooperative launch a layer, W_hh's slice in
+# shared memory, mma.sync steps) against the plain versions, with the step
+# body's tolerances above. Weights ~ 1.2/sqrt(H) keep the pre-activations
+# of order 1 at every H (0.19 at H=40, the scale of the tests above).
+PERSISTENT_SHAPES = [(h, b, d) for h in (40, 128, 1024) for b in (5, 64) for d in (1, 2)]
+
+
+def _bf16_scan_case(cuda, h, b, d, length=9):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    xp = torch.randn((length, d, b, 3 * h), generator=g, device=cuda).bfloat16()
+    w = 1.2 / h**0.5 * torch.randn((d, h, 3 * h), generator=g, device=cuda)
+    bias = 0.1 * torch.randn((d, 3 * h), generator=g, device=cuda)
+    dys = torch.randn((length, d, b, h), generator=g, device=cuda).bfloat16()
+    return xp, w, bias, dys
+
+
+def _by_body(*wrappers):
+    return [dict(f.launches_by_body) for f in wrappers]
+
+
+@pytest.mark.parametrize("h,b,d", PERSISTENT_SHAPES)
+def test_gru_persistent_forward_matches_plain(cuda, h, b, d):
+    xp, w, bias, _ = _bf16_scan_case(cuda, h, b, d)
+    assert plan_for(xp, h, b, d) != "step"
+    before = _by_body(gru_sequence, gru_sequence_gates)
+    ys = gru_sequence(xp, w, bias)
+    ys_g, gates = gru_sequence_gates(xp, w, bias)
+    ys_ref, gates_ref = gru_sequence_gates_plain(xp, w, bias)
+    again = gru_sequence(xp, w, bias)
+    torch.cuda.synchronize()
+    for old, new, n in zip(before, _by_body(gru_sequence, gru_sequence_gates), (2, 1)):
+        assert new == {"persistent": old["persistent"] + n, "step": old["step"]}
+    assert torch.equal(ys, ys_g) and torch.equal(ys, again)
+    assert (ys.float() - ys_ref.float()).abs().max().item() <= 2e-2
+    assert (gates.float() - gates_ref.float()).abs().max().item() <= 8e-2
+
+
+@pytest.mark.parametrize("length", [1, 2])
+def test_gru_persistent_short_sequences(cuda, length):
+    xp, w, bias, dys = _bf16_scan_case(cuda, 128, 5, 2, length)
+    ys, gates = gru_sequence_gates(xp, w, bias)
+    ys_ref, gates_ref = gru_sequence_gates_plain(xp, w, bias)
+    dxp, dw, db = gru_sequence_bwd(gates_ref, w, ys_ref, dys)
+    ref = gru_sequence_bwd_plain(gates_ref, w, ys_ref, dys)
+    torch.cuda.synchronize()
+    assert (ys.float() - ys_ref.float()).abs().max().item() <= 2e-2
+    for got, want in zip((dxp, dw, db), ref):
+        assert (got.float() - want.float()).abs().max().item() <= (
+            2e-2 * want.float().abs().max().item())
+
+
+@pytest.mark.parametrize("h,b,d", PERSISTENT_SHAPES)
+def test_gru_persistent_backward_matches_plain(cuda, h, b, d):
+    xp, w, bias, dys = _bf16_scan_case(cuda, h, b, d)
+    ys, gates = gru_sequence_gates_plain(xp, w, bias)
+    before = gru_sequence_bwd.launches_by_body["persistent"]
+    out = gru_sequence_bwd(gates, w, ys, dys)
+    again = gru_sequence_bwd(gates, w, ys, dys)
+    ref = gru_sequence_bwd_plain(gates, w, ys, dys)
+    torch.cuda.synchronize()
+    assert gru_sequence_bwd.launches_by_body["persistent"] == before + 2
+    assert out[0].dtype == torch.bfloat16 and out[1].dtype == out[2].dtype == torch.float32
+    for got, rerun, want in zip(out, again, ref):
+        assert torch.equal(got, rerun)
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= 2e-2 * want.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("h,b,d", [(40, 5, 1), (128, 64, 2), (1024, 64, 2)])
+def test_gru_dw_contraction_matches_plain(cuda, h, b, d):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    length = 9
+    ys = torch.randn((length, d, b, h), generator=g, device=cuda).bfloat16()
+    dxp = torch.randn((length, d, b, 3 * h), generator=g, device=cuda).bfloat16()
+    dhp_n = torch.randn((length, d, b, h), generator=g, device=cuda).bfloat16()
+    dw = dw_contraction(ys, dxp, dhp_n)
+    dw2 = dw_contraction(ys, dxp, dhp_n)
+    dw_ref = hh_grads_plain(ys, dxp, dhp_n)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(dw, dw2)
+    # float32 sums of L*B exact products of bf16 values, in another order
+    assert (dw - dw_ref).abs().max().item() <= 1e-5 * dw_ref.abs().max().item()
+
+
+def test_gru_scan_bodies_by_dtype_and_shape(cuda):
+    # float32, and bf16 with H % 8 != 0, take the step body
+    for dtype, h, body in ((torch.float32, 40, "step"), (torch.bfloat16, 36, "step"),
+                           (torch.bfloat16, 40, "persistent")):
+        xp, w, bias, dys = _bf16_scan_case(cuda, h, 5, 2)
+        xp, dys = xp.to(dtype), dys.to(dtype)
+        before = _by_body(gru_sequence, gru_sequence_gates, gru_sequence_bwd)
+        ys = gru_sequence(xp, w, bias)
+        ys_g, gates = gru_sequence_gates(xp, w, bias)
+        gru_sequence_bwd(gates, w, ys_g, dys)
+        torch.cuda.synchronize()
+        assert torch.equal(ys, ys_g)
+        for old, new in zip(before, _by_body(gru_sequence, gru_sequence_gates,
+                                             gru_sequence_bwd)):
+            assert new[body] == old[body] + 1 and sum(new.values()) == sum(old.values()) + 1
+
+
+def test_gru_step_body_on_demand_matches_persistent(cuda):
+    xp, w, bias, dys = _bf16_scan_case(cuda, 128, 64, 2)
+    ys_p, gates_p = scan_forward(xp, w, bias, gates=True)
+    ys_s, gates_s = scan_forward(xp, w, bias, gates=True, plan="step")
+    dxp_p, dw_p, db_p = scan_backward(gates_s, w, ys_s, dys)
+    dxp_s, dw_s, db_s = scan_backward(gates_s, w, ys_s, dys, plan="step")
+    torch.cuda.synchronize()
+    assert (ys_p.float() - ys_s.float()).abs().max().item() <= 2e-2
+    for got, want in ((dxp_p, dxp_s), (dw_p, dw_s), (db_p, db_s)):
+        assert (got.float() - want.float()).abs().max().item() <= (
+            2e-2 * want.float().abs().max().item())
+
+
+@pytest.mark.parametrize("d", [1, 2])
+def test_gru_bf16_step_body_matches_plain(cuda, d):
+    # the step body, kept for the bf16 shapes the persistent body cannot
+    # hold, against the plain versions with the bf16 tolerances above
+    xp, w, bias, dys = _scan_case(cuda, torch.bfloat16, d)
+    before = _by_body(gru_sequence_gates, gru_sequence_bwd)
+    ys, gates = scan_forward(xp, w, bias, gates=True, plan="step")
+    ys_ref, gates_ref = gru_sequence_gates_plain(xp, w, bias)
+    out = scan_backward(gates_ref, w, ys_ref, dys, plan="step")
+    ref = gru_sequence_bwd_plain(gates_ref, w, ys_ref, dys)
+    torch.cuda.synchronize()
+    for old, new in zip(before, _by_body(gru_sequence_gates, gru_sequence_bwd)):
+        assert new == {"persistent": old["persistent"], "step": old["step"] + 1}
+    assert (ys.float() - ys_ref.float()).abs().max().item() <= 2e-2
+    assert (gates.float() - gates_ref.float()).abs().max().item() <= 8e-2
+    for got, want in zip(out, ref):
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= 2e-2 * want.float().abs().max().item(), err
+
+
+def test_gru_scan_function_bf16_grads_match_plain(cuda):
+    # GRUScan's autograd on the persistent forward and backward
+    xp, w, bias, dys = _bf16_scan_case(cuda, 128, 64, 2)
+    grads = []
+    for plain in (False, True):
+        before = _by_body(gru_sequence_gates, gru_sequence_bwd)
+        leaves = [t.clone().requires_grad_() for t in (xp, w, bias)]
+        ys = GRUScan.apply(*leaves, plain)
+        (ys.float() * dys.float()).sum().backward()
+        grads.append([t.grad for t in leaves])
+        n = 0 if plain else 1
+        for old, new in zip(before, _by_body(gru_sequence_gates, gru_sequence_bwd)):
+            assert new == {"persistent": old["persistent"] + n, "step": old["step"]}
+    torch.cuda.synchronize()
+    assert grads[0][0].dtype == torch.bfloat16 and grads[0][1].dtype == torch.float32
+    for got, ref in zip(*grads):
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err <= 2e-2 * ref.float().abs().max().item(), err
+
+
+def test_gru_persistent_plan_that_cannot_be_coresident_raises(cuda):
+    n_sms, smem = device_limits(cuda.index or 0)
+    h, b, d = 1024, 64, 2
+    # planned for a card with four times the SMs: 8 units a block, 256 blocks
+    plan = scan_plan(h, b, d, torch.bfloat16, 4 * n_sms, smem)
+    assert plan != "step" and plan.blocks > n_sms
+    xp, w, bias, dys = _bf16_scan_case(cuda, h, b, d, length=3)
+    before = _by_body(gru_sequence, gru_sequence_gates, gru_sequence_bwd)
+    with pytest.raises(RuntimeError, match="co-resident"):
+        scan_forward(xp, w, bias, gates=False, plan=plan)
+    with pytest.raises(RuntimeError, match="co-resident"):
+        scan_forward(xp, w, bias, gates=True, plan=plan)
+    ys, gates = gru_sequence_gates_plain(xp, w, bias)
+    with pytest.raises(RuntimeError, match="co-resident"):
+        scan_backward(gates, w, ys, dys, plan=plan)
+    assert _by_body(gru_sequence, gru_sequence_gates, gru_sequence_bwd) == before
 
 
 def _ctc_case(cuda, b=40, t=37, k=11, u=6):
