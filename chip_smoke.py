@@ -63,13 +63,21 @@ random weights:
     plain versions at B=64, T'=313, D=1024, F=2048, k=31 in float32 and
     bfloat16, at rates 0 and 0.3 (masks bit-equal), and a causal conv;
     times of kernel, plain version and the unfused module (forward and
-    backward) as the yardstick, and the bounds.
+    backward) as the yardstick, and the bounds. The two backwards' launches
+    by body: every bfloat16 one on the sm90 body (TMA + wgmma), every
+    float32 one on the tile body; the bf16 sm90 reruns bit-equal; the tile
+    body timed beside the sm90 one, the device time of one call of each by
+    kernel and by stage (``training/profile.py::device_split``), and, as
+    context, the five ``torch.mm(out_dtype=float32)`` products of each
+    backward at its shapes. The backwards' rows in the kernels line report
+    bfloat16.
 11. The bf16 Conformer train step with both fused flags: 2 warm-up and 10
-    timed steps, median and seq/s, 16 FF and 8 conv forward and backward
-    launches per step; one float32 step (randomness on) checked leaf by
-    leaf against the plain path; two bf16 runs of 2 steps from one seed
-    bit-equal; one eval forward launching 16 FF and 8 conv forwards and no
-    backward.
+    timed steps, median and seq/s beside phase 8's default step, 16 FF and 8
+    conv forward and backward launches per step (every backward on the
+    sm90 body); one float32 step (randomness on) checked leaf by leaf
+    against the plain path (its backwards on the tile body); two bf16 runs
+    of 2 steps from one seed bit-equal; one eval forward launching 16 FF and
+    8 conv forwards and no backward.
 12. The GRU's opt-in kernels (``fused_optimizer``, ``use_pallas_matmul``):
     the projection matmul in its three layouts (``nn`` with the bias, ``nt``,
     ``tn``) at M=B*L=20032, K=2048, N=6144 and at a ragged M=1001, and Adam
@@ -199,6 +207,8 @@ from neural_speech_decoder_tpu_torch.training.profile import (
     CONFORMER_ARGS,
     FUSED_FLAGS,
     bench_batch,
+    by_stage,
+    device_split,
 )
 from neural_speech_decoder_tpu_torch.training.trainer import (
     _loss_and_metrics,
@@ -497,13 +507,15 @@ HOOKS = ("dropout_masks", "ffn_dropout_masks")
 
 
 SCANS = ("gru_scan", "gru_scan_gates", "gru_scan_bwd")
+# the fused backwards, counted by body ("sm90" or "tile")
+FUSED_BWDS = ("ffn_bwd", "conv_module_bwd")
 
 
 def reset_launches() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
     for counts in (tiled_matmul.launches_by_body, mhsa_qkv.launches_by_body,
-                   *(WRAPPERS[k].launches_by_body for k in SCANS)):
+                   *(WRAPPERS[k].launches_by_body for k in SCANS + FUSED_BWDS)):
         for body in counts:
             counts[body] = 0
 
@@ -1208,10 +1220,10 @@ def train_steps(args, seed, batch, n_warm, n_timed):
     return model, losses, times, launches
 
 
-def conformer_train_step_phase(card: str) -> dict:
+def conformer_train_step_phase(card: str) -> tuple[dict, float]:
     """The Conformer's bf16 train step at bench.py's shapes; one float32
     step checked leaf by leaf against the plain path; two seeded runs
-    bit-equal."""
+    bit-equal. Returns the launches and the median step time."""
     device = torch.device("cuda")
     batch = batch_tensors(bench_batch(B, T, U), device)
     n = 10
@@ -1273,7 +1285,7 @@ def conformer_train_step_phase(card: str) -> dict:
     same = l1 == l2 and all(torch.equal(a, b) for a, b in zip(p1, p2))
     check(same, f"two bf16 Conformer runs of 2 steps from one seed bit-equal: "
           f"losses {l1} / {l2}")
-    return {k: launches[k] for k in ("mhsa_qkv", "mhsa_qkv_bwd", "dropout_masks")}
+    return {k: launches[k] for k in ("mhsa_qkv", "mhsa_qkv_bwd", "dropout_masks")}, med
 
 
 def conformer_train_model_phase(card: str) -> None:
@@ -1409,6 +1421,73 @@ def unfused_module(kind, x, gout, params, rate, causal=False):
     return torch.autograd.grad(out, [xg, *leaves], gout)
 
 
+# The dtype each fused row of the kernels line reports: the backwards' bf16
+# bodies are the ones redesigned for the card (the sm90 body); the forwards
+# and the mask hook keep their float32 rows.
+FUSED_ROW_DTYPE = {"ffn": "float32", "ffn_bwd": "bfloat16", "ffn_dropout_masks": "float32",
+                   "conv_module": "float32", "conv_module_bwd": "bfloat16"}
+# The body each dtype's backwards take at these shapes (ops/kernels/ffn.py::bwd_plan).
+FUSED_BWD_BODY = {"float32": "tile", "bfloat16": "sm90"}
+
+
+def fused_bwd_products(ff, conv) -> dict:
+    """The five products of each backward at its shapes (bf16 operands, M =
+    B*T' rows), each as one ``torch.mm(out_dtype=float32)`` call: context
+    for the kernels' times, never called by the port."""
+    m, d, f = B * L, A_HEADS * A_DH, F_FF
+    g = torch.Generator(device="cuda").manual_seed(9)
+    r = lambda *s: torch.randn(s, generator=g, device="cuda").to(torch.bfloat16)  # noqa: E731
+    mm = lambda a, b: torch.mm(a, b, out_dtype=torch.float32)  # noqa: E731
+    xn, gq, s_, hq, dsq, dhq = r(m, d), r(m, d), r(m, d), r(m, f), r(m, f), r(m, 2 * d)
+    w1, w2, cw1, cw2 = ff[2], ff[4], conv[2], conv[8]
+    return {
+        "ffn_bwd": {"xn.W1": lambda: mm(xn, w1), "hq^T.gq": lambda: mm(hq.T, gq),
+                    "gq.W2^T": lambda: mm(gq, w2.T), "xn^T.dsq": lambda: mm(xn.T, dsq),
+                    "dsq.W1^T": lambda: mm(dsq, w1.T)},
+        "conv_module_bwd": {"xn.W1": lambda: mm(xn, cw1), "s^T.gq": lambda: mm(s_.T, gq),
+                            "gq.W2^T": lambda: mm(gq, cw2.T),
+                            "xn^T.dhq": lambda: mm(xn.T, dhq),
+                            "dhq.W1^T": lambda: mm(dhq, cw1.T)},
+    }
+
+
+def fused_bwd_bodies(x, gout, ff, conv, seed) -> None:
+    """The bf16 backwards at rate 0.3: reruns bit-equal, one call of each
+    body by kernel and by stage, the tile body timed beside the sm90 one,
+    and the five ``torch.mm`` products of each as context."""
+    kw = dict(rate=0.3)
+    calls = {"ffn_bwd": lambda **b: ffn_bwd(x, *ff[:5], seed, gout, **kw, **b),
+             "conv_module_bwd": lambda **b: conv_module_bwd(x, *conv[:9], seed, gout,
+                                                            **kw, **b)}
+    products = fused_bwd_products(ff, conv)
+    with torch.inference_mode():
+        for key, call in calls.items():
+            one, two = call(), call()
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(one, two))
+            check(same, f"{key} bfloat16 B={B} T'={L} rate 0.3 on the sm90 body: reruns "
+                  f"bit-equal {same}")
+            del one, two
+            for body in ("sm90", "tile"):
+                split = device_split(lambda: call(body=body))
+                for name, n, ms in split:
+                    print(f"  split {key} {body}: {ms:9.4f} ms {n:3d}x  {name[:100]}")
+                stages = by_stage(split)
+                print(f"split {key} bfloat16 {body} body, one call: " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in stages.items())
+                    + f"; device total {sum(stages.values()):.4f} ms", flush=True)
+            t1 = time_ms(lambda: call(body="tile"), 3)
+            s1 = time_ms(call, 5)
+            s2 = time_ms(call, 5)
+            t2 = time_ms(lambda: call(body="tile"), 3)
+            mm_ms = {k: time_ms(fn, 5) for k, fn in products[key].items()}
+            print(f"time  {key} bfloat16 B={B} T'={L} rate 0.3: sm90 body {s1:.4f}/{s2:.4f} "
+                  f"ms, tile body {t1:.4f}/{t2:.4f} ms (turns tile, sm90, sm90, tile); "
+                  f"context, its five products as torch.mm(out_dtype=float32): " + ", ".join(
+                      f"{k} {v:.4f}" for k, v in mm_ms.items())
+                  + f" = {sum(mm_ms.values()):.4f} ms", flush=True)
+
+
 def fused_kernel_phase() -> dict:
     g = torch.Generator(device="cuda").manual_seed(4)
     rows = {k: {} for k in NO_FUSED}
@@ -1416,6 +1495,7 @@ def fused_kernel_phase() -> dict:
     d, f = A_HEADS * A_DH, F_FF
     for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         x, gout, ff, conv = fused_inputs(g, dt)
+        by_body = {k: dict(WRAPPERS[k].launches_by_body) for k in FUSED_BWDS}
         for rate in (0.0, 0.3):
             kw = dict(rate=rate)
             e_ff = fused_check(
@@ -1434,10 +1514,13 @@ def fused_kernel_phase() -> dict:
                     lambda: conv_module_bwd(x, *conv[:9], seed, gout, **ck),
                     lambda: conv_module_bwd_plain(x, *conv[:9], seed, gout, **ck),
                     CONV_NAMES))
-            if name == "float32" and rate > 0:
-                rows["ffn"]["max_abs_err"], rows["ffn_bwd"]["max_abs_err"] = e_ff
-                rows["conv_module"]["max_abs_err"] = max(e[0] for e in e_conv)
-                rows["conv_module_bwd"]["max_abs_err"] = max(e[1] for e in e_conv)
+            if rate > 0:
+                errs = {"ffn": e_ff[0], "ffn_bwd": e_ff[1],
+                        "conv_module": max(e[0] for e in e_conv),
+                        "conv_module_bwd": max(e[1] for e in e_conv)}
+                for key, err in errs.items():
+                    if FUSED_ROW_DTYPE[key] == name:
+                        rows[key]["max_abs_err"] = err
             if name == "float32":
                 m1, m2 = ffn_dropout_masks(B, L, d, f, seed, rate)
                 r1, r2 = ffn_dropout_masks_plain(B, L, d, f, seed, rate)
@@ -1445,6 +1528,13 @@ def fused_kernel_phase() -> dict:
                 check(same, f"ffn_dropout_masks {B}x{L}x({f}, {d}) rate {rate}: "
                       f"bit-equal to the plain version {same}")
                 rows["ffn_dropout_masks"]["max_abs_err"] = 0.0 if same else 1.0
+        body = FUSED_BWD_BODY[name]
+        ran = {k: {b: n - by_body[k][b] for b, n in WRAPPERS[k].launches_by_body.items()}
+               for k in FUSED_BWDS}
+        check(all(c[body] > 0 and sum(c.values()) == c[body] for c in ran.values()),
+              f"{name} fused backwards' launches by body {ran}: all on the {body} body")
+        if name == "bfloat16":
+            fused_bwd_bodies(x, gout, ff, conv, seed)
 
         kw = dict(rate=0.3)
         with torch.inference_mode():
@@ -1471,7 +1561,7 @@ def fused_kernel_phase() -> dict:
                                      ("ffn_dropout_masks", t_m)):
             print(f"time  {key} {name} B={B} T'={L} rate 0.3: kernel {turns[0]:.4f}/"
                   f"{turns[1]:.4f} ms, plain {turns[2]:.4f}/{turns[3]:.4f} ms", flush=True)
-            if name == "float32":
+            if FUSED_ROW_DTYPE[key] == name:
                 rows[key].update(ms=kt, plain_ms=pt, library_ms=None)
         print(f"time  {name} forward+backward, fused kernels vs the unfused module "
               f"(autograd): FF {fused_ff:.4f} vs {ref_ff:.4f} ms, conv {fused_cv:.4f} vs "
@@ -1496,20 +1586,21 @@ def fused_kernel_phase() -> dict:
         }
         for key, (bt, by) in bounds.items():
             print(f"bound {key} {name}: {bt:.4f} ms ({by})", flush=True)
-            if name == "float32":
+            if FUSED_ROW_DTYPE[key] == name:
                 rows[key]["bound_ms"], rows[key]["bound_by"] = bt, by
         del x, gout, ff, conv
-    for row in rows.values():
-        row["dtype"] = "float32"
+    for key, row in rows.items():
+        row["dtype"] = FUSED_ROW_DTYPE[key]
     return rows
 
 
 FUSED_ARGS = {**CONFORMER_ARGS, **FUSED_FLAGS["conformer"]}
 
 
-def fused_conformer_phase(card: str) -> dict:
-    """The bf16 Conformer train step with the fused FF and conv modules;
-    one float32 step against the plain path; two seeded runs bit-equal; one
+def fused_conformer_phase(card: str, default_median: float) -> dict:
+    """The bf16 Conformer train step with the fused FF and conv modules,
+    beside the default step's median (``default_median``, phase 8); one
+    float32 step against the plain path; two seeded runs bit-equal; one
     eval forward."""
     device = torch.device("cuda")
     batch = batch_tensors(bench_batch(B, T, U), device)
@@ -1521,16 +1612,22 @@ def fused_conformer_phase(card: str) -> dict:
                 "mhsa_qkv_bwd": CONFORMER_LAYERS, "dropout_masks": 0, "ctc_alpha": 2,
                 "ctc_beta": 2, **NO_GRU}
     want = {k: v * n for k, v in per_step.items()}
-    check(launches == want, f"launches over {n} fused bf16 Conformer train steps "
-          f"{launches} == per step 16 FF forward and backward, 8 conv forward and "
-          f"backward, 8/8 attention, 2/2 CTC")
+    bodies = {k: dict(WRAPPERS[k].launches_by_body) for k in FUSED_BWDS}
+    check(launches == want and bodies == {"ffn_bwd": {"sm90": 2 * CONFORMER_LAYERS * n,
+                                                      "tile": 0},
+                                          "conv_module_bwd": {"sm90": CONFORMER_LAYERS * n,
+                                                              "tile": 0}},
+          f"launches over {n} fused bf16 Conformer train steps {launches} == per step 16 "
+          f"FF forward and backward, 8 conv forward and backward, 8/8 attention, 2/2 CTC; "
+          f"backwards by body {bodies}: all on the sm90 body")
     check(all(math.isfinite(v) for v in losses),
           f"fused bf16 Conformer train losses finite: "
           f"{', '.join(f'{v:.4f}' for v in losses)}")
     med = statistics.median(times)
     print(f"conformer train step fused FF + conv bf16 B={B} T={T} U={U} (the recipe of "
           f"phase 8): steps {', '.join(f'{t * 1e3:.2f}' for t in times)} ms, median "
-          f"{med * 1e3:.2f} ms, {B / med:.2f} seq/s ({card})", flush=True)
+          f"{med * 1e3:.2f} ms, {B / med:.2f} seq/s, beside the default step's median "
+          f"{default_median * 1e3:.2f} ms ({med / default_median:.4f}x) ({card})", flush=True)
 
     # one eval forward of the fused model: forwards only
     reset_launches()
@@ -1558,10 +1655,13 @@ def fused_conformer_phase(card: str) -> dict:
         torch.cuda.synchronize()
         out[plain] = (loss.item(), [p.grad.clone() for p in model.parameters()],
                       read_launches())
+        if not plain:
+            bodies32 = {k: dict(WRAPPERS[k].launches_by_body) for k in FUSED_BWDS}
     (loss_k, grads_k, launch_k), (loss_p, grads_p, launch_p) = out[False], out[True]
-    check(launch_k == per_step and not any(launch_p.values()),
-          f"float32 fused Conformer step launches: kernel path {launch_k}, plain path "
-          f"{launch_p}")
+    check(launch_k == per_step and not any(launch_p.values())
+          and all(c["sm90"] == 0 and c["tile"] > 0 for c in bodies32.values()),
+          f"float32 fused Conformer step launches: kernel path {launch_k} (backwards by "
+          f"body {bodies32}: all on the tile body), plain path {launch_p}")
     errs = [rel_err(a, b) for a, b in zip(grads_k, grads_p)]
     check(abs(loss_k - loss_p) <= CONFORMER_GRAD_TOL * abs(loss_p)
           and max(errs) <= CONFORMER_GRAD_TOL,
@@ -1990,7 +2090,8 @@ def main() -> int:
     rows.update(attention_kernel_phase())
     print(f"phase attention kernels: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    launches.update(conformer_train_step_phase(card))
+    conformer_launches, conformer_median = conformer_train_step_phase(card)
+    launches.update(conformer_launches)
     print(f"phase conformer train step: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     conformer_train_model_phase(card)
@@ -1999,7 +2100,7 @@ def main() -> int:
     rows.update(fused_kernel_phase())
     print(f"phase fused FF and conv kernels: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    launches.update(fused_conformer_phase(card))
+    launches.update(fused_conformer_phase(card, conformer_median))
     print(f"phase fused conformer: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     rows["tiled_matmul"] = matmul_kernel_phase()

@@ -32,14 +32,29 @@
 // GLU and the depthwise conv are one kernel over a (time, channel) window in
 // shared memory, and their backward (dglu by the flipped taps, the GLU's
 // backward, the taps' gradient) another. Every sum has a fixed order.
+//
+// Two backward bodies, as the FF module's (csrc/ffn.cu): the tile body
+// (float32, and any shape TMA cannot read) on gemm_tile.cuh, and the sm90
+// body (bf16, D a multiple of 8), whose five products run on
+// gemm_sm90.cuh's TMA ring into wgmma from bf16 operands written once, each
+// the bits the tile body's loader would have given: xn = cdt(LN(x)) and s =
+// cdt(SiLU(cdt(LN2(cq)))) by row passes beside the norms' statistics, gq =
+// cdt(gm) beside the float32 gm that db2 sums, dhq = cdt(dh) beside the
+// float32 dh that db1 sums. The backward recomputes the forward on the same
+// engine (its own front, conv_front_sm90; the forward itself stays on
+// gemm_tile.cuh).
 #include <stdint.h>
 
 #include "common.cuh"
+#include "gemm_sm90.cuh"
 #include "gemm_tile.cuh"
 #include "hashrng.cuh"
 #include "rowops.cuh"
 
 namespace {
+
+using bf16 = __nv_bfloat16;
+namespace sm90 = nsd::sm90;
 
 using nsd::Carve;
 using nsd::LnLoad;
@@ -73,7 +88,8 @@ struct LnSiluLoad {
   }
 };
 
-// hq = cdt(acc + b1).
+// hq = cdt(acc + b1) (the sm90 body's is gemm_sm90.cuh's bias + StoreBf16,
+// the same value).
 template <typename T>
 struct BiasRoundEpi {
   const float* bias;
@@ -111,6 +127,29 @@ struct DcnEpi {
     const float cn = ln2(m, n);
     const float sig = nsd::sigmoid(cn);
     dcn[(size_t)m * ln2.ld + n] = acc * sig * (1.f + cn * (1.f - sig));
+  }
+};
+
+// dcn = DcnEpi's value of the stored ds (in place in dcn), cn recomputed 8
+// columns at a time: the sm90 body's pass after its ds product, which only
+// stores (an epilogue runs behind the main loop on one block an SM, where
+// the norm's loads and SiLU' cost more than the product).
+struct DcnPass {
+  LnLoad<bf16> ln2;
+  float* dcn;
+  __device__ __forceinline__ void operator()(int m, int n) const {
+    const size_t i = (size_t)m * ln2.ld + n;
+    float v[8], cn[8];
+    nsd::load8_raw(dcn + i, v);
+    ln2.load8(m, n, cn);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const float sig = nsd::sigmoid(cn[k]);
+      v[k] = v[k] * sig * (1.f + cn[k] * (1.f - sig));
+    }
+    float4* out = reinterpret_cast<float4*>(dcn + i);
+    out[0] = make_float4(v[0], v[1], v[2], v[3]);
+    out[1] = make_float4(v[4], v[5], v[6], v[7]);
   }
 };
 
@@ -156,11 +195,12 @@ __global__ void __launch_bounds__(256)
 //   dglu[t] = sum_k dc[t + pad_l - k] * taps[k]  (the flipped taps, k = 0 up)
 //   dh = (dglu * sig(g), dglu * a * sig(g) * (1 - sig(g)))  in float32
 //   part[b][k][ch] = sum_t dc[t] * glu[t + k - pad_l]  (unrounded glu)
+// dhq (may be null) gets dh rounded to T, a product's operand.
 template <typename T>
 __global__ void __launch_bounds__(256)
     dwconv_bwd_kernel(const T* __restrict__ hq, const float* __restrict__ dc,
                       const float* __restrict__ taps, float* __restrict__ dh,
-                      float* __restrict__ part, Shape p) {
+                      T* __restrict__ dhq, float* __restrict__ part, Shape p) {
   extern __shared__ float smem[];
   const int rows = kTimeTile + p.kw - 1;
   float* dcw = smem;                        // dc[t0 - pad_r + r]
@@ -191,8 +231,13 @@ __global__ void __launch_bounds__(256)
         const size_t m = (size_t)b * p.t + t0 + r;
         const float a = nsd::to_f32(hq[m * 2 * p.d + ch]);
         const float sg = nsd::sigmoid(nsd::to_f32(hq[m * 2 * p.d + p.d + ch]));
-        dh[m * 2 * p.d + ch] = dg * sg;
-        dh[m * 2 * p.d + p.d + ch] = dg * a * sg * (1.f - sg);
+        const float da = dg * sg, dgate = dg * a * sg * (1.f - sg);
+        dh[m * 2 * p.d + ch] = da;
+        dh[m * 2 * p.d + p.d + ch] = dgate;
+        if (dhq) {
+          dhq[m * 2 * p.d + ch] = nsd::from_f32<T>(da);
+          dhq[m * 2 * p.d + p.d + ch] = nsd::from_f32<T>(dgate);
+        }
       }
     }
     // the taps' gradient: pair i = (tap i / 32, channel i % 32)
@@ -218,32 +263,49 @@ __global__ void __launch_bounds__(256)
   }
 }
 
+// The pieces of the workspace (pointers from base, or sizes from nullptr).
+// s2, s1: the sm90 backward's K ranges of dW2 and dW1, or 0 for the tile
+// body.
 template <typename T>
 struct Work {
   float2 *st1, *st2;
   T *hq, *cq;
   float *gm, *dcn, *dc, *dh, *split, *part, *taps_part;
+  T *xn, *s, *gq, *dhq;  // the sm90 backward's operands
   size_t bytes;
-  Work(const Shape& p, bool bwd, char* base) {
+  Work(const Shape& p, bool bwd, char* base, int s2 = 0, int s1 = 0) {
     Carve c;
     c.base = base;
     const size_t m = p.m(), d = p.d;
+    const bool sm90 = s2 > 0 || s1 > 0;
     st1 = c.take<float2>(m);
     st2 = c.take<float2>(m);
     hq = c.take<T>(m * 2 * d);
     cq = c.take<T>(m * d);
     gm = dcn = dc = dh = split = part = taps_part = nullptr;
+    xn = s = gq = dhq = nullptr;
     if (bwd) {
       gm = c.take<float>(m * d);
       dcn = c.take<float>(m * d);
       dc = c.take<float>(m * d);
       dh = c.take<float>(m * 2 * d);
-      const int s1 = nsd::gemm_splits(p.d, 2 * p.d, p.m());
-      const int s2 = nsd::gemm_splits(p.d, p.d, p.m());
-      const size_t n1 = (size_t)s1 * 2 * d * d, n2 = (size_t)s2 * d * d;
+      // the tile body's split sums always go through the workspace; the
+      // sm90 body's only where a product has more than one K range
+      if (!sm90) {
+        s1 = nsd::gemm_splits(p.d, 2 * p.d, p.m());
+        s2 = nsd::gemm_splits(p.d, p.d, p.m());
+      }
+      const size_t n1 = !sm90 || s1 > 1 ? (size_t)s1 * 2 * d * d : 0;
+      const size_t n2 = !sm90 || s2 > 1 ? (size_t)s2 * d * d : 0;
       split = c.take<float>(n1 > n2 ? n1 : n2);
       part = c.take<float>((size_t)nsd::kColChunks * 2 * d);
       taps_part = c.take<float>((size_t)p.b * p.kw * d);
+      if (sm90) {
+        xn = c.take<T>(m * d);
+        s = c.take<T>(m * d);
+        gq = c.take<T>(m * d);
+        dhq = c.take<T>(m * 2 * d);
+      }
     }
     bytes = c.off;
   }
@@ -298,7 +360,8 @@ cudaError_t conv_bwd(const T* x, const float* lns, const float* lnb, const T* w1
   NSD_TRY(conv_front(x, lns, lnb, w1, b1, taps, dwb, w, p, st));
   const LnLoad<T> ln2{w.cq, w.st2, ln2s, ln2b, D};
   // through the output dropout; db2; dW2 = s^T . cdt(gm)
-  NSD_TRY(nsd::mask_grad(g, seed, w.gm, p.b, p.t, D, 0, p.rate, p.inv, st));
+  NSD_TRY(nsd::mask_grad(g, seed, w.gm, static_cast<T*>(nullptr), p.b, p.t, D, 0, p.rate,
+                         p.inv, st));
   NSD_TRY(nsd::colsum(nsd::Elem{w.gm, D}, w.part, db2, M, D, st));
   const Mat<float, T> gq{w.gm, D};
   NSD_TRY(nsd::gemm_split_sum<T>(bf16, D, D, M, Tr<LnSiluLoad<T>>{{ln2}}, gq, w.split, dw2,
@@ -313,7 +376,8 @@ cudaError_t conv_bwd(const T* x, const float* lns, const float* lnb, const T* w1
   NSD_TRY(nsd::colsum(nsd::Elem{w.dc, D}, w.part, ddwb, M, D, st));
   // the depthwise conv's and the GLU's backward; the taps' gradient
   dwconv_bwd_kernel<T><<<dim3((D + kChanTile - 1) / kChanTile, p.b), 256,
-                         window_bytes(p, 2), st>>>(w.hq, w.dc, taps, w.dh, w.taps_part, p);
+                         window_bytes(p, 2), st>>>(w.hq, w.dc, taps, w.dh, nullptr,
+                                                   w.taps_part, p);
   NSD_TRY(cudaGetLastError());
   NSD_TRY(nsd::sum_parts(w.taps_part, dtaps, p.b, p.kw * D, st));
   // db1; dW1 = xn^T . cdt(dh); dxn = cdt(dh) . W1^T (into gm's room)
@@ -326,6 +390,70 @@ cudaError_t conv_bwd(const T* x, const float* lns, const float* lnb, const T* w1
   NSD_TRY(nsd::gemm(bf16, M, D, 2 * D, 1, dhq, Tr<Mat<T, T>>{{w1, 2 * D}},
                     nsd::StoreF32{dxn, D}, st));
   NSD_TRY(nsd::colsum(nsd::ElemTimesXhat<T>{dxn, x, w.st1, D}, w.part, dlns, M, D, st));
+  NSD_TRY(nsd::colsum(nsd::Elem{dxn, D}, w.part, dlnb, M, D, st));
+  return nsd::ln_bwd(dxn, x, w.st1, lns, dx, M, D, st);
+}
+
+// The forward up to cq, s and the second norm's statistics for the sm90
+// backward: xn = cdt(LN(x)) written by a row pass, hq = cdt(xn . W1 + b1) on
+// gemm_sm90.cuh, the GLU and depthwise conv as conv_front, then s =
+// cdt(SiLU(cdt(LN2(cq)))).
+cudaError_t conv_front_sm90(const bf16* x, const float* lns, const float* lnb, const bf16* w1,
+                            const float* b1, const float* taps, const float* dwb,
+                            const float* ln2s, const float* ln2b, const Work<bf16>& w,
+                            const Shape& p, cudaStream_t st) {
+  const int M = p.m(), D = p.d;
+  NSD_TRY((nsd::ln_apply<bf16, false>(x, w.st1, lns, lnb, w.xn, M, D, st)));
+  NSD_TRY((sm90::gemm<false, true>(w.xn, w1, b1, sm90::StoreBf16{w.hq, 2 * D}, M, 2 * D, D,
+                                   1, st)));
+  const dim3 grid((D + kChanTile - 1) / kChanTile, (p.t + kTimeTile - 1) / kTimeTile, p.b);
+  glu_dwconv_kernel<bf16><<<grid, 256, window_bytes(p, 1), st>>>(w.hq, taps, dwb, w.cq, p);
+  NSD_TRY(cudaGetLastError());
+  return nsd::ln_apply<bf16, true>(w.cq, w.st2, ln2s, ln2b, w.s, M, D, st);
+}
+
+// The backward's sm90 body (bf16): conv_bwd's stages, every product on
+// gemm_sm90.cuh reading bf16 operands written once (see the header); s2 and
+// s1 are the K ranges of dW2 and dW1.
+cudaError_t conv_bwd_sm90(const bf16* x, const float* lns, const float* lnb, const bf16* w1,
+                          const float* b1, const float* taps, const float* dwb,
+                          const float* ln2s, const float* ln2b, const bf16* w2,
+                          const int32_t* seed, const bf16* g, bf16* dx, float* dlns,
+                          float* dlnb, bf16* dw1, float* db1, float* dtaps, float* ddwb,
+                          float* dln2s, float* dln2b, bf16* dw2, float* db2, char* ws,
+                          const Shape& p, int s2, int s1, cudaStream_t st) {
+  Work<bf16> w(p, true, ws, s2, s1);
+  const int M = p.m(), D = p.d;
+  NSD_TRY(conv_front_sm90(x, lns, lnb, w1, b1, taps, dwb, ln2s, ln2b, w, p, st));
+  const LnLoad<bf16> ln2{w.cq, w.st2, ln2s, ln2b, D};
+  // through the output dropout (gm, and gq = cdt(gm)); db2; dW2 = s^T . gq
+  NSD_TRY(nsd::mask_grad(g, seed, w.gm, w.gq, p.b, p.t, D, 0, p.rate, p.inv, st));
+  NSD_TRY(nsd::colsum(nsd::Elem{w.gm, D}, w.part, db2, M, D, st));
+  NSD_TRY(sm90::gemm_tn_split(w.s, w.gq, dw2, D, D, M, s2, w.split, st));
+  // ds = gq . W2^T (into dcn's room) -> dcn through SiLU'; the second norm's
+  // backward
+  NSD_TRY((sm90::gemm<false, false>(w.gq, w2, nullptr, nsd::StoreF32{w.dcn, D}, M, D, D, 1,
+                                    st)));
+  NSD_TRY(nsd::each8(DcnPass{ln2, w.dcn}, M, D, st));
+  NSD_TRY(nsd::colsum(nsd::ElemTimesXhat<bf16>{w.dcn, w.cq, w.st2, D}, w.part, dln2s, M, D,
+                      st));
+  NSD_TRY(nsd::colsum(nsd::Elem{w.dcn, D}, w.part, dln2b, M, D, st));
+  NSD_TRY(nsd::ln_bwd(w.dcn, w.cq, w.st2, ln2s, w.dc, M, D, st));
+  NSD_TRY(nsd::colsum(nsd::Elem{w.dc, D}, w.part, ddwb, M, D, st));
+  // the depthwise conv's and the GLU's backward (dh, and dhq = cdt(dh)); the
+  // taps' gradient
+  dwconv_bwd_kernel<bf16><<<dim3((D + kChanTile - 1) / kChanTile, p.b), 256,
+                            window_bytes(p, 2), st>>>(w.hq, w.dc, taps, w.dh, w.dhq,
+                                                      w.taps_part, p);
+  NSD_TRY(cudaGetLastError());
+  NSD_TRY(nsd::sum_parts(w.taps_part, dtaps, p.b, p.kw * D, st));
+  // db1; dW1 = xn^T . dhq; dxn = dhq . W1^T (into gm's room)
+  NSD_TRY(nsd::colsum(nsd::Elem{w.dh, 2 * D}, w.part, db1, M, 2 * D, st));
+  NSD_TRY(sm90::gemm_tn_split(w.xn, w.dhq, dw1, D, 2 * D, M, s1, w.split, st));
+  float* dxn = w.gm;
+  NSD_TRY((sm90::gemm<false, false>(w.dhq, w1, nullptr, nsd::StoreF32{dxn, D}, M, D, 2 * D, 1,
+                                    st)));
+  NSD_TRY(nsd::colsum(nsd::ElemTimesXhat<bf16>{dxn, x, w.st1, D}, w.part, dlns, M, D, st));
   NSD_TRY(nsd::colsum(nsd::Elem{dxn, D}, w.part, dlnb, M, D, st));
   return nsd::ln_bwd(dxn, x, w.st1, lns, dx, M, D, st);
 }
@@ -399,5 +527,37 @@ long long nsd_conv_workspace(int b, int t, int d, int kw, int bf16, int bwd) {
 
 NSD_CONV_ENTRIES(f32, float)
 NSD_CONV_ENTRIES(bf16, __nv_bfloat16)
+
+// Bytes of workspace the sm90 backward takes with s2 and s1 K ranges.
+long long nsd_conv_bwd_sm90_workspace(int b, int t, int d, int kw, int s2, int s1) {
+  const Shape p = make_shape(b, t, d, kw, 0, 0.f, 1.f);
+  return static_cast<long long>(Work<bf16>(p, true, nullptr, s2, s1).bytes);
+}
+
+// The bf16 backward on gemm_sm90.cuh: nsd_conv_bwd_bf16's arguments, and the
+// K ranges of dW2 (s2) and dW1 (s1). D a multiple of 8, W1 and W2 16-byte
+// aligned: cudaErrorInvalidValue otherwise.
+int nsd_conv_bwd_sm90(const void* x, const void* lns, const void* lnb, const void* w1,
+                      const void* b1, const void* taps, const void* dwb, const void* ln2s,
+                      const void* ln2b, const void* w2, const void* seed, const void* g,
+                      void* dx, void* dlns, void* dlnb, void* dw1, void* db1, void* dtaps,
+                      void* ddwb, void* dln2s, void* dln2b, void* dw2, void* db2, void* ws,
+                      int b, int t, int d, int kw, int pad_l, int s2, int s1, float rate,
+                      float inv, void* stream) {
+  if (bad_shape(b, t, d, kw, pad_l) || d % 8 || s2 < 1 || s1 < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(conv_bwd_sm90(
+      static_cast<const bf16*>(x), static_cast<const float*>(lns),
+      static_cast<const float*>(lnb), static_cast<const bf16*>(w1),
+      static_cast<const float*>(b1), static_cast<const float*>(taps),
+      static_cast<const float*>(dwb), static_cast<const float*>(ln2s),
+      static_cast<const float*>(ln2b), static_cast<const bf16*>(w2),
+      static_cast<const int32_t*>(seed), static_cast<const bf16*>(g), static_cast<bf16*>(dx),
+      static_cast<float*>(dlns), static_cast<float*>(dlnb), static_cast<bf16*>(dw1),
+      static_cast<float*>(db1), static_cast<float*>(dtaps), static_cast<float*>(ddwb),
+      static_cast<float*>(dln2s), static_cast<float*>(dln2b), static_cast<bf16*>(dw2),
+      static_cast<float*>(db2), static_cast<char*>(ws),
+      make_shape(b, t, d, kw, pad_l, rate, inv), s2, s1, static_cast<cudaStream_t>(stream)));
+}
 
 }  // extern "C"

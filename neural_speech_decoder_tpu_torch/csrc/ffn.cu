@@ -41,14 +41,31 @@
 // (K = B*T rows) are cut into K ranges summed in a fixed order, and the
 // vector gradients are column sums in a fixed order: no atomics, so a run
 // repeats bit for bit (csrc/gemm_tile.cuh, csrc/rowops.cuh).
+//
+// Two backward bodies. The tile body (float32, and any shape TMA cannot
+// read) runs the products on gemm_tile.cuh, whose loaders apply the norm and
+// round gm and ds to cdt as the tiles load. The sm90 body (bf16, D and F
+// multiples of 8) runs all five on gemm_sm90.cuh's TMA ring into wgmma,
+// which reads bf16 arrays where they lie and applies nothing as it loads: so
+// each operand is written once as the bf16 array the loader would have
+// given, the same bits (xn = cdt(LN(x)) by a row pass beside the norm's
+// statistics, gq = cdt(gm) beside the float32 gm that db2 sums, dsq =
+// cdt(ds) beside the float32 ds that db1 sums; 41-82 MB each at the
+// recipe's shapes, against 420 GFLOP of products). The dW products take the
+// K-range counts of the caller's plan (ops/kernels/ffn.py::bwd_plan), their
+// partial sums added in order.
 #include <stdint.h>
 
 #include "common.cuh"
+#include "gemm_sm90.cuh"
 #include "gemm_tile.cuh"
 #include "hashrng.cuh"
 #include "rowops.cuh"
 
 namespace {
+
+using bf16 = __nv_bfloat16;
+namespace sm90 = nsd::sm90;
 
 using nsd::Carve;
 using nsd::LnLoad;
@@ -76,14 +93,18 @@ struct Lin1Epi {
   T* s_out;
   int n_time, ld;
   float rate, inv_h;
-  __device__ __forceinline__ void operator()(int m, int n, float acc, int) const {
-    const float s = nsd::round_to<T>(acc + b1[n]);
+  // h of element (m, n) from its rounded pre-activation s
+  __device__ __forceinline__ float h_of(int m, int n, float s) const {
     float hv = nsd::round_to<T>(s * nsd::sigmoid(s));
     if (rate > 0.f) {
       const int bb = m / n_time;
       hv = keep(seed, bb, m - bb * n_time, n, rate) ? nsd::round_to<T>(hv * inv_h) : 0.f;
     }
-    h[(size_t)m * ld + n] = nsd::from_f32<T>(hv);
+    return hv;
+  }
+  __device__ __forceinline__ void operator()(int m, int n, float acc, int) const {
+    const float s = nsd::round_to<T>(acc + b1[n]);
+    h[(size_t)m * ld + n] = nsd::from_f32<T>(h_of(m, n, s));
     if (s_out) s_out[(size_t)m * ld + n] = nsd::from_f32<T>(s);
   }
 };
@@ -115,19 +136,69 @@ struct DsEpi {
   float* ds;
   int n_time, ld;
   float rate, inv;
-  __device__ __forceinline__ void operator()(int m, int n, float acc, int) const {
+  // ds of element (m, n) from dh = acc and the rounded pre-activation sc
+  __device__ __forceinline__ float value(int m, int n, float acc, float sc) const {
     float dh = acc;
     if (rate > 0.f) {
       const int bb = m / n_time;
       dh = keep(seed, bb, m - bb * n_time, n, rate) ? dh * inv : 0.f;
     }
-    const float sc = nsd::to_f32(s[(size_t)m * ld + n]);
     const float sig = nsd::sigmoid(sc);
-    ds[(size_t)m * ld + n] = dh * sig * (1.f + sc * (1.f - sig));
+    return dh * sig * (1.f + sc * (1.f - sig));
+  }
+  __device__ __forceinline__ void operator()(int m, int n, float acc, int) const {
+    ds[(size_t)m * ld + n] = value(m, n, acc, nsd::to_f32(s[(size_t)m * ld + n]));
+  }
+};
+
+// The sm90 body keeps its products' epilogues to plain stores (an epilogue
+// runs on the two consumer warpgroups of one block an SM, behind the main
+// loop, where SiLU, the dropout hash and the loads of s cost more than the
+// product) and applies Lin1Epi's and DsEpi's element math in passes over
+// the stored arrays at full occupancy, 8 columns a thread (nsd::each8).
+
+// h = Lin1Epi's h of the stored s.
+struct SiluDropPass {
+  Lin1Epi<bf16> e;
+  __device__ __forceinline__ void operator()(int m, int n) const {
+    const size_t i = (size_t)m * e.ld + n;
+    float sv[8];
+    nsd::load8_raw(e.s_out + i, sv);
+    uint4 u;
+    __nv_bfloat162* hv = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      hv[k] = __floats2bfloat162_rn(e.h_of(m, n + 2 * k, sv[2 * k]),
+                                    e.h_of(m, n + 2 * k + 1, sv[2 * k + 1]));
+    *reinterpret_cast<uint4*>(e.h + i) = u;
+  }
+};
+
+// ds = DsEpi's ds of the stored dh (in place in e.ds), and dsq = cdt(ds).
+struct DsPass {
+  DsEpi<bf16> e;
+  bf16* dsq;
+  __device__ __forceinline__ void operator()(int m, int n) const {
+    const size_t i = (size_t)m * e.ld + n;
+    float v[8], sv[8];
+    nsd::load8_raw(e.ds + i, v);
+    nsd::load8_raw(e.s + i, sv);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) v[k] = e.value(m, n + k, v[k], sv[k]);
+    float4* out = reinterpret_cast<float4*>(e.ds + i);
+    out[0] = make_float4(v[0], v[1], v[2], v[3]);
+    out[1] = make_float4(v[4], v[5], v[6], v[7]);
+    uint4 u;
+    __nv_bfloat162* q = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) q[k] = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
+    *reinterpret_cast<uint4*>(dsq + i) = u;
   }
 };
 
 // The pieces of the workspace (pointers from base, or sizes from nullptr).
+// sm90_splits: the sm90 backward's larger dW range count, or 0 for the tile
+// body.
 template <typename T>
 struct Work {
   float2* stats;
@@ -137,8 +208,9 @@ struct Work {
   float* ds;
   float* split;
   float* part;
+  T *xn, *gq, *dsq;  // the sm90 backward's operands: cdt(LN(x)), cdt(gm), cdt(ds)
   size_t bytes;
-  Work(const Shape& p, bool bwd, char* base) {
+  Work(const Shape& p, bool bwd, char* base, int sm90_splits = 0) {
     Carve c;
     c.base = base;
     const size_t m = p.m();
@@ -146,15 +218,22 @@ struct Work {
     h = c.take<T>(m * p.f);
     s = nullptr;
     gm = ds = split = part = nullptr;
+    xn = gq = dsq = nullptr;
     if (bwd) {
       s = c.take<T>(m * p.f);
       gm = c.take<float>(m * p.d);
       ds = c.take<float>(m * p.f);
-      const int sp = nsd::gemm_splits(p.d, p.f, p.m()) > nsd::gemm_splits(p.f, p.d, p.m())
-                         ? nsd::gemm_splits(p.d, p.f, p.m())
-                         : nsd::gemm_splits(p.f, p.d, p.m());
+      const int tile = nsd::gemm_splits(p.d, p.f, p.m()) > nsd::gemm_splits(p.f, p.d, p.m())
+                           ? nsd::gemm_splits(p.d, p.f, p.m())
+                           : nsd::gemm_splits(p.f, p.d, p.m());
+      const int sp = sm90_splits > 0 ? (sm90_splits > 1 ? sm90_splits : 0) : tile;
       split = c.take<float>((size_t)sp * p.d * p.f);
       part = c.take<float>((size_t)nsd::kColChunks * (p.f > p.d ? p.f : p.d));
+      if (sm90_splits > 0) {
+        xn = c.take<T>(m * p.d);
+        gq = c.take<T>(m * p.d);
+        dsq = c.take<T>(m * p.f);
+      }
     }
     bytes = c.off;
   }
@@ -189,7 +268,8 @@ cudaError_t ffn_bwd(const T* x, const float* scale, const float* bias, const T* 
   NSD_TRY(nsd::gemm(bf16, M, p.f, p.d, 1, xn, Mat<T, T>{w1, p.f},
                     Lin1Epi<T>{b1, seed, w.h, w.s, p.t, p.f, p.rate, p.inv_h}, st));
   // through the output dropout; db2, dW2 = hq^T . cdt(gm)
-  NSD_TRY(nsd::mask_grad(g, seed, w.gm, p.b, p.t, p.d, p.b, p.rate, p.inv, st));
+  NSD_TRY(nsd::mask_grad(g, seed, w.gm, static_cast<T*>(nullptr), p.b, p.t, p.d, p.b,
+                         p.rate, p.inv, st));
   NSD_TRY(nsd::colsum(nsd::Elem{w.gm, p.d}, w.part, db2, M, p.d, st));
   const Mat<float, T> gq{w.gm, p.d};
   NSD_TRY(nsd::gemm_split_sum<T>(bf16, p.f, p.d, M, Tr<Mat<T, T>>{{w.h, p.f}}, gq,
@@ -206,6 +286,42 @@ cudaError_t ffn_bwd(const T* x, const float* scale, const float* bias, const T* 
   NSD_TRY(nsd::gemm(bf16, M, p.d, p.f, 1, dsq, Tr<Mat<T, T>>{{w1, p.f}},
                     nsd::StoreF32{dxn, p.d}, st));
   NSD_TRY(nsd::colsum(nsd::ElemTimesXhat<T>{dxn, x, w.stats, p.d}, w.part, dscale, M, p.d,
+                      st));
+  NSD_TRY(nsd::colsum(nsd::Elem{dxn, p.d}, w.part, dbias, M, p.d, st));
+  return nsd::ln_bwd(dxn, x, w.stats, scale, dx, M, p.d, st);
+}
+
+// The backward's sm90 body (bf16): ffn_bwd's stages, every product on
+// gemm_sm90.cuh reading bf16 operands written once (see the header); s2 and
+// s1 are the K ranges of dW2 and dW1.
+cudaError_t ffn_bwd_sm90(const bf16* x, const float* scale, const float* bias, const bf16* w1,
+                         const float* b1, const bf16* w2, const int32_t* seed, const bf16* g,
+                         bf16* dx, float* dscale, float* dbias, bf16* dw1, float* db1,
+                         bf16* dw2, float* db2, char* ws, const Shape& p, int s2, int s1,
+                         cudaStream_t st) {
+  Work<bf16> w(p, true, ws, s2 > s1 ? s2 : s1);
+  const int M = p.m();
+  // the forward again from xn = cdt(LN(x)), keeping s and the dropped h
+  NSD_TRY((nsd::ln_apply<bf16, false>(x, w.stats, scale, bias, w.xn, M, p.d, st)));
+  const Lin1Epi<bf16> lin1{b1, seed, w.h, w.s, p.t, p.f, p.rate, p.inv_h};
+  NSD_TRY((sm90::gemm<false, true>(w.xn, w1, b1, sm90::StoreBf16{w.s, p.f}, M, p.f, p.d, 1,
+                                   st)));
+  NSD_TRY(nsd::each8(SiluDropPass{lin1}, M, p.f, st));
+  // through the output dropout (gm, and gq = cdt(gm)); db2; dW2 = hq^T . gq
+  NSD_TRY(nsd::mask_grad(g, seed, w.gm, w.gq, p.b, p.t, p.d, p.b, p.rate, p.inv, st));
+  NSD_TRY(nsd::colsum(nsd::Elem{w.gm, p.d}, w.part, db2, M, p.d, st));
+  NSD_TRY(sm90::gemm_tn_split(w.h, w.gq, dw2, p.f, p.d, M, s2, w.split, st));
+  // dh = gq . W2^T (into ds's room) -> ds and dsq = cdt(ds); db1; dW1 = xn^T . dsq
+  NSD_TRY((sm90::gemm<false, false>(w.gq, w2, nullptr, nsd::StoreF32{w.ds, p.f}, M, p.f, p.d,
+                                    1, st)));
+  NSD_TRY(nsd::each8(DsPass{{w.s, seed, w.ds, p.t, p.f, p.rate, p.inv}, w.dsq}, M, p.f, st));
+  NSD_TRY(nsd::colsum(nsd::Elem{w.ds, p.f}, w.part, db1, M, p.f, st));
+  NSD_TRY(sm90::gemm_tn_split(w.xn, w.dsq, dw1, p.d, p.f, M, s1, w.split, st));
+  // dxn = dsq . W1^T (into gm's room), then the norm's backward
+  float* dxn = w.gm;
+  NSD_TRY((sm90::gemm<false, false>(w.dsq, w1, nullptr, nsd::StoreF32{dxn, p.d}, M, p.d, p.f,
+                                    1, st)));
+  NSD_TRY(nsd::colsum(nsd::ElemTimesXhat<bf16>{dxn, x, w.stats, p.d}, w.part, dscale, M, p.d,
                       st));
   NSD_TRY(nsd::colsum(nsd::Elem{dxn, p.d}, w.part, dbias, M, p.d, st));
   return nsd::ln_bwd(dxn, x, w.stats, scale, dx, M, p.d, st);
@@ -288,6 +404,33 @@ long long nsd_ffn_workspace(int b, int t, int d, int f, int bf16, int bwd) {
 
 NSD_FFN_ENTRIES(f32, float)
 NSD_FFN_ENTRIES(bf16, __nv_bfloat16)
+
+// Bytes of workspace the sm90 backward takes with s2 and s1 K ranges.
+long long nsd_ffn_bwd_sm90_workspace(int b, int t, int d, int f, int s2, int s1) {
+  const Shape p = make_shape(b, t, d, f, 0.f, 1.f, 1.f);
+  return static_cast<long long>(Work<bf16>(p, true, nullptr, s2 > s1 ? s2 : s1).bytes);
+}
+
+// The bf16 backward on gemm_sm90.cuh: nsd_ffn_bwd_bf16's arguments, and the
+// K ranges of dW2 (s2) and dW1 (s1). D and F multiples of 8, W1 and W2
+// 16-byte aligned: cudaErrorInvalidValue otherwise.
+int nsd_ffn_bwd_sm90(const void* x, const void* scale, const void* bias, const void* w1,
+                     const void* b1, const void* w2, const void* seed, const void* g, void* dx,
+                     void* dscale, void* dbias, void* dw1, void* db1, void* dw2, void* db2,
+                     void* ws, int b, int t, int d, int f, int s2, int s1, float rate,
+                     float inv, float inv_h, void* stream) {
+  if (bad_shape(b, t, d, f) || d % 8 || f % 8 || s2 < 1 || s1 < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(ffn_bwd_sm90(
+      static_cast<const bf16*>(x), static_cast<const float*>(scale),
+      static_cast<const float*>(bias), static_cast<const bf16*>(w1),
+      static_cast<const float*>(b1), static_cast<const bf16*>(w2),
+      static_cast<const int32_t*>(seed), static_cast<const bf16*>(g), static_cast<bf16*>(dx),
+      static_cast<float*>(dscale), static_cast<float*>(dbias), static_cast<bf16*>(dw1),
+      static_cast<float*>(db1), static_cast<bf16*>(dw2), static_cast<float*>(db2),
+      static_cast<char*>(ws), make_shape(b, t, d, f, rate, inv, inv_h), s2, s1,
+      static_cast<cudaStream_t>(stream)));
+}
 
 int nsd_ffn_dropout_masks(const void* seed, void* m1, void* m2, int b, int t, int d, int f,
                           float rate, void* stream) {

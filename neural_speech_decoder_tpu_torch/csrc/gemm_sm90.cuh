@@ -1,23 +1,24 @@
 // A bf16 matrix product for Hopper: TMA loads into a ring of shared-memory
-// stages and wgmma on them, float32 sums in registers.
-//   out [M, N] = bf16(sum_k A(m, k) B(k, n) + bias[n])   (bias may be null)
+// stages and wgmma on them, float32 sums in registers, each sum handed to an
+// epilogue functor.
+//   epi(m, n, sum_k A(m, k) B(k, n) + bias[n], split)   for every m < M, n < N
+// (bias a float32 vector, or null).
 // A and B are bf16 row-major arrays read where they lie; which axis of each
-// is contiguous is a template flag, so the three layouts of matmul.cu need
-// no copies:
+// is contiguous is a template flag, so the three layouts need no copies:
 //   A K-major: a [M, K]          A M-major (kAT): a [K, M]
 //   B K-major: b [N, K]          B N-major (kBT): b [K, N]
 // (nn: K-major A, N-major B; nt: both K-major; tn: M-major A, N-major B.)
 //
-// The design. A block owns a 128 x 256 tile of out and walks K in steps of
-// 64. Four stages of 48 KB (A 128 x 64, B 64 x 256, bf16) form a ring in
-// shared memory. Warpgroup 0 is the producer: one thread issues the TMA
-// copies of a stage (cp.async.bulk.tensor, the 128-byte swizzle) and the
-// copies' byte count completes the stage's "full" mbarrier. Warpgroups 1
-// and 2 are the consumers, 64 rows each: they wait on "full", run four
-// wgmma.mma_async m64n256k16 (bf16 operands read by shared-memory
-// descriptors, float32 accumulators, 128 a thread), wait for them and
-// arrive on the stage's "empty" mbarrier, which lets the producer refill
-// it. The K-major/MN-major choice is the descriptors' transpose bits
+// The design. A block owns a 128 x 256 tile of the output and walks its K
+// range in steps of 64. Four stages of 48 KB (A 128 x 64, B 64 x 256, bf16)
+// form a ring in shared memory. Warpgroup 0 is the producer: one thread
+// issues the TMA copies of a stage (cp.async.bulk.tensor, the 128-byte
+// swizzle) and the copies' byte count completes the stage's "full"
+// mbarrier. Warpgroups 1 and 2 are the consumers, 64 rows each: they wait on
+// "full", run four wgmma.mma_async m64n256k16 (bf16 operands read by
+// shared-memory descriptors, float32 accumulators, 128 a thread), wait for
+// them and arrive on the stage's "empty" mbarrier, which lets the producer
+// refill it. The K-major/MN-major choice is the descriptors' transpose bits
 // (legal for 16-bit types), with the descriptor strides of the swizzled
 // layout each TMA box gives:
 //   K-major tile [rows][64]: rows of 128 bytes; 8-row groups 1024 bytes
@@ -27,11 +28,26 @@
 //     k16 step 2 KB on.
 // The ragged edges (M, N or K not a multiple of the tile) come from TMA's
 // zero fill out of bounds, which adds exact zeros to the sums, and from the
-// epilogue's masks. Each output's sum runs over K in one fixed order in one
-// block, with no atomics, so a rerun gives the same bits. The epilogue adds
-// the float32 bias (the tile's 256 columns staged in shared memory while
-// the first stages load) to the float32 sum and rounds once to bf16 (as
-// matmul.cu's BiasRound), storing from the accumulator registers.
+// epilogue's masks. `splits` > 1 cuts K into that many ranges of a multiple
+// of 64 (grid.z; a product whose output has few tiles and whose K is long,
+// as a dW over all B*T rows, fills the card that way), and the epilogue gets
+// each range's partial sum with its index (SplitStore, then split_sum in
+// gemm_tile.cuh adds them in order). Each partial sum runs over its range in
+// one fixed order in one block, with no atomics, so a rerun gives the same
+// bits.
+//
+// The epilogue functor is called from the accumulator registers as
+//   epi.pair(m, n, acc_n, acc_n1, split)
+// with the two neighbouring columns a thread holds (n even), so that it can
+// store them at once (4 or 8 bytes); StoreF32 and SplitStore of
+// gemm_tile.cuh have it beside the tile's operator()(m, n, acc, split). An
+// epilogue is kept to stores: it runs on the two consumer warpgroups of
+// one block an SM, behind the main loop, so element math belongs in a pass
+// of its own (rowops.cuh::each8). The bias is the kernel's own: the tile's 256 columns are
+// staged in shared memory while the first stages load and added to the
+// float32 sums before the epilogue, so that no load of it waits behind the
+// epilogue's stores. The projection matmul (matmul.cu) is bias + StoreBf16,
+// one rounding.
 //
 // TMA wants 16-byte aligned base pointers and row strides: the host entry
 // refuses other operands (the caller sends them to gemm_tile.cuh).
@@ -44,6 +60,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "gemm_tile.cuh"  // SplitStore, split_sum
 
 namespace nsd {
 namespace sm90 {
@@ -160,11 +177,20 @@ __device__ __forceinline__ void wgmma_m64n256k16(float* d, uint64_t da, uint64_t
       : "l"(da), "l"(db), "n"(kTA), "n"(kTB), "r"(1));
 }
 
-template <bool kAT, bool kBT>
+// out [M, ld] = bf16(acc): the float32 sum rounded once, two columns a store.
+struct StoreBf16 {
+  __nv_bfloat16* out;
+  int ld;
+  __device__ __forceinline__ void pair(int m, int n, float v0, float v1, int) const {
+    *reinterpret_cast<__nv_bfloat162*>(out + (size_t)m * ld + n) = __floats2bfloat162_rn(v0, v1);
+  }
+};
+
+template <bool kAT, bool kBT, class Epi>
 __global__ void __launch_bounds__(kThreads, 1)
     gemm_sm90_kernel(const __grid_constant__ CUtensorMap ta,
                      const __grid_constant__ CUtensorMap tb, const float* __restrict__ bias,
-                     __nv_bfloat16* __restrict__ out, int M, int N, int K) {
+                     const Epi epi, int M, int N, int K, int kc) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t ring = (raw + 1023u) & ~1023u;
@@ -172,8 +198,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint32_t empty = full + kStages * 8;           // kStages barriers
   float* sbias = reinterpret_cast<float*>(smem_raw + (empty + kStages * 8 - raw));
   const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
-  const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM;
-  const int nk = (K + kBK - 1) / kBK;
+  const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM, z = blockIdx.z;
+  // this block's K range [k_lo, k_hi); kc is a multiple of kBK
+  const int k_lo = z * kc, k_hi = min(K, k_lo + kc);
+  const int nk = k_hi > k_lo ? (k_hi - k_lo + kBK - 1) / kBK : 0;
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
       mbar_init(full + 8 * s, 1);
@@ -192,7 +220,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         if (kt >= kStages) mbar_wait(empty + 8 * s, ((kt / kStages) - 1) & 1);
         const uint32_t bar = full + 8 * s;
         const uint32_t a = ring + s * kStageBytes, b = a + kABytes;
-        const int k0 = kt * kBK;
+        const int k0 = k_lo + kt * kBK;
         mbar_expect_tx(bar, kStageBytes);
         if (kAT) {
           tma_load(a, &ta, m0, k0, bar);
@@ -246,14 +274,13 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int m = row + 8 * h;
+        if (m >= M) continue;
         float v0 = d[4 * j + 2 * h], v1 = d[4 * j + 2 * h + 1];
         if (bias) {
           v0 += sbias[n - n0];
           v1 += sbias[n - n0 + 1];
         }
-        if (m < M)
-          *reinterpret_cast<__nv_bfloat162*>(out + (size_t)m * N + n) =
-              __floats2bfloat162_rn(v0, v1);
+        epi.pair(m, n, v0, v1, z);
       }
     }
   }
@@ -297,16 +324,24 @@ inline bool make_map(CUtensorMap* map, const void* p, int inner, int outer, int 
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// out [M, N] = A . B (+ bias) on stream st; a is [K, M] when kAT else
-// [M, K], b is [K, N] when kBT else [N, K]. Every pointer 16-byte aligned,
-// and the contiguous extents (M or K of a, N or K of b) and N multiples of
-// 8: cudaErrorInvalidValue otherwise; cudaErrorNotSupported without the
-// driver's tensor-map encoder.
-template <bool kAT, bool kBT>
+// K-range length of a product cut into `splits` ranges: a multiple of kBK,
+// so that every range but the last ends on a k-step.
+inline int split_len(int K, int splits) {
+  return round_up((K + splits - 1) / splits, kBK);
+}
+
+// epi(m, n, A . B over each of `splits` K ranges (+ bias[n], may be null;
+// with one range only), range index) on stream st; a is [K, M] when kAT
+// else [M, K], b is [K, N] when kBT else [N, K]. Both pointers 16-byte
+// aligned, and the contiguous extents (M or K of a, N or K of b) and N
+// multiples of 8: cudaErrorInvalidValue otherwise; cudaErrorNotSupported
+// without the driver's tensor-map encoder.
+template <bool kAT, bool kBT, class Epi>
 cudaError_t gemm(const __nv_bfloat16* a, const __nv_bfloat16* b, const float* bias,
-                 __nv_bfloat16* out, int M, int N, int K, cudaStream_t st) {
+                 const Epi& epi, int M, int N, int K, int splits, cudaStream_t st) {
   const auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
-  if (M < 1 || N < 1 || K < 1 || !aligned(a) || !aligned(b) || !aligned(out) ||
+  if (M < 1 || N < 1 || K < 1 || splits < 1 || splits > 65535 || (bias && splits > 1) ||
+      !aligned(a) || !aligned(b) ||
       (kAT ? M : K) % 8 || (kBT ? N : K) % 8 || N % 8 || (M + kBM - 1) / kBM > 65535)
     return cudaErrorInvalidValue;
   if (!encode_tiled()) return cudaErrorNotSupported;
@@ -314,13 +349,26 @@ cudaError_t gemm(const __nv_bfloat16* a, const __nv_bfloat16* b, const float* bi
   const bool ok = (kAT ? make_map(&ta, a, M, K, 64) : make_map(&ta, a, K, M, kBM)) &&
                   (kBT ? make_map(&tb, b, N, K, 64) : make_map(&tb, b, K, N, kBN));
   if (!ok) return cudaErrorInvalidValue;
-  auto kernel = gemm_sm90_kernel<kAT, kBT>;
+  auto kernel = gemm_sm90_kernel<kAT, kBT, Epi>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSmemBytes));
   if (err != cudaSuccess) return err;
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  kernel<<<grid, kThreads, kSmemBytes, st>>>(ta, tb, bias, out, M, N, K);
+  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, splits);
+  kernel<<<grid, kThreads, kSmemBytes, st>>>(ta, tb, bias, epi, M, N, K,
+                                              split_len(K, splits));
   return cudaGetLastError();
+}
+
+// out [M, N] (bf16) = a^T . b summed over K, a [K, M] and b [K, N] (a dW
+// over all B*T rows): in `splits` K ranges whose float32 partial sums go to
+// ws [splits][M][N] and are added in order (split_sum), rounded once to
+// bf16; one range rounds its sums straight to bf16.
+inline cudaError_t gemm_tn_split(const __nv_bfloat16* a, const __nv_bfloat16* b,
+                                 __nv_bfloat16* out, int M, int N, int K, int splits,
+                                 float* ws, cudaStream_t st) {
+  if (splits <= 1) return gemm<true, true>(a, b, nullptr, StoreBf16{out, N}, M, N, K, 1, st);
+  NSD_TRY((gemm<true, true>(a, b, nullptr, SplitStore{ws, M, N}, M, N, K, splits, st)));
+  return split_sum<__nv_bfloat16>(ws, out, splits, (size_t)M * N, st);
 }
 
 }  // namespace sm90

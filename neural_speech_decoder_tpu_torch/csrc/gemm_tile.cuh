@@ -287,12 +287,16 @@ cudaError_t gemm(bool bf16, int M, int N, int K, int splits, const AL& a, const 
   return cudaGetLastError();
 }
 
-// The epilogue that stores the float32 sums: out [M, ld].
+// The epilogue that stores the float32 sums: out [M, ld]. (pair: columns n
+// and n + 1 at once, gemm_sm90.cuh's contract; n and ld even.)
 struct StoreF32 {
   float* out;
   int ld;
   __device__ __forceinline__ void operator()(int m, int n, float acc, int) const {
     out[(size_t)m * ld + n] = acc;
+  }
+  __device__ __forceinline__ void pair(int m, int n, float v0, float v1, int) const {
+    *reinterpret_cast<float2*>(out + (size_t)m * ld + n) = make_float2(v0, v1);
   }
 };
 
@@ -302,6 +306,9 @@ struct SplitStore {
   int M, N;
   __device__ __forceinline__ void operator()(int m, int n, float acc, int z) const {
     ws[((size_t)z * M + m) * N + n] = acc;
+  }
+  __device__ __forceinline__ void pair(int m, int n, float v0, float v1, int z) const {
+    *reinterpret_cast<float2*>(ws + ((size_t)z * M + m) * N + n) = make_float2(v0, v1);
   }
 };
 

@@ -119,7 +119,8 @@ long long nsd_matmul_workspace(int kind, int rows, int cols, int red) {
 NSD_MATMUL_ENTRY(f32, float)
 NSD_MATMUL_ENTRY(bf16, __nv_bfloat16)
 
-// The bf16 product on gemm_sm90.cuh; the same arguments but no workspace.
+// The bf16 product on gemm_sm90.cuh (the bias, then StoreBf16), in one K
+// range; the same arguments but no workspace.
 int nsd_matmul_sm90_bf16(const void* a, const void* b, const void* bias, void* out, int kind,
                          int rows, int cols, int red, void* stream) {
   if (bad_args(kind, rows, cols, red, bias)) return static_cast<int>(cudaErrorInvalidValue);
@@ -129,13 +130,15 @@ int nsd_matmul_sm90_bf16(const void* a, const void* b, const void* bias, void* o
   const float* pbias = static_cast<const float*>(bias);
   bf* po = static_cast<bf*>(out);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (reinterpret_cast<uintptr_t>(out) & 15) return static_cast<int>(cudaErrorInvalidValue);
+  const nsd::sm90::StoreBf16 store{po, cols};
   cudaError_t err;
   if (kind == kNN)
-    err = nsd::sm90::gemm<false, true>(pa, pb, pbias, po, rows, cols, red, st);
+    err = nsd::sm90::gemm<false, true>(pa, pb, pbias, store, rows, cols, red, 1, st);
   else if (kind == kNT)
-    err = nsd::sm90::gemm<false, false>(pa, pb, pbias, po, rows, cols, red, st);
+    err = nsd::sm90::gemm<false, false>(pa, pb, pbias, store, rows, cols, red, 1, st);
   else
-    err = nsd::sm90::gemm<true, true>(pa, pb, pbias, po, rows, cols, red, st);
+    err = nsd::sm90::gemm<true, true>(pa, pb, pbias, store, rows, cols, red, 1, st);
   return static_cast<int>(err);
 }
 

@@ -1,5 +1,6 @@
 // Row and column passes shared by the fused FF and conv-module kernels: the
-// layer norm's float32 statistics and its backward (one warp per row), and
+// layer norm's float32 statistics and its backward (one warp per row), the
+// normalised rows written once as a product's bf16 operand (ln_apply), and
 // column sums over all B*T' rows in a fixed order (per-chunk partials, then
 // their sum), which stand in for the TPU kernels' per-program partial
 // vectors summed outside. No atomics: a run repeats bit for bit.
@@ -46,6 +47,46 @@ __global__ void ln_stats_kernel(const T* __restrict__ x, float2* __restrict__ st
 template <typename T>
 cudaError_t ln_stats(const T* x, float2* stats, int M, int D, cudaStream_t st) {
   ln_stats_kernel<T><<<(M + 7) / 8, 256, 0, st>>>(x, stats, M, D);
+  return cudaGetLastError();
+}
+
+// ln_stats, and out[m, k] = the layer norm of x's element rounded to T, as
+// LnLoad loads it (kSilu: then cdt(SiLU) of that, as the conv module's
+// LnSiluLoad): the A operand of a product written once, so that TMA can
+// read it (gemm_sm90.cuh); the same bits as the loaders give.
+template <typename T, bool kSilu>
+__global__ void ln_apply_kernel(const T* __restrict__ x, float2* __restrict__ stats,
+                                const float* __restrict__ scale,
+                                const float* __restrict__ bias, T* __restrict__ out, int M,
+                                int D) {
+  const int lane = threadIdx.x % 32;
+  const int m = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
+  if (m >= M) return;
+  const T* row = x + (size_t)m * D;
+  float s = 0.f;
+  for (int k = lane; k < D; k += 32) s += to_f32(row[k]);
+  const float mean = warp_sum(s) / D;
+  float q = 0.f;
+  for (int k = lane; k < D; k += 32) {
+    const float c = to_f32(row[k]) - mean;
+    q += c * c;
+  }
+  const float var = warp_sum(q) / D;
+  const float2 st = make_float2(mean, rsqrtf(var + kLnEps));
+  if (lane == 0) stats[m] = st;
+  T* o = out + (size_t)m * D;
+  for (int k = lane; k < D; k += 32) {
+    const float xhat = (to_f32(row[k]) - st.x) * st.y;
+    float v = round_to<T>(xhat * scale[k] + bias[k]);
+    if (kSilu) v = round_to<T>(v * sigmoid(v));
+    o[k] = from_f32<T>(v);
+  }
+}
+
+template <typename T, bool kSilu>
+cudaError_t ln_apply(const T* x, float2* stats, const float* scale, const float* bias, T* out,
+                     int M, int D, cudaStream_t st) {
+  ln_apply_kernel<T, kSilu><<<(M + 7) / 8, 256, 0, st>>>(x, stats, scale, bias, out, M, D);
   return cudaGetLastError();
 }
 
@@ -186,11 +227,12 @@ struct LnLoad {
 };
 
 // gm = g [batch * n_time, d] through a dropout site, in float32: kept where
-// uniform2d(seed, b + salt_offset, t, col) >= rate and scaled by inv.
+// uniform2d(seed, b + salt_offset, t, col) >= rate and scaled by inv; gq (may
+// be null) gets gm rounded to T, a product's operand written once.
 template <typename T>
 __global__ void mask_grad_kernel(const T* __restrict__ g, const int32_t* __restrict__ seed,
-                                 float* __restrict__ gm, int batch, int n_time, int d,
-                                 int salt_offset, float rate, float inv) {
+                                 float* __restrict__ gm, T* __restrict__ gq, int batch,
+                                 int n_time, int d, int salt_offset, float rate, float inv) {
   const size_t n = (size_t)batch * n_time * d;
   for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += (size_t)gridDim.x * blockDim.x) {
@@ -203,15 +245,38 @@ __global__ void mask_grad_kernel(const T* __restrict__ g, const int32_t* __restr
       v = kept ? v * inv : 0.f;
     }
     gm[i] = v;
+    if (gq) gq[i] = from_f32<T>(v);
   }
 }
 
 template <typename T>
-cudaError_t mask_grad(const T* g, const int32_t* seed, float* gm, int batch, int n_time,
-                      int d, int salt_offset, float rate, float inv, cudaStream_t st) {
+cudaError_t mask_grad(const T* g, const int32_t* seed, float* gm, T* gq, int batch,
+                      int n_time, int d, int salt_offset, float rate, float inv,
+                      cudaStream_t st) {
   const size_t want = ((size_t)batch * n_time * d + 255) / 256;
   mask_grad_kernel<T><<<(unsigned)(want < 8192 ? want : 8192), 256, 0, st>>>(
-      g, seed, gm, batch, n_time, d, salt_offset, rate, inv);
+      g, seed, gm, gq, batch, n_time, d, salt_offset, rate, inv);
+  return cudaGetLastError();
+}
+
+// fn(m, n) for every row m < M and n = 0, 8, 16, ... < N: an elementwise
+// pass over an M x N array, 8 consecutive columns a thread (16-byte loads
+// and stores where N % 8 == 0), at full occupancy.
+template <class Fn>
+__global__ void __launch_bounds__(256) each8_kernel(Fn fn, int M, int N) {
+  const int per_row = N / 8;
+  const size_t n = (size_t)M * per_row;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const int m = static_cast<int>(i / per_row);
+    fn(m, static_cast<int>(i - (size_t)m * per_row) * 8);
+  }
+}
+
+template <class Fn>
+cudaError_t each8(const Fn& fn, int M, int N, cudaStream_t st) {
+  const size_t want = ((size_t)M * (N / 8) + 255) / 256;
+  each8_kernel<Fn><<<(unsigned)(want < 8192 ? want : 8192), 256, 0, st>>>(fn, M, N);
   return cudaGetLastError();
 }
 

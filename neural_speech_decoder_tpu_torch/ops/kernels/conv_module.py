@@ -12,7 +12,11 @@ written step by step as the TPU kernel, for a CPU tensor; it raises for any
 other device or a shape the kernel does not take (taps beyond 64).
 ``<wrapper>.launches`` counts its calls that launched the kernel.
 ``ConvModule`` is the ``torch.autograd.Function``; it saves the inputs and
-the seed, and the backward recomputes the forward.
+the seed, and the backward recomputes the forward. The backward's two
+bodies, ``"sm90"`` (bfloat16 with D a multiple of 8: its five products on
+``csrc/gemm_sm90.cuh``) and ``"tile"``, are the FF module's
+(``ffn.py::bwd_plan``); ``conv_module_bwd.launches_by_body`` counts them and
+``body=`` forces one.
 
 Semantics, the TPU kernel's (``models/conformer.py::_conv_module`` without
 the residual): layer norm (float32 statistics) cast to x's dtype (cdt) ->
@@ -38,6 +42,7 @@ from .ffn import (
     _DTYPES,
     check_args,
     check_rate,
+    cuda_bwd_plan,
     inv_keep,
     keep_mask,
     mm_f32,
@@ -226,11 +231,12 @@ def conv_module(x, ln_s, ln_b, w1, b1, dw_w, dw_b, ln2_s, ln2_b, w2, b2, seed, *
 
 
 def conv_module_bwd(x, ln_s, ln_b, w1, b1, dw_w, dw_b, ln2_s, ln2_b, w2, seed, g, *,
-                    rate: float = 0.0, causal: bool = False):
+                    rate: float = 0.0, causal: bool = False, body=None):
     """The gradients of ``conv_module``'s output with cotangent ``g [B, T,
     D]``: ``(dx, dln_s, dln_b, dw1, db1, ddw_w, ddw_b, dln2_s, dln2_b, dw2,
     db2)``; dx in x's dtype, dw1 and dw2 in the weights' dtype, the rest
-    float32."""
+    float32. ``body`` (``"sm90"`` or ``"tile"``) overrides the plan's choice
+    on the card."""
     check_rate(rate)
     if not on_cuda("conv_module_bwd", x):
         return conv_module_bwd_plain(x, ln_s, ln_b, w1, b1, dw_w, dw_b, ln2_s, ln2_b, w2,
@@ -246,22 +252,34 @@ def conv_module_bwd(x, ln_s, ln_b, w1, b1, dw_w, dw_b, ln2_s, ln2_b, w2, seed, g
     dln_s, dln_b, db1, ddw_b, dln2_s, dln2_b, db2 = torch.split(
         vec, [d, d, 2 * d, d, d, d, d])
     with torch.cuda.device(x.device):
-        ws = _workspace(x, kw, True)
-        rc = getattr(load_library(), f"nsd_conv_bwd_{_DTYPES[x.dtype]}")(
-            x.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-            dw_w.data_ptr(), dw_b.data_ptr(), ln2_s.data_ptr(), ln2_b.data_ptr(),
-            w2.data_ptr(), seed.data_ptr(), g.data_ptr(), dx.data_ptr(), dln_s.data_ptr(),
-            dln_b.data_ptr(), dw1.data_ptr(), db1.data_ptr(), ddw_w.data_ptr(),
-            ddw_b.data_ptr(), dln2_s.data_ptr(), dln2_b.data_ptr(), dw2.data_ptr(),
-            db2.data_ptr(), ws.data_ptr(), *_launch_args(x, kw, rate, causal),
-            torch.cuda.current_stream().cuda_stream)
-    check(rc, "conv_module_bwd")
+        plan = cuda_bwd_plan("conv_module_bwd", x, (x, w1, w2, g), ((d, d), (d, 2 * d)), body)
+        lib = load_library()
+        ptrs = (x.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+                dw_w.data_ptr(), dw_b.data_ptr(), ln2_s.data_ptr(), ln2_b.data_ptr(),
+                w2.data_ptr(), seed.data_ptr(), g.data_ptr(), dx.data_ptr(), dln_s.data_ptr(),
+                dln_b.data_ptr(), dw1.data_ptr(), db1.data_ptr(), ddw_w.data_ptr(),
+                ddw_b.data_ptr(), dln2_s.data_ptr(), dln2_b.data_ptr(), dw2.data_ptr(),
+                db2.data_ptr())
+        b, t, d, kw, pad_l, r, inv = _launch_args(x, kw, rate, causal)
+        stream = torch.cuda.current_stream().cuda_stream
+        if plan.body == "sm90":
+            ws = torch.empty(lib.nsd_conv_bwd_sm90_workspace(b, t, d, kw, *plan.splits),
+                             dtype=torch.uint8, device=x.device)
+            rc = lib.nsd_conv_bwd_sm90(*ptrs, ws.data_ptr(), b, t, d, kw, pad_l, *plan.splits,
+                                       r, inv, stream)
+        else:
+            ws = _workspace(x, kw, True)
+            rc = getattr(lib, f"nsd_conv_bwd_{_DTYPES[x.dtype]}")(
+                *ptrs, ws.data_ptr(), b, t, d, kw, pad_l, r, inv, stream)
+    check(rc, f"conv_module_bwd ({plan.body})")
     conv_module_bwd.launches += 1
+    conv_module_bwd.launches_by_body[plan.body] += 1
     return dx, dln_s, dln_b, dw1, db1, ddw_w, ddw_b, dln2_s, dln2_b, dw2, db2
 
 
 conv_module.launches = 0
 conv_module_bwd.launches = 0
+conv_module_bwd.launches_by_body = {"sm90": 0, "tile": 0}
 
 
 class ConvModule(torch.autograd.Function):

@@ -18,6 +18,16 @@ column sums). ``FFN`` is the ``torch.autograd.Function``: it saves
 ``(x, scale, bias, w1, b1, w2, seed)``, as the TPU kernel's residuals, and
 the backward recomputes the forward.
 
+The backward has two bodies, which ``bwd_plan`` picks from the dtype, the
+widths and the pointers' alignment before any launch: ``"sm90"`` (bfloat16:
+its five products on ``csrc/gemm_sm90.cuh``'s TMA + wgmma pipeline, from
+bf16 operands written once, the dW products cut into the K ranges the plan
+gives) and ``"tile"`` (float32, and what TMA cannot read:
+``csrc/gemm_tile.cuh``). ``ffn_bwd.launches_by_body`` counts its launches
+by body; ``ffn_bwd(..., body="tile")`` forces the tile body (an A/B), and
+a body the shape cannot take raises. The conv module's backward
+(``conv_module.py``) shares the plan.
+
 Semantics, the TPU kernel's (``models/conformer.py::_ff_module`` without the
 0.5 half-step scale, DropPath and residual): layer norm with float32
 statistics, ``xn`` cast to x's dtype (cdt); ``s = xn @ W1 + b1`` with float32
@@ -33,13 +43,91 @@ dtype (cdt), the vector gradients stay float32, dx is in x's dtype.
 
 from __future__ import annotations
 
+from fractions import Fraction
+from typing import NamedTuple
+
 import torch
 
 from ..hashrng import uniform
 from ._build import check, load_library
+from .gru_scan import device_limits
 
 LN_EPS = 1e-5  # models/conformer.py::layer_norm
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+# csrc/gemm_sm90.cuh's block tile of the output (rows, cols) and k-step; at
+# most MAX_SPLITS K ranges a product, each at least the ring's four k-steps
+SM90_TILE = (128, 256)
+SM90_BK = 64
+MAX_SPLITS = 16
+MIN_SPLIT_LEN = 4 * SM90_BK
+
+
+class BwdPlan(NamedTuple):
+    """How a fused backward runs: ``body`` ``"sm90"`` or ``"tile"``, and on
+    sm90 ``splits``, the K ranges of its two dW products (dW2, dW1), each
+    summed over all B*T rows (the tile body picks its own)."""
+    body: str
+    splits: tuple[int, ...] = ()
+
+
+def split_len(k: int, splits: int) -> int:
+    """The length of each K range when K is cut into ``splits``: a multiple
+    of the 64-deep k-step (``gemm_sm90.cuh::split_len``)."""
+    per_range = -(-k // splits)
+    return -(-per_range // SM90_BK) * SM90_BK
+
+
+def split_ranges(k: int, splits: int) -> list[tuple[int, int]]:
+    """The K ranges ``[lo, hi)`` of a product's blocks, in the order
+    ``split_sum`` adds their partial sums."""
+    kc = split_len(k, splits)
+    return [(z * kc, min(k, z * kc + kc)) for z in range(splits)]
+
+
+def dw_splits(rows: int, cols: int, k: int, n_sms: int) -> int:
+    """The K ranges of a dW product (output ``[rows, cols]``, summed over
+    ``k`` rows) on a card of ``n_sms`` SMs, one 128 x 256 block an SM: the
+    count whose whole waves of blocks take least time (waves / ranges), ties
+    to the fewest that put a block on every SM, each range at least
+    ``MIN_SPLIT_LEN`` long; then cut back so that every range holds rows."""
+    tiles = -(-rows // SM90_TILE[0]) * -(-cols // SM90_TILE[1])
+    best = None
+    for s in range(1, MAX_SPLITS + 1):
+        if s > 1 and k < s * MIN_SPLIT_LEN:
+            break
+        key = (Fraction(-(-tiles * s // n_sms), s), tiles * s < n_sms, s)
+        best = key if best is None else min(best, key)
+    return -(-k // split_len(k, best[2]))
+
+
+def bwd_plan(dtype: torch.dtype, rows: int, dw_shapes, n_sms: int, *,
+             aligned: bool = True) -> BwdPlan:
+    """The body of a fused backward over ``rows`` = B*T rows whose dW
+    products have the output shapes ``dw_shapes`` (dW2's, dW1's): ``"sm90"``
+    for bfloat16 whose widths are multiples of 8 (TMA's 16-byte row strides)
+    and whose pointers are 16-byte aligned (``aligned``), with the split
+    counts of ``dw_splits``; else ``"tile"``. Float32 keeps the tile's FMAs:
+    wgmma's float32 is TF32, which would change the numbers."""
+    widths = [n for shape in dw_shapes for n in shape]
+    if dtype == torch.bfloat16 and aligned and all(n % 8 == 0 for n in widths):
+        return BwdPlan("sm90", tuple(dw_splits(r, c, rows, n_sms) for r, c in dw_shapes))
+    return BwdPlan("tile")
+
+
+def cuda_bwd_plan(what: str, x: torch.Tensor, tensors, dw_shapes, body) -> BwdPlan:
+    """``bwd_plan`` for CUDA tensors on x's card (``tensors``: those whose
+    pointers TMA or the row passes read), or the tile body where ``body``
+    asks for it; raise where ``body`` names one the shape cannot take."""
+    plan = bwd_plan(x.dtype, x.shape[0] * x.shape[1], dw_shapes,
+                    device_limits(x.device.index or 0)[0],
+                    aligned=all(t.data_ptr() % 16 == 0 for t in tensors))
+    if body is None or body == plan.body:
+        return plan
+    if body == "tile":
+        return BwdPlan("tile")
+    raise ValueError(f"{what}: body {body!r} does not take {x.dtype} {tuple(x.shape)} with "
+                     f"dW shapes {dw_shapes} (bfloat16, widths multiples of 8, 16-byte "
+                     f"aligned pointers)")
 
 
 def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -226,10 +314,11 @@ def ffn(x, scale, bias, w1, b1, w2, b2, seed, *, rate: float = 0.0) -> torch.Ten
     return out
 
 
-def ffn_bwd(x, scale, bias, w1, b1, w2, seed, g, *, rate: float = 0.0):
+def ffn_bwd(x, scale, bias, w1, b1, w2, seed, g, *, rate: float = 0.0, body=None):
     """The gradients of ``ffn``'s output with cotangent ``g [B, T, D]``:
     ``(dx, dscale, dbias, dw1, db1, dw2, db2)``; dx in x's dtype, dw1 and
-    dw2 in the weights' dtype, the vectors float32."""
+    dw2 in the weights' dtype, the vectors float32. ``body`` (``"sm90"`` or
+    ``"tile"``) overrides ``bwd_plan``'s choice on the card."""
     check_rate(rate)
     if not on_cuda("ffn_bwd", x):
         return ffn_bwd_plain(x, scale, bias, w1, b1, w2, seed, g, rate=rate)
@@ -242,15 +331,25 @@ def ffn_bwd(x, scale, bias, w1, b1, w2, seed, g, *, rate: float = 0.0):
     dscale, dbias, db2, db1 = vec[:d], vec[d:2 * d], vec[2 * d:3 * d], vec[3 * d:]
     r, inv, inv_h = _scalars(rate, x.dtype)
     with torch.cuda.device(x.device):
-        ws = _workspace(b, t, d, f, x, True)
-        rc = getattr(load_library(), f"nsd_ffn_bwd_{_DTYPES[x.dtype]}")(
-            x.data_ptr(), scale.data_ptr(), bias.data_ptr(), w1.data_ptr(),
-            b1.data_ptr(), w2.data_ptr(), seed.data_ptr(), g.data_ptr(),
-            dx.data_ptr(), dscale.data_ptr(), dbias.data_ptr(), dw1.data_ptr(),
-            db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(), ws.data_ptr(),
-            b, t, d, f, r, inv, inv_h, torch.cuda.current_stream().cuda_stream)
-    check(rc, "ffn_bwd")
+        plan = cuda_bwd_plan("ffn_bwd", x, (x, w1, w2, g), ((f, d), (d, f)), body)
+        lib = load_library()
+        ptrs = (x.data_ptr(), scale.data_ptr(), bias.data_ptr(), w1.data_ptr(),
+                b1.data_ptr(), w2.data_ptr(), seed.data_ptr(), g.data_ptr(),
+                dx.data_ptr(), dscale.data_ptr(), dbias.data_ptr(), dw1.data_ptr(),
+                db1.data_ptr(), dw2.data_ptr(), db2.data_ptr())
+        stream = torch.cuda.current_stream().cuda_stream
+        if plan.body == "sm90":
+            ws = torch.empty(lib.nsd_ffn_bwd_sm90_workspace(b, t, d, f, *plan.splits),
+                             dtype=torch.uint8, device=x.device)
+            rc = lib.nsd_ffn_bwd_sm90(*ptrs, ws.data_ptr(), b, t, d, f, *plan.splits, r, inv,
+                                      inv_h, stream)
+        else:
+            ws = _workspace(b, t, d, f, x, True)
+            rc = getattr(lib, f"nsd_ffn_bwd_{_DTYPES[x.dtype]}")(
+                *ptrs, ws.data_ptr(), b, t, d, f, r, inv, inv_h, stream)
+    check(rc, f"ffn_bwd ({plan.body})")
     ffn_bwd.launches += 1
+    ffn_bwd.launches_by_body[plan.body] += 1
     return dx, dscale, dbias, dw1, db1, dw2, db2
 
 
@@ -278,6 +377,7 @@ def ffn_dropout_masks(b: int, t: int, d: int, f: int, seed: torch.Tensor, rate: 
 
 ffn.launches = 0
 ffn_bwd.launches = 0
+ffn_bwd.launches_by_body = {"sm90": 0, "tile": 0}
 ffn_dropout_masks.launches = 0
 
 

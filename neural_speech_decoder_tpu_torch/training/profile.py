@@ -96,6 +96,47 @@ def bench_batch(
     )
 
 
+def device_split(fn, reps: int = 3) -> list[tuple[str, int, float]]:
+    """Device time of one call of ``fn`` by kernel: ``(name, launches a
+    call, ms a call)``, largest first, from ``torch.profiler`` over ``reps``
+    calls after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sorted(((e.key, e.count // reps, e.self_device_time_total / 1e3 / reps)
+                   for e in events), key=lambda r: -r[2])
+
+
+# The stages of the fused FF and conv-module backwards, by the names of their
+# kernels: (stage, substrings of a kernel's name), matched in this order
+FUSED_BWD_STAGES = (
+    ("products", ("gemm_sm90", "gemm_wmma", "gemm_fma")),
+    ("split_sum", ("split_sum",)),
+    ("ln_stats / bf16 copies", ("ln_stats", "ln_apply")),
+    ("mask_grad", ("mask_grad",)),
+    ("colsum", ("colsum", "sum_parts")),
+    ("ln_bwd", ("ln_bwd",)),
+    ("glu_dwconv", ("glu_dwconv",)),
+    ("dwconv_bwd", ("dwconv_bwd",)),
+    ("elementwise passes", ("each8",)),
+)
+
+
+def by_stage(rows, stages=FUSED_BWD_STAGES) -> dict[str, float]:
+    """``device_split``'s rows summed by stage (ms a call); kernels that
+    match no stage under "other"."""
+    out: dict[str, float] = {}
+    for name, _, ms in rows:
+        stage = next((st for st, keys in stages if any(k in name for k in keys)), "other")
+        out[stage] = out.get(stage, 0.0) + ms
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", default="gru", choices=["gru", "conformer"])

@@ -11,6 +11,9 @@ that the edge handling is exercised; ``chip_smoke.py`` checks the serving
 path's full shapes.
 """
 
+import hashlib
+
+import numpy as np
 import pytest
 import torch
 
@@ -693,6 +696,87 @@ def test_fused_functions_grads_match_plain(cuda):
         assert _rel(a, b) <= 1e-4
 
 
+def _bwd_run(module, x, params, seed, gout, **kw):
+    """One backward of ``module`` ("ffn" or "conv") on the kernel."""
+    if module == "ffn":
+        return ffn_bwd(x, *params[:5], seed, gout, **kw)
+    return conv_module_bwd(x, *params[:9], seed, gout, **kw)
+
+
+def _bwd_plain(module, x, params, seed, gout, **kw):
+    if module == "ffn":
+        return ffn_bwd_plain(x, *params[:5], seed, gout, **kw)
+    return conv_module_bwd_plain(x, *params[:9], seed, gout, **kw)
+
+
+def _bwd_case(cuda, module, b, t, d, f_or_kw):
+    case = _ffn_case if module == "ffn" else _conv_case
+    return case(cuda, torch.bfloat16, b, t, d, f_or_kw)
+
+
+_BWD_WRAPPER = {"ffn": ffn_bwd, "conv": conv_module_bwd}
+
+
+@pytest.mark.parametrize("module, b, t, d, f_or_kw, extra", [
+    # B*T' = 129 (not a multiple of 128), F = 264 (not of 256), D = 136 (not
+    # of the 64-deep k-step)
+    ("ffn", 3, 43, 136, 264, {}),
+    ("conv", 3, 43, 136, 7, {}),
+    ("conv", 3, 43, 136, 31, {"causal": True}),
+    # the recipe's shapes
+    ("ffn", 64, 313, 1024, 2048, {}),
+    ("conv", 64, 313, 1024, 31, {}),
+    ("conv", 64, 313, 1024, 31, {"causal": True}),
+])
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+def test_fused_bwd_sm90_body_matches_plain(cuda, module, b, t, d, f_or_kw, extra, rate):
+    """The bf16 backwards on the sm90 body (TMA + wgmma), every gradient
+    against the plain version within the tolerances of the tile body;
+    reruns bit-equal."""
+    x, params, gout = _bwd_case(cuda, module, b, t, d, f_or_kw)
+    seed = torch.tensor([41], dtype=torch.int32, device=cuda)
+    wrapper = _BWD_WRAPPER[module]
+    before = dict(wrapper.launches_by_body)
+    grads = _bwd_run(module, x, params, seed, gout, rate=rate, **extra)
+    again = _bwd_run(module, x, params, seed, gout, rate=rate, **extra)
+    refs = _bwd_plain(module, x, params, seed, gout, rate=rate, **extra)
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in wrapper.launches_by_body.items()} == {"sm90": 2,
+                                                                              "tile": 0}
+    for i, (a, a2, r) in enumerate(zip(grads, again, refs)):
+        assert a.dtype == r.dtype and a.shape == r.shape, i
+        assert torch.equal(a, a2), i
+        assert _rel(a, r) <= FUSED_GRAD_TOL[torch.bfloat16], (i, _rel(a, r))
+
+
+@pytest.mark.parametrize("module", ["ffn", "conv"])
+def test_fused_bwd_bodies_by_dtype_and_shape(cuda, module):
+    """bf16 with widths that are multiples of 8 runs on sm90, float32 and a
+    bf16 D of 100 on the tile body; body="tile" forces the tile body, which
+    stays within the tolerance of the plain version; body="sm90" where it
+    cannot run raises."""
+    wrapper = _BWD_WRAPPER[module]
+    seed = torch.tensor([5], dtype=torch.int32, device=cuda)
+    cases = [(torch.bfloat16, 96, {}, "sm90"), (torch.float32, 96, {}, "tile"),
+             (torch.bfloat16, 100, {}, "tile"),
+             (torch.bfloat16, 96, {"body": "tile"}, "tile")]
+    for dtype, d, kw, body in cases:
+        case = _ffn_case if module == "ffn" else _conv_case
+        x, params, gout = case(cuda, dtype, 2, 37, d, 200 if module == "ffn" else 7)
+        before = dict(wrapper.launches_by_body)
+        grads = _bwd_run(module, x, params, seed, gout, rate=0.2, **kw)
+        refs = _bwd_plain(module, x, params, seed, gout, rate=0.2)
+        torch.cuda.synchronize()
+        assert {k: v - before[k] for k, v in wrapper.launches_by_body.items()} == {
+            b: int(b == body) for b in before}, (dtype, d, kw)
+        for a, r in zip(grads, refs):
+            assert _rel(a, r) <= FUSED_GRAD_TOL[dtype]
+    x, params, gout = (_ffn_case if module == "ffn" else _conv_case)(
+        cuda, torch.float32, 2, 37, 96, 200 if module == "ffn" else 7)
+    with pytest.raises(ValueError, match="sm90"):
+        _bwd_run(module, x, params, seed, gout, body="sm90")
+
+
 def test_fused_kernels_refuse_unsupported_shapes(cuda):
     x, (sc, bi, w1, b1, w2, b2), _ = _ffn_case(cuda, torch.float32, 1, 8, 32, 64)
     seed = torch.zeros(1, dtype=torch.int32, device=cuda)
@@ -865,3 +949,41 @@ def test_projection_matmul_function_grads_match_plain(cuda, dtype):
         tol = 1e-5 if ref.dtype == torch.float32 else MM_TOL[dtype]
         err = (got.float() - ref.float()).abs().max().item()
         assert err <= tol * ref.float().abs().max().item(), err
+
+
+# sha256 of the sm90 body's bf16 output (its int16 bits) at row 16's shapes,
+# M=20032, K=2048, N=6144, on the numpy-seeded operands of _row16_operands,
+# as the body computed it before gemm_sm90.cuh took an epilogue functor: the
+# bias + bf16 store is now one instance of that functor, and its bits must
+# not move.
+SM90_ROW16_SHA256 = {
+    "nn": "720f5376a65621eb23ed7da700ec9faf9a104951ef49d10246579cffa1fb6e66",
+    "nt": "ab7334375c2111e78164a4e1492526582c0d5ea0d4174738e6c481407fbb7639",
+    "tn": "996a67dbef110eebc68c287e95e059402538bfe3b52940fa81b8af486a887d34",
+}
+
+
+def _row16_operands(kind, device):
+    m, k, n = 20032, 2048, 6144
+    rng = np.random.default_rng(16)
+    shapes = {"nn": ((m, k), (k, n)), "nt": ((m, n), (k, n)), "tn": ((m, k), (m, n))}[kind]
+    a, b = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(device)
+            .to(torch.bfloat16) for s in shapes)
+    bias = (torch.from_numpy(rng.standard_normal(n, dtype=np.float32)).to(device)
+            if kind == "nn" else None)
+    return a, b, bias
+
+
+def row16_digest(kind, device) -> str:
+    """The sm90 body's output at row 16's shapes, as a sha256 of its bits."""
+    a, b, bias = _row16_operands(kind, device)
+    before = dict(tiled_matmul.launches_by_body)
+    out = tiled_matmul(a, b, kind=kind, bias=bias)
+    torch.cuda.synchronize()
+    assert _by_body_since(before) == {"sm90": 1, "f32": 0, "tile": 0}
+    return hashlib.sha256(out.view(torch.int16).cpu().numpy().tobytes()).hexdigest()
+
+
+@pytest.mark.parametrize("kind", ["nn", "nt", "tn"])
+def test_matmul_sm90_bits_unchanged_by_epilogue_functor(cuda, kind):
+    assert row16_digest(kind, cuda) == SM90_ROW16_SHA256[kind]
