@@ -65,8 +65,10 @@ random weights:
     times of kernel, plain version and the unfused module (forward and
     backward) as the yardstick, and the bounds. The two backwards' launches
     by body: every bfloat16 one on the sm90 body (TMA + wgmma), every
-    float32 one on the tile body; the bf16 sm90 reruns bit-equal; the tile
-    body timed beside the sm90 one, the device time of one call of each by
+    float32 one on the tile body; the bf16 sm90 reruns bit-equal; the bf16
+    tile body (``body="tile"``) at rate 0.3, centred and causal conv,
+    against the plain versions at the same tolerance; the tile body timed
+    beside the sm90 one, the device time of one call of each by
     kernel and by stage (``training/profile.py::device_split``), and, as
     context, the five ``torch.mm(out_dtype=float32)`` products of each
     backward at its shapes. The backwards' rows in the kernels line report
@@ -1451,14 +1453,43 @@ def fused_bwd_products(ff, conv) -> dict:
     }
 
 
+def fused_tile_check(key, tag, call, plain, names) -> None:
+    """One bf16 call of a backward forced onto the tile body (``body="tile"``,
+    the body ``bwd_plan`` still picks where TMA cannot read a shape) against
+    its plain version at ``FUSED_TOL["bfloat16"]``; its one launch counted
+    on the tile body."""
+    before = dict(WRAPPERS[key].launches_by_body)
+    with torch.inference_mode():
+        grads, refs = call(body="tile"), plain()
+    torch.cuda.synchronize()
+    took = {b: n - before[b] for b, n in WRAPPERS[key].launches_by_body.items()}
+    tol = FUSED_TOL["bfloat16"]
+    errs = {k: rel_err(a, b) for k, a, b in zip(names, grads, refs)}
+    dtypes = all(a.dtype == b.dtype for a, b in zip(grads, refs))
+    check(max(errs.values()) <= tol and dtypes and took["tile"] == 1
+          and sum(took.values()) == 1,
+          f"{key} bfloat16 {tag} on the tile body: max abs err / max |ref| " + ", ".join(
+              f"{k} {v:.3e}" for k, v in errs.items()) + f" <= {tol:.3g}; dtypes equal "
+          f"{dtypes}; launches by body {took}")
+
+
 def fused_bwd_bodies(x, gout, ff, conv, seed) -> None:
-    """The bf16 backwards at rate 0.3: reruns bit-equal, one call of each
+    """The bf16 backwards at rate 0.3: the tile body against the plain
+    version (centred and causal conv), reruns bit-equal, one call of each
     body by kernel and by stage, the tile body timed beside the sm90 one,
     and the five ``torch.mm`` products of each as context."""
     kw = dict(rate=0.3)
     calls = {"ffn_bwd": lambda **b: ffn_bwd(x, *ff[:5], seed, gout, **kw, **b),
              "conv_module_bwd": lambda **b: conv_module_bwd(x, *conv[:9], seed, gout,
                                                             **kw, **b)}
+    fused_tile_check("ffn_bwd", f"B={B} T'={L} rate 0.3", calls["ffn_bwd"],
+                     lambda: ffn_bwd_plain(x, *ff[:5], seed, gout, **kw), FF_NAMES)
+    for causal in (False, True):
+        fused_tile_check(
+            "conv_module_bwd", f"B={B} T'={L} rate 0.3" + (" causal" if causal else ""),
+            lambda **b: conv_module_bwd(x, *conv[:9], seed, gout, causal=causal, **kw, **b),
+            lambda: conv_module_bwd_plain(x, *conv[:9], seed, gout, causal=causal, **kw),
+            CONV_NAMES)
     products = fused_bwd_products(ff, conv)
     with torch.inference_mode():
         for key, call in calls.items():

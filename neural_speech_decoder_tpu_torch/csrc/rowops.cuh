@@ -23,15 +23,12 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// stats[m] = (mean, 1/sqrt(var + eps)) of row m of x [M, D], in float32;
-// var is the mean of squared deviations (jnp.var).
+// (mean, 1/sqrt(var + eps)) of one row of D elements, in float32, summed by
+// one warp (every lane gets it); var is the mean of squared deviations
+// (jnp.var). The one copy of the statistics: ln_bwd and the scale's column
+// sums rely on ln_stats and ln_apply writing the same bits.
 template <typename T>
-__global__ void ln_stats_kernel(const T* __restrict__ x, float2* __restrict__ stats,
-                                int M, int D) {
-  const int lane = threadIdx.x % 32;
-  const int m = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
-  if (m >= M) return;
-  const T* row = x + (size_t)m * D;
+__device__ __forceinline__ float2 row_stats(const T* __restrict__ row, int D, int lane) {
   float s = 0.f;
   for (int k = lane; k < D; k += 32) s += to_f32(row[k]);
   const float mean = warp_sum(s) / D;
@@ -41,7 +38,18 @@ __global__ void ln_stats_kernel(const T* __restrict__ x, float2* __restrict__ st
     q += c * c;
   }
   const float var = warp_sum(q) / D;
-  if (lane == 0) stats[m] = make_float2(mean, rsqrtf(var + kLnEps));
+  return make_float2(mean, rsqrtf(var + kLnEps));
+}
+
+// stats[m] = row_stats of row m of x [M, D].
+template <typename T>
+__global__ void ln_stats_kernel(const T* __restrict__ x, float2* __restrict__ stats,
+                                int M, int D) {
+  const int lane = threadIdx.x % 32;
+  const int m = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
+  if (m >= M) return;
+  const float2 st = row_stats(x + (size_t)m * D, D, lane);
+  if (lane == 0) stats[m] = st;
 }
 
 template <typename T>
@@ -63,16 +71,7 @@ __global__ void ln_apply_kernel(const T* __restrict__ x, float2* __restrict__ st
   const int m = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
   if (m >= M) return;
   const T* row = x + (size_t)m * D;
-  float s = 0.f;
-  for (int k = lane; k < D; k += 32) s += to_f32(row[k]);
-  const float mean = warp_sum(s) / D;
-  float q = 0.f;
-  for (int k = lane; k < D; k += 32) {
-    const float c = to_f32(row[k]) - mean;
-    q += c * c;
-  }
-  const float var = warp_sum(q) / D;
-  const float2 st = make_float2(mean, rsqrtf(var + kLnEps));
+  const float2 st = row_stats(row, D, lane);
   if (lane == 0) stats[m] = st;
   T* o = out + (size_t)m * D;
   for (int k = lane; k < D; k += 32) {

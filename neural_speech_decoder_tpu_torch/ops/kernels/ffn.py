@@ -50,7 +50,6 @@ import torch
 
 from ..hashrng import uniform
 from ._build import check, load_library
-from .gru_scan import device_limits
 
 LN_EPS = 1e-5  # models/conformer.py::layer_norm
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -119,7 +118,7 @@ def cuda_bwd_plan(what: str, x: torch.Tensor, tensors, dw_shapes, body) -> BwdPl
     pointers TMA or the row passes read), or the tile body where ``body``
     asks for it; raise where ``body`` names one the shape cannot take."""
     plan = bwd_plan(x.dtype, x.shape[0] * x.shape[1], dw_shapes,
-                    device_limits(x.device.index or 0)[0],
+                    torch.cuda.get_device_properties(x.device).multi_processor_count,
                     aligned=all(t.data_ptr() % 16 == 0 for t in tensors))
     if body is None or body == plan.body:
         return plan
