@@ -63,23 +63,25 @@ random weights:
     plain versions at B=64, T'=313, D=1024, F=2048, k=31 in float32 and
     bfloat16, at rates 0 and 0.3 (masks bit-equal), and a causal conv;
     times of kernel, plain version and the unfused module (forward and
-    backward) as the yardstick, and the bounds. The two backwards' launches
-    by body: every bfloat16 one on the sm90 body (TMA + wgmma), every
-    float32 one on the tile body; the bf16 sm90 reruns bit-equal; the bf16
-    tile body (``body="tile"``) at rate 0.3, centred and causal conv,
-    against the plain versions at the same tolerance; the tile body timed
-    beside the sm90 one, the device time of one call of each by
-    kernel and by stage (``training/profile.py::device_split``), and, as
-    context, the five ``torch.mm(out_dtype=float32)`` products of each
-    backward at its shapes. The backwards' rows in the kernels line report
+    backward) as the yardstick, and the bounds. The four wrappers' launches
+    by body: every bfloat16 forward and backward on the sm90 body (TMA +
+    wgmma), every float32 one on the tile body; the bf16 sm90 reruns
+    bit-equal; the sha256 of the bf16 sm90 backwards' outputs on
+    numpy-seeded inputs pinned; the bf16 tile body (``body="tile"``) at
+    rate 0.3, centred and causal conv, forward and backward, against the
+    plain versions at the same tolerance; the tile body timed beside the
+    sm90 one, the device time of one call of each by kernel and by stage
+    (``training/profile.py::device_split``), and, as context, the products
+    of each forward and backward as ``torch.mm(out_dtype=float32)`` at their
+    shapes. The forwards' and backwards' rows in the kernels line report
     bfloat16.
 11. The bf16 Conformer train step with both fused flags: 2 warm-up and 10
     timed steps, median and seq/s beside phase 8's default step, 16 FF and 8
-    conv forward and backward launches per step (every backward on the
-    sm90 body); one float32 step (randomness on) checked leaf by leaf
-    against the plain path (its backwards on the tile body); two bf16 runs
+    conv forward and backward launches per step (every one on the sm90
+    body); one float32 step (randomness on) checked leaf by leaf against the
+    plain path (its forwards and backwards on the tile body); two bf16 runs
     of 2 steps from one seed bit-equal; one eval forward launching 16 FF and
-    8 conv forwards and no backward.
+    8 conv forwards on the sm90 body and no backward.
 12. The GRU's opt-in kernels (``fused_optimizer``, ``use_pallas_matmul``):
     the projection matmul in its three layouts (``nn`` with the bias, ``nt``,
     ``tn``) at M=B*L=20032, K=2048, N=6144 and at a ragged M=1001, and Adam
@@ -121,6 +123,7 @@ CUDA device or any check fails; otherwise its last line is
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import math
 import pickle
@@ -509,15 +512,17 @@ HOOKS = ("dropout_masks", "ffn_dropout_masks")
 
 
 SCANS = ("gru_scan", "gru_scan_gates", "gru_scan_bwd")
-# the fused backwards, counted by body ("sm90" or "tile")
+# the fused forwards and backwards, counted by body ("sm90" or "tile")
+FUSED_FWDS = ("ffn", "conv_module")
 FUSED_BWDS = ("ffn_bwd", "conv_module_bwd")
+FUSED_BODIES = FUSED_FWDS + FUSED_BWDS
 
 
 def reset_launches() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
     for counts in (tiled_matmul.launches_by_body, mhsa_qkv.launches_by_body,
-                   *(WRAPPERS[k].launches_by_body for k in SCANS + FUSED_BWDS)):
+                   *(WRAPPERS[k].launches_by_body for k in SCANS + FUSED_BODIES)):
         for body in counts:
             counts[body] = 0
 
@@ -1423,19 +1428,62 @@ def unfused_module(kind, x, gout, params, rate, causal=False):
     return torch.autograd.grad(out, [xg, *leaves], gout)
 
 
-# The dtype each fused row of the kernels line reports: the backwards' bf16
-# bodies are the ones redesigned for the card (the sm90 body); the forwards
-# and the mask hook keep their float32 rows.
-FUSED_ROW_DTYPE = {"ffn": "float32", "ffn_bwd": "bfloat16", "ffn_dropout_masks": "float32",
-                   "conv_module": "float32", "conv_module_bwd": "bfloat16"}
-# The body each dtype's backwards take at these shapes (ops/kernels/ffn.py::bwd_plan).
-FUSED_BWD_BODY = {"float32": "tile", "bfloat16": "sm90"}
+# The dtype each fused row of the kernels line reports: the forwards' and
+# backwards' bf16 bodies are the ones the main path runs (the sm90 body);
+# the mask hook keeps its float32 row.
+FUSED_ROW_DTYPE = {"ffn": "bfloat16", "ffn_bwd": "bfloat16", "ffn_dropout_masks": "float32",
+                   "conv_module": "bfloat16", "conv_module_bwd": "bfloat16"}
+# The body each dtype's forwards and backwards take at these shapes
+# (ops/kernels/ffn.py::bwd_plan).
+FUSED_BODY = {"float32": "tile", "bfloat16": "sm90"}
+# sha256 of the bf16 sm90 backwards' outputs (every gradient's bits, in
+# order) on fused_bwd_digests' numpy-seeded inputs, as the backwards
+# computed them before the forwards moved onto gemm_sm90.cuh (commit
+# 66c0b3e): the front they now share with the forwards and the wide window
+# kernel must not move a bit.
+FUSED_BWD_SHA256 = {
+    "ffn_bwd": "d139cf0248ae70e87df2d52ded8461b9b7366635d923bb5afed8cf4398c75f76",
+    "conv_module_bwd": "7fbbbd97f6ab661447bf49bcfc5b07ea2d249f3ad328135f3c8f813cdd7fb6ef",
+    "conv_module_bwd causal": "91ed7af3c19704118260f8a6697a60fda488d222fb37664ecfb46fbc2f3b9a4f",
+}
 
 
-def fused_bwd_products(ff, conv) -> dict:
-    """The five products of each backward at its shapes (bf16 operands, M =
-    B*T' rows), each as one ``torch.mm(out_dtype=float32)`` call: context
-    for the kernels' times, never called by the port."""
+def fused_bwd_digests() -> dict:
+    """The sha256 of each bf16 sm90 backward's outputs at rate 0.3 (the
+    conv centred and causal) on numpy-seeded inputs at the recipe's
+    shapes."""
+    rng = np.random.default_rng(10)
+    d, f, bf = A_HEADS * A_DH, F_FF, torch.bfloat16
+
+    def r(*s, sc=1.0, dt=torch.float32):
+        return (sc * torch.from_numpy(rng.standard_normal(s, dtype=np.float32))).cuda().to(dt)
+
+    def digest(tensors) -> str:
+        h = hashlib.sha256()
+        for t in tensors:
+            h.update(t.contiguous().reshape(-1).view(torch.uint8).cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    x, gout = r(B, L, d, dt=bf), r(B, L, d, dt=bf)
+    ff = (1.0 + r(d, sc=0.1), r(d, sc=0.1), r(d, f, sc=d**-0.5, dt=bf), r(f, sc=0.1),
+          r(f, d, sc=f**-0.5, dt=bf))
+    conv = (1.0 + r(d, sc=0.1), r(d, sc=0.1), r(d, 2 * d, sc=d**-0.5, dt=bf),
+            r(2 * d, sc=0.1), r(KW, d, sc=KW**-0.5), r(d, sc=0.1), 1.0 + r(d, sc=0.1),
+            r(d, sc=0.1), r(d, d, sc=d**-0.5, dt=bf))
+    seed = torch.tensor([20251017], dtype=torch.int32, device="cuda")
+    with torch.inference_mode():
+        out = {"ffn_bwd": digest(ffn_bwd(x, *ff, seed, gout, rate=0.3, body="sm90"))}
+        for causal in (False, True):
+            out["conv_module_bwd" + (" causal" if causal else "")] = digest(conv_module_bwd(
+                x, *conv, seed, gout, rate=0.3, causal=causal, body="sm90"))
+    return out
+
+
+def fused_products(ff, conv) -> dict:
+    """The products of each forward (two) and backward (five) at its shapes
+    (bf16 operands, M = B*T' rows), each as one ``torch.mm(out_dtype=
+    float32)`` call: context for the kernels' times, never called by the
+    port."""
     m, d, f = B * L, A_HEADS * A_DH, F_FF
     g = torch.Generator(device="cuda").manual_seed(9)
     r = lambda *s: torch.randn(s, generator=g, device="cuda").to(torch.bfloat16)  # noqa: E731
@@ -1443,6 +1491,8 @@ def fused_bwd_products(ff, conv) -> dict:
     xn, gq, s_, hq, dsq, dhq = r(m, d), r(m, d), r(m, d), r(m, f), r(m, f), r(m, 2 * d)
     w1, w2, cw1, cw2 = ff[2], ff[4], conv[2], conv[8]
     return {
+        "ffn": {"xn.W1": lambda: mm(xn, w1), "h.W2": lambda: mm(hq, w2)},
+        "conv_module": {"xn.W1": lambda: mm(xn, cw1), "s.W2": lambda: mm(s_, cw2)},
         "ffn_bwd": {"xn.W1": lambda: mm(xn, w1), "hq^T.gq": lambda: mm(hq.T, gq),
                     "gq.W2^T": lambda: mm(gq, w2.T), "xn^T.dsq": lambda: mm(xn.T, dsq),
                     "dsq.W1^T": lambda: mm(dsq, w1.T)},
@@ -1454,10 +1504,11 @@ def fused_bwd_products(ff, conv) -> dict:
 
 
 def fused_tile_check(key, tag, call, plain, names) -> None:
-    """One bf16 call of a backward forced onto the tile body (``body="tile"``,
-    the body ``bwd_plan`` still picks where TMA cannot read a shape) against
-    its plain version at ``FUSED_TOL["bfloat16"]``; its one launch counted
-    on the tile body."""
+    """One bf16 call of a forward or backward forced onto the tile body
+    (``body="tile"``, the body ``bwd_plan`` still picks where TMA cannot
+    read a shape) against its plain version at ``FUSED_TOL["bfloat16"]``
+    (``call`` and ``plain`` return tuples of outputs); its one launch
+    counted on the tile body."""
     before = dict(WRAPPERS[key].launches_by_body)
     with torch.inference_mode():
         grads, refs = call(body="tile"), plain()
@@ -1473,31 +1524,43 @@ def fused_tile_check(key, tag, call, plain, names) -> None:
           f"{dtypes}; launches by body {took}")
 
 
-def fused_bwd_bodies(x, gout, ff, conv, seed) -> None:
-    """The bf16 backwards at rate 0.3: the tile body against the plain
-    version (centred and causal conv), reruns bit-equal, one call of each
-    body by kernel and by stage, the tile body timed beside the sm90 one,
-    and the five ``torch.mm`` products of each as context."""
+def fused_bodies(x, gout, ff, conv, seed) -> None:
+    """The bf16 forwards and backwards at rate 0.3: the tile body against the
+    plain version (centred and causal conv), reruns bit-equal, the
+    backwards' sha256 pins, one call of each body by kernel and by stage,
+    the tile body timed beside the sm90 one, and the products of each as
+    ``torch.mm`` as context."""
     kw = dict(rate=0.3)
-    calls = {"ffn_bwd": lambda **b: ffn_bwd(x, *ff[:5], seed, gout, **kw, **b),
-             "conv_module_bwd": lambda **b: conv_module_bwd(x, *conv[:9], seed, gout,
-                                                            **kw, **b)}
-    fused_tile_check("ffn_bwd", f"B={B} T'={L} rate 0.3", calls["ffn_bwd"],
+    tag = f"B={B} T'={L} rate 0.3"
+    fused_tile_check("ffn", tag, lambda **b: (ffn(x, *ff, seed, **kw, **b),),
+                     lambda: (ffn_plain(x, *ff, seed, **kw),), ("out",))
+    fused_tile_check("ffn_bwd", tag, lambda **b: ffn_bwd(x, *ff[:5], seed, gout, **kw, **b),
                      lambda: ffn_bwd_plain(x, *ff[:5], seed, gout, **kw), FF_NAMES)
     for causal in (False, True):
+        ck = dict(rate=0.3, causal=causal)
+        ctag = tag + (" causal" if causal else "")
+        fused_tile_check("conv_module", ctag,
+                         lambda **b: (conv_module(x, *conv, seed, **ck, **b),),
+                         lambda: (conv_module_plain(x, *conv, seed, **ck),), ("out",))
         fused_tile_check(
-            "conv_module_bwd", f"B={B} T'={L} rate 0.3" + (" causal" if causal else ""),
-            lambda **b: conv_module_bwd(x, *conv[:9], seed, gout, causal=causal, **kw, **b),
-            lambda: conv_module_bwd_plain(x, *conv[:9], seed, gout, causal=causal, **kw),
-            CONV_NAMES)
-    products = fused_bwd_products(ff, conv)
+            "conv_module_bwd", ctag,
+            lambda **b: conv_module_bwd(x, *conv[:9], seed, gout, **ck, **b),
+            lambda: conv_module_bwd_plain(x, *conv[:9], seed, gout, **ck), CONV_NAMES)
+    digests = fused_bwd_digests()
+    check(digests == FUSED_BWD_SHA256, f"sha256 of the bf16 sm90 backwards' outputs "
+          f"{digests} == the pinned {FUSED_BWD_SHA256}")
+    calls = {"ffn": lambda **b: (ffn(x, *ff, seed, **kw, **b),),
+             "conv_module": lambda **b: (conv_module(x, *conv, seed, **kw, **b),),
+             "ffn_bwd": lambda **b: ffn_bwd(x, *ff[:5], seed, gout, **kw, **b),
+             "conv_module_bwd": lambda **b: conv_module_bwd(x, *conv[:9], seed, gout,
+                                                            **kw, **b)}
+    products = fused_products(ff, conv)
     with torch.inference_mode():
         for key, call in calls.items():
             one, two = call(), call()
             torch.cuda.synchronize()
             same = all(torch.equal(a, b) for a, b in zip(one, two))
-            check(same, f"{key} bfloat16 B={B} T'={L} rate 0.3 on the sm90 body: reruns "
-                  f"bit-equal {same}")
+            check(same, f"{key} bfloat16 {tag} on the sm90 body: reruns bit-equal {same}")
             del one, two
             for body in ("sm90", "tile"):
                 split = device_split(lambda: call(body=body))
@@ -1512,9 +1575,9 @@ def fused_bwd_bodies(x, gout, ff, conv, seed) -> None:
             s2 = time_ms(call, 5)
             t2 = time_ms(lambda: call(body="tile"), 3)
             mm_ms = {k: time_ms(fn, 5) for k, fn in products[key].items()}
-            print(f"time  {key} bfloat16 B={B} T'={L} rate 0.3: sm90 body {s1:.4f}/{s2:.4f} "
+            print(f"time  {key} bfloat16 {tag}: sm90 body {s1:.4f}/{s2:.4f} "
                   f"ms, tile body {t1:.4f}/{t2:.4f} ms (turns tile, sm90, sm90, tile); "
-                  f"context, its five products as torch.mm(out_dtype=float32): " + ", ".join(
+                  f"context, its products as torch.mm(out_dtype=float32): " + ", ".join(
                       f"{k} {v:.4f}" for k, v in mm_ms.items())
                   + f" = {sum(mm_ms.values()):.4f} ms", flush=True)
 
@@ -1526,7 +1589,7 @@ def fused_kernel_phase() -> dict:
     d, f = A_HEADS * A_DH, F_FF
     for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         x, gout, ff, conv = fused_inputs(g, dt)
-        by_body = {k: dict(WRAPPERS[k].launches_by_body) for k in FUSED_BWDS}
+        by_body = {k: dict(WRAPPERS[k].launches_by_body) for k in FUSED_BODIES}
         for rate in (0.0, 0.3):
             kw = dict(rate=rate)
             e_ff = fused_check(
@@ -1559,13 +1622,14 @@ def fused_kernel_phase() -> dict:
                 check(same, f"ffn_dropout_masks {B}x{L}x({f}, {d}) rate {rate}: "
                       f"bit-equal to the plain version {same}")
                 rows["ffn_dropout_masks"]["max_abs_err"] = 0.0 if same else 1.0
-        body = FUSED_BWD_BODY[name]
+        body = FUSED_BODY[name]
         ran = {k: {b: n - by_body[k][b] for b, n in WRAPPERS[k].launches_by_body.items()}
-               for k in FUSED_BWDS}
+               for k in FUSED_BODIES}
         check(all(c[body] > 0 and sum(c.values()) == c[body] for c in ran.values()),
-              f"{name} fused backwards' launches by body {ran}: all on the {body} body")
+              f"{name} fused forwards' and backwards' launches by body {ran}: all on the "
+              f"{body} body")
         if name == "bfloat16":
-            fused_bwd_bodies(x, gout, ff, conv, seed)
+            fused_bodies(x, gout, ff, conv, seed)
 
         kw = dict(rate=0.3)
         with torch.inference_mode():
@@ -1643,14 +1707,12 @@ def fused_conformer_phase(card: str, default_median: float) -> dict:
                 "mhsa_qkv_bwd": CONFORMER_LAYERS, "dropout_masks": 0, "ctc_alpha": 2,
                 "ctc_beta": 2, **NO_GRU}
     want = {k: v * n for k, v in per_step.items()}
-    bodies = {k: dict(WRAPPERS[k].launches_by_body) for k in FUSED_BWDS}
-    check(launches == want and bodies == {"ffn_bwd": {"sm90": 2 * CONFORMER_LAYERS * n,
-                                                      "tile": 0},
-                                          "conv_module_bwd": {"sm90": CONFORMER_LAYERS * n,
-                                                              "tile": 0}},
+    bodies = {k: dict(WRAPPERS[k].launches_by_body) for k in FUSED_BODIES}
+    want_bodies = {k: {"sm90": per_step[k] * n, "tile": 0} for k in FUSED_BODIES}
+    check(launches == want and bodies == want_bodies,
           f"launches over {n} fused bf16 Conformer train steps {launches} == per step 16 "
           f"FF forward and backward, 8 conv forward and backward, 8/8 attention, 2/2 CTC; "
-          f"backwards by body {bodies}: all on the sm90 body")
+          f"forwards and backwards by body {bodies}: all on the sm90 body")
     check(all(math.isfinite(v) for v in losses),
           f"fused bf16 Conformer train losses finite: "
           f"{', '.join(f'{v:.4f}' for v in losses)}")
@@ -1666,12 +1728,15 @@ def fused_conformer_phase(card: str, default_median: float) -> dict:
         log_probs, _, _ = model_forward(model, batch[0], batch[4], batch[2])
     torch.cuda.synchronize()
     ev = read_launches()
+    ev_bodies = {k: dict(WRAPPERS[k].launches_by_body) for k in FUSED_FWDS}
     want_ev = {k: 0 for k in KERNELS} | {"ffn": 2 * CONFORMER_LAYERS,
                                          "conv_module": CONFORMER_LAYERS,
                                          "mhsa_qkv": CONFORMER_LAYERS}
-    check(ev == want_ev and bool(torch.isfinite(log_probs).all()),
-          f"eval forward of the fused model launched {ev}: 16 FF and 8 conv forwards, "
-          f"8 attention forwards, no backward; log-probs finite")
+    check(ev == want_ev and bool(torch.isfinite(log_probs).all())
+          and ev_bodies == {k: {"sm90": want_ev[k], "tile": 0} for k in FUSED_FWDS},
+          f"eval forward of the fused model launched {ev}: 16 FF and 8 conv forwards "
+          f"(by body {ev_bodies}: all on the sm90 body), 8 attention forwards, no "
+          f"backward; log-probs finite")
     del model
 
     args32 = {**FUSED_ARGS, "compute_dtype": "float32"}
@@ -1687,12 +1752,12 @@ def fused_conformer_phase(card: str, default_median: float) -> dict:
         out[plain] = (loss.item(), [p.grad.clone() for p in model.parameters()],
                       read_launches())
         if not plain:
-            bodies32 = {k: dict(WRAPPERS[k].launches_by_body) for k in FUSED_BWDS}
+            bodies32 = {k: dict(WRAPPERS[k].launches_by_body) for k in FUSED_BODIES}
     (loss_k, grads_k, launch_k), (loss_p, grads_p, launch_p) = out[False], out[True]
     check(launch_k == per_step and not any(launch_p.values())
           and all(c["sm90"] == 0 and c["tile"] > 0 for c in bodies32.values()),
-          f"float32 fused Conformer step launches: kernel path {launch_k} (backwards by "
-          f"body {bodies32}: all on the tile body), plain path {launch_p}")
+          f"float32 fused Conformer step launches: kernel path {launch_k} (forwards and "
+          f"backwards by body {bodies32}: all on the tile body), plain path {launch_p}")
     errs = [rel_err(a, b) for a, b in zip(grads_k, grads_p)]
     check(abs(loss_k - loss_p) <= CONFORMER_GRAD_TOL * abs(loss_p)
           and max(errs) <= CONFORMER_GRAD_TOL,

@@ -33,16 +33,18 @@
 // shared memory, and their backward (dglu by the flipped taps, the GLU's
 // backward, the taps' gradient) another. Every sum has a fixed order.
 //
-// Two backward bodies, as the FF module's (csrc/ffn.cu): the tile body
-// (float32, and any shape TMA cannot read) on gemm_tile.cuh, and the sm90
-// body (bf16, D a multiple of 8), whose five products run on
-// gemm_sm90.cuh's TMA ring into wgmma from bf16 operands written once, each
-// the bits the tile body's loader would have given: xn = cdt(LN(x)) and s =
+// Two bodies in each direction, as the FF module's (csrc/ffn.cu): the tile
+// body (float32, and any shape TMA cannot read) on gemm_tile.cuh, and the
+// sm90 body (bf16, D a multiple of 8), whose products run on gemm_sm90.cuh's
+// TMA ring into wgmma from bf16 operands written once, each the bits the
+// tile body's loader would have given: xn = cdt(LN(x)) and s =
 // cdt(SiLU(cdt(LN2(cq)))) by row passes beside the norms' statistics, gq =
 // cdt(gm) beside the float32 gm that db2 sums, dhq = cdt(dh) beside the
-// float32 dh that db1 sums. The backward recomputes the forward on the same
-// engine (its own front, conv_front_sm90; the forward itself stays on
-// gemm_tile.cuh).
+// float32 dh that db1 sums. The sm90 forward and the sm90 backward's
+// recompute share one front, conv_front_sm90, whose window pass is
+// glu_dwconv_wide_kernel (8 channels a thread, 16-byte loads, several
+// frames a thread); the tile body keeps glu_dwconv_kernel, which takes any D
+// and any alignment.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -64,6 +66,20 @@ using nsd::Tr;
 constexpr int kMaxTaps = 64;
 constexpr int kTimeTile = 64;
 constexpr int kChanTile = 32;
+// glu_dwconv_wide_kernel's tiling: 128 channels a block, 8 a thread, and
+// kWideFrames frames a thread, so 256 threads cover 64 frames
+constexpr int kWideChan = 128;
+constexpr int kWideGroups = kWideChan / 8;
+constexpr int kWideFrames = 4;
+constexpr int kWideTime = 256 / kWideGroups * kWideFrames;
+// Parts of glu_dwconv_wide_kernel that a build with -DNSD_WINDOW_CUT=<bits>
+// leaves out, so that tools/window_ablation.py can time what is left (such a
+// build computes wrong numbers): bit 0 the loads of hq and the GLU (the
+// window is zeros), bit 1 the staging of the taps, bit 2 the window sums.
+// The library is built without it: nothing is left out.
+#ifndef NSD_WINDOW_CUT
+#define NSD_WINDOW_CUT 0
+#endif
 
 struct Shape {
   int b, t, d, kw, pad_l;
@@ -190,6 +206,130 @@ __global__ void __launch_bounds__(256)
   }
 }
 
+// v[0..8) = the 8 bf16 at q, 16-byte aligned, as float.
+__device__ __forceinline__ void bf16x8(const bf16* q, float* v) {
+  const uint4 u = *reinterpret_cast<const uint4*>(q);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+
+// glu_dwconv_kernel's function for bf16 with D a multiple of 8 (the sm90
+// bodies): a block of 256 threads takes 64 frames by 128 channels of one
+// batch row. Its window of gluq (64 + k - 1 frames, zero outside [0, T)) is
+// written to shared memory as bf16, which holds gluq exactly, from 16-byte
+// loads of a and g (8 channels a thread); the block's taps are staged there
+// once, each group of 8 channels stored as two halves of 4 so that a
+// quarter-warp's 16-byte reads fall on distinct banks. A thread then owns 8
+// channels of 4 consecutive frames: it walks the taps in order and keeps
+// the 4 window rows they need in registers, loading one new row a tap, so
+// that one row read feeds 4 outputs. The sums are the old kernel's, in its
+// order: acc starts at -0 (a fused multiply-add onto -0 is the product
+// itself, its sign included), acc = fma(w[r + k], taps[k], acc) for k = 0,
+// 1, ..., then + dw_b and one rounding.
+__global__ void __launch_bounds__(256, 2)
+    glu_dwconv_wide_kernel(const bf16* __restrict__ hq, const float* __restrict__ taps,
+                           const float* __restrict__ dw_b, bf16* __restrict__ cq, Shape p) {
+  extern __shared__ __align__(16) uint8_t wide_smem[];
+  float* stap = reinterpret_cast<float*>(wide_smem);  // [k][2 halves][16 groups][4]
+  bf16* win = reinterpret_cast<bf16*>(wide_smem + (size_t)p.kw * kWideChan * 4);
+  const int c0 = blockIdx.x * kWideChan, t0 = blockIdx.y * kWideTime, b = blockIdx.z;
+  const int rows = kWideTime + p.kw - 1;
+  // the taps: 4 channels a 16-byte load where they are aligned, else 1
+  const bool taps16 = (reinterpret_cast<uintptr_t>(taps) & 15) == 0 && !(NSD_WINDOW_CUT & 2);
+  const bool taps4 = !taps16 && !(NSD_WINDOW_CUT & 2);
+  for (int i = threadIdx.x; taps16 && i < p.kw * kWideChan / 4; i += 256) {
+    const int k = i / (kWideChan / 4), c = i % (kWideChan / 4) * 4;
+    reinterpret_cast<float4*>(stap)[k * kWideChan / 4 + c % 8 / 4 * kWideGroups + c / 8] =
+        c0 + c < p.d ? *reinterpret_cast<const float4*>(taps + (size_t)k * p.d + c0 + c)
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  for (int i = threadIdx.x; taps4 && i < p.kw * kWideChan; i += 256) {
+    const int k = i / kWideChan, c = i % kWideChan;
+    stap[k * kWideChan + c % 8 / 4 * (kWideChan / 2) + c / 8 * 4 + c % 4] =
+        c0 + c < p.d ? taps[(size_t)k * p.d + c0 + c] : 0.f;
+  }
+  for (int i = threadIdx.x; i < rows * kWideGroups; i += 256) {
+    const int r = i / kWideGroups, grp = i % kWideGroups;
+    const int tt = t0 - p.pad_l + r, ch = c0 + grp * 8;
+    uint4 q = make_uint4(0, 0, 0, 0);
+    if (!(NSD_WINDOW_CUT & 1) && tt >= 0 && tt < p.t && ch < p.d) {
+      const bf16* row = hq + ((size_t)b * p.t + tt) * 2 * p.d + ch;
+      float a[8], g[8];
+      bf16x8(row, a);
+      bf16x8(row + p.d, g);
+      __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&q);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        h[e] = __floats2bfloat162_rn(a[2 * e] * nsd::sigmoid(g[2 * e]),
+                                     a[2 * e + 1] * nsd::sigmoid(g[2 * e + 1]));
+    }
+    *reinterpret_cast<uint4*>(win + r * kWideChan + grp * 8) = q;
+  }
+  __syncthreads();
+  const int grp = threadIdx.x % kWideGroups;
+  const int r0 = threadIdx.x / kWideGroups * kWideFrames;  // frame t0 + r0 + j reads rows r0 + j + k
+  const int ch = c0 + grp * 8;
+  if (ch >= p.d || t0 + r0 >= p.t) return;
+  float acc[kWideFrames][8], ring[kWideFrames][8];  // window row r0 + x in ring[x % kWideFrames]
+#pragma unroll
+  for (int j = 0; j < kWideFrames; ++j)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[j][e] = -0.f;
+#pragma unroll
+  for (int x = 0; x + 1 < kWideFrames; ++x)
+    bf16x8(win + (r0 + x) * kWideChan + grp * 8, ring[x]);
+  for (int k0 = 0; k0 < p.kw && !(NSD_WINDOW_CUT & 4); k0 += kWideFrames) {
+#pragma unroll
+    for (int kk = 0; kk < kWideFrames; ++kk) {
+      const int k = k0 + kk;
+      if (k < p.kw) {
+        bf16x8(win + (r0 + k + kWideFrames - 1) * kWideChan + grp * 8,
+               ring[(kk + kWideFrames - 1) % kWideFrames]);
+        const float4 lo = *reinterpret_cast<const float4*>(stap + k * kWideChan + grp * 4);
+        const float4 hi =
+            *reinterpret_cast<const float4*>(stap + k * kWideChan + kWideChan / 2 + grp * 4);
+        const float tap[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+        for (int j = 0; j < kWideFrames; ++j)
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            acc[j][e] = __fmaf_rn(ring[(j + kk) % kWideFrames][e], tap[e], acc[j][e]);
+      }
+    }
+  }
+  float bias[8];
+  nsd::load8_raw(dw_b + ch, bias);
+#pragma unroll
+  for (int j = 0; j < kWideFrames; ++j) {
+    if (t0 + r0 + j >= p.t) break;
+    uint4 q;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&q);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      h[e] = __floats2bfloat162_rn(__fadd_rn(acc[j][2 * e], bias[2 * e]),
+                                   __fadd_rn(acc[j][2 * e + 1], bias[2 * e + 1]));
+    *reinterpret_cast<uint4*>(cq + ((size_t)b * p.t + t0 + r0 + j) * p.d + ch) = q;
+  }
+}
+
+// cq from hq on glu_dwconv_wide_kernel: D a multiple of 8, hq and cq
+// 16-byte aligned (the workspace's).
+cudaError_t glu_dwconv_wide(const bf16* hq, const float* taps, const float* dwb, bf16* cq,
+                            const Shape& p, cudaStream_t st) {
+  const size_t smem = (size_t)p.kw * kWideChan * 4 + (size_t)(kWideTime + p.kw - 1) * kWideChan * 2;
+  NSD_TRY(cudaFuncSetAttribute(glu_dwconv_wide_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem)));
+  const dim3 grid((p.d + kWideChan - 1) / kWideChan, (p.t + kWideTime - 1) / kWideTime, p.b);
+  glu_dwconv_wide_kernel<<<grid, 256, smem, st>>>(hq, taps, dwb, cq, p);
+  return cudaGetLastError();
+}
+
 // The depthwise conv's and the GLU's backward for 32 channels of one batch
 // row, walking the frames in tiles of 64:
 //   dglu[t] = sum_k dc[t + pad_l - k] * taps[k]  (the flipped taps, k = 0 up)
@@ -264,14 +404,15 @@ __global__ void __launch_bounds__(256)
 }
 
 // The pieces of the workspace (pointers from base, or sizes from nullptr).
-// s2, s1: the sm90 backward's K ranges of dW2 and dW1, or 0 for the tile
-// body.
+// s2, s1: the sm90 backward's K ranges of dW2 and dW1, 1 and 1 for the sm90
+// forward, or 0 for the tile body.
 template <typename T>
 struct Work {
   float2 *st1, *st2;
   T *hq, *cq;
   float *gm, *dcn, *dc, *dh, *split, *part, *taps_part;
-  T *xn, *s, *gq, *dhq;  // the sm90 backward's operands
+  float* o;              // the sm90 forward: s . W2 + b2 in float32 (rate > 0)
+  T *xn, *s, *gq, *dhq;  // the sm90 operands (gq, dhq: the backward's)
   size_t bytes;
   Work(const Shape& p, bool bwd, char* base, int s2 = 0, int s1 = 0) {
     Carve c;
@@ -282,8 +423,13 @@ struct Work {
     st2 = c.take<float2>(m);
     hq = c.take<T>(m * 2 * d);
     cq = c.take<T>(m * d);
-    gm = dcn = dc = dh = split = part = taps_part = nullptr;
+    gm = dcn = dc = dh = split = part = taps_part = o = nullptr;
     xn = s = gq = dhq = nullptr;
+    if (!bwd && sm90) {
+      xn = c.take<T>(m * d);
+      s = c.take<T>(m * d);
+      o = c.take<float>(m * d);
+    }
     if (bwd) {
       gm = c.take<float>(m * d);
       dcn = c.take<float>(m * d);
@@ -394,10 +540,10 @@ cudaError_t conv_bwd(const T* x, const float* lns, const float* lnb, const T* w1
   return nsd::ln_bwd(dxn, x, w.st1, lns, dx, M, D, st);
 }
 
-// The forward up to cq, s and the second norm's statistics for the sm90
-// backward: xn = cdt(LN(x)) written by a row pass, hq = cdt(xn . W1 + b1) on
-// gemm_sm90.cuh, the GLU and depthwise conv as conv_front, then s =
-// cdt(SiLU(cdt(LN2(cq)))).
+// The front of both sm90 bodies, up to cq, s and the second norm's
+// statistics: xn = cdt(LN(x)) written by a row pass, hq = cdt(xn . W1 + b1)
+// on gemm_sm90.cuh, the GLU and depthwise conv on glu_dwconv_wide_kernel
+// (conv_front's cq, bit for bit), then s = cdt(SiLU(cdt(LN2(cq)))).
 cudaError_t conv_front_sm90(const bf16* x, const float* lns, const float* lnb, const bf16* w1,
                             const float* b1, const float* taps, const float* dwb,
                             const float* ln2s, const float* ln2b, const Work<bf16>& w,
@@ -406,10 +552,26 @@ cudaError_t conv_front_sm90(const bf16* x, const float* lns, const float* lnb, c
   NSD_TRY((nsd::ln_apply<bf16, false>(x, w.st1, lns, lnb, w.xn, M, D, st)));
   NSD_TRY((sm90::gemm<false, true>(w.xn, w1, b1, sm90::StoreBf16{w.hq, 2 * D}, M, 2 * D, D,
                                    1, st)));
-  const dim3 grid((D + kChanTile - 1) / kChanTile, (p.t + kTimeTile - 1) / kTimeTile, p.b);
-  glu_dwconv_kernel<bf16><<<grid, 256, window_bytes(p, 1), st>>>(w.hq, taps, dwb, w.cq, p);
-  NSD_TRY(cudaGetLastError());
+  NSD_TRY(glu_dwconv_wide(w.hq, taps, dwb, w.cq, p, st));
   return nsd::ln_apply<bf16, true>(w.cq, w.st2, ln2s, ln2b, w.s, M, D, st);
+}
+
+// The forward's sm90 body (bf16): the front, then o = s . W2 + b2 on
+// gemm_sm90.cuh: at rate 0 bias + one rounding in the product's store
+// (OutEpi's value); otherwise o stored in float32 and the output dropout
+// (salt b) applied by a pass that rounds.
+cudaError_t conv_fwd_sm90(const bf16* x, const float* lns, const float* lnb, const bf16* w1,
+                          const float* b1, const float* taps, const float* dwb,
+                          const float* ln2s, const float* ln2b, const bf16* w2,
+                          const float* b2, const int32_t* seed, bf16* out, char* ws,
+                          const Shape& p, cudaStream_t st) {
+  Work<bf16> w(p, false, ws, 1, 1);
+  const int M = p.m(), D = p.d;
+  NSD_TRY(conv_front_sm90(x, lns, lnb, w1, b1, taps, dwb, ln2s, ln2b, w, p, st));
+  if (p.rate <= 0.f)
+    return sm90::gemm<false, true>(w.s, w2, b2, sm90::StoreBf16{out, D}, M, D, D, 1, st);
+  NSD_TRY((sm90::gemm<false, true>(w.s, w2, b2, nsd::StoreF32{w.o, D}, M, D, D, 1, st)));
+  return nsd::each8(nsd::DropRoundPass{w.o, seed, out, p.t, 0, D, p.rate, p.inv}, M, D, st);
 }
 
 // The backward's sm90 body (bf16): conv_bwd's stages, every product on
@@ -461,6 +623,8 @@ cudaError_t conv_bwd_sm90(const bf16* x, const float* lns, const float* lnb, con
 bool bad_shape(int b, int t, int d, int kw, int pad_l) {
   return b < 1 || t < 1 || d < 1 || kw < 1 || kw > kMaxTaps || pad_l < 0 || pad_l >= kw;
 }
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 Shape make_shape(int b, int t, int d, int kw, int pad_l, float rate, float inv) {
   Shape p;
@@ -527,6 +691,34 @@ long long nsd_conv_workspace(int b, int t, int d, int kw, int bf16, int bwd) {
 
 NSD_CONV_ENTRIES(f32, float)
 NSD_CONV_ENTRIES(bf16, __nv_bfloat16)
+
+// Bytes of workspace the sm90 forward takes.
+long long nsd_conv_fwd_sm90_workspace(int b, int t, int d, int kw) {
+  const Shape p = make_shape(b, t, d, kw, 0, 0.f, 1.f);
+  return static_cast<long long>(Work<bf16>(p, false, nullptr, 1, 1).bytes);
+}
+
+// The bf16 forward on gemm_sm90.cuh: nsd_conv_fwd_bf16's arguments. D a
+// multiple of 8, x, W1, W2 and out 16-byte aligned: cudaErrorInvalidValue
+// otherwise.
+int nsd_conv_fwd_sm90(const void* x, const void* lns, const void* lnb, const void* w1,
+                      const void* b1, const void* taps, const void* dwb, const void* ln2s,
+                      const void* ln2b, const void* w2, const void* b2, const void* seed,
+                      void* out, void* ws, int b, int t, int d, int kw, int pad_l, float rate,
+                      float inv, void* stream) {
+  if (bad_shape(b, t, d, kw, pad_l) || d % 8 || !aligned16(x) || !aligned16(w1) ||
+      !aligned16(w2) || !aligned16(out))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(conv_fwd_sm90(
+      static_cast<const bf16*>(x), static_cast<const float*>(lns),
+      static_cast<const float*>(lnb), static_cast<const bf16*>(w1),
+      static_cast<const float*>(b1), static_cast<const float*>(taps),
+      static_cast<const float*>(dwb), static_cast<const float*>(ln2s),
+      static_cast<const float*>(ln2b), static_cast<const bf16*>(w2),
+      static_cast<const float*>(b2), static_cast<const int32_t*>(seed), static_cast<bf16*>(out),
+      static_cast<char*>(ws), make_shape(b, t, d, kw, pad_l, rate, inv),
+      static_cast<cudaStream_t>(stream)));
+}
 
 // Bytes of workspace the sm90 backward takes with s2 and s1 K ranges.
 long long nsd_conv_bwd_sm90_workspace(int b, int t, int d, int kw, int s2, int s1) {

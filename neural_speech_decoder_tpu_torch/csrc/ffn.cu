@@ -42,18 +42,21 @@
 // vector gradients are column sums in a fixed order: no atomics, so a run
 // repeats bit for bit (csrc/gemm_tile.cuh, csrc/rowops.cuh).
 //
-// Two backward bodies. The tile body (float32, and any shape TMA cannot
-// read) runs the products on gemm_tile.cuh, whose loaders apply the norm and
-// round gm and ds to cdt as the tiles load. The sm90 body (bf16, D and F
-// multiples of 8) runs all five on gemm_sm90.cuh's TMA ring into wgmma,
-// which reads bf16 arrays where they lie and applies nothing as it loads: so
-// each operand is written once as the bf16 array the loader would have
-// given, the same bits (xn = cdt(LN(x)) by a row pass beside the norm's
+// Two bodies in each direction. The tile body (float32, and any shape TMA
+// cannot read) runs the products on gemm_tile.cuh, whose loaders apply the
+// norm and round gm and ds to cdt as the tiles load. The sm90 body (bf16, D
+// and F multiples of 8) runs every product on gemm_sm90.cuh's TMA ring into
+// wgmma, which reads bf16 arrays where they lie and applies nothing as it
+// loads: so each operand is written once as the bf16 array the loader would
+// have given, the same bits (xn = cdt(LN(x)) by a row pass beside the norm's
 // statistics, gq = cdt(gm) beside the float32 gm that db2 sums, dsq =
 // cdt(ds) beside the float32 ds that db1 sums; 41-82 MB each at the
-// recipe's shapes, against 420 GFLOP of products). The dW products take the
-// K-range counts of the caller's plan (ops/kernels/ffn.py::bwd_plan), their
-// partial sums added in order.
+// recipe's shapes, against 168 GFLOP of forward and 420 of backward
+// products). Both sm90 directions share the front, ffn_front_sm90 (xn, s
+// and the dropped h); the forward's second product stores bias + one
+// rounding at rate 0 and float32 sums for a dropout pass otherwise. The dW
+// products take the K-range counts of the caller's plan
+// (ops/kernels/ffn.py::bwd_plan), their partial sums added in order.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -197,18 +200,19 @@ struct DsPass {
 };
 
 // The pieces of the workspace (pointers from base, or sizes from nullptr).
-// sm90_splits: the sm90 backward's larger dW range count, or 0 for the tile
-// body.
+// sm90_splits: the sm90 backward's larger dW range count, 1 for the sm90
+// forward, or 0 for the tile body.
 template <typename T>
 struct Work {
   float2* stats;
-  T* h;       // forward: h; backward: hq, the dropped h that W2 multiplied
-  T* s;       // backward: the rounded pre-activation
+  T* h;       // the dropped h that W2 multiplies
+  T* s;       // sm90 and backward: the rounded pre-activation
   float* gm;  // backward: g through site 1; later dxn
   float* ds;
   float* split;
   float* part;
-  T *xn, *gq, *dsq;  // the sm90 backward's operands: cdt(LN(x)), cdt(gm), cdt(ds)
+  float* o;          // the sm90 forward: h . W2 + b2 in float32 (rate > 0)
+  T *xn, *gq, *dsq;  // the sm90 operands: cdt(LN(x)); backward cdt(gm), cdt(ds)
   size_t bytes;
   Work(const Shape& p, bool bwd, char* base, int sm90_splits = 0) {
     Carve c;
@@ -217,8 +221,13 @@ struct Work {
     stats = c.take<float2>(m);
     h = c.take<T>(m * p.f);
     s = nullptr;
-    gm = ds = split = part = nullptr;
+    gm = ds = split = part = o = nullptr;
     xn = gq = dsq = nullptr;
+    if (!bwd && sm90_splits > 0) {
+      xn = c.take<T>(m * p.d);
+      s = c.take<T>(m * p.f);
+      o = c.take<float>(m * p.d);
+    }
     if (bwd) {
       s = c.take<T>(m * p.f);
       gm = c.take<float>(m * p.d);
@@ -291,6 +300,38 @@ cudaError_t ffn_bwd(const T* x, const float* scale, const float* bias, const T* 
   return nsd::ln_bwd(dxn, x, w.stats, scale, dx, M, p.d, st);
 }
 
+// The front of both sm90 bodies (bf16): xn = cdt(LN(x)) by a row pass, s =
+// cdt(xn . W1 + b1) on gemm_sm90.cuh (bias + one rounding in its store), and
+// h = cdt(SiLU(s)) through dropout site 0 by a pass (Lin1Epi's values).
+cudaError_t ffn_front_sm90(const bf16* x, const float* scale, const float* bias,
+                           const bf16* w1, const float* b1, const int32_t* seed,
+                           const Work<bf16>& w, const Shape& p, cudaStream_t st) {
+  const int M = p.m();
+  NSD_TRY((nsd::ln_apply<bf16, false>(x, w.stats, scale, bias, w.xn, M, p.d, st)));
+  NSD_TRY((sm90::gemm<false, true>(w.xn, w1, b1, sm90::StoreBf16{w.s, p.f}, M, p.f, p.d, 1,
+                                   st)));
+  const Lin1Epi<bf16> lin1{b1, seed, w.h, w.s, p.t, p.f, p.rate, p.inv_h};
+  return nsd::each8(SiluDropPass{lin1}, M, p.f, st);
+}
+
+// The forward's sm90 body (bf16): the front, then o = h . W2 + b2 on
+// gemm_sm90.cuh. At rate 0 the product's store adds the bias and rounds once
+// (Lin2Epi's value); otherwise it stores o in float32 and a pass applies
+// dropout site 1 and rounds (the hash in an epilogue would run on one block
+// an SM behind the main loop).
+cudaError_t ffn_fwd_sm90(const bf16* x, const float* scale, const float* bias, const bf16* w1,
+                         const float* b1, const bf16* w2, const float* b2, const int32_t* seed,
+                         bf16* out, char* ws, const Shape& p, cudaStream_t st) {
+  Work<bf16> w(p, false, ws, 1);
+  const int M = p.m();
+  NSD_TRY(ffn_front_sm90(x, scale, bias, w1, b1, seed, w, p, st));
+  if (p.rate <= 0.f)
+    return sm90::gemm<false, true>(w.h, w2, b2, sm90::StoreBf16{out, p.d}, M, p.d, p.f, 1, st);
+  NSD_TRY((sm90::gemm<false, true>(w.h, w2, b2, nsd::StoreF32{w.o, p.d}, M, p.d, p.f, 1, st)));
+  return nsd::each8(nsd::DropRoundPass{w.o, seed, out, p.t, p.b, p.d, p.rate, p.inv}, M, p.d,
+                    st);
+}
+
 // The backward's sm90 body (bf16): ffn_bwd's stages, every product on
 // gemm_sm90.cuh reading bf16 operands written once (see the header); s2 and
 // s1 are the K ranges of dW2 and dW1.
@@ -301,12 +342,8 @@ cudaError_t ffn_bwd_sm90(const bf16* x, const float* scale, const float* bias, c
                          cudaStream_t st) {
   Work<bf16> w(p, true, ws, s2 > s1 ? s2 : s1);
   const int M = p.m();
-  // the forward again from xn = cdt(LN(x)), keeping s and the dropped h
-  NSD_TRY((nsd::ln_apply<bf16, false>(x, w.stats, scale, bias, w.xn, M, p.d, st)));
-  const Lin1Epi<bf16> lin1{b1, seed, w.h, w.s, p.t, p.f, p.rate, p.inv_h};
-  NSD_TRY((sm90::gemm<false, true>(w.xn, w1, b1, sm90::StoreBf16{w.s, p.f}, M, p.f, p.d, 1,
-                                   st)));
-  NSD_TRY(nsd::each8(SiluDropPass{lin1}, M, p.f, st));
+  // the forward again, keeping xn, s and the dropped h
+  NSD_TRY(ffn_front_sm90(x, scale, bias, w1, b1, seed, w, p, st));
   // through the output dropout (gm, and gq = cdt(gm)); db2; dW2 = hq^T . gq
   NSD_TRY(nsd::mask_grad(g, seed, w.gm, w.gq, p.b, p.t, p.d, p.b, p.rate, p.inv, st));
   NSD_TRY(nsd::colsum(nsd::Elem{w.gm, p.d}, w.part, db2, M, p.d, st));
@@ -345,6 +382,8 @@ __global__ void ffn_masks_kernel(const int32_t* __restrict__ seed, uint8_t* __re
 }
 
 bool bad_shape(int b, int t, int d, int f) { return b < 1 || t < 1 || d < 1 || f < 1; }
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 Shape make_shape(int b, int t, int d, int f, float rate, float inv, float inv_h) {
   Shape p;
@@ -404,6 +443,31 @@ long long nsd_ffn_workspace(int b, int t, int d, int f, int bf16, int bwd) {
 
 NSD_FFN_ENTRIES(f32, float)
 NSD_FFN_ENTRIES(bf16, __nv_bfloat16)
+
+// Bytes of workspace the sm90 forward takes.
+long long nsd_ffn_fwd_sm90_workspace(int b, int t, int d, int f) {
+  const Shape p = make_shape(b, t, d, f, 0.f, 1.f, 1.f);
+  return static_cast<long long>(Work<bf16>(p, false, nullptr, 1).bytes);
+}
+
+// The bf16 forward on gemm_sm90.cuh: nsd_ffn_fwd_bf16's arguments. D and F
+// multiples of 8, x, W1, W2 and out 16-byte aligned: cudaErrorInvalidValue
+// otherwise.
+int nsd_ffn_fwd_sm90(const void* x, const void* scale, const void* bias, const void* w1,
+                     const void* b1, const void* w2, const void* b2, const void* seed,
+                     void* out, void* ws, int b, int t, int d, int f, float rate, float inv,
+                     float inv_h, void* stream) {
+  if (bad_shape(b, t, d, f) || d % 8 || f % 8 || !aligned16(x) || !aligned16(w1) ||
+      !aligned16(w2) || !aligned16(out))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(ffn_fwd_sm90(
+      static_cast<const bf16*>(x), static_cast<const float*>(scale),
+      static_cast<const float*>(bias), static_cast<const bf16*>(w1),
+      static_cast<const float*>(b1), static_cast<const bf16*>(w2),
+      static_cast<const float*>(b2), static_cast<const int32_t*>(seed), static_cast<bf16*>(out),
+      static_cast<char*>(ws), make_shape(b, t, d, f, rate, inv, inv_h),
+      static_cast<cudaStream_t>(stream)));
+}
 
 // Bytes of workspace the sm90 backward takes with s2 and s1 K ranges.
 long long nsd_ffn_bwd_sm90_workspace(int b, int t, int d, int f, int s2, int s1) {

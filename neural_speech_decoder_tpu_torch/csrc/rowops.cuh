@@ -258,6 +258,32 @@ cudaError_t mask_grad(const T* g, const int32_t* seed, float* gm, T* gq, int bat
   return cudaGetLastError();
 }
 
+// out = bf16(o) through a dropout site, o [batch * n_time, ld] a product's
+// float32 sums with its bias: kept where uniform2d(seed, b + salt_offset, t,
+// col) >= rate and scaled by the float32 inv, then rounded once; 8 columns
+// a call (each8), o and out 16-byte aligned.
+struct DropRoundPass {
+  const float* o;
+  const int32_t* seed;
+  __nv_bfloat16* out;
+  int n_time, salt_offset, ld;
+  float rate, inv;
+  __device__ __forceinline__ void operator()(int m, int n) const {
+    const size_t i = (size_t)m * ld + n;
+    float v[8];
+    load8_raw(o + i, v);
+    const int bb = m / n_time, t = m - bb * n_time;
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      v[k] = hash_uniform(*seed, bb + salt_offset, t, n + k) >= rate ? v[k] * inv : 0.f;
+    uint4 u;
+    __nv_bfloat162* q = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) q[k] = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
+    *reinterpret_cast<uint4*>(out + i) = u;
+  }
+};
+
 // fn(m, n) for every row m < M and n = 0, 8, 16, ... < N: an elementwise
 // pass over an M x N array, 8 consecutive columns a thread (16-byte loads
 // and stores where N % 8 == 0), at full occupancy.

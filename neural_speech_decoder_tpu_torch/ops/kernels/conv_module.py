@@ -12,11 +12,12 @@ written step by step as the TPU kernel, for a CPU tensor; it raises for any
 other device or a shape the kernel does not take (taps beyond 64).
 ``<wrapper>.launches`` counts its calls that launched the kernel.
 ``ConvModule`` is the ``torch.autograd.Function``; it saves the inputs and
-the seed, and the backward recomputes the forward. The backward's two
-bodies, ``"sm90"`` (bfloat16 with D a multiple of 8: its five products on
-``csrc/gemm_sm90.cuh``) and ``"tile"``, are the FF module's
-(``ffn.py::bwd_plan``); ``conv_module_bwd.launches_by_body`` counts them and
-``body=`` forces one.
+the seed, and the backward recomputes the forward. The two bodies of each
+direction, ``"sm90"`` (bfloat16 with D a multiple of 8: the products on
+``csrc/gemm_sm90.cuh``, the GLU and depthwise conv on the wide window
+kernel) and ``"tile"``, are the FF module's (``ffn.py::bwd_plan``);
+``conv_module.launches_by_body`` and ``conv_module_bwd.launches_by_body``
+count them and ``body=`` forces one.
 
 Semantics, the TPU kernel's (``models/conformer.py::_conv_module`` without
 the residual): layer norm (float32 statistics) cast to x's dtype (cdt) ->
@@ -43,6 +44,7 @@ from .ffn import (
     check_args,
     check_rate,
     cuda_bwd_plan,
+    fwd_plan,
     inv_keep,
     keep_mask,
     mm_f32,
@@ -203,12 +205,13 @@ def _workspace(x, kw, bwd: bool) -> torch.Tensor:
 
 
 def conv_module(x, ln_s, ln_b, w1, b1, dw_w, dw_b, ln2_s, ln2_b, w2, b2, seed, *,
-                rate: float = 0.0, causal: bool = False) -> torch.Tensor:
+                rate: float = 0.0, causal: bool = False, body=None) -> torch.Tensor:
     """The conv module (without residual) over ``x [B, T, D]`` (float32 or
     bfloat16): norms' scales and biases, ``b1 [2D]``, ``b2 [D]``, ``dw_w [k,
     D]`` and ``dw_b [D]`` float32; ``w1 [D, 2D]``, ``w2 [D, D]`` in x's
     dtype; dropout ``rate`` from ``seed [1]`` int32 -> ``[B, T, D]`` in x's
-    dtype."""
+    dtype. ``body`` (``"sm90"`` or ``"tile"``) overrides the plan's choice
+    on the card."""
     check_rate(rate)
     if not on_cuda("conv_module", x):
         return conv_module_plain(x, ln_s, ln_b, w1, b1, dw_w, dw_b, ln2_s, ln2_b, w2, b2,
@@ -219,14 +222,25 @@ def conv_module(x, ln_s, ln_b, w1, b1, dw_w, dw_b, ln2_s, ln2_b, w2, b2, seed, *
     x, w1, w2, dw_w = x.contiguous(), w1.contiguous(), w2.contiguous(), dw_w.contiguous()
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
-        ws = _workspace(x, kw, False)
-        rc = getattr(load_library(), f"nsd_conv_fwd_{_DTYPES[x.dtype]}")(
-            x.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-            dw_w.data_ptr(), dw_b.data_ptr(), ln2_s.data_ptr(), ln2_b.data_ptr(),
-            w2.data_ptr(), b2.data_ptr(), seed.data_ptr(), out.data_ptr(), ws.data_ptr(),
-            *_launch_args(x, kw, rate, causal), torch.cuda.current_stream().cuda_stream)
-    check(rc, "conv_module")
+        plan = fwd_plan("conv_module", x, w1, w2, body)
+        lib = load_library()
+        ptrs = (x.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+                dw_w.data_ptr(), dw_b.data_ptr(), ln2_s.data_ptr(), ln2_b.data_ptr(),
+                w2.data_ptr(), b2.data_ptr(), seed.data_ptr(), out.data_ptr())
+        b, t, d = x.shape
+        stream = torch.cuda.current_stream().cuda_stream
+        if plan.body == "sm90":
+            ws = torch.empty(lib.nsd_conv_fwd_sm90_workspace(b, t, d, kw), dtype=torch.uint8,
+                             device=x.device)
+            rc = lib.nsd_conv_fwd_sm90(*ptrs, ws.data_ptr(), *_launch_args(x, kw, rate, causal),
+                                       stream)
+        else:
+            ws = _workspace(x, kw, False)
+            rc = getattr(lib, f"nsd_conv_fwd_{_DTYPES[x.dtype]}")(
+                *ptrs, ws.data_ptr(), *_launch_args(x, kw, rate, causal), stream)
+    check(rc, f"conv_module ({plan.body})")
     conv_module.launches += 1
+    conv_module.launches_by_body[plan.body] += 1
     return out
 
 
@@ -278,6 +292,7 @@ def conv_module_bwd(x, ln_s, ln_b, w1, b1, dw_w, dw_b, ln2_s, ln2_b, w2, seed, g
 
 
 conv_module.launches = 0
+conv_module.launches_by_body = {"sm90": 0, "tile": 0}
 conv_module_bwd.launches = 0
 conv_module_bwd.launches_by_body = {"sm90": 0, "tile": 0}
 

@@ -18,15 +18,15 @@ column sums). ``FFN`` is the ``torch.autograd.Function``: it saves
 ``(x, scale, bias, w1, b1, w2, seed)``, as the TPU kernel's residuals, and
 the backward recomputes the forward.
 
-The backward has two bodies, which ``bwd_plan`` picks from the dtype, the
-widths and the pointers' alignment before any launch: ``"sm90"`` (bfloat16:
-its five products on ``csrc/gemm_sm90.cuh``'s TMA + wgmma pipeline, from
-bf16 operands written once, the dW products cut into the K ranges the plan
-gives) and ``"tile"`` (float32, and what TMA cannot read:
-``csrc/gemm_tile.cuh``). ``ffn_bwd.launches_by_body`` counts its launches
-by body; ``ffn_bwd(..., body="tile")`` forces the tile body (an A/B), and
-a body the shape cannot take raises. The conv module's backward
-(``conv_module.py``) shares the plan.
+The forward and the backward each have two bodies, which ``bwd_plan``
+picks from the dtype, the widths and the pointers' alignment before any
+launch: ``"sm90"`` (bfloat16: every product on ``csrc/gemm_sm90.cuh``'s
+TMA + wgmma pipeline, from bf16 operands written once; the backward's dW
+products cut into the K ranges the plan gives) and ``"tile"`` (float32, and
+what TMA cannot read: ``csrc/gemm_tile.cuh``). ``ffn.launches_by_body`` and
+``ffn_bwd.launches_by_body`` count launches by body; ``body="tile"``
+forces the tile body (an A/B), and a body the shape cannot take raises.
+The conv module (``conv_module.py``) shares the plan.
 
 Semantics, the TPU kernel's (``models/conformer.py::_ff_module`` without the
 0.5 half-step scale, DropPath and residual): layer norm with float32
@@ -116,7 +116,8 @@ def bwd_plan(dtype: torch.dtype, rows: int, dw_shapes, n_sms: int, *,
 def cuda_bwd_plan(what: str, x: torch.Tensor, tensors, dw_shapes, body) -> BwdPlan:
     """``bwd_plan`` for CUDA tensors on x's card (``tensors``: those whose
     pointers TMA or the row passes read), or the tile body where ``body``
-    asks for it; raise where ``body`` names one the shape cannot take."""
+    asks for it; raise where ``body`` names one the shape cannot take. A
+    forward passes its weights' shapes and uses only the body."""
     plan = bwd_plan(x.dtype, x.shape[0] * x.shape[1], dw_shapes,
                     torch.cuda.get_device_properties(x.device).multi_processor_count,
                     aligned=all(t.data_ptr() % 16 == 0 for t in tensors))
@@ -287,11 +288,20 @@ def _workspace(b, t, d, f, x, bwd: bool) -> torch.Tensor:
     return torch.empty(n, dtype=torch.uint8, device=x.device)
 
 
-def ffn(x, scale, bias, w1, b1, w2, b2, seed, *, rate: float = 0.0) -> torch.Tensor:
+def fwd_plan(what: str, x, w1, w2, body=None) -> BwdPlan:
+    """A fused forward's body on x's card: ``cuda_bwd_plan`` with the
+    weights' shapes (both modules' forwards read x, W1 and W2 by TMA or row
+    passes)."""
+    return cuda_bwd_plan(what, x, (x, w1, w2), (tuple(w1.shape), tuple(w2.shape)), body)
+
+
+def ffn(x, scale, bias, w1, b1, w2, b2, seed, *, rate: float = 0.0,
+        body=None) -> torch.Tensor:
     """The FF module over ``x [B, T, D]`` (float32 or bfloat16): ``scale,
     bias [D]``, ``b1 [F]``, ``b2 [D]`` float32, ``w1 [D, F]``, ``w2 [F, D]``
     in x's dtype, dropout ``rate`` drawn from ``seed [1]`` int32 -> ``[B, T,
-    D]`` in x's dtype."""
+    D]`` in x's dtype. ``body`` (``"sm90"`` or ``"tile"``) overrides the
+    plan's choice on the card."""
     check_rate(rate)
     if not on_cuda("ffn", x):
         return ffn_plain(x, scale, bias, w1, b1, w2, b2, seed, rate=rate)
@@ -302,14 +312,23 @@ def ffn(x, scale, bias, w1, b1, w2, b2, seed, *, rate: float = 0.0) -> torch.Ten
     out = torch.empty_like(x)
     r, inv, inv_h = _scalars(rate, x.dtype)
     with torch.cuda.device(x.device):
-        ws = _workspace(b, t, d, f, x, False)
-        rc = getattr(load_library(), f"nsd_ffn_fwd_{_DTYPES[x.dtype]}")(
-            x.data_ptr(), scale.data_ptr(), bias.data_ptr(), w1.data_ptr(),
-            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), seed.data_ptr(),
-            out.data_ptr(), ws.data_ptr(), b, t, d, f, r, inv, inv_h,
-            torch.cuda.current_stream().cuda_stream)
-    check(rc, "ffn")
+        plan = fwd_plan("ffn", x, w1, w2, body)
+        lib = load_library()
+        ptrs = (x.data_ptr(), scale.data_ptr(), bias.data_ptr(), w1.data_ptr(),
+                b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), seed.data_ptr(),
+                out.data_ptr())
+        stream = torch.cuda.current_stream().cuda_stream
+        if plan.body == "sm90":
+            ws = torch.empty(lib.nsd_ffn_fwd_sm90_workspace(b, t, d, f), dtype=torch.uint8,
+                             device=x.device)
+            rc = lib.nsd_ffn_fwd_sm90(*ptrs, ws.data_ptr(), b, t, d, f, r, inv, inv_h, stream)
+        else:
+            ws = _workspace(b, t, d, f, x, False)
+            rc = getattr(lib, f"nsd_ffn_fwd_{_DTYPES[x.dtype]}")(
+                *ptrs, ws.data_ptr(), b, t, d, f, r, inv, inv_h, stream)
+    check(rc, f"ffn ({plan.body})")
     ffn.launches += 1
+    ffn.launches_by_body[plan.body] += 1
     return out
 
 
@@ -375,6 +394,7 @@ def ffn_dropout_masks(b: int, t: int, d: int, f: int, seed: torch.Tensor, rate: 
 
 
 ffn.launches = 0
+ffn.launches_by_body = {"sm90": 0, "tile": 0}
 ffn_bwd.launches = 0
 ffn_bwd.launches_by_body = {"sm90": 0, "tile": 0}
 ffn_dropout_masks.launches = 0

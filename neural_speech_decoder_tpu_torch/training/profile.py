@@ -112,9 +112,10 @@ def device_split(fn, reps: int = 3) -> list[tuple[str, int, float]]:
                    for e in events), key=lambda r: -r[2])
 
 
-# The stages of the fused FF and conv-module backwards, by the names of their
-# kernels: (stage, substrings of a kernel's name), matched in this order
-FUSED_BWD_STAGES = (
+# The stages of the fused FF and conv modules' forwards and backwards, by the
+# names of their kernels: (stage, substrings of a kernel's name), matched in
+# this order
+FUSED_STAGES = (
     ("products", ("gemm_sm90", "gemm_wmma", "gemm_fma")),
     ("split_sum", ("split_sum",)),
     ("ln_stats / bf16 copies", ("ln_stats", "ln_apply")),
@@ -127,7 +128,7 @@ FUSED_BWD_STAGES = (
 )
 
 
-def by_stage(rows, stages=FUSED_BWD_STAGES) -> dict[str, float]:
+def by_stage(rows, stages=FUSED_STAGES) -> dict[str, float]:
     """``device_split``'s rows summed by stage (ms a call); kernels that
     match no stage under "other"."""
     out: dict[str, float] = {}

@@ -777,6 +777,90 @@ def test_fused_bwd_bodies_by_dtype_and_shape(cuda, module):
         _bwd_run(module, x, params, seed, gout, body="sm90")
 
 
+def _fwd_run(module, x, params, seed, **kw):
+    """One forward of ``module`` ("ffn" or "conv") on the kernel."""
+    return (ffn if module == "ffn" else conv_module)(x, *params, seed, **kw)
+
+
+def _fwd_plain(module, x, params, seed, **kw):
+    return (ffn_plain if module == "ffn" else conv_module_plain)(x, *params, seed, **kw)
+
+
+_FWD_WRAPPER = {"ffn": ffn, "conv": conv_module}
+
+
+@pytest.mark.parametrize("module, b, t, d, f_or_kw, extra", [
+    # B*T' = 129, F = 264, D = 136 (a ragged channel tile of the window kernel)
+    ("ffn", 3, 43, 136, 264, {}),
+    ("conv", 3, 43, 136, 7, {}),
+    ("conv", 3, 43, 136, 31, {"causal": True}),
+    ("conv", 2, 70, 136, 63, {"causal": True}),  # the window kernel's largest taps
+    # the recipe's shapes
+    ("ffn", 64, 313, 1024, 2048, {}),
+    ("conv", 64, 313, 1024, 31, {}),
+    ("conv", 64, 313, 1024, 31, {"causal": True}),
+])
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+def test_fused_fwd_sm90_body_matches_plain(cuda, module, b, t, d, f_or_kw, extra, rate):
+    """The bf16 forwards on the sm90 body (TMA + wgmma, the wide window
+    kernel) against the plain version within FUSED_TOL; reruns bit-equal."""
+    x, params, _ = _bwd_case(cuda, module, b, t, d, f_or_kw)
+    seed = torch.tensor([41], dtype=torch.int32, device=cuda)
+    wrapper = _FWD_WRAPPER[module]
+    before = dict(wrapper.launches_by_body)
+    out = _fwd_run(module, x, params, seed, rate=rate, **extra)
+    again = _fwd_run(module, x, params, seed, rate=rate, **extra)
+    ref = _fwd_plain(module, x, params, seed, rate=rate, **extra)
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in wrapper.launches_by_body.items()} == {"sm90": 2,
+                                                                              "tile": 0}
+    assert out.dtype == ref.dtype and torch.equal(out, again)
+    assert _rel(out, ref) <= FUSED_TOL[torch.bfloat16], _rel(out, ref)
+
+
+@pytest.mark.parametrize("module", ["ffn", "conv"])
+def test_fused_fwd_bodies_by_dtype_and_shape(cuda, module):
+    """bf16 with widths that are multiples of 8 runs on sm90, float32 and a
+    bf16 D of 100 on the tile body; body="tile" forces the tile body within
+    the plain version's tolerance; body="sm90" where it cannot run raises."""
+    wrapper = _FWD_WRAPPER[module]
+    seed = torch.tensor([5], dtype=torch.int32, device=cuda)
+    case = _ffn_case if module == "ffn" else _conv_case
+    cases = [(torch.bfloat16, 96, {}, "sm90"), (torch.float32, 96, {}, "tile"),
+             (torch.bfloat16, 100, {}, "tile"),
+             (torch.bfloat16, 96, {"body": "tile"}, "tile")]
+    for dtype, d, kw, body in cases:
+        x, params, _ = case(cuda, dtype, 2, 37, d, 200 if module == "ffn" else 7)
+        before = dict(wrapper.launches_by_body)
+        out = _fwd_run(module, x, params, seed, rate=0.2, **kw)
+        ref = _fwd_plain(module, x, params, seed, rate=0.2)
+        torch.cuda.synchronize()
+        assert {k: v - before[k] for k, v in wrapper.launches_by_body.items()} == {
+            b: int(b == body) for b in before}, (dtype, d, kw)
+        assert _rel(out, ref) <= FUSED_TOL[dtype]
+    x, params, _ = case(cuda, torch.float32, 2, 37, 96, 200 if module == "ffn" else 7)
+    with pytest.raises(ValueError, match="sm90"):
+        _fwd_run(module, x, params, seed, body="sm90")
+
+
+def test_conv_sm90_window_stages_unaligned_taps(cuda):
+    """Taps whose pointer is off 16 bytes take the window kernel's scalar
+    staging: the same bits as aligned taps, on the sm90 body."""
+    x, params, _ = _conv_case(cuda, torch.bfloat16, 2, 70, 136, 31)
+    seed = torch.tensor([8], dtype=torch.int32, device=cuda)
+    buf = torch.empty(params[4].numel() + 4, device=cuda)
+    taps = buf[1:1 + params[4].numel()].view(params[4].shape)
+    taps.copy_(params[4])
+    assert taps.data_ptr() % 16 and taps.is_contiguous()
+    before = dict(conv_module.launches_by_body)
+    for rate in (0.0, 0.3):
+        out = conv_module(x, *params, seed, rate=rate, causal=True)
+        odd = conv_module(x, *params[:4], taps, *params[5:], seed, rate=rate, causal=True)
+        torch.cuda.synchronize()
+        assert torch.equal(out, odd)
+    assert conv_module.launches_by_body["sm90"] - before["sm90"] == 4
+
+
 def test_fused_kernels_refuse_unsupported_shapes(cuda):
     x, (sc, bi, w1, b1, w2, b2), _ = _ffn_case(cuda, torch.float32, 1, 8, 32, 64)
     seed = torch.zeros(1, dtype=torch.int32, device=cuda)

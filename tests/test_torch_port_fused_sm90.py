@@ -1,19 +1,29 @@
-"""The fused FF and conv-module backwards' choice of body, in the port, on the CPU.
+"""The fused FF and conv-module forwards' and backwards' choice of body, in
+the port, on the CPU.
 
 - ``ops/kernels/ffn.py::bwd_plan`` (shared by ``conv_module.py``): bfloat16
   whose widths are multiples of 8 and whose pointers are 16-byte aligned
   runs on the sm90 body (``csrc/gemm_sm90.cuh``: TMA + wgmma), float32 and
   every other shape on the tile body (``csrc/gemm_tile.cuh``); the dW
   products' K ranges cover all B*T rows once and in order, and at the
-  recipe's shapes their grids reach the H100's 132 SMs.
+  recipe's shapes their grids reach the H100's 132 SMs. The forwards ask
+  the same rule through ``fwd_plan`` with their weights' shapes.
 - The premise of the sm90 body: it writes each product's operand once as a
   bf16 array (xn = cdt(LN(x)), gq = cdt(gm), dsq = cdt(ds) in the FF; xn,
   s = cdt(SiLU(cdt(LN2(cq)))), gq and dhq = cdt(dh) in the conv module)
   where the tile body rounds them as it loads. A staged plain model that
   materialises those arrays in bf16, in the order the sm90 body writes
   them, and then takes float32 products of their values equals
-  ``ffn_bwd_plain`` / ``conv_module_bwd_plain`` bit for bit.
-- On a CPU tensor the backwards run their plain twins and count no launch.
+  ``ffn_bwd_plain`` / ``conv_module_bwd_plain`` bit for bit; the forwards'
+  staged models (xn, s, h, the float32 o, then the output dropout and one
+  rounding) equal ``ffn_plain`` / ``conv_module_plain``.
+- The sm90 bodies' window kernel (``csrc/conv_module.cu::
+  glu_dwconv_wide_kernel``): a plain model of its tiling (128 channels by
+  64 frames a block, 8 channels by 4 frames a thread, a ring of 4 window
+  rows, the taps walked in order from -0) equals ``conv_module.py::
+  _dwconv`` on gluq bit for bit, ragged T and D included.
+- On a CPU tensor the forwards and backwards run their plain twins and
+  count no launch.
 """
 
 import numpy as np
@@ -268,3 +278,209 @@ def test_staged_conv_bwd_equals_the_plain_version_bit_for_bit(rate, causal):
     ref = conv_mod.conv_module_bwd_plain(x, *params, seed, g, rate=rate, causal=causal)
     for i, (a, b) in enumerate(zip(got, ref)):
         assert a.dtype == b.dtype and torch.equal(a, b), i
+
+
+# ------------------------------------------------------------ the forwards
+
+def _fake_card(monkeypatch):
+    """fwd_plan on CPU tensors: the device query answers for an H100."""
+    class _Props:
+        multi_processor_count = H100_SMS
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda *_: _Props())
+
+
+def _weights(module, dtype, d, f=None):
+    g = torch.Generator().manual_seed(1)
+    if module == "ffn":
+        return torch.randn(d, f, generator=g).to(dtype), torch.randn(f, d, generator=g).to(dtype)
+    return (torch.randn(d, 2 * d, generator=g).to(dtype),
+            torch.randn(d, d, generator=g).to(dtype))
+
+
+def _unaligned(t):
+    """t's values in a contiguous tensor whose data lies 2 bytes off 16."""
+    buf = torch.empty(t.numel() + 8, dtype=t.dtype)
+    out = buf[1:1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("module, d, f", [("ffn", 16, 40), ("ffn", 1024, 2048),
+                                          ("conv", 16, None), ("conv", 1024, None)])
+def test_forward_plan_bf16_with_widths_of_eight_takes_sm90(monkeypatch, module, d, f):
+    _fake_card(monkeypatch)
+    x = torch.zeros(2, 3, d, dtype=torch.bfloat16)
+    weights = _weights(module, torch.bfloat16, d, f)
+    assert ffn_mod.fwd_plan(module, x, *weights).body == "sm90"
+    assert ffn_mod.fwd_plan(module, x, *weights, body="tile") == BwdPlan("tile")
+
+
+@pytest.mark.parametrize("module, dtype, d, f, unaligned", [
+    ("ffn", torch.float32, 16, 40, None),  # wgmma's float32 is TF32
+    ("conv", torch.float32, 16, None, None),
+    ("ffn", torch.bfloat16, 20, 40, None),  # D % 8 = 4
+    ("ffn", torch.bfloat16, 16, 36, None),  # F % 8 = 4
+    ("conv", torch.bfloat16, 20, None, None),
+    ("ffn", torch.bfloat16, 16, 40, "x"),  # a pointer off 16 bytes
+    ("conv", torch.bfloat16, 16, None, "w2"),
+])
+def test_forward_plan_float32_and_what_tma_cannot_read_take_tile(monkeypatch, module, dtype,
+                                                                 d, f, unaligned):
+    _fake_card(monkeypatch)
+    x = torch.zeros(2, 3, d, dtype=dtype)
+    w1, w2 = _weights(module, dtype, d, f)
+    x, w2 = (_unaligned(x) if unaligned == "x" else x), (_unaligned(w2) if unaligned == "w2"
+                                                         else w2)
+    assert ffn_mod.fwd_plan(module, x, w1, w2) == BwdPlan("tile")
+    assert ffn_mod.fwd_plan(module, x, w1, w2, body="tile") == BwdPlan("tile")
+    with pytest.raises(ValueError, match="sm90"):
+        ffn_mod.fwd_plan(module, x, w1, w2, body="sm90")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("body", [None, "sm90", "tile"])
+def test_cpu_forwards_run_the_plain_twins_and_count_nothing(dtype, body):
+    x, ff, seed, _ = _inputs("ffn", dtype)
+    xc, cv, _, _ = _inputs("conv", dtype)
+    b2 = torch.linspace(-0.1, 0.1, x.shape[-1])
+    counts = (dict(ffn_mod.ffn.launches_by_body), dict(conv_mod.conv_module.launches_by_body),
+              ffn_mod.ffn.launches, conv_mod.conv_module.launches)
+    for rate in (0.0, 0.3):
+        got = ffn_mod.ffn(x, *ff, b2, seed, rate=rate, body=body)
+        assert torch.equal(got, ffn_mod.ffn_plain(x, *ff, b2, seed, rate=rate))
+        got = conv_mod.conv_module(xc, *cv, b2, seed, rate=rate, causal=True, body=body)
+        assert torch.equal(got, conv_mod.conv_module_plain(xc, *cv, b2, seed, rate=rate,
+                                                           causal=True))
+    assert (dict(ffn_mod.ffn.launches_by_body), dict(conv_mod.conv_module.launches_by_body),
+            ffn_mod.ffn.launches, conv_mod.conv_module.launches) == counts
+
+
+# The window kernel's tiling (csrc/conv_module.cu: kWideChan, kWideFrames,
+# kWideTime)
+WIDE_CHAN, WIDE_FRAMES, WIDE_TIME = 128, 4, 64
+
+
+def wide_window_model(gluq, taps, dw_b, pad_l):
+    """cq = cdt(window sums + dw_b) as glu_dwconv_wide_kernel tiles it: per
+    block (128 channels, 64 frames, one batch row) a zero-padded window of
+    64 + k - 1 rows; per thread 4 frames whose sums start at -0 and take the
+    taps in order, each tap's window rows read from a ring of 4 (row r0 + x
+    in slot x % 4, one new row a tap)."""
+    b, t, d = gluq.shape
+    kw = taps.shape[0]
+    out = torch.empty_like(gluq)
+    for c0 in range(0, d, WIDE_CHAN):
+        ch = slice(c0, min(d, c0 + WIDE_CHAN))
+        for t0 in range(0, t, WIDE_TIME):
+            rows = WIDE_TIME + kw - 1
+            win = torch.zeros(b, rows, ch.stop - c0)
+            lo, hi = max(0, t0 - pad_l), min(t, t0 - pad_l + rows)
+            win[:, lo - (t0 - pad_l):hi - (t0 - pad_l)] = gluq[:, lo:hi, ch].float()
+            for r0 in range(0, WIDE_TIME, WIDE_FRAMES):
+                if t0 + r0 >= t:
+                    break
+                ring = [win[:, r0 + x] for x in range(WIDE_FRAMES - 1)] + [None]
+                acc = [torch.full((b, ch.stop - c0), -0.0) for _ in range(WIDE_FRAMES)]
+                for k0 in range(0, kw, WIDE_FRAMES):
+                    for kk in range(WIDE_FRAMES):
+                        k = k0 + kk
+                        if k >= kw:
+                            continue
+                        ring[(kk + WIDE_FRAMES - 1) % WIDE_FRAMES] = win[:, r0 + k
+                                                                         + WIDE_FRAMES - 1]
+                        for j in range(WIDE_FRAMES):
+                            acc[j] = acc[j] + ring[(j + kk) % WIDE_FRAMES] * taps[k, ch]
+                for j in range(WIDE_FRAMES):
+                    if t0 + r0 + j < t:
+                        out[:, t0 + r0 + j, ch] = (acc[j] + dw_b[ch]).to(gluq.dtype)
+    return out
+
+
+@pytest.mark.parametrize("t, d, kw, causal", [
+    (313, 256, 31, False),  # the recipe's T' (a ragged last time tile), two channel tiles
+    (70, 136, 31, True),  # a ragged channel tile of 8
+    (37, 96, 7, False),  # one ragged tile each way
+    (150, 264, 7, True),
+    (5, 8, 63, True),  # the largest odd tap count, T shorter than the taps
+])
+def test_wide_window_tiling_equals_the_plain_dwconv(t, d, kw, causal):
+    rng = np.random.default_rng(kw + t)
+    b = 2
+    gluq = torch.from_numpy(rng.standard_normal((b, t, d), dtype=np.float32)).to(torch.bfloat16)
+    taps = torch.from_numpy(rng.standard_normal((kw, d), dtype=np.float32) * kw**-0.5)
+    dw_b = torch.from_numpy(rng.standard_normal(d, dtype=np.float32) * 0.1)
+    # four channels of -0 with positive taps and a -0 bias: away from the
+    # padding each sum is -0, which only a sum started at -0 keeps
+    gluq[1, :, :4] = -0.0
+    taps[:, :4] = taps[:, :4].abs()
+    dw_b[:4] = -0.0
+    pad_l, pad_r = conv_mod.pads(kw, causal)
+    ref = (conv_mod._dwconv(gluq, taps, pad_l, pad_r) + dw_b).to(torch.bfloat16)
+    got = wide_window_model(gluq, taps, dw_b, pad_l)
+    assert torch.equal(got.view(torch.int16), ref.view(torch.int16))
+
+
+def ffn_fwd_staged(x, scale, bias, w1, b1, w2, b2, seed, *, rate):
+    """ffn as the sm90 forward stages it: xn, s and h written once in x's
+    dtype, o = h . W2 + b2 stored in float32, then dropout site 1 and one
+    rounding."""
+    b, t, d = x.shape
+    f = w1.shape[-1]
+    cdt = x.dtype
+    xn, _, _ = _ln_apply(x.reshape(-1, d), scale, bias, cdt)  # the row pass
+    s = (_mm(xn, w1) + b1).to(cdt)  # bias + one rounding in the product's store
+    sf = s.float()
+    h = (sf * torch.sigmoid(sf)).to(cdt)  # the SiLU and site-0 pass
+    if rate > 0:
+        m1, m2 = (m.reshape(-1, m.shape[-1])
+                  for m in ffn_mod.ffn_dropout_masks_plain(b, t, d, f, seed, rate))
+        h = torch.where(m1, (h.float() * ffn_mod.inv_keep(rate, cdt)).to(cdt), 0.0)
+    o = _mm(h, w2) + b2  # float32 sums with the bias
+    if rate > 0:  # the output pass
+        o = torch.where(m2, o * ffn_mod.inv_keep(rate), 0.0)
+    return o.to(cdt).reshape(b, t, d)
+
+
+def conv_fwd_staged(x, ln_s, ln_b, w1, b1, dw_w, dw_b, ln2_s, ln2_b, w2, b2, seed, *, rate,
+                    causal):
+    """conv_module as the sm90 forward stages it: xn, hq, gluq (in the window
+    kernel's shared memory), cq (its tiling) and s written once in x's
+    dtype, o = s . W2 + b2 in float32, then the output dropout and one
+    rounding."""
+    b, t, d = x.shape
+    cdt = x.dtype
+    xn, _, _ = _ln_apply(x.reshape(-1, d), ln_s, ln_b, cdt)
+    hq = (_mm(xn, w1) + b1).to(cdt)
+    gluq = (hq[:, :d].float() * torch.sigmoid(hq[:, d:].float())).to(cdt)
+    cq = wide_window_model(gluq.reshape(b, t, d), dw_w, dw_b,
+                           conv_mod.pads(dw_w.shape[0], causal)[0]).reshape(-1, d)
+    s, _, _ = _ln_apply(cq, ln2_s, ln2_b, cdt, silu=True)
+    o = _mm(s, w2) + b2
+    if rate > 0:
+        keep = ffn_mod.keep_mask(seed, 0, b, t, d, rate).reshape(-1, d)
+        o = torch.where(keep, o * ffn_mod.inv_keep(rate), 0.0)
+    return o.to(cdt).reshape(b, t, d)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+def test_staged_ffn_fwd_equals_the_plain_version_bit_for_bit(dtype, rate):
+    x, params, seed, _ = _inputs("ffn", dtype)
+    b2 = torch.from_numpy(np.random.default_rng(3).standard_normal(x.shape[-1],
+                                                                    dtype=np.float32))
+    got = ffn_fwd_staged(x, *params, b2, seed, rate=rate)
+    ref = ffn_mod.ffn_plain(x, *params, b2, seed, rate=rate)
+    assert got.dtype == ref.dtype and torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("kw", [31, 7])
+def test_staged_conv_fwd_equals_the_plain_version_bit_for_bit(dtype, rate, causal, kw):
+    x, params, seed, _ = _inputs("conv", dtype, t=70, kw=kw)
+    b2 = torch.from_numpy(np.random.default_rng(4).standard_normal(x.shape[-1],
+                                                                    dtype=np.float32))
+    got = conv_fwd_staged(x, *params, b2, seed, rate=rate, causal=causal)
+    ref = conv_mod.conv_module_plain(x, *params, b2, seed, rate=rate, causal=causal)
+    assert got.dtype == ref.dtype and torch.equal(got, ref)
