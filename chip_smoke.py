@@ -12,6 +12,10 @@ random weights:
 2. Serving kernels: the frontend and the inference scan against their plain
    PyTorch versions on the card at the serving path's shapes, in float32
    and bfloat16, with the max abs error, the tolerance, and both times. The
+   bfloat16 frontend runs on the tensor-core body (``tc``, reruns
+   bit-equal), timed in turns with its plain version beside PR 1's FMA body
+   (``body="fma"``, also held against the plain version), whose float32
+   row and bound the kernels line keeps. The
    bfloat16 scan runs on the persistent body (reruns bit-equal), timed in
    turns with its plain version, beside the step body at the same
    shapes and cuDNN's bidirectional layer (``torch.nn.GRU``, context: it
@@ -26,7 +30,9 @@ random weights:
    CTC alpha and beta recursions against their plain versions at the train
    step's shapes (L=313, B=64, H=1024, U=64), in float32 and bfloat16, with
    errors, tolerances and times; ``F.ctc_loss`` timed as the CTC rows'
-   library call. The bfloat16 scans run on the persistent bodies (reruns
+   library call; the CTC recursions run on the prefetch body, bit for bit
+   equal to PR 2's block body (``body="block"``, also held against the
+   plain versions and timed beside it). The bfloat16 scans run on the persistent bodies (reruns
    bit-equal); the backward's dW_hh contraction alone on the tensor cores
    against its plain version; the step bodies and
    cuDNN's layer forward + backward timed beside them.
@@ -34,7 +40,10 @@ random weights:
    (B=64, T=1280, U=64, bfloat16, dropout and noise on): 2 warm-up and 10
    timed steps, the median step time and seq/s, a finite loss, moved
    parameters, the launches per step; then one float32 step without noise
-   and dropout whose every gradient leaf is checked against the plain path.
+   and dropout whose every gradient leaf is checked against the plain path,
+   and one bf16 step and one eval batch each with ``use_pallas: false`` and
+   ``ctc_use_kernel: false`` held against the default path (the switched
+   kernels launch no time).
 6. ``train_model`` at full width on the port's synthetic dataset (20 steps,
    evals and checkpoints every 10), then ``load_model``, an eval pass
    (checked to launch the frontend, the inference scan and alpha, and not
@@ -112,7 +121,9 @@ random weights:
 The default GRU and Conformer phases check that the fused kernels and the
 GRU's opt-in kernels launch no time there. Every GRU phase checks the scan
 launches by body: all bfloat16 scans at full width on the persistent body,
-all float32 ones on the step body. Each phase prints its seconds.
+all float32 ones on the step body; every phase that counts launches checks
+the frontend's (``tc`` for bfloat16, ``fma`` for float32) and every CTC
+recursion's (the prefetch body). Each phase prints its seconds.
 
 Run from the repository root:  python3 chip_smoke.py
 It imports no jax. It exits non-zero without a result when there is no
@@ -147,6 +158,7 @@ from neural_speech_decoder_tpu_torch.models.api import forward as model_forward
 from neural_speech_decoder_tpu_torch.models import conformer as port_conformer
 from neural_speech_decoder_tpu_torch.models.common import orthogonal, uniform_bound
 from neural_speech_decoder_tpu_torch.models.gru import GRUConfig, init_gru_params
+from neural_speech_decoder_tpu_torch.ops.ctc import ctc_loss
 from neural_speech_decoder_tpu_torch.ops.decode import greedy_decode
 from neural_speech_decoder_tpu_torch.ops.kernels import _build
 from neural_speech_decoder_tpu_torch.ops.kernels.adam import (
@@ -405,11 +417,46 @@ def kernel_phase() -> list[dict]:
         lambda d: fused_frontend_plain(xs[d], day_w, day_b, day, **fe),
         reps_kernel=20, reps_plain=20,
     )
-    # x read and the output written once, every day's matrix and bias read
-    # once; the product and the 20-tap smoothing, float32
+    # float32 (PR 1's FMA body): x read and the output written once, every
+    # day's matrix and bias read once; the product and the 20-tap smoothing
+    f32_bound = bound_ms(nbytes(x, x, day_w, day_b, day),
+                         2 * B * T * C * C + 2 * fe["kernel_size"] * B * T * C, "float32")
+    # bfloat16, the recipe's compute: the tensor-core body, reruns bit-equal,
+    # timed in turns with the plain version, beside PR 1's FMA body on the
+    # same inputs, itself still held against the plain version
+    xb = xs["bfloat16"]
+    reset_launches()
+    with torch.inference_mode():
+        f1 = fused_frontend(xb, day_w, day_b, day, **fe)
+        f2 = fused_frontend(xb, day_w, day_b, day, **fe)
+        f_fma = fused_frontend(xb, day_w, day_b, day, body="fma", **fe)
+        f_ref = fused_frontend_plain(xb, day_w, day_b, day, **fe)
+    torch.cuda.synchronize()
+    check_front_ctc_bodies("frontend bfloat16, two calls and one with body='fma'", tc=2, fma=1)
+    tol = TOL[("frontend", "bfloat16")]
+    err_tc = (f1.float() - f_ref.float()).abs().max().item()
+    err_fma = (f_fma.float() - f_ref.float()).abs().max().item()
+    check(torch.equal(f1, f2) and err_tc <= tol and err_fma <= tol,
+          f"frontend bfloat16: tensor-core body max abs err {err_tc:.3e}, PR 1's FMA body "
+          f"{err_fma:.3e} <= {tol:.2g}; tensor-core reruns bit-equal")
+    with torch.inference_mode():
+        k, p, turns = time_turns(lambda: fused_frontend(xb, day_w, day_b, day, **fe),
+                                 lambda: fused_frontend_plain(xb, day_w, day_b, day, **fe),
+                                 20, 20)
+        fma_ms = time_ms(lambda: fused_frontend(xb, day_w, day_b, day, body="fma", **fe), 20)
+    print(f"time  frontend bfloat16: tensor cores {turns[0]:.4f}/{turns[1]:.4f} ms, plain "
+          f"{turns[2]:.4f}/{turns[3]:.4f} ms, PR 1's FMA body {fma_ms:.4f} ms", flush=True)
+    front.update(ms=k, plain_ms=p, fma_ms=fma_ms, f32_ms=front["ms"],
+                 f32_plain_ms=front["plain_ms"], f32_bound_ms=f32_bound[0],
+                 max_abs_err=err_tc, dtype="bfloat16")
+    # x read and the output written once in bf16, W[day] (bf16) and the bias
+    # read once; the product on the bf16 tensor cores and the 20-tap
+    # smoothing on the float32 FMA units, other units: the longer of the two
     front["bound_ms"], front["bound_by"] = bound_ms(
-        nbytes(x, x, day_w, day_b, day),
-        2 * B * T * C * C + 2 * fe["kernel_size"] * B * T * C, "float32")
+        nbytes(xb, xb, day_w.to(torch.bfloat16), day_b, day), 2 * B * T * C * C, "bfloat16")
+    smooth_ms = 2 * fe["kernel_size"] * B * T * C / PEAK_FLOPS["float32"] * 1e3
+    if smooth_ms > front["bound_ms"]:
+        front["bound_ms"], front["bound_by"] = smooth_ms, "operations"
     xp = torch.randn((L, D, B, 3 * H), generator=g, device="cuda")
     w_hh = torch.stack([orthogonal((3 * H, H), g).T for _ in range(D)])
     b_hh = uniform_bound((D, 3 * H), 1 / H**0.5, g)
@@ -456,7 +503,6 @@ def kernel_phase() -> list[dict]:
         nbytes(xb, w_hh.to(torch.bfloat16), b_hh) + xb.numel() // 3 * 2, scan_flops(),
         "bfloat16")
     front["library_ms"] = None
-    front["dtype"] = "float32"
     # no single PyTorch call computes the scan on these inputs: cuDNN's GRU
     # takes the layer input, not the projections xp (its time is context)
     scan["library_ms"] = None
@@ -516,13 +562,17 @@ SCANS = ("gru_scan", "gru_scan_gates", "gru_scan_bwd")
 FUSED_FWDS = ("ffn", "conv_module")
 FUSED_BWDS = ("ffn_bwd", "conv_module_bwd")
 FUSED_BODIES = FUSED_FWDS + FUSED_BWDS
+# the serving frontend ("tc" for bfloat16, "fma" for float32) and the CTC
+# recursions ("prefetch" for S <= 256, "block" beyond), counted by body
+BY_BODY = ("frontend", "ctc_alpha", "ctc_beta")
+CTC_BODY = "prefetch"  # ctc_plan(2 * U + 1)
 
 
 def reset_launches() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
     for counts in (tiled_matmul.launches_by_body, mhsa_qkv.launches_by_body,
-                   *(WRAPPERS[k].launches_by_body for k in SCANS + FUSED_BODIES)):
+                   *(WRAPPERS[k].launches_by_body for k in SCANS + FUSED_BODIES + BY_BODY)):
         for body in counts:
             counts[body] = 0
 
@@ -539,6 +589,18 @@ def check_scan_bodies(tag: str, body: str) -> None:
     ok = (all(n == 0 for c in bodies.values() for b, n in c.items() if b != body)
           and any(c[body] for c in bodies.values()))
     check(ok, f"{tag}: GRU scan launches by body {bodies}, all on the {body} body")
+
+
+def check_front_ctc_bodies(tag: str, tc: int = 0, fma: int = 0, alpha: int = 0,
+                           beta: int = 0) -> None:
+    """The frontend and CTC launches since the last reset, by body: ``tc``
+    bfloat16 and ``fma`` float32 frontends, and every CTC recursion on the
+    prefetch body."""
+    bodies = {k: dict(WRAPPERS[k].launches_by_body) for k in BY_BODY}
+    want = {"frontend": {"tc": tc, "fma": fma},
+            "ctc_alpha": {CTC_BODY: alpha, "block": 0},
+            "ctc_beta": {CTC_BODY: beta, "block": 0}}
+    check(bodies == want, f"{tag}: frontend and CTC launches by body {bodies} == {want}")
 
 
 def cudnn_gru_ms(backward: bool) -> float:
@@ -595,6 +657,7 @@ def serving_phase(card: str) -> dict:
         lo += n
     launches = read_launches(KERNELS)
     check_scan_bodies("float32 serving", "step")
+    check_front_ctc_bodies("float32 serving", fma=3)
     want = {k: 0 for k in KERNELS} | {"frontend": 3, "gru_scan": 15}
     check(launches == want,
           f"launches over 3 requests {launches} == 1 frontend and "
@@ -633,6 +696,7 @@ def serving_phase(card: str) -> dict:
     latency = time.perf_counter() - t0
     launches16 = read_launches(KERNELS)
     check_scan_bodies("bfloat16 serving", "persistent")
+    check_front_ctc_bodies("bfloat16 serving", tc=1)
     check(launches16 == {k: 0 for k in KERNELS} | {"frontend": 1,
                                                     "gru_scan": cfg.num_layers},
           f"bfloat16 request launches {launches16} == 1 frontend and "
@@ -810,26 +874,42 @@ def train_kernel_phase() -> dict:
         _, lpz, _, skip, s_end, lens = prepare(logits.to(dt[name]), labels,
                                                label_lens, input_lens)
         prepared[name] = (lpz, skip, s_end, lens)
-        for key, got, ref in (
-                ("ctc_alpha", ctc_alpha(lpz, skip, lens),
-                 ctc_alpha_plain(lpz, skip, lens)),
-                ("ctc_beta", ctc_beta(lpz, skip, lens, s_end),
-                 ctc_beta_plain(lpz, skip, lens, s_end))):
-            same_dead = torch.equal(got <= -1e29, ref <= -1e29)
-            live = ref > -1e29
-            err = ((got[live] - ref[live]).abs()
-                   / ref[live].abs().clamp_min(1.0)).max().item()
-            tol = TRAIN_TOL[("ctc", name)]
-            check(same_dead and err <= tol,
-                  f"{key} ({name} log-probs): sentinel lanes equal {same_dead}, "
-                  f"max abs err / max(1, |ref|) {err:.3e} <= {tol:.3g}")
-            if name == "float32":
-                rows[key]["max_abs_err"] = (got[live] - ref[live]).abs().max().item()
+        # the prefetch body (ctc_plan at S = 129), then PR 2's block body on
+        # the same inputs: both against the plain versions, the prefetch body
+        # bit for bit against the block body, its reruns bit-equal
+        reset_launches()
+        with torch.inference_mode():
+            pre = (ctc_alpha(lpz, skip, lens), ctc_beta(lpz, skip, lens, s_end))
+            again = (ctc_alpha(lpz, skip, lens), ctc_beta(lpz, skip, lens, s_end))
+            block = (ctc_alpha(lpz, skip, lens, body="block"),
+                     ctc_beta(lpz, skip, lens, s_end, body="block"))
+            ref = (ctc_alpha_plain(lpz, skip, lens), ctc_beta_plain(lpz, skip, lens, s_end))
+        torch.cuda.synchronize()
+        by_body = {k: dict(WRAPPERS[k].launches_by_body) for k in ("ctc_alpha", "ctc_beta")}
+        check(all(torch.equal(a, b) for a, b in zip(pre + pre, block + again))
+              and by_body == {k: {CTC_BODY: 2, "block": 1} for k in by_body},
+              f"ctc_alpha and ctc_beta ({name} log-probs, S={lpz.shape[-1]}): prefetch body "
+              f"bit-equal to PR 2's block body and to its rerun; launches by body {by_body}")
+        for i, key in enumerate(("ctc_alpha", "ctc_beta")):
+            for body, got in ((CTC_BODY, pre[i]), ("block", block[i])):
+                same_dead = torch.equal(got <= -1e29, ref[i] <= -1e29)
+                live = ref[i] > -1e29
+                err = ((got[live] - ref[i][live]).abs()
+                       / ref[i][live].abs().clamp_min(1.0)).max().item()
+                tol = TRAIN_TOL[("ctc", name)]
+                check(same_dead and err <= tol,
+                      f"{key} {body} body ({name} log-probs): sentinel lanes equal "
+                      f"{same_dead}, max abs err / max(1, |ref|) {err:.3e} <= {tol:.3g}")
+                if name == "float32" and body == CTC_BODY:
+                    rows[key]["max_abs_err"] = (got[live] - ref[i][live]).abs().max().item()
+        del pre, again, block, ref
     lpz, skip, s_end, lens = prepared["float32"]
     fa = time_turns(lambda: ctc_alpha(lpz, skip, lens),
                     lambda: ctc_alpha_plain(lpz, skip, lens), 20, 3)
     fb = time_turns(lambda: ctc_beta(lpz, skip, lens, s_end),
                     lambda: ctc_beta_plain(lpz, skip, lens, s_end), 20, 3)
+    block_ms = {"ctc_alpha": time_ms(lambda: ctc_alpha(lpz, skip, lens, body="block"), 20),
+                "ctc_beta": time_ms(lambda: ctc_beta(lpz, skip, lens, s_end, body="block"), 20)}
     # the library yardstick: torch's own CTC loss on the same rows, forward
     # (alpha's work) and backward alone (beta's), and both
     lp = torch.log_softmax(logits, -1).transpose(0, 1).detach().requires_grad_()
@@ -842,11 +922,12 @@ def train_kernel_phase() -> dict:
     lib = {"ctc_alpha": time_ms(lib_f, 20), "ctc_beta": time_ms(lib_b, 20)}
     lib_both = time_ms(lib_fb, 20)
     for key, (k, p, turns) in (("ctc_alpha", fa), ("ctc_beta", fb)):
-        print(f"time  {key} float32: kernel {turns[0]:.4f}/{turns[1]:.4f} ms, "
-              f"plain {turns[2]:.4f}/{turns[3]:.4f} ms, F.ctc_loss "
+        print(f"time  {key} float32: prefetch body {turns[0]:.4f}/{turns[1]:.4f} ms, "
+              f"plain {turns[2]:.4f}/{turns[3]:.4f} ms, PR 2's block body "
+              f"{block_ms[key]:.4f} ms, F.ctc_loss "
               f"{'forward' if key == 'ctc_alpha' else 'backward'} "
               f"{lib[key]:.4f} ms", flush=True)
-        rows[key].update(ms=k, plain_ms=p, library_ms=lib[key])
+        rows[key].update(ms=k, plain_ms=p, block_ms=block_ms[key], library_ms=lib[key])
     print(f"time  F.ctc_loss forward+backward {lib_both:.4f} ms", flush=True)
     # lpz, skip, lens read once and the recursion written once (beta also
     # reads s_end); a logsum3 (3 exp, 1 log, ~8 adds and compares) per
@@ -892,6 +973,7 @@ def train_step_phase(card: str) -> tuple[dict, float]:
         losses.append(float(metrics["train/loss"]))
     launches = read_launches(KERNELS)
     check_scan_bodies(f"{n} bf16 train steps", "persistent")
+    check_front_ctc_bodies(f"{n} bf16 train steps", alpha=n, beta=n)
     want = {"frontend": 0, "gru_scan": 0, "gru_scan_gates": 5 * n,
             "gru_scan_bwd": 5 * n, "ctc_alpha": n, "ctc_beta": n,
             **NO_ATTENTION, **NO_GRU_FUSED}
@@ -970,8 +1052,95 @@ def train_step_phase(card: str) -> tuple[dict, float]:
           f"float32: errors {min(errs):.3e}..{max(errs):.3e}, distances "
           f"{min(dists):.3e}..{max(dists):.3e}; tightest leaf {names[worst]}: "
           f"{errs[worst]:.3e} vs {dists[worst]:.3e}")
+    plain_switch_phase(args32, model, model16, batch, (loss_k, grads_k),
+                       (loss_p16, grads_p16), (loss_p, grads_p))
     return {k: launches[k] for k in ("gru_scan_gates", "gru_scan_bwd",
                                      "ctc_alpha", "ctc_beta")}, med
+
+
+# The run args that pick plain versions on the card, and the kernels each
+# leaves idle: ``use_pallas: false`` the GRU time scan and the serving
+# frontend, ``ctc_use_kernel: false`` the CTC recursions.
+PLAIN_SWITCHES = {
+    "use_pallas": ("frontend", "gru_scan", "gru_scan_gates", "gru_scan_bwd"),
+    "ctc_use_kernel": ("ctc_alpha", "ctc_beta"),
+}
+
+
+def plain_switch_phase(args32, model32, model16, batch, default, plain16, plain32) -> None:
+    """One bf16 train step (noise and dropout off) and one eval batch with
+    each of ``PLAIN_SWITCHES`` set to false, on the weights and batch of the
+    bf16 default step (``model16``), held against the default path: the
+    loss and every gradient leaf, the eval's log-probs and per-sequence
+    losses, each within ``BF16_GRAD_FACTOR`` times the plain bf16 path's
+    distance from the plain float32 one (``plain16``, ``plain32``: loss and
+    gradients of that step; the eval's from ``model16`` and ``model32``);
+    the switched kernels launch no time, the others as on the default
+    path."""
+    device = torch.device("cuda")
+    x, y, x_lens, y_lens, days = batch
+    args16 = {**args32, "compute_dtype": "bfloat16"}
+    (loss_k, grads_k), (loss_p16, grads_p16), (loss_p, grads_p) = default, plain16, plain32
+    dists = [rel_err(a, b) for a, b in zip(grads_p16, grads_p)]
+    loss_dist = abs(loss_p16 - loss_p) / abs(loss_p)
+
+    def eval_batch(model, args, plain=False):
+        """(log-probs, per-sequence losses, the eval step's launches): the
+        eval step (``make_eval_step``) of the run's args, or with ``plain``
+        the plain versions throughout."""
+        with torch.inference_mode():
+            lp, out_lens, _ = model_forward(model, x, days, x_lens, plain=plain)
+            if plain:
+                return lp, ctc_loss(lp, out_lens, y, y_lens, reduction="none", plain=True), None
+            reset_launches()
+            per_seq, _, _ = make_eval_step(model, args)(x, y, x_lens, y_lens, days)
+        torch.cuda.synchronize()
+        return lp, per_seq, read_launches(KERNELS)
+
+    lp_k, per_k, _ = eval_batch(model16, args16)
+    lp_p16, per_p16, _ = eval_batch(model16, args16, plain=True)
+    lp_p, per_p, _ = eval_batch(model32, args32, plain=True)
+    eval_dists = (rel_err(lp_p16, lp_p), rel_err(per_p16, per_p))
+    train_want = {k: 0 for k in KERNELS} | {"gru_scan_gates": 5, "gru_scan_bwd": 5,
+                                            "ctc_alpha": 1, "ctc_beta": 1}
+    eval_want = {k: 0 for k in KERNELS} | {"frontend": 1, "gru_scan": 5, "ctc_alpha": 1}
+    for switch, idle in PLAIN_SWITCHES.items():
+        args = {**args16, switch: False}
+        model = build_model(args, N_DAYS, device, seed=1)
+        with torch.no_grad():
+            for a, b in zip(model.parameters(), model16.parameters()):
+                a.copy_(b)
+        reset_launches()
+        loss, _ = _loss_and_metrics(args, model, batch, step_generator(device, 0, 0))
+        loss.backward()
+        torch.cuda.synchronize()
+        launches = read_launches(KERNELS)
+        want = train_want | {k: 0 for k in idle}
+        check_front_ctc_bodies(f"bf16 train step with {switch}: false",
+                               alpha=want["ctc_alpha"], beta=want["ctc_beta"])
+        errs = [rel_err(p.grad, g) for p, g in zip(model.parameters(), grads_k)]
+        loss_err = abs(loss.item() - loss_k) / abs(loss_k)
+        check(launches == want and loss_err <= BF16_GRAD_FACTOR * loss_dist
+              and all(e <= BF16_GRAD_FACTOR * d for e, d in zip(errs, dists)),
+              f"bf16 train step with {switch}: false against the default path: launches "
+              f"{launches} (none of {', '.join(idle)}); loss {loss.item():.6f} vs "
+              f"{loss_k:.6f}, relative {loss_err:.3e} <= {BF16_GRAD_FACTOR:g} x "
+              f"{loss_dist:.3e}; {len(errs)} gradient leaves, each max abs err / max |ref| "
+              f"<= {BF16_GRAD_FACTOR:g} x the plain bf16 leaf's distance from float32: "
+              f"errors {min(errs):.3e}..{max(errs):.3e}, largest error / distance "
+              f"{max(e / max(d, 1e-30) for e, d in zip(errs, dists)):.3f}")
+        lp_s, per_s, launches = eval_batch(model, args)
+        want = eval_want | {k: 0 for k in idle}
+        check_front_ctc_bodies(f"bf16 eval batch with {switch}: false", tc=want["frontend"],
+                               alpha=want["ctc_alpha"])
+        errs = (rel_err(lp_s, lp_k), rel_err(per_s, per_k))
+        check(launches == want and all(e <= BF16_GRAD_FACTOR * d
+                                       for e, d in zip(errs, eval_dists)),
+              f"bf16 eval batch with {switch}: false against the default path: launches "
+              f"{launches}; log-probs {errs[0]:.3e}, per-sequence losses {errs[1]:.3e} of "
+              f"max |ref|, <= {BF16_GRAD_FACTOR:g} x the plain bf16 path's distances "
+              f"{eval_dists[0]:.3e}, {eval_dists[1]:.3e}")
+        del model, loss
 
 
 def train_model_phase(card: str) -> None:
@@ -1009,6 +1178,7 @@ def train_model_phase(card: str) -> None:
     launches = read_launches(KERNELS)
     check_scan_bodies("eval of the reloaded bf16 model", "persistent")
     n_batches = -(-test_ds.n_trials // B)
+    check_front_ctc_bodies("eval of the reloaded bf16 model", tc=n_batches, alpha=n_batches)
     want = {"frontend": n_batches, "gru_scan": 5 * n_batches,
             "gru_scan_gates": 0, "gru_scan_bwd": 0, "ctc_alpha": n_batches,
             "ctc_beta": 0, **NO_ATTENTION, **NO_GRU_FUSED}
@@ -1239,6 +1409,8 @@ def conformer_train_step_phase(card: str) -> tuple[dict, float]:
             "mhsa_qkv": CONFORMER_LAYERS * n, "mhsa_qkv_bwd": CONFORMER_LAYERS * n,
             "dropout_masks": 0}
     fwd_bodies = dict(mhsa_qkv.launches_by_body)
+    check_front_ctc_bodies(f"{n} bf16 Conformer train steps (InterCTC)", alpha=2 * n,
+                           beta=2 * n)
     check(launches == want and fwd_bodies == {"tc": CONFORMER_LAYERS * n, "fma": 0},
           f"launches over {n} bf16 Conformer train steps {launches} == per step 8 "
           f"attention forward (by body {fwd_bodies}: all on the tensor cores), 8 "
@@ -1331,6 +1503,7 @@ def conformer_train_model_phase(card: str) -> None:
                             torch.device("cuda"), torch_mean_semantics=False)
     launches = read_launches(KERNELS)
     n_batches = -(-test_ds.n_trials // B)
+    check_front_ctc_bodies("eval of the reloaded Conformer", alpha=n_batches)
     want = {**NO_GRU, **NO_FUSED, "ctc_alpha": n_batches, "ctc_beta": 0,
             "mhsa_qkv": CONFORMER_LAYERS * n_batches, "mhsa_qkv_bwd": 0,
             "dropout_masks": 0}
@@ -1707,6 +1880,7 @@ def fused_conformer_phase(card: str, default_median: float) -> dict:
                 "mhsa_qkv_bwd": CONFORMER_LAYERS, "dropout_masks": 0, "ctc_alpha": 2,
                 "ctc_beta": 2, **NO_GRU}
     want = {k: v * n for k, v in per_step.items()}
+    check_front_ctc_bodies(f"{n} fused bf16 Conformer train steps", alpha=2 * n, beta=2 * n)
     bodies = {k: dict(WRAPPERS[k].launches_by_body) for k in FUSED_BODIES}
     want_bodies = {k: {"sm90": per_step[k] * n, "tile": 0} for k in FUSED_BODIES}
     check(launches == want and bodies == want_bodies,
@@ -1946,6 +2120,7 @@ def gru_fused_step_phase(card: str, default_median: float) -> dict:
     model, losses, times, launches = train_steps(dict(GRU_FUSED_ARGS), 0, batch, 2, n)
     per_step = {k: 0 for k in KERNELS} | GRU_FUSED_PER_STEP
     check_scan_bodies(f"{n} flagged bf16 GRU train steps", "persistent")
+    check_front_ctc_bodies(f"{n} flagged bf16 GRU train steps", alpha=n, beta=n)
     by_body = dict(tiled_matmul.launches_by_body)
     check(launches == {k: v * n for k, v in per_step.items()},
           f"launches over {n} flagged bf16 GRU train steps {launches} == per step 12 "
@@ -2089,6 +2264,8 @@ def cli_phase(card: str) -> None:
         "tiled_matmul": per_step["tiled_matmul"] + 4 * nb * n_evals,
         "frontend": nb * n_evals, "gru_scan": 5 * nb * n_evals,
         "ctc_alpha": per_step["ctc_alpha"] + nb * n_evals}
+    check_front_ctc_bodies("nsd-train (bf16 steps and evals)", tc=nb * n_evals,
+                           alpha=want["ctc_alpha"], beta=want["ctc_beta"])
     check(launches == want and tiled_matmul.launches_by_body["tile"] == 0,
           f"nsd-train launched {launches} == {n_steps} flagged steps and {n_evals} evals "
           f"of {nb} batch(es) (4 forward projections each); projection launches by body "

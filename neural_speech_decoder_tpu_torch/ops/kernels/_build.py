@@ -45,6 +45,8 @@ _SIGNATURES = {
                         _I, _I, _I, _I, _P],
     "nsd_ctc_alpha": [_P, _P, _P, _P, _I, _I, _I, _P],
     "nsd_ctc_beta": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "nsd_ctc_alpha_prefetch": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "nsd_ctc_beta_prefetch": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "nsd_attn_fwd_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _I, _P],
     "nsd_attn_bwd_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _F, _F, _F, _I, _P],
@@ -71,6 +73,7 @@ _SIGNATURES = {
 for _name in ("frontend", "gru_scan", "gru_scan_gates", "gru_bwd", "attn_fwd",
               "attn_bwd", "ffn_fwd", "ffn_bwd", "conv_fwd", "conv_bwd", "matmul"):
     _SIGNATURES[f"nsd_{_name}_bf16"] = _SIGNATURES[f"nsd_{_name}_f32"]
+_SIGNATURES["nsd_frontend_tc_bf16"] = _SIGNATURES["nsd_frontend_f32"]
 # workspace sizes in bytes -> long long: (b, t, d, f or k, bf16, bwd), (b, t,
 # d, f or k) for the sm90 forwards, (b, t, d, f or k, dW2 splits, dW1 splits)
 # for the sm90 backwards, and (kind, rows, cols, red) for the matmul

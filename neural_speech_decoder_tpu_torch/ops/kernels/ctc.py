@@ -8,6 +8,17 @@ ctc_loss_tpu``: ``ctc_alpha`` is its ``_alpha_kernel`` and ``ctc_beta`` its
 raises for any other device. ``<wrapper>.launches`` counts the kernel's
 launches.
 
+Each recursion has two bodies in ``csrc/ctc.cu``, which ``ctc_plan`` picks
+from the number of extended states S before any launch: ``"prefetch"``
+(one block a row, one state a thread in a register, one barrier a frame,
+the lpz rows requested three frames ahead and beta's neighbour terms read
+from shared memory, so no global load waits on the dependent path; S <=
+``PREFETCH_MAX_STATES``) and ``"block"`` (PR 2's body: the states in shared
+memory, the frame's lpz loaded after the barrier; any S). Both give the
+same bits. ``ctc_alpha.launches_by_body`` and ``ctc_beta.launches_by_body``
+count launches by body; ``body="block"`` forces the block body (an A/B),
+and a body S cannot take raises.
+
 The glue stays plain tensor code, as the JAX package leaves it to XLA:
 ``prepare`` (the extended-label arrays), ``loss_from_alpha`` and the
 gradient assembly of ``CTCLoss.backward``. Everything is float32 whatever
@@ -24,6 +35,7 @@ import torch.nn.functional as F
 from ._build import check, load_library
 
 NEG_INF = -1e30
+PREFETCH_MAX_STATES = 256  # csrc/ctc.cu kPrefetchStates: one state a thread
 
 
 def logsum3(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -94,11 +106,30 @@ def _check(what, lpz, **others):
                 f"{x.dtype} {tuple(x.shape)} on {x.device}")
 
 
+def ctc_plan(n_states: int) -> str:
+    """The body a recursion over ``n_states`` extended states runs on:
+    ``"prefetch"`` for 1 <= S <= ``PREFETCH_MAX_STATES`` (a block of one
+    thread a state), else ``"block"``."""
+    return "prefetch" if 1 <= n_states <= PREFETCH_MAX_STATES else "block"
+
+
+def _body(what: str, n_states: int, body: str | None) -> str:
+    plan = ctc_plan(n_states)
+    if body is None:
+        return plan
+    if body in (plan, "block"):
+        return body
+    raise ValueError(f"{what}: body {body!r} does not take S={n_states} (the prefetch "
+                     f"body takes 1 <= S <= {PREFETCH_MAX_STATES})")
+
+
 def ctc_alpha(
-    lpz: torch.Tensor, skip: torch.Tensor, lens: torch.Tensor
+    lpz: torch.Tensor, skip: torch.Tensor, lens: torch.Tensor, *, body: str | None = None
 ) -> torch.Tensor:
     """The alpha recursion: ``lpz [T, B, S]``, ``skip [B, S]`` (0 or
-    ``NEG_INF``), ``lens [B]`` int32 -> ``alpha [T, B, S]``, all float32."""
+    ``NEG_INF``), ``lens [B]`` int32 -> ``alpha [T, B, S]``, all float32.
+    ``body`` (``"prefetch"`` or ``"block"``) overrides ``ctc_plan`` on the
+    card."""
     if lpz.device.type == "cpu":
         return ctc_alpha_plain(lpz, skip, lens)
     if lpz.device.type != "cuda":
@@ -106,24 +137,29 @@ def ctc_alpha(
     t, b, s = lpz.shape
     _check("ctc_alpha", lpz, skip=(skip, (b, s), torch.float32),
            lens=(lens, (b,), torch.int32))
+    body = _body("ctc_alpha", s, body)
     lpz, skip, lens = lpz.contiguous(), skip.contiguous(), lens.contiguous()
     alpha = torch.empty_like(lpz)
     if alpha.numel() == 0:
         return alpha
+    entry = "nsd_ctc_alpha_prefetch" if body == "prefetch" else "nsd_ctc_alpha"
     with torch.cuda.device(lpz.device):
-        rc = load_library().nsd_ctc_alpha(
+        rc = getattr(load_library(), entry)(
             lpz.data_ptr(), skip.data_ptr(), lens.data_ptr(), alpha.data_ptr(),
             t, b, s, torch.cuda.current_stream().cuda_stream)
-    check(rc, "ctc_alpha")
+    check(rc, f"ctc_alpha ({body})")
     ctc_alpha.launches += 1
+    ctc_alpha.launches_by_body[body] += 1
     return alpha
 
 
 def ctc_beta(
-    lpz: torch.Tensor, skip: torch.Tensor, lens: torch.Tensor, s_end: torch.Tensor
+    lpz: torch.Tensor, skip: torch.Tensor, lens: torch.Tensor, s_end: torch.Tensor, *,
+    body: str | None = None
 ) -> torch.Tensor:
     """The beta recursion: ``ctc_alpha``'s inputs and ``s_end [B, S]`` (0 at
-    the two final states) -> ``beta [T, B, S]``, all float32."""
+    the two final states) -> ``beta [T, B, S]``, all float32. ``body`` as
+    ``ctc_alpha``'s."""
     if lpz.device.type == "cpu":
         return ctc_beta_plain(lpz, skip, lens, s_end)
     if lpz.device.type != "cuda":
@@ -131,21 +167,26 @@ def ctc_beta(
     t, b, s = lpz.shape
     _check("ctc_beta", lpz, skip=(skip, (b, s), torch.float32),
            lens=(lens, (b,), torch.int32), s_end=(s_end, (b, s), torch.float32))
+    body = _body("ctc_beta", s, body)
     lpz, skip, lens, s_end = (x.contiguous() for x in (lpz, skip, lens, s_end))
     beta = torch.empty_like(lpz)
     if beta.numel() == 0:
         return beta
+    entry = "nsd_ctc_beta_prefetch" if body == "prefetch" else "nsd_ctc_beta"
     with torch.cuda.device(lpz.device):
-        rc = load_library().nsd_ctc_beta(
+        rc = getattr(load_library(), entry)(
             lpz.data_ptr(), skip.data_ptr(), lens.data_ptr(), s_end.data_ptr(),
             beta.data_ptr(), t, b, s, torch.cuda.current_stream().cuda_stream)
-    check(rc, "ctc_beta")
+    check(rc, f"ctc_beta ({body})")
     ctc_beta.launches += 1
+    ctc_beta.launches_by_body[body] += 1
     return beta
 
 
 ctc_alpha.launches = 0
 ctc_beta.launches = 0
+ctc_alpha.launches_by_body = {"prefetch": 0, "block": 0}
+ctc_beta.launches_by_body = {"prefetch": 0, "block": 0}
 
 
 def prepare(log_probs, labels, label_lens, input_lens):

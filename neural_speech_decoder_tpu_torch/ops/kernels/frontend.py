@@ -6,6 +6,15 @@ fused_frontend``. ``fused_frontend`` launches the kernel for a CUDA tensor
 and runs ``fused_frontend_plain``, the same function in plain PyTorch, for a
 CPU tensor; it raises for any other device. ``fused_frontend.launches``
 counts the kernel's launches.
+
+Two bodies in ``csrc/frontend.cu``, which ``frontend_plan`` picks before
+the launch: ``"tc"`` (bfloat16 with 20 taps and C = 256, the width of
+every configuration, 16-byte aligned x, W and output: the product on the
+tensor cores, W staged once per block) and ``"fma"`` (PR 1's body: float32,
+whose product on the tensor cores would be TF32 and change the numbers, and
+every other shape). ``fused_frontend.launches_by_body`` counts launches by body;
+``body="fma"`` forces the FMA body (an A/B), and a body the call cannot
+take raises.
 """
 
 from __future__ import annotations
@@ -19,6 +28,20 @@ from ..gaussian import gaussian_kernel, gaussian_smooth, same_padding
 from ._build import check, load_library
 
 _MAX_TAPS = 32  # csrc/frontend.cu kMaxTaps
+# csrc/frontend.cu namespace tc: the taps, the channels and the time rows a
+# tile of the tensor-core body
+TC_TAPS = 20
+TC_CHANNELS = 256
+TC_TILE_ROWS = 64
+
+
+def frontend_plan(dtype: torch.dtype, n_ch: int, n_taps: int, aligned: bool = True) -> str:
+    """The body ``fused_frontend`` runs on: ``"tc"`` for bfloat16 with
+    ``TC_TAPS`` taps, ``TC_CHANNELS`` channels and 16-byte aligned pointers
+    (``aligned``), else ``"fma"``."""
+    if dtype == torch.bfloat16 and n_taps == TC_TAPS and n_ch == TC_CHANNELS and aligned:
+        return "tc"
+    return "fma"
 
 
 def _check_args(x, day_w, day_b, day_idx, kernel_size, sigma):
@@ -68,12 +91,14 @@ def fused_frontend(
     *,
     kernel_size: int,
     sigma: float,
+    body: str | None = None,
 ) -> torch.Tensor:
     """``softsign(gaussian_smooth(x) @ day_w[day] + day_b[day])``.
 
     ``x [B, T, C]`` float32 or bfloat16, ``day_w [nDays, C, C]``,
     ``day_b [nDays, C]``, ``day_idx [B]`` (clipped to the table) ->
-    ``[B, T, C]`` in x's dtype.
+    ``[B, T, C]`` in x's dtype. ``body`` (``"tc"`` or ``"fma"``) overrides
+    ``frontend_plan`` on the card.
     """
     if x.device.type == "cpu":
         return fused_frontend_plain(
@@ -95,8 +120,18 @@ def fused_frontend(
     bias = day_b.float().contiguous()
     day = day_idx.to(torch.int32).contiguous()
     out = torch.empty_like(x)
+    plan = frontend_plan(x.dtype, c, kernel_size,
+                         aligned=all(p.data_ptr() % 16 == 0 for p in (x, w, out)))
+    if body is not None and body not in (plan, "fma"):
+        raise ValueError(f"fused_frontend: body {body!r} does not take {x.dtype} "
+                         f"{tuple(x.shape)} with {kernel_size} taps (bfloat16, "
+                         f"{TC_TAPS} taps, C = {TC_CHANNELS}, 16-byte aligned "
+                         f"pointers)")
+    body = body or plan
     if out.numel() == 0:
         return out
+    if body == "tc":
+        entry = "nsd_frontend_tc_bf16"
     taps = gaussian_kernel(kernel_size, sigma)
     taps_c = (ctypes.c_float * len(taps))(*taps.tolist())
     pad_left, _ = same_padding(kernel_size)
@@ -107,9 +142,11 @@ def fused_frontend(
             out.data_ptr(), b, t, c, day_w.shape[0], taps_c, len(taps),
             pad_left, torch.cuda.current_stream().cuda_stream,
         )
-    check(rc, "fused_frontend")
+    check(rc, f"fused_frontend ({body})")
     fused_frontend.launches += 1
+    fused_frontend.launches_by_body[body] += 1
     return out
 
 
 fused_frontend.launches = 0
+fused_frontend.launches_by_body = {"tc": 0, "fma": 0}

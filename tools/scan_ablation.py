@@ -4,11 +4,9 @@ Builds ``csrc/gru_scan.cu`` and ``csrc/gru_scan_bwd.cu`` with parts of a
 step left out through the sources' ``NSD_SCAN_CUT`` bits (``csrc/common.cuh``):
 the barrier between steps, the load of the previous state (forward) or dhp
 row (backward), the products. A build that leaves a part out computes wrong
-numbers; it is timed, never checked. Each variant is one ``nvcc`` of the two
-sources (all started together) into
-``neural_speech_decoder_tpu_torch/_build/ablation/``, loaded with ctypes and
-timed with CUDA events at the recipe's shapes (B=64, L=313, H=1024, D=2),
-beside the backward's dW_hh contraction alone.
+numbers; it is timed, never checked. The variants are built and loaded by
+``tools/_ablation.py`` and timed with CUDA events at the recipe's shapes
+(B=64, L=313, H=1024, D=2), beside the backward's dW_hh contraction alone.
 
     python tools/scan_ablation.py
 """
@@ -16,7 +14,6 @@ beside the backward's dW_hh contraction alone.
 from __future__ import annotations
 
 import ctypes
-import subprocess
 import sys
 from pathlib import Path
 
@@ -24,8 +21,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from neural_speech_decoder_tpu_torch.ops.kernels._build import (  # noqa: E402
-    BUILD_DIR, CSRC, NVCC_FLAGS, _nvcc)
+from _ablation import build_variants, time_ms  # noqa: E402
 from neural_speech_decoder_tpu_torch.ops.kernels.gru_scan import plan_for  # noqa: E402
 
 # NSD_SCAN_CUT bits: 1 the barrier, 2 the load, 4 the products
@@ -38,41 +34,12 @@ VARIANTS = {
 }
 
 
-def _build(out_dir: Path) -> dict[str, ctypes.CDLL]:
-    out_dir.mkdir(parents=True, exist_ok=True)
-    srcs = [str(CSRC / f) for f in ("gru_scan.cu", "gru_scan_bwd.cu")]
-    procs = {}
-    for name, cut in VARIANTS.items():
-        so = out_dir / f"lib_cut{cut}.so"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-shared", f"-DNSD_SCAN_CUT={cut}", "-o", str(so), *srcs]
-        procs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                            stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (so, proc) in procs.items():
-        out = proc.communicate()[0]
-        if proc.returncode:
-            raise RuntimeError(f"scan_ablation: nvcc failed for {name!r}:\n{out[-4000:]}")
-        libs[name] = ctypes.CDLL(str(so))
-    return libs
-
-
-def _time_ms(fn, reps: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("scan_ablation: no CUDA device", file=sys.stderr)
         return 1
-    libs = _build(BUILD_DIR / "ablation")
+    libs = build_variants("scan_ablation", ["gru_scan.cu", "gru_scan_bwd.cu"],
+                          "NSD_SCAN_CUT", VARIANTS)
     length, d, b, h = 313, 2, 64, 1024
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
@@ -109,7 +76,7 @@ def main() -> int:
             rc = fn()
             if rc:
                 raise RuntimeError(f"scan_ablation: {name!r} returned CUDA error {rc}")
-        t_f, t_b, t_c = _time_ms(fwd, 5), _time_ms(bwd, 5), _time_ms(contraction, 10)
+        t_f, t_b, t_c = time_ms(fwd, 5), time_ms(bwd, 5), time_ms(contraction, 10)
         print(f"{name:30s} forward {t_f:.4f} ms ({t_f / length * 1e3:.2f} us a step); "
               f"backward {t_b:.4f} ms (recurrence {(t_b - t_c) / length * 1e3:.2f} us a "
               f"step, dW contraction {t_c:.4f} ms)", flush=True)

@@ -3,11 +3,10 @@
 Builds ``csrc/conv_module.cu`` with parts of ``glu_dwconv_wide_kernel`` left
 out through its ``NSD_WINDOW_CUT`` bits: the loads of hq and the GLU (the
 window is zeros), the staging of the taps, the window sums. A build that
-leaves a part out computes wrong numbers; it is timed, never checked. Each
-variant is one ``nvcc`` of the source (all started together) into
-``neural_speech_decoder_tpu_torch/_build/ablation_window/``, loaded with
-ctypes. Each runs the sm90 forward (``nsd_conv_fwd_sm90``) at the recipe's
-shapes (B=64, T'=313, D=1024, k=31, centred and causal), and the window
+leaves a part out computes wrong numbers; it is timed, never checked. The
+variants are built and loaded by ``tools/_ablation.py``. Each runs the sm90
+forward (``nsd_conv_fwd_sm90``) at the recipe's shapes (B=64, T'=313,
+D=1024, k=31, centred and causal), and the window
 kernel's device time a call is read from ``torch.profiler``
 (``training/profile.py::device_split``), beside the tile body's
 ``glu_dwconv_kernel`` in the as-built library.
@@ -19,7 +18,6 @@ from __future__ import annotations
 
 import ctypes
 import re
-import subprocess
 import sys
 from pathlib import Path
 
@@ -27,8 +25,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from neural_speech_decoder_tpu_torch.ops.kernels._build import (  # noqa: E402
-    BUILD_DIR, CSRC, NVCC_FLAGS, _nvcc)
+from _ablation import build_variants  # noqa: E402
 from neural_speech_decoder_tpu_torch.training.profile import device_split  # noqa: E402
 
 # NSD_WINDOW_CUT bits: 1 the loads of hq and the GLU, 2 the taps' staging, 4 the sums
@@ -41,29 +38,11 @@ VARIANTS = {
 }
 
 
-def _build(out_dir: Path) -> dict[str, ctypes.CDLL]:
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, cut in VARIANTS.items():
-        so = out_dir / f"lib_cut{cut}.so"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-shared", f"-DNSD_WINDOW_CUT={cut}", "-o", str(so),
-               str(CSRC / "conv_module.cu")]
-        procs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                            stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (so, proc) in procs.items():
-        out = proc.communicate()[0]
-        if proc.returncode:
-            raise RuntimeError(f"window_ablation: nvcc failed for {name!r}:\n{out[-4000:]}")
-        libs[name] = ctypes.CDLL(str(so))
-    return libs
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("window_ablation: no CUDA device", file=sys.stderr)
         return 1
-    libs = _build(BUILD_DIR / "ablation_window")
+    libs = build_variants("window_ablation", ["conv_module.cu"], "NSD_WINDOW_CUT", VARIANTS)
     b, t, d, kw = 64, 313, 1024, 31
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
