@@ -118,6 +118,22 @@ random weights:
     new kernels launched as counted, the trace written with them, the
     device-assembled batches bit-equal to the host's, then ``load_model`` ->
     eval -> greedy decode.
+15. Streaming (``neural_speech_decoder_tpu_torch/streaming``), at the
+    widths of ``configs/gru_streaming.yaml`` (5 unidirectional layers) and of
+    the Conformer with ``causal=True`` and a 128-frame left context
+    (``serving/profile.py::STREAM_GRU`` / ``STREAM_CONFORMER``): a float32
+    utterance of each streamed in 4-bin chunks against the offline forward
+    (``models.api.forward``, the kernel path) within 1e-4 of its largest
+    |log-prob|, the streamed length (T - k) // s; the unidirectional GRU's
+    bf16 offline forward (the dirs=1 persistent scan) against its plain
+    path; in bf16, 20 steady chunks replayed as CUDA graphs bit-equal to
+    the eager step (outputs and carried state); the B=1 latency a chunk
+    (host p50 with a sync each, device time of 50 chained chunks, the eager
+    path's beside them) with the bytes bound; the capacity sweeps with the
+    W=8 on-device beam chained (GRU B up to 512, Conformer up to 256, best
+    of 3 windows, the largest B under 80 ms); ``prefix_beam_search`` on the
+    card against chained ``beam_extend`` and against the CPU. No hand
+    kernel launches during any streamed chunk (the launch counters stay 0).
 The default GRU and Conformer phases check that the fused kernels and the
 GRU's opt-in kernels launch no time there. Every GRU phase checks the scan
 launches by body: all bfloat16 scans at full width on the persistent body,
@@ -153,11 +169,17 @@ from neural_speech_decoder_tpu_torch.data.batching import eval_batches, sample_b
 from neural_speech_decoder_tpu_torch.data.dataset import pack_days
 from neural_speech_decoder_tpu_torch.data.device_data import DeviceData
 from neural_speech_decoder_tpu_torch.data.synthetic import synthetic_dataset
+from neural_speech_decoder_tpu_torch.decoding.ondevice_beam import (
+    beam_extend,
+    beam_finalize,
+    beam_init,
+    prefix_beam_search,
+)
 from neural_speech_decoder_tpu_torch.models.api import build_model
 from neural_speech_decoder_tpu_torch.models.api import forward as model_forward
 from neural_speech_decoder_tpu_torch.models import conformer as port_conformer
 from neural_speech_decoder_tpu_torch.models.common import orthogonal, uniform_bound
-from neural_speech_decoder_tpu_torch.models.gru import GRUConfig, init_gru_params
+from neural_speech_decoder_tpu_torch.models.gru import GRUConfig, GRUDecoder, init_gru_params
 from neural_speech_decoder_tpu_torch.ops.ctc import ctc_loss
 from neural_speech_decoder_tpu_torch.ops.decode import greedy_decode
 from neural_speech_decoder_tpu_torch.ops.kernels import _build
@@ -217,6 +239,11 @@ from neural_speech_decoder_tpu_torch.ops.kernels.matmul import (
     tiled_matmul_plain,
 )
 from neural_speech_decoder_tpu_torch.serving.model import InferenceModel
+from neural_speech_decoder_tpu_torch.serving.profile import (
+    STREAM_CHUNK,
+    make_streamer,
+    stream_model,
+)
 from neural_speech_decoder_tpu_torch.training import cli as train_cli
 from neural_speech_decoder_tpu_torch.training.optim import FusedAdam, make_optimizer
 from neural_speech_decoder_tpu_torch.training.profile import (
@@ -2320,6 +2347,259 @@ def cli_phase(card: str) -> None:
     shutil.rmtree(out_dir, ignore_errors=True)
 
 
+# ------------------------------------------------------------------ streaming
+
+# The float32 streamed utterances: 400 bins for the GRU (92 frames) and 800
+# for the Conformer (192 frames, past its 128-frame left context). Tolerance
+# against the offline forward (the kernel path), relative to its largest
+# |log-prob|: the same float32 function, its sums in other orders (cuBLAS
+# products of other shapes, the smoothing and the strided conv as
+# convolutions over other windows, the scan and attention kernels against
+# plain steps).
+STREAM_BINS = {"gru": 400, "conformer": 800}
+STREAM_TOL = 1e-4
+STREAM_DAY = 3
+STREAM_BATCHES = {"gru": (1, 16, 64, 128, 256, 512), "conformer": (1, 16, 64, 128, 256)}
+DEADLINE_MS = 80.0  # a chunk is 4 bins of 20 ms: a stream is real-time below it
+BEAM_WIDTH = 8
+BEAM_TOL = 1e-5  # scores: log-adds of the same float32 operands in other orders
+
+
+def check_no_launches(tag: str) -> None:
+    launched = {k: n for k, n in read_launches().items() if n}
+    check(not launched,
+          f"{tag}: no hand kernel launched (the streaming path has none): {launched}")
+
+
+def stream_chunks(st, x) -> torch.Tensor:
+    """Stream ``x [B, T, C]`` (on the card) in 4-bin chunks and flush:
+    every output, on the card."""
+    outs = [st.process_async(x[:, i: i + STREAM_CHUNK])
+            for i in range(0, x.shape[1], STREAM_CHUNK)]
+    outs.append(torch.from_numpy(st.flush()).cuda())
+    return torch.cat(outs, dim=1)
+
+
+def stream_float32_check(kind: str, card: str) -> None:
+    """A float32 utterance streamed in 4-bin chunks (steady chunks replayed
+    as CUDA graphs) against the offline forward of the same weights (a
+    non-trivial day affine) through ``models.api.forward``, the kernel path;
+    the streamed length is (T - k) // s."""
+    cfg, params = stream_model(kind, torch.float32)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    day_w, day_b = params["day"]["weight"], params["day"]["bias"]
+    day_w += 0.05 * torch.randn(day_w.shape, generator=g, device="cuda")
+    day_b += 0.1 * torch.randn(day_b.shape, generator=g, device="cuda")
+    t = STREAM_BINS[kind]
+    x = torch.randn((1, t, C), generator=g, device="cuda")
+    model = (GRUDecoder if kind == "gru" else port_conformer.ConformerDecoder)(cfg, params)
+    reset_launches()
+    with torch.inference_mode():
+        logp, out_lens, _ = model_forward(model, x, torch.tensor([STREAM_DAY], device="cuda"),
+                                          torch.tensor([t], device="cuda"))
+    offline = read_launches()
+    if kind == "gru":
+        check_scan_bodies("float32 unidirectional offline forward", "step")
+    st = make_streamer(kind, cfg, params, 1, day_idx=STREAM_DAY)
+    reset_launches()
+    got = stream_chunks(st, x)
+    check_no_launches(f"{kind} float32 stream of {t} bins")
+    if kind == "gru":
+        got = torch.log_softmax(got, dim=-1)
+    n = (t - 32) // 4
+    ref = logp[:, :n]
+    err = (got - ref).abs().max().item() if got.shape == ref.shape else math.inf
+    scale = ref.abs().max().item()
+    check(got.shape[1] == n == int(out_lens[0]) and err <= STREAM_TOL * scale
+          and st._fast.replays > 0,
+          f"{kind} float32 stream of {t} bins in 4-bin chunks ({st._fast.replays} chunks "
+          f"replayed as CUDA graphs): {got.shape[1]} frames == (T-k)//s == {n}; max abs "
+          f"err {err:.3e} <= {STREAM_TOL:g} x max|log-prob| {scale:.3f} against the offline "
+          f"forward (kernel launches there: {offline})")
+
+
+def stream_bf16_offline_check() -> None:
+    """The unidirectional GRU's bf16 offline forward, kernel path (the dirs=1
+    persistent scan, five launches on that body, the frontend on ``tc``)
+    against its plain path, within twice the plain bf16 path's distance from
+    float32."""
+    cfg, params = stream_model("gru", torch.float32)
+    model32 = GRUDecoder(cfg, params)
+    model16 = GRUDecoder(dataclasses.replace(cfg, compute_dtype=torch.bfloat16), params)
+    g = torch.Generator(device="cuda").manual_seed(8)
+    x = torch.randn((B, T, C), generator=g, device="cuda")
+    dd = torch.arange(B, device="cuda") % N_DAYS
+    reset_launches()
+    with torch.inference_mode():
+        logits = model16(x, dd)
+    launches = read_launches()
+    check_scan_bodies("bfloat16 unidirectional offline forward", "persistent")
+    check_front_ctc_bodies("bfloat16 unidirectional offline forward", tc=1)
+    check(launches == {k: 0 for k in KERNELS} | {"frontend": 1, "gru_scan": cfg.num_layers},
+          f"bfloat16 unidirectional forward launches {launches} == 1 frontend and "
+          f"{cfg.num_layers} scans")
+    with torch.inference_mode():
+        plain = model16(x, dd, plain=True)
+        plain32 = model32(x, dd, plain=True)
+    err = (logits - plain).abs().max().item()
+    dist = (plain - plain32).abs().max().item()
+    tol = BF16_LOGITS_FACTOR * dist
+    check(err <= tol, f"bfloat16 unidirectional logits B={B} T={T}, kernels (dirs=1 "
+          f"persistent scan) vs plain: max abs err {err:.3e} <= {tol:.3e} "
+          f"({BF16_LOGITS_FACTOR:g} x the plain bf16 path's distance {dist:.3e} from float32)")
+
+
+def stream_graph_check(kind: str, cfg, params) -> None:
+    """Two bf16 B=1 streams of the same chunks, one replaying CUDA graphs and
+    one running the same steady step eagerly: every chunk's output and the
+    carried state bit-equal over 20 steady chunks."""
+    rng = np.random.default_rng(9)
+    chunks = [rng.standard_normal((1, STREAM_CHUNK, C)).astype(np.float32) for _ in range(50)]
+    graph = make_streamer(kind, cfg, params, 1)
+    eager = make_streamer(kind, cfg, params, 1, graphs=False)
+    reset_launches()
+    for c in chunks[:30]:
+        graph.process_async(c)
+        eager.process_async(c)
+    replays = graph._fast.replays
+    same = [torch.equal(graph.process_async(c), eager.process_async(c)) for c in chunks[30:]]
+    state = [torch.equal(a, b) for a, b in zip(graph.carried_state(), eager.carried_state())]
+    torch.cuda.synchronize()
+    check_no_launches(f"{kind} bf16 graph and eager streams")
+    check(all(same) and all(state) and graph._fast.replays - replays == 20
+          and eager._fast.replays == 0 and eager.fast_path_engaged,
+          f"{kind} bf16: 20 steady chunks replayed as CUDA graphs bit-equal to the eager "
+          f"step: outputs {sum(same)}/20, carried state {sum(state)}/{len(state)} tensors")
+
+
+def stream_bytes(st) -> int:
+    """A steady chunk's least traffic: every weight read once, the carried
+    state read and written once, the chunk in and its output out."""
+    state = sum(nbytes(t) for t in st.carried_state())
+    return (sum(nbytes(t) for t in st.weights()) + 2 * state
+            + st.batch * (STREAM_CHUNK * st.channels + st.cfg.n_out) * 4)
+
+
+def stream_latency(kind: str, cfg, params, card: str) -> None:
+    """B=1 bf16, one frame a chunk: the host p50 of a chunk from host data to
+    its output on the host (a sync each, >= 100 chunks), the device time a
+    chunk (50 chained chunks already on the card, CUDA events), the eager
+    path's two beside them, and the bytes bound."""
+    rng = np.random.default_rng(10)
+    host = [rng.standard_normal((1, STREAM_CHUNK, C)).astype(np.float32) for _ in range(8)]
+    dev = torch.from_numpy(np.stack(host)).cuda()
+    readings = {}
+    for graphs in (True, False):
+        st = make_streamer(kind, cfg, params, 1, graphs=graphs)
+        for i in range(30):
+            st.process_async(host[i % 8])
+        torch.cuda.synchronize()
+        check(st.fast_path_engaged, f"{kind} bf16 B=1: the fast path is engaged after 30 "
+              f"chunks ({'CUDA graphs' if graphs else 'eager'})")
+        reset_launches()
+        lat = []
+        for i in range(120 if graphs else 50):
+            t0 = time.perf_counter()
+            st.process_async(host[i % 8]).cpu()
+            lat.append((time.perf_counter() - t0) * 1e3)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(50):
+            st.process_async(dev[i % 8])
+        end.record()
+        torch.cuda.synchronize()
+        check_no_launches(f"{kind} bf16 B=1 latency chunks")
+        readings[graphs] = (statistics.median(lat), start.elapsed_time(end) / 50, len(lat))
+    n_bytes = stream_bytes(st)
+    (p50, dev_ms, n), (e_p50, e_dev, e_n) = readings[True], readings[False]
+    print(f"stream {kind} bf16 B=1 latency a chunk: CUDA graph host p50 {p50:.4f} ms "
+          f"({n} chunks, host data to host output, a sync each), device {dev_ms:.4f} ms "
+          f"(50 chained, CUDA events); eager host p50 {e_p50:.4f} ms ({e_n} chunks), "
+          f"device {e_dev:.4f} ms; bytes bound {n_bytes / HBM_BPS * 1e3:.4f} ms "
+          f"({n_bytes / 1e6:.1f} MB at {HBM_BPS / 1e12:.2f} TB/s) ({card})", flush=True)
+
+
+def stream_capacity(kind: str, cfg, params, card: str) -> None:
+    """bench_streaming.py's capacity sweep: bf16 streams of one frame a chunk
+    with the W=8 on-device beam chained after each chunk; a chunk's time is
+    the best of 3 windows of 25 chunks (host clock, one sync a window);
+    the largest B under the 80 ms deadline."""
+    rng = np.random.default_rng(11)
+    rows = []
+    for b in STREAM_BATCHES[kind]:
+        st = make_streamer(kind, cfg, params, b)
+        pool = [rng.standard_normal((b, STREAM_CHUNK, C)).astype(np.float32)
+                for _ in range(4)]
+        for i in range(30):
+            nbest = st.decode_beam(st.process_async(pool[i % 4]), beam_width=BEAM_WIDTH)
+        nbest[2][0, 0].item()
+        reset_launches()
+        windows = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for i in range(25):
+                nbest = st.decode_beam(st.process_async(pool[i % 4]), beam_width=BEAM_WIDTH)
+            nbest[2][0, 0].item()
+            windows.append((time.perf_counter() - t0) / 25 * 1e3)
+        check_no_launches(f"{kind} capacity B={b}")
+        check(st.fast_path_engaged and bool(torch.isfinite(nbest[2][:, 0]).all()),
+              f"{kind} capacity B={b}: fast path engaged, finite best scores")
+        ms = min(windows)
+        rows.append({"streams": b, "chunk_ms": ms, "realtime": ms < DEADLINE_MS})
+        print(f"stream {kind} capacity B={b}: windows "
+              f"{', '.join(f'{w:.4f}' for w in windows)} ms a chunk (beam W={BEAM_WIDTH} "
+              f"chained), best {ms:.4f} ms ({card})", flush=True)
+        del st
+        if ms >= DEADLINE_MS:
+            break
+    cap = max((r["streams"] for r in rows if r["realtime"]), default=0)
+    print(f"stream {kind} capacity: {cap} streams under the {DEADLINE_MS:g} ms deadline "
+          f"(largest B tried {rows[-1]['streams']}) ({card})", flush=True)
+
+
+def beam_check() -> None:
+    """``prefix_beam_search`` on the card against ``beam_extend`` chained in
+    chunks of 7 frames over the same log-probs, and against itself on the
+    CPU: prefixes and lengths equal, scores within ``BEAM_TOL``."""
+    g = torch.Generator(device="cuda").manual_seed(12)
+    b, t = 16, 100
+    log_probs = torch.log_softmax(3 * torch.randn((b, t, N_OUT), generator=g,
+                                                  device="cuda"), dim=-1)
+    lens = torch.full((b,), t, dtype=torch.int32, device="cuda")
+    reset_launches()
+    ref = prefix_beam_search(log_probs, lens, beam_width=BEAM_WIDTH)
+    state = beam_init(b, BEAM_WIDTH, t)
+    for i in range(0, t, 7):
+        state = beam_extend(state, log_probs[:, i: i + 7])
+    chained = beam_finalize(state)
+    cpu = prefix_beam_search(log_probs.cpu(), lens.cpu(), beam_width=BEAM_WIDTH)
+    check_no_launches("beam search")
+    for tag, other in (("chained beam_extend", chained), ("the CPU", cpu)):
+        err = (ref[2].cpu() - other[2].cpu()).abs().max().item()
+        check(torch.equal(ref[0].cpu(), other[0].cpu()) and torch.equal(ref[1].cpu(),
+                                                                      other[1].cpu())
+              and err <= BEAM_TOL,
+              f"prefix_beam_search B={b} T={t} W={BEAM_WIDTH} on the card vs {tag}: "
+              f"prefixes and lens equal, scores max abs err {err:.3e} <= {BEAM_TOL:g}")
+
+
+def streaming_phase(card: str) -> None:
+    """Streaming decode of both models at full width (no hand kernel on
+    this path, as in JAX): float32 streams against the offline forwards,
+    the dirs=1 bf16 offline scan against its plain path, CUDA graph replay
+    against the eager step, B=1 latency, the capacity sweeps, the beam."""
+    for kind in ("gru", "conformer"):
+        stream_float32_check(kind, card)
+    stream_bf16_offline_check()
+    for kind in ("gru", "conformer"):
+        cfg, params = stream_model(kind, torch.bfloat16)
+        stream_graph_check(kind, cfg, params)
+        stream_latency(kind, cfg, params, card)
+        stream_capacity(kind, cfg, params, card)
+    beam_check()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2388,6 +2668,9 @@ def main() -> int:
     t0 = time.perf_counter()
     cli_phase(card)
     print(f"phase nsd-train: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    streaming_phase(card)
+    print(f"phase streaming: {time.perf_counter() - t0:.1f} s", flush=True)
     # every kernel of the main paths ran there (the mask hooks excepted: the
     # attention and FF kernels draw their masks themselves)
     idle = [k for k in KERNELS if k not in HOOKS and not launches[k]]

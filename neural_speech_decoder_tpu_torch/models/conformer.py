@@ -207,15 +207,31 @@ def sinusoidal_pos_encoding(max_len: int, d_model: int) -> np.ndarray:
     return pe
 
 
+@functools.lru_cache(maxsize=16)
+def _pos_div(d_model: int, device: torch.device) -> torch.Tensor:
+    """The encoding's frequencies, computed once a (width, device) as the
+    JAX package computes them, so that no call copies them from the host."""
+    return torch.from_numpy(np.exp(
+        np.arange(0, d_model, 2, dtype=np.float32) * (-math.log(10000.0) / d_model)
+    )).to(device)
+
+
 def sinusoidal_pos_rows(offset, n: int, d_model: int,
                         dtype=torch.float32, device=None) -> torch.Tensor:
     """Rows ``[offset, offset + n)`` of the sinusoidal encoding computed on
-    the fly (no length cap), in float32 then cast to ``dtype``."""
-    div = torch.from_numpy(np.exp(
-        np.arange(0, d_model, 2, dtype=np.float32) * (-math.log(10000.0) / d_model)
-    )).to(device)
-    pos = (torch.as_tensor(offset, dtype=torch.float32, device=device)
-           + torch.arange(n, dtype=torch.float32, device=device))[:, None]
+    the fly (no length cap), in float32 then cast to ``dtype``. ``offset``
+    is an int or a 0-dim tensor (then the rows are made on its device with
+    no host copy, so a CUDA graph may capture the call)."""
+    if isinstance(offset, torch.Tensor):
+        device = offset.device
+        base = offset.to(torch.float32)
+    else:
+        base = float(offset)
+    device = torch.device("cpu" if device is None else device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    div = _pos_div(d_model, device)
+    pos = (base + torch.arange(n, dtype=torch.float32, device=device))[:, None]
     pe = torch.zeros((n, d_model), dtype=torch.float32, device=device)
     pe[:, 0::2] = torch.sin(pos * div)
     pe[:, 1::2] = torch.cos(pos * div[: d_model // 2])

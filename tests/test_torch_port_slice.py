@@ -185,11 +185,31 @@ with tempfile.TemporaryDirectory() as run:
         "wandb_mode": "disabled", "time_multiple": 16, "fused_optimizer": True,
         "use_pallas_matmul": True, "deviceResidentData": True})
     model, args = load_model(run)
+from neural_speech_decoder_tpu_torch.models.conformer import (
+    ConformerConfig, init_conformer_params)
+from neural_speech_decoder_tpu_torch.streaming.conformer import ConformerStreamer
+from neural_speech_decoder_tpu_torch.streaming.engine import GRUStreamer
+scfg = GRUConfig(neural_dim=8, hidden_dim=16, num_layers=2, n_days=1, kernel_len=8,
+                 bidirectional=False)
+ccfg = ConformerConfig(n_channels=8, n_days=1, frontend_dim=16, latent_dim=16,
+                       autoencoder_hidden_dim=8, num_layers=2, num_heads=2, ff_dim=16,
+                       temporal_kernel=8, conv_kernel=3, causal=True, attn_left_context=4)
+streamed = []
+for st in (GRUStreamer(init_gru_params(scfg, torch.Generator().manual_seed(0)), scfg, 0,
+                       batch=2, device="cpu"),
+           ConformerStreamer(init_conformer_params(ccfg, torch.Generator().manual_seed(0)),
+                             ccfg, 0, batch=2, device="cpu")):
+    for i in range(12):
+        nbest = st.decode_beam(st.process_async(np.ones((2, 4, 8), np.float32) * i),
+                               beam_width=4, max_len=16)
+    nbest = st.decode_beam(st.flush(), beam_width=4, max_len=16)
+    streamed.append(st.emitted == (48 - 8) // 4 and st.fast_path_engaged is False
+                    and bool(torch.isfinite(nbest[2][:, 0]).all()))
 mods = [m for m in sys.modules
         if m.split(".")[0] in ("jax", "jaxlib", "neural_speech_decoder_tpu")]
 print(json.dumps({"mods": mods, "finite": bool(torch.isfinite(lp).all()),
                   "empty": out[1], "trained": "summary/final_cer" in summary,
-                  "reloaded": args["nDays"] == 1}))
+                  "reloaded": args["nDays"] == 1, "streamed": streamed}))
 """
 
 
@@ -201,4 +221,4 @@ def test_port_never_imports_jax():
     assert proc.returncode == 0, proc.stderr
     res = json.loads(proc.stdout.strip().splitlines()[-1])
     assert res == {"mods": [], "finite": True, "empty": [], "trained": True,
-                   "reloaded": True}
+                   "reloaded": True, "streamed": [True, True]}
