@@ -134,6 +134,21 @@ random weights:
     of 3 windows, the largest B under 80 ms); ``prefix_beam_search`` on the
     card against chained ``beam_extend`` and against the CPU. No hand
     kernel launches during any streamed chunk (the launch counters stay 0).
+16. Export (``serving/export.py``): ``nsd-export-torch`` of phase 14's GRU
+    run (``use_pallas_matmul``, as its eval) and phase 9's Conformer run (and of a copy of it with
+    ``fused_ffn``/``fused_conv``) at B=64, T=1280, each artifact loaded with
+    ``load_exported`` and served phase 3's three requests: log-probs and
+    lengths bit-equal to the eager ``InferenceModel`` (else within
+    ``LOGITS_TOL``), launches exact (1 frontend on ``tc`` + 5 scans on
+    ``persistent`` + 4 projection matmuls on ``sm90``; 8 attention on
+    ``tc``; + 16 FF and 8 conv on ``sm90``, a request) and counted in the kernels line, then 21 requests of each
+    server in turns, host ms split into pad, forward and decode; then both
+    bf16 streaming cells exported with beam programs (B=1, a frame a
+    chunk) and driven by ``ExportedStreamer`` against the live streamer
+    over one utterance (outputs bit-equal, else within twice the live bf16
+    stream's distance from float32; greedy and beam decodes equal; no hand
+    kernel), and the host p50 of a chunk beside the live graph's. It
+    removes phases 9 and 14's run directories.
 The default GRU and Conformer phases check that the fused kernels and the
 GRU's opt-in kernels launch no time there. Every GRU phase checks the scan
 launches by body: all bfloat16 scans at full width on the persistent body,
@@ -238,6 +253,14 @@ from neural_speech_decoder_tpu_torch.ops.kernels.matmul import (
     tiled_matmul,
     tiled_matmul_plain,
 )
+from neural_speech_decoder_tpu_torch.serving import (
+    export_beam,
+    export_streaming_conformer_params,
+    export_streaming_params,
+    load_exported,
+    load_exported_streamer,
+)
+from neural_speech_decoder_tpu_torch.serving import cli as serve_cli
 from neural_speech_decoder_tpu_torch.serving.model import InferenceModel
 from neural_speech_decoder_tpu_torch.serving.profile import (
     STREAM_CHUNK,
@@ -245,6 +268,7 @@ from neural_speech_decoder_tpu_torch.serving.profile import (
     stream_model,
 )
 from neural_speech_decoder_tpu_torch.training import cli as train_cli
+from neural_speech_decoder_tpu_torch.training.checkpoints import load_args, save_args
 from neural_speech_decoder_tpu_torch.training.optim import FusedAdam, make_optimizer
 from neural_speech_decoder_tpu_torch.training.profile import (
     BENCH_ARGS,
@@ -651,6 +675,20 @@ def cudnn_gru_ms(backward: bool) -> float:
     return time_ms(fwd_bwd, 5)
 
 
+REQUEST_SIZES = (B, 41, B)  # the second request leaves 23 padded rows
+
+
+def serving_trials() -> tuple[list[np.ndarray], list[int]]:
+    """The serving requests' trials (``REQUEST_SIZES``, then one more
+    request of B for a warm-up): Gaussian trials of 400-1200 bins, the
+    recipe's range of trial lengths, and their days."""
+    rng = np.random.default_rng(0)
+    trials = [rng.standard_normal((int(rng.integers(400, 1201)), C),
+                                  dtype=np.float32)
+              for _ in range(sum(REQUEST_SIZES) + B)]
+    return trials, [i % N_DAYS for i in range(len(trials))]
+
+
 def serving_phase(card: str) -> dict:
     cfg = GRUConfig(
         neural_dim=C, n_classes=N_OUT - 1, hidden_dim=H, num_layers=5, n_days=N_DAYS,
@@ -659,13 +697,8 @@ def serving_phase(card: str) -> dict:
     )
     params = init_gru_params(cfg, torch.Generator(device="cuda").manual_seed(0))
     model = InferenceModel(params, cfg, "cuda", batch_size=B, t_max=T)
-    sizes = [B, 41, B]  # the second request leaves 23 padded rows
-    rng = np.random.default_rng(0)
-    # Gaussian trials of 400-1200 bins, the recipe's range of trial lengths
-    trials = [rng.standard_normal((int(rng.integers(400, 1201)), C),
-                                  dtype=np.float32)
-              for _ in range(sum(sizes) + B)]
-    days = [i % N_DAYS for i in range(len(trials))]
+    sizes = list(REQUEST_SIZES)
+    trials, days = serving_trials()
 
     def request(m, lo, n):
         x, dd, lens = m.pad_batch(trials[lo : lo + n], days[lo : lo + n])
@@ -1494,10 +1527,14 @@ def conformer_train_step_phase(card: str) -> tuple[dict, float]:
     return {k: launches[k] for k in ("mhsa_qkv", "mhsa_qkv_bwd", "dropout_masks")}, med
 
 
+CONFORMER_RUN = Path("runs") / "chip_smoke_conformer"
+CLI_RUN = Path("runs") / "chip_smoke_cli"
+
+
 def conformer_train_model_phase(card: str) -> None:
     """train_model of the Conformer at full width on synthetic data, then
     load_model, an eval pass that re-scores the best PER, a greedy decode."""
-    out_dir = Path("runs") / "chip_smoke_conformer"
+    out_dir = CONFORMER_RUN
     shutil.rmtree(out_dir, ignore_errors=True)
     ds = synthetic_dataset(seed=0, n_days=N_DAYS, trials_per_day=8,
                            n_channels=C, min_t=400, max_t=1200, min_u=20,
@@ -1551,7 +1588,7 @@ def conformer_train_model_phase(card: str) -> None:
           f"Conformer load_model -> greedy decode of one test trial: "
           f"{int(lens[0])} labels decoded, {int(test_ds.label_lens[0])} in the "
           f"reference")
-    shutil.rmtree(out_dir, ignore_errors=True)
+    # the run directory stays for export_phase, which removes it
 
 # ------------------------------------------ the fused FF and conv module
 
@@ -2263,7 +2300,7 @@ def gru_float32_steps_phase(card: str) -> None:
 def cli_phase(card: str) -> None:
     """``nsd-train`` (``training/cli.py::main``) on the recipe's config with
     the three flags and a profile window, then load_model -> eval -> decode."""
-    out_dir = Path("runs") / "chip_smoke_cli"
+    out_dir = CLI_RUN
     shutil.rmtree(out_dir, ignore_errors=True)
     out_dir.mkdir(parents=True)
     ds = synthetic_dataset(seed=0, n_days=N_DAYS, trials_per_day=8, n_channels=C,
@@ -2344,7 +2381,7 @@ def cli_phase(card: str) -> None:
     check(bool(torch.isfinite(log_probs).all()) and out_lens.item() > 0,
           f"nsd-train run -> load_model -> greedy decode of one test trial: "
           f"{int(lens[0])} labels decoded, {int(test_ds.label_lens[0])} in the reference")
-    shutil.rmtree(out_dir, ignore_errors=True)
+    # the run directory stays for export_phase, which removes it
 
 
 # ------------------------------------------------------------------ streaming
@@ -2600,6 +2637,208 @@ def streaming_phase(card: str) -> None:
     beam_check()
 
 
+# ------------------------------------------------------------------ export
+
+EXPORT_DIR = Path("runs") / "chip_smoke_export"
+EXPORT_REQUESTS = 21  # timed requests a server: seven rounds of REQUEST_SIZES
+
+
+def serve_request(server, trials, days, k: int, stages: dict):
+    """Request ``k % 3`` of ``REQUEST_SIZES`` through ``server``
+    (``pad_batch`` -> call -> ``decode``), a sync after each stage; appends
+    each stage's host ms to ``stages`` and returns ``(log_probs, out_lens,
+    decoded)``."""
+    offsets = np.cumsum((0,) + REQUEST_SIZES)
+    k %= len(REQUEST_SIZES)
+    lo, m = int(offsets[k]), REQUEST_SIZES[k]
+    t0 = time.perf_counter()
+    x, dd, lens = server.pad_batch(trials[lo: lo + m], days[lo: lo + m])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    log_probs, out_lens = server(x, dd, lens)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    decoded = server.decode(log_probs, out_lens)
+    t3 = time.perf_counter()
+    for stage, ms in zip(("pad", "forward", "decode"), (t1 - t0, t2 - t1, t3 - t2)):
+        stages.setdefault(stage, []).append(ms * 1e3)
+    return log_probs, out_lens, decoded
+
+
+def split_line(stages: dict) -> str:
+    return ", ".join(f"{k} {statistics.median(v):.3f} ({min(v):.3f}-{max(v):.3f})"
+                     for k, v in stages.items())
+
+
+def export_request_check(tag: str, run_dir: Path, per_request: dict, card: str) -> dict:
+    """``nsd-export-torch`` of a run directory at B=64, T=1280, then the
+    three serving requests through the artifact against the eager
+    ``InferenceModel`` of the same run (log-probs and lengths bit-equal,
+    else within ``LOGITS_TOL``), the artifact's launches (``per_request`` a
+    request and no other kernel, on the bodies of the bf16 recipe), and both
+    servers' request times split into pad, forward and decode."""
+    art = EXPORT_DIR / tag
+    t0 = time.perf_counter()
+    serve_cli.main([str(run_dir), str(art), "--batch-size", str(B), "--t-max", str(T)])
+    export_s = time.perf_counter() - t0
+    exported = load_exported(str(art))
+    load_s = time.perf_counter() - t0 - export_s
+    model, _ = load_model(str(run_dir), device="cuda")
+    eager = InferenceModel(model.params, model.cfg, "cuda", batch_size=B, t_max=T)
+    del model
+    trials, days = serving_trials()
+    for server in (exported, eager):
+        serve_request(server, trials, days, 0, {})  # warm-up, not counted
+    torch.cuda.synchronize()
+    reset_launches()
+    n = len(REQUEST_SIZES)
+    got = [serve_request(exported, trials, days, k, {}) for k in range(n)]
+    launches = read_launches()
+    want = {k: 0 for k in KERNELS} | {k: v * n for k, v in per_request.items()}
+    bodies = {k: dict(WRAPPERS[k].launches_by_body) for k in
+              ("frontend", "gru_scan", "ffn", "conv_module")} | {
+        "mhsa_qkv": dict(mhsa_qkv.launches_by_body),
+        "tiled_matmul": dict(tiled_matmul.launches_by_body)}
+    want_bodies = {"tiled_matmul": {"sm90": want["tiled_matmul"], "f32": 0, "tile": 0},
+                   "frontend": {"tc": want["frontend"], "fma": 0},
+                   "gru_scan": {"persistent": want["gru_scan"], "step": 0},
+                   "ffn": {"sm90": want["ffn"], "tile": 0},
+                   "conv_module": {"sm90": want["conv_module"], "tile": 0},
+                   "mhsa_qkv": {"tc": want["mhsa_qkv"], "fma": 0}}
+    check(launches == want and bodies == want_bodies,
+          f"exported {tag}: {n} requests launched {launches} == {per_request} a request "
+          f"and no other kernel; by body {bodies}")
+    ref = [serve_request(eager, trials, days, k, {}) for k in range(n)]
+    same = all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) and a[2] == b[2]
+               for a, b in zip(got, ref))
+    err = max((a[0] - b[0]).abs().max().item() for a, b in zip(got, ref))
+    lens_equal = all(torch.equal(a[1], b[1]) for a, b in zip(got, ref))
+    for (log_probs, out_lens, decoded), m in zip(got, REQUEST_SIZES):
+        check_request(f"exported {tag}", m, log_probs, out_lens, decoded)
+    check(same or (err <= LOGITS_TOL and lens_equal),
+          f"exported {tag} vs the eager InferenceModel over {n} requests: "
+          f"{'bit-equal' if same else f'log-probs max abs err {err:.3e} <= {LOGITS_TOL:g}'}"
+          f", out_lens equal {lens_equal}")
+    # the two servers in turns (exported, eager, eager, exported, ...), so
+    # that the host's noise falls on both
+    times_e, times_i = {}, {}
+    for k in range(EXPORT_REQUESTS):
+        turns = ((exported, times_e), (eager, times_i))
+        for server, stages in turns if k % 2 == 0 else turns[::-1]:
+            serve_request(server, trials, days, k, stages)
+    print(f"export {tag} B={B} T={T}: nsd-export-torch {export_s:.1f} s, load {load_s:.1f} s; "
+          f"{EXPORT_REQUESTS} requests each in turns, host ms median (range): exported "
+          f"{split_line(times_e)}; eager InferenceModel {split_line(times_i)} ({card})",
+          flush=True)
+    return launches
+
+
+def export_stream_check(kind: str, card: str) -> None:
+    """The bf16 B=1 streaming cell exported with its beam programs (one
+    frame a chunk), driven by ``ExportedStreamer`` over one utterance in
+    4-bin chunks against the live streamer (CUDA graphs on): outputs
+    bit-equal, else within ``BF16_LOGITS_FACTOR`` x the live bf16 stream's
+    distance from its float32 twin; greedy and beam decodes equal; no hand
+    kernel launched; the host p50 of a chunk beside the live graph's."""
+    cfg, params = stream_model(kind, torch.bfloat16)
+    art = str(EXPORT_DIR / f"stream_{kind}")
+    t0 = time.perf_counter()
+    export = export_streaming_params if kind == "gru" else export_streaming_conformer_params
+    export(params, cfg, art, batch=1, frames_per_chunk=1, device="cuda")
+    export_beam(art, batch=1, n_classes=cfg.n_out, beam_width=BEAM_WIDTH, device="cuda")
+    export_s = time.perf_counter() - t0
+    exp = load_exported_streamer(art)
+    load_s = time.perf_counter() - t0 - export_s
+    live = make_streamer(kind, cfg, params, 1)
+    live32 = make_streamer(kind, dataclasses.replace(cfg, compute_dtype=torch.float32),
+                           params, 1, graphs=False)
+    t = STREAM_BINS[kind]
+    x = np.random.default_rng(13).standard_normal((1, t, C)).astype(np.float32)
+    chunks = [x[:, i: i + STREAM_CHUNK] for i in range(0, t, STREAM_CHUNK)]
+    reset_launches()
+    outs = {"exported": [], "live": [], "float32": []}
+    greedy = {"exported": [], "live": []}
+    for i in range(len(chunks) + 1):
+        e = exp.feed(chunks[i]) if i < len(chunks) else exp.flush()
+        lv = live.process(chunks[i]) if i < len(chunks) else live.flush()
+        outs["float32"].append(live32.process(chunks[i]) if i < len(chunks)
+                               else live32.flush())
+        outs["exported"].append(e)
+        outs["live"].append(lv)
+        greedy["exported"] += exp.decode_greedy(e)[0]
+        greedy["live"] += live.decode_greedy(lv)[0]
+        beam_e = exp.decode_beam(e)
+        beam_l = [a.cpu().numpy() for a in live.decode_beam(lv, beam_width=BEAM_WIDTH)]
+    torch.cuda.synchronize()
+    check_no_launches(f"exported {kind} stream")
+    e, lv, f32 = (np.concatenate(outs[k], axis=1) for k in ("exported", "live", "float32"))
+    err = float(np.abs(e - lv).max()) if e.shape == lv.shape else math.inf
+    dist = float(np.abs(lv - f32).max())
+    score_err = float(np.abs(beam_e[2] - beam_l[2]).max())
+    # a beam score sums one log-softmax entry a frame: each moves by at most
+    # twice the outputs' error
+    score_tol = BEAM_TOL + 2 * e.shape[1] * err
+    n = (t - 32) // 4
+    check(e.shape[1] == n and (err == 0 or err <= BF16_LOGITS_FACTOR * dist)
+          and greedy["exported"] == greedy["live"]
+          and np.array_equal(beam_e[0], beam_l[0]) and np.array_equal(beam_e[1], beam_l[1])
+          and score_err <= score_tol,
+          f"exported {kind} bf16 stream of {t} bins in 4-bin chunks vs the live streamer "
+          f"({live._fast.replays} chunks replayed as CUDA graphs): {e.shape[1]} frames == "
+          f"{n}; outputs {'bit-equal' if err == 0 else f'max abs err {err:.3e}'} (limit "
+          f"{BF16_LOGITS_FACTOR:g} x the live bf16 stream's distance {dist:.3e} from "
+          f"float32); greedy decodes equal ({len(greedy['live'])} labels); beam W="
+          f"{BEAM_WIDTH} prefixes and lens equal, scores max abs err {score_err:.3e} <= "
+          f"{score_tol:.3g}")
+    exp.reset()
+    live.reset()
+    for c in chunks[:30]:
+        exp.feed(c)
+        live.process(c)
+    torch.cuda.synchronize()
+    lat = {"exported": [], "live": []}
+    for i in range(100):  # the two in turns
+        turns = (("exported", exp.feed), ("live", live.process))
+        for name, feed in turns if i % 2 == 0 else turns[::-1]:
+            t1 = time.perf_counter()
+            feed(chunks[30 + i % 60])
+            lat[name].append((time.perf_counter() - t1) * 1e3)
+    print(f"export stream {kind} bf16 B=1: export {export_s:.1f} s, load {load_s:.1f} s; host "
+          f"p50 a chunk (100 chunks each in turns, host data to host output) exported "
+          f"{statistics.median(lat['exported']):.4f} ms ({min(lat['exported']):.4f}-"
+          f"{max(lat['exported']):.4f}), live CUDA graph {statistics.median(lat['live']):.4f} "
+          f"ms ({min(lat['live']):.4f}-{max(lat['live']):.4f}) ({card})", flush=True)
+
+
+def export_phase(card: str) -> dict:
+    """The serving artifacts (``serving/export.py``): the GRU of
+    ``cli_phase``'s run and the Conformer of ``conformer_train_model_phase``'s
+    run, as trained and with both fused flags in a copy of its args, each
+    against the eager ``InferenceModel``; then both streaming cells with
+    their beam programs against the live streamers. Removes the run
+    directories. Returns the launches of the exported requests."""
+    shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+    fused_run = EXPORT_DIR / "conformer_fused_run"
+    shutil.copytree(CONFORMER_RUN, fused_run)
+    args = load_args(str(fused_run))
+    save_args(str(fused_run), {**args, **FUSED_FLAGS["conformer"]})
+    launches = {k: 0 for k in KERNELS}
+    for tag, run_dir, per_request in (
+            # the run's use_pallas_matmul: layers 1-4's projections on the kernel
+            ("gru", CLI_RUN / "run", {"frontend": 1, "gru_scan": 5, "tiled_matmul": 4}),
+            ("conformer", CONFORMER_RUN, {"mhsa_qkv": CONFORMER_LAYERS}),
+            ("conformer_fused", fused_run, {"mhsa_qkv": CONFORMER_LAYERS,
+                                            "ffn": 2 * CONFORMER_LAYERS,
+                                            "conv_module": CONFORMER_LAYERS})):
+        for k, v in export_request_check(tag, run_dir, per_request, card).items():
+            launches[k] += v
+    for kind in ("gru", "conformer"):
+        export_stream_check(kind, card)
+    for path in (EXPORT_DIR, CLI_RUN, CONFORMER_RUN):
+        shutil.rmtree(path, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2671,6 +2910,10 @@ def main() -> int:
     t0 = time.perf_counter()
     streaming_phase(card)
     print(f"phase streaming: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    for k, n in export_phase(card).items():
+        launches[k] += n
+    print(f"phase export: {time.perf_counter() - t0:.1f} s", flush=True)
     # every kernel of the main paths ran there (the mask hooks excepted: the
     # attention and FF kernels draw their masks themselves)
     idle = [k for k in KERNELS if k not in HOOKS and not launches[k]]

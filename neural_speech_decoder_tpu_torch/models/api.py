@@ -14,8 +14,13 @@ from __future__ import annotations
 import torch
 
 from ..ops.unfold import ctc_input_lengths
-from .conformer import ConformerConfig, ConformerDecoder, init_conformer_params
-from .gru import GRUConfig, GRUDecoder, init_gru_params
+from .conformer import (
+    ConformerConfig,
+    ConformerDecoder,
+    conformer_forward,
+    init_conformer_params,
+)
+from .gru import GRUConfig, GRUDecoder, gru_forward, init_gru_params
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 Decoder = GRUDecoder | ConformerDecoder
@@ -99,11 +104,29 @@ def forward(
     and the Conformer's InterCTC log-probabilities in training (else
     None). ``train`` runs the training forward with its randomness from
     ``generator``; ``plain`` the kernels' plain versions."""
-    if isinstance(model, ConformerDecoder):
-        return model(x, day_idx, x_lens, train=train, generator=generator,
-                     plain=plain)
-    logits = model(x, day_idx, train=train, generator=generator, plain=plain)
-    cfg = model.cfg
+    return forward_params(model.cfg, model.params, x, day_idx, x_lens, train=train,
+                          generator=generator, plain=plain)
+
+
+def forward_params(
+    cfg: GRUConfig | ConformerConfig,
+    params: dict,
+    x: torch.Tensor,
+    day_idx: torch.Tensor,
+    x_lens: torch.Tensor,
+    *,
+    train: bool = False,
+    generator: torch.Generator | None = None,
+    plain: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
+    """``forward`` of the decoder ``cfg`` describes, on the parameter tree
+    ``params`` (what ``serving/export.py`` traces, with the tree's leaves
+    as the exported program's inputs)."""
+    if isinstance(cfg, ConformerConfig):
+        return conformer_forward(params, cfg, x, day_idx, x_lens, train=train,
+                                 generator=generator, plain=plain)
+    logits = gru_forward(params, cfg, x, day_idx, train=train, generator=generator,
+                         plain=plain)
     out_lens = ctc_input_lengths(x_lens, cfg.kernel_len, cfg.stride_len)
     out_lens = out_lens.to(logits.device).clamp(0, logits.shape[1])
     return torch.log_softmax(logits, dim=-1), out_lens, None

@@ -207,7 +207,20 @@ def sinusoidal_pos_encoding(max_len: int, d_model: int) -> np.ndarray:
     return pe
 
 
-@functools.lru_cache(maxsize=16)
+def _cached_unless_exporting(fn):
+    """``fn`` behind an ``lru_cache``, except under ``torch.export``: there
+    the table is made afresh and becomes the exported program's lifted
+    constant, so that the cache never holds a traced tensor."""
+    cached = functools.lru_cache(maxsize=16)(fn)
+
+    @functools.wraps(fn)
+    def wrapper(*args):
+        return fn(*args) if torch.compiler.is_exporting() else cached(*args)
+
+    return wrapper
+
+
+@_cached_unless_exporting
 def _pos_div(d_model: int, device: torch.device) -> torch.Tensor:
     """The encoding's frequencies, computed once a (width, device) as the
     JAX package computes them, so that no call copies them from the host."""
@@ -228,7 +241,7 @@ def sinusoidal_pos_rows(offset, n: int, d_model: int,
     else:
         base = float(offset)
     device = torch.device("cpu" if device is None else device)
-    if device.type == "cuda" and device.index is None:
+    if device.type == "cuda" and device.index is None:  # one cache key a card
         device = torch.device("cuda", torch.cuda.current_device())
     div = _pos_div(d_model, device)
     pos = (base + torch.arange(n, dtype=torch.float32, device=device))[:, None]
@@ -238,8 +251,9 @@ def sinusoidal_pos_rows(offset, n: int, d_model: int,
     return pe.to(dtype)
 
 
-@functools.lru_cache(maxsize=16)
+@_cached_unless_exporting
 def _pos_table(t: int, d_model: int, dtype: torch.dtype, device: str) -> torch.Tensor:
+    """The first t rows of the sinusoidal table on ``device``."""
     return torch.from_numpy(sinusoidal_pos_encoding(t, d_model)).to(device, dtype)
 
 

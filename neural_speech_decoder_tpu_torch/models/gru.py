@@ -11,7 +11,10 @@ move between the two as they are (``models/convert.py``): per layer
 order r, z, n.
 
 On the serving path (``train=False``) the frontend (when ``sigma > 0``) and
-each layer's time scan run the hand-written kernels of ``ops/kernels``.
+each layer's time scan run the hand-written kernels of ``ops/kernels``,
+through their operators (``torch.ops.nsd_torch.fused_frontend`` and
+``gru_sequence``, ``ops/kernels/library.py``), so that ``torch.export``
+can trace the eval forward (``serving/export.py``).
 Training (``train=True``) runs the unfused frontend chain under autograd,
 as the JAX package does, each scan through the ``GRUScan`` autograd
 Function (gates-storing forward and backward kernels), and inter-layer
@@ -47,8 +50,9 @@ import torch.nn.functional as F
 
 from ..ops.day_affine import day_affine, init_day_affine
 from ..ops.gaussian import gaussian_smooth
-from ..ops.kernels.frontend import fused_frontend, fused_frontend_plain
+from ..ops.kernels.frontend import fused_frontend_plain
 from ..ops.kernels.gru_scan import gru_cell, gru_scan
+from ..ops.kernels.library import fused_frontend
 from ..ops.kernels.matmul import projection_kernel_viable, projection_matmul
 from ..ops.unfold import unfold_matmul, unfold_output_length
 from .common import linear, orthogonal, torch_linear_init, uniform_bound, xavier_uniform
@@ -233,12 +237,13 @@ def gru_forward(
     affine) and dropout from ``generator``; inference the fused frontend."""
     x = x.to(cfg.compute_dtype)
     if cfg.gaussian_smooth_width > 0 and not train:
+        # fused_frontend: the kernel's operator (ops/kernels/library.py)
         front = (fused_frontend_plain if plain or cfg.use_pallas is False
                  else fused_frontend)
         x = front(
             x, params["day"]["weight"], params["day"]["bias"], day_idx,
             kernel_size=cfg.gaussian_kernel_size,
-            sigma=cfg.gaussian_smooth_width,
+            sigma=float(cfg.gaussian_smooth_width),
         )
     else:
         # training, or sigma <= 0 (no smoothing: the fused kernel's taps

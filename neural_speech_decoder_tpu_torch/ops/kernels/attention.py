@@ -18,8 +18,9 @@ the same function in plain PyTorch, for a CPU tensor; it raises for any
 other device. ``<wrapper>.launches`` counts its calls that launched the
 kernel (``mhsa_qkv_bwd`` launches two, the dQ and the dK/dV kernel, per
 call), and ``mhsa_qkv.launches_by_body`` the forward's by body (``"tc"``
-for bfloat16, ``"fma"`` for float32). ``MHSA`` is the
-``torch.autograd.Function``: it saves
+for bfloat16, ``"fma"`` for float32). The model reaches the forward
+through the operator ``torch.ops.nsd_torch.mhsa_qkv`` (``library.py``).
+``MHSA`` is the ``torch.autograd.Function``: it saves
 ``(qkv, lens, seed)`` and the backward regenerates the probabilities and
 the dropout mask from them.
 
@@ -280,7 +281,7 @@ class MHSA(torch.autograd.Function):
                 interleaved, plain):
         kw = dict(num_heads=num_heads, rate=rate, left_context=left_context,
                   interleaved=interleaved)
-        out = (mhsa_qkv_plain if plain else mhsa_qkv)(qkv, lens, seed, **kw)
+        out = _forward(qkv, lens, seed, kw, plain)
         ctx.save_for_backward(qkv, lens, seed)
         ctx.kw, ctx.plain = kw, plain
         return out
@@ -293,9 +294,24 @@ class MHSA(torch.autograd.Function):
         return dqkv, None, None, None, None, None, None, None
 
 
+def _forward(qkv, lens, seed, kw, plain):
+    """The forward as the model runs it: the plain version, or the operator
+    ``torch.ops.nsd_torch.mhsa_qkv`` (``library.py``; what ``torch.export``
+    records)."""
+    if plain:
+        return mhsa_qkv_plain(qkv, lens, seed, **kw)
+    return torch.ops.nsd_torch.mhsa_qkv(qkv, lens, seed, kw["num_heads"], float(kw["rate"]),
+                                        kw["left_context"], bool(kw["interleaved"]))
+
+
 def mhsa(qkv, lens, seed, *, num_heads: int, rate: float = 0.0,
          left_context: int | None = None, interleaved: bool = False,
          plain: bool = False) -> torch.Tensor:
-    """``mhsa_qkv`` under autograd (``MHSA``)."""
-    return MHSA.apply(qkv, lens, seed, num_heads, rate, left_context,
-                      interleaved, plain)
+    """``mhsa_qkv`` under autograd (``MHSA``) when grad is enabled and qkv
+    requires it; otherwise the forward alone (``_forward``)."""
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        return MHSA.apply(qkv, lens, seed, num_heads, rate, left_context,
+                          interleaved, plain)
+    kw = dict(num_heads=num_heads, rate=rate, left_context=left_context,
+              interleaved=interleaved)
+    return _forward(qkv, lens, seed, kw, plain)

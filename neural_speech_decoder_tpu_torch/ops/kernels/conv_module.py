@@ -11,7 +11,9 @@ Each launches its kernel for a CUDA tensor and runs its ``*_plain`` twin,
 written step by step as the TPU kernel, for a CPU tensor; it raises for any
 other device or a shape the kernel does not take (taps beyond 64).
 ``<wrapper>.launches`` counts its calls that launched the kernel.
-``ConvModule`` is the ``torch.autograd.Function``; it saves the inputs and
+The model reaches the forward through the operator
+``torch.ops.nsd_torch.conv_module`` (``library.py``). ``ConvModule`` is the
+``torch.autograd.Function``; it saves the inputs and
 the seed, and the backward recomputes the forward. The two bodies of each
 direction, ``"sm90"`` (bfloat16 with D a multiple of 8: the products on
 ``csrc/gemm_sm90.cuh``, the GLU and depthwise conv on the wide window
@@ -305,9 +307,8 @@ class ConvModule(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, ln_s, ln_b, w1, b1, dw_w, dw_b, ln2_s, ln2_b, w2, b2, seed, rate,
                 causal, plain):
-        out = (conv_module_plain if plain else conv_module)(
-            x, ln_s, ln_b, w1, b1, dw_w, dw_b, ln2_s, ln2_b, w2, b2, seed, rate=rate,
-            causal=causal)
+        out = _forward(x, ln_s, ln_b, w1, b1, dw_w, dw_b, ln2_s, ln2_b, w2, b2, seed, rate,
+                       causal, plain)
         ctx.save_for_backward(x, ln_s, ln_b, w1, b1, dw_w, dw_b, ln2_s, ln2_b, w2, seed)
         ctx.kw, ctx.plain = dict(rate=rate, causal=causal), plain
         return out
@@ -322,11 +323,26 @@ class ConvModule(torch.autograd.Function):
 def fused_conv_module(x, ln_s, ln_b, w1, b1, dw_w, dw_b, ln2_s, ln2_b, w2, b2, seed, *,
                       rate: float = 0.0, causal: bool = False,
                       plain: bool = False) -> torch.Tensor:
-    """``ConvModule`` under autograd, with the parameters cast as
-    ``fused_conv_module`` casts them: the weights to x's dtype, the taps and
-    every vector to float32."""
+    """``ConvModule`` under autograd when grad is enabled and an input
+    requires it (otherwise the forward alone, ``_forward``), with the
+    parameters cast as ``fused_conv_module`` casts them: the weights to x's
+    dtype, the taps and every vector to float32."""
     f32 = torch.float32
-    return ConvModule.apply(x, ln_s.to(f32), ln_b.to(f32), w1.to(x.dtype), b1.to(f32),
-                            dw_w.to(f32), dw_b.to(f32), ln2_s.to(f32), ln2_b.to(f32),
-                            w2.to(x.dtype), b2.to(f32), seed, float(rate), bool(causal),
-                            plain)
+    args = (x, ln_s.to(f32), ln_b.to(f32), w1.to(x.dtype), b1.to(f32), dw_w.to(f32),
+            dw_b.to(f32), ln2_s.to(f32), ln2_b.to(f32), w2.to(x.dtype), b2.to(f32), seed,
+            float(rate), bool(causal), plain)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args[:11]):
+        return ConvModule.apply(*args)
+    return _forward(*args)
+
+
+def _forward(x, ln_s, ln_b, w1, b1, dw_w, dw_b, ln2_s, ln2_b, w2, b2, seed, rate, causal,
+             plain):
+    """The forward as the model runs it: the plain version, or the operator
+    ``torch.ops.nsd_torch.conv_module`` (``library.py``; what
+    ``torch.export`` records)."""
+    if plain:
+        return conv_module_plain(x, ln_s, ln_b, w1, b1, dw_w, dw_b, ln2_s, ln2_b, w2, b2,
+                                 seed, rate=rate, causal=causal)
+    return torch.ops.nsd_torch.conv_module(x, ln_s, ln_b, w1, b1, dw_w, dw_b, ln2_s, ln2_b,
+                                           w2, b2, seed, rate, causal)

@@ -14,7 +14,9 @@ the same function in plain PyTorch written step by step as the TPU kernel,
 for a CPU tensor; it raises for any other device or a shape the kernel does
 not take. ``<wrapper>.launches`` counts its calls that launched the kernel
 (one call runs several kernels: the norm's statistics, the products, the
-column sums). ``FFN`` is the ``torch.autograd.Function``: it saves
+column sums). The model reaches the forward through the operator
+``torch.ops.nsd_torch.ffn`` (``library.py``). ``FFN`` is the
+``torch.autograd.Function``: it saves
 ``(x, scale, bias, w1, b1, w2, seed)``, as the TPU kernel's residuals, and
 the backward recomputes the forward.
 
@@ -408,8 +410,7 @@ class FFN(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, scale, bias, w1, b1, w2, b2, seed, rate, plain):
-        out = (ffn_plain if plain else ffn)(x, scale, bias, w1, b1, w2, b2, seed,
-                                            rate=rate)
+        out = _forward(x, scale, bias, w1, b1, w2, b2, seed, rate, plain)
         ctx.save_for_backward(x, scale, bias, w1, b1, w2, seed)
         ctx.rate, ctx.plain = rate, plain
         return out
@@ -421,11 +422,24 @@ class FFN(torch.autograd.Function):
         return (*grads, None, None, None)
 
 
+def _forward(x, scale, bias, w1, b1, w2, b2, seed, rate, plain):
+    """The forward as the model runs it: the plain version, or the operator
+    ``torch.ops.nsd_torch.ffn`` (``library.py``; what ``torch.export``
+    records)."""
+    if plain:
+        return ffn_plain(x, scale, bias, w1, b1, w2, b2, seed, rate=rate)
+    return torch.ops.nsd_torch.ffn(x, scale, bias, w1, b1, w2, b2, seed, rate)
+
+
 def fused_ffn(x, scale, bias, w1, b1, w2, b2, seed, *, rate: float = 0.0,
               plain: bool = False) -> torch.Tensor:
-    """``FFN`` under autograd, with the parameters cast as ``fused_ffn``
-    casts them: the vectors to float32, the weights to x's dtype (their
-    gradients flow back through the casts)."""
+    """``FFN`` under autograd when grad is enabled and an input requires it
+    (otherwise the forward alone, ``_forward``), with the parameters cast as
+    ``fused_ffn`` casts them: the vectors to float32, the weights to x's
+    dtype (their gradients flow back through the casts)."""
     f32 = torch.float32
-    return FFN.apply(x, scale.to(f32), bias.to(f32), w1.to(x.dtype), b1.to(f32),
-                     w2.to(x.dtype), b2.to(f32), seed, float(rate), plain)
+    args = (x, scale.to(f32), bias.to(f32), w1.to(x.dtype), b1.to(f32), w2.to(x.dtype),
+            b2.to(f32), seed, float(rate), plain)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args[:7]):
+        return FFN.apply(*args)
+    return _forward(*args)

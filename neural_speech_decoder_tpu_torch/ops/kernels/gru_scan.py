@@ -491,9 +491,12 @@ def gru_scan(
 ) -> torch.Tensor:
     """A GRU layer's scan as the model runs it: with grad enabled and an
     input that requires it, ``GRUScan`` (training forward, then the backward
-    kernel); otherwise the inference forward. ``plain`` takes the kernels'
-    plain versions."""
+    kernel); otherwise the inference forward, the operator
+    ``torch.ops.nsd_torch.gru_sequence`` (``library.py``; what
+    ``torch.export`` records). ``plain`` takes the kernels' plain versions."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (xp, w_hh, b_hh)):
         return GRUScan.apply(xp, w_hh, b_hh, plain)
-    return (gru_sequence_plain if plain else gru_sequence)(xp, w_hh, b_hh)
+    if plain:
+        return gru_sequence_plain(xp, w_hh, b_hh)
+    return torch.ops.nsd_torch.gru_sequence(xp, w_hh, b_hh)

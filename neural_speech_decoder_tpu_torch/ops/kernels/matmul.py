@@ -12,7 +12,10 @@ Replaces ``neural_speech_decoder_tpu/ops/pallas/matmul.py``:
 - ``ProjectionMatmul`` / ``projection_matmul``: ``projection_matmul``'s
   custom VJP as a ``torch.autograd.Function``: the forward (``nn`` with the
   bias), dX (``nt``) and dW (``tn``) on the kernel, ``db = g.float().sum(0)``
-  in plain PyTorch (the JAX package sums it outside its kernel too).
+  in plain PyTorch (the JAX package sums it outside its kernel too). The
+  forward goes through the operator ``torch.ops.nsd_torch.projection_matmul``
+  (``library.py``; what ``torch.export`` records), and without grad
+  ``projection_matmul`` calls it alone.
 
 ``tiled_matmul`` launches a kernel for CUDA tensors and runs
 ``tiled_matmul_plain`` for CPU tensors; it raises for any other device, a
@@ -154,8 +157,7 @@ class ProjectionMatmul(torch.autograd.Function):
     def forward(ctx, x, w, bias, plain):
         ctx.save_for_backward(x, w)
         ctx.plain = plain
-        mm = tiled_matmul_plain if plain else tiled_matmul
-        return mm(x, w, kind="nn", bias=bias)
+        return _forward(x, w, bias, plain)
 
     @staticmethod
     def backward(ctx, g):
@@ -168,7 +170,18 @@ class ProjectionMatmul(torch.autograd.Function):
         return dx, dw, db, None
 
 
+def _forward(x, w, bias, plain):
+    """The forward as the model runs it: the plain version, or the operator
+    ``torch.ops.nsd_torch.projection_matmul`` (``library.py``)."""
+    if plain:
+        return tiled_matmul_plain(x, w, kind="nn", bias=bias)
+    return torch.ops.nsd_torch.projection_matmul(x, w, bias)
+
+
 def projection_matmul(x, w, bias, *, plain: bool = False) -> torch.Tensor:
-    """``ProjectionMatmul`` under autograd: ``x [M, K]`` and ``w [K, N]`` in
-    one dtype, ``bias [N]`` float32 -> ``[M, N]`` in x's dtype."""
-    return ProjectionMatmul.apply(x, w, bias, plain)
+    """``x [M, K]`` and ``w [K, N]`` in one dtype, ``bias [N]`` float32 ->
+    ``[M, N]`` in x's dtype: ``ProjectionMatmul`` when grad is enabled and
+    an input requires it, otherwise the forward alone (``_forward``)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w, bias)):
+        return ProjectionMatmul.apply(x, w, bias, plain)
+    return _forward(x, w, bias, plain)

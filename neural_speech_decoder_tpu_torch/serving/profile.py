@@ -4,14 +4,16 @@ Runs ``InferenceModel`` at the full width of the GRU baseline (random
 weights from a seed, B=64, T=1280) under ``torch.profiler`` and prints the
 device time by kernel, the device's busy share of the request's wall time,
 and the wall time of each stage (pad, forward, decode) from host clocks
-around ``torch.cuda.synchronize()``.
+around ``torch.cuda.synchronize()``. ``--matmul`` serves with
+``use_pallas_matmul`` (layers 1-4's projections on the hand GEMM, as a
+flagged run's artifact does).
 
 With ``--stream gru|conformer`` it profiles instead 50 steady 4-bin chunks
 of a streaming cell (``STREAM_GRU`` or ``STREAM_CONFORMER``, B=1, bf16, one
 frame a chunk, after 30 warm-up chunks), replayed as CUDA graphs and then
 on the eager path, with the same readings a chunk.
 
-    python -m neural_speech_decoder_tpu_torch.serving.profile [--dtype bfloat16]
+    python -m neural_speech_decoder_tpu_torch.serving.profile [--dtype bfloat16] [--matmul]
     python -m neural_speech_decoder_tpu_torch.serving.profile --stream gru
 
 It needs a CUDA device and fails without one.
@@ -104,6 +106,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
     ap.add_argument("--stream", choices=["gru", "conformer"])
+    ap.add_argument("--matmul", action="store_true", help="use_pallas_matmul")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile: no CUDA device")
@@ -112,7 +115,7 @@ def main() -> None:
     if args.stream:
         profile_stream(args.stream)
         return
-    cfg = GRUConfig(compute_dtype=getattr(torch, args.dtype))
+    cfg = GRUConfig(compute_dtype=getattr(torch, args.dtype), use_pallas_matmul=args.matmul)
     params = init_gru_params(cfg, torch.Generator(device="cuda").manual_seed(0))
     model = InferenceModel(params, cfg, "cuda", batch_size=B, t_max=T)
     rng = np.random.default_rng(0)
@@ -135,7 +138,7 @@ def main() -> None:
     for _ in range(2):
         request()
     stages = np.median([request() for _ in range(3)], axis=0)
-    print(f"{cfg.compute_dtype} B={B} T={T} "
+    print(f"{cfg.compute_dtype} B={B} T={T} use_pallas_matmul={cfg.use_pallas_matmul} "
           f"{torch.cuda.get_device_name(0)}: pad {stages[0]:.3f} ms, "
           f"forward {stages[1]:.3f} ms, decode {stages[2]:.3f} ms")
 

@@ -39,7 +39,8 @@ import torch.nn.functional as F
 from ..models.common import _mm_f32
 from ..models.conformer import ConformerConfig, _flatten, layer_norm, sinusoidal_pos_rows
 from ..ops.gaussian import conformer_kernel_size, gaussian_kernel
-from .engine import Streamer, resolve_device
+from ..utils.device import resolve_device
+from .engine import Streamer
 
 
 def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -95,7 +96,7 @@ class ConformerStreamer(Streamer):
                 f"smoothing kernel ({ks} taps), whose offline padding emits T+1 bins: "
                 "unsupported for streaming; pick a width with odd int(4*width)+1")
         self.cfg = cfg
-        self.device = dev = resolve_device(device)
+        self.device = dev = resolve_device(device, "streaming")
         self.kernel, self.stride = cfg.temporal_kernel, cfg.temporal_stride
         self.channels = c = cfg.n_channels
         self.ks = ks
@@ -160,6 +161,18 @@ class ConformerStreamer(Streamer):
     def weights(self) -> list[torch.Tensor]:
         """The tensors a chunk reads besides its input and state."""
         return [self._taps, *(t for _, t in _flatten(self._p))]
+
+    def weight_tree(self) -> dict:
+        """The weights the bodies read, as cast at construction, as a tree
+        (the taps aside)."""
+        return self._p
+
+    def _set_weights(self, tree: dict) -> None:
+        self._p = tree
+
+    def _set_fixed(self, fixed) -> None:
+        *caches, self._offset = fixed
+        self._caches = tuple(caches)
 
     def _admit(self, new: torch.Tensor) -> torch.Tensor:
         """Raw bins -> the day-affined domain, in the compute dtype."""

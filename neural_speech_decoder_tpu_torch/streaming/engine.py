@@ -34,6 +34,7 @@ kernel either): its products are ``torch.mm``.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import numpy as np
@@ -44,20 +45,8 @@ from ..decoding.ondevice_beam import beam_extend, beam_finalize, beam_init
 from ..models.common import _mm_f32
 from ..models.gru import GRUConfig
 from ..ops.gaussian import gaussian_kernel, same_padding
+from ..utils.device import resolve_device
 from ..utils.greedy import incremental_greedy
-
-
-def resolve_device(device: torch.device | str) -> torch.device:
-    """``device`` as a ``torch.device`` with its index; a CUDA device on a
-    machine without one raises (there is no CPU fallback)."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(f"streaming on {device!r}: no CUDA device "
-                               "(pass device='cpu' to stream on the CPU)")
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
 
 
 @dataclasses.dataclass
@@ -239,6 +228,17 @@ class Streamer:
     def fast_path_engaged(self) -> bool:
         return self._fast.engaged
 
+    def bound(self, weights: dict, fixed: tuple[torch.Tensor, ...]) -> "Streamer":
+        """A copy of this streamer whose bodies (``_admit``, ``_smooth``,
+        ``_emit``) read ``weights`` (``weight_tree()``'s layout) and the
+        fixed state ``fixed`` (``carried_state()``'s tail), which ``_emit``
+        rolls in place: what ``serving/export.py`` traces, with both as the
+        exported program's inputs. This streamer is left as it was."""
+        other = copy.copy(self)
+        other._set_weights(weights)
+        other._set_fixed(fixed)
+        return other
+
     def carried_state(self) -> tuple[torch.Tensor, ...]:
         """The live carried state: the raw and the smoothed bins, then the
         fixed state (the GRU's hidden states; the Conformer's K/V and conv
@@ -365,7 +365,7 @@ class GRUStreamer(Streamer):
                              "(bidirectional back-states depend on future input)")
         self.cfg = cfg
         self.causal = causal
-        self.device = dev = resolve_device(device)
+        self.device = dev = resolve_device(device, "streaming")
         self.kernel, self.stride = cfg.kernel_len, cfg.stride_len
         self.channels = c = cfg.neural_dim
         if cfg.gaussian_smooth_width <= 0:
@@ -402,6 +402,19 @@ class GRUStreamer(Streamer):
         """The tensors a chunk reads besides its input and state."""
         return [self._taps, self._w_day, self._b_day, *(t for lt in self._layers for t in lt),
                 *self._fc]
+
+    def weight_tree(self) -> dict:
+        """The weights the bodies read, as cast at construction, as a tree
+        (the taps aside)."""
+        return {"w_day": self._w_day, "b_day": self._b_day, "layers": self._layers,
+                "fc": self._fc}
+
+    def _set_weights(self, tree: dict) -> None:
+        self._w_day, self._b_day = tree["w_day"], tree["b_day"]
+        self._layers, self._fc = tree["layers"], tree["fc"]
+
+    def _set_fixed(self, fixed) -> None:
+        (self._h,) = fixed
 
     def _admit(self, new: torch.Tensor) -> torch.Tensor:
         return new

@@ -1071,3 +1071,142 @@ def row16_digest(kind, device) -> str:
 @pytest.mark.parametrize("kind", ["nn", "nt", "tn"])
 def test_matmul_sm90_bits_unchanged_by_epilogue_functor(cuda, kind):
     assert row16_digest(kind, cuda) == SM90_ROW16_SHA256[kind]
+
+
+# ------------------------------------- the serving kernels as operators
+
+from neural_speech_decoder_tpu_torch.models.api import build_model  # noqa: E402
+from neural_speech_decoder_tpu_torch.ops.kernels import library  # noqa: E402
+from neural_speech_decoder_tpu_torch.serving import (  # noqa: E402
+    export_inference,
+    load_exported,
+)
+from neural_speech_decoder_tpu_torch.serving.model import InferenceModel  # noqa: E402
+from neural_speech_decoder_tpu_torch.training import checkpoints  # noqa: E402
+
+
+def _op_case(cuda, name, dtype):
+    """Small ragged inputs of each operator on the card; ``(args, wrapper,
+    plain, tolerance check)``."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    r = lambda *s, sc=1.0: sc * torch.randn(s, generator=g, device=cuda)
+    seed = torch.tensor([41], dtype=torch.int32, device=cuda)
+    if name == "fused_frontend":
+        args = (r(3, 37, 130).to(dtype), torch.eye(130, device=cuda) + r(4, 130, 130, sc=0.05),
+                r(4, 130, sc=0.1), torch.tensor([-1, 3, 9], dtype=torch.int32, device=cuda),
+                20, 2.0)
+        tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+        return (args, fused_frontend, fused_frontend_plain,
+                lambda a, b: (a.float() - b.float()).abs().max().item() <= tol)
+    if name == "gru_sequence":
+        args = (r(9, 2, 37, 120).to(dtype), r(2, 40, 120, sc=0.2), r(2, 120, sc=0.1))
+        tol = 1e-5 if dtype == torch.float32 else 2e-2
+        return (args, gru_sequence, gru_sequence_plain,
+                lambda a, b: (a.float() - b.float()).abs().max().item() <= tol)
+    if name == "projection_matmul":
+        args = (r(37, 136).to(dtype), r(136, 200, sc=0.1).to(dtype), r(200, sc=0.1))
+        return (args, tiled_matmul, tiled_matmul_plain, lambda a, b: (
+            (a.float() - b.float()).abs().max().item()
+            <= MM_TOL[dtype] * b.float().abs().max().item()))
+    check = lambda a, b: _rel(a, b) <= FUSED_TOL[dtype]
+    if name == "mhsa_qkv":
+        args = (r(3, 130, 3 * 2 * 64).to(dtype),
+                torch.tensor([130, 5, 64], dtype=torch.int32, device=cuda), seed, 2, 0.3, 40,
+                True)
+        return (args, mhsa_qkv, mhsa_qkv_plain, lambda a, b: _rel(a, b) <= ATTN_TOL[dtype])
+    if name == "ffn":
+        x, params, _ = _ffn_case(cuda, dtype, 3, 37, 96, 200)
+        return (x, *params, seed, 0.3), ffn, ffn_plain, check
+    x, params, _ = _conv_case(cuda, dtype, 2, 70, 128, 31)
+    return (x, *params, seed, 0.3, True), conv_module, conv_module_plain, check
+
+
+def _call(fn, name, args):
+    """A wrapper or plain version called as the operator is."""
+    if name == "fused_frontend":
+        return fn(*args[:4], kernel_size=args[4], sigma=args[5])
+    if name == "gru_sequence":
+        return fn(*args)
+    if name == "projection_matmul":
+        return fn(*args[:2], kind="nn", bias=args[2])
+    if name == "mhsa_qkv":
+        return fn(*args[:3], num_heads=args[3], rate=args[4], left_context=args[5],
+                  interleaved=args[6])
+    if name == "ffn":
+        return fn(*args[:8], rate=args[8])
+    return fn(*args[:12], rate=args[12], causal=args[13])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(library.OPS))
+def test_operator_launches_its_kernel(cuda, name, dtype):
+    """``torch.ops.nsd_torch.<name>`` on CUDA tensors launches the kernel
+    once (the wrapper's count), gives the wrapper's bits, and matches the
+    plain version within the kernel tests' tolerance."""
+    args, wrapper, plain, close = _op_case(cuda, name, dtype)
+    before = wrapper.launches
+    out = getattr(torch.ops.nsd_torch, name)(*args)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert torch.equal(out, _call(wrapper, name, args))
+    assert out.dtype == dtype and close(out, _call(plain, name, args))
+
+
+def test_operator_refuses_host_input_beside_card_input(cuda):
+    """The CUDA implementation never runs the twin: a CPU x beside CUDA
+    weights raises."""
+    args, *_ = _op_case(cuda, "gru_sequence", torch.float32)
+    with pytest.raises(ValueError, match="not on the card"):
+        torch.ops.nsd_torch.gru_sequence(args[0].cpu(), *args[1:])
+
+
+_EXPORT_ARGS = {
+    "gru": {"nInputFeatures": 32, "nClasses": 40, "nUnits": 64, "nLayers": 2,
+            "dropout": 0.0, "strideLen": 4, "kernelLen": 32, "gaussianSmoothWidth": 2.0,
+            "bidirectional": True},
+    "conformer": {"model_type": "transformer_ctc", "nInputFeatures": 32, "nClasses": 40,
+                  "frontend_dim": 64, "latent_dim": 128, "autoencoder_hidden_dim": 64,
+                  "transformer_num_layers": 2, "transformer_n_heads": 2,
+                  "transformer_dim_ff": 256, "conformer_conv_kernel": 7,
+                  "fused_ffn": True, "fused_conv": True},
+}
+# K = 2 * 64 and N = 3 * 64 * 2, multiples of 128: layer 1 takes the kernel
+_EXPORT_ARGS["gru-matmul"] = {**_EXPORT_ARGS["gru"], "use_pallas_matmul": True}
+
+
+@pytest.mark.parametrize("family, per_request", [
+    ("gru", {"frontend": 1, "gru_scan": 2}),
+    ("gru-matmul", {"frontend": 1, "gru_scan": 2, "tiled_matmul": 1}),
+    ("conformer", {"mhsa_qkv": 2, "ffn": 4, "conv_module": 2}),
+])
+def test_cuda_export_launches_the_kernels(cuda, tmp_path, family, per_request):
+    """A bf16 CUDA export of each family: a request of the loaded artifact
+    launches the serving kernels as the eager forward does (the counts
+    above, nothing else; with ``use_pallas_matmul`` layer 1's projection
+    too), and gives the eager ``InferenceModel``'s pads and bits."""
+    args = {**_EXPORT_ARGS[family], "compute_dtype": "bfloat16", "nDays": 3, "seed": 0,
+            "device": "cuda", "time_multiple": 32}  # the envelope stays at T=160
+    model = build_model(args, 3, cuda, 0)
+    checkpoints.save_args(str(tmp_path / "run"), args)
+    checkpoints.CheckpointManager(str(tmp_path / "run")).save("modelState",
+                                                              {"params": model.params})
+    art = load_exported(export_inference(str(tmp_path / "run"), str(tmp_path / "art"),
+                                         batch_size=3, t_max=160, device="cuda"))
+    assert art.meta["device"] == "cuda" and art.meta["t_max"] == 160
+    eager = InferenceModel(model.params, model.cfg, cuda, batch_size=3, t_max=160)
+    rng = np.random.default_rng(7)
+    trials = [rng.standard_normal((n, 32)).astype(np.float32) for n in (160, 99)]
+    wrappers = {"frontend": fused_frontend, "gru_scan": gru_sequence, "mhsa_qkv": mhsa_qkv,
+                "ffn": ffn, "conv_module": conv_module, "ffn_bwd": ffn_bwd,
+                "conv_module_bwd": conv_module_bwd, "mhsa_qkv_bwd": mhsa_qkv_bwd,
+                "tiled_matmul": tiled_matmul}
+    batch, ref_batch = art.pad_batch(trials, days=[2, 1]), eager.pad_batch(trials, days=[2, 1])
+    assert all(torch.equal(a, b) for a, b in zip(batch, ref_batch))
+    before = {k: w.launches for k, w in wrappers.items()}
+    lp, out_lens = art(*batch)
+    torch.cuda.synchronize()
+    launched = {k: w.launches - before[k] for k, w in wrappers.items()}
+    assert launched == {k: per_request.get(k, 0) for k in wrappers}
+    ref_lp, ref_lens = eager(*ref_batch)
+    assert torch.equal(lp, ref_lp) and torch.equal(out_lens, ref_lens)
+    assert out_lens[2].item() == 0 and torch.isfinite(lp).all()

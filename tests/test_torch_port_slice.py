@@ -165,7 +165,10 @@ from neural_speech_decoder_tpu_torch.training.trainer import load_model, train_m
 from neural_speech_decoder_tpu_torch.training import cli
 from neural_speech_decoder_tpu_torch.utils import config
 from neural_speech_decoder_tpu_torch.data import device_data
-from neural_speech_decoder_tpu_torch.ops.kernels import adam, matmul
+from neural_speech_decoder_tpu_torch.ops.kernels import adam, library, matmul
+from neural_speech_decoder_tpu_torch.serving import cli as serve_cli
+from neural_speech_decoder_tpu_torch.serving import (
+    export_inference, export_streaming_params, load_exported, load_exported_streamer)
 cfg = GRUConfig(neural_dim=32, hidden_dim=16, num_layers=2, n_days=2, kernel_len=8)
 server = InferenceModel(init_gru_params(cfg, torch.Generator().manual_seed(0)),
                         cfg, "cpu", batch_size=2, t_max=40)
@@ -185,6 +188,9 @@ with tempfile.TemporaryDirectory() as run:
         "wandb_mode": "disabled", "time_multiple": 16, "fused_optimizer": True,
         "use_pallas_matmul": True, "deviceResidentData": True})
     model, args = load_model(run)
+    exported = load_exported(export_inference(run, run + "/art", batch_size=2, t_max=32,
+                                              device="cpu"))
+    e_lp, e_lens = exported(*exported.pad_batch([np.ones((30, 8), np.float32)]))
 from neural_speech_decoder_tpu_torch.models.conformer import (
     ConformerConfig, init_conformer_params)
 from neural_speech_decoder_tpu_torch.streaming.conformer import ConformerStreamer
@@ -209,7 +215,8 @@ mods = [m for m in sys.modules
         if m.split(".")[0] in ("jax", "jaxlib", "neural_speech_decoder_tpu")]
 print(json.dumps({"mods": mods, "finite": bool(torch.isfinite(lp).all()),
                   "empty": out[1], "trained": "summary/final_cer" in summary,
-                  "reloaded": args["nDays"] == 1, "streamed": streamed}))
+                  "reloaded": args["nDays"] == 1, "streamed": streamed,
+                  "exported": bool(torch.isfinite(e_lp).all()) and e_lens.tolist() == [13, 0]}))
 """
 
 
@@ -221,4 +228,4 @@ def test_port_never_imports_jax():
     assert proc.returncode == 0, proc.stderr
     res = json.loads(proc.stdout.strip().splitlines()[-1])
     assert res == {"mods": [], "finite": True, "empty": [], "trained": True,
-                   "reloaded": True, "streamed": [True, True]}
+                   "reloaded": True, "streamed": [True, True], "exported": True}
