@@ -149,6 +149,32 @@ random weights:
     stream's distance from float32; greedy and beam decodes equal; no hand
     kernel), and the host p50 of a chunk beside the live graph's. It
     removes phases 9 and 14's run directories.
+17. The competition decode (``decoding/``; lines start ``competition``),
+    run before phase 16 on phases 9 and 14's run directories: (a)
+    ``eval_competition.collect_model_outputs`` of the GRU run (bf16,
+    ``use_pallas_matmul``) and of the Conformer run, as trained and with
+    ``fused_ffn``/``fused_conv``, over a synthetic partition of 2 days of
+    400-1200 bins in batches of 16: launches a batch exact (1 frontend on
+    ``tc`` + 5 scans on ``persistent`` + 4 matmuls on ``sm90``; 8 attention
+    on ``tc``; + 16 FF and 8 conv on ``sm90``), no backward or CTC kernel,
+    every row against the same call through the plain versions within
+    phase 3's bf16 rule, ``forward_seconds``; (b) the native decoder built
+    from ``csrc/ctc_beam.cpp`` (``g++ -fopenmp``), ``lm_decode_batch`` at
+    nbest 100, beam 18 over (a)'s outputs with a lexicon and ARPA the smoke
+    writes (an n-best for every utterance, ms a sample), and 8 utterances
+    against ``force_python=True``; (c) the LLM engine at OPT-6.7B shapes on
+    weights drawn on the card, bf16 and int8: sequences/s over 2,000
+    sequences, peak memory and the bound, bf16 against the float32 engine
+    on the same weights (all layers), and the top-1 of 100 n-best lists
+    under ``quantize_int8`` of the bf16 weights against bf16's; (d)
+    ``run_pipeline`` on a constructed-ambiguity set (homophone decoys, a
+    flattened noisy ARPA, log-probs from the true phones plus noise) with
+    a bigram OPT rescorer from its ``pytorch_model.bin`` at 125m shapes and
+    the same bigram built in memory at 6.7B shapes (rescored WER below 0.8 x
+    the top-1 WER, and the top-1 WER above 0.05), then
+    ``nsd-eval-competition-torch`` on phase 14's run (``llm_out`` and a
+    submission line for each trial). Runs with none of ``transformers``,
+    ``tokenizers`` or ``safetensors`` installed.
 The default GRU and Conformer phases check that the fused kernels and the
 GRU's opt-in kernels launch no time there. Every GRU phase checks the scan
 launches by body: all bfloat16 scans at full width on the persistent body,
@@ -168,6 +194,7 @@ import dataclasses
 import hashlib
 import json
 import math
+import os
 import pickle
 import shutil
 import statistics
@@ -183,7 +210,14 @@ from neural_speech_decoder_tpu_torch.data.batching import choose_envelope
 from neural_speech_decoder_tpu_torch.data.batching import eval_batches, sample_batch
 from neural_speech_decoder_tpu_torch.data.dataset import pack_days
 from neural_speech_decoder_tpu_torch.data.device_data import DeviceData
+from neural_speech_decoder_tpu_torch.data.phonemes import PHONE_DEF
 from neural_speech_decoder_tpu_torch.data.synthetic import synthetic_dataset
+from neural_speech_decoder_tpu_torch.decoding import (
+    bigram_opt,
+    eval_competition,
+    llm_engine,
+    lm_decoder,
+)
 from neural_speech_decoder_tpu_torch.decoding.ondevice_beam import (
     beam_extend,
     beam_finalize,
@@ -2637,6 +2671,493 @@ def streaming_phase(card: str) -> None:
     beam_check()
 
 
+# ------------------------------------------------------ competition decode
+
+COMP_DIR = Path("runs") / "chip_smoke_competition"
+COMP_BATCH = 16  # eval_competition's batch
+COMP_DAY_SLOTS = [3, 17]  # the synthetic partition's two days, as day-layer slots
+BEAM_ORACLE_UTTS, BEAM_ORACLE_FRAMES = 8, 100  # native vs force_python
+BEAM_SCORE_TOL = 1e-3  # tests/test_native_beam.py's
+# The rescorer at OPT-6.7B shapes (random weights): 100 n-best lists of 20
+# hypotheses, each a base sequence of 10-40 token ids with 1-3 tokens
+# substituted (close rivals, as in a real n-best list).
+LLM_SIZE = "6.7b"
+LLM_UTTS, LLM_HYPS, LLM_BATCH = 100, 20, 16
+LLM_F32_SEQS = 64  # sentences held against the float32 engine
+# bf16 engine vs the float32 engine on the same bf16 weights, per sentence,
+# relative to |log-prob|: 32 layers of a bf16 residual stream (one rounding
+# of 2**-9 relative per add) under a float32 head.
+LLM_TOL = 1e-2
+# share of n-best lists whose top-1 under the int8 quantization of the
+# bf16 weights is the bf16 top-1
+INT8_AGREE = 0.8
+# the constructed-ambiguity set (scripts/make_competition_scale_demo.py's
+# recipe): corpus words, homophone decoys for half of them, filler words
+DEMO_CORPUS, DEMO_FILLER, DEMO_UTTS, DEMO_NBEST = 24, 100, 200, 24
+DEMO_OPT = "125m"
+
+
+def launch_bodies(want: dict) -> tuple[dict, dict]:
+    """The launches by body of the serving kernels since the last reset, and
+    those of ``want``'s counts on the bodies of the bf16 recipe."""
+    bodies = {k: dict(WRAPPERS[k].launches_by_body) for k in
+              ("frontend", "gru_scan", "ffn", "conv_module")} | {
+        "mhsa_qkv": dict(mhsa_qkv.launches_by_body),
+        "tiled_matmul": dict(tiled_matmul.launches_by_body)}
+    want_bodies = {"tiled_matmul": {"sm90": want["tiled_matmul"], "f32": 0, "tile": 0},
+                   "frontend": {"tc": want["frontend"], "fma": 0},
+                   "gru_scan": {"persistent": want["gru_scan"], "step": 0},
+                   "ffn": {"sm90": want["ffn"], "tile": 0},
+                   "conv_module": {"sm90": want["conv_module"], "tile": 0},
+                   "mhsa_qkv": {"tc": want["mhsa_qkv"], "fma": 0}}
+    return bodies, want_bodies
+
+
+def competition_forward(tag: str, model, args: dict, ds: dict, per_batch: dict,
+                        card: str) -> tuple[dict, dict]:
+    """(a) ``collect_model_outputs`` of a run's model at full width (bf16)
+    over the synthetic partition: the launches a batch, then every row's
+    log-probs against the same call through the plain versions, within
+    twice the plain bf16 path's distance from the plain float32 path
+    (phase 3's bf16 rule). Returns the outputs and the launches."""
+    def collect(m, plain=False):
+        return eval_competition.collect_model_outputs(
+            None, dataset=ds, partition="test", batch_size=COMP_BATCH, model_bundle=m,
+            day_indices=COMP_DAY_SLOTS, plain=plain)
+
+    collect(model)  # warm-up, not counted
+    torch.cuda.synchronize()
+    reset_launches()
+    out = collect(model)
+    launches = read_launches()
+    n_batches = sum(-(-len(d["sentenceDat"]) // COMP_BATCH) for d in ds["test"])
+    want = {k: 0 for k in KERNELS} | {k: v * n_batches for k, v in per_batch.items()}
+    bodies, want_bodies = launch_bodies(want)
+    check(launches == want and bodies == want_bodies,
+          f"competition forward {tag}: {n_batches} batches of {COMP_BATCH} launched "
+          f"{launches} == {per_batch} a batch, no backward or CTC kernel; by body {bodies}")
+    plain = collect(model, plain=True)
+    model32 = build_model({**args, "compute_dtype": "float32"}, N_DAYS, "cuda")
+    model32.load_params(model.params)
+    ref32 = collect(model32, plain=True)
+    del model32
+    n = len(out["logits"])
+    shapes = all(a.shape == b.shape == (m, N_OUT) and np.isfinite(a).all()
+                 for a, b, m in zip(out["logits"], plain["logits"], out["logitLengths"]))
+    err = max(float(np.abs(a - b).max()) for a, b in zip(out["logits"], plain["logits"]))
+    dist = max(float(np.abs(a - b).max()) for a, b in zip(plain["logits"], ref32["logits"]))
+    tol = BF16_LOGITS_FACTOR * dist
+    check(shapes and n == sum(len(d["sentenceDat"]) for d in ds["test"])
+          and out["logitLengths"] == plain["logitLengths"] == ref32["logitLengths"]
+          and err <= tol,
+          f"competition forward {tag}: {n} rows of finite [L, {N_OUT}] log-probs, lengths "
+          f"equal; kernels vs plain max abs err {err:.3e} <= {tol:.3e} "
+          f"({BF16_LOGITS_FACTOR:g} x the plain bf16 path's distance {dist:.3e} from float32)")
+    print(f"competition forward {tag}: forward_seconds {out['forward_seconds']:.3f} for "
+          f"{n} trials in {n_batches} batches of {COMP_BATCH} ({card})", flush=True)
+    return out, launches
+
+
+def write_lexicon_lm(d: Path, rng) -> tuple[str, str]:
+    """A lexicon of a word for each phone and for each pair of phones (so
+    every trie node ends a word, and every utterance of a random-weight
+    model has an n-best), and a random bigram ARPA over it."""
+    prons = {f"p_{p.lower()}": (p,) for p in PHONE_DEF}
+    prons |= {f"p_{p.lower()}_{q.lower()}": (p, q) for p in PHONE_DEF for q in PHONE_DEF}
+    words = list(prons)
+    lex = d / "lexicon.txt"
+    lex.write_text("".join(f"{w} {' '.join(p)}\n" for w, p in prons.items()))
+    uni = rng.dirichlet(np.full(len(words), 0.5))
+    pairs = {(int(a), int(b)) for a, b in rng.integers(0, len(words), size=(4 * len(words), 2))}
+    lines = ["\\data\\", f"ngram 1={len(words) + 2}", f"ngram 2={len(pairs)}", "",
+             "\\1-grams:", "-1.0000\t<s>\t-0.3000", "-1.0000\t</s>"]
+    lines += [f"{np.log10(p):.4f}\t{w}\t-0.3000" for w, p in zip(words, uni)]
+    lines += ["", "\\2-grams:"]
+    lines += [f"{rng.uniform(-2.0, -0.2):.4f}\t{words[a]} {words[b]}" for a, b in sorted(pairs)]
+    lines += ["", "\\end\\", ""]
+    arpa = d / "lm.arpa"
+    arpa.write_text("\n".join(lines))
+    return str(lex), str(arpa)
+
+
+def padded_logits(outputs: dict) -> tuple[np.ndarray, np.ndarray]:
+    lens = np.asarray([len(lp) for lp in outputs["logits"]], np.int32)
+    x = np.zeros((len(lens), int(lens.max()), N_OUT), np.float32)
+    for i, lp in enumerate(outputs["logits"]):
+        x[i, : len(lp)] = lp
+    return x, lens
+
+
+def competition_beam(outputs: dict, lex: str, arpa: str, card: str) -> None:
+    """(b) The native decoder built from the port's copy, ``lm_decode_batch``
+    at the reference's settings over (a)'s outputs (an n-best for every
+    utterance), and against ``force_python=True`` on the first utterances."""
+    t0 = time.perf_counter()
+    so = lm_decoder.build()
+    lm_decoder.native_library()
+    print(f"competition beam: built {so.name} (g++ -fopenmp) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for tag, out in outputs.items():
+        x, lens = padded_logits(out)
+        dec = lm_decoder.build_lm_decoder(lex, arpa, 0.5, 100, 18.0)
+        t0 = time.perf_counter()
+        nbest = lm_decoder.lm_decode_batch(dec, x, lens, blank_penalty=math.log(7))
+        dt = time.perf_counter() - t0
+        sizes = [len(nb) for nb in nbest]
+        check(len(nbest) == len(lens) and min(sizes) > 0,
+              f"competition beam {tag}: lm_decode_batch gave an n-best for each of "
+              f"{len(lens)} utterances (sizes {min(sizes)}-{max(sizes)})")
+        print(f"competition beam {tag}: {len(lens)} utterances of {lens.min()}-{lens.max()} "
+              f"frames, nbest 100, beam 18, {os.cpu_count()} host cores: "
+              f"{dt * 1e3 / len(lens):.2f} ms a sample ({card})", flush=True)
+    x, lens = padded_logits(outputs["gru"])
+    native = lm_decoder.build_lm_decoder(lex, arpa, 0.5, 10, 18.0)
+    python = lm_decoder.build_lm_decoder(lex, arpa, 0.5, 10, 18.0, force_python=True)
+    t0 = time.perf_counter()
+    same, in_order, first_diff = True, 0, ""
+    for i in range(BEAM_ORACLE_UTTS):
+        lp = x[i, : min(int(lens[i]), BEAM_ORACLE_FRAMES)]
+        a = lm_decoder.lm_decode(native, lp, blank_penalty=math.log(7))
+        b = lm_decoder.lm_decode(python, lp, blank_penalty=math.log(7))
+        ok = same_nbest(a, b, BEAM_SCORE_TOL)
+        same &= ok
+        in_order += [hyp_key(h) for h in a] == [hyp_key(h) for h in b]
+        if not first_diff and [hyp_key(h) for h in a] != [hyp_key(h) for h in b]:
+            first_diff = (f"; utterance {i} first differs at rank "
+                          + next(f"{r}: native {hyp_key(h)} {h.score:.6f}, python "
+                                 f"{hyp_key(g)} {g.score:.6f}"
+                                 for r, (h, g) in enumerate(zip(a, b))
+                                 if hyp_key(h) != hyp_key(g))
+                          if len(a) == len(b) else f"; utterance {i}: {len(a)} vs {len(b)}")
+    check(same,
+          f"competition beam: native vs force_python on {BEAM_ORACLE_UTTS} utterances (first "
+          f"{BEAM_ORACLE_FRAMES} frames, nbest 10): the same hypotheses (phones and words), "
+          f"scores within {BEAM_SCORE_TOL:g}, {in_order} of {BEAM_ORACLE_UTTS} in the same "
+          f"order, the rest reordered only among hypotheses tied within {BEAM_SCORE_TOL:g}"
+          f"{first_diff} ({time.perf_counter() - t0:.1f} s)")
+
+
+def hyp_key(h) -> tuple:
+    return tuple(int(p) for p in h.phones), tuple(h.words)
+
+
+def same_nbest(a, b, tol: float) -> bool:
+    """Two n-best lists equal up to the order of hypotheses whose scores tie
+    within ``tol`` (the native engine sums in float32, the oracle in float64:
+    a near-tie may fall either way, also at the list's end): the same length,
+    rank by rank scores within ``tol``, and each hypothesis of either list in
+    the other with its score within ``tol``, or tied within ``tol`` with the
+    other's last."""
+    if len(a) != len(b):
+        return False
+    if any(abs(h.score - g.score) >= tol for h, g in zip(a, b)):
+        return False
+    for one, other in ((a, b), (b, a)):
+        scores = {hyp_key(h): h.score for h in other}
+        for h in one:
+            ref = scores.get(hyp_key(h), other[-1].score)
+            if abs(h.score - ref) >= tol:
+                return False
+    return True
+
+
+def llm_sentences(rng, vocab: int) -> list[str]:
+    """``LLM_UTTS`` n-best lists of ``LLM_HYPS`` id sequences (see above)."""
+    out = []
+    for _ in range(LLM_UTTS):
+        base = rng.integers(4, vocab, size=int(rng.integers(10, 41)))
+        for _ in range(LLM_HYPS):
+            h = base.copy()
+            k = int(rng.integers(1, 4))
+            h[rng.choice(len(h), size=k, replace=False)] = rng.integers(4, vocab, size=k)
+            out.append(" ".join(map(str, h)))
+    return out
+
+
+def id_tokenizer(sentences, padding=True):
+    """Synthetic weights have no tokenizer: a sentence is its ids, after
+    OPT's ``</s>`` (2); pad 1."""
+    ids = [[2] + [int(w) for w in s.split()] for s in sentences]
+    t = max(map(len, ids))
+    return {"input_ids": [r + [1] * (t - len(r)) for r in ids],
+            "attention_mask": [[1] * len(r) + [0] * (t - len(r)) for r in ids]}
+
+
+def tree_bytes(tree) -> int:
+    return sum(tree_bytes(v) if isinstance(v, dict) else v.numel() * v.element_size()
+               for v in tree.values())
+
+
+def llm_bound_ms(spec, sentences, wbytes: int) -> tuple[float, float]:
+    """The least time a batch could take, mean over this run's batches:
+    the weights read once over the HBM rate, and the operations at this
+    run's padded shapes (T of a batch rounded up to 16, as the scorer
+    pads): the bf16 block products at 989 TFLOP/s, the attention scores and
+    context (float32 sums) and the float32 tied head at 67 TFLOP/s."""
+    d, f, n, v = spec.d_model, spec.ffn_dim, spec.n_layer, spec.vocab
+    ops_ms = []
+    for i in range(0, len(sentences), LLM_BATCH):
+        t = max(len(s.split()) for s in sentences[i: i + LLM_BATCH]) + 1  # + </s>
+        t = min(-(-max(t, 2) // 16) * 16, spec.n_positions)
+        tokens = LLM_BATCH * t
+        bf16 = 2 * tokens * n * (4 * d * d + 2 * d * f)
+        f32 = 2 * 2 * tokens * t * d * n + 2 * tokens * v * spec.w_dim
+        ops_ms.append((bf16 / PEAK_FLOPS["bfloat16"] + f32 / PEAK_FLOPS["float32"]) * 1e3)
+    return wbytes / HBM_BPS * 1e3, float(np.mean(ops_ms))
+
+
+def time_scorer(tag: str, params, spec, sentences, card: str) -> np.ndarray:
+    score = llm_engine.params_scorer(params, spec, id_tokenizer, batch_size=LLM_BATCH)
+    score(sentences[:LLM_BATCH])  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lp = np.asarray(score(sentences))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n_batches = -(-len(sentences) // LLM_BATCH)
+    wbytes = tree_bytes(params)
+    bytes_ms, ops_ms = llm_bound_ms(spec, sentences, wbytes)
+    print(f"competition rescorer {tag} OPT-{LLM_SIZE} shapes: {len(sentences)} sequences of "
+          f"10-40 ids in {n_batches} batches of {LLM_BATCH} (T rounded up to 16): {dt:.2f} s, "
+          f"{len(sentences) / dt:.1f} sequences/s, {dt * 1e3 / n_batches:.2f} ms a batch; "
+          f"bound {max(bytes_ms, ops_ms):.2f} ms a batch "
+          f"({'bytes' if bytes_ms >= ops_ms else 'operations'}: {wbytes / 1e9:.2f} GB of "
+          f"weights / 3.35 TB/s = {bytes_ms:.2f} ms, operations {ops_ms:.2f} ms); peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})", flush=True)
+    check(bool(np.isfinite(lp).all()), f"competition rescorer {tag}: finite log-probs")
+    return lp
+
+
+def synth_llm(spec, quantize: bool, card: str) -> dict:
+    """``synth_params_on_device`` at ``spec``, with its time and peak memory."""
+    tag = "int8" if quantize else "bf16"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = llm_engine.synth_params_on_device(spec, seed=0, quantize=quantize)
+    torch.cuda.synchronize()
+    print(f"competition rescorer {tag}: synth_params_on_device in "
+          f"{time.perf_counter() - t0:.1f} s, {tree_bytes(params) / 1e9:.2f} GB, "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"({card})", flush=True)
+    return params
+
+
+def competition_rescorer(card: str) -> None:
+    """(c) The engine at OPT-6.7B shapes on random weights drawn on the card,
+    bf16 and int8: sequences/s against the weight-bytes bound, bf16 against
+    the float32 engine on the same weights, and the top-1 of every n-best
+    list under the int8 quantization of the bf16 weights (``quantize_int8``
+    on the card) against bf16's."""
+    spec = llm_engine.opt_spec(LLM_SIZE)
+    sentences = llm_sentences(np.random.default_rng(21), spec.vocab)
+    params = synth_llm(spec, False, card)
+    lp = time_scorer("bf16", params, spec, sentences, card)
+    ref = np.asarray(llm_engine.params_scorer(params, spec, id_tokenizer, batch_size=LLM_BATCH,
+                                              compute_dtype="float32")(
+        sentences[:LLM_F32_SEQS]))
+    rel = np.abs(lp[:LLM_F32_SEQS] - ref) / np.abs(ref)
+    check(bool((rel <= LLM_TOL).all()),
+          f"competition rescorer bf16 vs the float32 engine on the same weights, all "
+          f"{spec.n_layer} layers, {LLM_F32_SEQS} sentences: max |diff| / |log-prob| "
+          f"{rel.max():.2e} <= {LLM_TOL:g} (log-probs {ref.min():.1f} to {ref.max():.1f})")
+    t0 = time.perf_counter()
+    qparams = llm_engine.quantize_int8(params)
+    torch.cuda.synchronize()
+    print(f"competition rescorer: quantize_int8 of the bf16 weights on the card in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lq = time_scorer("int8 (the bf16 weights quantized)", qparams, spec, sentences, card)
+    del qparams
+    top16 = lp.reshape(LLM_UTTS, LLM_HYPS).argmax(1)
+    top8 = lq.reshape(LLM_UTTS, LLM_HYPS).argmax(1)
+    agree = float((top16 == top8).mean())
+    check(agree >= INT8_AGREE,
+          f"competition rescorer: int8 top-1 == bf16 top-1 on {agree:.2%} of "
+          f"{LLM_UTTS} n-best lists >= {INT8_AGREE:.0%}")
+    params = synth_llm(spec, True, card)
+    time_scorer("int8", params, spec, sentences, card)
+    del params
+    torch.cuda.empty_cache()
+
+
+def ambiguity_set(d: Path, rng) -> tuple[dict, str, str, str, np.ndarray]:
+    """The constructed-ambiguity set of ``scripts/make_competition_scale_demo.py``
+    at small scale: a corpus with homophone decoys (out of the rescorer's
+    corpus) for half its words, a ground-truth bigram, a flattened and noisy
+    ARPA (the WFST's weak LM), log-probs from the true phone sequences plus
+    noise, and a ``BigramOptBuilder`` rescorer written as ``pytorch_model.bin``
+    + config + WordLevel tokenizer. Returns the outputs, the paths and the
+    bigram's log-probs."""
+    k = DEMO_CORPUS
+    prons, seen = {}, set()
+    while len(prons) < k + DEMO_FILLER:
+        pr = tuple(rng.choice(PHONE_DEF, size=int(rng.integers(2, 5))))
+        if pr not in seen:
+            seen.add(pr)
+            prons[f"w{len(prons):03d}"] = pr
+    words = list(prons)
+    corpus = words[:k]
+    decoys = {w: f"d{i:03d}" for i, w in enumerate(corpus[: k // 2])}
+    lex_lines = [f"{w} {' '.join(p)}" for w, p in prons.items()]
+    lex_lines += [f"{dw} {' '.join(prons[w])}" for w, dw in decoys.items()]
+    (d / "demo_lexicon.txt").write_text("\n".join(lex_lines) + "\n")
+    p = rng.dirichlet(np.full(k, 0.3), size=k + 1)
+    p = 0.97 * p + 0.03 / k
+    logp = np.log(p / p.sum(axis=1, keepdims=True))
+    gamma, sigma = 0.3, 0.5
+    flat = np.exp(logp * gamma)
+    flat /= flat.sum(axis=1, keepdims=True)
+    vocab = ["<s>", "</s>", "<unk>"] + words + list(decoys.values())
+    uni = np.full(len(vocab), 1e-6)
+    pi = np.exp(logp[0] * gamma)
+    uni[3: 3 + k] = pi / pi.sum()
+    for j, w in enumerate(decoys):
+        uni[3 + len(words) + j] = uni[3 + corpus.index(w)] * 0.8
+    uni /= uni.sum()
+    bigrams = []
+    for row in range(k + 1):
+        ctx = "<s>" if row == 0 else corpus[row - 1]
+        for v in np.argsort(flat[row])[::-1][:8]:
+            bigrams.append(f"{np.log10(flat[row][v]) + rng.normal(0, sigma):.4f}\t"
+                           f"{ctx} {corpus[v]}\t-0.30")
+            if corpus[v] in decoys:
+                bigrams.append(f"{np.log10(flat[row][v] * 0.8) + rng.normal(0, sigma):.4f}"
+                               f"\t{ctx} {decoys[corpus[v]]}\t-0.30")
+    lines = ["\\data\\", f"ngram 1={len(vocab)}", f"ngram 2={len(bigrams)}", "",
+             "\\1-grams:"]
+    lines += [f"{np.log10(q):.4f}\t{w}\t-0.30" for w, q in zip(vocab, uni)]
+    lines += ["", "\\2-grams:", *bigrams, "", "\\end\\", ""]
+    (d / "demo_lm.arpa").write_text("\n".join(lines))
+
+    sil = N_OUT - 1
+    pid = {ph: i + 1 for i, ph in enumerate(PHONE_DEF)}
+    outputs = {"logits": [], "logitLengths": [], "trueSeqs": [], "transcriptions": []}
+    for _ in range(DEMO_UTTS):
+        sent = [int(rng.choice(k, p=np.exp(logp[0])))]
+        for _ in range(int(rng.integers(3, 8))):
+            sent.append(int(rng.choice(k, p=np.exp(logp[1 + sent[-1]]))))
+        ids = [i for w in sent for i in [pid[ph] for ph in prons[corpus[w]]] + [sil]]
+        frames = np.repeat(ids, 3)
+        x = rng.standard_normal((len(frames), N_OUT)).astype(np.float32)
+        x[np.arange(len(frames)), frames] += 4.0
+        x -= np.log(np.exp(x).sum(-1, keepdims=True))
+        outputs["logits"].append(x)
+        outputs["logitLengths"].append(len(frames))
+        outputs["trueSeqs"].append(np.asarray(ids))
+        outputs["transcriptions"].append(" ".join(corpus[w] for w in sent))
+
+    spec = llm_engine.opt_spec(DEMO_OPT)
+    ckpt = d / f"opt_{DEMO_OPT}_bigram"
+    builder = bigram_opt.BigramOptBuilder(spec, logp, np.arange(k) + bigram_opt.FIRST_WORD_ID)
+    bigram_opt.write_checkpoint(spec, str(ckpt), builder.tensor_fn)
+    bigram_opt.build_wordlevel_tokenizer(corpus + list(decoys.values()) + words[k:], str(ckpt))
+    return (outputs, str(d / "demo_lexicon.txt"), str(d / "demo_lm.arpa"), str(ckpt),
+            logp)
+
+
+def pipeline_check(tag: str, res: dict, card: str) -> None:
+    check(res["wer"] < 0.8 * res["wer_top1"] and res["wer_top1"] > 0.05,
+          f"competition pipeline {tag} on {DEMO_UTTS} constructed utterances: PER "
+          f"{res['per']:.4f}, top-1 WER {res['wer_top1']:.4f} > 0.05, rescored WER "
+          f"{res['wer']:.4f} < 0.8 x top-1 (CER {res['cer_top1']:.4f} -> {res['cer']:.4f}); "
+          f"beam {res['beam_seconds']:.2f} s ({res['decode_seconds_per_sample'] * 1e3:.2f} ms "
+          f"a sample), rescore {res['rescore_seconds']:.2f} s ({card})")
+
+
+def competition_pipeline(card: str, lex: str, arpa: str) -> None:
+    """(d) ``run_pipeline`` on the constructed-ambiguity set with the bigram
+    rescorer from its ``.bin`` at OPT-125m shapes, and with the same bigram
+    built in memory at OPT-6.7B shapes (``bigram_opt.engine_params``, no
+    disk): rescoring must beat the WFST top-1; then
+    ``nsd-eval-competition-torch`` on ``cli_phase``'s run."""
+    t0 = time.perf_counter()
+    outputs, demo_lex, demo_arpa, ckpt, logp = ambiguity_set(COMP_DIR,
+                                                             np.random.default_rng(7))
+    print(f"competition pipeline: constructed set and OPT-{DEMO_OPT} bigram checkpoint in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    kw = dict(lexicon_path=demo_lex, arpa_path=demo_arpa, nbest=DEMO_NBEST,
+              return_ci=False, verbose=False)
+    scorer = llm_engine.engine_scorer(ckpt, batch_size=LLM_BATCH)
+    pipeline_check(f"OPT-{DEMO_OPT} bigram (.bin)",
+                   eval_competition.run_pipeline(outputs, llm_scorer=scorer, **kw), card)
+    t0 = time.perf_counter()
+    spec = llm_engine.opt_spec(LLM_SIZE)
+    builder = bigram_opt.BigramOptBuilder(
+        spec, logp, np.arange(DEMO_CORPUS) + bigram_opt.FIRST_WORD_ID)
+    params = bigram_opt.engine_params(builder)
+    scorer = llm_engine.params_scorer(params, spec, llm_engine.load_tokenizer(ckpt),
+                                      batch_size=LLM_BATCH)
+    del params, builder
+    print(f"competition pipeline: OPT-{LLM_SIZE} bigram built in memory and put on the "
+          f"card in {time.perf_counter() - t0:.1f} s", flush=True)
+    pipeline_check(f"OPT-{LLM_SIZE} bigram (in memory)",
+                   eval_competition.run_pipeline(outputs, llm_scorer=scorer, **kw), card)
+    del scorer
+    torch.cuda.empty_cache()
+    run = CLI_RUN / "run"
+    t0 = time.perf_counter()
+    eval_competition.main([
+        "--modelPath", str(run), "--datasetPath", str(CLI_RUN / "dataset.pkl"),
+        "--partition", "test", "--lexicon", lex, "--lm", arpa, "--llmPath", ckpt])
+    n_trials = sum(len(d["sentenceDat"])
+                   for d in pickle.loads((CLI_RUN / "dataset.pkl").read_bytes())["test"])
+    sub = run / "5gramLLMCompetitionSubmission.txt"
+    lines = sub.read_text().splitlines() if sub.is_file() else []
+    check((run / "llm_out").is_file() and len(lines) == n_trials,
+          f"nsd-eval-competition-torch on the nsd-train run (test partition, OPT-{DEMO_OPT} "
+          f"bigram rescorer): llm_out and the submission file with {len(lines)} lines for "
+          f"{n_trials} trials in {time.perf_counter() - t0:.1f} s")
+
+
+def competition_phase(card: str) -> dict:
+    """The competition decode (phase 17): (a) the eval forward of
+    ``cli_phase``'s GRU run and of phase 9's Conformer run (as trained and
+    fused) through ``collect_model_outputs``, (b) the native decoder, (c)
+    the rescorer at OPT-6.7B shapes, (d) the pipeline end to end. Returns
+    the launches of (a)."""
+    shutil.rmtree(COMP_DIR, ignore_errors=True)
+    COMP_DIR.mkdir(parents=True)
+    if any(sys.modules.get(m) for m in ("transformers", "tokenizers", "safetensors")):
+        print("competition: note: transformers/tokenizers/safetensors are importable here",
+              flush=True)
+    ds = synthetic_dataset(seed=11, n_days=2, trials_per_day=96, n_channels=C, min_t=400,
+                           max_t=1200, min_u=20, max_u=U)
+    launches = {k: 0 for k in KERNELS}
+    outputs = {}
+    t0 = time.perf_counter()
+    gru, gru_args = load_model(str(CLI_RUN / "run"), device="cuda")
+    conf, conf_args = load_model(str(CONFORMER_RUN), device="cuda")
+    fused_args = {**conf_args, **FUSED_FLAGS["conformer"]}
+    fused = build_model(fused_args, N_DAYS, "cuda")
+    fused.load_params(conf.params)
+    for tag, model, args, per_batch in (
+            ("gru", gru, gru_args, {"frontend": 1, "gru_scan": 5, "tiled_matmul": 4}),
+            ("conformer", conf, conf_args, {"mhsa_qkv": CONFORMER_LAYERS}),
+            ("conformer_fused", fused, fused_args,
+             {"mhsa_qkv": CONFORMER_LAYERS, "ffn": 2 * CONFORMER_LAYERS,
+              "conv_module": CONFORMER_LAYERS})):
+        outputs[tag], counted = competition_forward(tag, model, args, ds, per_batch, card)
+        for k, v in counted.items():
+            launches[k] += v
+    del gru, conf, fused
+    print(f"competition (a) forward: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    lex, arpa = write_lexicon_lm(COMP_DIR, np.random.default_rng(5))
+    competition_beam({k: outputs[k] for k in ("gru", "conformer")}, lex, arpa, card)
+    print(f"competition (b) beam: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    competition_rescorer(card)
+    print(f"competition (c) rescorer: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    competition_pipeline(card, lex, arpa)
+    print(f"competition (d) pipeline: {time.perf_counter() - t0:.1f} s", flush=True)
+    shutil.rmtree(COMP_DIR, ignore_errors=True)
+    return launches
+
+
 # ------------------------------------------------------------------ export
 
 EXPORT_DIR = Path("runs") / "chip_smoke_export"
@@ -2695,16 +3216,7 @@ def export_request_check(tag: str, run_dir: Path, per_request: dict, card: str) 
     got = [serve_request(exported, trials, days, k, {}) for k in range(n)]
     launches = read_launches()
     want = {k: 0 for k in KERNELS} | {k: v * n for k, v in per_request.items()}
-    bodies = {k: dict(WRAPPERS[k].launches_by_body) for k in
-              ("frontend", "gru_scan", "ffn", "conv_module")} | {
-        "mhsa_qkv": dict(mhsa_qkv.launches_by_body),
-        "tiled_matmul": dict(tiled_matmul.launches_by_body)}
-    want_bodies = {"tiled_matmul": {"sm90": want["tiled_matmul"], "f32": 0, "tile": 0},
-                   "frontend": {"tc": want["frontend"], "fma": 0},
-                   "gru_scan": {"persistent": want["gru_scan"], "step": 0},
-                   "ffn": {"sm90": want["ffn"], "tile": 0},
-                   "conv_module": {"sm90": want["conv_module"], "tile": 0},
-                   "mhsa_qkv": {"tc": want["mhsa_qkv"], "fma": 0}}
+    bodies, want_bodies = launch_bodies(want)
     check(launches == want and bodies == want_bodies,
           f"exported {tag}: {n} requests launched {launches} == {per_request} a request "
           f"and no other kernel; by body {bodies}")
@@ -2910,6 +3422,10 @@ def main() -> int:
     t0 = time.perf_counter()
     streaming_phase(card)
     print(f"phase streaming: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    for k, n in competition_phase(card).items():
+        launches[k] += n
+    print(f"phase competition decode: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     for k, n in export_phase(card).items():
         launches[k] += n

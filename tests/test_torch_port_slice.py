@@ -157,6 +157,9 @@ def test_config_from_args_matches_build_model():
 
 _NO_JAX = """
 import json, sys, tempfile
+# the card's machine has none of these: nothing of the port may need them
+for name in ("transformers", "tokenizers", "safetensors", "ml_dtypes"):
+    sys.modules[name] = None
 import numpy as np, torch
 from neural_speech_decoder_tpu_torch.data.synthetic import synthetic_dataset
 from neural_speech_decoder_tpu_torch.models.gru import GRUConfig, init_gru_params
@@ -211,12 +214,37 @@ for st in (GRUStreamer(init_gru_params(scfg, torch.Generator().manual_seed(0)), 
     nbest = st.decode_beam(st.flush(), beam_width=4, max_len=16)
     streamed.append(st.emitted == (48 - 8) // 4 and st.fast_path_engaged is False
                     and bool(torch.isfinite(nbest[2][:, 0]).all()))
+import importlib, os
+from neural_speech_decoder_tpu_torch.data.formatter import clean_transcription
+for m in ("lexicon", "beam", "lm_decoder", "rescore", "torch_lm", "llm_engine", "bigram_opt",
+          "eval_competition"):
+    importlib.import_module("neural_speech_decoder_tpu_torch.decoding." + m)
+from neural_speech_decoder_tpu_torch.decoding import bigram_opt, llm_engine
+from neural_speech_decoder_tpu_torch.decoding.eval_competition import run_pipeline
+with tempfile.TemporaryDirectory() as d:
+    with open(os.path.join(d, "lex.txt"), "w") as f:
+        f.write("cat K AE T\\nbat B AE T\\n")
+    ids = [20, 2, 31, 40, 7, 2, 31, 40]  # K AE T SIL B AE T SIL
+    x = np.full((16, 41), -10.0, np.float32)
+    x[np.arange(16), np.repeat(ids, 2)] = 0.0
+    res = run_pipeline({"logits": [x], "trueSeqs": [np.asarray(ids)],
+                        "transcriptions": [clean_transcription("Cat bat.")]},
+                       lexicon_path=os.path.join(d, "lex.txt"), arpa_path=None, nbest=4,
+                       return_ci=False, verbose=False)
+    spec = llm_engine.EngineSpec(n_layer=1, d_model=16, ffn_dim=32, n_head=2, vocab=8,
+                                 n_positions=16)
+    builder = bigram_opt.BigramOptBuilder(spec, np.log(np.full((3, 2), 0.5)), np.arange(2) + 4)
+    bigram_opt.write_checkpoint(spec, d, builder.tensor_fn)
+    bigram_opt.build_wordlevel_tokenizer(["cat", "bat"], d)
+    scores = llm_engine.engine_scorer(d, batch_size=2, device="cpu")(["cat bat", "bat"])
 mods = [m for m in sys.modules
         if m.split(".")[0] in ("jax", "jaxlib", "neural_speech_decoder_tpu")]
 print(json.dumps({"mods": mods, "finite": bool(torch.isfinite(lp).all()),
                   "empty": out[1], "trained": "summary/final_cer" in summary,
                   "reloaded": args["nDays"] == 1, "streamed": streamed,
-                  "exported": bool(torch.isfinite(e_lp).all()) and e_lens.tolist() == [13, 0]}))
+                  "exported": bool(torch.isfinite(e_lp).all()) and e_lens.tolist() == [13, 0],
+                  "decoded": res["decoded_transcripts"] == ["cat bat"] and res["wer"] == 0.0,
+                  "scored": len(scores) == 2 and bool(np.isfinite(scores).all())}))
 """
 
 
@@ -228,4 +256,5 @@ def test_port_never_imports_jax():
     assert proc.returncode == 0, proc.stderr
     res = json.loads(proc.stdout.strip().splitlines()[-1])
     assert res == {"mods": [], "finite": True, "empty": [], "trained": True,
-                   "reloaded": True, "streamed": [True, True], "exported": True}
+                   "reloaded": True, "streamed": [True, True], "exported": True,
+                   "decoded": True, "scored": True}
