@@ -175,6 +175,35 @@ random weights:
     ``nsd-eval-competition-torch`` on phase 14's run (``llm_out`` and a
     submission line for each trial). Runs with none of ``transformers``,
     ``tokenizers`` or ``safetensors`` installed.
+18. The research workflow (lines start ``workflow``), run before phase 16
+    on phase 9's run directory: (a) two synthetic sessions in the
+    competition's ``.mat`` layout (``train/``, ``test/``, one
+    ``competitionHoldOut/``; 100/20/20 trials of 400-1200 bins, ``tx1`` and
+    ``spikePow`` of 256 columns, 4 blocks) through
+    ``data/formatter.py::format_competition_data`` with a g2p over the
+    smoke's lexicon: the schema, every block's z-scored columns, the labels
+    against the lexicon; (b) ``nsd-train-torch -m --jobs 2
+    lrStart=0.01,0.02`` on ``configs/gru_baseline.yaml`` at full width
+    (bf16, B=64) on the formatted pickle, 11 steps and evals at 0 and 10:
+    both jobs done under their override dirnames, ``sweep_summary.json``
+    ranked by best CER, the kernel library loaded as built (no rebuild),
+    the two workers' steps overlapping in time and each worker's launches
+    exact by body (from the spans and counts its trainer records in
+    metrics.jsonl), each job's per-step losses and launches equal to its
+    overrides run alone in a process of their own, a spawn worker pinned by
+    ``slice_env`` before its first CUDA call; the sweep's wall seconds
+    beside the two jobs one after the other, and each job's step span in
+    the sweep beside its span alone; (c) the best job and phase 9's
+    Conformer exported by ``models/torch_export.py::main`` (contiguous
+    float32 CPU tensors): the GRU loaded with ``strict=True`` into
+    ``ReferenceGRUDecoder`` (``torch.nn`` only) whose cuDNN float32 forward
+    over phase 3's requests is held against the port's float32 eval
+    forward (``REF_TOL`` of the largest |logit|), the Conformer's keys and
+    shapes against ``ReferenceConformerLayout``; each imported back with
+    ``models/torch_import.py::load_checkpoint``: trees bit-equal to
+    ``load_model``'s, a bf16 request bit-equal with exact launches (1
+    frontend on ``tc`` + 5 scans on ``persistent``; 8 attention on ``tc``).
+    (b)'s workers' launches and (c)'s count in the kernels line.
 The default GRU and Conformer phases check that the fused kernels and the
 GRU's opt-in kernels launch no time there. Every GRU phase checks the scan
 launches by body: all bfloat16 scans at full width on the persistent body,
@@ -194,6 +223,7 @@ import dataclasses
 import hashlib
 import json
 import math
+import multiprocessing as mp
 import os
 import pickle
 import shutil
@@ -204,11 +234,14 @@ import time
 from pathlib import Path
 
 import numpy as np
+import scipy.io
 import torch
 
 from neural_speech_decoder_tpu_torch.data.batching import choose_envelope
 from neural_speech_decoder_tpu_torch.data.batching import eval_batches, sample_batch
+from neural_speech_decoder_tpu_torch.data import formatter
 from neural_speech_decoder_tpu_torch.data.dataset import pack_days
+from neural_speech_decoder_tpu_torch.data.formatter import clean_transcription
 from neural_speech_decoder_tpu_torch.data.device_data import DeviceData
 from neural_speech_decoder_tpu_torch.data.phonemes import PHONE_DEF
 from neural_speech_decoder_tpu_torch.data.synthetic import synthetic_dataset
@@ -229,6 +262,8 @@ from neural_speech_decoder_tpu_torch.models.api import forward as model_forward
 from neural_speech_decoder_tpu_torch.models import conformer as port_conformer
 from neural_speech_decoder_tpu_torch.models.common import orthogonal, uniform_bound
 from neural_speech_decoder_tpu_torch.models.gru import GRUConfig, GRUDecoder, init_gru_params
+from neural_speech_decoder_tpu_torch.models.torch_export import main as export_main
+from neural_speech_decoder_tpu_torch.models.torch_import import load_checkpoint
 from neural_speech_decoder_tpu_torch.ops.ctc import ctc_loss
 from neural_speech_decoder_tpu_torch.ops.decode import greedy_decode
 from neural_speech_decoder_tpu_torch.ops.kernels import _build
@@ -287,6 +322,7 @@ from neural_speech_decoder_tpu_torch.ops.kernels.matmul import (
     tiled_matmul,
     tiled_matmul_plain,
 )
+from neural_speech_decoder_tpu_torch.parallel import sweep
 from neural_speech_decoder_tpu_torch.serving import (
     export_beam,
     export_streaming_conformer_params,
@@ -322,6 +358,7 @@ from neural_speech_decoder_tpu_torch.training.trainer import (
     step_generator,
     train_model,
 )
+from neural_speech_decoder_tpu_torch.utils.config import override_dirname
 
 # The serving path's shapes: B=64 trials in a T=1280 envelope, C=256
 # channels, 24 days, H=1024, both directions, L=(1280-32)//4+1=313 frames.
@@ -2762,8 +2799,7 @@ def write_lexicon_lm(d: Path, rng) -> tuple[str, str]:
     """A lexicon of a word for each phone and for each pair of phones (so
     every trie node ends a word, and every utterance of a random-weight
     model has an n-best), and a random bigram ARPA over it."""
-    prons = {f"p_{p.lower()}": (p,) for p in PHONE_DEF}
-    prons |= {f"p_{p.lower()}_{q.lower()}": (p, q) for p in PHONE_DEF for q in PHONE_DEF}
+    prons = smoke_prons()
     words = list(prons)
     lex = d / "lexicon.txt"
     lex.write_text("".join(f"{w} {' '.join(p)}\n" for w, p in prons.items()))
@@ -3158,6 +3194,536 @@ def competition_phase(card: str) -> dict:
     return launches
 
 
+# ------------------------------------------------------ the research workflow
+
+WORKFLOW_DIR = Path("runs") / "chip_smoke_workflow"
+# two of the competition's session names; the first also gets a
+# competitionHoldOut file, the second does not
+WF_SESSIONS = ("t12.2022.05.05", "t12.2022.05.17")
+WF_TRIALS = {"train": 100, "test": 20, "competitionHoldOut": 20}
+WF_BLOCKS = 4  # contiguous blockIdx blocks a session file
+WF_STEPS, WF_EVAL_EVERY = 11, 10  # steps 0-10, evals at steps 0 and 10
+WF_LRS = ("0.01", "0.02")
+GRU_CONFIG = "neural_speech_decoder_tpu/configs/gru_baseline.yaml"
+# A z-scored block's column means and standard deviations, computed in
+# float64 over the formatter's float32 features: within float32 rounding of
+# 0 and 1.
+NORM_TOL = 1e-3
+# The reference-layout module's float32 forward (cuDNN's smoothing
+# convolution, einsum, nn.Unfold, nn.GRU and nn.Linear, TF32 off) against
+# the port's float32 eval forward (its kernels) on the same weights: the
+# same float32 function summed in other orders. Max abs error over the
+# largest |logit|.
+REF_TOL = 1e-4
+
+
+class ReferenceGRUDecoder(torch.nn.Module):
+    """The reference implementation's GRU decoder (``model.py::GRUDecoder``)
+    rebuilt from ``torch.nn`` alone: its state-dict keys and shapes
+    (``dayWeights``, ``dayBias``, ``gaussianSmoother.weight`` (a buffer),
+    ``gru_decoder`` (``nn.GRU``), the dead ``inpLayer{i}`` Linears,
+    ``fc_decoder_out``) and its forward (smoothing by a "same"-padded
+    depthwise convolution, the day affine as an einsum, Softsign,
+    ``nn.Unfold``, the GRU from a zero state, the head). It shares no code
+    with the port."""
+
+    def __init__(self, neural_dim: int, n_classes: int, hidden_dim: int, layer_dim: int,
+                 n_days: int, stride_len: int, kernel_len: int, bidirectional: bool = True,
+                 smooth_taps: int = 20, device=None):
+        super().__init__()
+        nn = torch.nn
+        self.neural_dim = neural_dim
+        self.gaussianSmoother = nn.Module()
+        self.gaussianSmoother.register_buffer(
+            "weight", torch.zeros(neural_dim, 1, smooth_taps, device=device))
+        self.dayWeights = nn.Parameter(torch.zeros(n_days, neural_dim, neural_dim,
+                                                   device=device))
+        self.dayBias = nn.Parameter(torch.zeros(n_days, 1, neural_dim, device=device))
+        self.gru_decoder = nn.GRU(neural_dim * kernel_len, hidden_dim, layer_dim,
+                                  batch_first=True, bidirectional=bidirectional,
+                                  device=device)
+        for day in range(n_days):
+            setattr(self, f"inpLayer{day}", nn.Linear(neural_dim, neural_dim, device=device))
+        self.fc_decoder_out = nn.Linear(hidden_dim * (2 if bidirectional else 1),
+                                        n_classes + 1, device=device)
+        self.unfolder = nn.Unfold((kernel_len, 1), stride=(stride_len, 1))
+
+    @classmethod
+    def from_config(cls, cfg: GRUConfig, device=None) -> "ReferenceGRUDecoder":
+        return cls(cfg.neural_dim, cfg.n_classes, cfg.hidden_dim, cfg.num_layers, cfg.n_days,
+                   cfg.stride_len, cfg.kernel_len, cfg.bidirectional,
+                   cfg.gaussian_kernel_size, device)
+
+    def forward(self, x: torch.Tensor, day_idx: torch.Tensor) -> torch.Tensor:
+        """``[B, T, C]`` features -> ``[B, L, n_classes + 1]`` logits."""
+        x = torch.nn.functional.conv1d(x.transpose(1, 2), self.gaussianSmoother.weight,
+                                       groups=self.neural_dim, padding="same")
+        x = torch.einsum("btd,bdk->btk", x.transpose(1, 2), self.dayWeights[day_idx])
+        x = torch.nn.functional.softsign(x + self.dayBias[day_idx])
+        x = self.unfolder(x.transpose(1, 2).unsqueeze(3)).transpose(1, 2)
+        hid, _ = self.gru_decoder(x)
+        return self.fc_decoder_out(hid)
+
+
+class ReferenceConformerLayout(torch.nn.Module):
+    """The parameter layout (state-dict keys and shapes) of the reference's
+    ``NeuralTransformerCTCModel`` from ``torch.nn`` modules, on the meta
+    device: the day affine, the frontend (bias-free strided depthwise
+    convolution, projection, norm), the bottleneck, the conformer layers
+    (FF, ``nn.MultiheadAttention``, the conv module, FF, norm), the head
+    and, with InterCTC, ``inter_output``. Its forward is not rebuilt."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        nn, dev = torch.nn, "meta"
+        c, f, d, n_out = cfg.n_channels, cfg.frontend_dim, cfg.latent_dim, cfg.n_out
+
+        def ff():
+            return nn.Sequential(nn.LayerNorm(d, device=dev), nn.Linear(d, cfg.ff_dim, device=dev),
+                                 nn.SiLU(), nn.Dropout(), nn.Linear(cfg.ff_dim, d, device=dev),
+                                 nn.Dropout())
+
+        def layer():
+            m = nn.Module()
+            m.ff1, m.ff2 = ff(), ff()
+            m.ln_attn = nn.LayerNorm(d, device=dev)
+            m.attn = nn.MultiheadAttention(d, cfg.num_heads, batch_first=True, device=dev)
+            m.conv_module = nn.Module()
+            m.conv_module.ln = nn.LayerNorm(d, device=dev)
+            m.conv_module.pw_conv1 = nn.Linear(d, 2 * d, device=dev)
+            m.conv_module.dw_conv = nn.Conv1d(d, d, cfg.conv_kernel, groups=d, device=dev)
+            m.conv_module.ln_conv = nn.LayerNorm(d, device=dev)
+            m.conv_module.pw_conv2 = nn.Linear(d, d, device=dev)
+            m.ln_final = nn.LayerNorm(d, device=dev)
+            return m
+
+        self.day_linear = nn.Module()
+        self.day_linear.day_weights = nn.Parameter(torch.empty(cfg.n_days, c, c, device=dev))
+        self.day_linear.day_bias = nn.Parameter(torch.empty(cfg.n_days, 1, c, device=dev))
+        self.frontend = nn.Module()
+        self.frontend.temporal_conv = nn.Conv1d(c, c, cfg.temporal_kernel,
+                                                stride=cfg.temporal_stride, groups=c,
+                                                bias=False, device=dev)
+        self.frontend.proj = nn.Linear(c, f, device=dev)
+        self.frontend.ln = nn.LayerNorm(f, device=dev)
+        self.encoder = nn.Module()
+        self.encoder.net = nn.Sequential(nn.Linear(f, cfg.autoencoder_hidden_dim, device=dev),
+                                         nn.GELU(),
+                                         nn.Linear(cfg.autoencoder_hidden_dim, d, device=dev))
+        self.conformer_layers = nn.ModuleList(layer() for _ in range(cfg.num_layers))
+        self.output = nn.Sequential(nn.Linear(d, d, device=dev), nn.LayerNorm(d, device=dev),
+                                    nn.GELU(), nn.Dropout(), nn.Linear(d, n_out, device=dev))
+        if cfg.use_interctc:
+            self.inter_output = nn.Linear(d, n_out, device=dev)
+
+    def shapes(self) -> dict[str, tuple[int, ...]]:
+        return {k: tuple(v.shape) for k, v in self.state_dict().items()}
+
+
+def smoke_prons() -> dict[str, tuple[str, ...]]:
+    """The smoke's word lexicon: a word for each phone and for each pair."""
+    prons = {f"p_{p.lower()}": (p,) for p in PHONE_DEF}
+    prons |= {f"p_{p.lower()}_{q.lower()}": (p, q) for p in PHONE_DEF for q in PHONE_DEF}
+    return prons
+
+
+def lexicon_g2p() -> tuple[list[str], dict, object]:
+    """The smoke's words whose letters alone name them (``clean_transcription``
+    keeps letters, so ``p_n_g`` and ``p_ng`` meet; the first is kept), their
+    phones by cleaned word, and a g2p over them that answers as ``g2p_en``
+    does: stress digits on the vowels, ``" "`` between words."""
+    by_clean, words = {}, []
+    for w, phones in smoke_prons().items():
+        if clean_transcription(w) not in by_clean:
+            by_clean[clean_transcription(w)] = phones
+            words.append(w)
+
+    def g2p(text: str) -> list[str]:
+        out = []
+        for i, w in enumerate(text.split()):
+            out += [" "] if i else []
+            out += [p + "1" if p[0] in "AEIOU" else p for p in by_clean[w]]
+        return out
+
+    return words, by_clean, g2p
+
+
+def write_sessions(root: Path, rng, words: list[str]) -> dict:
+    """Synthetic ``.mat`` session files in the competition's layout:
+    ``train/``, ``test/`` for both sessions and ``competitionHoldOut/`` for
+    the first, with trials of 400-1200 bins, ``tx1`` (counts) and
+    ``spikePow`` (positive powers) of 256 columns each, scaled per block so
+    that the z-scoring has work to do, ``WF_BLOCKS`` contiguous blocks in
+    ``blockIdx`` and transcriptions of 3-8 of the lexicon's words. Returns
+    each file's block indices."""
+    blocks_of = {}
+    for split, n in WF_TRIALS.items():
+        (root / split).mkdir(parents=True, exist_ok=True)
+        for name in WF_SESSIONS[:1] if split == "competitionHoldOut" else WF_SESSIONS:
+            blocks = np.repeat(np.arange(1, WF_BLOCKS + 1), -(-n // WF_BLOCKS))[:n]
+            tx1, power = np.empty((1, n), object), np.empty((1, n), object)
+            for i, t in enumerate(rng.integers(400, 1201, size=n)):
+                b = int(blocks[i])
+                tx1[0, i] = rng.poisson(0.5 * b, size=(t, 256)).astype(np.float32)
+                power[0, i] = rng.gamma(2.0, 5.0 * b, size=(t, 256)).astype(np.float32)
+            text = np.array([" ".join(rng.choice(words, size=int(rng.integers(3, 9))))
+                             .capitalize() + "." for _ in range(n)])
+            scipy.io.savemat(str(root / split / f"{name}.mat"),
+                             {"tx1": tx1, "spikePow": power, "sentenceText": text,
+                              "blockIdx": blocks.reshape(-1, 1)})
+            blocks_of[split, name] = blocks
+    return blocks_of
+
+
+def workflow_format(card: str) -> Path:
+    """(a) ``format_competition_data`` over two synthetic sessions with the
+    lexicon's g2p: the schema, each block's z-scored columns, the labels
+    against the lexicon's phones. Returns the formatted pickle."""
+    root = WORKFLOW_DIR / "competitionData"
+    words, by_clean, g2p = lexicon_g2p()
+    t0 = time.perf_counter()
+    blocks_of = write_sessions(root, np.random.default_rng(21), words)
+    write_s = time.perf_counter() - t0
+    pkl = WORKFLOW_DIR / "ptDecoder_ctc"
+    t0 = time.perf_counter()
+    out = formatter.format_competition_data(str(root), str(pkl), session_names=WF_SESSIONS,
+                                            g2p=g2p)
+    format_s = time.perf_counter() - t0
+    keys = {"sentenceDat", "transcriptions", "phonemes", "timeSeriesLens", "phoneLens",
+            "phonePerTime"}
+    split_of = {"train": "train", "test": "test", "competition": "competitionHoldOut"}
+    schema = set(out) == set(split_of) and [len(out[s]) for s in split_of] == [2, 2, 1]
+    worst_mean = worst_std = 0.0
+    labels_ok = True
+    for split, days in out.items():
+        for name, day in zip(WF_SESSIONS, days):
+            n = WF_TRIALS[split_of[split]]
+            x = day["sentenceDat"]
+            schema &= (set(day) == keys and len(x) == n
+                       and all(a.dtype == np.float32 and a.shape[1] == 256 for a in x)
+                       and list(day["timeSeriesLens"]) == [len(a) for a in x]
+                       and day["phonePerTime"].dtype == np.float32
+                       and all(p.dtype == np.int32 and p.shape == (500,)
+                               for p in day["phonemes"]))
+            blocks = blocks_of[split_of[split], name]
+            for b in np.unique(blocks):
+                span = np.concatenate([x[i] for i in np.flatnonzero(blocks == b)]).astype(np.float64)
+                worst_mean = max(worst_mean, float(np.abs(span.mean(axis=0)).max()))
+                worst_std = max(worst_std, float(np.abs(span.std(axis=0) - 1.0).max()))
+            for text, ids, m in zip(day["transcriptions"], day["phonemes"], day["phoneLens"]):
+                want = [p for w in clean_transcription(text).split()
+                        for p in (*by_clean[w], "SIL")]
+                labels_ok &= (int(m) == len(want) and not ids[m:].any()
+                              and list(ids[:m]) == [PHONE_DEF.index(p) + 1 if p != "SIL"
+                                                    else len(PHONE_DEF) + 1 for p in want])
+    check(schema, "workflow format: {train, test, competition} with 2, 2 and 1 sessions of "
+          f"{WF_TRIALS['train']}/{WF_TRIALS['test']}/{WF_TRIALS['competitionHoldOut']} trials, "
+          "the day-dict schema, [t, 256] float32 features, int32 label buffers of 500")
+    check(worst_mean <= NORM_TOL and worst_std <= NORM_TOL,
+          f"workflow format: every block z-scored: column |mean| <= {worst_mean:.2e}, "
+          f"|std - 1| <= {worst_std:.2e} (limit {NORM_TOL:g})")
+    check(labels_ok, "workflow format: every phoneLens equals its buffer's labels, which are "
+          "the lexicon's phones with SIL after each word (+1 ids, zeros after)")
+    n_trials = sum(len(d["sentenceDat"]) for days in out.values() for d in days)
+    print(f"workflow format: {n_trials} trials of 400-1200 bins in 5 session files; writing "
+          f"the .mat files {write_s:.1f} s, format_competition_data {format_s:.1f} s "
+          f"({card})", flush=True)
+    return pkl
+
+
+def train_losses(run_dir: Path) -> list[float]:
+    """The per-step ``train/loss`` of a run's metrics.jsonl, by step."""
+    recs = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    return [r["train/loss"] for r in sorted((r for r in recs if "train/loss" in r),
+                                            key=lambda r: r["step"])]
+
+
+def run_trace(run_dir: Path) -> tuple[tuple[float, float], dict]:
+    """A finished run's steps' wall-clock span (the first step queued, the
+    last step's metrics read) and its kernel launches by wrapper and body,
+    from the last record of its metrics.jsonl (``training/trainer.py``)."""
+    rec = json.loads((run_dir / "metrics.jsonl").read_text().splitlines()[-1])
+    pre = "summary/launches/"
+    return ((rec["summary/steps_wall_start"], rec["summary/steps_wall_end"]),
+            {k[len(pre):]: int(v) for k, v in rec.items() if k.startswith(pre)})
+
+
+def workflow_launches_want(run_dir: Path, pkl: Path, launches: dict) -> dict:
+    """What a bf16 GRU run of ``WF_STEPS`` steps on the formatted data must
+    launch: per step, each layer's gates-forward and backward scans on the
+    persistent body and one CTC alpha and beta; per eval batch, the
+    frontend on ``tc``, each layer's inference scan and one alpha."""
+    args = load_args(str(run_dir))
+    with open(pkl, "rb") as f:
+        n_test = sum(len(d["sentenceDat"]) for d in pickle.load(f)["test"])
+    n, layers = WF_STEPS, int(args["nLayers"])
+    e = len(range(0, WF_STEPS, WF_EVAL_EVERY)) * -(-n_test // int(args["batchSize"]))
+    counts = {"gru_scan_gates": layers * n, "gru_scan_bwd": layers * n,
+              "ctc_alpha": n + e, "ctc_beta": n, "frontend": e, "gru_scan": layers * e}
+    by_body = {"gru_scan_gates": "persistent", "gru_scan_bwd": "persistent",
+               "gru_scan": "persistent", "ctc_alpha": CTC_BODY, "ctc_beta": CTC_BODY,
+               "frontend": "tc"}
+    return (dict.fromkeys(launches, 0) | counts
+            | {f"{k}/{by_body[k]}": v for k, v in counts.items()})
+
+
+def pinned_worker_probe(_) -> tuple:
+    """Runs in a spawned sweep worker after the pool's initializer pinned
+    it (``parallel/sweep.py::_worker_init``): what the pin left and what
+    CUDA then shows."""
+    return (os.environ.get("CUDA_VISIBLE_DEVICES"), sweep._WORKER_INIT_ERROR,
+            "torch" in sys.modules, torch.cuda.device_count(), torch.cuda.get_device_name(0))
+
+
+def pinned_worker_check() -> None:
+    """A spawn worker pinned to slot 0 with one card: torch is imported
+    before the initializer runs (the worker re-imports this script), CUDA
+    is not initialized yet, so ``CUDA_VISIBLE_DEVICES`` takes effect."""
+    ctx = mp.get_context("spawn")
+    slots = ctx.Queue()
+    slots.put(0)
+    with ctx.Pool(1, initializer=sweep._worker_init, initargs=({}, slots, 1)) as pool:
+        visible, error, imported, count, name = pool.map(pinned_worker_probe, [0])[0]
+    check(visible == "0" and error is None and imported and count == 1,
+          f"workflow sweep: a spawn worker pinned by slice_env(0, 1) before its first CUDA "
+          f"call (torch imported: {imported}; pin error: {error}) sees "
+          f"CUDA_VISIBLE_DEVICES={visible}, {count} device ({name})")
+
+
+def workflow_sweep(pkl: Path, card: str) -> tuple[Path, dict]:
+    """(b) ``nsd-train-torch -m lrStart=0.01,0.02 --jobs 2`` on the recipe's
+    config and the formatted pickle (two spawn workers sharing the card),
+    then each job's overrides alone in a process of their own, one after
+    the other. Returns the best job's run directory and the two workers'
+    launches by kernel."""
+    sweep = WORKFLOW_DIR / "sweep"
+    base = [f"datasetPath={pkl}", f"nBatch={WF_STEPS}", f"evalEvery={WF_EVAL_EVERY}"]
+    # hydra's layout: ${outputDir}/${override_dirname}
+    jobs = {lr: sweep / override_dirname([*base, f"lrStart={lr}"]) for lr in WF_LRS}
+    so = _build.library_path()
+    libs = sorted(_build.BUILD_DIR.glob("libnsd_kernels_*.so"))
+    mtime = so.stat().st_mtime_ns
+    torch.cuda.empty_cache()  # this process's cached blocks, for the workers
+    wall0, t0 = time.time(), time.perf_counter()
+    res = train_cli.main(["--config", GRU_CONFIG, "-m", "--jobs", "2", *base,
+                          f"outputDir={sweep}", f"lrStart={','.join(WF_LRS)}"])
+    sweep_s = time.perf_counter() - t0
+    summary = json.loads((sweep / "sweep_summary.json").read_text())
+    cers = [t["best_cer"] for t in summary]
+    check(res["jobs"] == {str(d): "done" for d in jobs.values()} and res["n_failed"] == 0
+          and [set(t) for t in summary] == [{"trial_id", "overrides", "outputDir", "best_cer",
+                                              "status", "error", "chips"}] * 2
+          and cers == sorted(cers) and res["best_dir"] == summary[0]["outputDir"],
+          f"workflow sweep: jobs {res['jobs']} all done; sweep_summary.json ranked by "
+          f"best_cer {cers}")
+    check(so.stat().st_mtime_ns == mtime
+          and sorted(_build.BUILD_DIR.glob("libnsd_kernels_*.so")) == libs,
+          f"workflow sweep: the workers loaded {so.name} as built (mtime unchanged, no "
+          f"other library)")
+    # each worker's own record of its steps and launches
+    traces = {lr: run_trace(d) for lr, d in jobs.items()}
+    spans = {lr: (round(a - wall0, 3), round(b - wall0, 3)) for lr, ((a, b), _) in traces.items()}
+    overlap = min(b for _, b in spans.values()) - max(a for a, _ in spans.values())
+    check(overlap > 0,
+          f"workflow sweep: the two jobs' steps overlapped for {overlap:.3f} s (s after the "
+          f"sweep's start, first step queued to last step's metrics read: {spans})")
+    want = workflow_launches_want(jobs[WF_LRS[0]], pkl, traces[WF_LRS[0]][1])
+    for lr, (_, launches) in traces.items():
+        ran = {k: v for k, v in launches.items() if v}
+        check(launches == want,
+              f"workflow sweep: the lrStart={lr} worker launched {ran} == {WF_STEPS} steps "
+              f"(scans on the persistent body, CTC on {CTC_BODY}) and "
+              f"{len(range(0, WF_STEPS, WF_EVAL_EVERY))} evals, nothing else")
+    alone_s, alone_span = {}, {}
+    for lr, job in jobs.items():
+        out = WORKFLOW_DIR / f"alone_lrStart={lr}"
+        t1 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "neural_speech_decoder_tpu_torch.training.cli",
+                               "--config", GRU_CONFIG, *base, f"outputDir={out}",
+                               f"lrStart={lr}"], capture_output=True, text=True, timeout=900)
+        alone_s[lr] = time.perf_counter() - t1
+        if proc.returncode:
+            print(proc.stdout[-2000:] + proc.stderr[-4000:], flush=True)
+        alone, swept = (train_losses(out) if proc.returncode == 0 else []), train_losses(job)
+        (a, b), launches = run_trace(out) if proc.returncode == 0 else ((0.0, 0.0), {})
+        alone_span[lr] = b - a
+        check(proc.returncode == 0 and len(swept) == WF_STEPS and alone == swept
+              and launches == traces[lr][1],
+              f"workflow sweep: lrStart={lr} run alone (nsd-train-torch without -m, a process "
+              f"of its own): its {len(alone)} per-step losses bit-equal to the sweep job's "
+              f"(first {swept[:1]}, last {swept[-1:]}), its launches equal")
+    pinned_worker_check()
+    seq = sum(alone_s.values())
+    swept_span = {lr: b - a for lr, (a, b) in spans.items()}
+    print(f"workflow sweep: 2 full-width bf16 GRU jobs of {WF_STEPS} steps and 2 evals "
+          f"(B=64) at once, --jobs 2: {sweep_s:.1f} s wall; the same two alone one after the "
+          f"other {seq:.1f} s ({' + '.join(f'{s:.1f}' for s in alone_s.values())}), "
+          f"{seq / sweep_s:.2f}x, which at {WF_STEPS} steps is start-up and checkpoint I/O "
+          f"overlapping, not the card's throughput; each job's steps (first queued to last "
+          f"read, the step-0 eval and its checkpoint inside) "
+          f"{', '.join(f'{swept_span[lr]:.3f}' for lr in WF_LRS)} s in the sweep, "
+          f"{', '.join(f'{alone_span[lr]:.3f}' for lr in WF_LRS)} s alone ({card})",
+          flush=True)
+    return Path(res["best_dir"]), {k: sum(t[1][k] for t in traces.values()) for k in KERNELS}
+
+
+def pad_request(trials, n_days: int) -> tuple[torch.Tensor, ...]:
+    """Trials padded into a ``[B, T, C]`` float32 batch on the card, their
+    days (``i % n_days``) and lengths."""
+    x = torch.zeros((B, T, C), device="cuda")
+    for i, tr in enumerate(trials):
+        x[i, : len(tr)] = torch.from_numpy(tr).to(x.device)
+    days = torch.arange(B, device="cuda") % n_days
+    lens = torch.tensor([len(tr) for tr in trials] + [0] * (B - len(trials)), device="cuda")
+    return x, days, lens
+
+
+def tree_items(tree, prefix: str = "") -> dict:
+    if isinstance(tree, dict):
+        return {k: v for key in tree for k, v in tree_items(tree[key], f"{prefix}/{key}").items()}
+    if isinstance(tree, (list, tuple)):
+        return {k: v for i, t in enumerate(tree) for k, v in tree_items(t, f"{prefix}/{i}").items()}
+    return {prefix: tree}
+
+
+def reference_forward_check(ref: ReferenceGRUDecoder, model, args: dict, card: str) -> None:
+    """The reference-layout module's float32 forward against the port's
+    float32 eval forward of the same weights over phase 3's requests."""
+    n_days = model.cfg.n_days
+    model32 = build_model({**args, "compute_dtype": "float32"}, n_days, "cuda")
+    model32.load_params(model.params)
+    trials, _ = serving_trials()
+    offsets = np.cumsum((0,) + REQUEST_SIZES)
+    err = scale = 0.0
+    ref_ms = []
+    for k, m in enumerate(REQUEST_SIZES):
+        x, days, _ = pad_request(trials[offsets[k]: offsets[k] + m], n_days)
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = ref(x, days)
+            torch.cuda.synchronize()
+            ref_ms.append((time.perf_counter() - t0) * 1e3)
+            got = model32(x, days)
+        check(want.shape == got.shape == (B, L, N_OUT), f"reference-layout forward shape "
+              f"{tuple(want.shape)} == the port's {tuple(got.shape)}")
+        err = max(err, (got - want).abs().max().item())
+        scale = max(scale, want.abs().max().item())
+    check(err <= REF_TOL * scale,
+          f"workflow export gru: the reference-layout nn.GRU module (cuDNN, TF32 "
+          f"{torch.backends.cudnn.allow_tf32}) vs the port's float32 eval forward over "
+          f"{len(REQUEST_SIZES)} requests of B={B}, T={T}: max abs err {err:.3e} <= "
+          f"{REF_TOL:g} x max |logit| {scale:.3e}; the module's forward "
+          f"{', '.join(f'{t:.1f}' for t in ref_ms)} ms ({card})")
+
+
+def workflow_interop(best_dir: Path, card: str) -> dict:
+    """(c) ``torch_export.main`` of the sweep's best job and of phase 9's
+    Conformer run; each file's keys and shapes those of the reference
+    layout (the GRU loaded strictly into ``ReferenceGRUDecoder`` and run
+    against the port's float32 forward); ``load_checkpoint`` back onto the
+    card bit-equal to ``load_model``'s tree, and a bf16 request through
+    the kernels bit-equal to ``load_model``'s, launches exact. Returns the
+    launches of those requests."""
+    launches = {k: 0 for k in KERNELS}
+    art = WORKFLOW_DIR / "export"
+    art.mkdir(parents=True)
+    trials, _ = serving_trials()
+    for tag, run_dir, per_request in (
+            ("gru", best_dir, {"frontend": 1, "gru_scan": 5}),
+            ("conformer", CONFORMER_RUN, {"mhsa_qkv": CONFORMER_LAYERS})):
+        out = art / f"{tag}.modelWeights"
+        t0 = time.perf_counter()
+        export_main([str(run_dir), str(out), "--device", "cuda"])
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sd = torch.load(out, map_location="cpu", weights_only=True)
+        load_s = time.perf_counter() - t0
+        model, args = load_model(str(run_dir), device="cuda")
+        plain = all(v.device.type == "cpu" and v.dtype == torch.float32 and v.is_contiguous()
+                    for v in sd.values())
+        if tag == "gru":
+            ref = ReferenceGRUDecoder.from_config(model.cfg, device="cuda")
+            try:
+                ref.load_state_dict(sd, strict=True)
+                layout, why = True, "load_state_dict(strict=True) into"
+            except RuntimeError as e:
+                layout, why = False, f"{e} loading into"
+            ref.gru_decoder.flatten_parameters()
+            ref.eval()
+        else:
+            want = ReferenceConformerLayout(model.cfg).shapes()
+            got = {k: tuple(v.shape) for k, v in sd.items()}
+            layout = got == want
+            why = ("keys and shapes equal to" if layout else
+                   f"keys only in the file {sorted(set(got) - set(want))[:4]}, only in the "
+                   f"layout {sorted(set(want) - set(got))[:4]}, shapes differing "
+                   f"{[k for k in got if k in want and got[k] != want[k]][:4]} in")
+        n_values = sum(v.numel() for v in sd.values())
+        check(plain and layout,
+              f"workflow export {tag}: {len(sd)} contiguous float32 CPU tensors ({n_values:,} "
+              f"values, {out.stat().st_size / 2**20:.1f} MiB); {why} the reference layout "
+              f"({type(ref).__name__ if tag == 'gru' else 'ReferenceConformerLayout'})")
+        if tag == "gru":
+            reference_forward_check(ref, model, args, card)
+            del ref
+        t0 = time.perf_counter()
+        imported = load_checkpoint(str(out), args, device="cuda")
+        import_s = time.perf_counter() - t0
+        mine, theirs = tree_items(imported.params), tree_items(model.params)
+        check(mine.keys() == theirs.keys()
+              and all(torch.equal(mine[k], theirs[k]) and mine[k].dtype == theirs[k].dtype
+                      and mine[k].device == theirs[k].device for k in mine),
+              f"workflow import {tag}: load_checkpoint's {len(mine)} leaves on the card "
+              f"bit-equal to load_model's")
+        x, days, lens = pad_request(trials[:B], model.cfg.n_days)
+        with torch.inference_mode():
+            model_forward(model, x, days, lens)  # warm-up, not counted
+            want_lp, want_len, _ = model_forward(model, x, days, lens)
+            torch.cuda.synchronize()
+            reset_launches()
+            got_lp, got_len, _ = model_forward(imported, x, days, lens)
+            torch.cuda.synchronize()
+        counted = read_launches()
+        want = {k: 0 for k in KERNELS} | per_request
+        bodies, want_bodies = launch_bodies(want)
+        check(counted == want and bodies == want_bodies and torch.equal(got_lp, want_lp)
+              and torch.equal(got_len, want_len),
+              f"workflow import {tag}: a bf16 request of {B} through the kernels bit-equal to "
+              f"load_model's; launched {counted} == {per_request}; by body {bodies}")
+        for k, v in counted.items():
+            launches[k] += v
+        del model, imported
+        print(f"workflow export {tag}: torch_export.main {export_s:.1f} s, torch.load "
+              f"{load_s:.1f} s, load_checkpoint onto the card {import_s:.1f} s ({card})",
+              flush=True)
+    return launches
+
+
+def workflow_phase(card: str) -> dict:
+    """The research workflow (phase 18): (a) raw ``.mat`` sessions ->
+    ``nsd-format-torch``'s ``format_competition_data`` -> a formatted
+    pickle, (b) ``nsd-train-torch -m --jobs 2`` on it, the jobs alone, (c)
+    the best job and phase 9's Conformer exported to the reference layout
+    and imported back. Returns the launches of (b)'s two workers and of
+    (c)."""
+    shutil.rmtree(WORKFLOW_DIR, ignore_errors=True)
+    WORKFLOW_DIR.mkdir(parents=True)
+    t0 = time.perf_counter()
+    pkl = workflow_format(card)
+    print(f"workflow (a) format: {time.perf_counter() - t0:.1f} s ({card})", flush=True)
+    t0 = time.perf_counter()
+    best, launches = workflow_sweep(pkl, card)
+    print(f"workflow (b) sweep: {time.perf_counter() - t0:.1f} s ({card})", flush=True)
+    t0 = time.perf_counter()
+    for k, n in workflow_interop(best, card).items():
+        launches[k] += n
+    print(f"workflow (c) export and import: {time.perf_counter() - t0:.1f} s ({card})",
+          flush=True)
+    shutil.rmtree(WORKFLOW_DIR, ignore_errors=True)
+    return launches
+
+
 # ------------------------------------------------------------------ export
 
 EXPORT_DIR = Path("runs") / "chip_smoke_export"
@@ -3426,6 +3992,10 @@ def main() -> int:
     for k, n in competition_phase(card).items():
         launches[k] += n
     print(f"phase competition decode: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    for k, n in workflow_phase(card).items():
+        launches[k] += n
+    print(f"phase research workflow: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     for k, n in export_phase(card).items():
         launches[k] += n

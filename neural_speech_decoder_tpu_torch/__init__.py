@@ -12,10 +12,16 @@ is tested against. Its layout mirrors the JAX package's:
                  (``library.py``)
   csrc/          the CUDA C++ sources (sm_90a) and the host C++ beam
                  decoder (``ctc_beam.cpp``)
-  models/        the GRU decoder (``gru.py``), its model interface
-                 (``api.py``) and weight conversion from/to JAX (``convert.py``)
-  data/          the port's copies of the numpy-only data modules
-  training/      optimizer, trainer, checkpoints, train-step profile
+  models/        the GRU decoder (``gru.py``), the Conformer
+                 (``conformer.py``), their model interface (``api.py``),
+                 weight conversion from/to JAX (``convert.py``) and the
+                 reference's state-dict layout (``torch_export.py``,
+                 ``torch_import.py``)
+  data/          the port's copies of the numpy-only data modules and the
+                 offline formatter (``formatter.py``: ``nsd-format-torch``)
+  parallel/      hyperparameter sweeps over worker processes (``sweep.py``)
+  training/      optimizer, trainer, checkpoints, train-step profile, the
+                 CLI (``nsd-train-torch``, ``-m`` sweeps)
   utils/         metric logging, greedy collapse, the device check
   streaming/     the GRU and causal-Conformer streamers
   decoding/      the on-device prefix beam; the competition stack: the

@@ -6,6 +6,10 @@ started together, and linked into one shared library with a plain C
 interface, at first use, into ``neural_speech_decoder_tpu_torch/_build/``
 (git-ignored). The library's name carries a hash of the sources
 and flags, so an edited source builds anew and a built one is reused. The
+build runs under an exclusive file lock (``fcntl.flock`` on
+``_build/libnsd_kernels.lock``) and lands by an atomic rename, so processes
+that start at once (sweep workers, test workers) build once: the first
+builds, the others wait and load its library. The
 library is loaded with ``ctypes``; every pointer and the stream are passed
 as ``c_void_p``, and every entry point returns a ``cudaError_t`` (0 = ok),
 except the ``*_workspace`` queries, which return the bytes of scratch a
@@ -16,6 +20,7 @@ most leaves one Adam launch takes.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -111,13 +116,26 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the sources unless the library for them exists already:
-    one ``nvcc -c`` per source, all running at once, then one link. The
-    compiler's report (``-Xptxas -v``: registers, shared memory, spills per
-    kernel) is kept beside the library as ``<name>.log``."""
+    one ``nvcc -c`` per source, all running at once, then one link, under
+    the build lock (a process that takes it second finds the library and
+    returns). The compiler's report (``-Xptxas -v``: registers, shared
+    memory, spills per kernel) is kept beside the library as
+    ``<name>.log``."""
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "libnsd_kernels.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if not so.exists():
+                _compile(so)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    return so
+
+
+def _compile(so: Path) -> None:
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
         cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(Path(work) / f"{src.stem}.o"),
@@ -141,9 +159,8 @@ def build() -> Path:
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(
                 f"{c} ({rc}):\n{o}" for c, rc, o in failed))
-        # atomic: a concurrent loader sees all or nothing
+        # atomic: a loader that did not take the lock sees all or nothing
         os.replace(Path(work) / "lib.so", so)
-    return so
 
 
 @functools.cache

@@ -1,45 +1,103 @@
 """Training CLI: a YAML config and ``key=value`` overrides -> ``train_model``.
 
-Port of ``neural_speech_decoder_tpu/training/cli.py`` (``nsd-train``) for one
-run:
+Port of ``neural_speech_decoder_tpu/training/cli.py`` (``nsd-train``),
+installed as ``nsd-train-torch``:
 
     python -m neural_speech_decoder_tpu_torch.training.cli \\
         --config neural_speech_decoder_tpu/configs/gru_baseline.yaml \\
         outputDir=runs/gru datasetPath=data/ptDecoder_ctc \\
         fused_optimizer=true use_pallas_matmul=true deviceResidentData=true
 
-(also installed as ``nsd-train-torch``). The run trains on ``device``
-(default ``cuda``; ``device=cpu`` for the CPU). ``-m/--multirun`` (hydra's
-sweeps over comma-separated values) is not ported: it needs
-``parallel/sweep.py`` (ROADMAP queue 1 item 10) and raises.
+The run trains on ``device`` (default ``cuda``; ``device=cpu`` for the CPU).
+
+Multirun (hydra's ``--multirun`` sweeps): ``-m``/``--multirun`` expands
+comma-swept override values into the cartesian product of jobs; each job
+runs under ``${outputDir}/${override_dirname}`` (the overrides sorted by
+key, joined with ``,``, without outputDir/datasetPath; ``job_<i>`` when
+that is empty). ``--jobs N`` runs up to N jobs at once in ``spawn`` worker
+processes (``parallel/sweep.py``; each its own CUDA context, sharing the
+card by time-slicing):
+
+    nsd-train-torch --config cfg.yaml -m lrStart=0.01,0.02 nUnits=512,1024 \\
+        outputDir=runs/sweep --jobs 2
+
+Comma-swept values without ``-m`` raise ``SystemExit``, as does a sweep
+whose every job failed.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 
-from ..utils.config import apply_overrides, expand_multirun, load_yaml_config
+from ..utils.config import (
+    apply_overrides,
+    expand_multirun,
+    load_yaml_config,
+    override_dirname,
+)
 
 
 def main(argv: list[str] | None = None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--config", required=True, help="YAML config path")
     parser.add_argument("-m", "--multirun", action="store_true",
-                        help="not ported (ROADMAP queue 1 item 10): raises")
+                        help="expand comma-swept overrides into a job per combination "
+                        "(hydra --multirun), each under outputDir/<override_dirname>")
+    parser.add_argument("--jobs", type=int, default=1,
+                        help="multirun concurrency (worker processes; array_parallelism)")
     parser.add_argument("overrides", nargs="*", help="key=value overrides (YAML-typed)")
     args = parser.parse_args(argv)
-    if args.multirun:
-        raise NotImplementedError(
-            "-m/--multirun needs parallel/sweep.py, not ported (ROADMAP queue 1 item 10)")
-    if len(expand_multirun(args.overrides)) > 1:
-        raise SystemExit("comma-swept override values need -m/--multirun, which "
-                         "the port does not have (ROADMAP queue 1 item 10)")
-    cfg = apply_overrides(load_yaml_config(args.config), args.overrides)
-    if not cfg.get("outputDir"):
-        raise SystemExit("outputDir must be set (config or override)")
-    from .trainer import train_model
+    base_cfg = load_yaml_config(args.config)
+    job_overrides = expand_multirun(args.overrides)
+    if not args.multirun:
+        if len(job_overrides) > 1:
+            raise SystemExit("comma-swept override values need -m/--multirun "
+                             f"(would launch {len(job_overrides)} jobs)")
+        cfg = apply_overrides(base_cfg, args.overrides)
+        if not cfg.get("outputDir"):
+            raise SystemExit("outputDir must be set (config or override)")
+        from .trainer import train_model
 
-    return train_model(cfg)
+        return train_model(cfg)
+    return _multirun(base_cfg, job_overrides, jobs=args.jobs)
+
+
+def _multirun(base_cfg: dict, job_overrides: list[list[str]], *, jobs: int = 1) -> dict:
+    """Run every override combination under hydra's sweep layout
+    (``sweep.dir = ${outputDir}``, ``subdir = ${override_dirname}``);
+    returns the sweep dir, each job's dir and status, and the best CER."""
+    from ..parallel.sweep import run_sweep
+
+    job_cfgs, names = [], []
+    for i, ov_list in enumerate(job_overrides):
+        cfg = apply_overrides(copy.deepcopy(base_cfg), ov_list)
+        cfg.pop("outputDir", None)  # run_sweep assigns the per-job dir
+        job_cfgs.append(cfg)
+        # hydra leaves override_dirname empty when every override is
+        # excluded; distinct jobs still need distinct dirs
+        names.append(override_dirname(ov_list) or f"job_{i}")
+    # sweep.dir = ${outputDir}, the same for every job (a swept outputDir
+    # would nest runs inside each other)
+    probe = apply_overrides(copy.deepcopy(base_cfg), job_overrides[0])
+    sweep_dir = probe.get("outputDir")
+    if not sweep_dir:
+        raise SystemExit("outputDir must be set (config or override)")
+    trials = run_sweep({}, job_cfgs, str(sweep_dir), array_parallelism=jobs,
+                       use_processes=jobs > 1, subdir_names=names)
+    failed = [t for t in trials if t.status == "failed"]
+    for t in failed:
+        print(f"job {t.output_dir} failed:\n{t.error}")
+    if len(failed) == len(trials):
+        raise SystemExit(f"all {len(trials)} multirun jobs failed")
+    best = trials[0]
+    return {
+        "sweep_dir": str(sweep_dir),
+        "jobs": {t.output_dir: t.status for t in trials},
+        "best_dir": best.output_dir,
+        "summary/best_cer": best.best_cer,
+        "n_failed": len(failed),
+    }
 
 
 if __name__ == "__main__":

@@ -6,7 +6,10 @@ torch's own):
 
 - GRU: ``torch.optim.Adam(lr=lrStart, betas=(0.9, 0.999), eps=0.1,
   weight_decay=l2_decay)`` — L2 added to the gradient before the moments,
-  eps outside the sqrt — with ``LinearLR(1.0, lrEnd/lrStart, nBatch)``.
+  eps outside the sqrt — with the linear schedule from lrStart to lrEnd
+  over nBatch steps, in the closed form of the JAX package's schedule
+  (torch's ``LinearLR`` computes it recursively and refuses an ``lrEnd``
+  above ``lrStart``, which a sweep over lrStart can give).
   With ``fused_optimizer: true`` (the JAX trainer's condition: not
   ``adamw``, not the Conformer) the same update runs as ``FusedAdam``, on
   the hand-written kernel of ``ops/kernels/adam.py`` (the JAX package's
@@ -30,17 +33,26 @@ import torch
 from ..ops.kernels.adam import adam_scalars, adam_update
 
 
+def linear_lr_factor(
+    lr_start: float, lr_end: float, total_iters: int
+) -> Callable[[int], float]:
+    """The factor on ``lr_start`` at a step: 1 at step 0, ``lr_end/lr_start``
+    from ``total_iters`` on (1 when ``lr_start`` is 0)."""
+    end_factor = lr_end / lr_start if lr_start != 0 else 1.0
+
+    def factor(count: int) -> float:
+        frac = min(count, total_iters) / max(total_iters, 1)
+        return 1.0 + (end_factor - 1.0) * frac
+
+    return factor
+
+
 def linear_lr_schedule(
     lr_start: float, lr_end: float, total_iters: int
 ) -> Callable[[int], float]:
     """torch LinearLR with start_factor=1.0, as a function of the step."""
-    end_factor = lr_end / lr_start if lr_start != 0 else 1.0
-
-    def schedule(count: int) -> float:
-        frac = min(count, total_iters) / max(total_iters, 1)
-        return lr_start * (1.0 + (end_factor - 1.0) * frac)
-
-    return schedule
+    factor = linear_lr_factor(lr_start, lr_end, total_iters)
+    return lambda count: lr_start * factor(count)
 
 
 def warmup_cosine_schedule(
@@ -148,8 +160,6 @@ def make_optimizer(
     adam = FusedAdam if fused_optimizer(args) else torch.optim.Adam
     opt = adam(params, lr=lr_start, betas=(0.9, 0.999), eps=0.1,
                weight_decay=float(args.get("l2_decay", 0)))
-    sched = torch.optim.lr_scheduler.LinearLR(
-        opt, start_factor=1.0,
-        end_factor=lr_end / lr_start if lr_start != 0 else 1.0,
-        total_iters=n_batch)
+    sched = torch.optim.lr_scheduler.LambdaLR(
+        opt, linear_lr_factor(lr_start, lr_end, n_batch))
     return opt, sched

@@ -5,8 +5,8 @@ Port of ``neural_speech_decoder_tpu/training/trainer.py`` for both model
 families (``model_type`` ``gru_baseline`` or ``transformer_ctc``): per-step
 uniformly random batches (``data/batching.py``), noise augmentation, the
 train forward with its dropout, the CTC loss with the reference's
-reductions, label smoothing and InterCTC blending, Adam with L2 and
-LinearLR (or AdamW with warmup-cosine, the Conformer's, with its gradients
+reductions, label smoothing and InterCTC blending, Adam with L2 and a
+linear schedule (or AdamW with warmup-cosine, the Conformer's, with its gradients
 clipped to norm 1.0), eval every ``evalEvery`` steps (CTC loss and greedy
 PER), the best-CER ``modelState``, the periodic ``lastState``,
 SIGTERM/SIGUSR1 preemption and an exact ``resume``, device-resident data
@@ -15,13 +15,17 @@ trace of the steps ``profile_steps = [start, stop]`` into
 ``outputDir/profile``.
 
 The port runs on one device: the mesh, tensor parallelism and multi-host
-staging are not ported (ROADMAP queue 1 item 10), and a run that asks for
+staging are not ported (ROADMAP queue 1 item 6), and a run that asks for
 them (``n_data_devices`` or ``n_model_devices`` > 1, ``multihost_staging``)
 raises ``NotImplementedError``. The device comes from ``args["device"]``
 (default ``"cuda"``, which raises without a card). The noise and dropout of
 step ``i`` come from a ``torch.Generator`` seeded from ``(seed, i)``, as the
 JAX package folds the step into its key, so a resumed run draws what an
-uninterrupted one would.
+uninterrupted one would. A finished run's last ``metrics.jsonl`` record
+also holds the wall-clock span of its steps (``summary/steps_wall_start``,
+``summary/steps_wall_end``) and its kernel launches by wrapper and body
+(``summary/launches/<wrapper>[/<body>]``, ``ops/kernels.launch_counts``),
+which show what each of a sweep's worker processes ran, and when.
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ from ..data.device_data import DeviceData
 from ..models.api import Decoder, build_model, forward
 from ..ops.ctc import ctc_loss
 from ..ops.decode import batch_per, greedy_decode
+from ..ops.kernels import launch_counts
 from ..ops.noise import apply_noise
 from ..utils.logging import MetricLogger
 from .checkpoints import CheckpointManager, load_args, save_args, save_training_stats
@@ -80,7 +85,7 @@ def check_single_device(args: dict) -> None:
     if asked:
         raise NotImplementedError(
             f"{', '.join(asked)}: the port trains on one device; the mesh, tensor "
-            f"parallelism and multi-host staging are ROADMAP queue 1 item 10")
+            f"parallelism and multi-host staging are ROADMAP queue 1 item 6")
 
 
 _warned_rng_impl = False
@@ -437,11 +442,15 @@ def _train_model_impl(args: dict, preempt_requested: threading.Event) -> dict:
             held = {k: v for k, v in held.items()
                     if not k.startswith(WATCH_PREFIXES)}
         log_dict = {k: float(v) for k, v in held.items()}
+        steps_wall[1] = time.time()
         log_dict["train/learning_rate"] = schedule(at_step)
         log_dict["train/batch"] = at_step
         logger.log(log_dict, step=at_step)
 
+    launches0 = launch_counts()
     start_time = time.time()
+    # wall clock of the first step queued and of the last step's metrics read
+    steps_wall = [start_time, start_time]
     pending = None  # (metrics, step) of the previous step, read after the next
     preempted_at: int | None = None
     for step in range(start_step, n_batch):
@@ -518,7 +527,12 @@ def _train_model_impl(args: dict, preempt_requested: threading.Event) -> dict:
         "summary/final_loss": test_loss[-1] if test_loss else float("inf"),
         "summary/best_loss": float(np.min(test_loss)) if test_loss else float("inf"),
     }
-    logger.log(summary)
+    # the steps' wall-clock span and the run's kernel launches, by wrapper
+    # and body, go to the metrics only
+    logger.log({**summary, "summary/steps_wall_start": steps_wall[0],
+                "summary/steps_wall_end": steps_wall[1],
+                **{f"summary/launches/{k}": n - launches0[k]
+                   for k, n in launch_counts().items()}})
     logger.finish()
     print(f"\n{'=' * 60}\nTraining completed!\nFinal CER: {final_cer:.6f}\n"
           f"Best CER: {best_cer:.6f}\n{'=' * 60}\n")

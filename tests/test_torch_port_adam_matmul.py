@@ -146,7 +146,7 @@ def test_adam_matches_jax_kernel(arm, l2):
 
 
 def test_fused_adam_with_linear_lr_matches_torch_adam():
-    """``FusedAdam`` and ``torch.optim.Adam``, each driven by ``LinearLR``,
+    """``FusedAdam`` and ``torch.optim.Adam``, each driven by the linear schedule,
     over 5 steps agree to rounding: the same update written in other forms
     (torch's ``lerp`` moments and ``addcdiv``): p within 8 float32 ulps of
     |p| < 4, each moment within 1e-6 of its largest entry (8 ulps)."""
@@ -560,8 +560,12 @@ def test_cli_trains_with_the_three_flags(tmp_path, monkeypatch):
 
 
 def test_cli_multirun_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        cli.main(["-m", *_cli_args(tmp_path)])
+    """``-m`` runs sweeps now (``tests/test_torch_port_sweep.py``); it raises
+    ``SystemExit`` when every job fails, and comma-swept values without it
+    raise ``SystemExit``."""
+    with pytest.raises(SystemExit, match="all 2 multirun jobs failed"):
+        cli.main(["-m", *_cli_args(tmp_path, "lrStart=0.01,0.02",
+                                   f"datasetPath={tmp_path / 'missing.pkl'}")])
     with pytest.raises(SystemExit):
         cli.main(_cli_args(tmp_path, "lrStart=0.01,0.02"))
 
@@ -569,6 +573,6 @@ def test_cli_multirun_raises(tmp_path):
 @pytest.mark.parametrize("arg", [{"n_data_devices": 2}, {"n_model_devices": 4},
                                  {"multihost_staging": True}])
 def test_unported_multi_device_args_raise(tmp_path, arg):
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
         train_model(_run_args(tmp_path, 2, **arg))
     assert not (tmp_path / "args").exists()

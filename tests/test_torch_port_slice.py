@@ -237,6 +237,28 @@ with tempfile.TemporaryDirectory() as d:
     bigram_opt.write_checkpoint(spec, d, builder.tensor_fn)
     bigram_opt.build_wordlevel_tokenizer(["cat", "bat"], d)
     scores = llm_engine.engine_scorer(d, batch_size=2, device="cpu")(["cat bat", "bat"])
+import scipy.io
+from neural_speech_decoder_tpu_torch.data import formatter
+from neural_speech_decoder_tpu_torch.models import torch_export, torch_import
+from neural_speech_decoder_tpu_torch.parallel import _optuna_shim, sweep
+with tempfile.TemporaryDirectory() as d:
+    rng = np.random.default_rng(0)
+    tx1, power = np.empty((1, 2), object), np.empty((1, 2), object)
+    for i in range(2):
+        tx1[0, i], power[0, i] = rng.standard_normal((2, 20, 130))
+    scipy.io.savemat(d + "/s.mat", {"tx1": tx1, "spikePow": power,
+                                    "sentenceText": np.array(["Go home.", "no"]),
+                                    "blockIdx": np.array([[1], [1]])})
+    day = formatter.format_session(
+        d + "/s.mat", lambda text: [p for w in text.split() for p in (" ", "B1", "AE")][1:])
+    sd = torch_export.export_state_dict(model.params, model.cfg)
+    back = torch_import.import_state_dict(sd, model.cfg)
+    leaves = lambda t: ([x for k in sorted(t) for x in leaves(t[k])] if isinstance(t, dict)
+                        else [x for v in t for x in leaves(v)] if isinstance(t, list) else [t])
+    data = synthetic_dataset(seed=1, n_days=1, trials_per_day=4, n_channels=8, min_t=24,
+                             max_t=40, min_u=2, max_u=3)
+    trials = sweep.run_sweep({**args, "dataset": data, "nBatch": 1}, [{"lrStart": 0.02}], d,
+                             use_processes=False)
 mods = [m for m in sys.modules
         if m.split(".")[0] in ("jax", "jaxlib", "neural_speech_decoder_tpu")]
 print(json.dumps({"mods": mods, "finite": bool(torch.isfinite(lp).all()),
@@ -244,7 +266,13 @@ print(json.dumps({"mods": mods, "finite": bool(torch.isfinite(lp).all()),
                   "reloaded": args["nDays"] == 1, "streamed": streamed,
                   "exported": bool(torch.isfinite(e_lp).all()) and e_lens.tolist() == [13, 0],
                   "decoded": res["decoded_transcripts"] == ["cat bat"] and res["wer"] == 0.0,
-                  "scored": len(scores) == 2 and bool(np.isfinite(scores).all())}))
+                  "scored": len(scores) == 2 and bool(np.isfinite(scores).all()),
+                  "formatted": day["phoneLens"].tolist() == [6, 3]
+                               and day["sentenceDat"][0].shape == (20, 256),
+                  "interop": "gaussianSmoother.weight" in sd and all(
+                      torch.equal(a, b.cpu()) for a, b in zip(leaves(back),
+                                                              leaves(model.params))),
+                  "swept": [t.status for t in trials] == ["done"]}))
 """
 
 
@@ -257,4 +285,5 @@ def test_port_never_imports_jax():
     res = json.loads(proc.stdout.strip().splitlines()[-1])
     assert res == {"mods": [], "finite": True, "empty": [], "trained": True,
                    "reloaded": True, "streamed": [True, True], "exported": True,
-                   "decoded": True, "scored": True}
+                   "decoded": True, "scored": True, "formatted": True, "interop": True,
+                   "swept": True}
