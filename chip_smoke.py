@@ -204,6 +204,22 @@ random weights:
     ``load_model``'s, a bf16 request bit-equal with exact launches (1
     frontend on ``tc`` + 5 scans on ``persistent``; 8 attention on ``tc``).
     (b)'s workers' launches and (c)'s count in the kernels line.
+19. Data parallelism (lines start ``dp``), run before phase 16, at the
+    GRU recipe's full width on ``train_model_phase``'s synthetic trials:
+    (a) 6 bf16 steps in a one-rank nccl group
+    (``parallel/multihost.py::initialize``) against the same run with no
+    group, every per-step loss bit-equal; (b) 3 float32 steps on two gloo
+    ranks of the one card (``parallel/data_parallel.py::launch``, each
+    rank calling ``train_model`` in the group) against one rank: step-0
+    loss within ``DP_LOSS_TOL[0]``, later steps within ``DP_LOSS_TOL[1]``,
+    each parameter leaf's two updates within ``DP_PARAM_TOL`` in L2, each
+    rank's launches by body (from the run's last metrics.jsonl record)
+    exact for the bodies ``scan_plan`` picks at B/2 rows; (c) the same for
+    the float32 Conformer with ``fused_ffn``/``fused_conv``, depth cut to
+    ``DP_CONFORMER_LAYERS`` blocks, the kernels' dropout 0; (d) with two
+    cards or more, (b) over nccl on two cards (``n_data_devices: 2``),
+    else one line saying it did not run. The ranks' launches count in the
+    kernels line.
 The default GRU and Conformer phases check that the fused kernels and the
 GRU's opt-in kernels launch no time there. Every GRU phase checks the scan
 launches by body: all bfloat16 scans at full width on the persistent body,
@@ -314,6 +330,7 @@ from neural_speech_decoder_tpu_torch.ops.kernels.gru_scan import (
     gru_sequence_gates_plain,
     gru_sequence_plain,
     dw_contraction,
+    scan_plan,
     hh_grads_plain,
     scan_backward,
     scan_forward,
@@ -322,7 +339,8 @@ from neural_speech_decoder_tpu_torch.ops.kernels.matmul import (
     tiled_matmul,
     tiled_matmul_plain,
 )
-from neural_speech_decoder_tpu_torch.parallel import sweep
+from neural_speech_decoder_tpu_torch.parallel import data_parallel as dp
+from neural_speech_decoder_tpu_torch.parallel import multihost, sweep
 from neural_speech_decoder_tpu_torch.serving import (
     export_beam,
     export_streaming_conformer_params,
@@ -339,7 +357,7 @@ from neural_speech_decoder_tpu_torch.serving.profile import (
 )
 from neural_speech_decoder_tpu_torch.training import cli as train_cli
 from neural_speech_decoder_tpu_torch.training.checkpoints import load_args, save_args
-from neural_speech_decoder_tpu_torch.training.optim import FusedAdam, make_optimizer
+from neural_speech_decoder_tpu_torch.training.optim import FusedAdam, lr_schedule, make_optimizer
 from neural_speech_decoder_tpu_torch.training.profile import (
     BENCH_ARGS,
     CONFORMER_ARGS,
@@ -3724,6 +3742,210 @@ def workflow_phase(card: str) -> dict:
     return launches
 
 
+# ------------------------------------------------------ data parallelism
+
+DP_DIR = Path("runs") / "chip_smoke_dp"
+DP_STEPS = {"a": 6, "b": 3, "c": 3}
+# (b)/(c) against world size 1, float32: the ranks' halves sum the CTC
+# means, the KL and the gradients in another order, then average them
+DP_LOSS_TOL = (1e-5, 1e-4)  # step 0, later steps: relative
+# final parameters: each leaf's two updates (p_final - p_initial) within
+# DP_PARAM_TOL of each other in L2 relative to the one-rank update. Adam
+# normalizes each entry's step, so an entry whose gradient is near Adam's
+# eps moves by a visible part of lr on a rounding difference (the
+# Conformer head's largest entry differed by 1.5e-2 of the steps' summed
+# learning rates on the card): the L2 over the leaf weighs such entries by
+# their count, a rank's missing or misplaced rows would move every entry
+DP_PARAM_TOL = 1e-3
+DP_CONFORMER_LAYERS = 2  # depth cut to hold the smoke's time
+
+
+def dp_dataset() -> dict:
+    """``train_model_phase``'s synthetic trials (400-1200 bins)."""
+    return synthetic_dataset(seed=0, n_days=N_DAYS, trials_per_day=8, n_channels=C,
+                             min_t=400, max_t=1200, min_u=20, max_u=U)
+
+
+def dp_run_args(base: dict, out: Path, steps: int, ds: dict, **kw) -> dict:
+    # cuda:0: one rank unless the group says otherwise ("cuda" would start a
+    # rank a visible card)
+    return {**base, "outputDir": str(out), "device": "cuda:0", "dataset": ds, "batchSize": B,
+            "nBatch": steps, "evalEvery": 100, "checkpointEvery": 0,
+            "wandb_mode": "offline", "dist_timeout_s": 600, **kw}
+
+
+def dp_last_record(run_dir: Path) -> dict:
+    return json.loads((run_dir / "metrics.jsonl").read_text().splitlines()[-1])
+
+
+def dp_rank_launches(run_dir: Path, rank: int) -> dict:
+    pre = f"summary/rank{rank}/launches/"
+    return {k[len(pre):]: int(v) for k, v in dp_last_record(run_dir).items()
+            if k.startswith(pre)}
+
+
+def dp_final_params(run_dir: Path) -> dict:
+    from neural_speech_decoder_tpu_torch.training.checkpoints import CheckpointManager
+
+    return tree_items(CheckpointManager(str(run_dir)).restore("lastState", "cpu")["params"])
+
+
+def dp_compare(tag: str, ranks_dir: Path, one_dir: Path, steps: int) -> float:
+    """(b)/(c): the world-size-2 run's per-step losses and final parameters
+    against the world-size-1 run's. Returns the parameters' error."""
+    got, want = train_losses(ranks_dir), train_losses(one_dir)
+    rel = [abs(a - b) / max(abs(b), 1e-30) for a, b in zip(got, want)]
+    ok = (len(got) == len(want) == steps and rel[0] <= DP_LOSS_TOL[0]
+          and all(r <= DP_LOSS_TOL[1] for r in rel[1:]))
+    check(ok, f"dp {tag}: {len(got)} per-step losses of 2 ranks against 1 rank, relative "
+              f"errors {[f'{r:.3e}' for r in rel]} (step 0 <= {DP_LOSS_TOL[0]:g}, later "
+              f"<= {DP_LOSS_TOL[1]:g}); first {got[:1]} / {want[:1]}")
+    a, b = dp_final_params(ranks_dir), dp_final_params(one_dir)
+    args = load_args(str(one_dir))
+    init = tree_items(build_model(args, int(args["nDays"]), "cuda:0",
+                                  int(args.get("seed", 0))).params)
+    reach = sum(lr_schedule(args)(i) for i in range(steps))
+    errs, peak = {}, {}
+    for k, want in b.items():
+        want, got, p0 = want.double(), a[k].double(), init[k].detach().cpu().double()
+        errs[k] = float((got - want).norm() / (want - p0).norm().clamp_min(1e-30))
+        peak[k] = float((got - want).abs().max()) / reach
+    worst, far = max(errs, key=errs.get), max(peak, key=peak.get)
+    check(a.keys() == b.keys() == init.keys() and errs[worst] <= DP_PARAM_TOL,
+          f"dp {tag}: final parameters of 2 ranks against 1 rank, {len(errs)} leaves: the "
+          f"updates' L2 difference over the one-rank update at most {errs[worst]:.3e} "
+          f"({worst}; tolerance {DP_PARAM_TOL:g}); the largest entry's difference "
+          f"{peak[far]:.3e} of the {steps} steps' summed learning rates {reach:.3g} ({far})")
+    return errs[worst]
+
+
+def dp_one_card_ranks(tag: str, args: dict, want: dict, bodies: dict, card: str) -> dict:
+    """Two gloo ranks on ``cuda:0`` (``parallel/data_parallel.py::launch``
+    with the caller's backend: each rank calls ``train_model`` in the group)
+    against ``train_model`` alone; each rank's launches by body, from the
+    run's last metrics record. Returns both ranks' launches."""
+    one, ranks = DP_DIR / f"{tag}_world1", DP_DIR / f"{tag}_world2"
+    t0 = time.perf_counter()
+    train_model({**args, "outputDir": str(one)})
+    one_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()  # this process's cached blocks, for the ranks
+    t0 = time.perf_counter()
+    summaries = dp.launch(train_model, [({**args, "outputDir": str(ranks)},)] * 2,
+                          devices=["cuda:0", "cuda:0"], backend="gloo", timeout_s=600)
+    ranks_s = time.perf_counter() - t0
+    check(summaries[0] == summaries[1],
+          f"dp {tag}: both ranks returned one summary ({summaries[0]})")
+    err = dp_compare(tag, ranks, one, args["nBatch"])
+    total = {k: 0 for k in KERNELS}
+    for r in (0, 1):
+        launches = dp_rank_launches(ranks, r)
+        ran = {k: v for k, v in launches.items() if v}
+        check(all(launches.get(k) == v for k, v in want.items()),
+              f"dp {tag}: rank {r} launched {ran}; per rank {want} (bodies {bodies})")
+        for k in KERNELS:
+            total[k] += launches.get(k, 0)
+    print(f"dp {tag}: 2 gloo ranks on one card {ranks_s:.1f} s (spawn, build load and "
+          f"checkpoint included), 1 rank {one_s:.1f} s; updates within {err:.3e} "
+          f"({card})", flush=True)
+    return total
+
+
+def dp_gru_want(steps: int, n_eval: int) -> tuple[dict, dict]:
+    """A float32 GRU rank's launches at B/2 rows: per step each layer's
+    gates-forward and backward scans and one CTC alpha and beta; per eval
+    batch the frontend, each layer's inference scan and one alpha; by the
+    bodies ``scan_plan``, ``frontend_plan`` and ``ctc_plan`` pick."""
+    props = torch.cuda.get_device_properties(0)
+    plan = scan_plan(H, B // 2, D, torch.float32, props.multi_processor_count,
+                     props.shared_memory_per_block_optin)
+    scan = plan if isinstance(plan, str) else "persistent"
+    bodies = {"gru_scan_gates": scan, "gru_scan_bwd": scan, "gru_scan": scan,
+              "ctc_alpha": CTC_BODY, "ctc_beta": CTC_BODY, "frontend": "fma"}
+    counts = {"gru_scan_gates": 5 * steps, "gru_scan_bwd": 5 * steps,
+              "ctc_alpha": steps + n_eval, "ctc_beta": steps, "frontend": n_eval,
+              "gru_scan": 5 * n_eval, **NO_ATTENTION, **NO_GRU_FUSED}
+    return counts | {f"{k}/{b}": counts[k] for k, b in bodies.items()}, bodies
+
+
+def dp_conformer_want(steps: int, n_eval: int) -> tuple[dict, dict]:
+    """A float32 fused Conformer rank's launches (2 blocks, so no InterCTC
+    head: it needs 6): per step and eval batch 2 attention, 4 FF and 2 conv
+    forwards and one CTC alpha; per step their backwards and one beta."""
+    n, fwd = DP_CONFORMER_LAYERS, steps + n_eval
+    bodies = {"mhsa_qkv": ATTN_FWD_BODY["float32"], "ffn": "tile", "ffn_bwd": "tile",
+              "conv_module": "tile", "conv_module_bwd": "tile", "ctc_alpha": CTC_BODY,
+              "ctc_beta": CTC_BODY}
+    counts = {"mhsa_qkv": n * fwd, "mhsa_qkv_bwd": n * steps, "ffn": 2 * n * fwd,
+              "ffn_bwd": 2 * n * steps, "conv_module": n * fwd, "conv_module_bwd": n * steps,
+              "ctc_alpha": steps + n_eval, "ctc_beta": steps, **NO_GRU,
+              **NO_GRU_FUSED}
+    return counts | {f"{k}/{b}": counts[k] for k, b in bodies.items()}, bodies
+
+
+def data_parallel_phase(card: str) -> dict:
+    """Data parallelism (phase 19, lines start ``dp``): (a) the recipe's
+    bf16 GRU, 6 steps, in a one-rank NCCL group (``multihost.initialize``)
+    against no group, losses bit-equal; (b) the float32 GRU, 3 steps, two
+    gloo ranks on the one card against one rank; (c) the float32 fused
+    Conformer at full width, depth cut to 2 blocks, the kernels' dropout 0,
+    the same; (d) with two cards or more, (b) over NCCL on two cards
+    (``n_data_devices: 2``). Returns the ranks' launches."""
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    ds = dp_dataset()
+    n_eval = -(-pack_days(ds["test"]).n_trials // B)
+    launches = {k: 0 for k in KERNELS}
+
+    # (a) a one-rank NCCL group against no group: bit-equal
+    t0 = time.perf_counter()
+    args = dp_run_args(BENCH_ARGS, DP_DIR / "a_nogroup", DP_STEPS["a"], ds)
+    train_model(args)
+    multihost.initialize("tcp://127.0.0.1:" + str(dp._free_port()), 1, 0, device="cuda:0")
+    try:
+        backend = torch.distributed.get_backend()
+        train_model({**args, "outputDir": str(DP_DIR / "a_nccl1")})
+    finally:
+        torch.distributed.destroy_process_group()
+    got, want = train_losses(DP_DIR / "a_nccl1"), train_losses(DP_DIR / "a_nogroup")
+    check(backend == "nccl" and len(got) == DP_STEPS["a"] and got == want,
+          f"dp (a): bf16 GRU, {len(got)} per-step losses in a one-rank {backend} group "
+          f"bit-equal to no group ({got[:2]} ...)")
+    for k, v in dp_rank_launches(DP_DIR / "a_nccl1", 0).items():
+        if k in launches:
+            launches[k] += v
+    print(f"dp (a): {time.perf_counter() - t0:.1f} s ({card})", flush=True)
+
+    # (b) the float32 GRU, two gloo ranks on the card
+    args = dp_run_args(BENCH_ARGS, DP_DIR, DP_STEPS["b"], ds, compute_dtype="float32")
+    want, bodies = dp_gru_want(DP_STEPS["b"], n_eval)
+    print(f"dp (b): the bodies a rank's B={B // 2} float32 GRU runs on: {bodies}", flush=True)
+    for k, v in dp_one_card_ranks("(b) gru f32", args, want, bodies, card).items():
+        launches[k] += v
+
+    # (c) the float32 Conformer, fused FF and conv, kernels' dropout 0
+    args = dp_run_args({**CONFORMER_ARGS, **FUSED_FLAGS["conformer"]}, DP_DIR, DP_STEPS["c"],
+                       ds, compute_dtype="float32", transformer_dropout=0.0,
+                       transformer_num_layers=DP_CONFORMER_LAYERS)
+    want, bodies = dp_conformer_want(DP_STEPS["c"], n_eval)
+    for k, v in dp_one_card_ranks("(c) conformer f32", args, want, bodies, card).items():
+        launches[k] += v
+
+    # (d) two cards over NCCL
+    if torch.cuda.device_count() >= 2:
+        args = dp_run_args(BENCH_ARGS, DP_DIR / "d_world2", DP_STEPS["b"], ds,
+                           compute_dtype="float32", device="cuda", n_data_devices=2)
+        t0 = time.perf_counter()
+        train_model(args)
+        print(f"dp (d): 2 NCCL ranks on 2 cards {time.perf_counter() - t0:.1f} s ({card})",
+              flush=True)
+        dp_compare("(d) gru f32 nccl", DP_DIR / "d_world2", DP_DIR / "(b) gru f32_world1",
+                   DP_STEPS["b"])
+    else:
+        print(f"dp (d): not run: {torch.cuda.device_count()} card visible, data parallelism "
+              f"across cards needs 2", flush=True)
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    return launches
+
+
 # ------------------------------------------------------------------ export
 
 EXPORT_DIR = Path("runs") / "chip_smoke_export"
@@ -3996,6 +4218,10 @@ def main() -> int:
     for k, n in workflow_phase(card).items():
         launches[k] += n
     print(f"phase research workflow: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    for k, n in data_parallel_phase(card).items():
+        launches[k] += n
+    print(f"phase data parallel: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     for k, n in export_phase(card).items():
         launches[k] += n

@@ -19,7 +19,10 @@ is tested against. Its layout mirrors the JAX package's:
                  ``torch_import.py``)
   data/          the port's copies of the numpy-only data modules and the
                  offline formatter (``formatter.py``: ``nsd-format-torch``)
-  parallel/      hyperparameter sweeps over worker processes (``sweep.py``)
+  parallel/      data-parallel training, a process per device over
+                 torch.distributed (``mesh.py``, ``multihost.py``,
+                 ``data_parallel.py``), and hyperparameter sweeps over
+                 worker processes (``sweep.py``)
   training/      optimizer, trainer, checkpoints, train-step profile, the
                  CLI (``nsd-train-torch``, ``-m`` sweeps)
   utils/         metric logging, greedy collapse, the device check

@@ -74,6 +74,14 @@ def _gather(ds: PackedDataset, idx: np.ndarray, t_max: int, u_max: int,
     )
 
 
+def batch_rows(ds: PackedDataset, batch: Batch, rows: slice, *,
+               materialize_x: bool = True) -> Batch:
+    """Rows ``rows`` of a batch sampled with ``idx`` (a data-parallel rank's
+    rows of the global batch), with ``x`` gathered for those rows alone."""
+    return _gather(ds, batch.idx[rows], batch.t_env, batch.y.shape[1],
+                   batch.weight[rows], materialize_x=materialize_x)
+
+
 def bucket_batch_sizes(
     buckets: list[int], token_budget: int, t_max: int,
     max_batch: int = 256, multiple: int = 8,

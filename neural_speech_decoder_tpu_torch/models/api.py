@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from ..ops.rows import BatchShard
 from ..ops.unfold import ctc_input_lengths
 from .conformer import (
     ConformerConfig,
@@ -98,14 +99,16 @@ def forward(
     train: bool = False,
     generator: torch.Generator | None = None,
     plain: bool = False,
+    shard: BatchShard | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
     """``(log_probs [B, L, n_classes+1], out_lens [B], inter_log_probs)``:
     float32 log-probabilities, the CTC input lengths clipped to ``[0, L]``,
     and the Conformer's InterCTC log-probabilities in training (else
     None). ``train`` runs the training forward with its randomness from
-    ``generator``; ``plain`` the kernels' plain versions."""
+    ``generator``; ``plain`` the kernels' plain versions; ``shard`` says
+    which rows of a data-parallel global batch x holds (``ops/rows.py``)."""
     return forward_params(model.cfg, model.params, x, day_idx, x_lens, train=train,
-                          generator=generator, plain=plain)
+                          generator=generator, plain=plain, shard=shard)
 
 
 def forward_params(
@@ -118,15 +121,16 @@ def forward_params(
     train: bool = False,
     generator: torch.Generator | None = None,
     plain: bool = False,
+    shard: BatchShard | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
     """``forward`` of the decoder ``cfg`` describes, on the parameter tree
     ``params`` (what ``serving/export.py`` traces, with the tree's leaves
     as the exported program's inputs)."""
     if isinstance(cfg, ConformerConfig):
         return conformer_forward(params, cfg, x, day_idx, x_lens, train=train,
-                                 generator=generator, plain=plain)
+                                 generator=generator, plain=plain, shard=shard)
     logits = gru_forward(params, cfg, x, day_idx, train=train, generator=generator,
-                         plain=plain)
+                         plain=plain, shard=shard)
     out_lens = ctc_input_lengths(x_lens, cfg.kernel_len, cfg.stride_len)
     out_lens = out_lens.to(logits.device).clamp(0, logits.shape[1])
     return torch.log_softmax(logits, dim=-1), out_lens, None

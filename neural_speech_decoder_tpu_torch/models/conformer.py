@@ -28,7 +28,13 @@ falls back to the unfused module.
 
 Randomness in training (dropout seeds, DropPath, SpecAugment) is drawn from
 one ``torch.Generator`` in a fixed order; the JAX package's ``jax.random``
-streams cannot be reproduced, so parity tests set the rates to 0.
+streams cannot be reproduced, so parity tests set the rates to 0. Under
+data parallelism (a ``BatchShard``, ``ops/rows.py``) a rank's DropPath rows
+and hash-dropout masks are its rows of the global batch's, as JAX's global
+arrays under GSPMD; the kernels' dropout seeds are folded with the rank
+(``ops/hashrng.py::fold_seed``), as JAX folds its key with the shard index
+(``models/conformer.py:484-491``), so with the kernels dropping a
+data-parallel step differs from a single-device one, in JAX as well.
 """
 
 from __future__ import annotations
@@ -44,10 +50,11 @@ import torch.nn.functional as F
 
 from ..ops.day_affine import day_affine, init_day_affine
 from ..ops.gaussian import conformer_kernel_size, gaussian_smooth
-from ..ops.hashrng import draw_seed, hash_dropout
+from ..ops.hashrng import draw_seed, fold_seed, hash_dropout
 from ..ops.kernels.attention import mhsa
 from ..ops.kernels.conv_module import fused_conv_module
 from ..ops.kernels.ffn import fused_ffn
+from ..ops.rows import BatchShard, draw_rows
 from ..ops.specaugment import spec_augment
 from .common import linear, torch_linear_init, uniform_bound, xavier_uniform
 
@@ -269,7 +276,11 @@ def _lin_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def _dropout(rng: "_Draws", x: torch.Tensor, rate: float) -> torch.Tensor:
-    return hash_dropout(rng.seed(), x, rate) if rng.train and rate > 0 else x
+    if not rng.train or rate <= 0:
+        return x
+    # the flat row index of x's first row in the global [B, ..., N] array
+    row0 = rng.shard.start * (x.numel() // (x.shape[0] * x.shape[-1])) if rng.shard else 0
+    return hash_dropout(rng.seed(), x, rate, row0)
 
 
 def _drop_path(rng: "_Draws", x: torch.Tensor, prob: float) -> torch.Tensor:
@@ -277,20 +288,22 @@ def _drop_path(rng: "_Draws", x: torch.Tensor, prob: float) -> torch.Tensor:
     scaled by 1/(1 - prob), else 0."""
     if not rng.train or prob <= 0:
         return x
-    keep = torch.rand((x.shape[0],) + (1,) * (x.dim() - 1),
-                      generator=rng.generator, device=x.device) < 1.0 - prob
+    keep = draw_rows(lambda shape: torch.rand(shape, generator=rng.generator,
+                                              device=x.device),
+                     (x.shape[0],) + (1,) * (x.dim() - 1), rng.shard) < 1.0 - prob
     return torch.where(keep, x / (1.0 - prob), torch.zeros((), dtype=x.dtype,
                                                             device=x.device))
 
 
 class _Draws:
     """The random draws of one forward, in call order from one generator;
-    none in eval."""
+    none in eval. ``shard``: the forward's rows of a data-parallel batch."""
 
-    def __init__(self, generator: torch.Generator | None, train: bool):
+    def __init__(self, generator: torch.Generator | None, train: bool,
+                 shard: BatchShard | None = None):
         if train and generator is None:
             raise ValueError("conformer_forward: train=True needs a generator")
-        self.generator, self.train = generator, train
+        self.generator, self.train, self.shard = generator, train, shard
 
     def seed(self) -> torch.Tensor:
         return draw_seed(self.generator)
@@ -298,8 +311,11 @@ class _Draws:
 
 def _module_seed(rng, rate, device):
     """One dropout seed for a kernel (attention, fused FF or conv module),
-    drawn only when it drops."""
+    drawn only when it drops, and folded with the rank when the batch is
+    split over several."""
     if rng.train and rate > 0:
+        if rng.shard is not None and rng.shard.count > 1:
+            return fold_seed(rng.seed(), rng.shard.index)
         return rng.seed()
     return torch.zeros(1, dtype=torch.int32, device=device)
 
@@ -400,14 +416,15 @@ def conformer_forward(
     train: bool = False,
     generator: torch.Generator | None = None,
     plain: bool = False,
+    shard: BatchShard | None = None,
 ):
     """``[B, T, C]`` features -> ``(log_probs [B, T', n_out] float32,
     out_lens [B] int32, inter_log_probs or None)``; the InterCTC head's
     log-probs only in training. ``train`` draws dropout, DropPath and
     SpecAugment from ``generator``; ``plain`` runs the kernels' plain
-    versions."""
+    versions; ``shard``: x holds these rows of a data-parallel batch."""
     check_config(cfg)
-    rng = _Draws(generator, train)
+    rng = _Draws(generator, train, shard)
     x = day_affine(params["day"], x.to(cfg.compute_dtype), day_idx)
     z = conformer_frontend(params, cfg, x, rng)
     bott = params["bottleneck"]
@@ -502,6 +519,7 @@ class ConformerDecoder(nn.Module):
             mine.copy_(theirs[path])
 
     def forward(self, x, day_idx, x_lens=None, *, train=False, generator=None,
-                plain=False):
+                plain=False, shard=None):
         return conformer_forward(self.params, self.cfg, x, day_idx, x_lens,
-                                 train=train, generator=generator, plain=plain)
+                                 train=train, generator=generator, plain=plain,
+                                 shard=shard)

@@ -54,6 +54,7 @@ from ..ops.kernels.frontend import fused_frontend_plain
 from ..ops.kernels.gru_scan import gru_cell, gru_scan
 from ..ops.kernels.library import fused_frontend
 from ..ops.kernels.matmul import projection_kernel_viable, projection_matmul
+from ..ops.rows import BatchShard, draw_rows
 from ..ops.unfold import unfold_matmul, unfold_output_length
 from .common import linear, orthogonal, torch_linear_init, uniform_bound, xavier_uniform
 
@@ -153,11 +154,13 @@ def gru_encode(
     train: bool = False,
     generator: torch.Generator | None = None,
     plain: bool = False,
+    shard: BatchShard | None = None,
 ) -> torch.Tensor:
     """The stacked GRU over frontend output ``x [B, T, C]`` ->
     ``[B, L, H*D]`` with ``L = (T - k) // s + 1``. With ``train`` and
     ``cfg.dropout > 0``, every layer's output but the last's is dropped at
-    rate p and scaled by 1/(1-p), drawn from ``generator``."""
+    rate p and scaled by 1/(1-p), drawn from ``generator`` (for the global
+    batch with a ``shard``, ``ops/rows.py``)."""
     b = x.shape[0]
     h = cfg.hidden_dim
     d = cfg.num_dirs
@@ -184,7 +187,7 @@ def gru_encode(
                       plain=plain or cfg.use_pallas is False)
         out = ys.permute(2, 0, 1, 3).reshape(b, -1, d * h)
         if p > 0 and li < cfg.num_layers - 1:
-            out = dropout(out, p, generator)
+            out = dropout(out, p, generator, shard)
     return out
 
 
@@ -206,10 +209,14 @@ def _use_matmul_kernel(cfg: GRUConfig, li: int, k: int, n: int) -> bool:
     return False
 
 
-def dropout(x: torch.Tensor, p: float, generator: torch.Generator) -> torch.Tensor:
+def dropout(x: torch.Tensor, p: float, generator: torch.Generator,
+            shard: BatchShard | None = None) -> torch.Tensor:
     """Inverted dropout: each entry kept with probability 1-p and scaled by
-    1/(1-p), else 0 (the JAX package's ``jnp.where(keep, x / (1-p), 0)``)."""
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - p
+    1/(1-p), else 0 (the JAX package's ``jnp.where(keep, x / (1-p), 0)``);
+    with a shard, its rows of the global batch's mask."""
+    keep = draw_rows(lambda shape: torch.rand(shape, generator=generator,
+                                              device=x.device),
+                     x.shape, shard) < 1.0 - p
     return torch.where(keep, x / (1.0 - p), 0.0)
 
 
@@ -231,10 +238,12 @@ def gru_forward(
     train: bool = False,
     generator: torch.Generator | None = None,
     plain: bool = False,
+    shard: BatchShard | None = None,
 ) -> torch.Tensor:
     """``[B, T, C]`` features -> ``[B, L, n_classes+1]`` float32 logits.
     Training takes the unfused frontend chain (autograd reaches the day
-    affine) and dropout from ``generator``; inference the fused frontend."""
+    affine) and dropout from ``generator``; inference the fused frontend.
+    ``shard``: x holds these rows of a data-parallel global batch."""
     x = x.to(cfg.compute_dtype)
     if cfg.gaussian_smooth_width > 0 and not train:
         # fused_frontend: the kernel's operator (ops/kernels/library.py)
@@ -253,7 +262,7 @@ def gru_forward(
         )
         x = F.softsign(day_affine(params["day"], x, day_idx))
     enc = gru_encode(params, cfg, x, train=train, generator=generator,
-                     plain=plain)
+                     plain=plain, shard=shard)
     return gru_head(params, enc)
 
 
@@ -314,6 +323,7 @@ class GRUDecoder(nn.Module):
         train: bool = False,
         generator: torch.Generator | None = None,
         plain: bool = False,
+        shard: BatchShard | None = None,
     ) -> torch.Tensor:
         return gru_forward(self.params, self.cfg, x, day_idx, train=train,
-                           generator=generator, plain=plain)
+                           generator=generator, plain=plain, shard=shard)

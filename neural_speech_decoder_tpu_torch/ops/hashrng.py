@@ -68,16 +68,32 @@ def keep_mask2d(seed, salt, shape, rate: float, device=None) -> torch.Tensor:
     return uniform2d(seed, salt, shape, device) >= rate
 
 
-def hash_dropout(seed, x: torch.Tensor, rate: float) -> torch.Tensor:
+def hash_dropout(seed, x: torch.Tensor, rate: float, row0: int = 0) -> torch.Tensor:
     """Inverted dropout of ``x [..., N]`` with the mask of
     ``keep_mask2d(seed, 0, (prod(x.shape[:-1]), N), rate)``: kept entries
-    scaled by 1/(1 - rate), dropped ones 0. ``rate <= 0`` returns x."""
+    scaled by 1/(1 - rate), dropped ones 0. ``rate <= 0`` returns x.
+    ``row0`` is the flat row index of x's first row in the global array: a
+    data-parallel rank holding batch rows from ``start`` of ``[B, T, N]``
+    passes ``start * T``, so that its mask is its rows of the global mask."""
     if rate <= 0:
         return x
     n = x.shape[-1]
-    keep = keep_mask2d(seed, 0, (x.numel() // max(n, 1), n), rate, x.device)
+    rows = torch.arange(x.numel() // max(n, 1), device=x.device,
+                        dtype=torch.int64)[:, None] + row0
+    cols = torch.arange(n, device=x.device, dtype=torch.int64)[None, :]
+    keep = uniform(seed, 0, rows, cols) >= rate
     return torch.where(keep.reshape(x.shape), x / (1.0 - rate),
                        torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def fold_seed(seed: torch.Tensor, index: int) -> torch.Tensor:
+    """A kernel's int32 dropout seed ``[1]`` folded with a shard index, in
+    ``[0, 2**31 - 1)``, on the seed's device: the port's counterpart of the
+    JAX package's ``jax.random.fold_in(key, axis_index)`` for the kernels
+    that draw their masks inside (``models/conformer.py``), whose row
+    counter restarts at 0 on every shard. The bits differ from JAX's."""
+    zero = torch.zeros(1, dtype=torch.int64, device=seed.device)
+    return (_hash_bits(seed, index, zero, zero) % (2**31 - 1)).to(torch.int32)
 
 
 def draw_seed(generator: torch.Generator) -> torch.Tensor:

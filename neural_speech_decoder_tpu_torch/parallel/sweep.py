@@ -9,7 +9,16 @@ this driver gives the same on one host:
   * bounded concurrency (the ``array_parallelism`` semantic) in ``spawn``
     worker processes, each with its own CUDA context, so that a trial's
     device memory or a fault cannot leak into another's; each worker gets
-    the base args once, through the pool initializer,
+    the base args once, through the pool initializer. Each worker slot is
+    a ``concurrent.futures.ProcessPoolExecutor`` of one process: a worker
+    that dies (a crash, ``os._exit``) breaks its own slot only, its trial
+    is recorded ``failed`` with the ``BrokenProcessPool`` error and the
+    slot restarts, so the other trials run on and report (JAX's
+    ``multiprocessing.Pool.map`` waits for ever there, a deliberate
+    difference). The workers are not daemonic, so a trial can start rank
+    processes of its own. A parent whose ``__main__`` was read from
+    ``<stdin>`` (``python -``) is refused up front with a ``RuntimeError``:
+    spawn children cannot re-import it,
   * per-trial output dirs and a ``sweep_summary.json`` ranked by best CER
     (the JAX package's keys), a trial that SIGTERM or SIGUSR1 preempted
     recorded as ``preempted``, not ``failed``,
@@ -19,8 +28,10 @@ this driver gives the same on one host:
 Each trial trains with the port's ``training/trainer.py::train_model`` on
 its ``args["device"]`` (default ``cuda``). ``chips_per_trial`` pins each
 worker slot to its own cards with ``CUDA_VISIBLE_DEVICES`` (``slice_env``),
-set in the worker before its first CUDA call; without it, concurrent
-trials share the visible cards (on one card, by time-slicing).
+set in the worker before its first CUDA call, and a trial then trains
+data-parallel over all of them (``train_model``'s default for ``cuda``,
+one rank process a card), as JAX's trial does in one process; without it,
+concurrent trials share the visible cards (on one card, by time-slicing).
 """
 
 from __future__ import annotations
@@ -33,6 +44,8 @@ import os
 import sys
 import traceback
 import warnings
+from concurrent.futures import FIRST_COMPLETED, ProcessPoolExecutor, wait
+from concurrent.futures.process import BrokenProcessPool
 from dataclasses import dataclass
 from typing import Any, Callable, Sequence
 
@@ -129,6 +142,51 @@ def _worker(trial: Trial) -> Trial:
     return _run_trial(_WORKER_BASE_ARGS, trial)
 
 
+def _run_in_workers(base_args: dict, trials: list[Trial], n_slots: int,
+                    chips_per_trial: int) -> list[Trial]:
+    """The trials on ``n_slots`` worker slots, each a one-process
+    ``ProcessPoolExecutor`` (``spawn``) whose initializer pins it to its
+    slot's cards (one slot in its own queue); a slot whose worker died is
+    restarted, the worker's trial recorded ``failed``."""
+    from .data_parallel import check_spawnable_main
+
+    check_spawnable_main()
+    ctx = mp.get_context("spawn")  # a fresh CUDA context per worker
+    with contextlib.ExitStack() as stack:
+        manager = stack.enter_context(ctx.Manager()) if chips_per_trial else None
+
+        def start(slot: int) -> ProcessPoolExecutor:
+            slot_queue = None
+            if manager is not None:
+                slot_queue = manager.Queue()
+                slot_queue.put(slot)
+            return ProcessPoolExecutor(1, mp_context=ctx, initializer=_worker_init,
+                                       initargs=(base_args, slot_queue, chips_per_trial))
+
+        pools = [start(s) for s in range(n_slots)]
+        stack.callback(lambda: [p.shutdown(wait=True, cancel_futures=True) for p in pools])
+        todo, running, results = list(trials), {}, []
+        while todo or running:
+            busy = {slot for slot, _ in running.values()}
+            for slot in range(n_slots):
+                if todo and slot not in busy:
+                    trial = todo.pop(0)
+                    running[pools[slot].submit(_worker, trial)] = (slot, trial)
+            done, _ = wait(running, return_when=FIRST_COMPLETED)
+            for fut in done:
+                slot, trial = running.pop(fut)
+                try:
+                    results.append(fut.result())
+                except BrokenProcessPool:
+                    # the worker died inside the trial: only its slot broke
+                    trial.status = "failed"
+                    trial.error = traceback.format_exc()
+                    results.append(trial)
+                    pools[slot].shutdown(wait=True)
+                    pools[slot] = start(slot)
+        return results
+
+
 def run_sweep(
     base_args: dict,
     override_list: list[dict[str, Any]],
@@ -161,17 +219,7 @@ def run_sweep(
         n_slots = max((total_chips or chips_per_trial) // chips_per_trial, 1)
         array_parallelism = min(array_parallelism, n_slots)
     if use_processes and array_parallelism > 1:
-        ctx = mp.get_context("spawn")  # a fresh CUDA context per worker
-        with contextlib.ExitStack() as stack:
-            slot_queue = None
-            if chips_per_trial:
-                slot_queue = stack.enter_context(ctx.Manager()).Queue()
-                for s in range(array_parallelism):
-                    slot_queue.put(s)
-            pool = stack.enter_context(ctx.Pool(
-                processes=array_parallelism, initializer=_worker_init,
-                initargs=(base_args, slot_queue, chips_per_trial or 0)))
-            results = pool.map(_worker, trials, chunksize=1)
+        results = _run_in_workers(base_args, trials, array_parallelism, chips_per_trial or 0)
     else:
         if chips_per_trial:
             _pin(0, chips_per_trial)

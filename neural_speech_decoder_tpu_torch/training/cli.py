@@ -8,7 +8,15 @@ installed as ``nsd-train-torch``:
         outputDir=runs/gru datasetPath=data/ptDecoder_ctc \\
         fused_optimizer=true use_pallas_matmul=true deviceResidentData=true
 
-The run trains on ``device`` (default ``cuda``; ``device=cpu`` for the CPU).
+The run trains on ``device`` (default ``cuda``; ``device=cpu`` for the CPU),
+data-parallel over every visible card by default (``n_data_devices``: JAX's
+rule; one rank process a card, started by ``train_model``). Under
+``torchrun`` (``WORLD_SIZE`` > 1) each process joins the group first
+(``parallel/multihost.py::initialize``) and is one rank:
+
+    torchrun --nproc_per_node 4 -m neural_speech_decoder_tpu_torch.training.cli \
+        --config neural_speech_decoder_tpu/configs/gru_baseline.yaml \
+        outputDir=runs/gru datasetPath=data/ptDecoder_ctc
 
 Multirun (hydra's ``--multirun`` sweeps): ``-m``/``--multirun`` expands
 comma-swept override values into the cartesian product of jobs; each job
@@ -29,6 +37,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import os
 
 from ..utils.config import (
     apply_overrides,
@@ -59,8 +68,30 @@ def main(argv: list[str] | None = None) -> dict:
             raise SystemExit("outputDir must be set (config or override)")
         from .trainer import train_model
 
+        if int(os.environ.get("WORLD_SIZE", 1)) > 1:
+            return _train_torchrun_rank(cfg)
         return train_model(cfg)
     return _multirun(base_cfg, job_overrides, jobs=args.jobs)
+
+
+def _train_torchrun_rank(cfg: dict) -> dict:
+    """One rank of a ``torchrun`` job: join the group on this rank's device
+    (``cuda:LOCAL_RANK`` over nccl, or the CPU over gloo), train, leave."""
+    import torch
+    import torch.distributed as dist
+
+    from ..parallel.mesh import default_device
+    from ..parallel.multihost import initialize
+    from .trainer import train_model
+
+    device = torch.device(cfg.get("device", "cuda"))
+    if device.type == "cuda":
+        device = default_device()
+    initialize(device=device, timeout_s=cfg.get("dist_timeout_s"))
+    try:
+        return train_model({**cfg, "device": str(device)})
+    finally:
+        dist.destroy_process_group()
 
 
 def _multirun(base_cfg: dict, job_overrides: list[list[str]], *, jobs: int = 1) -> dict:

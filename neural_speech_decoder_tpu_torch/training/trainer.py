@@ -1,5 +1,5 @@
 """Training and eval loop with the reference's ``trainModel(args)`` surface,
-on one device.
+on one device or data-parallel over several.
 
 Port of ``neural_speech_decoder_tpu/training/trainer.py`` for both model
 families (``model_type`` ``gru_baseline`` or ``transformer_ctc``): per-step
@@ -14,18 +14,38 @@ SIGTERM/SIGUSR1 preemption and an exact ``resume``, device-resident data
 trace of the steps ``profile_steps = [start, stop]`` into
 ``outputDir/profile``.
 
-The port runs on one device: the mesh, tensor parallelism and multi-host
-staging are not ported (ROADMAP queue 1 item 6), and a run that asks for
-them (``n_data_devices`` or ``n_model_devices`` > 1, ``multihost_staging``)
-raises ``NotImplementedError``. The device comes from ``args["device"]``
-(default ``"cuda"``, which raises without a card). The noise and dropout of
-step ``i`` come from a ``torch.Generator`` seeded from ``(seed, i)``, as the
-JAX package folds the step into its key, so a resumed run draws what an
-uninterrupted one would. A finished run's last ``metrics.jsonl`` record
-also holds the wall-clock span of its steps (``summary/steps_wall_start``,
+Data parallelism (the JAX trainer's default over its mesh's 'data' axis,
+``training/trainer.py:531-690``) runs one process per device
+(``parallel/``): either in a process group made already (by
+``parallel/multihost.py::initialize`` or ``torchrun``: each process is one
+rank), or, with no group and ``n_data_devices`` resolving above 1
+(``parallel/data_parallel.py::resolve_n_data``, JAX's rule), in rank
+processes ``train_model`` starts itself (``spawn``, one card each, or gloo
+ranks on the CPU), returning rank 0's summary. Every rank samples the same
+global batch and keeps its rows; its noise, dropout and DropPath are its
+rows of the global draws (``ops/rows.py``); the gradients are averaged
+before the clip and the optimizer, and the logged loss terms too; the eval
+rows are split over the ranks and gathered; rank 0 alone writes the run
+directory; a SIGTERM or SIGUSR1 on any rank stops every rank at the same
+step. Tensor parallelism (``n_model_devices`` > 1) raises
+``NotImplementedError``. Deliberate differences from JAX: a process per
+device, not one process driving every local device; ``multihost_staging``
+takes the one path (every rank stages its own rows; device-resident data
+stays on); the backend is an argument of ``initialize`` (``nccl`` for cards
+and ``gloo`` for the CPU by default; gloo on a card only when the caller
+makes such a group); the eval is split and gathered on one host too.
+
+The device comes from ``args["device"]`` (default ``"cuda"``, which raises
+without a card). The noise and dropout of step ``i`` come from a
+``torch.Generator`` seeded from ``(seed, i)``, as the JAX package folds the
+step into its key, so a resumed run draws what an uninterrupted one would,
+at any world size. A finished run's last ``metrics.jsonl`` record also
+holds the wall-clock span of its steps (``summary/steps_wall_start``,
 ``summary/steps_wall_end``) and its kernel launches by wrapper and body
-(``summary/launches/<wrapper>[/<body>]``, ``ops/kernels.launch_counts``),
-which show what each of a sweep's worker processes ran, and when.
+(``summary/launches/<wrapper>[/<body>]``, ``ops/kernels.launch_counts``;
+summed over the ranks, and each rank's under ``summary/rank<r>/``), which
+show what each of a sweep's worker processes or a run's ranks ran, and
+when.
 """
 
 from __future__ import annotations
@@ -40,9 +60,11 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.batching import (
     Batch,
+    batch_rows,
     bucket_batch_sizes,
     choose_envelope,
     eval_batches,
@@ -56,6 +78,18 @@ from ..ops.ctc import ctc_loss
 from ..ops.decode import batch_per, greedy_decode
 from ..ops.kernels import launch_counts
 from ..ops.noise import apply_noise
+from ..ops.rows import BatchShard
+from ..parallel import data_parallel as dp
+from ..parallel.mesh import (
+    TP_NOT_PORTED,
+    Mesh,
+    batch_shard,
+    batch_sharding,
+    default_device,
+    make_mesh,
+    replicated,
+)
+from ..parallel.multihost import default_backend
 from ..utils.logging import MetricLogger
 from .checkpoints import CheckpointManager, load_args, save_args, save_training_stats
 from .optim import grad_clip_norm, lr_schedule, make_optimizer
@@ -74,18 +108,13 @@ def resolve_device(args: dict) -> torch.device:
     return device
 
 
-def check_single_device(args: dict) -> None:
-    """Raise ``NotImplementedError`` for the multi-device args the port does
-    not implement (the JAX trainer's mesh, tensor parallelism and multi-host
-    staging)."""
-    asked = [f"{k}={args[k]}" for k in ("n_data_devices", "n_model_devices")
-             if int(args.get(k) or 1) > 1]
-    if args.get("multihost_staging"):
-        asked.append(f"multihost_staging={args['multihost_staging']}")
-    if asked:
-        raise NotImplementedError(
-            f"{', '.join(asked)}: the port trains on one device; the mesh, tensor "
-            f"parallelism and multi-host staging are ROADMAP queue 1 item 6")
+def check_parallel_args(args: dict) -> None:
+    """Raise ``NotImplementedError`` for tensor parallelism
+    (``n_model_devices`` > 1), which the port does not implement yet;
+    ``n_data_devices`` and ``multihost_staging`` are taken."""
+    n_model = int(args.get("n_model_devices") or 1)
+    if n_model > 1:
+        raise NotImplementedError(f"n_model_devices={n_model}: {TP_NOT_PORTED}")
 
 
 _warned_rng_impl = False
@@ -131,6 +160,7 @@ def _loss_and_metrics(
     generator: torch.Generator,
     *,
     plain: bool = False,
+    shard: BatchShard | None = None,
 ) -> tuple[torch.Tensor, dict]:
     """Training loss with the reference's blending (``trainer.py::
     _loss_and_metrics``) of the noisy batch. Without label smoothing: the
@@ -139,11 +169,18 @@ def _loss_and_metrics(
     times the KL to the uniform distribution, summed over every frame
     (padding included) and divided by the frame count T'. With an InterCTC
     head (the Conformer): ``(1-w)`` times that plus ``w`` times the same
-    CTC reduction of the InterCTC log-probs, ``w = interctc_weight``."""
+    CTC reduction of the InterCTC log-probs, ``w = interctc_weight``.
+
+    With a ``shard`` (data parallelism) the batch is this rank's rows of the
+    global batch, and the loss is this rank's term of a mean over the ranks
+    that equals the single-device loss: the CTC means are means over equal
+    row counts already, the KL (a sum over rows) is scaled by the world
+    size, and ``tokensPerBatch``'s scale reads the global row count."""
     x, y, x_lens, y_lens, days = batch
-    x = apply_noise(generator, x, args["whiteNoiseSD"], args["constantOffsetSD"])
+    x = apply_noise(generator, x, args["whiteNoiseSD"], args["constantOffsetSD"], shard)
     log_probs, out_lens, inter_log_probs = forward(
-        model, x, days, x_lens, train=True, generator=generator, plain=plain)
+        model, x, days, x_lens, train=True, generator=generator, plain=plain,
+        shard=shard)
     smoothing = args.get("label_smoothing", 0.0)
     metrics = {}
     plain_ctc = plain or ctc_plain(args)
@@ -159,6 +196,8 @@ def _loss_and_metrics(
         n_classes = args["nClasses"] + 1
         uni = -math.log(n_classes)
         kl = ((1.0 / n_classes) * (uni - log_probs)).sum() / log_probs.shape[1]
+        if shard is not None:
+            kl = kl * shard.count
         metrics["train/ctc_loss"] = main_loss
         metrics["train/kl_loss"] = kl
         main_loss = (1 - smoothing) * main_loss + smoothing * kl
@@ -172,7 +211,8 @@ def _loss_and_metrics(
     # tokens-constant bucketing: a batch of B_k rows weighs B_k / batchSize,
     # so every trial's gradient weight stays what it is at fixed B
     if args.get("tokensPerBatch", 0) and args.get("tokensLossScale", True):
-        loss = loss * (x.shape[0] / int(args.get("batchSize", x.shape[0])))
+        rows = shard.total if shard is not None else x.shape[0]
+        loss = loss * (rows / int(args.get("batchSize", rows)))
     metrics["train/loss"] = loss
     return loss, metrics
 
@@ -191,20 +231,29 @@ def make_train_step(
     model: Decoder,
     optimizer: torch.optim.Optimizer,
     scheduler: torch.optim.lr_scheduler.LRScheduler,
+    mesh: Mesh | None = None,
 ) -> Callable[[tuple, torch.Generator], dict]:
     """``train_step(batch, generator) -> metrics``: loss, backward, the
     optional clip, one optimizer and scheduler step. The metrics are device
     tensors (reading them waits for the step). With ``watch_log_freq > 0``
     they include per-leaf gradient and parameter norms
     (``train/grad_norm/<path>``, ``train/param_norm/<path>``, on the
-    parameters before the update)."""
+    parameters before the update). With a process group in ``mesh`` the
+    batch is this rank's rows of the global batch: the gradients and the
+    loss terms are averaged over the ranks after the backward, so that the
+    clip, the norms, the update and the metrics are the global batch's."""
     watch = int(args.get("watch_log_freq", 100)) > 0
     clip = grad_clip_norm(args)
+    distributed = mesh is not None and mesh.distributed
 
     def train_step(batch, generator):
         optimizer.zero_grad(set_to_none=True)
-        loss, metrics = _loss_and_metrics(args, model, batch, generator)
+        shard = batch_shard(mesh, batch[0].shape[0]) if distributed else None
+        loss, metrics = _loss_and_metrics(args, model, batch, generator, shard=shard)
         loss.backward()
+        if distributed:
+            dp.average_gradients(model.parameters(), mesh)
+            metrics = dp.mean_metrics(metrics, mesh)
         if clip is not None:
             # clip_grad_norm_ returns the norm before clipping
             metrics["train/grad_norm"] = torch.nn.utils.clip_grad_norm_(
@@ -250,6 +299,7 @@ def run_eval(
     buckets: list[int] | None = None,
     torch_mean_semantics: bool = True,
     device_data: DeviceData | None = None,
+    mesh: Mesh | None = None,
 ) -> tuple[float, float, int, int]:
     """Full test pass: ``(avg_day_loss, per, edit_dist, seq_len)``.
 
@@ -258,15 +308,25 @@ def run_eval(
     length-normalized loss (``torch_mean_semantics``, the runs without
     label smoothing) or the sum of the real rows' losses. With
     ``device_data`` (``test_ds`` on the device) the batches are assembled
-    there."""
+    there. With a process group in ``mesh`` each rank runs its rows of
+    every batch and the outputs are gathered, so every rank computes the
+    single-device metrics (JAX's ``process_allgather``)."""
+    distributed = mesh is not None and mesh.distributed
     batch_scalars = []
     total_dist = 0
     total_len = 0
     for batch in eval_batches(test_ds, batch_size, t_max, u_max, buckets=buckets,
-                              materialize_x=device_data is None):
-        tensors = (batch_tensors(batch, device) if device_data is None
-                   else device_data.assemble(batch))
+                              materialize_x=device_data is None and not distributed):
+        local = batch
+        if distributed:
+            local = batch_rows(test_ds, batch, batch_sharding(mesh, batch_size),
+                               materialize_x=device_data is None)
+        tensors = (batch_tensors(local, device) if device_data is None
+                   else device_data.assemble(local))
         per_seq, tokens, dec_lens = eval_step(*tensors)
+        if distributed:
+            per_seq, tokens, dec_lens = (dp.gather_rows(t, mesh)
+                                         for t in (per_seq, tokens, dec_lens))
         per_seq = per_seq.cpu().numpy()
         w = batch.weight
         if torch_mean_semantics:
@@ -289,8 +349,17 @@ def train_model(args: dict) -> dict:
 
     SIGTERM and SIGUSR1 make the run checkpoint and return at the next step
     boundary; ``resume: true`` then continues from that step exactly (same
-    sampler state, same per-step noise, same metric history). The handlers
-    are installed before the slow set-up and restored on every exit."""
+    sampler state, same per-step noise, same metric history), at any world
+    size. The handlers are installed before the slow set-up and restored on
+    every exit. With no process group and ``n_data_devices`` resolving
+    above 1, the run goes to that many rank processes started here (the
+    signals passed on to them), and rank 0's summary is returned."""
+    check_parallel_args(args)
+    if not dist.is_initialized():
+        device = resolve_device(args)
+        n_data = dp.resolve_n_data(args, device)
+        if n_data > 1:
+            return _train_ranks(args, device, n_data)
     preempt_requested = threading.Event()
 
     def _request_stop(signum, frame):
@@ -307,6 +376,19 @@ def train_model(args: dict) -> dict:
     finally:
         for sig, h in prev_handlers.items():
             signal.signal(sig, h)
+
+
+def _train_ranks(args: dict, device: torch.device, n_data: int) -> dict:
+    """``train_model`` over ``n_data`` rank processes of a new group: card
+    ``r`` of the visible ones for rank ``r`` (or the CPU for each), the
+    group's timeout ``dist_timeout_s`` (default the backend's)."""
+    devices = ([torch.device("cuda", r) for r in range(n_data)] if device.type == "cuda"
+               else [device] * n_data)
+    rank_args = [({**args, "device": str(d)},) for d in devices]
+    timeout = args.get("dist_timeout_s")
+    return dp.launch(train_model, rank_args, devices=devices,
+                     backend=default_backend(device),
+                     timeout_s=None if timeout is None else float(timeout))[0]
 
 
 def _start_profile(device: torch.device) -> torch.profiler.profile:
@@ -331,14 +413,40 @@ def _stop_profile(prof, device: torch.device, output_dir: str, first: int,
     print(f"profile of steps {first}-{last} written to {path}")
 
 
+def make_run_mesh(args: dict, device: torch.device) -> Mesh:
+    """The run's mesh: the process group's ranks when one is initialized
+    (each on ``device``; ``cuda`` means ``cuda:LOCAL_RANK``), else this
+    process alone. The group's size must be the size JAX's rule gives the
+    'data' axis, and the eval batches must split over it too."""
+    if not dist.is_initialized():
+        return make_mesh(device=device)
+    if device.type == "cuda" and device.index is None:
+        device = default_device()  # cuda:LOCAL_RANK
+    if dist.get_backend() == "nccl" and device.type != "cuda":
+        raise ValueError(f"device {device} in an nccl process group; use gloo for the CPU")
+    world = dist.get_world_size()
+    n_data = dp.resolve_n_data(args, device, world=world)
+    if n_data != world or int(args["batchSize"]) % world:
+        raise ValueError(
+            f"the process group has {world} ranks, but batchSize={args['batchSize']}, "
+            f"n_data_devices={args.get('n_data_devices')}, tokensPerBatch="
+            f"{args.get('tokensPerBatch', 0)} give the 'data' axis {n_data} (JAX's rule) "
+            f"or do not split the eval batches")
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    return make_mesh(device=device)
+
+
 def _train_model_impl(args: dict, preempt_requested: threading.Event) -> dict:
-    check_single_device(args)
     warn_unused_args(args)
-    device = resolve_device(args)
+    mesh = make_run_mesh(args, resolve_device(args))
+    device, primary, distributed = mesh.device, mesh.primary, mesh.distributed
     output_dir = args["outputDir"]
     seed = int(args.get("seed", 0))
     np_rng = np.random.default_rng(seed)
 
+    # rank 0 alone writes the run directory (the logger of another rank is
+    # disabled, utils/logging.py)
     logger = MetricLogger(
         output_dir,
         project=args.get("wandb_project", "neural-speech-decoder"),
@@ -351,15 +459,19 @@ def _train_model_impl(args: dict, preempt_requested: threading.Event) -> dict:
     test_ds = pack_days(raw["test"])
     n_days = len(raw["train"])
     # the day count, so that load_model rebuilds the same day layer
-    save_args(output_dir, {**{k: v for k, v in args.items() if k != "dataset"},
-                           "nDays": n_days})
+    if primary:
+        save_args(output_dir, {**{k: v for k, v in args.items() if k != "dataset"},
+                               "nDays": n_days})
 
     batch_size = int(args["batchSize"])
     time_multiple = int(args.get("time_multiple", 128))
     t_max, u_max = choose_envelope(train_ds, test_ds, time_multiple=time_multiple,
                                    max_time=args.get("maxTimeSeriesLen"))
 
+    # the same seed on every rank, and rank 0's weights broadcast, so that
+    # the ranks start from one model whatever their devices
     model = build_model(args, n_days, device, seed)
+    replicated(mesh, list(model.parameters()))
     n_params = sum(p.numel() for p in model.parameters())
     print(f"Model has {n_params:,} parameters ({n_params:,} trainable)")
     logger.log({"model/total_parameters": n_params,
@@ -367,7 +479,7 @@ def _train_model_impl(args: dict, preempt_requested: threading.Event) -> dict:
 
     optimizer, scheduler = make_optimizer(args, model.parameters())
     schedule = lr_schedule(args)
-    train_step = make_train_step(args, model, optimizer, scheduler)
+    train_step = make_train_step(args, model, optimizer, scheduler, mesh)
     eval_step = make_eval_step(model, args)
     torch_mean = args.get("label_smoothing", 0.0) == 0
 
@@ -381,6 +493,7 @@ def _train_model_impl(args: dict, preempt_requested: threading.Event) -> dict:
     test_cer: list[float] = []
     start_step = 0
     if args.get("resume") and ckpt.exists("lastState"):
+        # every rank reads what rank 0 wrote
         state = ckpt.restore("lastState", device)
         model.load_params(state["params"])
         optimizer.load_state_dict(state["optimizer"])
@@ -393,6 +506,8 @@ def _train_model_impl(args: dict, preempt_requested: threading.Event) -> dict:
         print(f"Resumed from step {start_step}")
 
     def save_last(step):
+        if not primary:
+            return
         ckpt.save("lastState", {
             "params": model.params,
             "optimizer": optimizer.state_dict(),
@@ -420,56 +535,74 @@ def _train_model_impl(args: dict, preempt_requested: threading.Event) -> dict:
     )
 
     # device-resident data: the packed features on the device once, each
-    # batch gathered there from the host-sampled indices
+    # batch gathered there from the host-sampled indices (on every rank,
+    # which gathers only its rows)
     device_data = bool(args.get("deviceResidentData", False))
     train_dd = DeviceData(train_ds, device) if device_data else None
     test_dd = DeviceData(test_ds, device) if device_data else None
 
     def put_batch(batch: Batch) -> tuple[torch.Tensor, ...]:
+        if distributed:
+            # every rank sampled the same global batch: keep this rank's rows
+            batch = batch_rows(train_ds, batch, batch_sharding(mesh, len(batch.idx)),
+                               materialize_x=not device_data)
         return train_dd.assemble(batch) if device_data else batch_tensors(batch, device)
 
     profile_start, profile_stop = args.get("profile_steps") or (None, None)
+    if not primary:  # one trace, rank 0's
+        profile_start = profile_stop = None
     prof = None
 
     watch_freq = int(args.get("watch_log_freq", 100))
+    # under a process group a stop is agreed: each step's preemption flag
+    # is all-reduced with MAX and read with that step's metrics (after the
+    # next step is queued, so no step waits for it), and every rank stops
+    # before the same step, one step later than a process alone would
+    stop_agreed = [False]
 
     def flush_metrics(pending):
         if pending is None:
             return
-        held, at_step = pending
+        held, at_step, stop = pending
         # per-layer watch norms only on the watch interval
         if not (watch_freq and at_step % watch_freq == 0):
             held = {k: v for k, v in held.items()
                     if not k.startswith(WATCH_PREFIXES)}
         log_dict = {k: float(v) for k, v in held.items()}
+        if stop is not None and float(stop) > 0:
+            stop_agreed[0] = True
         steps_wall[1] = time.time()
         log_dict["train/learning_rate"] = schedule(at_step)
         log_dict["train/batch"] = at_step
         logger.log(log_dict, step=at_step)
 
+    def stop_now() -> bool:
+        return stop_agreed[0] if distributed else preempt_requested.is_set()
+
     launches0 = launch_counts()
     start_time = time.time()
     # wall clock of the first step queued and of the last step's metrics read
     steps_wall = [start_time, start_time]
-    pending = None  # (metrics, step) of the previous step, read after the next
+    pending = None  # (metrics, step, stop flag) of the previous step, read after the next
     preempted_at: int | None = None
     for step in range(start_step, n_batch):
-        if preempt_requested.is_set():
+        if stop_now():
             preempted_at = step
             break
         if step == profile_start:
             prof = _start_profile(device)
         batch = sample_batch(train_ds, np_rng, batch_size, t_max, u_max,
                              buckets=buckets, bucket_sizes=bucket_sizes,
-                             materialize_x=not device_data)
+                             materialize_x=not (device_data or distributed))
         metrics = train_step(put_batch(batch), step_generator(device, seed, step))
+        stop = dp.agree_max(preempt_requested.is_set(), mesh) if distributed else None
         if step == profile_stop and prof is not None:
             _stop_profile(prof, device, output_dir, profile_start, step)
             prof = None
         # reading the metrics waits for the device: read the previous
         # step's after this one is queued, so host batch prep overlaps it
         flush_metrics(pending)
-        pending = (metrics, step)
+        pending = (metrics, step, stop)
 
         if step % eval_every == 0:
             flush_metrics(pending)
@@ -477,7 +610,7 @@ def _train_model_impl(args: dict, preempt_requested: threading.Event) -> dict:
             avg_loss, cer, edit_dist, seq_len = run_eval(
                 eval_step, test_ds, batch_size, t_max, u_max, device,
                 buckets=buckets, torch_mean_semantics=torch_mean,
-                device_data=test_dd)
+                device_data=test_dd, mesh=mesh)
             time_per_batch = (time.time() - start_time) / eval_every
             print(f"batch {step}, ctc loss: {avg_loss:>7f}, cer: {cer:>7f}, "
                   f"time/batch: {time_per_batch:>7.3f}")
@@ -489,15 +622,18 @@ def _train_model_impl(args: dict, preempt_requested: threading.Event) -> dict:
                 "eval/edit_distance": edit_dist,
                 "eval/sequence_length": seq_len,
             }, step=step)
-            # best-on-CER weights (params only, the reference's modelWeights)
+            # best-on-CER weights (params only, the reference's modelWeights);
+            # every rank gathered the same outputs, so all decide alike
             prev_best = np.min(test_cer) if test_cer else np.inf
             if cer < prev_best and not (compat_skip_first and not test_cer):
-                ckpt.save("modelState", {"params": model.params})
+                if primary:
+                    ckpt.save("modelState", {"params": model.params})
                 logger.log({"eval/best_cer": cer}, step=step)
                 print(f"  → New best model saved! CER: {cer:.6f}")
             test_loss.append(avg_loss)
             test_cer.append(cer)
-            save_training_stats(output_dir, test_loss, test_cer)
+            if primary:
+                save_training_stats(output_dir, test_loss, test_cer)
 
         if ckpt_every and (step + 1) % ckpt_every == 0:
             save_last(step)
@@ -510,6 +646,8 @@ def _train_model_impl(args: dict, preempt_requested: threading.Event) -> dict:
         flush_metrics(pending)
         save_last(preempted_at - 1)
         logger.finish()
+        if distributed:  # every rank returns once rank 0's checkpoint is written
+            dp.sync(mesh)
         print(f"Preempted: checkpointed at step {preempted_at - 1}; rerun "
               f"with resume: true to continue from step {preempted_at}")
         return {
@@ -528,15 +666,38 @@ def _train_model_impl(args: dict, preempt_requested: threading.Event) -> dict:
         "summary/best_loss": float(np.min(test_loss)) if test_loss else float("inf"),
     }
     # the steps' wall-clock span and the run's kernel launches, by wrapper
-    # and body, go to the metrics only
-    logger.log({**summary, "summary/steps_wall_start": steps_wall[0],
-                "summary/steps_wall_end": steps_wall[1],
-                **{f"summary/launches/{k}": n - launches0[k]
-                   for k, n in launch_counts().items()}})
+    # and body, go to the metrics only (every rank's, gathered: a rank's
+    # launches are otherwise seen by no other process)
+    logger.log({**summary, **_run_trace(mesh, steps_wall, launches0)})
     logger.finish()
     print(f"\n{'=' * 60}\nTraining completed!\nFinal CER: {final_cer:.6f}\n"
           f"Best CER: {best_cer:.6f}\n{'=' * 60}\n")
     return summary
+
+
+def _run_trace(mesh: Mesh, steps_wall: list[float], launches0: dict) -> dict:
+    """The metrics of a finished run's last record: its steps' wall span
+    and its launches since ``launches0``; under a process group the span
+    from the first rank's first step to the last rank's last read, the
+    launches summed over the ranks, and each rank's under
+    ``summary/rank<r>/``."""
+    launches = {k: n - launches0[k] for k, n in launch_counts().items()}
+    if not mesh.distributed:
+        return {"summary/steps_wall_start": steps_wall[0],
+                "summary/steps_wall_end": steps_wall[1],
+                **{f"summary/launches/{k}": n for k, n in launches.items()}}
+    names = list(launches)
+    ranks = dp.gather_values(steps_wall + [launches[k] for k in names], mesh)
+    out = {"summary/steps_wall_start": float(ranks[:, 0].min()),
+           "summary/steps_wall_end": float(ranks[:, 1].max()),
+           **{f"summary/launches/{k}": int(ranks[:, 2 + i].sum())
+              for i, k in enumerate(names)}}
+    for r, row in enumerate(ranks):
+        out[f"summary/rank{r}/steps_wall_start"] = float(row[0])
+        out[f"summary/rank{r}/steps_wall_end"] = float(row[1])
+        out.update({f"summary/rank{r}/launches/{k}": int(row[2 + i])
+                    for i, k in enumerate(names)})
+    return out
 
 
 def load_model(

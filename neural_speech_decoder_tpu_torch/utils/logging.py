@@ -1,10 +1,11 @@
 """Metric logging with the reference's wandb metric-name contract.
 
-Port of ``neural_speech_decoder_tpu/utils/logging.py::MetricLogger``
-without its multi-process check (the port trains on one device): per-step
-``train/*``, per-eval ``eval/*`` and final ``summary/*`` metrics go to
-wandb when it is installed and ``mode="online"``, otherwise to
-``<output_dir>/metrics.jsonl`` with the same names and steps.
+Port of ``neural_speech_decoder_tpu/utils/logging.py::MetricLogger``:
+per-step ``train/*``, per-eval ``eval/*`` and final ``summary/*`` metrics go
+to wandb when it is installed and ``mode="online"``, otherwise to
+``<output_dir>/metrics.jsonl`` with the same names and steps. In a process
+group only rank 0 logs (every rank would otherwise write the same file),
+as JAX's logger does on its primary process.
 """
 
 from __future__ import annotations
@@ -12,6 +13,8 @@ from __future__ import annotations
 import json
 import os
 from typing import Any
+
+import torch.distributed as dist
 
 
 class MetricLogger:
@@ -27,6 +30,8 @@ class MetricLogger:
         self.output_dir = output_dir
         self._wandb = None
         self._jsonl = None
+        if dist.is_available() and dist.is_initialized() and dist.get_rank() != 0:
+            mode = "disabled"
         if mode == "disabled":
             return
         if mode == "online":

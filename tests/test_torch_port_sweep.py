@@ -12,7 +12,11 @@ per-step losses bit-equal to the same overrides run alone in this process
 (one torch thread on both sides), each job's last metrics record holding
 its steps' wall-clock span and its kernel launches (none on the CPU);
 comma-swept values without ``-m`` and a
-sweep whose every job fails raise ``SystemExit``. And the kernel build
+sweep whose every job fails raise ``SystemExit``. A worker that dies inside
+its trial fails that trial alone (``BrokenProcessPool``) and the sweep
+reports the others; a ``<stdin>`` main is refused; trials of two gloo
+ranks each (``n_data_devices: 2``) train in the workers, their losses
+those of one rank within 1e-5. And the kernel build
 lock: two processes that build at once with a stub compiler share one
 library, compiled once.
 """
@@ -178,6 +182,68 @@ def test_run_sweep_in_process_statuses_match_jax_keys(tmp_path, monkeypatch):
     assert jax_trials[0].status == "failed"
     jax_summary = json.loads((tmp_path / "jax_sweep" / "sweep_summary.json").read_text())
     assert [set(s) for s in summary] == [set(jax_summary[0])] * 3
+
+
+class _ExitOnLoad:
+    """Unpickling it ends the process at once with code 3 (``os._exit``)."""
+
+    def __reduce__(self):
+        return os._exit, (3,)
+
+
+def test_dead_worker_fails_its_trial_and_the_sweep_goes_on(tmp_path, monkeypatch):
+    """The middle trial's dataset pickle kills its worker: that trial is
+    ``failed`` with the ``BrokenProcessPool`` error, its slot restarts, and
+    the trials before and after it finish."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    dead = tmp_path / "exit.pkl"
+    dead.write_bytes(pickle.dumps(_ExitOnLoad()))
+    overrides = [{"lrStart": 0.01}, {"dataset": None, "datasetPath": str(dead)},
+                 {"lrStart": 0.02}, {"lrStart": 0.005}]
+    trials = sweep.run_sweep(_base_args(), overrides, str(tmp_path / "sweep"),
+                             array_parallelism=2)
+    status = {t.trial_id: t.status for t in trials}
+    assert status == {0: "done", 1: "failed", 2: "done", 3: "done"}
+    failed = next(t for t in trials if t.trial_id == 1)
+    assert "BrokenProcessPool" in failed.error
+    assert all(np.isfinite(t.best_cer) for t in trials if t.status == "done")
+    summary = json.loads((tmp_path / "sweep" / "sweep_summary.json").read_text())
+    assert len(summary) == 4
+
+
+def test_stdin_main_is_refused(tmp_path, monkeypatch):
+    """A parent read from ``<stdin>`` (``python -``) cannot spawn workers:
+    the sweep refuses it before it starts one."""
+    class Main:
+        __file__ = "<stdin>"
+
+    monkeypatch.setitem(sys.modules, "__main__", Main)
+    with pytest.raises(RuntimeError, match="stdin"):
+        sweep.run_sweep(_base_args(), [{}, {}], str(tmp_path / "sweep"), array_parallelism=2)
+    assert not (tmp_path / "sweep" / "sweep_summary.json").exists()
+
+
+def test_trials_train_over_two_ranks_in_the_workers(tmp_path, monkeypatch):
+    """Two trials, each ``device: cpu, n_data_devices: 2``, in two workers:
+    each worker starts the trial's two gloo ranks (the workers are not
+    daemonic), and each trial's per-step losses are those of its overrides
+    at one rank, within 1e-5."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    overrides = [{"lrStart": lr, "n_data_devices": 2, "nBatch": 4, "dist_timeout_s": 60,
+                  "wandb_mode": "offline"}
+                 for lr in (0.01, 0.02)]
+    trials = sweep.run_sweep(_base_args(), overrides, str(tmp_path / "sweep"),
+                             array_parallelism=2)
+    assert [t.status for t in trials] == ["done", "done"], [t.error for t in trials]
+    for t in trials:
+        alone = tmp_path / f"alone_{t.trial_id}"
+        trainer.train_model({**_base_args(), **t.overrides, "n_data_devices": 1,
+                             "outputDir": str(alone)})
+        ranks, one = _losses(Path(t.output_dir)), _losses(alone)
+        assert len(ranks) == len(one) == 4
+        np.testing.assert_allclose(ranks, one, rtol=1e-5)
+        last = json.loads((Path(t.output_dir) / "metrics.jsonl").read_text().splitlines()[-1])
+        assert {"summary/rank0/steps_wall_end", "summary/rank1/steps_wall_end"} <= set(last)
 
 
 @pytest.mark.parametrize("lr_start, lr_end", [(0.01, 0.02), (0.02, 0.01), (0.02, 0.02)])

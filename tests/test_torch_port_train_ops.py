@@ -313,9 +313,9 @@ def test_dropout_follows_every_layer_but_the_last(monkeypatch):
     tree = gru_params_from_jax(jax.tree.map(np.asarray, params))
     calls = []
 
-    def spy(t, p, generator):
+    def spy(t, p, generator, shard=None):
         calls.append(p)
-        return dropout(t, p, generator)
+        return dropout(t, p, generator, shard)
 
     monkeypatch.setattr(port_gru, "dropout", spy)
     out = gru_encode(tree, cfg, torch.from_numpy(x), train=True,
