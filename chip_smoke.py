@@ -220,6 +220,20 @@ random weights:
     cards or more, (b) over nccl on two cards (``n_data_devices: 2``),
     else one line saying it did not run. The ranks' launches count in the
     kernels line.
+20. Tensor parallelism (lines start ``tp``), run after phase 19, on the
+    same trials at full width, B=16, 3 steps: two gloo model ranks on the
+    one card (``n_model_devices: 2``; all three runs in one ``launch``)
+    against one rank: (a) the float32 GRU, 2 layers, ``use_pallas_matmul``
+    and ``fused_optimizer`` (the projection matmul on the rank's
+    contraction rows, Adam on its shard leaves, the scan whole); (b) the
+    float32 Conformer with ``fused_conv``, 2 blocks, the kernels' dropout
+    0, the attention kernel on 4 of 8 heads a rank; (c) the same in
+    bfloat16. (a)/(b): losses within ``TP_LOSS_TOL``, each leaf's update
+    within ``DP_PARAM_TOL`` in L2 (from the ranks' whole checkpoint, the
+    Conformer's de-interleaved); (c): losses within ``TP_BF16_LOSS_TOL``;
+    every rank's launches by body exact. (d) with two cards or more, (a)
+    over nccl on two cards, else one line saying it did not run. The
+    ranks' launches count in the kernels line.
 The default GRU and Conformer phases check that the fused kernels and the
 GRU's opt-in kernels launch no time there. Every GRU phase checks the scan
 launches by body: all bfloat16 scans at full width on the persistent body,
@@ -341,6 +355,7 @@ from neural_speech_decoder_tpu_torch.ops.kernels.matmul import (
 )
 from neural_speech_decoder_tpu_torch.parallel import data_parallel as dp
 from neural_speech_decoder_tpu_torch.parallel import multihost, sweep
+from neural_speech_decoder_tpu_torch.parallel.shardings import deinterleave_attention_params
 from neural_speech_decoder_tpu_torch.serving import (
     export_beam,
     export_streaming_conformer_params,
@@ -3784,23 +3799,30 @@ def dp_rank_launches(run_dir: Path, rank: int) -> dict:
             if k.startswith(pre)}
 
 
-def dp_final_params(run_dir: Path) -> dict:
+def dp_final_params(run_dir: Path, heads: int | None = None) -> dict:
+    """A run's last parameters, whole; ``heads``: a tensor-parallel
+    Conformer's, de-interleaved to the one-rank layout."""
     from neural_speech_decoder_tpu_torch.training.checkpoints import CheckpointManager
 
-    return tree_items(CheckpointManager(str(run_dir)).restore("lastState", "cpu")["params"])
+    params = CheckpointManager(str(run_dir)).restore("lastState", "cpu")["params"]
+    return tree_items(params if heads is None else deinterleave_attention_params(params, heads))
 
 
-def dp_compare(tag: str, ranks_dir: Path, one_dir: Path, steps: int) -> float:
+def dp_compare(tag: str, ranks_dir: Path, one_dir: Path, steps: int,
+               loss_tol: tuple = DP_LOSS_TOL, heads: int | None = None,
+               prefix: str = "dp") -> float:
     """(b)/(c): the world-size-2 run's per-step losses and final parameters
-    against the world-size-1 run's. Returns the parameters' error."""
+    against the world-size-1 run's (``heads``: the two ranks' run is a
+    tensor-parallel Conformer's, its qkv interleaved). Returns the
+    parameters' error."""
     got, want = train_losses(ranks_dir), train_losses(one_dir)
     rel = [abs(a - b) / max(abs(b), 1e-30) for a, b in zip(got, want)]
-    ok = (len(got) == len(want) == steps and rel[0] <= DP_LOSS_TOL[0]
-          and all(r <= DP_LOSS_TOL[1] for r in rel[1:]))
-    check(ok, f"dp {tag}: {len(got)} per-step losses of 2 ranks against 1 rank, relative "
-              f"errors {[f'{r:.3e}' for r in rel]} (step 0 <= {DP_LOSS_TOL[0]:g}, later "
-              f"<= {DP_LOSS_TOL[1]:g}); first {got[:1]} / {want[:1]}")
-    a, b = dp_final_params(ranks_dir), dp_final_params(one_dir)
+    ok = (len(got) == len(want) == steps and rel[0] <= loss_tol[0]
+          and all(r <= loss_tol[1] for r in rel[1:]))
+    check(ok, f"{prefix} {tag}: {len(got)} per-step losses of 2 ranks against 1 rank, "
+              f"relative errors {[f'{r:.3e}' for r in rel]} (step 0 <= {loss_tol[0]:g}, later "
+              f"<= {loss_tol[1]:g}); first {got[:1]} / {want[:1]}")
+    a, b = dp_final_params(ranks_dir, heads), dp_final_params(one_dir)
     args = load_args(str(one_dir))
     init = tree_items(build_model(args, int(args["nDays"]), "cuda:0",
                                   int(args.get("seed", 0))).params)
@@ -3812,7 +3834,7 @@ def dp_compare(tag: str, ranks_dir: Path, one_dir: Path, steps: int) -> float:
         peak[k] = float((got - want).abs().max()) / reach
     worst, far = max(errs, key=errs.get), max(peak, key=peak.get)
     check(a.keys() == b.keys() == init.keys() and errs[worst] <= DP_PARAM_TOL,
-          f"dp {tag}: final parameters of 2 ranks against 1 rank, {len(errs)} leaves: the "
+          f"{prefix} {tag}: final parameters of 2 ranks against 1 rank, {len(errs)} leaves: the "
           f"updates' L2 difference over the one-rank update at most {errs[worst]:.3e} "
           f"({worst}; tolerance {DP_PARAM_TOL:g}); the largest entry's difference "
           f"{peak[far]:.3e} of the {steps} steps' summed learning rates {reach:.3g} ({far})")
@@ -3943,6 +3965,160 @@ def data_parallel_phase(card: str) -> dict:
         print(f"dp (d): not run: {torch.cuda.device_count()} card visible, data parallelism "
               f"across cards needs 2", flush=True)
     shutil.rmtree(DP_DIR, ignore_errors=True)
+    return launches
+
+
+# ------------------------------------------------------ tensor parallelism
+
+TP_DIR = Path("runs") / "chip_smoke_tp"
+TP_STEPS = 3
+TP_BATCH = 16  # rows a step and an eval batch
+TP_GRU_LAYERS = 2  # depth cut to hold the smoke's time
+TP_CONFORMER_LAYERS = 2
+# (a)/(b) against one rank, float32: the model group sums each row-parallel
+# product's two halves (and the GRU's layer 0 its two channel halves) in
+# another order; nothing else differs (the recurrence runs whole). Step 0
+# sees that order alone; a later step also the updates it moved, and every
+# forward since differs at rounding level (not only the sum of the
+# gradients, as under data parallelism): the float32 GRU's step 2 came
+# 2.03e-05 from one rank's on an H100 80GB HBM3 at 700 W, so later steps take data
+# parallelism's bound
+TP_LOSS_TOL = (1e-6, DP_LOSS_TOL[1])  # step 0, later steps: relative
+# (c) against one rank, bfloat16: a sum in another order rounds to bf16
+# the other way (2**-8 relative) and the steps carry it on
+TP_BF16_LOSS_TOL = 2e-2
+
+
+def tp_rank_runs(runs: list[dict]) -> list[dict]:
+    """Each of ``runs`` in turn, ``train_model`` in this rank of the
+    caller's group."""
+    return [train_model(args) for args in runs]
+
+
+def tp_gru_want(steps: int, n_eval: int) -> tuple[dict, dict]:
+    """A float32 GRU model rank's launches (2 layers, ``use_pallas_matmul``
+    and ``fused_optimizer``): per step each layer's gates-forward and
+    backward scans on the whole recurrence, layer 1's projection on the
+    rank's contraction rows (forward, dX, dW), one CTC alpha and beta and
+    one Adam over the rank's leaves; per eval batch the frontend, each
+    layer's inference scan, layer 1's forward product and one alpha."""
+    props = torch.cuda.get_device_properties(0)
+    plan = scan_plan(H, TP_BATCH, D, torch.float32, props.multi_processor_count,
+                     props.shared_memory_per_block_optin)
+    scan = plan if isinstance(plan, str) else "persistent"
+    n = TP_GRU_LAYERS
+    bodies = {"gru_scan_gates": scan, "gru_scan_bwd": scan, "gru_scan": scan,
+              "ctc_alpha": CTC_BODY, "ctc_beta": CTC_BODY, "frontend": "fma",
+              "tiled_matmul": MM_BODY["float32"]}
+    counts = {"gru_scan_gates": n * steps, "gru_scan_bwd": n * steps, "gru_scan": n * n_eval,
+              "ctc_alpha": steps + n_eval, "ctc_beta": steps, "frontend": n_eval,
+              "tiled_matmul": (n - 1) * (3 * steps + n_eval), "adam_update": steps,
+              **NO_ATTENTION}
+    return counts | {f"{k}/{b}": counts[k] for k, b in bodies.items()}, bodies
+
+
+def tp_conformer_want(steps: int, n_eval: int, dtype: str) -> tuple[dict, dict]:
+    """A Conformer model rank's launches with ``fused_conv`` (2 blocks, so
+    no InterCTC head): per step and eval batch 2 attention forwards on the
+    rank's 4 heads and 2 conv forwards (replicated), one CTC alpha; per
+    step their backwards and one beta; the FFs unfused (``fused_ffn`` is
+    refused under tensor parallelism)."""
+    n, fwd = TP_CONFORMER_LAYERS, steps + n_eval
+    fused = FUSED_BODY[dtype]
+    bodies = {"mhsa_qkv": ATTN_FWD_BODY[dtype], "conv_module": fused,
+              "conv_module_bwd": fused, "ctc_alpha": CTC_BODY, "ctc_beta": CTC_BODY}
+    counts = {"mhsa_qkv": n * fwd, "mhsa_qkv_bwd": n * steps, "conv_module": n * fwd,
+              "conv_module_bwd": n * steps, "ffn": 0, "ffn_bwd": 0,
+              "ctc_alpha": steps + n_eval, "ctc_beta": steps, **NO_GRU}
+    return counts | {f"{k}/{b}": counts[k] for k, b in bodies.items()}, bodies
+
+
+def tensor_parallel_phase(card: str) -> dict:
+    """Tensor parallelism (phase 20, lines start ``tp``), at full width on
+    ``train_model_phase``'s synthetic trials, two gloo ranks on the one
+    card (``n_model_devices: 2, n_data_devices: 1``: each rank calls
+    ``train_model`` in the group, all three runs in one launch) against one
+    rank: (a) the float32 GRU, 2 layers, ``use_pallas_matmul`` and
+    ``fused_optimizer``; (b) the float32 Conformer, 2 blocks, ``fused_conv``,
+    the kernels' dropout 0, 4 heads a rank; (c) the same in bfloat16; 3
+    steps of B=16 each. (a)/(b): losses within ``TP_LOSS_TOL``, each leaf's
+    update within ``DP_PARAM_TOL`` in L2 (the ranks' whole checkpoint,
+    de-interleaved); (c): losses within ``TP_BF16_LOSS_TOL``; every rank's
+    launches by body exact. (d) with two cards or more, (a) over nccl on
+    two cards; else one line saying it did not run. Returns the ranks'
+    launches."""
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    ds = dp_dataset()
+    n_eval = -(-pack_days(ds["test"]).n_trials // TP_BATCH)
+    base = dict(batchSize=TP_BATCH, compute_dtype="float32")
+    conformer = {**CONFORMER_ARGS, "fused_conv": True, "transformer_dropout": 0.0,
+                 "transformer_num_layers": TP_CONFORMER_LAYERS}
+    heads = conformer.get("transformer_n_heads", 8)
+    cells = {
+        "a": (dp_run_args({**BENCH_ARGS, **FUSED_FLAGS["gru"]}, TP_DIR, TP_STEPS, ds,
+                          nLayers=TP_GRU_LAYERS, **base), tp_gru_want(TP_STEPS, n_eval)),
+        "b": (dp_run_args(conformer, TP_DIR, TP_STEPS, ds, **base),
+              tp_conformer_want(TP_STEPS, n_eval, "float32")),
+        "c": (dp_run_args(conformer, TP_DIR, TP_STEPS, ds, **{**base,
+                                                               "compute_dtype": "bfloat16"}),
+              tp_conformer_want(TP_STEPS, n_eval, "bfloat16")),
+    }
+    print(f"tp: bodies a rank runs: (a) {cells['a'][1][1]}; (b) {cells['b'][1][1]}; "
+          f"(c) {cells['c'][1][1]}; attention on {heads // 2} of {heads} heads a rank",
+          flush=True)
+    one_s = {}
+    for k, (args, _) in cells.items():
+        t0 = time.perf_counter()
+        train_model({**args, "outputDir": str(TP_DIR / f"{k}_one")})
+        one_s[k] = time.perf_counter() - t0
+    torch.cuda.empty_cache()  # this process's cached blocks, for the ranks
+    runs = [{**args, "outputDir": str(TP_DIR / f"{k}_tp"), "n_model_devices": 2,
+             "n_data_devices": 1} for k, (args, _) in cells.items()]
+    t0 = time.perf_counter()
+    summaries = dp.launch(tp_rank_runs, [(runs,)] * 2, devices=["cuda:0", "cuda:0"],
+                          backend="gloo", timeout_s=600)
+    ranks_s = time.perf_counter() - t0
+    check(summaries[0] == summaries[1],
+          f"tp: both model ranks returned the same summaries ({summaries[0]})")
+    launches = {k: 0 for k in KERNELS}
+    for k, (args, (want, bodies)) in cells.items():
+        tag = f"({k}) {'gru' if k == 'a' else 'conformer'} {args['compute_dtype']}"
+        one, tp = TP_DIR / f"{k}_one", TP_DIR / f"{k}_tp"
+        if k == "c":
+            got, ref = train_losses(tp), train_losses(one)
+            rel = [abs(a - b) / max(abs(b), 1e-30) for a, b in zip(got, ref)]
+            check(len(got) == len(ref) == TP_STEPS and max(rel) <= TP_BF16_LOSS_TOL,
+                  f"tp {tag}: {len(got)} per-step losses of 2 model ranks against 1 rank, "
+                  f"relative errors {[f'{r:.3e}' for r in rel]} (<= {TP_BF16_LOSS_TOL:g})")
+        else:
+            err = dp_compare(tag, tp, one, TP_STEPS, TP_LOSS_TOL,
+                             heads=heads if k == "b" else None, prefix="tp")
+            print(f"tp {tag}: updates within {err:.3e} of one rank's ({card})", flush=True)
+        for r in (0, 1):
+            got = dp_rank_launches(tp, r)
+            ran = {n: v for n, v in got.items() if v}
+            check(all(got.get(n) == v for n, v in want.items()),
+                  f"tp {tag}: model rank {r} launched {ran}; per rank {want} (bodies {bodies})")
+            for n in KERNELS:
+                launches[n] += got.get(n, 0)
+    alone = ", ".join(f"({k}) {v:.1f}" for k, v in one_s.items())
+    print(f"tp: 2 gloo model ranks on one card {ranks_s:.1f} s for (a)-(c) (spawn, build "
+          f"load and checkpoints included), 1 rank {alone} s ({card})", flush=True)
+
+    # (d) two cards over NCCL
+    if torch.cuda.device_count() >= 2:
+        args = {**cells["a"][0], "outputDir": str(TP_DIR / "d_nccl"), "device": "cuda",
+                "n_model_devices": 2, "n_data_devices": 1}
+        t0 = time.perf_counter()
+        train_model(args)
+        print(f"tp (d): 2 NCCL model ranks on 2 cards {time.perf_counter() - t0:.1f} s "
+              f"({card})", flush=True)
+        dp_compare("(d) gru float32 nccl", TP_DIR / "d_nccl", TP_DIR / "a_one", TP_STEPS,
+                   TP_LOSS_TOL, prefix="tp")
+    else:
+        print(f"tp (d): not run: {torch.cuda.device_count()} card visible, tensor "
+              f"parallelism across cards needs 2", flush=True)
+    shutil.rmtree(TP_DIR, ignore_errors=True)
     return launches
 
 
@@ -4222,6 +4398,10 @@ def main() -> int:
     for k, n in data_parallel_phase(card).items():
         launches[k] += n
     print(f"phase data parallel: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    for k, n in tensor_parallel_phase(card).items():
+        launches[k] += n
+    print(f"phase tensor parallel: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     for k, n in export_phase(card).items():
         launches[k] += n

@@ -609,7 +609,8 @@ def synth_params_on_device(spec: EngineSpec, seed: int = 0, dtype=torch.bfloat16
     are the port's own."""
     if shardings is not None:
         raise NotImplementedError("sharded engine parameters (tensor parallelism) "
-                                  "are not ported yet")
+                                  "are not ported yet (ROADMAP.md queue 1 item 2: the "
+                                  "LLM engine's tensor parallelism)")
     dev = resolve_device(device, "synth_params_on_device")
     gen = torch.Generator(device=dev).manual_seed(seed)
 
@@ -645,7 +646,8 @@ def synth_params_on_device(spec: EngineSpec, seed: int = 0, dtype=torch.bfloat16
 def llm_shardings(spec: EngineSpec, mesh, axis: str = "model") -> dict:
     """Tensor-parallel layouts over a device mesh: not ported yet."""
     raise NotImplementedError("tensor-parallel rescoring over a mesh is not ported "
-                              "yet; score on one device (mesh=None)")
+                              "yet (ROADMAP.md queue 1 item 2: the LLM engine's tensor "
+                              "parallelism); score on one device (mesh=None)")
 
 
 def shard_params(params: dict, spec: EngineSpec, mesh, axis: str = "model"):
@@ -745,7 +747,8 @@ def engine_scorer(
     raises without one). A ``mesh`` raises ``NotImplementedError``."""
     if mesh is not None:
         raise NotImplementedError("tensor-parallel rescoring over a mesh is not ported "
-                                  "yet; score on one device (mesh=None)")
+                                  "yet (ROADMAP.md queue 1 item 2: the LLM engine's "
+                                  "tensor parallelism); score on one device (mesh=None)")
     dev = resolve_device(device, "engine_scorer")
     _spec_from_config(model_path)  # an unsupported checkpoint raises before any load
     tok = load_tokenizer(model_path)

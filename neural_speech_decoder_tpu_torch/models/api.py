@@ -15,6 +15,8 @@ import torch
 
 from ..ops.rows import BatchShard
 from ..ops.unfold import ctc_input_lengths
+from ..parallel.shardings import check_shardable, shard_params
+from ..parallel.tensor_parallel import ModelShard
 from .conformer import (
     ConformerConfig,
     ConformerDecoder,
@@ -57,7 +59,10 @@ def config_from_args(args: dict, n_days: int) -> GRUConfig | ConformerConfig:
             fused_conv=bool(args.get("fused_conv", False)),
             causal=args.get("causal", False),
             attn_left_context=args.get("attn_left_context", 128),
-            qkv_interleaved=bool(args.get("qkv_interleaved", False)),
+            # tensor parallelism reads whole heads in the interleaved layout
+            # (parallel/shardings.py), so it is the default there, as in JAX
+            qkv_interleaved=bool(args.get(
+                "qkv_interleaved", int(args.get("n_model_devices") or 1) > 1)),
         )
     if model_type != "gru_baseline":
         raise NotImplementedError(f"model_type {model_type!r}")
@@ -76,6 +81,38 @@ def config_from_args(args: dict, n_days: int) -> GRUConfig | ConformerConfig:
         use_pallas_matmul=bool(args.get("use_pallas_matmul") or False),
         use_pallas=None if args.get("use_pallas") is None else bool(args["use_pallas"]),
     )
+
+
+def model_type_of(cfg: GRUConfig | ConformerConfig) -> str:
+    """The ``model_type`` arg of a config's family."""
+    return "transformer_ctc" if isinstance(cfg, ConformerConfig) else "gru_baseline"
+
+
+def shard_model(model: Decoder, tp: ModelShard, *, interleave: bool = True) -> Decoder:
+    """A decoder on ``model``'s device and config that holds this model
+    rank's shards of ``model``'s whole parameters (``parallel/
+    shardings.py``'s rules; for the Conformer, after the qkv interleave when
+    ``interleave``, as JAX's trainer shards a fresh init) and runs its
+    forward with the model group's collectives (``model.tp``). Raises
+    ``ValueError`` for a config whose sharded dimensions do not divide."""
+    cfg = model.cfg
+    check_shardable(cfg, tp.count)
+    with torch.no_grad():
+        whole = _detached(model.params)
+        heads = cfg.num_heads if interleave and isinstance(cfg, ConformerConfig) else None
+        params = shard_params(whole, tp, model_type_of(cfg), num_heads=heads)
+        out = type(model)(cfg, _detached(params, clone=True))
+    out.tp = tp
+    return out
+
+
+def _detached(tree, clone: bool = False):
+    if isinstance(tree, dict):
+        return {k: _detached(v, clone) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_detached(v, clone) for v in tree]
+    t = tree.detach()
+    return t.clone() if clone else t
 
 
 def build_model(
@@ -106,9 +143,12 @@ def forward(
     and the Conformer's InterCTC log-probabilities in training (else
     None). ``train`` runs the training forward with its randomness from
     ``generator``; ``plain`` the kernels' plain versions; ``shard`` says
-    which rows of a data-parallel global batch x holds (``ops/rows.py``)."""
+    which rows of a data-parallel global batch x holds (``ops/rows.py``).
+    A model sharded for tensor parallelism (``model.tp``) runs its rank's
+    share, with the model group's collectives."""
     return forward_params(model.cfg, model.params, x, day_idx, x_lens, train=train,
-                          generator=generator, plain=plain, shard=shard)
+                          generator=generator, plain=plain, shard=shard,
+                          tp=getattr(model, "tp", None))
 
 
 def forward_params(
@@ -122,15 +162,17 @@ def forward_params(
     generator: torch.Generator | None = None,
     plain: bool = False,
     shard: BatchShard | None = None,
+    tp: ModelShard | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
     """``forward`` of the decoder ``cfg`` describes, on the parameter tree
     ``params`` (what ``serving/export.py`` traces, with the tree's leaves
-    as the exported program's inputs)."""
+    as the exported program's inputs); ``tp``: params holds this model
+    rank's shards."""
     if isinstance(cfg, ConformerConfig):
         return conformer_forward(params, cfg, x, day_idx, x_lens, train=train,
-                                 generator=generator, plain=plain, shard=shard)
+                                 generator=generator, plain=plain, shard=shard, tp=tp)
     logits = gru_forward(params, cfg, x, day_idx, train=train, generator=generator,
-                         plain=plain, shard=shard)
+                         plain=plain, shard=shard, tp=tp)
     out_lens = ctc_input_lengths(x_lens, cfg.kernel_len, cfg.stride_len)
     out_lens = out_lens.to(logits.device).clamp(0, logits.shape[1])
     return torch.log_softmax(logits, dim=-1), out_lens, None

@@ -7,7 +7,9 @@ weights, torch ``nn.Linear``'s default ``U(-1/sqrt(fan_in), 1/sqrt(fan_in))``.
 Tensors are drawn on the generator's device and cast to ``dtype``.
 
 ``linear`` is the JAX package's ``_linear`` (``models/conformer.py``), the
-product every linear layer of the port takes in a reduced compute dtype.
+product every linear layer of the port takes in a reduced compute dtype;
+``partial_linear`` its float32 sum without the bias, a row-parallel
+rank's share under tensor parallelism.
 """
 
 from __future__ import annotations
@@ -92,6 +94,37 @@ def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     ``preferred_element_type=float32``). The backward's products run in
     x's dtype, as JAX's cotangents of the cast operands do."""
     return _Linear.apply(x, w, b)
+
+
+class _PartialLinear(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w):
+        wc = w.to(x.dtype)
+        x2 = x.reshape(-1, x.shape[-1])
+        ctx.save_for_backward(x2, wc)
+        ctx.w_dtype = w.dtype
+        return _mm_f32(x2, wc).reshape(*x.shape[:-1], w.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, wc = ctx.saved_tensors
+        # the cotangent of linear's rounded output, as linear's backward
+        # takes it (exact: the rounded output's gradient is in x's dtype)
+        g2 = g.reshape(-1, g.shape[-1]).to(x2.dtype)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = (g2 @ wc.T).reshape(*g.shape[:-1], wc.shape[0])
+        if ctx.needs_input_grad[1]:
+            dw = (x2.T @ g2).to(ctx.w_dtype)
+        return dx, dw
+
+
+def partial_linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x [..., K] @ w [K, M]`` as ``linear`` forms it, left in float32
+    without the bias: a row-parallel rank's partial sum, which the model
+    group adds up before the bias and the one rounding
+    (``parallel/tensor_parallel.py::reduce_from_model``)."""
+    return _PartialLinear.apply(x, w)
 
 
 def torch_linear_init(

@@ -35,6 +35,21 @@ arrays under GSPMD; the kernels' dropout seeds are folded with the rank
 (``ops/hashrng.py::fold_seed``), as JAX folds its key with the shard index
 (``models/conformer.py:484-491``), so with the kernels dropping a
 data-parallel step differs from a single-device one, in JAX as well.
+
+Tensor parallelism (``tp``, a ``ModelShard``; the rank holds the shards of
+``parallel/shardings.py``): the FF modules are column-parallel ``lin1``
+then row-parallel ``lin2``, the attention takes whole heads a rank on the
+interleaved qkv layout, and everything else (the frontend, the conv
+module, the norms, the heads) is computed whole on every model rank, from
+the same draws. The hash dropout of the FF hidden ``[B, T, F/n]`` is the
+rank's columns of the global mask, so the masks are those of one device;
+the attention kernel's seed is folded with ``d * n_model + m`` (JAX's
+fold) and a replicated kernel's with the data coordinate alone, so that
+replicated activations stay equal over the model ranks.
+``fused_ffn`` under tensor parallelism raises ``ValueError``: the fused
+kernel needs the whole FF weights (JAX silently takes its einsum twin
+there, ``models/conformer.py:305-325``; a deliberate difference, as the
+even-kernel ``fused_conv`` is).
 """
 
 from __future__ import annotations
@@ -56,7 +71,9 @@ from ..ops.kernels.conv_module import fused_conv_module
 from ..ops.kernels.ffn import fused_ffn
 from ..ops.rows import BatchShard, draw_rows
 from ..ops.specaugment import spec_augment
-from .common import linear, torch_linear_init, uniform_bound, xavier_uniform
+from ..parallel.shardings import check_shardable
+from ..parallel.tensor_parallel import ModelShard, copy_to_model, reduce_from_model
+from .common import linear, partial_linear, torch_linear_init, uniform_bound, xavier_uniform
 
 Params = dict
 
@@ -275,12 +292,14 @@ def _lin_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
     return linear(x, p["w"], p["b"])
 
 
-def _dropout(rng: "_Draws", x: torch.Tensor, rate: float) -> torch.Tensor:
+def _dropout(rng: "_Draws", x: torch.Tensor, rate: float, col0: int = 0) -> torch.Tensor:
+    """Hash dropout of x: its rows of the global batch's mask, and its
+    columns from ``col0`` (a model rank's slice of a sharded activation)."""
     if not rng.train or rate <= 0:
         return x
     # the flat row index of x's first row in the global [B, ..., N] array
     row0 = rng.shard.start * (x.numel() // (x.shape[0] * x.shape[-1])) if rng.shard else 0
-    return hash_dropout(rng.seed(), x, rate, row0)
+    return hash_dropout(rng.seed(), x, rate, row0, col0)
 
 
 def _drop_path(rng: "_Draws", x: torch.Tensor, prob: float) -> torch.Tensor:
@@ -297,31 +316,56 @@ def _drop_path(rng: "_Draws", x: torch.Tensor, prob: float) -> torch.Tensor:
 
 class _Draws:
     """The random draws of one forward, in call order from one generator;
-    none in eval. ``shard``: the forward's rows of a data-parallel batch."""
+    none in eval. ``shard``: the forward's rows of a data-parallel batch;
+    ``tp``: its model rank (every model rank draws the same sequence)."""
 
     def __init__(self, generator: torch.Generator | None, train: bool,
-                 shard: BatchShard | None = None):
+                 shard: BatchShard | None = None, tp: ModelShard | None = None):
         if train and generator is None:
             raise ValueError("conformer_forward: train=True needs a generator")
-        self.generator, self.train, self.shard = generator, train, shard
+        self.generator, self.train, self.shard, self.tp = generator, train, shard, tp
 
     def seed(self) -> torch.Tensor:
         return draw_seed(self.generator)
 
 
-def _module_seed(rng, rate, device):
+def _module_seed(rng, rate, device, heads: bool = False):
     """One dropout seed for a kernel (attention, fused FF or conv module),
-    drawn only when it drops, and folded with the rank when the batch is
-    split over several."""
+    drawn only when it drops, and folded with the shard index when the
+    kernel's rows restart at 0 on several ranks: the data coordinate when
+    the batch is split, and for the attention (``heads``), whose heads the
+    'model' axis splits, ``d * n_model + m``, as JAX folds its key with the
+    batch and model axis indices (``models/conformer.py:484-491``). A
+    replicated kernel (the conv module) draws one mask on every model rank
+    of a data coordinate."""
     if rng.train and rate > 0:
-        if rng.shard is not None and rng.shard.count > 1:
-            return fold_seed(rng.seed(), rng.shard.index)
+        d, n_data = (rng.shard.index, rng.shard.count) if rng.shard is not None else (0, 1)
+        m, n_model = (rng.tp.index, rng.tp.count) if heads and rng.tp is not None else (0, 1)
+        if n_data * n_model > 1:
+            return fold_seed(rng.seed(), d * n_model + m)
         return rng.seed()
     return torch.zeros(1, dtype=torch.int32, device=device)
 
 
+def _row_parallel(p, h, tp):
+    """``linear(h, w, b)`` with ``w`` this model rank's rows and ``h`` its
+    columns: the float32 partial summed over the model group, then the bias
+    and one rounding, as ``linear`` rounds."""
+    y = reduce_from_model(partial_linear(h, p["w"]), tp)
+    return (y + p["b"].float()).to(h.dtype)
+
+
 def _ff_module(p, x, rng, rate, cfg, plain):
-    """LN -> Linear(D->F) -> SiLU -> dropout -> Linear(F->D) -> dropout."""
+    """LN -> Linear(D->F) -> SiLU -> dropout -> Linear(F->D) -> dropout.
+    Under tensor parallelism ``lin1`` is column-parallel (the rank's F
+    columns, their hidden dropout the rank's columns of the global mask)
+    and ``lin2`` row-parallel, one all-reduce before its bias and the
+    output dropout (drawn alike on every model rank)."""
+    tp = rng.tp
+    if tp is not None:
+        h = F.silu(_lin_apply(p["lin1"], copy_to_model(layer_norm(p["ln"], x), tp)))
+        h = _dropout(rng, h, rate, col0=tp.index * h.shape[-1])
+        return _dropout(rng, _row_parallel(p["lin2"], h, tp), rate)
     if cfg.fused_ffn:
         r = rate if rng.train else 0.0
         return fused_ffn(x, p["ln"]["scale"], p["ln"]["bias"], p["lin1"]["w"],
@@ -333,12 +377,21 @@ def _ff_module(p, x, rng, rate, cfg, plain):
 
 
 def _attention(p, cfg, x, lens, rng, plain):
-    qkv = linear(layer_norm(p["ln"], x), p["in_proj_w"], p["in_proj_b"])
+    """LN -> qkv -> the attention kernel -> out projection. Under tensor
+    parallelism the qkv projection is column-parallel on the interleaved
+    layout, so the rank's ``3 * D / n_model`` columns are whole heads, the
+    kernel runs ``num_heads / n_model`` of them, and ``out`` is
+    row-parallel."""
+    tp = rng.tp
+    qkv = linear(copy_to_model(layer_norm(p["ln"], x), tp), p["in_proj_w"], p["in_proj_b"])
     rate = cfg.dropout if rng.train else 0.0
-    seed = _module_seed(rng, rate, x.device)
-    out = mhsa(qkv, lens, seed, num_heads=cfg.num_heads, rate=rate,
+    seed = _module_seed(rng, rate, x.device, heads=True)
+    heads = cfg.num_heads // (tp.count if tp is not None else 1)
+    out = mhsa(qkv, lens, seed, num_heads=heads, rate=rate,
                left_context=cfg.attn_left_context if cfg.causal else None,
                interleaved=cfg.qkv_interleaved, plain=plain)
+    if tp is not None:
+        return _row_parallel(p["out"], out, tp)
     return _lin_apply(p["out"], out)
 
 
@@ -417,14 +470,19 @@ def conformer_forward(
     generator: torch.Generator | None = None,
     plain: bool = False,
     shard: BatchShard | None = None,
+    tp: ModelShard | None = None,
 ):
     """``[B, T, C]`` features -> ``(log_probs [B, T', n_out] float32,
     out_lens [B] int32, inter_log_probs or None)``; the InterCTC head's
     log-probs only in training. ``train`` draws dropout, DropPath and
     SpecAugment from ``generator``; ``plain`` runs the kernels' plain
-    versions; ``shard``: x holds these rows of a data-parallel batch."""
+    versions; ``shard``: x holds these rows of a data-parallel batch;
+    ``tp``: params holds this model rank's shards of the FFs and the
+    attention (``parallel/shardings.py``; the rest is replicated)."""
     check_config(cfg)
-    rng = _Draws(generator, train, shard)
+    if tp is not None:
+        check_shardable(cfg, tp.count)
+    rng = _Draws(generator, train, shard, tp)
     x = day_affine(params["day"], x.to(cfg.compute_dtype), day_idx)
     z = conformer_frontend(params, cfg, x, rng)
     bott = params["bottleneck"]
@@ -495,6 +553,7 @@ class ConformerDecoder(nn.Module):
         super().__init__()
         check_config(cfg)
         self.cfg = cfg
+        self.tp = None  # set to a ModelShard when params are the rank's shards
         self._paths = []
         for path, leaf in _flatten(params):
             self._paths.append(path)
@@ -522,4 +581,4 @@ class ConformerDecoder(nn.Module):
                 plain=False, shard=None):
         return conformer_forward(self.params, self.cfg, x, day_idx, x_lens,
                                  train=train, generator=generator, plain=plain,
-                                 shard=shard)
+                                 shard=shard, tp=self.tp)

@@ -36,6 +36,18 @@ and weights with float32 accumulation and output, as the JAX package does
 through ``models/common.py::linear``: float32 accumulation, the float32
 bias, one rounding to bf16, as JAX. Layer 0's strided convolution rounds
 its bf16 output before the float32 bias and after it, as JAX's does.
+
+Under tensor parallelism (``tp``, a ``ModelShard``: the rank holds the
+shards of ``parallel/shardings.py``) each layer's input projection is
+row-parallel on its contraction rows (layer 0: the rank's channels through
+the strided convolution; layers 1+: ``linear`` or the hand-written product
+on the rank's rows), the partial sums all-reduced in float32 before the
+bias; the head is row-parallel on ``H*D``. The recurrence is not split:
+JAX's GSPMD sums ``h @ W_hh`` over the model axis every time step (its
+Pallas scan gives way to ``lax.scan`` under a model axis), while the port
+gathers ``W_hh`` once a layer and runs the hand-written scan whole on every
+model rank, each rank keeping its rows of the kernel's whole ``dW_hh``
+(a deliberate difference: one gather a layer instead of a sum a step).
 """
 
 from __future__ import annotations
@@ -56,7 +68,20 @@ from ..ops.kernels.library import fused_frontend
 from ..ops.kernels.matmul import projection_kernel_viable, projection_matmul
 from ..ops.rows import BatchShard, draw_rows
 from ..ops.unfold import unfold_matmul, unfold_output_length
-from .common import linear, orthogonal, torch_linear_init, uniform_bound, xavier_uniform
+from ..parallel.tensor_parallel import (
+    ModelShard,
+    gather_from_model,
+    reduce_from_model,
+    scatter_to_model,
+)
+from .common import (
+    linear,
+    orthogonal,
+    partial_linear,
+    torch_linear_init,
+    uniform_bound,
+    xavier_uniform,
+)
 
 Params = dict
 
@@ -155,12 +180,14 @@ def gru_encode(
     generator: torch.Generator | None = None,
     plain: bool = False,
     shard: BatchShard | None = None,
+    tp: ModelShard | None = None,
 ) -> torch.Tensor:
     """The stacked GRU over frontend output ``x [B, T, C]`` ->
     ``[B, L, H*D]`` with ``L = (T - k) // s + 1``. With ``train`` and
     ``cfg.dropout > 0``, every layer's output but the last's is dropped at
     rate p and scaled by 1/(1-p), drawn from ``generator`` (for the global
-    batch with a ``shard``, ``ops/rows.py``)."""
+    batch with a ``shard``, ``ops/rows.py``). With ``tp`` the layers' weights
+    are this model rank's shards (``_encode_layer_tp``)."""
     b = x.shape[0]
     h = cfg.hidden_dim
     d = cfg.num_dirs
@@ -173,7 +200,13 @@ def gru_encode(
         # all directions' projections as one product: directions
         # concatenated on the output axis
         w_cat = torch.cat([lp["w_ih"][i] for i in range(d)], dim=-1).to(cdt)
-        if li == 0:
+        w_hh = lp["w_hh"]
+        if tp is not None:
+            xp = _project_tp(cfg, li, out, w_cat, lp["b_ih"], tp, plain)
+            # the recurrence runs whole on every model rank: W_hh gathered
+            # once a layer, and each rank keeps its rows of the whole dW_hh
+            w_hh = gather_from_model(w_hh, 1, tp)
+        elif li == 0:
             xp = unfold_matmul(out, w_cat, cfg.kernel_len, cfg.stride_len)
             xp = (xp.float().reshape(b, -1, d, 3 * h) + lp["b_ih"].float()).to(cdt)
         elif _use_matmul_kernel(cfg, li, out.shape[-1], 3 * h * d):
@@ -183,12 +216,42 @@ def gru_encode(
         else:
             xp = linear(out, w_cat, lp["b_ih"].reshape(-1)).reshape(b, -1, d, 3 * h)
         xp = xp.permute(1, 2, 0, 3).contiguous()  # [L, D, B, 3H]
-        ys = gru_scan(xp, lp["w_hh"], lp["b_hh"],  # [L, D, B, H]
+        ys = gru_scan(xp, w_hh, lp["b_hh"],  # [L, D, B, H]
                       plain=plain or cfg.use_pallas is False)
         out = ys.permute(2, 0, 1, 3).reshape(b, -1, d * h)
         if p > 0 and li < cfg.num_layers - 1:
             out = dropout(out, p, generator, shard)
     return out
+
+
+def _project_tp(cfg: GRUConfig, li: int, out: torch.Tensor, w_cat: torch.Tensor,
+                b_ih: torch.Tensor, tp: ModelShard, plain: bool) -> torch.Tensor:
+    """Layer ``li``'s input projection ``[B, L, D, 3H]`` on this model
+    rank's rows of ``w_ih`` (JAX's ``P(None, 'model', None)``): the rank's
+    slice of the replicated input (whose gradient is joined over the model
+    group), its partial product, the sum over the group, then the bias once
+    and the rounding of the single-device projection. Layer 0's rows
+    ``c*k + j`` of a contiguous shard are a slice of channels, so the rank
+    convolves its channels alone; its partials stay float32 (in bfloat16
+    the products of the bf16 operands, exact per term). Layers 1+ take
+    ``linear``'s float32 partial, or the hand-written product with
+    ``use_pallas_matmul`` (rounded to the compute dtype before the sum, as
+    the kernel's output is)."""
+    b, h, d, cdt = out.shape[0], cfg.hidden_dim, cfg.num_dirs, cfg.compute_dtype
+    xs = scatter_to_model(out, -1, tp)
+    if li == 0:
+        if cdt != torch.float32:
+            xs, w_cat = xs.float(), w_cat.float()
+        part = unfold_matmul(xs, w_cat, cfg.kernel_len, cfg.stride_len)
+        xp = reduce_from_model(part, tp).to(cdt)
+    elif _use_matmul_kernel(cfg, li, xs.shape[-1], w_cat.shape[-1]):
+        zero = torch.zeros(w_cat.shape[-1], dtype=torch.float32, device=xs.device)
+        part = projection_matmul(xs.reshape(-1, xs.shape[-1]), w_cat, zero, plain=plain)
+        xp = reduce_from_model(part.float(), tp).to(cdt).reshape(b, -1, w_cat.shape[-1])
+    else:
+        xp = reduce_from_model(partial_linear(xs, w_cat), tp)
+    xp = xp.float().reshape(b, -1, d, 3 * h) + b_ih.float()
+    return xp.to(cdt)
 
 
 def _use_matmul_kernel(cfg: GRUConfig, li: int, k: int, n: int) -> bool:
@@ -220,13 +283,18 @@ def dropout(x: torch.Tensor, p: float, generator: torch.Generator,
     return torch.where(keep, x / (1.0 - p), 0.0)
 
 
-def gru_head(params: Params, enc: torch.Tensor) -> torch.Tensor:
+def gru_head(params: Params, enc: torch.Tensor,
+             tp: ModelShard | None = None) -> torch.Tensor:
     """``enc [B, L, H*D] @ fc.weight + fc.bias`` -> float32 logits: the
     operands in enc's dtype, the product accumulated and kept in float32
     (in bfloat16 compute, a float32 product of the bf16-rounded operands,
-    exact per term)."""
+    exact per term). With ``tp``, ``fc.weight`` is this model rank's rows
+    (JAX's ``P('model', None)``): its slice of enc, the partial logits
+    summed over the model group, then the bias."""
     w = params["fc"]["weight"].to(enc.dtype)
-    return torch.matmul(enc.float(), w.float()) + params["fc"]["bias"].float()
+    enc = scatter_to_model(enc, -1, tp)
+    logits = reduce_from_model(torch.matmul(enc.float(), w.float()), tp)
+    return logits + params["fc"]["bias"].float()
 
 
 def gru_forward(
@@ -239,11 +307,14 @@ def gru_forward(
     generator: torch.Generator | None = None,
     plain: bool = False,
     shard: BatchShard | None = None,
+    tp: ModelShard | None = None,
 ) -> torch.Tensor:
     """``[B, T, C]`` features -> ``[B, L, n_classes+1]`` float32 logits.
     Training takes the unfused frontend chain (autograd reaches the day
     affine) and dropout from ``generator``; inference the fused frontend.
-    ``shard``: x holds these rows of a data-parallel global batch."""
+    ``shard``: x holds these rows of a data-parallel global batch; ``tp``:
+    params holds this model rank's shards (``parallel/shardings.py``), the
+    frontend and every other replicated part computed whole on each rank."""
     x = x.to(cfg.compute_dtype)
     if cfg.gaussian_smooth_width > 0 and not train:
         # fused_frontend: the kernel's operator (ops/kernels/library.py)
@@ -262,8 +333,8 @@ def gru_forward(
         )
         x = F.softsign(day_affine(params["day"], x, day_idx))
     enc = gru_encode(params, cfg, x, train=train, generator=generator,
-                     plain=plain, shard=shard)
-    return gru_head(params, enc)
+                     plain=plain, shard=shard, tp=tp)
+    return gru_head(params, enc, tp)
 
 
 def gru_output_length(cfg: GRUConfig, t: int) -> int:
@@ -287,6 +358,7 @@ class GRUDecoder(nn.Module):
     def __init__(self, cfg: GRUConfig, params: Params):
         super().__init__()
         self.cfg = cfg
+        self.tp = None  # set to a ModelShard when params are the rank's shards
 
         def pdict(tree):
             return nn.ParameterDict(
@@ -326,4 +398,4 @@ class GRUDecoder(nn.Module):
         shard: BatchShard | None = None,
     ) -> torch.Tensor:
         return gru_forward(self.params, self.cfg, x, day_idx, train=train,
-                           generator=generator, plain=plain, shard=shard)
+                           generator=generator, plain=plain, shard=shard, tp=self.tp)

@@ -68,19 +68,22 @@ def keep_mask2d(seed, salt, shape, rate: float, device=None) -> torch.Tensor:
     return uniform2d(seed, salt, shape, device) >= rate
 
 
-def hash_dropout(seed, x: torch.Tensor, rate: float, row0: int = 0) -> torch.Tensor:
+def hash_dropout(seed, x: torch.Tensor, rate: float, row0: int = 0,
+                 col0: int = 0) -> torch.Tensor:
     """Inverted dropout of ``x [..., N]`` with the mask of
     ``keep_mask2d(seed, 0, (prod(x.shape[:-1]), N), rate)``: kept entries
     scaled by 1/(1 - rate), dropped ones 0. ``rate <= 0`` returns x.
     ``row0`` is the flat row index of x's first row in the global array: a
     data-parallel rank holding batch rows from ``start`` of ``[B, T, N]``
-    passes ``start * T``, so that its mask is its rows of the global mask."""
+    passes ``start * T``, so that its mask is its rows of the global mask.
+    ``col0`` is likewise x's first column in the global array (a
+    tensor-parallel rank's columns of a sharded activation)."""
     if rate <= 0:
         return x
     n = x.shape[-1]
     rows = torch.arange(x.numel() // max(n, 1), device=x.device,
                         dtype=torch.int64)[:, None] + row0
-    cols = torch.arange(n, device=x.device, dtype=torch.int64)[None, :]
+    cols = torch.arange(n, device=x.device, dtype=torch.int64)[None, :] + col0
     keep = uniform(seed, 0, rows, cols) >= rate
     return torch.where(keep.reshape(x.shape), x / (1.0 - rate),
                        torch.zeros((), dtype=x.dtype, device=x.device))

@@ -7,11 +7,17 @@
   for the CPU): the 'data' axis, each rank's rows of the global batch, the
   gradient all-reduce, rank-0 writes and an agreed preemption
   (``training/trainer.py``).
+- Tensor parallelism (``shardings.py``, ``tensor_parallel.py``): JAX's
+  ``parallel/shardings.py`` rules over the 'model' axis of the same grid
+  (``mesh.py``: rank r at ``(d, m) = divmod(r, n_model)``), each rank
+  holding its shard of the large GRU and Conformer weights and calling the
+  collectives that XLA's GSPMD inserts in JAX (``models/gru.py``,
+  ``models/conformer.py``).
 - Task parallelism (``sweep.py``): hyperparameter sweeps over worker
   processes, each trial pinned to its cards by ``CUDA_VISIBLE_DEVICES``
   and trained data-parallel over them.
 
-Tensor parallelism (the 'model' axis: JAX's ``parallel/shardings.py``) is
-the next slice of the port, and ``parallel/kernel_mesh.py`` is TPU-only
-(a Mosaic custom call has no GSPMD rule), so neither has a counterpart.
+``parallel/kernel_mesh.py`` is TPU-only (a Mosaic custom call has no GSPMD
+rule, so JAX maps its kernels over the mesh by hand): a port rank calls its
+kernels on its own shard, so it has no counterpart.
 """

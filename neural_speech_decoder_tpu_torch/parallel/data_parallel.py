@@ -4,23 +4,26 @@ The JAX trainer shards the batch over the mesh's 'data' axis and XLA
 inserts the gradient all-reduce (GSPMD). The port runs one process per
 device (``parallel/mesh.py``) and calls the collectives itself:
 
-- ``average_gradients``: after the backward, one all-reduce of each dtype's
-  gradients flattened into one buffer, divided by the world size, so that
-  the clip, the watch norms and the optimizer see the global batch's
-  gradient;
-- ``mean_metrics``: the step's loss terms averaged to the global value;
-- ``agree_max``: the preemption flag, so that every rank stops at the same
-  step;
-- ``gather_rows`` / ``gather_values``: every rank's rows (eval outputs) or
-  values (launch counts) on every rank, as JAX's ``process_allgather``.
-  Both are an all-reduce of a zero-padded buffer, which every backend
-  takes for CUDA and CPU tensors alike.
+- ``average_gradients``: after the backward, one all-reduce over the data
+  group (the ranks that hold the same model shard) of each dtype's
+  gradients flattened into one buffer, divided by ``n_data``, so that the
+  clip, the watch norms and the optimizer see the global batch's gradient;
+- ``mean_metrics``: the step's loss terms averaged to the global value
+  over the data group (the model ranks of one data coordinate hold the
+  same loss);
+- ``agree_max``: the preemption flag over every rank, so that every rank
+  stops at the same step;
+- ``gather_rows``: every data coordinate's rows (eval outputs) on every
+  rank, as JAX's ``process_allgather``; ``gather_values``: every rank's
+  values (launch counts). Both are an all-reduce of a zero-padded buffer,
+  which every backend takes for CUDA and CPU tensors alike.
 
 ``launch`` starts the rank processes (``spawn``), each joining the group on
 its device before it runs its function: ``training/trainer.py::
 train_model`` uses it when it is asked for several devices and no group
-exists, as one JAX process drives every local device. ``resolve_n_data``
-is JAX's rule for the size of the 'data' axis.
+exists, as one JAX process drives every local device; it starts ``n_data
+x n_model`` of them. ``resolve_n_data`` is JAX's rule for the size of the
+'data' axis beside the 'model' axis.
 """
 
 from __future__ import annotations
@@ -40,29 +43,33 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .mesh import TP_NOT_PORTED, Mesh
+from .mesh import Mesh
 from .multihost import initialize
 
 
 def resolve_n_data(args: dict, device: torch.device, world: int | None = None) -> int:
     """The size of the 'data' axis, by the JAX trainer's rule
-    (``training/trainer.py:537-555``): ``n_data_devices``, capped at the
-    devices available, then cut to the largest divisor of ``batchSize``
-    (of ``batchMultiple`` under ``tokensPerBatch``, whose step batches are
-    multiples of it). Available are the ranks of the process group
-    (``world``); without one, every visible card for ``cuda`` (also the
-    default, as JAX's is every device), one for an explicit ``cuda:i``, and
-    as many gloo ranks as asked for the CPU (default 1)."""
+    (``training/trainer.py:537-555``): the devices available divided by
+    ``n_model_devices`` (more model ranks than devices raise ``ValueError``,
+    JAX's message), ``n_data_devices`` capped at that, then cut to the
+    largest divisor of ``batchSize`` (of ``batchMultiple`` under
+    ``tokensPerBatch``, whose step batches are multiples of it). Available
+    are the ranks of the process group (``world``); without one, every
+    visible card for ``cuda`` (also the default, as JAX's is every device),
+    one for an explicit ``cuda:i``, and as many gloo ranks as asked for the
+    CPU (``n_data_devices`` times ``n_model_devices``, default 1 each)."""
     n_model = int(args.get("n_model_devices") or 1)
-    if n_model > 1:
-        raise NotImplementedError(f"n_model_devices={n_model}: {TP_NOT_PORTED}")
     asked = int(args.get("n_data_devices") or 0)
     if world is not None:
-        avail = world
+        devices = world
     elif device.type == "cuda":
-        avail = torch.cuda.device_count() if device.index is None else 1
+        devices = torch.cuda.device_count() if device.index is None else 1
     else:
-        avail = max(asked, 1)
+        devices = max(asked, 1) * n_model
+    if n_model > devices:
+        raise ValueError(f"n_model_devices={n_model} exceeds the {devices} available "
+                         f"device(s)")
+    avail = devices // n_model
     n_data = min(asked or avail, avail)
     target = (int(args.get("batchMultiple", 64)) if int(args.get("tokensPerBatch", 0)) > 0
               else int(args["batchSize"]))
@@ -70,9 +77,9 @@ def resolve_n_data(args: dict, device: torch.device, world: int | None = None) -
 
 
 def average_gradients(params: Iterable[torch.Tensor], mesh: Mesh) -> None:
-    """Replace every parameter's gradient by its mean over the ranks: one
-    all-reduce (sum) a dtype of the gradients flattened into one buffer,
-    then a division by the world size. A parameter without a gradient
+    """Replace every parameter's gradient by its mean over the data group:
+    one all-reduce (sum) a dtype of the gradients flattened into one
+    buffer, then a division by ``n_data``. A parameter without a gradient
     takes part with zeros, so the ranks' buffers always match."""
     by_dtype: dict[torch.dtype, list[torch.Tensor]] = {}
     for p in params:
@@ -81,7 +88,7 @@ def average_gradients(params: Iterable[torch.Tensor], mesh: Mesh) -> None:
         by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
     for grads in by_dtype.values():
         flat = torch.cat([g.reshape(-1) for g in grads])
-        dist.all_reduce(flat, group=mesh.group)
+        dist.all_reduce(flat, group=mesh.data_group)
         flat.div_(mesh.n_data)
         offset = 0
         for g in grads:
@@ -90,13 +97,13 @@ def average_gradients(params: Iterable[torch.Tensor], mesh: Mesh) -> None:
 
 
 def mean_metrics(metrics: dict[str, torch.Tensor], mesh: Mesh) -> dict[str, torch.Tensor]:
-    """The scalar metrics averaged over the ranks (one all-reduce of them
-    stacked in float32); no host sync."""
+    """The scalar metrics averaged over the data group (one all-reduce of
+    them stacked in float32); no host sync."""
     if not metrics:
         return metrics
     keys = list(metrics)
     stacked = torch.stack([metrics[k].detach().float().reshape(()) for k in keys])
-    dist.all_reduce(stacked, group=mesh.group)
+    dist.all_reduce(stacked, group=mesh.data_group)
     stacked.div_(mesh.n_data)
     return dict(zip(keys, stacked.unbind()))
 
@@ -109,21 +116,25 @@ def agree_max(flag: bool, mesh: Mesh) -> torch.Tensor:
     return t
 
 
-def gather_rows(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """Every rank's rows of ``t [n, ...]`` in rank order, ``[W * n, ...]``
-    on every rank (the same n on each)."""
+def _gather(t: torch.Tensor, index: int, size: int, group) -> torch.Tensor:
     n = t.shape[0]
-    out = torch.zeros((mesh.n_data * n,) + tuple(t.shape[1:]), dtype=t.dtype, device=t.device)
-    out[mesh.rank * n:(mesh.rank + 1) * n] = t
-    dist.all_reduce(out, group=mesh.group)
+    out = torch.zeros((size * n,) + tuple(t.shape[1:]), dtype=t.dtype, device=t.device)
+    out[index * n:(index + 1) * n] = t
+    dist.all_reduce(out, group=group)
     return out
+
+
+def gather_rows(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Every data coordinate's rows of ``t [n, ...]`` in order, ``[n_data *
+    n, ...]`` on every rank (the same n on each)."""
+    return _gather(t, mesh.d, mesh.n_data, mesh.data_group)
 
 
 def gather_values(values: list[float], mesh: Mesh) -> np.ndarray:
     """Every rank's ``values`` (the same count on each) as ``[W, n]``
-    float64 on every rank."""
+    float64 on every rank, by global rank."""
     t = torch.tensor(values, dtype=torch.float64).reshape(1, -1).to(mesh.device)
-    return gather_rows(t, mesh).cpu().numpy()
+    return _gather(t, mesh.rank, mesh.world, mesh.group).cpu().numpy()
 
 
 def sync(mesh: Mesh) -> None:

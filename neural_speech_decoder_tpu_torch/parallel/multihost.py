@@ -8,9 +8,10 @@ program everywhere:
     from neural_speech_decoder_tpu_torch.parallel.multihost import (
         initialize, make_global_mesh)
     initialize()                  # env-driven, as torchrun sets it
-    mesh = make_global_mesh()     # the 'data' axis over every rank
-    # train_model(args) then trains data-parallel over the group: every
-    # rank samples the same global batch and keeps its local_rows.
+    mesh = make_global_mesh(n_model=2)  # the (data, model) grid of ranks
+    # train_model(args) then trains over the group: every rank samples the
+    # same global batch and keeps its data coordinate's local_rows, and
+    # with n_model_devices > 1 its shard of the sharded parameters.
 
 Every rank stages its own rows (``stage_local_batch``), so the JAX
 trainer's ``multihost_staging`` switch takes the port's one path.
@@ -76,8 +77,8 @@ def default_backend(device: torch.device) -> str:
 
 
 def make_global_mesh(n_model: int = 1, *, device: torch.device | str | None = None) -> Mesh:
-    """The ('data', 'model') mesh over every rank of the job (``n_model >
-    1`` raises: tensor parallelism is not ported yet)."""
+    """The ('data', 'model') mesh over every rank of the job: ``n_model``
+    ranks a model group, the world size over it the 'data' axis."""
     return make_mesh(n_model=n_model, device=device)
 
 
@@ -93,14 +94,21 @@ def is_primary() -> bool:
     return _world()[1] == 0
 
 
-def local_rows(n_rows: int) -> slice:
+def local_rows(n_rows: int, n_model: int = 1) -> slice:
     """This process's row slice of a ``[n_rows, ...]`` global batch.
 
     Every process samples the same global batch (the same seeded RNG,
     which keeps single-process parity and exact resume at any world size),
-    then keeps its contiguous rows. Requires ``n_rows % world_size == 0``."""
+    then keeps the contiguous rows of its data coordinate: with ``n_model``
+    ranks a model group, rank ``r`` sits at ``divmod(r, n_model)``, and the
+    model ranks of one data coordinate hold the same rows. Requires
+    ``n_rows % (world_size / n_model) == 0``."""
     world, rank = _world()
-    return batch_sharding(Mesh(world, rank, torch.device("cpu")), n_rows)
+    if world % n_model:
+        raise ValueError(f"local_rows: n_model={n_model} does not divide the "
+                         f"{world} process(es)")
+    return batch_sharding(Mesh(world // n_model, rank, torch.device("cpu"),
+                               n_model=n_model), n_rows)
 
 
 def stage_local_batch(mesh: Mesh, arrays: tuple) -> tuple[torch.Tensor, ...]:

@@ -7,10 +7,13 @@ In ``<outputDir>``:
 - ``args``: the pickled run config, written at start (same file as the
   reference's and the JAX package's);
 - ``trainingStats``: the pickled ``{testLoss, testCER}`` history;
-- ``modelState``: ``{"params": tree}``, the weights at the best eval CER;
+- ``modelState``: ``{"params": tree}``, the weights at the best eval CER
+  (whole under tensor parallelism, in the run's qkv layout, as JAX's);
 - ``lastState``: ``{"params", "optimizer", "scheduler", "step"}``, the full
   train state, written every ``checkpointEvery`` steps, at the end and on
-  preemption;
+  preemption (a Conformer's also records ``qkv_interleaved``, its qkv
+  layout); under tensor parallelism every leaf and Adam moment whole,
+  joined from the model ranks' shards;
 - ``trainerState``: the pickled host-side resume state (``step``,
   ``testLoss``, ``testCER``, the numpy sampler's ``np_rng_state``).
 

@@ -10,7 +10,8 @@ installed as ``nsd-train-torch``:
 
 The run trains on ``device`` (default ``cuda``; ``device=cpu`` for the CPU),
 data-parallel over every visible card by default (``n_data_devices``: JAX's
-rule; one rank process a card, started by ``train_model``). Under
+rule; one rank process a card, started by ``train_model``), and
+tensor-parallel with ``n_model_devices`` (``n_data x n_model`` ranks). Under
 ``torchrun`` (``WORLD_SIZE`` > 1) each process joins the group first
 (``parallel/multihost.py::initialize``) and is one rank:
 

@@ -27,13 +27,35 @@ rows of the global draws (``ops/rows.py``); the gradients are averaged
 before the clip and the optimizer, and the logged loss terms too; the eval
 rows are split over the ranks and gathered; rank 0 alone writes the run
 directory; a SIGTERM or SIGUSR1 on any rank stops every rank at the same
-step. Tensor parallelism (``n_model_devices`` > 1) raises
-``NotImplementedError``. Deliberate differences from JAX: a process per
-device, not one process driving every local device; ``multihost_staging``
-takes the one path (every rank stages its own rows; device-resident data
-stays on); the backend is an argument of ``initialize`` (``nccl`` for cards
-and ``gloo`` for the CPU by default; gloo on a card only when the caller
-makes such a group); the eval is split and gathered on one host too.
+step.
+
+Tensor parallelism (``n_model_devices`` > 1, the JAX trainer's
+``parallel/shardings.py`` branch, ``training/trainer.py:532-575``) makes
+the ranks an ``(n_data, n_model)`` grid (``parallel/mesh.py``): rank ``r``
+at ``(d, m) = divmod(r, n_model)``, ``n_data * n_model`` rank processes
+when ``train_model`` starts them. Every rank builds the same whole model,
+then keeps its shards of the sharded leaves (``models/api.py::
+shard_model``; the Conformer's qkv interleaved first, as JAX's
+``shard_params``), and the optimizer updates them; the model ranks of one
+data coordinate hold its rows and run the forward together; the gradients
+are averaged over the data group only; the clip's global norm and the watch
+norms sum the squares of sharded leaves over the model group and count a
+replicated leaf once; the checkpoints hold the whole parameters (and Adam
+moments), gathered, in the run's layout (interleaved for a TP Conformer,
+as JAX's), with the run's ``args``. ``resume`` reshards them at any grid,
+as JAX's restore re-installs its live shardings; a Conformer checkpoint
+whose qkv layout differs from the run's (a TP run resumed on one model
+rank, or the reverse) is relaid out, where JAX would read the columns in
+the wrong order. Deliberate differences from JAX: a process per device,
+not one process driving every local device; ``multihost_staging`` takes
+the one path (every rank stages its own rows; device-resident data stays
+on); the backend is an argument of ``initialize`` (``nccl`` for cards and
+``gloo`` for the CPU by default; gloo on a card only when the caller makes
+such a group); the eval is split and gathered on one host too; sharded
+dimensions must divide by ``n_model`` (JAX pads uneven shards);
+``fused_ffn`` under tensor parallelism raises (``models/conformer.py``),
+and the GRU's recurrence runs whole on every model rank (``models/
+gru.py``).
 
 The device comes from ``args["device"]`` (default ``"cuda"``, which raises
 without a card). The noise and dropout of step ``i`` come from a
@@ -73,7 +95,14 @@ from ..data.batching import (
 )
 from ..data.dataset import PackedDataset, load_pickle_dataset, pack_days
 from ..data.device_data import DeviceData
-from ..models.api import Decoder, build_model, forward
+from ..models.api import (
+    Decoder,
+    build_model,
+    config_from_args,
+    forward,
+    model_type_of,
+    shard_model,
+)
 from ..ops.ctc import ctc_loss
 from ..ops.decode import batch_per, greedy_decode
 from ..ops.kernels import launch_counts
@@ -81,7 +110,6 @@ from ..ops.noise import apply_noise
 from ..ops.rows import BatchShard
 from ..parallel import data_parallel as dp
 from ..parallel.mesh import (
-    TP_NOT_PORTED,
     Mesh,
     batch_shard,
     batch_sharding,
@@ -90,6 +118,16 @@ from ..parallel.mesh import (
     replicated,
 )
 from ..parallel.multihost import default_backend
+from ..parallel.shardings import (
+    check_shardable,
+    gather_params,
+    leaf_dim,
+    named_leaves,
+    relayout_attention,
+    relayout_leaf,
+    shard_params,
+)
+from ..parallel.tensor_parallel import ModelShard, join, split
 from ..utils.logging import MetricLogger
 from .checkpoints import CheckpointManager, load_args, save_args, save_training_stats
 from .optim import grad_clip_norm, lr_schedule, make_optimizer
@@ -108,13 +146,9 @@ def resolve_device(args: dict) -> torch.device:
     return device
 
 
-def check_parallel_args(args: dict) -> None:
-    """Raise ``NotImplementedError`` for tensor parallelism
-    (``n_model_devices`` > 1), which the port does not implement yet;
-    ``n_data_devices`` and ``multihost_staging`` are taken."""
-    n_model = int(args.get("n_model_devices") or 1)
-    if n_model > 1:
-        raise NotImplementedError(f"n_model_devices={n_model}: {TP_NOT_PORTED}")
+def n_model_devices(args: dict) -> int:
+    """The size of the 'model' axis (``n_model_devices``; a YAML null is 1)."""
+    return int(args.get("n_model_devices") or 1)
 
 
 _warned_rng_impl = False
@@ -226,6 +260,51 @@ def _named_leaves(tree, prefix: str) -> list[tuple[str, torch.Tensor]]:
     return [(prefix, tree)]
 
 
+def sharded_flags(model: Decoder) -> list[bool]:
+    """For each of ``model.parameters()``, whether it is a shard of a leaf
+    that tensor parallelism splits (all False for a whole model)."""
+    if getattr(model, "tp", None) is None:
+        return [False] * len(list(model.parameters()))
+    paths = _param_paths(model)
+    mt = model_type_of(model.cfg)
+    return [leaf_dim(paths[id(p)], mt) is not None for p in model.parameters()]
+
+
+def _param_paths(model: Decoder) -> dict[int, tuple]:
+    """``id(parameter) -> path`` in the model's parameter tree."""
+    return {id(p): path for path, p in named_leaves(model.params)}
+
+
+def _sum_over_model(squares: torch.Tensor, flags: list[bool], tp: ModelShard | None):
+    """Per-leaf squared norms with a sharded leaf's summed over the model
+    group (one all-reduce), a replicated leaf's as they are."""
+    if tp is None or not any(flags):
+        return squares
+    mask = torch.tensor(flags, device=squares.device)
+    part = torch.where(mask, squares, torch.zeros((), device=squares.device,
+                                                  dtype=squares.dtype))
+    dist.all_reduce(part, group=tp.group)
+    return torch.where(mask, part, squares)
+
+
+def clip_grad_norm(params: list[torch.Tensor], max_norm: float, flags: list[bool],
+                   tp: ModelShard | None) -> torch.Tensor:
+    """``torch.nn.utils.clip_grad_norm_`` over the whole model when some
+    ``params`` (``flags``) are this model rank's shards: the global norm
+    sums the squares of the sharded leaves over the model group and counts
+    each replicated leaf once, so every rank scales by the single-device
+    factor. Returns the norm before clipping."""
+    if tp is None:
+        return torch.nn.utils.clip_grad_norm_(params, max_norm)
+    grads = [p.grad for p in params]
+    norms = torch.stack([torch.linalg.vector_norm(g, 2.0) for g in grads])
+    total = _sum_over_model(norms.float() ** 2, flags, tp).sum().sqrt()
+    coef = torch.clamp(max_norm / (total + 1e-6), max=1.0)
+    for g in grads:
+        g.mul_(coef.to(g.dtype))
+    return total
+
+
 def make_train_step(
     args: dict,
     model: Decoder,
@@ -238,31 +317,43 @@ def make_train_step(
     tensors (reading them waits for the step). With ``watch_log_freq > 0``
     they include per-leaf gradient and parameter norms
     (``train/grad_norm/<path>``, ``train/param_norm/<path>``, on the
-    parameters before the update). With a process group in ``mesh`` the
-    batch is this rank's rows of the global batch: the gradients and the
-    loss terms are averaged over the ranks after the backward, so that the
-    clip, the norms, the update and the metrics are the global batch's."""
+    parameters before the update). With a 'data' axis in ``mesh`` the batch
+    is this rank's rows of the global batch: the gradients and the loss
+    terms are averaged over the data group after the backward, so that the
+    clip, the norms, the update and the metrics are the global batch's.
+    With a 'model' axis (``model.tp``) the model holds this rank's shards:
+    the clip and the norms of the sharded leaves are the whole leaves'."""
     watch = int(args.get("watch_log_freq", 100)) > 0
     clip = grad_clip_norm(args)
-    distributed = mesh is not None and mesh.distributed
+    data_parallel = mesh is not None and mesh.n_data > 1
+    params = list(model.parameters())
+    flags = sharded_flags(model)
+    tp = getattr(model, "tp", None)
+    leaves = _named_leaves(model.params, "")
+    leaf_flags = dict(zip(map(id, params), flags))
 
     def train_step(batch, generator):
         optimizer.zero_grad(set_to_none=True)
-        shard = batch_shard(mesh, batch[0].shape[0]) if distributed else None
+        shard = batch_shard(mesh, batch[0].shape[0]) if data_parallel else None
         loss, metrics = _loss_and_metrics(args, model, batch, generator, shard=shard)
         loss.backward()
-        if distributed:
-            dp.average_gradients(model.parameters(), mesh)
+        if data_parallel:
+            dp.average_gradients(params, mesh)
             metrics = dp.mean_metrics(metrics, mesh)
         if clip is not None:
             # clip_grad_norm_ returns the norm before clipping
-            metrics["train/grad_norm"] = torch.nn.utils.clip_grad_norm_(
-                model.parameters(), clip)
+            metrics["train/grad_norm"] = clip_grad_norm(params, clip, flags, tp)
         if watch:
             with torch.no_grad():
-                for path, p in _named_leaves(model.params, ""):
-                    metrics["train/grad_norm" + path] = p.grad.float().norm()
-                    metrics["train/param_norm" + path] = p.float().norm()
+                gn = [p.grad.float().norm() for _, p in leaves]
+                pn = [p.float().norm() for _, p in leaves]
+                if tp is not None:
+                    lf = [leaf_flags[id(p)] for _, p in leaves]
+                    gn = _sum_over_model(torch.stack(gn) ** 2, lf, tp).sqrt().unbind()
+                    pn = _sum_over_model(torch.stack(pn) ** 2, lf, tp).sqrt().unbind()
+                for (path, _), g, w in zip(leaves, gn, pn):
+                    metrics["train/grad_norm" + path] = g
+                    metrics["train/param_norm" + path] = w
         optimizer.step()
         scheduler.step()
         return {k: v.detach() for k, v in metrics.items()}
@@ -308,10 +399,11 @@ def run_eval(
     length-normalized loss (``torch_mean_semantics``, the runs without
     label smoothing) or the sum of the real rows' losses. With
     ``device_data`` (``test_ds`` on the device) the batches are assembled
-    there. With a process group in ``mesh`` each rank runs its rows of
-    every batch and the outputs are gathered, so every rank computes the
-    single-device metrics (JAX's ``process_allgather``)."""
-    distributed = mesh is not None and mesh.distributed
+    there. With a 'data' axis in ``mesh`` each data coordinate runs its
+    rows of every batch (its model ranks together) and the outputs are
+    gathered over the data group, so every rank computes the single-device
+    metrics (JAX's ``process_allgather``)."""
+    distributed = mesh is not None and mesh.n_data > 1
     batch_scalars = []
     total_dist = 0
     total_len = 0
@@ -352,14 +444,18 @@ def train_model(args: dict) -> dict:
     sampler state, same per-step noise, same metric history), at any world
     size. The handlers are installed before the slow set-up and restored on
     every exit. With no process group and ``n_data_devices`` resolving
-    above 1, the run goes to that many rank processes started here (the
-    signals passed on to them), and rank 0's summary is returned."""
-    check_parallel_args(args)
+    above 1, or ``n_model_devices`` above 1, the run goes to ``n_data x
+    n_model`` rank processes started here (the signals passed on to them),
+    and rank 0's summary is returned. A config that tensor parallelism
+    cannot shard raises ``ValueError`` before anything is written."""
+    n_model = n_model_devices(args)
+    if n_model > 1:
+        check_shardable(config_from_args(args, 1), n_model)
     if not dist.is_initialized():
         device = resolve_device(args)
-        n_data = dp.resolve_n_data(args, device)
-        if n_data > 1:
-            return _train_ranks(args, device, n_data)
+        n_ranks = dp.resolve_n_data(args, device) * n_model
+        if n_ranks > 1:
+            return _train_ranks(args, device, n_ranks)
     preempt_requested = threading.Event()
 
     def _request_stop(signum, frame):
@@ -378,12 +474,12 @@ def train_model(args: dict) -> dict:
             signal.signal(sig, h)
 
 
-def _train_ranks(args: dict, device: torch.device, n_data: int) -> dict:
-    """``train_model`` over ``n_data`` rank processes of a new group: card
+def _train_ranks(args: dict, device: torch.device, n_ranks: int) -> dict:
+    """``train_model`` over ``n_ranks`` rank processes of a new group: card
     ``r`` of the visible ones for rank ``r`` (or the CPU for each), the
     group's timeout ``dist_timeout_s`` (default the backend's)."""
-    devices = ([torch.device("cuda", r) for r in range(n_data)] if device.type == "cuda"
-               else [device] * n_data)
+    devices = ([torch.device("cuda", r) for r in range(n_ranks)] if device.type == "cuda"
+               else [device] * n_ranks)
     rank_args = [({**args, "device": str(d)},) for d in devices]
     timeout = args.get("dist_timeout_s")
     return dp.launch(train_model, rank_args, devices=devices,
@@ -414,33 +510,36 @@ def _stop_profile(prof, device: torch.device, output_dir: str, first: int,
 
 
 def make_run_mesh(args: dict, device: torch.device) -> Mesh:
-    """The run's mesh: the process group's ranks when one is initialized
-    (each on ``device``; ``cuda`` means ``cuda:LOCAL_RANK``), else this
-    process alone. The group's size must be the size JAX's rule gives the
-    'data' axis, and the eval batches must split over it too."""
+    """The run's mesh: the process group's ranks as an ``(n_data,
+    n_model_devices)`` grid when one is initialized (each on ``device``;
+    ``cuda`` means ``cuda:LOCAL_RANK``), else this process alone. The
+    group's size over ``n_model_devices`` must be the size JAX's rule gives
+    the 'data' axis, and the eval batches must split over it too."""
+    n_model = n_model_devices(args)
     if not dist.is_initialized():
-        return make_mesh(device=device)
+        return make_mesh(n_model=n_model, device=device)
     if device.type == "cuda" and device.index is None:
         device = default_device()  # cuda:LOCAL_RANK
     if dist.get_backend() == "nccl" and device.type != "cuda":
         raise ValueError(f"device {device} in an nccl process group; use gloo for the CPU")
     world = dist.get_world_size()
     n_data = dp.resolve_n_data(args, device, world=world)
-    if n_data != world or int(args["batchSize"]) % world:
+    if n_data * n_model != world or int(args["batchSize"]) % n_data:
         raise ValueError(
             f"the process group has {world} ranks, but batchSize={args['batchSize']}, "
-            f"n_data_devices={args.get('n_data_devices')}, tokensPerBatch="
-            f"{args.get('tokensPerBatch', 0)} give the 'data' axis {n_data} (JAX's rule) "
-            f"or do not split the eval batches")
+            f"n_data_devices={args.get('n_data_devices')}, n_model_devices={n_model}, "
+            f"tokensPerBatch={args.get('tokensPerBatch', 0)} give the 'data' axis "
+            f"{n_data} (JAX's rule) or do not split the eval batches")
     if device.type == "cuda":
         torch.cuda.set_device(device)
-    return make_mesh(device=device)
+    return make_mesh(n_model=n_model, device=device)
 
 
 def _train_model_impl(args: dict, preempt_requested: threading.Event) -> dict:
     warn_unused_args(args)
     mesh = make_run_mesh(args, resolve_device(args))
     device, primary, distributed = mesh.device, mesh.primary, mesh.distributed
+    data_parallel = mesh.n_data > 1
     output_dir = args["outputDir"]
     seed = int(args.get("seed", 0))
     np_rng = np.random.default_rng(seed)
@@ -473,6 +572,9 @@ def _train_model_impl(args: dict, preempt_requested: threading.Event) -> dict:
     model = build_model(args, n_days, device, seed)
     replicated(mesh, list(model.parameters()))
     n_params = sum(p.numel() for p in model.parameters())
+    tp = mesh.model_shard
+    if tp is not None:  # this rank's shards, as JAX's shard_params after init
+        model = shard_model(model, tp)
     print(f"Model has {n_params:,} parameters ({n_params:,} trainable)")
     logger.log({"model/total_parameters": n_params,
                 "model/trainable_parameters": n_params}, step=0)
@@ -493,10 +595,12 @@ def _train_model_impl(args: dict, preempt_requested: threading.Event) -> dict:
     test_cer: list[float] = []
     start_step = 0
     if args.get("resume") and ckpt.exists("lastState"):
-        # every rank reads what rank 0 wrote
+        # every rank reads what rank 0 wrote: whole leaves, resharded
         state = ckpt.restore("lastState", device)
-        model.load_params(state["params"])
-        optimizer.load_state_dict(state["optimizer"])
+        params, opt_state = _restore_layout(model, state)
+        model.load_params(shard_params(params, model.tp, model_type_of(model.cfg)))
+        optimizer.load_state_dict(_map_optimizer_state(
+            model, opt_state, lambda path, v, dim: split(v, dim, tp)))
         scheduler.load_state_dict(state["scheduler"])
         side = ckpt.load_sidecar()
         start_step = int(side["step"])
@@ -506,13 +610,18 @@ def _train_model_impl(args: dict, preempt_requested: threading.Event) -> dict:
         print(f"Resumed from step {start_step}")
 
     def save_last(step):
+        # the model group joins the whole leaves; rank (0, 0) writes them
+        params = _whole_params(model)
+        opt_state = _map_optimizer_state(model, optimizer.state_dict(),
+                                         lambda path, v, dim: join(v, dim, tp))
         if not primary:
             return
         ckpt.save("lastState", {
-            "params": model.params,
-            "optimizer": optimizer.state_dict(),
+            "params": params,
+            "optimizer": opt_state,
             "scheduler": scheduler.state_dict(),
             "step": step + 1,
+            **_layout_of(model),
         })
         ckpt.save_sidecar({
             "step": step + 1,
@@ -542,7 +651,7 @@ def _train_model_impl(args: dict, preempt_requested: threading.Event) -> dict:
     test_dd = DeviceData(test_ds, device) if device_data else None
 
     def put_batch(batch: Batch) -> tuple[torch.Tensor, ...]:
-        if distributed:
+        if data_parallel:
             # every rank sampled the same global batch: keep this rank's rows
             batch = batch_rows(train_ds, batch, batch_sharding(mesh, len(batch.idx)),
                                materialize_x=not device_data)
@@ -593,7 +702,7 @@ def _train_model_impl(args: dict, preempt_requested: threading.Event) -> dict:
             prof = _start_profile(device)
         batch = sample_batch(train_ds, np_rng, batch_size, t_max, u_max,
                              buckets=buckets, bucket_sizes=bucket_sizes,
-                             materialize_x=not (device_data or distributed))
+                             materialize_x=not (device_data or data_parallel))
         metrics = train_step(put_batch(batch), step_generator(device, seed, step))
         stop = dp.agree_max(preempt_requested.is_set(), mesh) if distributed else None
         if step == profile_stop and prof is not None:
@@ -626,8 +735,9 @@ def _train_model_impl(args: dict, preempt_requested: threading.Event) -> dict:
             # every rank gathered the same outputs, so all decide alike
             prev_best = np.min(test_cer) if test_cer else np.inf
             if cer < prev_best and not (compat_skip_first and not test_cer):
+                best = _whole_params(model)
                 if primary:
-                    ckpt.save("modelState", {"params": model.params})
+                    ckpt.save("modelState", {"params": best})
                 logger.log({"eval/best_cer": cer}, step=step)
                 print(f"  → New best model saved! CER: {cer:.6f}")
             test_loss.append(avg_loss)
@@ -673,6 +783,56 @@ def _train_model_impl(args: dict, preempt_requested: threading.Event) -> dict:
     print(f"\n{'=' * 60}\nTraining completed!\nFinal CER: {final_cer:.6f}\n"
           f"Best CER: {best_cer:.6f}\n{'=' * 60}\n")
     return summary
+
+
+def _whole_params(model: Decoder) -> dict:
+    """The model's parameter tree with every shard joined over the model
+    group (a collective under tensor parallelism)."""
+    return gather_params(model.params, model.tp, model_type_of(model.cfg))
+
+
+def _map_optimizer_state(model: Decoder, state_dict: dict, fn,
+                         sharded_only: bool = True) -> dict:
+    """An optimizer state dict with ``fn(path, v, dim)`` applied to every
+    per-element state tensor (Adam's moments) of a sharded leaf (or of
+    every leaf, ``sharded_only=False``), in one order on every rank; the
+    state dict itself for a whole model when ``sharded_only``."""
+    if sharded_only and getattr(model, "tp", None) is None:
+        return state_dict
+    paths = _param_paths(model)
+    mt = model_type_of(model.cfg)
+    order = [paths[id(p)] for p in model.parameters()]
+    state = {}
+    for i in sorted(state_dict["state"]):
+        path = order[i]
+        dim = leaf_dim(path, mt)
+        apply = dim is not None or not sharded_only
+        state[i] = {k: fn(path, v, dim) if apply and torch.is_tensor(v) and v.dim() else v
+                    for k, v in state_dict["state"][i].items()}
+    return {**state_dict, "state": state}
+
+
+def _layout_of(model: Decoder) -> dict:
+    """What a checkpoint records of the Conformer's qkv layout."""
+    cfg = model.cfg
+    return {"qkv_interleaved": cfg.qkv_interleaved} if hasattr(cfg, "num_heads") else {}
+
+
+def _restore_layout(model: Decoder, state: dict) -> tuple[dict, dict]:
+    """A ``lastState``'s whole params and optimizer state in the model's qkv
+    layout: a Conformer checkpoint written in the other layout (a
+    tensor-parallel run resumed on one model rank, or the reverse) has its
+    in_proj columns and their Adam moments relaid out. A checkpoint that
+    records no layout is read as it is."""
+    params, opt = state["params"], state["optimizer"]
+    cfg = model.cfg
+    saved = state.get("qkv_interleaved")
+    if saved is None or not hasattr(cfg, "num_heads") or saved == cfg.qkv_interleaved:
+        return params, opt
+    heads, to = cfg.num_heads, cfg.qkv_interleaved
+    return (relayout_attention(params, heads, to),
+            _map_optimizer_state(model, opt, lambda path, v, dim: relayout_leaf(
+                path, v, heads, to), sharded_only=False))
 
 
 def _run_trace(mesh: Mesh, steps_wall: list[float], launches0: dict) -> dict:

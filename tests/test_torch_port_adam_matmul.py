@@ -56,6 +56,7 @@ from neural_speech_decoder_tpu_torch.models.convert import (
 from neural_speech_decoder_tpu_torch.models.gru import GRUConfig, GRUDecoder, init_gru_params
 from neural_speech_decoder_tpu_torch.ops.kernels import matmul as port_mm
 from neural_speech_decoder_tpu_torch.ops.kernels.adam import adam_scalars, adam_update
+from neural_speech_decoder_tpu_torch.parallel import data_parallel as port_dp
 from neural_speech_decoder_tpu_torch.training import cli
 from neural_speech_decoder_tpu_torch.training import trainer as port_trainer
 from neural_speech_decoder_tpu_torch.training.checkpoints import CheckpointManager
@@ -570,14 +571,23 @@ def test_cli_multirun_raises(tmp_path):
         cli.main(_cli_args(tmp_path, "lrStart=0.01,0.02"))
 
 
-@pytest.mark.parametrize("arg", [{"n_data_devices": 2, "n_model_devices": 2},
-                                 {"n_model_devices": 4},
-                                 {"multihost_staging": True, "n_model_devices": 2}])
-def test_unported_multi_device_args_raise(tmp_path, arg):
-    """Tensor parallelism is the one multi-device arg left unported: with it
-    the run raises before it writes anything, whatever else it asks
-    (data parallelism and ``multihost_staging`` run,
-    ``tests/test_torch_port_data_parallel.py``)."""
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        train_model(_run_args(tmp_path, 2, **arg))
+@pytest.mark.parametrize("arg, ranks", [({"n_data_devices": 2, "n_model_devices": 2}, 4),
+                                        ({"n_model_devices": 4}, 4),
+                                        ({"multihost_staging": True, "n_model_devices": 2}, 2)])
+def test_unported_multi_device_args_raise(tmp_path, monkeypatch, arg, ranks):
+    """The multi-device args are all ported since tensor parallelism
+    (``tests/test_torch_port_tensor_parallel.py``): on the CPU the run goes
+    to ``n_data x n_model`` gloo rank processes, and nothing is written
+    before they start. On ``cuda`` with fewer cards than model ranks the
+    size of the 'data' axis raises ``ValueError`` as JAX's trainer does
+    (``training/trainer.py:538-542``), before the run writes anything."""
+    started = []
+    monkeypatch.setattr(port_trainer, "_train_ranks",
+                        lambda args, device, n: started.append((str(device), n)) or {})
+    args = _run_args(tmp_path, 2, **arg)
+    train_model(args)
+    assert started == [("cpu", ranks)]
     assert not (tmp_path / "args").exists()
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="exceeds the 1 available device"):
+        port_dp.resolve_n_data(args, torch.device("cuda"))

@@ -424,10 +424,17 @@ def test_n_data_resolves_as_jax(case, tmp_path, monkeypatch):
 
 
 def test_tensor_parallelism_still_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        train_model({"outputDir": str(tmp_path), "device": "cpu", **_gru_args(),
-                     "n_model_devices": 2})
-    with pytest.raises(NotImplementedError, match="next slice"):
+    """What tensor parallelism still refuses, before anything is written: a
+    head count the 'model' axis does not divide (JAX's ``shard_params``
+    message), the fused FF kernel (it needs the whole FF weights), and a
+    grid that one process cannot hold."""
+    conf = {"outputDir": str(tmp_path), "device": "cpu", **_conformer_args(),
+            "n_model_devices": 2}
+    with pytest.raises(ValueError, match="num_heads=3 not divisible by the 'model'"):
+        train_model({**conf, "transformer_n_heads": 3, "latent_dim": 96})
+    with pytest.raises(ValueError, match="fused_ffn under tensor parallelism"):
+        train_model({**conf, "fused_ffn": True})
+    with pytest.raises(ValueError, match="does not divide"):
         make_mesh(n_model=2, device="cpu")
     assert not (tmp_path / "args").exists()
 
