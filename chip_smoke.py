@@ -234,6 +234,21 @@ random weights:
     every rank's launches by body exact. (d) with two cards or more, (a)
     over nccl on two cards, else one line saying it did not run. The
     ranks' launches count in the kernels line.
+21. Tensor-parallel rescoring and the multichip dryrun (lines start
+    ``tpllm``), run after phase 20: the LLM engine at OPT-6.7B shapes on
+    random weights drawn on the card, two gloo model ranks on the one card
+    (a 1x2 grid) against this process's one-rank engine on the same
+    weights, bf16 and int8: (a) each rank draws only its shards
+    (``synth_params_on_device(shardings=, mesh=)``), whose sha256 per
+    leaf equals that of the same slice of the one-rank tree, with its
+    seconds and peak memory; (b) bf16 and (c) int8 log-probs of 8 batches
+    of ``LLM_BATCH`` sentences (``params_scorer(mesh=)``) within
+    ``LLM_TOL`` relative of one rank's, the largest difference, top-1
+    agreement over the whole n-best lists, seq/s; (d)
+    ``parallel/dryrun.py::dryrun_multichip(2)`` on the card, every rank's
+    launches by body exact in every stage (into the kernels line); (e)
+    with two cards or more, (b) over nccl on two cards, else one line
+    saying it did not run.
 The default GRU and Conformer phases check that the fused kernels and the
 GRU's opt-in kernels launch no time there. Every GRU phase checks the scan
 launches by body: all bfloat16 scans at full width on the persistent body,
@@ -261,6 +276,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -355,7 +371,10 @@ from neural_speech_decoder_tpu_torch.ops.kernels.matmul import (
 )
 from neural_speech_decoder_tpu_torch.parallel import data_parallel as dp
 from neural_speech_decoder_tpu_torch.parallel import multihost, sweep
+from neural_speech_decoder_tpu_torch.parallel.dryrun import dryrun_multichip
+from neural_speech_decoder_tpu_torch.parallel.mesh import make_mesh
 from neural_speech_decoder_tpu_torch.parallel.shardings import deinterleave_attention_params
+from neural_speech_decoder_tpu_torch.parallel.tensor_parallel import ModelShard
 from neural_speech_decoder_tpu_torch.serving import (
     export_beam,
     export_streaming_conformer_params,
@@ -2975,14 +2994,20 @@ def llm_bound_ms(spec, sentences, wbytes: int) -> tuple[float, float]:
     return wbytes / HBM_BPS * 1e3, float(np.mean(ops_ms))
 
 
-def time_scorer(tag: str, params, spec, sentences, card: str) -> np.ndarray:
-    score = llm_engine.params_scorer(params, spec, id_tokenizer, batch_size=LLM_BATCH)
-    score(sentences[:LLM_BATCH])  # warm-up
+def timed_scores(score, sentences: list[str]) -> tuple[np.ndarray, float]:
+    """A scorer's log-probs of ``sentences`` after a warm-up batch, and the
+    seconds they took."""
+    score(sentences[:LLM_BATCH])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     lp = np.asarray(score(sentences))
     torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    return lp, time.perf_counter() - t0
+
+
+def time_scorer(tag: str, params, spec, sentences, card: str) -> np.ndarray:
+    score = llm_engine.params_scorer(params, spec, id_tokenizer, batch_size=LLM_BATCH)
+    lp, dt = timed_scores(score, sentences)
     n_batches = -(-len(sentences) // LLM_BATCH)
     wbytes = tree_bytes(params)
     bytes_ms, ops_ms = llm_bound_ms(spec, sentences, wbytes)
@@ -4122,6 +4147,218 @@ def tensor_parallel_phase(card: str) -> dict:
     return launches
 
 
+# ------------------------------------------------ tensor-parallel rescoring
+
+TPLLM_BATCHES = 8  # batches of LLM_BATCH sentences scored on the 1x2 grid
+TPLLM_DIGEST_CHUNK = 64 << 20  # bytes of a leaf copied to the host at a time
+TPLLM_MODEL = 2  # model ranks
+TPLLM_TAGS = {"bf16": False, "int8": True}
+
+
+def leaf_digest(t: torch.Tensor, dim: int | None = None, tp: ModelShard | None = None) -> str:
+    """sha256 of a leaf's bytes in C order, or of model rank ``tp``'s slice
+    of it along ``dim`` (never 0 in the engine's table), copied to the host
+    a few leading rows at a time."""
+    if dim is not None and tp is not None:
+        per = t.shape[dim] // tp.count
+        start = tp.index * per
+    row_bytes = max(t[0].numel() * t.element_size(), 1) if t.dim() > 1 else t.element_size()
+    step = max(1, TPLLM_DIGEST_CHUNK // row_bytes)
+    h = hashlib.sha256()
+    for i in range(0, t.shape[0], step):
+        piece = t[i: i + step]
+        if dim is not None and tp is not None:
+            piece = piece.narrow(dim, start, per)
+        h.update(piece.contiguous().view(torch.uint8).cpu().numpy())
+    return h.hexdigest()
+
+
+def tree_digests(tree: dict, dims: dict | None = None, tp: ModelShard | None = None) -> dict:
+    """``{path: sha256}`` of every leaf of an engine tree (or of rank
+    ``tp``'s slices of a whole tree, ``dims`` being ``llm_shardings``'),
+    hashed on 8 host threads."""
+    jobs = []
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            jobs += [(f"{k}.{n}", t, None if dims is None else dims[k].get(n))
+                     for n, t in v.items()]
+        else:
+            jobs.append((k, v, None if dims is None else dims.get(k)))
+    with ThreadPoolExecutor(8) as pool:
+        digests = pool.map(lambda job: leaf_digest(job[1], job[2], tp), jobs)
+        return dict(zip((job[0] for job in jobs), digests))
+
+
+def tpllm_rank(sentences: list[str]) -> dict:
+    """Phase 21 in a rank of the caller's 1x2 group, bf16 then int8: this
+    rank's shards drawn by ``synth_params_on_device(shardings=, mesh=)`` at
+    OPT-6.7B shapes (seconds, peak memory, sha256 per leaf), then
+    ``params_scorer(mesh=)``'s log-probs of ``sentences`` and their
+    seconds."""
+    mesh = make_mesh(n_model=TPLLM_MODEL,
+                     device=torch.device("cuda", torch.cuda.current_device()))
+    spec = llm_engine.opt_spec(LLM_SIZE)
+    out = {"m": mesh.m}
+    for tag, quantize in TPLLM_TAGS.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        shards = llm_engine.synth_params_on_device(
+            spec, seed=0, quantize=quantize, shardings=llm_engine.llm_shardings(spec, mesh),
+            mesh=mesh)
+        torch.cuda.synchronize()
+        draw_s, draw_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        digests = tree_digests(shards)
+        digest_s = time.perf_counter() - t0
+        score = llm_engine.params_scorer(shards, spec, id_tokenizer, batch_size=LLM_BATCH,
+                                         mesh=mesh)
+        lp, score_s = timed_scores(score, sentences)
+        out[tag] = {"draw_s": draw_s, "draw_peak": draw_peak, "digest_s": digest_s,
+                    "bytes": tree_bytes(shards), "digests": digests, "lp": lp,
+                    "score_s": score_s, "peak": torch.cuda.max_memory_allocated()}
+        del shards, score
+    return out
+
+
+def tpllm_scores_check(tag: str, got: np.ndarray, ref: np.ndarray, how: str) -> None:
+    rel = np.abs(got - ref) / np.abs(ref)
+    lists = len(ref) // LLM_HYPS
+    top_got = got[: lists * LLM_HYPS].reshape(lists, LLM_HYPS).argmax(1)
+    top_ref = ref[: lists * LLM_HYPS].reshape(lists, LLM_HYPS).argmax(1)
+    check(bool(np.isfinite(got).all()) and bool((rel <= LLM_TOL).all()),
+          f"tpllm ({tag}) {how} against one rank's engine on the same weights, "
+          f"{len(ref)} sentences: max |diff| / |log-prob| {rel.max():.3e} <= {LLM_TOL:g}, "
+          f"max |diff| {np.abs(got - ref).max():.3e}; top-1 equal on "
+          f"{int((top_got == top_ref).sum())} of {lists} whole n-best lists")
+
+
+def tpllm_dryrun_want(name: str, steps: int = 1) -> dict:
+    """A dryrun rank's launches in a stage (float32: the scans on the step
+    body, the CTC recursions on the prefetch body, the attention forward on
+    the FMA body): a GRU step's 2 layers' gates-forward and backward scans
+    and one alpha and beta; a Conformer step's 2 attention forwards and
+    backwards on the rank's heads and one alpha and beta."""
+    if name.startswith("gru_baseline"):
+        want = {"gru_scan_gates": 2, "gru_scan_gates/step": 2, "gru_scan_bwd": 2,
+                "gru_scan_bwd/step": 2}
+    else:
+        want = {"mhsa_qkv": 2, "mhsa_qkv/fma": 2, "mhsa_qkv_bwd": 2}
+    want |= {"ctc_alpha": 1, "ctc_alpha/prefetch": 1, "ctc_beta": 1, "ctc_beta/prefetch": 1}
+    return {k: v * steps for k, v in want.items()}
+
+
+def tpllm_dryrun(card: str) -> dict:
+    """(d) ``dryrun_multichip(2)`` on the card: the OK lines, every rank's
+    launches by body in every stage exact; returns the launches summed over
+    the ranks and stages."""
+    t0 = time.perf_counter()
+    res = dryrun_multichip(2, "cuda", timeout_s=600)
+    launches = {k: 0 for k in KERNELS}
+    for r in res:
+        for st in r["stages"]:
+            steps = len(st.get("losses", [0]))
+            runs = [("", st["launches"])]
+            if "one_rank_launches" in st:
+                runs.append((" (its one-rank steps)", st["one_rank_launches"]))
+                rel = max(abs(a - b) / abs(b) for a, b in zip(st["losses"],
+                                                              st["one_rank_losses"]))
+                print(f"tpllm (d) rank {r['rank']} {st['name']}: {steps} per-step losses "
+                      f"within {rel:.3e} relative of one rank's", flush=True)
+            for what, got in runs:
+                want = tpllm_dryrun_want(st["name"], steps)
+                check(got == want,
+                      f"tpllm (d) dryrun rank {r['rank']} {st['name']}{what} on "
+                      f"mesh={st['mesh']}: launches by body {got} == {want}")
+                for k in KERNELS:
+                    launches[k] += got.get(k, 0)
+    print(f"tpllm (d): dryrun_multichip(2) on {torch.cuda.device_count()} card(s), "
+          f"{len(res[0]['lines'])} stages, {time.perf_counter() - t0:.1f} s (spawn included) "
+          f"({card})", flush=True)
+    return launches
+
+
+def tpllm_phase(card: str) -> dict:
+    """Tensor-parallel rescoring and the multichip dryrun (phase 21, lines
+    start ``tpllm``): the engine at OPT-6.7B shapes, random weights drawn
+    on the card, two gloo model ranks on the one card (a 1x2 grid) against
+    this process's one-rank engine on the same weights, bf16 and int8: (a)
+    each rank's shards drawn with ``shardings=``, their sha256 per leaf
+    equal to those of the same slices of the one-rank tree, seconds and
+    peak memory per rank; (b) bf16 and (c) int8 log-probs of
+    ``TPLLM_BATCHES`` batches of ``LLM_BATCH`` sentences within ``LLM_TOL``
+    relative of one rank's, the largest difference, the top-1 agreement
+    over the whole n-best lists scored, seq/s (through gloo over host
+    memory: not a target); (d) ``dryrun_multichip(2)`` on the card, the
+    ranks' launches by body exact; (e) with two cards or more, (b) over
+    nccl on two cards, else one line saying it did not run. Returns the
+    dryrun's launches."""
+    spec = llm_engine.opt_spec(LLM_SIZE)
+    sentences = llm_sentences(np.random.default_rng(21), spec.vocab)[
+        : TPLLM_BATCHES * LLM_BATCH]
+    dims = llm_engine.llm_shardings(spec, ModelShard(0, TPLLM_MODEL))
+    ref, want, one_s = {}, {}, {}
+    for tag, quantize in TPLLM_TAGS.items():
+        params = synth_llm(spec, quantize, card)
+        t0 = time.perf_counter()
+        want[tag] = [tree_digests(params, dims, ModelShard(m, TPLLM_MODEL))
+                     for m in range(TPLLM_MODEL)]
+        print(f"tpllm (a) {tag}: sha256 of both ranks' slices of the one-rank tree in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        score = llm_engine.params_scorer(params, spec, id_tokenizer, batch_size=LLM_BATCH)
+        ref[tag], one_s[tag] = timed_scores(score, sentences)
+        del params, score
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = dp.launch(tpllm_rank, [(sentences,)] * TPLLM_MODEL,
+                      devices=["cuda:0"] * TPLLM_MODEL, backend="gloo", timeout_s=600)
+    ranks_s = time.perf_counter() - t0
+    for tag in TPLLM_TAGS:
+        for r in ranks:
+            got, m = r[tag], r["m"]
+            same = [k for k, v in want[tag][m].items() if got["digests"].get(k) == v]
+            check(sorted(got["digests"]) == sorted(want[tag][m])
+                  and len(same) == len(want[tag][m]),
+                  f"tpllm (a) {tag} model rank {m}: sha256 of {len(same)} of "
+                  f"{len(want[tag][m])} leaves equal to the one-rank tree's slices")
+            print(f"tpllm (a) {tag} model rank {m}: drew {got['bytes'] / 1e9:.2f} GB in "
+                  f"{got['draw_s']:.1f} s, peak {got['draw_peak'] / 2**30:.2f} GiB (drawing), "
+                  f"{got['peak'] / 2**30:.2f} GiB (scoring); sha256 in "
+                  f"{got['digest_s']:.1f} s ({card})", flush=True)
+        lp = [r[tag]["lp"] for r in ranks]
+        check(all(np.array_equal(lp[0], x) for x in lp),
+              f"tpllm ({'b' if tag == 'bf16' else 'c'}) {tag}: both model ranks return the "
+              f"same scores")
+        tpllm_scores_check("b" if tag == "bf16" else "c", lp[0], ref[tag],
+                           f"{tag}, 2 gloo model ranks on one card")
+        n = len(sentences)
+        print(f"tpllm ({'b' if tag == 'bf16' else 'c'}) {tag} OPT-{LLM_SIZE} shapes: {n} "
+              f"sequences in {TPLLM_BATCHES} batches of {LLM_BATCH}: 1x2 grid "
+              f"{ranks[0][tag]['score_s']:.2f} s, {n / ranks[0][tag]['score_s']:.1f} seq/s "
+              f"(gloo through host memory); one rank {one_s[tag]:.2f} s, "
+              f"{n / one_s[tag]:.1f} seq/s ({card})", flush=True)
+    print(f"tpllm: the ranks' launch {ranks_s:.1f} s (spawn and both draws included) "
+          f"({card})", flush=True)
+    launches = tpllm_dryrun(card)
+
+    # (e) two cards over NCCL
+    if torch.cuda.device_count() >= 2:
+        t0 = time.perf_counter()
+        ranks = dp.launch(tpllm_rank, [(sentences,)] * TPLLM_MODEL,
+                          devices=[f"cuda:{m}" for m in range(TPLLM_MODEL)], backend="nccl",
+                          timeout_s=600)
+        for tag in TPLLM_TAGS:
+            tpllm_scores_check("e", ranks[0][tag]["lp"], ref[tag],
+                               f"{tag}, 2 NCCL model ranks on 2 cards")
+            print(f"tpllm (e) {tag}: {ranks[0][tag]['score_s']:.2f} s for "
+                  f"{len(sentences)} sequences over nccl ({card})", flush=True)
+        print(f"tpllm (e): {time.perf_counter() - t0:.1f} s ({card})", flush=True)
+    else:
+        print(f"tpllm (e): not run: {torch.cuda.device_count()} card visible, tensor-"
+              f"parallel rescoring across cards needs 2", flush=True)
+    return launches
+
+
 # ------------------------------------------------------------------ export
 
 EXPORT_DIR = Path("runs") / "chip_smoke_export"
@@ -4402,6 +4639,10 @@ def main() -> int:
     for k, n in tensor_parallel_phase(card).items():
         launches[k] += n
     print(f"phase tensor parallel: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    for k, n in tpllm_phase(card).items():
+        launches[k] += n
+    print(f"phase tensor-parallel rescoring: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     for k, n in export_phase(card).items():
         launches[k] += n

@@ -23,7 +23,22 @@ reference-scale path, and it needs neither ``transformers``,
     quantizer. Dequantized in eager torch as
     ``q.to(cdt) * s`` per product (a bf16 copy of the layer weight per
     batch: correct, and slower than bf16 weights).
-  * **No tensor parallelism yet**: a ``mesh`` raises ``NotImplementedError``.
+  * **Tensor parallelism** (``llm_shardings`` / ``shard_params``): JAX's
+    Megatron table over the 'model' axis of the port's ``(n_data,
+    n_model)`` grid of rank processes (``parallel/mesh.py``): attention
+    head-parallel (``wqkv``'s columns are whole heads in the head-major
+    layout), the MLP column- then row-parallel, int8 ``_q/_s`` pairs
+    sharded like their float original, the rest replicated. Each rank
+    holds its contiguous slices (``parallel/tensor_parallel.py::split``);
+    the row-parallel products (``ctx @ wo``, ``h @ wproj``) are summed in
+    float32 over the model group (``reduce_from_model``) and rounded to
+    the compute dtype once, and ``bo`` / ``bproj`` are added after the
+    sum, once. ``synth_params_on_device(shardings=, mesh=)`` draws only
+    the rank's shard, bit-equal to its slice of the one-rank draw, and
+    ``engine_scorer(mesh=)`` streams a checkpoint keeping only the rank's
+    slices. The 'data' axis splits each batch's rows over the data
+    coordinates and gathers the scores (``parallel/data_parallel.py::
+    gather_rows``), where JAX replicates the batch.
 
 Engine parameter layout (head-major):
 
@@ -54,6 +69,11 @@ from typing import Callable, Iterable, Iterator
 import numpy as np
 import torch
 
+from ..ops.hashrng import uniform
+from ..parallel.data_parallel import gather_rows
+from ..parallel.mesh import Mesh, batch_sharding
+from ..parallel.shardings import model_shard_of
+from ..parallel.tensor_parallel import ModelShard, reduce_from_model, split
 from ..utils.device import resolve_device
 from .torch_lm import (
     DTYPES,
@@ -283,7 +303,8 @@ def _alloc(shapes, dtype, device="cpu"):
     return torch.empty(shapes, dtype=dtype, device=device)
 
 
-def stream_load_hf(path: str, param_dtype: str = "bfloat16", quantize: bool = False):
+def stream_load_hf(path: str, param_dtype: str = "bfloat16", quantize: bool = False,
+                   mesh: Mesh | ModelShard | None = None):
     """Load an OPT-family HF checkpoint into the engine layout, one tensor
     at a time, casting to ``param_dtype`` at read time.
 
@@ -292,38 +313,59 @@ def stream_load_hf(path: str, param_dtype: str = "bfloat16", quantize: bool = Fa
     *in the stream*: each layer's slice is staged in ``param_dtype`` and
     quantized the moment its source tensors have all arrived, so the
     full-precision ``[L, ...]`` stacks are never materialized; bit-identical
-    to ``quantize_int8(stream_load_hf(path)[0])``.
+    to ``quantize_int8(stream_load_hf(path)[0])``. With a ``mesh`` (a
+    ``Mesh`` or ``ModelShard`` with a 'model' axis) the tree holds this
+    model rank's slices only (``shard_params``' leaves; quantized whole a
+    layer before the slice is kept).
     """
     spec = _spec_from_config(path)
     tensors = (nt for file in _weight_files(path) for nt in _iter_tensors(file))
-    return load_tensors(spec, tensors, param_dtype, quantize, where=path), spec
+    return load_tensors(spec, tensors, param_dtype, quantize, where=path, mesh=mesh), spec
 
 
 def load_tensors(spec: EngineSpec, tensors: Iterable[tuple[str, object]],
                  param_dtype: str = "bfloat16", quantize: bool = False,
-                 where: str = "the tensor stream") -> dict:
+                 where: str = "the tensor stream",
+                 mesh: Mesh | ModelShard | None = None) -> dict:
     """The engine tree of ``spec`` from ``(HF name, array or tensor)``
     pairs, each cast to ``param_dtype`` as it arrives (``stream_load_hf``'s
-    mapping; also fed by ``bigram_opt.engine_params`` without the disk)."""
+    mapping; also fed by ``bigram_opt.engine_params`` without the disk).
+    With a ``mesh`` only this model rank's slice of each sharded leaf is
+    kept (``llm_shardings``), so a rank's host memory holds its shards and
+    one layer's tensor at a time."""
     dtype = DTYPES[param_dtype]
+    tp = model_shard_of(mesh)
+    dims = llm_shardings(spec, tp)["blocks"] if tp is not None else {}
     shapes = _engine_shapes(spec)
     if quantize:
         for name in _QUANT_LEAVES:
             del shapes["blocks"][name]
+    shapes["blocks"] = {k: _local_shape(v, dims.get(k), tp)
+                        for k, v in shapes["blocks"].items()}
     params = _alloc(shapes, dtype)
     blocks = params["blocks"]
     staging: dict = {}
     pending = {}  # (leaf, layer) -> writes still expected
+    quant = _quant_shapes(spec)
     if quantize:
-        for name, (q_shape, s_shape) in _quant_shapes(spec).items():
-            blocks[name + "_q"] = torch.empty(q_shape, dtype=torch.int8)
-            blocks[name + "_s"] = torch.empty(s_shape, dtype=torch.float32)
+        for name, (q_shape, s_shape) in quant.items():
+            blocks[name + "_q"] = torch.empty(_local_shape(q_shape, dims.get(name + "_q"), tp),
+                                              dtype=torch.int8)
+            blocks[name + "_s"] = torch.empty(_local_shape(s_shape, dims.get(name + "_s"), tp),
+                                              dtype=torch.float32)
+
+    def cut(value: torch.Tensor, name: str, lead: int = 1) -> torch.Tensor:
+        """This rank's slice of ``value``, a part of leaf ``name`` without
+        its ``lead`` leading axes (the layer, and the q/k/v slot)."""
+        dim = dims.get(name)
+        return value if dim is None else split(value, dim - lead, tp)
 
     def _stage(name: str, li: int):
-        """Per-layer staging slice for a quantized leaf (lazy-alloc)."""
+        """Per-layer staging slice for a quantized leaf (lazy-alloc), whole
+        (the scale of a row-parallel weight spans every input row)."""
         key = (name, li)
         if key not in staging:
-            staging[key] = torch.empty(blocks[name + "_q"].shape[1:], dtype=dtype)
+            staging[key] = torch.empty(quant[name][0][1:], dtype=dtype)
             pending[key] = 3 if name == "wqkv" else 1
         return staging[key]
 
@@ -339,8 +381,8 @@ def load_tensors(spec: EngineSpec, tensors: Iterable[tuple[str, object]],
             q = q.movedim(0, 1)
         else:
             q, s = _quant_leaf(w)
-        blocks[name + "_q"][li] = q
-        blocks[name + "_s"][li] = s
+        blocks[name + "_q"][li] = cut(q, name + "_q")
+        blocks[name + "_s"][li] = cut(s, name + "_s")
 
     qkv_slot = {"q_proj": 0, "k_proj": 1, "v_proj": 2}
     top_map = {
@@ -390,9 +432,9 @@ def load_tensors(spec: EngineSpec, tensors: Iterable[tuple[str, object]],
                     _stage("wqkv", li)[:, slot, :] = a.T
                     _maybe_quantize("wqkv", li)
                 else:
-                    blocks["wqkv"][li, :, slot, :] = a.T
+                    blocks["wqkv"][li, :, slot, :] = cut(a.T, "wqkv", lead=2)
             else:
-                blocks["bqkv"][li, slot, :] = a
+                blocks["bqkv"][li, slot, :] = cut(a, "bqkv", lead=2)
         else:
             dst = leaf_map[leaf]
             # nn.Linear stores [out, in]; engine matmuls are x @ W
@@ -400,7 +442,7 @@ def load_tensors(spec: EngineSpec, tensors: Iterable[tuple[str, object]],
                 _stage(dst, li)[...] = a.T
                 _maybe_quantize(dst, li)
             else:
-                blocks[dst][li] = a.T if dst in ("wo", "wfc", "wproj") else a
+                blocks[dst][li] = cut(a.T if dst in ("wo", "wfc", "wproj") else a, dst)
         n_written += 1
     # Completeness check: params start as torch.empty — a naming mismatch
     # that silently skipped tensors would otherwise score with
@@ -530,33 +572,49 @@ def _mm_f32(a, b):
     return a.float() @ b.float()
 
 
-def engine_forward_logits(params, spec: EngineSpec, ids, mask, compute_dtype, head=None):
+def _row_parallel(a, w, tp: ModelShard | None, cdt):
+    """``a @ w`` in the compute dtype; with a model shard, this rank's
+    partial product in float32, summed over the model group, then rounded
+    once (one rank's product differs only by the order of that sum)."""
+    if tp is None:
+        return a @ w
+    return reduce_from_model(_mm_f32(a, w), tp).to(cdt)
+
+
+def engine_forward_logits(params, spec: EngineSpec, ids, mask, compute_dtype, head=None,
+                          tp: Mesh | ModelShard | None = None):
     """[B, T] ids/mask -> [B, T, V] float32 logits (causal + padding mask).
 
     ``head``: the float32 copy of ``wte`` the tied head reads (``engine_scorer``
-    makes it once); by default cast here."""
+    makes it once); by default cast here. ``tp``: this rank's model shard
+    (or its ``Mesh``), whose shards of ``params`` (``shard_params``) run
+    ``n_head / n_model`` whole heads and the MLP's columns; every model
+    rank of the group must call this with the same ids."""
+    tp = model_shard_of(tp)
     b, t = ids.shape
     cdt = compute_dtype
     x = params["wte"][ids].to(cdt)
     if "win" in params:
         x = x @ params["win"].to(cdt)
     x = x + params["wpe"][spec.pos_offset: spec.pos_offset + t].to(cdt)
-    n_head, dh, d = spec.n_head, spec.head_dim, spec.d_model
+    n_head = spec.n_head if tp is None else spec.n_head // tp.count
+    dh, d = spec.head_dim, spec.d_model
+    dl = n_head * dh  # this rank's width of q, k and v
     ok = attention_mask(mask, t)
     x = x.to(cdt)
     blocks = params["blocks"]
     for li in range(spec.n_layer):
         p = {k: v[li] for k, v in blocks.items()}
         h = _layer_norm(x, p["ln1_g"], p["ln1_b"], spec.ln_eps).to(cdt)
-        qkv = (_mm_f32(h, _deq(p, "wqkv", cdt).reshape(d, 3 * d))
-               + p["bqkv"].float().reshape(3 * d)).to(cdt)
+        qkv = (_mm_f32(h, _deq(p, "wqkv", cdt).reshape(d, 3 * dl))
+               + p["bqkv"].float().reshape(3 * dl)).to(cdt)
         q, k, v = (z.reshape(b, t, n_head, dh).transpose(1, 2)
-                   for z in qkv.split(d, dim=-1))
-        ctx = attend(q, k, v, ok, cdt).transpose(1, 2).reshape(b, t, d)
-        x = x + ctx @ _deq(p, "wo", cdt) + p["bo"].to(cdt)
+                   for z in qkv.split(dl, dim=-1))
+        ctx = attend(q, k, v, ok, cdt).transpose(1, 2).reshape(b, t, dl)
+        x = x + _row_parallel(ctx, _deq(p, "wo", cdt), tp, cdt) + p["bo"].to(cdt)
         h = _layer_norm(x, p["ln2_g"], p["ln2_b"], spec.ln_eps).to(cdt)
         h = _act(h @ _deq(p, "wfc", cdt) + p["bfc"].to(cdt), spec.activation)
-        x = x + h @ _deq(p, "wproj", cdt) + p["bproj"].to(cdt)
+        x = x + _row_parallel(h, _deq(p, "wproj", cdt), tp, cdt) + p["bproj"].to(cdt)
     x = _layer_norm(x, params["lnf_g"], params["lnf_b"], spec.ln_eps)
     if "wout" in params:
         x = x @ params["wout"].float()
@@ -565,10 +623,10 @@ def engine_forward_logits(params, spec: EngineSpec, ids, mask, compute_dtype, he
 
 @torch.no_grad()
 def engine_sentence_logprobs(params, spec, ids, mask, compute_dtype=torch.bfloat16,
-                             head=None):
+                             head=None, tp: Mesh | ModelShard | None = None):
     """Per-row ``sum_t log P(tok_t | tok_<t)`` over non-pad tokens —
-    ``rescore.hf_causal_scorer`` semantics."""
-    logits = engine_forward_logits(params, spec, ids, mask, compute_dtype, head)
+    ``rescore.hf_causal_scorer`` semantics (``tp``: ``engine_forward_logits``')."""
+    logits = engine_forward_logits(params, spec, ids, mask, compute_dtype, head, tp)
     return token_logprob_sum(logits, ids, mask)
 
 
@@ -597,62 +655,195 @@ def synth_params(spec: EngineSpec, seed: int = 0, dtype="bfloat16") -> dict:
     return out
 
 
-def synth_params_on_device(spec: EngineSpec, seed: int = 0, dtype=torch.bfloat16,
-                           shardings=None, quantize: bool = False,
-                           device: str = "cuda") -> dict:
-    """The whole engine tree drawn on ``device`` from one seeded
-    ``torch.Generator``, each leaf directly in its dtype (no float32
-    temporary, so peak memory is the tree's size): float leaves normal x
-    0.02, int8 leaves uniform in [-127, 127] with constant scales
-    ``4 * 0.02 / 127`` (matched to the float init), layer-norm gains 1.
-    Shapes and dtypes are the JAX package's ``_synth_shapes``; the draws
-    are the port's own."""
-    if shardings is not None:
-        raise NotImplementedError("sharded engine parameters (tensor parallelism) "
-                                  "are not ported yet (ROADMAP.md queue 1 item 2: the "
-                                  "LLM engine's tensor parallelism)")
-    dev = resolve_device(device, "synth_params_on_device")
-    gen = torch.Generator(device=dev).manual_seed(seed)
+# elements drawn at a time: the int64 hash's temporaries stay a few hundred MB
+_SYNTH_CHUNK = 1 << 24
+_GAINS = ("ln1_g", "ln2_g", "lnf_g")  # drawn as 1 for a numerically sane forward
 
-    def normal(shape):
-        return torch.empty(shape, dtype=dtype, device=dev).normal_(0.0, 0.02, generator=gen)
 
+def _synth_template(spec: EngineSpec, dtype, quantize: bool) -> dict:
+    """``(shape, dtype)`` of every leaf of the synthetic tree (the JAX
+    package's ``_synth_shapes``)."""
     shapes = _engine_shapes(spec)
-    out = {k: normal(v) for k, v in shapes.items() if k != "blocks"}
-    blocks = {}
-    quant = _quant_shapes(spec) if quantize else {}
-    for name, shape in shapes["blocks"].items():
-        if name in quant:
-            q_shape, s_shape = quant[name]
-            blocks[name + "_q"] = torch.randint(-127, 128, q_shape, dtype=torch.int8,
-                                                device=dev, generator=gen)
-            blocks[name + "_s"] = torch.full(s_shape, 4 * 0.02 / 127.0,
-                                             dtype=torch.float32, device=dev)
+    tpl = {k: (v, dtype) for k, v in shapes.items() if k != "blocks"}
+    blocks = {k: (v, dtype) for k, v in shapes["blocks"].items()}
+    if quantize:
+        for name, (q_shape, s_shape) in _quant_shapes(spec).items():
+            del blocks[name]
+            blocks[name + "_q"] = (q_shape, torch.int8)
+            blocks[name + "_s"] = (s_shape, torch.float32)
+    tpl["blocks"] = blocks
+    return tpl
+
+
+def _sorted_leaves(tree: dict, path: tuple = ()):
+    """``(path, leaf)`` in ``jax.tree.flatten_with_path``'s order (keys
+    sorted at every level)."""
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _sorted_leaves(tree[k], path + (k,))
         else:
-            blocks[name] = normal(shape)
-    # norms want gain 1 for a numerically sane forward
-    for g in ("ln1_g", "ln2_g"):
-        blocks[g].fill_(1.0)
-    out["lnf_g"].fill_(1.0)
-    out["blocks"] = blocks
+            yield path + (k,), tree[k]
+
+
+def _draw_leaf(seed: int, shape: tuple, dtype, dim: int | None, tp: ModelShard | None,
+               device) -> torch.Tensor:
+    """This rank's slice along ``dim`` (the whole leaf when ``dim`` or
+    ``tp`` is None) of a leaf drawn as the JAX package's
+    ``synth_params_on_device`` draws it. Element ``(row, col)`` of the leaf
+    seen as ``[prod(shape[:-1]), shape[-1]]`` is a function of ``(seed,
+    row, col)`` alone (``ops/hashrng.py``), so a slice is drawn from its
+    global rows and columns, ``_SYNTH_CHUNK`` elements at a time: int8
+    leaves ``floor(u * 255) - 127``, float leaves Box-Muller normals x
+    0.02 rounded to ``dtype``."""
+    local = _local_shape(shape, dim, tp)
+    start = [0] * len(shape)
+    if dim is not None and tp is not None:
+        start[dim] = tp.index * local[dim]
+    out = torch.empty(local, dtype=dtype, device=device)
+    flat = out.view(-1, local[-1])
+    rows = torch.zeros((), dtype=torch.int64, device=device)
+    for j in range(len(shape) - 1):  # the global flat row of each local row
+        idx = torch.arange(local[j], dtype=torch.int64, device=device) + start[j]
+        rows = rows[..., None] * shape[j] + idx
+    rows = rows.reshape(-1, 1)
+    cols = torch.arange(local[-1], dtype=torch.int64, device=device)[None, :] + start[-1]
+    step = max(1, _SYNTH_CHUNK // max(local[-1], 1))
+    for r0 in range(0, flat.shape[0], step):
+        r = rows[r0: r0 + step]
+        if dtype == torch.int8:
+            u = uniform(seed, 0, r, cols)
+            flat[r0: r0 + step] = (torch.floor(u * 255.0) - 127.0).to(torch.int8)
+        else:
+            u1 = uniform(seed, 1, r, cols)
+            u2 = uniform(seed, 2, r, cols)
+            n = torch.sqrt(-2.0 * torch.log1p(-u1)) * torch.cos((2.0 * math.pi) * u2)
+            flat[r0: r0 + step] = (n * 0.02).to(dtype)
+    return out
+
+
+def synth_params_on_device(spec: EngineSpec, seed: int = 0, dtype=torch.bfloat16,
+                           shardings=None, quantize: bool = False, device=None,
+                           mesh: Mesh | ModelShard | None = None) -> dict:
+    """The engine tree drawn on ``device`` with the JAX package's recipe:
+    leaf ``i`` in ``jax.tree.flatten_with_path`` order (sorted keys) from
+    the seed ``(seed * 0x9E37 + i) & 0x7FFFFFFF`` through the counter hash
+    (``_draw_leaf``): float leaves normal x 0.02 in ``dtype``, int8 leaves
+    uniform in [-127, 127] with constant scales ``4 * 0.02 / 127`` (matched
+    to the float init), layer-norm gains 1. A float leaf's bits may differ
+    from JAX's where XLA's ``log1p``/``cos`` round otherwise; int8 leaves
+    are JAX's. Work is one chunk of a leaf at a time, so peak memory is the
+    tree plus one chunk's temporaries.
+
+    With ``shardings`` (``llm_shardings``' tree) and ``mesh`` (this rank's
+    ``Mesh`` or ``ModelShard``), only this model rank's slice of each
+    sharded leaf is drawn, bit-equal to the same slice of the one-rank
+    tree. ``device`` defaults to the mesh's device, else the card."""
+    tp = model_shard_of(mesh)
+    if shardings is not None and mesh is None:
+        raise ValueError("synth_params_on_device: shardings needs the mesh (or model "
+                         "shard) whose slice this rank draws")
+    if device is None:
+        device = mesh.device if isinstance(mesh, Mesh) else "cuda"
+    dev = resolve_device(device, "synth_params_on_device")
+    out: dict = {}
+    for i, (path, (shape, dt)) in enumerate(_sorted_leaves(_synth_template(spec, dtype,
+                                                                           quantize))):
+        dim = None
+        if shardings is not None and tp is not None:
+            node = shardings
+            for k in path:
+                node = node.get(k) if isinstance(node, dict) else None
+            dim = node
+        name = path[-1]
+        if name.endswith("_s"):
+            leaf = torch.full(_local_shape(shape, dim, tp), 4 * 0.02 / 127.0, dtype=dt,
+                              device=dev)
+        elif name in _GAINS:
+            leaf = torch.ones(_local_shape(shape, dim, tp), dtype=dt, device=dev)
+        else:
+            leaf = _draw_leaf((seed * 0x9E37 + i) & 0x7FFFFFFF, shape, dt, dim, tp, dev)
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[name] = leaf
     return out
 
 
 # ---------------------------------------------------------------------------
-# Tensor parallelism: not ported yet
+# Tensor parallelism (Megatron-style, over the 'model' axis of the grid)
 # ---------------------------------------------------------------------------
 
 
-def llm_shardings(spec: EngineSpec, mesh, axis: str = "model") -> dict:
-    """Tensor-parallel layouts over a device mesh: not ported yet."""
-    raise NotImplementedError("tensor-parallel rescoring over a mesh is not ported "
-                              "yet (ROADMAP.md queue 1 item 2: the LLM engine's tensor "
-                              "parallelism); score on one device (mesh=None)")
+def _local_shape(shape: tuple, dim: int | None, tp: ModelShard | None) -> tuple:
+    """A leaf's shape on this model rank: ``dim`` divided by the rank count."""
+    shape = tuple(shape)
+    if dim is None or tp is None:
+        return shape
+    if shape[dim] % tp.count:
+        raise ValueError(f"dimension {dim} of size {shape[dim]} does not split into "
+                         f"{tp.count} model shards")
+    return shape[:dim] + (shape[dim] // tp.count,) + shape[dim + 1:]
 
 
-def shard_params(params: dict, spec: EngineSpec, mesh, axis: str = "model"):
-    """Tensor-parallel placement over a device mesh: not ported yet."""
-    return llm_shardings(spec, mesh, axis)
+def llm_shardings(spec: EngineSpec, mesh: Mesh | ModelShard | None,
+                  axis: str = "model") -> dict:
+    """The sharded dimension of every engine leaf over the mesh's 'model'
+    ranks, or None for a replicated leaf: a tree shaped like the engine
+    tree, JAX's ``PartitionSpec`` table as ``parallel/shardings.py::
+    leaf_dim`` gives it. Head-parallel attention: ``wqkv``'s last (output)
+    axis carries whole heads per shard (``n_head`` must divide over the
+    model ranks), ``wo`` is row-parallel; MLP: ``wfc`` column-parallel,
+    ``wproj`` row-parallel; int8 ``_q/_s`` pairs shard like their float
+    original (the row-parallel scales, one per output channel, whole);
+    embeddings and norms replicated."""
+    if axis != "model":
+        raise ValueError(f"llm_shardings: the port's grid shards the engine over its "
+                         f"'model' axis, not {axis!r}")
+    tp = model_shard_of(mesh)
+    n_shard = 1 if tp is None else tp.count
+    if spec.n_head % n_shard != 0:
+        raise ValueError(
+            f"n_head={spec.n_head} not divisible by mesh axis "
+            f"'{axis}'={n_shard}; heads would split across shards")
+    blocks = {
+        "ln1_g": None, "ln1_b": None, "ln2_g": None, "ln2_b": None,
+        "wqkv": 3, "bqkv": 2, "wo": 1, "bo": None,
+        "wfc": 2, "bfc": 1, "wproj": 1, "bproj": None,
+        # int8 twins (scale layouts: wqkv_s [L,3,1,D]; others [L,1,out])
+        "wqkv_q": 3, "wqkv_s": 3, "wo_q": 1, "wo_s": None,
+        "wfc_q": 2, "wfc_s": 2, "wproj_q": 1, "wproj_s": None,
+    }
+    return {"wte": None, "wpe": None, "lnf_g": None, "lnf_b": None,
+            "blocks": blocks, "win": None, "wout": None}
+
+
+def _prune_to(params: dict, specs: dict) -> dict:
+    """Keep only the sharding entries whose leaves exist in ``params``."""
+    pruned = {k: v for k, v in specs.items() if k in params and k != "blocks"}
+    pruned["blocks"] = {k: v for k, v in specs["blocks"].items() if k in params["blocks"]}
+    return pruned
+
+
+def shard_params(params: dict, spec: EngineSpec, mesh: Mesh | ModelShard | None,
+                 axis: str = "model") -> tuple[dict, dict]:
+    """This model rank's contiguous slice of every sharded leaf of the whole
+    tree ``params`` (quantize first: a row-parallel weight's scale spans
+    every input row), on the mesh's device (a ``ModelShard`` keeps the
+    leaves' device); returns ``(sharded, shardings)``, the latter
+    ``llm_shardings`` pruned to the tree's leaves."""
+    dims = _prune_to(params, llm_shardings(spec, mesh, axis))
+    tp = model_shard_of(mesh)
+    device = mesh.device if isinstance(mesh, Mesh) else None
+
+    def put(t, dim):
+        t = torch.as_tensor(t)
+        if tp is not None and dim is not None:
+            t = split(t, dim, tp)
+        return t if device is None else t.to(device)
+
+    sharded = {k: put(v, dims[k]) for k, v in params.items() if k != "blocks"}
+    sharded["blocks"] = {k: put(v, dims["blocks"][k]) for k, v in params["blocks"].items()}
+    return sharded, dims
 
 
 # ---------------------------------------------------------------------------
@@ -731,46 +922,73 @@ def load_tokenizer(path: str) -> Callable:
     return tok
 
 
+def _data_ranks(mesh: Mesh | ModelShard | None, batch_size: int) -> int:
+    """The 'data' axis size of ``mesh`` (1 without one), which must divide
+    ``batch_size``."""
+    n_data = mesh.n_data if isinstance(mesh, Mesh) else 1
+    if batch_size % n_data:
+        raise ValueError(f"batch_size={batch_size} does not split over the mesh's "
+                         f"{n_data} data coordinates")
+    return n_data
+
+
 def engine_scorer(
     model_path: str,
     batch_size: int = 16,
     compute_dtype: str = "bfloat16",
     param_dtype: str = "bfloat16",
     quantize: bool = False,
-    mesh=None,
+    mesh: Mesh | ModelShard | None = None,
     length_multiple: int = 16,
     device: str = "cuda",
 ):
     """Reference-scale scorer (``rescore.hf_causal_scorer`` contract):
     streamed loading in ``param_dtype`` (never float32-materialized),
     optional int8 weights, the forward on ``device`` (the card by default;
-    raises without one). A ``mesh`` raises ``NotImplementedError``."""
-    if mesh is not None:
-        raise NotImplementedError("tensor-parallel rescoring over a mesh is not ported "
-                                  "yet (ROADMAP.md queue 1 item 2: the LLM engine's "
-                                  "tensor parallelism); score on one device (mesh=None)")
+    raises without one). With a ``mesh`` (this rank's cell of the
+    ``(n_data, n_model)`` grid; every rank calls this, and then the scorer
+    with the same sentences) the stream keeps this model rank's slices
+    only, the forward runs on the mesh's device, and ``params_scorer``'s
+    data split applies."""
+    if isinstance(mesh, Mesh):
+        device = mesh.device
+    _data_ranks(mesh, batch_size)
     dev = resolve_device(device, "engine_scorer")
     _spec_from_config(model_path)  # an unsupported checkpoint raises before any load
     tok = load_tokenizer(model_path)
-    params, spec = stream_load_hf(model_path, param_dtype, quantize=quantize)
+    params, spec = stream_load_hf(model_path, param_dtype, quantize=quantize, mesh=mesh)
     return params_scorer(params, spec, tok, batch_size=batch_size,
                          compute_dtype=compute_dtype, length_multiple=length_multiple,
-                         device=dev)
+                         device=dev, mesh=mesh)
 
 
 def params_scorer(params, spec: EngineSpec, tok: Callable, *, batch_size: int = 16,
                   compute_dtype: str = "bfloat16", length_multiple: int = 16,
-                  device="cuda"):
+                  device="cuda", mesh: Mesh | ModelShard | None = None):
     """``engine_scorer`` on an engine tree already built (``synth_params_on_device``,
-    ``load_tensors``): moved to ``device``, the float32 head copied once."""
+    ``load_tensors``): moved to ``device``, the float32 head copied once.
+    With a ``mesh``, every rank of the grid calls this and the scorer with
+    this model rank's shards (``shard_params``, ``synth_params_on_device(
+    shardings=)``, ``load_tensors(mesh=)``), moved to the mesh's device;
+    each data coordinate scores its contiguous rows of every batch
+    (``batch_size`` must divide over the 'data' axis, else ``ValueError``)
+    and the rows are gathered, so every rank returns every score."""
+    tp = model_shard_of(mesh)
+    n_data = _data_ranks(mesh, batch_size)
+    if isinstance(mesh, Mesh):
+        device = mesh.device
     dev = resolve_device(device, "params_scorer")
     params = to_device(params, dev)
     head = params["wte"].float()  # read by every batch's tied head
     cdt = DTYPES[compute_dtype]
 
     def score_batch(ids, mask):
-        return engine_sentence_logprobs(params, spec, torch.from_numpy(ids).to(dev),
-                                        torch.from_numpy(mask).to(dev), cdt, head)
+        ids, mask = torch.from_numpy(ids), torch.from_numpy(mask)
+        if n_data > 1:
+            rows = batch_sharding(mesh, ids.shape[0])
+            ids, mask = ids[rows], mask[rows]
+        lp = engine_sentence_logprobs(params, spec, ids.to(dev), mask.to(dev), cdt, head, tp)
+        return gather_rows(lp, mesh) if n_data > 1 else lp
 
     return make_batched_scorer(tok, spec.n_positions, score_batch, batch_size,
                                length_multiple)

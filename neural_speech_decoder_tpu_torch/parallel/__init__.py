@@ -13,6 +13,10 @@
   holding its shard of the large GRU and Conformer weights and calling the
   collectives that XLA's GSPMD inserts in JAX (``models/gru.py``,
   ``models/conformer.py``).
+- The multichip contract (``dryrun.py``): ``dryrun_multichip(n)``, one
+  sharded train step of each model family over an n-rank grid and a
+  bucketed data-parallel run against one rank (the JAX package's
+  ``__graft_entry__.py::dryrun_multichip``).
 - Task parallelism (``sweep.py``): hyperparameter sweeps over worker
   processes, each trial pinned to its cards by ``CUDA_VISIBLE_DEVICES``
   and trained data-parallel over them.

@@ -135,7 +135,9 @@ def deinterleave_attention_params(params: Any, num_heads: int) -> Any:
     return relayout_attention(params, num_heads, False)
 
 
-def _shard_of(mesh: Mesh | ModelShard | None) -> ModelShard | None:
+def model_shard_of(mesh: Mesh | ModelShard | None) -> ModelShard | None:
+    """The 'model' axis place of a ``Mesh`` (None with one model rank), or
+    the ``ModelShard`` itself."""
     return mesh.model_shard if isinstance(mesh, Mesh) else mesh
 
 
@@ -146,7 +148,7 @@ def shard_params(params: Any, mesh: Mesh | ModelShard | None, model_type: str,
     ``shard_params`` does when the trainer passes it); leave it None for
     params in that layout already (a tensor-parallel checkpoint). With one
     model rank the tree is returned as it is."""
-    tp = _shard_of(mesh)
+    tp = model_shard_of(mesh)
     if tp is None:
         return params
     if model_type == CONFORMER and num_heads is not None:
@@ -167,7 +169,7 @@ def gather_params(params: Any, mesh: Mesh | ModelShard | None, model_type: str) 
     """Whole params from the model group's shards (a collective: every rank
     of the group calls it), in the layout they were sharded in, detached.
     With one model rank the tree is returned as it is."""
-    tp = _shard_of(mesh)
+    tp = model_shard_of(mesh)
     if tp is None:
         return params
 

@@ -7,8 +7,8 @@ JAX's (safetensors, ``.bin``, sharded, the ``decoder.`` prefix,
 ``quantize=True`` in the stream), ``quantize_int8`` bit-equal, the port's
 safetensors reader bit-equal to ``safe_open``, the plain WordLevel
 tokenizer reader giving the ids of ``tokenizers``, both forwards against
-JAX's, the bigram construction against its analytic oracle, and a mesh
-raising ``NotImplementedError``.
+JAX's, and the bigram construction against its analytic oracle (tensor
+parallelism: ``tests/test_torch_port_llm_tp.py``).
 
 Tolerances on per-sentence log-probs against JAX's (3 layers, d=32):
 float32 within 1e-5 relative + 1e-4 absolute (the same float32 function,
@@ -363,7 +363,7 @@ def test_bigram_builder_realizes_its_oracle(tmp_path):
 
 def test_synth_params_shapes_and_no_mesh():
     """``synth_params_on_device`` has ``_synth_shapes``' shapes and dtypes
-    (bf16 and int8), scores finitely; a mesh raises."""
+    (bf16 and int8) and scores finitely."""
     for quantize in (False, True):
         got = llm_engine.synth_params_on_device(TINY, seed=1, dtype=torch.bfloat16,
                                                 quantize=quantize, device="cpu")
@@ -383,12 +383,6 @@ def test_synth_params_shapes_and_no_mesh():
         if quantize:
             q = got["blocks"]["wfc_q"]
             assert int(q.min()) >= -127 and int(q.max()) <= 127
-    with pytest.raises(NotImplementedError):
-        llm_engine.engine_scorer("unused", mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        llm_engine.llm_shardings(TINY, mesh=object())
-    with pytest.raises(NotImplementedError):
-        llm_engine.synth_params_on_device(TINY, shardings={}, device="cpu")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -259,8 +259,25 @@ with tempfile.TemporaryDirectory() as d:
                              max_t=40, min_u=2, max_u=3)
     trials = sweep.run_sweep({**args, "dataset": data, "nBatch": 1}, [{"lrStart": 0.02}], d,
                              use_processes=False)
+from neural_speech_decoder_tpu_torch.parallel import dryrun
+with tempfile.TemporaryDirectory() as d:
+    # the rank processes report what they loaded (spawn children see this
+    # process's sys.path)
+    with open(os.path.join(d, "_rank_modules.py"), "w") as f:
+        f.write("import sys\\ndef run(fn, *a):\\n    return fn(*a), sorted(m for m in "
+                "sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
+                "'neural_speech_decoder_tpu', '__graft_entry__'))\\n")
+    sys.path.insert(0, d)
+    import _rank_modules
+    real_launch, rank_mods = dryrun.dp.launch, []
+    def launch(fn, rank_args, **kw):
+        res = real_launch(_rank_modules.run, [(fn,) + tuple(a) for a in rank_args], **kw)
+        rank_mods.extend(m for _, ms in res for m in ms)
+        return [r for r, _ in res]
+    dryrun.dp.launch = launch
+    ranks = dryrun.dryrun_multichip(2, "cpu", timeout_s=60)
 mods = [m for m in sys.modules
-        if m.split(".")[0] in ("jax", "jaxlib", "neural_speech_decoder_tpu")]
+        if m.split(".")[0] in ("jax", "jaxlib", "neural_speech_decoder_tpu", "__graft_entry__")]
 print(json.dumps({"mods": mods, "finite": bool(torch.isfinite(lp).all()),
                   "empty": out[1], "trained": "summary/final_cer" in summary,
                   "reloaded": args["nDays"] == 1, "streamed": streamed,
@@ -272,7 +289,8 @@ print(json.dumps({"mods": mods, "finite": bool(torch.isfinite(lp).all()),
                   "interop": "gaussianSmoother.weight" in sd and all(
                       torch.equal(a, b.cpu()) for a, b in zip(leaves(back),
                                                               leaves(model.params))),
-                  "swept": [t.status for t in trials] == ["done"]}))
+                  "swept": [t.status for t in trials] == ["done"],
+                  "dryrun": [len(r["lines"]) for r in ranks] == [5, 5] and rank_mods == []}))
 """
 
 
@@ -286,4 +304,4 @@ def test_port_never_imports_jax():
     assert res == {"mods": [], "finite": True, "empty": [], "trained": True,
                    "reloaded": True, "streamed": [True, True], "exported": True,
                    "decoded": True, "scored": True, "formatted": True, "interop": True,
-                   "swept": True}
+                   "swept": True, "dryrun": True}
