@@ -16,26 +16,32 @@ random weights:
    bit-equal), timed in turns with its plain version beside PR 1's FMA body
    (``body="fma"``, also held against the plain version), whose float32
    row and bound the kernels line keeps. The
-   bfloat16 scan runs on the persistent body (reruns bit-equal), timed in
-   turns with its plain version, beside the step body at the same
-   shapes and cuDNN's bidirectional layer (``torch.nn.GRU``, context: it
+   scan runs on the persistent body in both dtypes (reruns bit-equal),
+   timed in turns with its plain version, beside the step body at the
+   same shapes (held against the plain version too) and cuDNN's
+   bidirectional layer in the same dtype (``torch.nn.GRU``, context: it
    also does the input projection).
 3. Serving: ``InferenceModel`` answers 3 float32 requests of random
    trials (pad -> forward -> greedy decode); checks finite log-probs, empty
    decodes for padded rows, the kernels' launch counts, and the float32
    logits against the same model run through the plain versions; prints
-   the median request latency and sequences per second. Then one request
-   in the recipe's bfloat16 compute, with the same checks.
+   the median request latency and sequences per second; then the float32
+   request A/B'd in turns against the same code forced onto the step body
+   (``scan_body("step")``), 3 requests a turn, with each arm's median. Then
+   one request in the recipe's bfloat16 compute, with the same checks.
 4. Training kernels: the gates-storing scan, the scan's backward and the
    CTC alpha and beta recursions against their plain versions at the train
    step's shapes (L=313, B=64, H=1024, U=64), in float32 and bfloat16, with
    errors, tolerances and times; ``F.ctc_loss`` timed as the CTC rows'
    library call; the CTC recursions run on the prefetch body, bit for bit
    equal to PR 2's block body (``body="block"``, also held against the
-   plain versions and timed beside it). The bfloat16 scans run on the persistent bodies (reruns
-   bit-equal); the backward's dW_hh contraction alone on the tensor cores
-   against its plain version; the step bodies and
-   cuDNN's layer forward + backward timed beside them.
+   plain versions and timed beside it). The scans run on the persistent
+   bodies in both dtypes (reruns bit-equal); the backward's dW_hh
+   contraction alone (bf16 on the tensor cores, float32 on
+   ``gemm_f32.cuh``'s FMA tile) against its plain version; the step
+   bodies in both dtypes against the plain versions and timed beside them,
+   with cuDNN's layer forward + backward in each dtype; the float32
+   backward's device time by part (recurrence, contraction) on both bodies.
 5. Train step: ``make_train_step`` at bench.py's shapes and ``GRU_ARGS``
    (B=64, T=1280, U=64, bfloat16, dropout and noise on): 2 warm-up and 10
    timed steps, the median step time and seq/s, a finite loss, moved
@@ -109,8 +115,10 @@ random weights:
     gradient leaf and every parameter after the update; its 12 projections
     on the f32 body); two seeded bf16 runs of 2 steps bit-equal.
     Then the float32 GRU step at full width, default and flagged (2 warm-up
-    and 5 timed steps each, the flagged one's 12 projections a step on the
-    f32 body), with their medians and ratio.
+    steps, then 3 timed steps a turn in turns step, plan, plan, step: the
+    scans forced onto the step body, then on ``scan_plan``'s body; the
+    flagged one's 12 projections a step on the f32 body), with each arm's
+    median and the flagged / default ratio.
 14. ``nsd-train`` end to end: ``training/cli.py::main`` on
     ``configs/gru_baseline.yaml`` with a pickled synthetic dataset at C=256,
     20 steps, evals and checkpoints every 10, the three flags
@@ -252,7 +260,8 @@ random weights:
 The default GRU and Conformer phases check that the fused kernels and the
 GRU's opt-in kernels launch no time there. Every GRU phase checks the scan
 launches by body: all bfloat16 scans at full width on the persistent body,
-all float32 ones on the step body; every phase that counts launches checks
+all float32 ones on the body ``scan_plan`` picks (the persistent one on an
+H100), those of an A/B's step turns on the step body; every phase that counts launches checks
 the frontend's (``tc`` for bfloat16, ``fma`` for float32) and every CTC
 recursion's (the prefetch body). Each phase prints its seconds.
 
@@ -264,6 +273,7 @@ CUDA device or any check fails; otherwise its last line is
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -351,6 +361,7 @@ from neural_speech_decoder_tpu_torch.ops.kernels.frontend import (
     fused_frontend,
     fused_frontend_plain,
 )
+from neural_speech_decoder_tpu_torch.ops.kernels import gru_scan as gru_scan_mod
 from neural_speech_decoder_tpu_torch.ops.kernels.gru_scan import (
     bwd_recurrence_plain,
     gru_sequence,
@@ -641,6 +652,39 @@ def kernel_phase() -> list[dict]:
         lambda d: gru_sequence_plain(xps[d], w_hh, b_hh),
         reps_kernel=3, reps_plain=2,
     )
+    # float32, the JAX trainer's default: the body scan_plan picks (the
+    # persistent one at these shapes), reruns bit-equal; the step body
+    # at the same shapes against the plain version at the same tolerance and
+    # timed beside it, and cuDNN's float32 layer as context
+    x32 = xps["float32"]
+    body32 = f32_scan_body()
+    reset_launches()
+    with torch.inference_mode():
+        y1, y2 = gru_sequence(x32, w_hh, b_hh), gru_sequence(x32, w_hh, b_hh)
+        y_step = scan_forward(x32, w_hh, b_hh, gates=False, plan="step")[0]
+        y_ref = gru_sequence_plain(x32, w_hh, b_hh)
+    torch.cuda.synchronize()
+    tol = TOL[("gru_scan", "float32")]
+    err32 = (y1 - y_ref).abs().max().item()
+    err_step = (y_step - y_ref).abs().max().item()
+    want = {"persistent": 0, "step": 1}
+    want[body32] += 2
+    check(torch.equal(y1, y2) and gru_sequence.launches_by_body == want
+          and max(err32, err_step) <= tol,
+          f"gru_scan float32: {body32} body max abs err {err32:.3e}, the step body "
+          f"{err_step:.3e} <= {tol:.2g}; {body32} reruns bit-equal; launches by body "
+          f"{gru_sequence.launches_by_body} == {want}")
+    with torch.inference_mode():
+        step32_ms = time_ms(lambda: scan_forward(x32, w_hh, b_hh, gates=False, plan="step"), 3)
+    cudnn32_ms = cudnn_gru_ms(backward=False, dtype=torch.float32)
+    print(f"time  gru_scan float32: {body32} {scan['ms']:.4f} ms (plain {scan['plain_ms']:.4f} "
+          f"ms, in turns above), the step body {step32_ms:.4f} ms; cuDNN's float32 "
+          f"bidirectional layer (projection included) {cudnn32_ms:.4f} ms", flush=True)
+    f32_row = {"f32_body": body32, "f32_ms": scan["ms"], "f32_plain_ms": scan["plain_ms"],
+               "f32_step_ms": step32_ms, "f32_cudnn_layer_ms": cudnn32_ms,
+               "f32_max_abs_err": err32,
+               "f32_bound_ms": bound_ms(nbytes(x32, w_hh, b_hh) + x32.numel() // 3 * 4,
+                                        scan_flops(), "float32")[0]}
     # bfloat16, the recipe's compute: the persistent body, reruns bit-equal;
     # its times beside the plain version's (in turns), the step body's
     # and cuDNN's whole layer
@@ -671,7 +715,7 @@ def kernel_phase() -> list[dict]:
           f"bidirectional layer (torch.nn.GRU, 2H -> H, projection included) {cudnn_ms:.4f} ms",
           flush=True)
     scan.update(ms=k, plain_ms=p, step_ms=step_ms, cudnn_layer_ms=cudnn_ms,
-                max_abs_err=(y1.float() - y_ref.float()).abs().max().item())
+                max_abs_err=(y1.float() - y_ref.float()).abs().max().item(), **f32_row)
     # xp, W_hh, b_hh read once, ys written once; h @ W_hh every step
     scan["bound_ms"], scan["bound_by"] = bound_ms(
         nbytes(xb, w_hh.to(torch.bfloat16), b_hh) + xb.numel() // 3 * 2, scan_flops(),
@@ -757,12 +801,36 @@ def read_launches(names=KERNELS) -> dict:
 
 def check_scan_bodies(tag: str, body: str) -> None:
     """Every GRU scan launch since the last reset ran on ``body``
-    (``"persistent"`` for bfloat16 at full width, ``"step"`` for float32),
-    and there was one."""
+    (``"persistent"`` for bfloat16 at full width, ``f32_scan_body()`` for
+    float32, ``"step"`` inside ``scan_body("step")``), and there was one."""
     bodies = {k: dict(WRAPPERS[k].launches_by_body) for k in SCANS}
     ok = (all(n == 0 for c in bodies.values() for b, n in c.items() if b != body)
           and any(c[body] for c in bodies.values()))
     check(ok, f"{tag}: GRU scan launches by body {bodies}, all on the {body} body")
+
+
+def f32_scan_body(hidden: int = H, rows: int = B, dirs: int = D) -> str:
+    """The body ``scan_plan`` picks on this card for a float32 scan of
+    ``hidden`` units, ``rows`` batch rows and ``dirs`` directions."""
+    props = torch.cuda.get_device_properties(0)
+    plan = scan_plan(hidden, rows, dirs, torch.float32, props.multi_processor_count,
+                     props.shared_memory_per_block_optin)
+    return plan if isinstance(plan, str) else "persistent"
+
+
+@contextlib.contextmanager
+def scan_body(body: str | None):
+    """Inside, every GRU scan of the model's normal entry points runs on the
+    step body (``body="step"``, the other arm of an A/B: ``plan_for``
+    answers ``"step"`` whatever the shape), or on ``scan_plan``'s choice
+    (``None``)."""
+    saved = gru_scan_mod.plan_for
+    if body == "step":
+        gru_scan_mod.plan_for = lambda *a, **k: "step"
+    try:
+        yield
+    finally:
+        gru_scan_mod.plan_for = saved
 
 
 def check_front_ctc_bodies(tag: str, tc: int = 0, fma: int = 0, alpha: int = 0,
@@ -777,19 +845,20 @@ def check_front_ctc_bodies(tag: str, tc: int = 0, fma: int = 0, alpha: int = 0,
     check(bodies == want, f"{tag}: frontend and CTC launches by body {bodies} == {want}")
 
 
-def cudnn_gru_ms(backward: bool) -> float:
-    """cuDNN's bidirectional bf16 GRU layer (``torch.nn.GRU``, input 2H ->
-    H, L steps, B rows): the input projection and the recurrence, with
-    ``backward`` also their gradients. A superset of a scan's work, timed
-    as context for the scan rows, never called by the port."""
+def cudnn_gru_ms(backward: bool, dtype: torch.dtype = torch.bfloat16) -> float:
+    """cuDNN's bidirectional GRU layer in ``dtype`` (``torch.nn.GRU``, input
+    2H -> H, L steps, B rows; float32 without TF32, as ``main`` sets): the
+    input projection and the recurrence, with ``backward`` also their
+    gradients. A superset of a scan's work, timed as context for the scan
+    rows, never called by the port."""
     g = torch.Generator(device="cuda").manual_seed(5)
-    gru = torch.nn.GRU(2 * H, H, bidirectional=True).cuda().to(torch.bfloat16)
-    x = torch.randn((L, B, 2 * H), generator=g, device="cuda").to(torch.bfloat16)
+    gru = torch.nn.GRU(2 * H, H, bidirectional=True).cuda().to(dtype)
+    x = torch.randn((L, B, 2 * H), generator=g, device="cuda").to(dtype)
     if not backward:
         with torch.inference_mode():
             return time_ms(lambda: gru(x), 5)
     x.requires_grad_()
-    gy = torch.randn((L, B, 2 * H), generator=g, device="cuda").to(torch.bfloat16)
+    gy = torch.randn((L, B, 2 * H), generator=g, device="cuda").to(dtype)
 
     def fwd_bwd():
         y, _ = gru(x)
@@ -799,6 +868,7 @@ def cudnn_gru_ms(backward: bool) -> float:
 
 
 REQUEST_SIZES = (B, 41, B)  # the second request leaves 23 padded rows
+AB_REQUESTS = 3  # float32 requests a turn of the step-body A/B
 
 
 def serving_trials() -> tuple[list[np.ndarray], list[int]]:
@@ -839,7 +909,8 @@ def serving_phase(card: str) -> dict:
         latencies.append(time.perf_counter() - t0)
         lo += n
     launches = read_launches(KERNELS)
-    check_scan_bodies("float32 serving", "step")
+    body32 = f32_scan_body()
+    check_scan_bodies("float32 serving", body32)
     check_front_ctc_bodies("float32 serving", fma=3)
     want = {k: 0 for k in KERNELS} | {"frontend": 3, "gru_scan": 15}
     check(launches == want,
@@ -862,6 +933,25 @@ def serving_phase(card: str) -> dict:
     print(f"serving float32 B={B} T={T}, 3-request smoke reading: latencies "
           f"{', '.join(f'{s * 1e3:.2f}' for s in latencies)} ms, median "
           f"{med * 1e3:.2f} ms, {seq_s:.2f} seq/s ({card})", flush=True)
+    # A/B of the float32 request against the same code forced onto the step
+    # body, in turns (step, plan, plan, step), AB_REQUESTS requests of
+    # B trials a turn: the medians of each arm's requests
+    ab = {"step": [], body32: []}
+    for arm in ("step", body32, body32, "step"):
+        with scan_body(arm if arm == "step" else None):
+            reset_launches()
+            for _ in range(AB_REQUESTS):
+                t0 = time.perf_counter()
+                request(model, 0, B)
+                torch.cuda.synchronize()
+                ab[arm].append(time.perf_counter() - t0)
+            check_scan_bodies(f"float32 serving A/B, a {arm} turn", arm)
+    med_plan, med_step = statistics.median(ab[body32]), statistics.median(ab["step"])
+    print(f"serving float32 A/B in turns, {2 * AB_REQUESTS} requests of {B} an arm: {body32} "
+          f"body median {med_plan * 1e3:.2f} ms ({', '.join(f'{v * 1e3:.2f}' for v in ab[body32])}), "
+          f"step body median {med_step * 1e3:.2f} ms "
+          f"({', '.join(f'{v * 1e3:.2f}' for v in ab['step'])}); {body32} / step "
+          f"{med_plan / med_step:.3f} ({card})", flush=True)
 
     # The recipe's bfloat16 compute (configs/gru_baseline.yaml) on the same
     # weights, for the second request's trials (23 padded rows).
@@ -938,54 +1028,51 @@ def train_kernel_phase() -> dict:
             dxp_p, dw_p, db_p = gru_sequence_bwd_plain(gates_p, w_hh, ys_p, dy)
         torch.cuda.synchronize()
         inputs[name] = (x, dy, gates_p, ys_p)
-        if name == "bfloat16":
-            # PR 1-2's step bodies, kept for the shapes the persistent body
-            # cannot hold, against the plain versions as before
-            with torch.inference_mode():
-                ys_s, gates_s = scan_forward(x, w_hh, b_hh, gates=True, plan="step")
-                bwd_s = scan_backward(gates_p, w_hh, ys_p, dy, plan="step")
-            torch.cuda.synchronize()
-            err_y = (ys_s.float() - ys_p.float()).abs().max().item()
-            err_g = (gates_s.float() - gates_p.float()).abs().max().item()
-            errs = {k: rel_err(a, b) for k, a, b in zip(("dxp", "dW_hh", "db_hh"), bwd_s,
-                                                        (dxp_p, dw_p, db_p))}
-            tol_y = TRAIN_TOL[("gru_scan_gates", name)]
-            tol_g = TRAIN_TOL[("gru_scan_gates.gates", name)]
-            tol = TRAIN_TOL[("gru_scan_bwd", name)]
-            check(err_y <= tol_y and err_g <= tol_g and max(errs.values()) <= tol,
-                  f"gru_scan_gates and gru_scan_bwd {name} step bodies: max abs err ys "
-                  f"{err_y:.3e} <= {tol_y:.3g}, gates {err_g:.3e} <= {tol_g:.3g}; backward "
-                  "max abs err / max |ref| " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
-                  + f" <= {tol:.3g}")
-            del ys_s, gates_s, bwd_s
+        # the step bodies, kept for the shapes the persistent bodies
+        # cannot hold and as the other arm of the A/Bs, against the plain
+        # versions as before
+        with torch.inference_mode():
+            ys_s, gates_s = scan_forward(x, w_hh, b_hh, gates=True, plan="step")
+            bwd_s = scan_backward(gates_p, w_hh, ys_p, dy, plan="step")
+        torch.cuda.synchronize()
+        err_y = (ys_s.float() - ys_p.float()).abs().max().item()
+        err_g = (gates_s.float() - gates_p.float()).abs().max().item()
+        errs = {k: rel_err(a, b) for k, a, b in zip(("dxp", "dW_hh", "db_hh"), bwd_s,
+                                                    (dxp_p, dw_p, db_p))}
+        tol_y = TRAIN_TOL[("gru_scan_gates", name)]
+        tol_g = TRAIN_TOL[("gru_scan_gates.gates", name)]
+        tol = TRAIN_TOL[("gru_scan_bwd", name)]
+        check(err_y <= tol_y and err_g <= tol_g and max(errs.values()) <= tol,
+              f"gru_scan_gates and gru_scan_bwd {name} step bodies: max abs err ys "
+              f"{err_y:.3e} <= {tol_y:.3g}, gates {err_g:.3e} <= {tol_g:.3g}; backward "
+              "max abs err / max |ref| " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + f" <= {tol:.3g}")
+        del ys_s, gates_s, bwd_s
         check(torch.equal(ys, ys_i),
               f"gru_scan_gates {name}: ys equal to the inference scan's bit for bit")
         err_y = (ys.float() - ys_p.float()).abs().max().item()
         err_g = (gates.float() - gates_p.float()).abs().max().item()
-        tol_y = TRAIN_TOL[("gru_scan_gates", name)]
-        tol_g = TRAIN_TOL[("gru_scan_gates.gates", name)]
         check(err_y <= tol_y and err_g <= tol_g,
               f"gru_scan_gates {name}: max abs err ys {err_y:.3e} <= {tol_y:.3g}, "
               f"gates {err_g:.3e} <= {tol_g:.3g}")
         errs = {k: rel_err(a, b) for k, a, b in (
             ("dxp", dxp, dxp_p), ("dW_hh", dw, dw_p), ("db_hh", db, db_p))}
-        tol = TRAIN_TOL[("gru_scan_bwd", name)]
         check(max(errs.values()) <= tol,
               f"gru_scan_bwd {name}: max abs err / max |ref| "
               + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
               + f" <= {tol:.3g}")
-        if name == "bfloat16":
-            rows["gru_scan_gates"]["max_abs_err"] = max(err_y, err_g)
-            rows["gru_scan_bwd"]["max_abs_err"] = max(
-                (a.float() - b.float()).abs().max().item()
-                for a, b in ((dxp, dxp_p), (dw, dw_p), (db, db_p)))
-            with torch.inference_mode():
-                ys2, gates2 = gru_sequence_gates(x, w_hh, b_hh)
-                again = gru_sequence_bwd(gates_p, w_hh, ys_p, dy)
-            torch.cuda.synchronize()
-            check(torch.equal(ys, ys2) and torch.equal(gates, gates2)
-                  and all(torch.equal(a, b) for a, b in zip((dxp, dw, db), again)),
-                  "gru_scan_gates and gru_scan_bwd bfloat16: reruns bit-equal")
+        pre = "" if name == "bfloat16" else "f32_"
+        rows["gru_scan_gates"][f"{pre}max_abs_err"] = max(err_y, err_g)
+        rows["gru_scan_bwd"][f"{pre}max_abs_err"] = max(
+            (a.float() - b.float()).abs().max().item()
+            for a, b in ((dxp, dxp_p), (dw, dw_p), (db, db_p)))
+        with torch.inference_mode():
+            ys2, gates2 = gru_sequence_gates(x, w_hh, b_hh)
+            again = gru_sequence_bwd(gates_p, w_hh, ys_p, dy)
+        torch.cuda.synchronize()
+        check(torch.equal(ys, ys2) and torch.equal(gates, gates2)
+              and all(torch.equal(a, b) for a, b in zip((dxp, dw, db), again)),
+              f"gru_scan_gates and gru_scan_bwd {name}: reruns bit-equal")
     for name in ("float32", "bfloat16"):
         x, dy, gates_p, ys_p = inputs[name]
         with torch.inference_mode():
@@ -994,52 +1081,74 @@ def train_kernel_phase() -> dict:
             fb = time_turns(lambda: gru_sequence_bwd(gates_p, w_hh, ys_p, dy),
                             lambda: gru_sequence_bwd_plain(gates_p, w_hh, ys_p, dy),
                             3, 2)
+        pre = "" if name == "bfloat16" else "f32_"
         for key, (k, p, turns) in (("gru_scan_gates", fg), ("gru_scan_bwd", fb)):
             print(f"time  {key} {name}: kernel {turns[0]:.4f}/{turns[1]:.4f} ms, "
                   f"plain {turns[2]:.4f}/{turns[3]:.4f} ms", flush=True)
-            if name == "bfloat16":
-                rows[key].update(ms=k, plain_ms=p)
-    # bfloat16: the step bodies at the same shapes, the contraction
-    # alone against its plain version, and cuDNN's layer forward + backward
-    x, dy, gates_p, ys_p = inputs["bfloat16"]
-    with torch.inference_mode():
-        step_fwd = time_ms(lambda: scan_forward(x, w_hh, b_hh, gates=True, plan="step"), 3)
-        step_bwd = time_ms(lambda: scan_backward(gates_p, w_hh, ys_p, dy, plan="step"), 3)
-        dxp_r, dhp_n_r = bwd_recurrence_plain(gates_p, w_hh, ys_p, dy)
-        dw_c = dw_contraction(ys_p, dxp_r, dhp_n_r)
-        dw_c2 = dw_contraction(ys_p, dxp_r, dhp_n_r)
-        dw_cp = hh_grads_plain(ys_p, dxp_r, dhp_n_r)[0]
-    torch.cuda.synchronize()
-    # exact products of bf16 values summed in float32 in another order
-    tol = TRAIN_TOL[("gru_scan_bwd", "float32")]
-    err = rel_err(dw_c, dw_cp)
-    check(err <= tol and torch.equal(dw_c, dw_c2),
-          f"gru_scan_bwd bfloat16 dW_hh contraction alone (tensor cores): {err:.3e} <= "
-          f"{tol:.3g} of max |ref|; reruns bit-equal")
-    with torch.inference_mode():
-        kc, pc, turns = time_turns(lambda: dw_contraction(ys_p, dxp_r, dhp_n_r),
-                                   lambda: hh_grads_plain(ys_p, dxp_r, dhp_n_r), 10, 3)
+            rows[key].update({f"{pre}ms": k, f"{pre}plain_ms": p})
+    # each dtype: the step bodies at the same shapes, the contraction alone
+    # against its plain version, and cuDNN's layer forward + backward; in
+    # float32 the backward's device time by part (recurrence, contraction)
+    # on both bodies
     contraction_flops = 2 * D * L * B * H * 3 * H
-    print(f"time  gru_scan_bwd bfloat16 contraction: tensor cores {turns[0]:.4f}/"
-          f"{turns[1]:.4f} ms ({contraction_flops / kc / 1e9:.1f} TFLOP/s), plain "
-          f"{turns[2]:.4f}/{turns[3]:.4f} ms", flush=True)
-    del dxp_r, dhp_n_r
-    cudnn_ms = cudnn_gru_ms(backward=True)
-    print(f"time  bfloat16 step bodies (a launch a step): gates forward {step_fwd:.4f} ms, backward "
-          f"{step_bwd:.4f} ms; cuDNN's bidirectional layer forward + backward "
-          f"(torch.nn.GRU, 2H -> H, projection included) {cudnn_ms:.4f} ms", flush=True)
-    rows["gru_scan_gates"]["step_ms"] = step_fwd
-    rows["gru_scan_bwd"].update(step_ms=step_bwd, contraction_ms=kc,
-                                cudnn_layer_fwd_bwd_ms=cudnn_ms)
-    w16 = w_hh.to(torch.bfloat16)
-    rows["gru_scan_gates"]["bound_ms"], rows["gru_scan_gates"]["bound_by"] = bound_ms(
-        nbytes(x, w16, b_hh, ys_p, gates_p), scan_flops(), "bfloat16")
-    # gates, W_hh, ys, dys read once, dxp, dW_hh, db_hh written once; the
-    # step products dhp @ W^T and the dW_hh contraction, each as many
-    # flops as the forward's products
-    rows["gru_scan_bwd"]["bound_ms"], rows["gru_scan_bwd"]["bound_by"] = bound_ms(
-        nbytes(gates_p, w16, ys_p, dy, x) + 4 * (D * H * 3 * H + D * 3 * H),
-        2 * scan_flops(), "bfloat16")
+    parts = (("recurrence", ("gru_bwd_persistent", "gru_bwd_step")),
+             ("contraction", ("gru_bwd_dw",)))
+    for name in ("float32", "bfloat16"):
+        x, dy, gates_p, ys_p = inputs[name]
+        pre = "" if name == "bfloat16" else "f32_"
+        with torch.inference_mode():
+            step_fwd = time_ms(lambda: scan_forward(x, w_hh, b_hh, gates=True, plan="step"), 3)
+            step_bwd = time_ms(lambda: scan_backward(gates_p, w_hh, ys_p, dy, plan="step"), 3)
+            dxp_r, dhp_n_r = bwd_recurrence_plain(gates_p, w_hh, ys_p, dy)
+            dw_c = dw_contraction(ys_p, dxp_r, dhp_n_r)
+            dw_c2 = dw_contraction(ys_p, dxp_r, dhp_n_r)
+            dw_cp = hh_grads_plain(ys_p, dxp_r, dhp_n_r)[0]
+        torch.cuda.synchronize()
+        # products of the stored values summed in float32 in another order
+        tol = TRAIN_TOL[("gru_scan_bwd", "float32")]
+        err = rel_err(dw_c, dw_cp)
+        unit = "tensor cores" if name == "bfloat16" else "gemm_f32.cuh's FMA tile"
+        check(err <= tol and torch.equal(dw_c, dw_c2),
+              f"gru_scan_bwd {name} dW_hh contraction alone ({unit}): {err:.3e} <= "
+              f"{tol:.3g} of max |ref|; reruns bit-equal")
+        with torch.inference_mode():
+            kc, pc, turns = time_turns(lambda: dw_contraction(ys_p, dxp_r, dhp_n_r),
+                                       lambda: hh_grads_plain(ys_p, dxp_r, dhp_n_r), 10, 3)
+        print(f"time  gru_scan_bwd {name} contraction: {unit} {turns[0]:.4f}/"
+              f"{turns[1]:.4f} ms ({contraction_flops / kc / 1e9:.1f} TFLOP/s), plain "
+              f"{turns[2]:.4f}/{turns[3]:.4f} ms", flush=True)
+        del dxp_r, dhp_n_r
+        if name == "float32":
+            for body in (f32_scan_body(), "step"):
+                with torch.inference_mode():
+                    split = by_stage(device_split(lambda: scan_backward(
+                        gates_p, w_hh, ys_p, dy, plan=None if body != "step" else "step"), 2),
+                        parts)
+                print(f"time  gru_scan_bwd float32 {body} body by part (device ms a call, "
+                      "torch.profiler): " + ", ".join(f"{k} {v:.4f}" for k, v in split.items()),
+                      flush=True)
+                rows["gru_scan_bwd"][f"f32_{body}_split_ms"] = split
+        cudnn_ms = cudnn_gru_ms(backward=True, dtype=dt[name])
+        print(f"time  {name} step bodies (a launch a step): gates forward {step_fwd:.4f} ms, "
+              f"backward {step_bwd:.4f} ms; cuDNN's {name} bidirectional layer forward + "
+              f"backward (torch.nn.GRU, 2H -> H, projection included) {cudnn_ms:.4f} ms",
+              flush=True)
+        rows["gru_scan_gates"][f"{pre}step_ms"] = step_fwd
+        rows["gru_scan_bwd"].update({f"{pre}step_ms": step_bwd, f"{pre}contraction_ms": kc,
+                                     f"{pre}cudnn_layer_fwd_bwd_ms": cudnn_ms})
+        w_t = w_hh.to(dt[name])
+        bound = bound_ms(nbytes(x, w_t, b_hh, ys_p, gates_p), scan_flops(), name)
+        # gates, W_hh, ys, dys read once, dxp, dW_hh, db_hh written once; the
+        # step products dhp @ W^T and the dW_hh contraction, each as many
+        # flops as the forward's products
+        bound_bwd = bound_ms(nbytes(gates_p, w_t, ys_p, dy, x) + 4 * (D * H * 3 * H + D * 3 * H),
+                             2 * scan_flops(), name)
+        if name == "bfloat16":
+            rows["gru_scan_gates"]["bound_ms"], rows["gru_scan_gates"]["bound_by"] = bound
+            rows["gru_scan_bwd"]["bound_ms"], rows["gru_scan_bwd"]["bound_by"] = bound_bwd
+        else:
+            rows["gru_scan_gates"]["f32_bound_ms"] = bound[0]
+            rows["gru_scan_bwd"]["f32_bound_ms"] = bound_bwd[0]
 
     # CTC at the train step's shapes: T = L frames, B rows, U labels, 41
     # classes, with an empty target, an infeasible target and a row of
@@ -1189,7 +1298,7 @@ def train_step_phase(card: str) -> tuple[dict, float]:
         out[plain] = (loss.item(), [p.grad.clone() for p in model.parameters()],
                       read_launches(KERNELS))
         if not plain:
-            check_scan_bodies("float32 train step", "step")
+            check_scan_bodies("float32 train step", f32_scan_body())
     (loss_k, grads_k, launch_k), (loss_p, grads_p, launch_p) = out[False], out[True]
     check(launch_k == {k: v // n for k, v in want.items()}
           and not any(launch_p.values()),
@@ -2362,7 +2471,7 @@ def gru_fused_step_phase(card: str, default_median: float) -> dict:
                       [p.detach().clone() for p in ps], read_launches())
         if not plain:
             by_body = dict(tiled_matmul.launches_by_body)
-            check_scan_bodies("float32 flagged GRU step", "step")
+            check_scan_bodies("float32 flagged GRU step", f32_scan_body())
     (loss_k, grads_k, new_k, launch_k), (loss_p, grads_p, new_p, launch_p) = (out[False],
                                                                                out[True])
     check(launch_k == per_step and not any(launch_p.values())
@@ -2394,30 +2503,60 @@ def gru_fused_step_phase(card: str, default_median: float) -> dict:
     return {k: launches[k] for k in NO_GRU_FUSED}
 
 
+AB_STEPS = 3  # float32 train steps a turn of the step-body A/B
+
+
 def gru_float32_steps_phase(card: str) -> None:
     """The float32 GRU train step at full width (``BENCH_ARGS`` in float32,
-    the JAX trainer's default dtype), default and with both flags, timed one
-    after the other: the flagged step's 12 projections on the f32 body."""
-    batch = batch_tensors(bench_batch(B, T, U), torch.device("cuda"))
-    n = 5
+    the JAX trainer's default dtype), default and with both flags: after 2
+    warm-up steps each model takes ``AB_STEPS`` timed steps a turn, in turns
+    step, plan, plan, step (``scan_body``): its scans on the step body
+    in the step turns, on ``scan_plan``'s body in the others. The medians of
+    each arm; the flagged step's 12 projections on the f32 body."""
+    device = torch.device("cuda")
+    batch = batch_tensors(bench_batch(B, T, U), device)
+    body32 = f32_scan_body()
     medians = {}
     for tag, args in (("default", BENCH_ARGS), ("flagged", GRU_FUSED_ARGS)):
-        model, losses, times, launches = train_steps(
-            {**args, "compute_dtype": "float32"}, 0, batch, 2, n)
-        del model
-        check_scan_bodies(f"{n} {tag} float32 GRU train steps", "step")
-        by_body = dict(tiled_matmul.launches_by_body)
-        mm = 12 * n if tag == "flagged" else 0
-        check(launches["tiled_matmul"] == mm and by_body == {"sm90": 0, "f32": mm, "tile": 0}
-              and all(math.isfinite(v) for v in losses),
-              f"{n} {tag} float32 GRU train steps: projection matmul launches by body "
-              f"{by_body}; losses finite {', '.join(f'{v:.4f}' for v in losses)}")
-        medians[tag] = statistics.median(times)
-        print(f"train step float32 {tag} B={B} T={T} U={U}: steps "
-              f"{', '.join(f'{t * 1e3:.2f}' for t in times)} ms, median "
-              f"{medians[tag] * 1e3:.2f} ms, {B / medians[tag]:.2f} seq/s ({card})", flush=True)
-    print(f"train step float32: flagged / default {medians['flagged'] / medians['default']:.3f}",
-          flush=True)
+        args32 = {**args, "compute_dtype": "float32"}
+        model = build_model(args32, N_DAYS, device, seed=0)
+        opt, sched = make_optimizer(args32, model.parameters())
+        step = make_train_step(args32, model, opt, sched)
+        losses, i = [], 0
+        for _ in range(2):  # warm-up
+            losses.append(float(step(batch, step_generator(device, 0, i))["train/loss"]))
+            i += 1
+        times = {"step": [], body32: []}
+        mm = 12 * AB_STEPS if tag == "flagged" else 0
+        for arm in ("step", body32, body32, "step"):
+            with scan_body(arm if arm == "step" else None):
+                torch.cuda.synchronize()
+                reset_launches()
+                for _ in range(AB_STEPS):
+                    t0 = time.perf_counter()
+                    losses.append(float(step(batch, step_generator(device, 0, i))["train/loss"]))
+                    torch.cuda.synchronize()
+                    times[arm].append(time.perf_counter() - t0)
+                    i += 1
+            check_scan_bodies(f"{AB_STEPS} {tag} float32 GRU train steps, a {arm} turn", arm)
+            by_body = dict(tiled_matmul.launches_by_body)
+            check(read_launches(KERNELS)["tiled_matmul"] == mm
+                  and by_body == {"sm90": 0, "f32": mm, "tile": 0},
+                  f"{AB_STEPS} {tag} float32 GRU train steps, a {arm} turn: projection matmul "
+                  f"launches by body {by_body}")
+        del model, opt, sched, step
+        check(all(math.isfinite(v) for v in losses),
+              f"{tag} float32 GRU train losses finite: {', '.join(f'{v:.4f}' for v in losses)}")
+        medians[tag] = {arm: statistics.median(v) for arm, v in times.items()}
+        m = medians[tag]
+        print(f"train step float32 {tag} B={B} T={T} U={U}, A/B in turns (step, {body32}, "
+              f"{body32}, step), {2 * AB_STEPS} steps an arm: {body32} body median "
+              f"{m[body32] * 1e3:.2f} ms ({', '.join(f'{t * 1e3:.2f}' for t in times[body32])}), "
+              f"{B / m[body32]:.2f} seq/s; step body median {m['step'] * 1e3:.2f} ms "
+              f"({', '.join(f'{t * 1e3:.2f}' for t in times['step'])}); {body32} / step "
+              f"{m[body32] / m['step']:.3f} ({card})", flush=True)
+    print(f"train step float32 on the {body32} body: flagged / default "
+          f"{medians['flagged'][body32] / medians['default'][body32]:.3f}", flush=True)
 
 
 def cli_phase(card: str) -> None:
@@ -2559,7 +2698,8 @@ def stream_float32_check(kind: str, card: str) -> None:
                                           torch.tensor([t], device="cuda"))
     offline = read_launches()
     if kind == "gru":
-        check_scan_bodies("float32 unidirectional offline forward", "step")
+        check_scan_bodies("float32 unidirectional offline forward",
+                          f32_scan_body(cfg.hidden_dim, 1, 1))
     st = make_streamer(kind, cfg, params, 1, day_idx=STREAM_DAY)
     reset_launches()
     got = stream_chunks(st, x)
@@ -3902,10 +4042,7 @@ def dp_gru_want(steps: int, n_eval: int) -> tuple[dict, dict]:
     gates-forward and backward scans and one CTC alpha and beta; per eval
     batch the frontend, each layer's inference scan and one alpha; by the
     bodies ``scan_plan``, ``frontend_plan`` and ``ctc_plan`` pick."""
-    props = torch.cuda.get_device_properties(0)
-    plan = scan_plan(H, B // 2, D, torch.float32, props.multi_processor_count,
-                     props.shared_memory_per_block_optin)
-    scan = plan if isinstance(plan, str) else "persistent"
+    scan = f32_scan_body(H, B // 2)
     bodies = {"gru_scan_gates": scan, "gru_scan_bwd": scan, "gru_scan": scan,
               "ctc_alpha": CTC_BODY, "ctc_beta": CTC_BODY, "frontend": "fma"}
     counts = {"gru_scan_gates": 5 * steps, "gru_scan_bwd": 5 * steps,
@@ -4027,10 +4164,7 @@ def tp_gru_want(steps: int, n_eval: int) -> tuple[dict, dict]:
     rank's contraction rows (forward, dX, dW), one CTC alpha and beta and
     one Adam over the rank's leaves; per eval batch the frontend, each
     layer's inference scan, layer 1's forward product and one alpha."""
-    props = torch.cuda.get_device_properties(0)
-    plan = scan_plan(H, TP_BATCH, D, torch.float32, props.multi_processor_count,
-                     props.shared_memory_per_block_optin)
-    scan = plan if isinstance(plan, str) else "persistent"
+    scan = f32_scan_body(H, TP_BATCH)
     n = TP_GRU_LAYERS
     bodies = {"gru_scan_gates": scan, "gru_scan_bwd": scan, "gru_scan": scan,
               "ctc_alpha": CTC_BODY, "ctc_beta": CTC_BODY, "frontend": "fma",
@@ -4234,14 +4368,18 @@ def tpllm_scores_check(tag: str, got: np.ndarray, ref: np.ndarray, how: str) -> 
 
 
 def tpllm_dryrun_want(name: str, steps: int = 1) -> dict:
-    """A dryrun rank's launches in a stage (float32: the scans on the step
-    body, the CTC recursions on the prefetch body, the attention forward on
-    the FMA body): a GRU step's 2 layers' gates-forward and backward scans
-    and one alpha and beta; a Conformer step's 2 attention forwards and
-    backwards on the rank's heads and one alpha and beta."""
+    """A dryrun rank's launches in a stage (float32: the scans on the body
+    ``scan_plan`` picks, the CTC recursions on the prefetch body, the
+    attention forward on the FMA body): a GRU step's 2 layers'
+    gates-forward and backward scans and one alpha and beta; a Conformer
+    step's 2 attention forwards and backwards on the rank's heads and one
+    alpha and beta. The GRU stages' widths: nUnits 128 on 16 rows a rank
+    (``+pallas``), else 64 (any batch of up to 128 rows plans alike at that
+    width)."""
     if name.startswith("gru_baseline"):
-        want = {"gru_scan_gates": 2, "gru_scan_gates/step": 2, "gru_scan_bwd": 2,
-                "gru_scan_bwd/step": 2}
+        body = f32_scan_body(128 if "+pallas" in name else 64, 16)
+        want = {"gru_scan_gates": 2, f"gru_scan_gates/{body}": 2, "gru_scan_bwd": 2,
+                f"gru_scan_bwd/{body}": 2}
     else:
         want = {"mhsa_qkv": 2, "mhsa_qkv/fma": 2, "mhsa_qkv_bwd": 2}
     want |= {"ctc_alpha": 1, "ctc_alpha/prefetch": 1, "ctc_beta": 1, "ctc_beta/prefetch": 1}

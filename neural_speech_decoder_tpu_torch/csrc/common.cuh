@@ -2,7 +2,8 @@
 // conversions between the storage type (float or bfloat16) and the float32
 // the kernels compute in, the cp.async copies into shared memory, the
 // ldmatrix loads and mma.sync product of the tensor-core bodies, the barrier
-// of the persistent bodies, and NSD_TRY for host code that launches several.
+// of the persistent bodies and the lane reduction of their float32 FMA
+// tiles, and NSD_TRY for host code that launches several.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -99,6 +100,44 @@ __device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0, ui
 __device__ __forceinline__ uint32_t pack(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The sum over the 8 lanes of a k group (lane bits 0-2) of a lane's
+// [8][kN] partial sums, scattered: lane k of the group returns row k's kN
+// sums (the float32 persistent GRU bodies). Three butterfly rounds, each
+// keeping the half of the rows that the lane's next bit selects; each
+// output is one lane's, in one fixed order.
+template <int kN>
+__device__ __forceinline__ void reduce_rows8(const float (&acc)[8][kN], float (&out)[kN]) {
+  const int k = threadIdx.x % 8;
+  float r1[4][kN], r2[2][kN];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int n = 0; n < kN; ++n) {
+      const bool hi = k & 4;
+      const float mine = hi ? acc[4 + i][n] : acc[i][n];
+      const float other = hi ? acc[i][n] : acc[4 + i][n];
+      r1[i][n] = mine + __shfl_xor_sync(0xffffffffu, other, 4);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int n = 0; n < kN; ++n) {
+      const bool hi = k & 2;
+      const float mine = hi ? r1[2 + i][n] : r1[i][n];
+      const float other = hi ? r1[i][n] : r1[2 + i][n];
+      r2[i][n] = mine + __shfl_xor_sync(0xffffffffu, other, 2);
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < kN; ++n) {
+    const bool hi = k & 1;
+    const float mine = hi ? r2[1][n] : r2[0][n];
+    const float other = hi ? r2[0][n] : r2[1][n];
+    out[n] = mine + __shfl_xor_sync(0xffffffffu, other, 1);
+  }
 }
 
 // cp_async_wait with a count known only at run time (0..3).

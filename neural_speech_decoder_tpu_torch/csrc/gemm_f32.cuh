@@ -23,6 +23,11 @@
 // the contiguous extents (ld and the tile's i range) to be multiples of 4
 // and 16-byte aligned pointers; the caller (ops/kernels/matmul.py::
 // matmul_body) sends every other float32 product to gemm_tile.cuh.
+//
+// The tile itself (gemm_f32_tile) also takes a k-major operand whose rows
+// come in groups (GroupedSlabs: row k at (k / group) * gstride + (k % group)
+// * ld), the strided time-step views that gru_scan_bwd.cu's float32 dW_hh
+// contraction reads, and an output row stride of its own.
 #pragma once
 
 #include <stdint.h>
@@ -87,20 +92,38 @@ struct Slabs<false> {
   }
 };
 
-// out [M, N] (row stride N) = A . B + bias (bias [N] may be null); A's
-// extent is M, B's N, both K long along the sum. kBlocks: the blocks an SM
-// is to hold (2 caps the registers at 128 a thread).
-template <bool kAK, bool kBK, int kBlocks>
-__global__ void __launch_bounds__(kThreads, kBlocks)
-    gemm_f32_kernel(int M, int N, int K, const float* __restrict__ a, int lda,
-                    const float* __restrict__ b, int ldb, const float* __restrict__ bias,
-                    float* __restrict__ out) {
+// A k-major operand whose row k lies at p[(k / group) * gstride + (k % group)
+// * ld]: Slabs<true> over rows that come in groups (time steps of B rows,
+// D*B rows apart).
+struct GroupedSlabs {
+  const float* p;
+  int ld, extent, i0, group;
+  size_t gstride;
+  __device__ __forceinline__ void fetch(float* dst, int k0, int K) {
+#pragma unroll
+    for (int r = 0; r < kChunks; ++r) {
+      const int c = threadIdx.x + r * kThreads, k = c / 32, i = (c % 32) * 4;
+      const int row = k0 + k;
+      const bool ok = row < K && i0 + i < extent;
+      const float* src =
+          p + (size_t)(row / group) * gstride + (size_t)(row % group) * ld + i0 + i;
+      cp_async16(dst + k * kLd + i, ok ? src : p, ok);
+    }
+  }
+  __device__ __forceinline__ void put(float*) const {}
+};
+
+// The block's tile of out [M, N] (row stride ldo) = A . B + bias (bias [N]
+// may be null), its rows from sa.i0 and columns from sb.i0; A's extent is
+// M, B's N, both K long along the sum.
+template <class SA, class SB>
+__device__ __forceinline__ void gemm_f32_tile(SA& sa, SB& sb, int M, int N, int K,
+                                              const float* __restrict__ bias,
+                                              float* __restrict__ out, int ldo) {
   __shared__ __align__(16) float As[2][kSlab * kLd];
   __shared__ __align__(16) float Bs[2][kSlab * kLd];
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
-  Slabs<kAK> sa{a, lda, M, m0};
-  Slabs<kBK> sb{b, ldb, N, n0};
+  const int m0 = sa.i0, n0 = sb.i0;
   float acc[8][8];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
@@ -162,9 +185,22 @@ __global__ void __launch_bounds__(kThreads, kBlocks)
         v.z += bias[n + 2];
         v.w += bias[n + 3];
       }
-      *reinterpret_cast<float4*>(out + (size_t)m * N + n) = v;
+      *reinterpret_cast<float4*>(out + (size_t)m * ldo + n) = v;
     }
   }
+}
+
+// out [M, N] (row stride N) = A . B + bias (bias [N] may be null); A's
+// extent is M, B's N, both K long along the sum. kBlocks: the blocks an SM
+// is to hold (2 caps the registers at 128 a thread).
+template <bool kAK, bool kBK, int kBlocks>
+__global__ void __launch_bounds__(kThreads, kBlocks)
+    gemm_f32_kernel(int M, int N, int K, const float* __restrict__ a, int lda,
+                    const float* __restrict__ b, int ldb, const float* __restrict__ bias,
+                    float* __restrict__ out) {
+  Slabs<kAK> sa{a, lda, M, (int)blockIdx.y * kTile};
+  Slabs<kBK> sb{b, ldb, N, (int)blockIdx.x * kTile};
+  gemm_f32_tile(sa, sb, M, N, K, bias, out, N);
 }
 
 // Launch out = A . B (+ bias) on stream st; see gemm_f32_kernel. Two blocks

@@ -32,14 +32,16 @@
 // needs the whole previous h of all blocks. The step's product is
 // 2*D*B*H*3H flops (805 MFLOP at D=2, B=64, H=1024) for one pass over W_hh,
 // i.e. about 2*B flops per weight byte read in f32: below the tensor cores'
-// ridge, above that of the FP32 FMA units. This version does its product on
+// ridge, above that of the FP32 FMA units. The step body does its product on
 // FP32 FMAs, so a step is bound by FMA throughput and by streaming W_hh out
-// of L2, plus one launch per step.
+// of L2, plus one launch per step; the persistent bodies keep W_hh in shared
+// memory across the blocks, so a step streams only h.
 //
-// Two bodies. The step body (the floor design) runs float32, and the
-// bf16 shapes that the persistent body cannot hold; the persistent body runs
-// every other bf16 scan. The caller (ops/kernels/gru_scan.py::scan_plan)
-// chooses from the shape before the launch.
+// Two bodies. The persistent body runs every scan whose slice fits, in
+// bfloat16 and in float32 (an instantiation of each); the step body (the
+// floor design) runs the shapes that the persistent body cannot hold, and
+// the step arm of an A/B. The caller (ops/kernels/gru_scan.py::scan_plan)
+// chooses from the shape and dtype before the launch.
 //
 // Step body: the host function loops over the L steps on the caller's
 // stream and launches one step kernel per step, so the launch boundary is
@@ -79,6 +81,28 @@
 // Per step a block reads 2*B*H bytes of h from L2 (128 KB at B=64, H=1024,
 // 16.8 MB over 128 blocks) for 2*B*H*3U flops: the L2 traffic and the
 // barrier set the pace, not the tensor cores.
+//
+// Persistent body (float32): the same launch, blocks, units and barrier,
+// the TPU kernel's float32 product on FP32 FMAs (no TF32). The slice of W_hh,
+// [H, 3U] float32 (192 KB at H=1024, U=16), is transposed into shared memory
+// once, [3U][H]; ys[t] is h_t exactly, so again the next step reads h_{t-1}
+// from ys and no carry buffer exists. A warp owns a tile of 8 rows x 16 units
+// (16 x 8 where U % 16 != 0) and all three gates, and streams its own rows
+// of h_{t-1} out of L2 through a ring of its own (four 32-column chunks,
+// cp.async.cg, three in flight), so that warps meet only at the barrier
+// between steps: a block-wide barrier a chunk kept them in lockstep and
+// all asking shared memory for their operands at once. Lane 8 a + kg sums
+// an 8-row x 12-column tile (4 units x 3 gates) over the 16-byte piece kg of
+// every chunk: 20 shared loads for 384 FMAs, the eight lanes of a piece
+// reading 128 contiguous bytes; shared memory feeds registers 128 bytes a
+// cycle, which a smaller tile (4 loads per 12 FMAs) made the bound. The
+// eight partial sums of a row then meet in a butterfly that leaves each lane
+// one row of its 4 units (nsd::reduce_rows8), the elements whose gate math
+// and float32 carry it keeps; ys and the gates go out as 16-byte stores. Per
+// step a block reads 4*B*H bytes of h (256 KB at B=64, H=1024) for 2*B*H*3U
+// flops (6.3 MFLOP, 12.4 us at the FP32 peak).
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -431,35 +455,228 @@ __global__ void __launch_bounds__(256, 1)
   }
 }
 
-// Checks a persistent launch's arguments against the kernel's arithmetic.
+// ---------------------------------------------------------------------------
+// The persistent float32 body.
+
+constexpr int kKc32 = 32;             // columns of h a chunk holds
+constexpr int kPieces32 = kKc32 / 4;  // 16-byte pieces of a chunk row: the k groups
+constexpr int kStages32 = 4;          // chunks of a warp's ring
+
+// A warp's tile of the float32 persistent forward: 8 rows x 16 units where
+// U % 16 == 0, else 16 rows x 8 units. Each warp streams its own rows
+// through a ring of its own, [kStages32][rows of its tile][kKc32].
+__host__ __device__ constexpr int warp_rows_f32(int units) { return units % 16 ? 16 : 8; }
+
+// Dynamic shared memory of the persistent float32 forward: W's slice
+// [3U][Hp] (Hp = H rounded up to kKc32) and the warps' rings, float32.
+__host__ __device__ constexpr int fwd_smem_bytes_f32(int units, int batch, int hidden) {
+  return 4 * (3 * units * round_up(hidden, kKc32) +
+              round_up(batch, 16) / 16 * (units / 8) * kStages32 * warp_rows_f32(units) * kKc32);
+}
+
+template <bool kGates, int kRowsW>
+__global__ void __launch_bounds__(256, 1)
+    gru_fwd_persistent_f32(const float* __restrict__ xp, const float* __restrict__ w,
+                           const float* __restrict__ bias, float* __restrict__ ys,
+                           float* __restrict__ gates, unsigned* __restrict__ sync,
+                           int n_steps, int n_dirs, int batch, int hidden, int units) {
+  constexpr int kUnitsW = 128 / kRowsW;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int n_blk = (hidden + units - 1) / units;  // blocks of a direction
+  const int d = blockIdx.x / n_blk;
+  const int j0 = (blockIdx.x % n_blk) * units;
+  const int hp = round_up(hidden, kKc32);
+  const int three_h = 3 * hidden;
+  float* ws = reinterpret_cast<float*>(smem_raw);  // [3U][hp]
+  const int tid = threadIdx.x;
+  const int n_thr = blockDim.x;
+
+  // W's slice, transposed: row n = g*U + u of ws holds W[d][k][g*H + j0 + u]
+  // over k, zero past H and past the last unit
+  for (int i = tid; i < 3 * units * hp; i += n_thr) {
+    const int n = i % (3 * units), k = i / (3 * units);
+    const int g = n / units, j = j0 + n % units;
+    ws[n * hp + k] =
+        k < hidden && j < hidden ? w[((size_t)d * hidden + k) * three_h + g * hidden + j] : 0.f;
+  }
+
+  // A warp's tile: kRowsW rows (rt) x kUnitsW units (ut) x the 3 gates.
+  // Lane 8 a + kg sums 8 rows kRowsW rt + 8 rh + i (i < 8) against 4 units
+  // kUnitsW ut + 4 uq + v (v < 4) of each gate over piece kg of every chunk
+  // (rh, uq from a): an 8 x 12 tile, 20 16-byte shared loads for 384 FMAs
+  // (the eight lanes of a k group read 128 contiguous bytes). reduce_rows8
+  // then leaves the lane row kRowsW rt + 8 rh + kg of its 4 units: its
+  // elements v. Warps meet only at the barrier between steps.
+  const int lane = tid % 32, warp = tid / 32;
+  const int ut = warp % (units / kUnitsW), rt = warp / (units / kUnitsW);
+  const int kg = lane % 8, rh = lane / 8 % (kRowsW / 8), uq = lane / 8 / (kRowsW / 8);
+  const int row = kRowsW * rt + 8 * rh + kg;   // the lane's row after the sum
+  const int j4 = j0 + kUnitsW * ut + 4 * uq;  // and its first unit
+  const bool ok = row < batch && j4 < hidden;  // hidden % 8 == 0: all 4 units or none
+  float bias_g[3][4];
+  for (int gt = 0; gt < 3; ++gt) {
+    for (int v = 0; v < 4; ++v) {
+      bias_g[gt][v] = j4 < hidden ? bias[(size_t)d * three_h + gt * hidden + j4 + v] : 0.f;
+    }
+  }
+  float carry[4] = {0.f, 0.f, 0.f, 0.f};  // h of the lane's elements
+  // a step's x_r, x_z, x_n of the lane's elements, independent of the other
+  // blocks: loaded before the barrier that precedes their step
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 x[3];
+  auto load_x = [&](int s) {
+    const int t = d == 0 ? s : n_steps - 1 - s;
+    const float* xr = xp + (((size_t)t * n_dirs + d) * batch + row) * three_h + j4;
+    for (int gt = 0; gt < 3; ++gt) {
+      x[gt] = ok ? *reinterpret_cast<const float4*>(xr + gt * hidden) : zero4;
+    }
+  };
+  // the rings zero, of which the rows past B stay so
+  for (int i = 3 * units * hp + tid; i < fwd_smem_bytes_f32(units, batch, hidden) / 4;
+       i += n_thr) {
+    ws[i] = 0.f;
+  }
+  load_x(0);
+  __syncthreads();
+  const int n_chunks = hp / kKc32;
+  const int tile_rows = batch - kRowsW * rt;  // rows of the warp's tile below B
+  float* ring = reinterpret_cast<float*>(smem_raw) + 3 * units * hp +
+                warp * kStages32 * kRowsW * kKc32;  // [kStages32][kRowsW][kKc32]
+  const float* h_lane = ring + 8 * rh * kKc32 + 4 * kg;
+  const float* w_lane = ws + (kUnitsW * ut + 4 * uq) * hp + 4 * kg;
+
+  for (int s = 0; s < n_steps; ++s) {
+    const int t = d == 0 ? s : n_steps - 1 - s;
+    float acc[8][12] = {};  // [i][4 gate + v], the lane's piece of the sum
+    if (s > 0) {
+      const int tp = d == 0 ? s - 1 : n_steps - s;  // scan position s-1
+      const float* hsrc =
+          ys + (((size_t)tp * n_dirs + d) * batch + kRowsW * rt) * hidden;  // the tile's rows
+      // the warp's rows of chunk c: lane + 32 f is row (lane + 32 f) / 8,
+      // piece lane % 8 (zero past H; rows past B are not read)
+      auto load = [&](int c) {
+        float* dst = ring + (c % kStages32) * kRowsW * kKc32;
+#pragma unroll
+        for (int f = 0; f < kRowsW / 4; ++f) {
+          const int r = (lane + 32 * f) / kPieces32, k = c * kKc32 + 4 * kg;
+          if (!nsd::kCutLoad && r < tile_rows) {
+            nsd::cp_async16(dst + r * kKc32 + 4 * kg,
+                            hsrc + (size_t)r * hidden + (k < hidden ? k : 0), k < hidden);
+          }
+        }
+      };
+      for (int c = 0; c < kStages32 - 1; ++c) {
+        if (c < n_chunks) load(c);
+        nsd::cp_async_commit();
+      }
+      for (int c = 0; c < n_chunks; ++c) {
+        nsd::cp_async_wait<kStages32 - 2>();
+        __syncwarp();
+        if (c + kStages32 - 1 < n_chunks) load(c + kStages32 - 1);
+        nsd::cp_async_commit();
+        {
+          const float* hs = h_lane + (c % kStages32) * kRowsW * kKc32;
+          float4 wv[12];
+#pragma unroll
+          for (int gt = 0; gt < 3; ++gt) {
+#pragma unroll
+            for (int v = 0; v < 4; ++v) {
+              wv[4 * gt + v] = *reinterpret_cast<const float4*>(
+                  w_lane + (gt * units + v) * hp + c * kKc32);
+            }
+          }
+          if (nsd::kCutMma) continue;
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const float4 hv = *reinterpret_cast<const float4*>(hs + i * kKc32);
+#pragma unroll
+            for (int n = 0; n < 12; ++n) {
+              float a = acc[i][n];
+              a = fmaf(hv.x, wv[n].x, a);
+              a = fmaf(hv.y, wv[n].y, a);
+              a = fmaf(hv.z, wv[n].z, a);
+              acc[i][n] = fmaf(hv.w, wv[n].w, a);
+            }
+          }
+        }
+      }
+    }
+    float sum[12];  // the lane's row: [4 gate + v]
+    nsd::reduce_rows8(acc, sum);
+    if (ok) {
+      const size_t row_i = ((size_t)t * n_dirs + d) * batch + row;
+      float h[4], gate[4][4];
+      const float xs[3][4] = {{x[0].x, x[0].y, x[0].z, x[0].w},
+                              {x[1].x, x[1].y, x[1].z, x[1].w},
+                              {x[2].x, x[2].y, x[2].z, x[2].w}};
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const float hp_r = sum[v] + bias_g[0][v];
+        const float hp_z = sum[4 + v] + bias_g[1][v];
+        const float hp_n = sum[8 + v] + bias_g[2][v];
+        const float r = sigmoid_f32(xs[0][v] + hp_r);
+        const float z = sigmoid_f32(xs[1][v] + hp_z);
+        const float n = tanhf(xs[2][v] + r * hp_n);
+        h[v] = (1.f - z) * n + z * carry[v];
+        carry[v] = h[v];
+        gate[0][v] = r;
+        gate[1][v] = z;
+        gate[2][v] = n;
+        gate[3][v] = hp_n;
+      }
+      *reinterpret_cast<float4*>(ys + row_i * hidden + j4) = make_float4(h[0], h[1], h[2], h[3]);
+      if (kGates) {
+        float* gr = gates + row_i * 4 * hidden + j4;
+        for (int gt = 0; gt < 4; ++gt) {
+          *reinterpret_cast<float4*>(gr + gt * hidden) =
+              make_float4(gate[gt][0], gate[gt][1], gate[gt][2], gate[gt][3]);
+        }
+      }
+    }
+    if (s + 1 < n_steps) {
+      load_x(s + 1);
+      if (!nsd::kCutBarrier) nsd::group_barrier(sync + d, (unsigned)(s + 1) * n_blk);
+    }
+  }
+}
+
+// Checks a persistent launch's arguments against the kernel's arithmetic
+// (smem_want: the dtype's fwd_smem_bytes).
 cudaError_t check_persistent(int n_dirs, int batch, int hidden, int units, int threads,
-                             int smem) {
+                             int smem, int smem_want) {
   if (n_dirs < 1 || n_dirs > 2 || batch < 1 || hidden < 8 || hidden % 8 || units < 8 ||
       units % 8 || threads != 32 * (round_up(batch, 16) / 16) * (units / 8) ||
-      threads > 256 || smem != fwd_smem_bytes(units, batch, hidden)) {
+      threads > 256 || smem != smem_want) {
     return cudaErrorInvalidValue;
   }
   return cudaSuccess;
 }
 
-template <bool kGates>
+// T: bf16 (gru_fwd_persistent) or float (gru_fwd_persistent_f32).
+template <typename T, bool kGates>
 cudaError_t run_persistent(const void* xp, const void* w, const void* bias, void* ys,
                            void* gates, void* sync, int n_steps, int n_dirs, int batch,
                            int hidden, int units, int threads, int smem,
                            cudaStream_t stream) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
   if (n_steps < 1) return cudaErrorInvalidValue;
-  NSD_TRY(check_persistent(n_dirs, batch, hidden, units, threads, smem));
-  const void* kernel = reinterpret_cast<const void*>(&gru_fwd_persistent<kGates>);
+  NSD_TRY(check_persistent(n_dirs, batch, hidden, units, threads, smem,
+                           kF32 ? fwd_smem_bytes_f32(units, batch, hidden)
+                                : fwd_smem_bytes(units, batch, hidden)));
+  const void* kernel =
+      !kF32            ? reinterpret_cast<const void*>(&gru_fwd_persistent<kGates>)
+      : units % 16 == 0 ? reinterpret_cast<const void*>(&gru_fwd_persistent_f32<kGates, 8>)
+                        : reinterpret_cast<const void*>(&gru_fwd_persistent_f32<kGates, 16>);
   const int blocks = n_dirs * ((hidden + units - 1) / units);
   if (nsd::coresident_blocks(kernel, threads, smem) < blocks) {
     return cudaErrorCooperativeLaunchTooLarge;
   }
   NSD_TRY(cudaMemsetAsync(sync, 0, 2 * sizeof(unsigned), stream));
-  const bf16* xp_ = static_cast<const bf16*>(xp);
-  const bf16* w_ = static_cast<const bf16*>(w);
+  const T* xp_ = static_cast<const T*>(xp);
+  const T* w_ = static_cast<const T*>(w);
   const float* bias_ = static_cast<const float*>(bias);
-  bf16* ys_ = static_cast<bf16*>(ys);
-  bf16* gates_ = static_cast<bf16*>(gates);
+  T* ys_ = static_cast<T*>(ys);
+  T* gates_ = static_cast<T*>(gates);
   unsigned* sync_ = static_cast<unsigned*>(sync);
   void* args[] = {&xp_, &w_, &bias_, &ys_, &gates_, &sync_,
                   &n_steps, &n_dirs, &batch, &hidden, &units};
@@ -517,10 +734,24 @@ int nsd_gru_scan_persistent_bf16(const void* xp, const void* w, const void* bias
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
       gates == nullptr
-          ? run_persistent<false>(xp, w, bias, ys, nullptr, sync, n_steps, n_dirs, batch,
-                                  hidden, units, threads, smem, st)
-          : run_persistent<true>(xp, w, bias, ys, gates, sync, n_steps, n_dirs, batch,
-                                 hidden, units, threads, smem, st));
+          ? run_persistent<bf16, false>(xp, w, bias, ys, nullptr, sync, n_steps, n_dirs,
+                                        batch, hidden, units, threads, smem, st)
+          : run_persistent<bf16, true>(xp, w, bias, ys, gates, sync, n_steps, n_dirs, batch,
+                                       hidden, units, threads, smem, st));
+}
+
+// The persistent float32 body, with the bf16 entry's arguments in float32.
+int nsd_gru_scan_persistent_f32(const void* xp, const void* w, const void* bias,
+                                void* ys, void* gates, void* sync, int n_steps,
+                                int n_dirs, int batch, int hidden, int units,
+                                int threads, int smem, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      gates == nullptr
+          ? run_persistent<float, false>(xp, w, bias, ys, nullptr, sync, n_steps, n_dirs,
+                                         batch, hidden, units, threads, smem, st)
+          : run_persistent<float, true>(xp, w, bias, ys, gates, sync, n_steps, n_dirs,
+                                        batch, hidden, units, threads, smem, st));
 }
 
 // The card's SM count and the shared memory one block may opt in to.

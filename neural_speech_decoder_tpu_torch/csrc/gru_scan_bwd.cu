@@ -34,10 +34,11 @@
 // the 24 MB f32 dW_hh beside the 12-24 MB W^T would overfill the 50 MB L2,
 // and blocks cannot carry a sum from one step's launch to the next.
 //
-// Two bodies, as in gru_scan.cu: the step body for float32 (and the bf16
-// shapes the persistent body cannot hold), the persistent body for every
-// other bf16 scan; the caller (ops/kernels/gru_scan.py::scan_plan) chooses.
-// Each is two parts, the recurrence and the dW_hh / db_hh contraction.
+// Two bodies, as in gru_scan.cu: the persistent body (a bf16 and a float32
+// instantiation) for every scan whose slice fits, the step body for the
+// shapes it cannot hold and for an A/B's step arm; the caller
+// (ops/kernels/gru_scan.py::scan_plan) chooses. Each is two parts, the
+// recurrence and the dW_hh / db_hh contraction.
 //
 // Step body:
 //   1. One step kernel per scan position, launched in reverse from a host
@@ -91,7 +92,34 @@
 //      body's contraction kernel (gru_bwd_dw_kernel<bf16>, exact bf16
 //      products summed in float32 on FMAs) without its db_hh row. Each
 //      block sums all its rows in order (no split, no atomics).
+//
+// Persistent body (float32):
+//   1. The bf16 body's launch, blocks and barrier; W_hh's rows of the
+//      block's units, [U, 3H] float32 (192 KB at U=16, H=1024), resident in
+//      shared memory for the walk; the product on FP32 FMAs. A warp owns 8
+//      rows x 16 units (16 x 8 where U % 16 != 0), as in gru_scan.cu, and
+//      streams its rows of the dhp row itself: its lanes fetch each
+//      64-column chunk into registers (__ldcg, two chunks ahead) and store
+//      it into the warp's double buffer in shared memory, so that more of
+//      the 768 KB a block reads a step is in flight than a ring in the
+//      32 KB beside W would hold. Lane 16 a + kg sums an 8 x 8 tile over
+//      the 16-byte piece kg of every chunk (16 shared loads for 256 FMAs);
+//      lanes kg and kg ^ 8 swap unit halves and nsd::reduce_rows8 sums the
+//      rest, leaving each lane one row of 4 units, the elements whose gate
+//      math it does, with dh_tot z and its share of db_hh in registers as
+//      in bf16. Per step a block reads 12*B*H bytes of dhp (768 KB at
+//      B=64, H=1024; 100 MB over 128 blocks): the L2 traffic sets the
+//      pace, not the 6.3 MFLOP of FMAs.
+//   2. The dW_hh contraction on gemm_f32.cuh's pipelined FP32 tile (the
+//      float32 projection's, 128 x 128 outputs a block, gru_bwd_dw_f32),
+//      reading the same two shifted views of ys and dhp through grouped
+//      rows (a time step's B rows, D*B rows apart) with no copy; each
+//      output summed in one thread in row order. db_hh is summed in the
+//      recurrence.
+#include <type_traits>
+
 #include "common.cuh"
+#include "gemm_f32.cuh"
 #include "gemm_sm90.cuh"
 
 namespace {
@@ -733,20 +761,311 @@ cudaError_t run_dw_sm90(const bf16* ys, const bf16* dxp, const bf16* dhpn, float
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The persistent float32 body.
+
+constexpr int kKcB = 64;             // columns of dhp a chunk holds
+constexpr int kPiecesB = kKcB / 4;   // 16-byte pieces of a chunk row: the k groups
+
+// The forward's warp tiles (gru_scan.cu, warp_rows_f32): 8 rows x 16 units
+// where U % 16 == 0, else 16 rows x 8 units, each warp with a double buffer
+// [2][rows of its tile][kKcB] of its own.
+__host__ __device__ constexpr int warp_rows_f32(int units) { return units % 16 ? 16 : 8; }
+
+// Dynamic shared memory of the persistent float32 recurrence: W's rows
+// [U][3H'] (3H' = 3H rounded up to kKcB) and the warps' double buffers,
+// float32.
+__host__ __device__ constexpr int bwd_smem_bytes_f32(int units, int batch, int hidden) {
+  return 4 * (units * round_up(3 * hidden, kKcB) +
+              round_up(batch, 16) / 16 * (units / 8) * 2 * warp_rows_f32(units) * kKcB);
+}
+
+template <int kRowsW>
+__global__ void __launch_bounds__(256, 1)
+    gru_bwd_persistent_f32(const float* __restrict__ gates, const float* __restrict__ w,
+                           const float* __restrict__ ys, const float* __restrict__ dys,
+                           float* __restrict__ dxp, float* __restrict__ dhpn,
+                           float* __restrict__ db, unsigned* __restrict__ sync, int n_steps,
+                           int n_dirs, int batch, int hidden, int units) {
+  constexpr int kUnitsW = 128 / kRowsW;
+  constexpr int kF = kRowsW * kPiecesB / 32;  // 16-byte pieces of a chunk a lane fetches
+  constexpr int kP = 8 / kF;                  // chunks a lane holds in flight
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int n_blk = (hidden + units - 1) / units;
+  const int d = blockIdx.x / n_blk;
+  const int j0 = (blockIdx.x % n_blk) * units;
+  const int three_h = 3 * hidden, two_h = 2 * hidden;
+  const int kp = round_up(three_h, kKcB);
+  const int rows = round_up(batch, 16);
+  float* ws = reinterpret_cast<float*>(smem_raw);  // [U][kp]
+  const int tid = threadIdx.x;
+  const int n_thr = blockDim.x;
+
+  // ws row u holds W[d][j0 + u][c] over c, zero past 3H and past the last
+  // unit
+  for (int i = tid; i < units * kp; i += n_thr) {
+    const int u = i / kp, c = i % kp, j = j0 + u;
+    ws[i] = j < hidden && c < three_h ? w[((size_t)d * hidden + j) * three_h + c] : 0.f;
+  }
+
+  // A warp's tile: kRowsW rows (rt) x kUnitsW units (ut). Lane 16 a + kg
+  // sums 8 rows kRowsW rt + 8 rh + i (i < 8) against 8 units kUnitsW ut + 8
+  // uh + v (v < 8) over piece kg of every chunk (rh, uh from a): an 8 x 8
+  // tile, 16 16-byte shared loads for 256 FMAs. The lanes kg and kg ^ 8 then
+  // swap halves of the units and reduce_rows8 sums over the rest: the lane
+  // owns row kRowsW rt + 8 rh + kg % 8 of units 8 uh + 4 (kg / 8) + v (v <
+  // 4), its elements v. Warps meet only at the barrier between steps.
+  const int lane = tid % 32, warp = tid / 32;
+  const int ut = warp % (units / kUnitsW), rt = warp / (units / kUnitsW);
+  const int kg = lane % 16;
+  const int rh = kRowsW == 16 ? lane / 16 : 0, uh = kRowsW == 16 ? 0 : lane / 16;
+  const int row = kRowsW * rt + 8 * rh + kg % 8;
+  const int j4 = j0 + kUnitsW * ut + 8 * uh + 4 * (kg / 8);
+  const bool ok = row < batch && j4 < hidden;
+  const int n_chunks = kp / kKcB;
+  const int tile_rows = batch - kRowsW * rt;  // rows of the warp's tile below B
+  float* buf = ws + units * kp + warp * 2 * kRowsW * kKcB;  // [2][kRowsW][kKcB]
+  const float* h_lane = buf + 8 * rh * kKcB + 4 * kg;
+  const float* w_lane = ws + (kUnitsW * ut + 8 * uh) * kp + 4 * kg;
+  float dhz[4] = {0.f, 0.f, 0.f, 0.f};  // f32 dh_tot z of the lane's elements
+  __syncthreads();
+
+  // a step's inputs of the lane's elements, independent of the other
+  // blocks: loaded before the barrier that precedes their step
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  auto at4 = [](const float* p) { return *reinterpret_cast<const float4*>(p); };
+  float4 dy, g4[4], hprev;
+  auto load_inputs = [&](int s) {
+    const int t = time_of(d, s, n_steps);
+    const size_t row_i = ((size_t)t * n_dirs + d) * batch + row;
+    dy = ok ? at4(dys + row_i * hidden + j4) : zero4;
+    for (int q = 0; q < 4; ++q) {
+      g4[q] = ok ? at4(gates + row_i * 4 * hidden + q * hidden + j4) : zero4;
+    }
+    const int tp = s > 0 ? time_of(d, s - 1, n_steps) : 0;
+    hprev = ok && s > 0 ? at4(ys + (((size_t)tp * n_dirs + d) * batch + row) * hidden + j4)
+                        : zero4;
+  };
+  // db_hh of the lane's units over its row, summed in step order (gates r,
+  // z, n; units v)
+  float dbs[3][4] = {};
+  load_inputs(n_steps - 1);
+  for (int s = n_steps - 1; s >= 0; --s) {
+    const int t = time_of(d, s, n_steps);
+    float acc[8][8] = {};  // [i][v], the lane's piece of the sum
+    if (s < n_steps - 1) {
+      // the tile's rows of dhp at the later scan position: dxp's r and z
+      // thirds, then dhpn
+      const size_t row_next =
+          ((size_t)time_of(d, s + 1, n_steps) * n_dirs + d) * batch + kRowsW * rt;
+      const float* x_src = dxp + row_next * three_h;
+      const float* n_src = dhpn + row_next * hidden;
+      // a lane's pieces idx = lane + 32 f of chunk c: row idx / 16, piece
+      // idx % 16; zero past B, past 3H and past the last chunk
+      float4 slot[kP][kF];
+      auto fetch = [&](int c, float4(&dst)[kF]) {
+#pragma unroll
+        for (int f = 0; f < kF; ++f) {
+          const int idx = lane + 32 * f, r = idx / kPiecesB;
+          const int col = c * kKcB + 4 * (idx % kPiecesB);
+          const float* src = col < two_h ? x_src + (size_t)r * three_h + col
+                                         : n_src + (size_t)r * hidden + col - two_h;
+          dst[f] = !nsd::kCutLoad && c < n_chunks && r < tile_rows && col < three_h
+                       ? __ldcg(reinterpret_cast<const float4*>(src))
+                       : zero4;
+        }
+      };
+      auto put = [&](int c, const float4(&src)[kF]) {
+        float* dst = buf + (c % 2) * kRowsW * kKcB;
+#pragma unroll
+        for (int f = 0; f < kF; ++f) {
+          const int idx = lane + 32 * f;
+          *reinterpret_cast<float4*>(dst + idx / kPiecesB * kKcB + 4 * (idx % kPiecesB)) =
+              src[f];
+        }
+      };
+#pragma unroll
+      for (int u = 0; u < kP; ++u) fetch(u, slot[u]);
+      put(0, slot[0]);
+      fetch(kP, slot[0]);
+      // as in the forward: chunk c + 1 into the other buffer, c + 1 + kP
+      // fetched, c's products
+      for (int c0 = 0; c0 < n_chunks; c0 += kP) {
+#pragma unroll
+        for (int u = 0; u < kP; ++u) {
+          const int c = c0 + u;
+          if (c >= n_chunks) break;
+          __syncwarp();
+          if (c + 1 < n_chunks) {
+            put(c + 1, slot[(u + 1) % kP]);
+            fetch(c + 1 + kP, slot[(u + 1) % kP]);
+          }
+          const float* hs = h_lane + (c % 2) * kRowsW * kKcB;
+          float4 wv[8];
+#pragma unroll
+          for (int v = 0; v < 8; ++v) wv[v] = at4(w_lane + v * kp + c * kKcB);
+          if (nsd::kCutMma) continue;
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const float4 hv = at4(hs + i * kKcB);
+#pragma unroll
+            for (int v = 0; v < 8; ++v) {
+              float a = acc[i][v];
+              a = fmaf(hv.x, wv[v].x, a);
+              a = fmaf(hv.y, wv[v].y, a);
+              a = fmaf(hv.z, wv[v].z, a);
+              acc[i][v] = fmaf(hv.w, wv[v].w, a);
+            }
+          }
+        }
+      }
+    }
+    // the units' halves between lanes kg and kg ^ 8, then the rows
+    float half[8][4];
+    const bool hi = kg & 8;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const float mine = hi ? acc[i][4 + v] : acc[i][v];
+        const float other = hi ? acc[i][v] : acc[i][4 + v];
+        half[i][v] = mine + __shfl_xor_sync(0xffffffffu, other, 8);
+      }
+    }
+    float prod[4];  // the lane's row: [v]
+    nsd::reduce_rows8(half, prod);
+    if (ok) {
+      const float dyv[4] = {dy.x, dy.y, dy.z, dy.w};
+      const float gv[4][4] = {{g4[0].x, g4[0].y, g4[0].z, g4[0].w},
+                              {g4[1].x, g4[1].y, g4[1].z, g4[1].w},
+                              {g4[2].x, g4[2].y, g4[2].z, g4[2].w},
+                              {g4[3].x, g4[3].y, g4[3].z, g4[3].w}};
+      const float hv[4] = {hprev.x, hprev.y, hprev.z, hprev.w};
+      float out[4][4];  // da_r, da_z, da_n, dhp_n of units v
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const float dh = s < n_steps - 1 ? dhz[v] + prod[v] : 0.f;
+        const float dh_tot = dh + dyv[v];
+        const float r = gv[0][v], z = gv[1][v], n = gv[2][v], hp_n = gv[3][v];
+        const float dz = dh_tot * (hv[v] - n);
+        const float dn = dh_tot * (1.f - z);
+        const float da_n = dn * (1.f - n * n);
+        const float dr = da_n * hp_n;
+        out[1][v] = dz * z * (1.f - z);
+        out[0][v] = dr * r * (1.f - r);
+        out[2][v] = da_n;
+        out[3][v] = da_n * r;
+        dhz[v] = dh_tot * z;
+        dbs[0][v] += out[0][v];
+        dbs[1][v] += out[1][v];
+        dbs[2][v] += out[3][v];
+      }
+      const size_t row_i = ((size_t)t * n_dirs + d) * batch + row;
+      for (int gt = 0; gt < 3; ++gt) {
+        *reinterpret_cast<float4*>(dxp + row_i * three_h + gt * hidden + j4) =
+            make_float4(out[gt][0], out[gt][1], out[gt][2], out[gt][3]);
+      }
+      *reinterpret_cast<float4*>(dhpn + row_i * hidden + j4) =
+          make_float4(out[3][0], out[3][1], out[3][2], out[3][3]);
+    }
+    if (s > 0) {
+      load_inputs(s - 1);
+      if (!nsd::kCutBarrier) nsd::group_barrier(sync + d, (unsigned)(n_steps - s) * n_blk);
+    }
+  }
+  // db_hh: the lane's sums over the lanes of its units (a fixed tree over
+  // kg % 8, and rh where the tile has 16 rows), then over the row tiles in
+  // order
+  for (int gt = 0; gt < 3; ++gt) {
+    for (int v = 0; v < 4; ++v) {
+      for (int m = 1; m < 8; m *= 2) dbs[gt][v] += __shfl_xor_sync(0xffffffffu, dbs[gt][v], m);
+      if (kRowsW == 16) dbs[gt][v] += __shfl_xor_sync(0xffffffffu, dbs[gt][v], 16);
+    }
+  }
+  __syncthreads();
+  float* db_part = ws + units * kp;  // [row tiles][3][U], over the double buffers
+  if (kg % 8 == 0 && rh == 0) {
+    for (int gt = 0; gt < 3; ++gt) {
+      for (int v = 0; v < 4; ++v) db_part[(rt * 3 + gt) * units + j4 - j0 + v] = dbs[gt][v];
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < 3 * units; i += n_thr) {
+    const int gt = i / units, jx = j0 + i % units;
+    if (jx >= hidden) continue;
+    float sum = 0.f;
+    for (int m = 0; m < rows / kRowsW; ++m) sum += db_part[(m * 3 + gt) * units + i % units];
+    db[(size_t)d * three_h + gt * hidden + jx] = sum;
+  }
+}
+
+// The float32 dW_hh contraction on gemm_f32.cuh's tile: dW[d] [H, 3H] =
+// h_prev^T dhp over the (L-1)*B rows of direction d's shifted views (as
+// gru_bwd_dw_sm90), A = h_prev and B = dhp both k-major, their rows in
+// groups of B (one time step), D*B rows apart. Grid x: the 128-column tiles
+// of dxp's r and z thirds [0, 2H), then those of dhpn [2H, 3H), so that no
+// tile spans the two; y: 128-row tiles of H; z: the direction. Each output
+// sums its rows in one fixed order in one thread.
+__global__ void __launch_bounds__(nsd::f32::kThreads, 2)
+    gru_bwd_dw_f32(const float* __restrict__ ys, const float* __restrict__ dxp,
+                   const float* __restrict__ dhpn, float* __restrict__ dw, int n_steps,
+                   int n_dirs, int batch, int hidden) {
+  namespace f32 = nsd::f32;
+  const int d = blockIdx.z;
+  const int rz_tiles = (2 * hidden + f32::kTile - 1) / f32::kTile;
+  const bool n_part = (int)blockIdx.x >= rz_tiles;
+  const int n0 = ((int)blockIdx.x - (n_part ? rz_tiles : 0)) * f32::kTile;
+  const size_t step_h = (size_t)n_dirs * batch * hidden;  // [L, D, B, H]: one time step
+  // direction 0 pairs ys[t-1] with dhp[t] for t = 1 .. L-1, direction 1
+  // ys[t+1] with dhp[t] for t = 0 .. L-2
+  const size_t t_h = d == 0 ? 0 : 1, t_g = d == 0 ? 1 : 0;
+  const int K = (n_steps - 1) * batch;
+  nsd::f32::GroupedSlabs sa{ys + t_h * step_h + (size_t)d * batch * hidden, hidden, hidden,
+                            (int)blockIdx.y * f32::kTile, batch, step_h};
+  nsd::f32::GroupedSlabs sb =
+      n_part ? nsd::f32::GroupedSlabs{dhpn + t_g * step_h + (size_t)d * batch * hidden, hidden,
+                                      hidden, n0, batch, step_h}
+             : nsd::f32::GroupedSlabs{dxp + t_g * 3 * step_h + (size_t)d * batch * 3 * hidden,
+                                      3 * hidden, 2 * hidden, n0, batch, 3 * step_h};
+  f32::gemm_f32_tile(sa, sb, hidden, sb.extent, K, nullptr,
+                     dw + (size_t)d * hidden * 3 * hidden + (n_part ? 2 * hidden : 0),
+                     3 * hidden);
+}
+
+cudaError_t run_dw_f32(const float* ys, const float* dxp, const float* dhpn, float* dw,
+                       int n_steps, int n_dirs, int batch, int hidden, cudaStream_t stream) {
+  if (n_steps < 2) {
+    return cudaMemsetAsync(dw, 0, sizeof(float) * n_dirs * hidden * 3 * hidden, stream);
+  }
+  const int tile = nsd::f32::kTile;
+  const dim3 grid((2 * hidden + tile - 1) / tile + (hidden + tile - 1) / tile,
+                  (hidden + tile - 1) / tile, n_dirs);
+  gru_bwd_dw_f32<<<grid, nsd::f32::kThreads, 0, stream>>>(ys, dxp, dhpn, dw, n_steps, n_dirs,
+                                                          batch, hidden);
+  return cudaGetLastError();
+}
+
 cudaError_t check_persistent(int n_dirs, int batch, int hidden, int units, int threads,
-                             int smem) {
+                             int smem, int smem_want) {
   if (n_dirs < 1 || n_dirs > 2 || batch < 1 || hidden < 8 || hidden % 8 || units < 8 ||
       units % 8 || threads != 32 * (round_up(batch, 16) / 16) * (units / 8) ||
-      threads > 256 || smem != bwd_smem_bytes(units, batch, hidden)) {
+      threads > 256 || smem != smem_want) {
     return cudaErrorInvalidValue;
   }
   return cudaSuccess;
 }
 
+// T: bf16 (gru_bwd_dw_sm90, or gru_bwd_dw_kernel<bf16>) or float (gru_bwd_dw_f32).
+template <typename T>
 cudaError_t run_dw(const void* ys, const void* dxp, const void* dhpn, void* dw, int n_steps,
                    int n_dirs, int batch, int hidden, cudaStream_t stream) {
   if (n_steps < 1 || n_dirs < 1 || n_dirs > 2 || batch < 1 || hidden < 8 || hidden % 8) {
     return cudaErrorInvalidValue;
+  }
+  if (std::is_same<T, float>::value) {
+    return run_dw_f32(static_cast<const float*>(ys), static_cast<const float*>(dxp),
+                      static_cast<const float*>(dhpn), static_cast<float*>(dw), n_steps,
+                      n_dirs, batch, hidden, stream);
   }
   if (dw_sm90_takes(n_steps, batch, hidden)) {
     return run_dw_sm90(static_cast<const bf16*>(ys), static_cast<const bf16*>(dxp),
@@ -761,31 +1080,39 @@ cudaError_t run_dw(const void* ys, const void* dxp, const void* dhpn, void* dw, 
   return cudaGetLastError();
 }
 
+// T: bf16 (gru_bwd_persistent) or float (gru_bwd_persistent_f32).
+template <typename T>
 cudaError_t run_bwd_persistent(const void* gates, const void* w, const void* ys,
                                const void* dys, void* dxp, void* dhpn, void* dw, void* db,
                                void* sync, int n_steps, int n_dirs, int batch, int hidden,
                                int units, int threads, int smem, cudaStream_t stream) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
   if (n_steps < 1) return cudaErrorInvalidValue;
-  NSD_TRY(check_persistent(n_dirs, batch, hidden, units, threads, smem));
-  const void* kernel = reinterpret_cast<const void*>(&gru_bwd_persistent);
+  NSD_TRY(check_persistent(n_dirs, batch, hidden, units, threads, smem,
+                           kF32 ? bwd_smem_bytes_f32(units, batch, hidden)
+                                : bwd_smem_bytes(units, batch, hidden)));
+  const void* kernel =
+      !kF32            ? reinterpret_cast<const void*>(&gru_bwd_persistent)
+      : units % 16 == 0 ? reinterpret_cast<const void*>(&gru_bwd_persistent_f32<8>)
+                        : reinterpret_cast<const void*>(&gru_bwd_persistent_f32<16>);
   const int blocks = n_dirs * ((hidden + units - 1) / units);
   if (nsd::coresident_blocks(kernel, threads, smem) < blocks) {
     return cudaErrorCooperativeLaunchTooLarge;
   }
   NSD_TRY(cudaMemsetAsync(sync, 0, 2 * sizeof(unsigned), stream));
-  const bf16* gates_ = static_cast<const bf16*>(gates);
-  const bf16* w_ = static_cast<const bf16*>(w);
-  const bf16* ys_ = static_cast<const bf16*>(ys);
-  const bf16* dys_ = static_cast<const bf16*>(dys);
-  bf16* dxp_ = static_cast<bf16*>(dxp);
-  bf16* dhpn_ = static_cast<bf16*>(dhpn);
+  const T* gates_ = static_cast<const T*>(gates);
+  const T* w_ = static_cast<const T*>(w);
+  const T* ys_ = static_cast<const T*>(ys);
+  const T* dys_ = static_cast<const T*>(dys);
+  T* dxp_ = static_cast<T*>(dxp);
+  T* dhpn_ = static_cast<T*>(dhpn);
   unsigned* sync_ = static_cast<unsigned*>(sync);
   float* db_ = static_cast<float*>(db);
   void* args[] = {&gates_, &w_, &ys_, &dys_, &dxp_, &dhpn_, &db_, &sync_,
                   &n_steps, &n_dirs, &batch, &hidden, &units};
   NSD_TRY(cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(threads), args,
                                       (size_t)smem, stream));
-  return run_dw(ys, dxp, dhpn, dw, n_steps, n_dirs, batch, hidden, stream);
+  return run_dw<T>(ys, dxp, dhpn, dw, n_steps, n_dirs, batch, hidden, stream);
 }
 
 template <typename T>
@@ -847,17 +1174,33 @@ int nsd_gru_bwd_persistent_bf16(const void* gates, const void* w, const void* ys
                                 const void* dys, void* dxp, void* dhpn, void* dw, void* db,
                                 void* sync, int n_steps, int n_dirs, int batch, int hidden,
                                 int units, int threads, int smem, void* stream) {
-  return static_cast<int>(run_bwd_persistent(
+  return static_cast<int>(run_bwd_persistent<bf16>(
       gates, w, ys, dys, dxp, dhpn, dw, db, sync, n_steps, n_dirs, batch, hidden, units,
       threads, smem, static_cast<cudaStream_t>(stream)));
 }
 
-// The dW_hh contraction alone (bf16 ys [L, D, B, H], dxp [L, D, B, 3H], dhpn
-// [L, D, B, H] -> float32 dw [D, H, 3H]); hidden % 8 == 0.
+// The persistent float32 body, with the bf16 entry's arguments in float32.
+int nsd_gru_bwd_persistent_f32(const void* gates, const void* w, const void* ys,
+                               const void* dys, void* dxp, void* dhpn, void* dw, void* db,
+                               void* sync, int n_steps, int n_dirs, int batch, int hidden,
+                               int units, int threads, int smem, void* stream) {
+  return static_cast<int>(run_bwd_persistent<float>(
+      gates, w, ys, dys, dxp, dhpn, dw, db, sync, n_steps, n_dirs, batch, hidden, units,
+      threads, smem, static_cast<cudaStream_t>(stream)));
+}
+
+// The dW_hh contraction alone (ys [L, D, B, H], dxp [L, D, B, 3H], dhpn
+// [L, D, B, H] in bf16 or float32 -> float32 dw [D, H, 3H]); hidden % 8 == 0.
 int nsd_gru_dw_bf16(const void* ys, const void* dxp, const void* dhpn, void* dw, int n_steps,
                     int n_dirs, int batch, int hidden, void* stream) {
-  return static_cast<int>(run_dw(ys, dxp, dhpn, dw, n_steps, n_dirs, batch, hidden,
-                                 static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(run_dw<bf16>(ys, dxp, dhpn, dw, n_steps, n_dirs, batch, hidden,
+                                       static_cast<cudaStream_t>(stream)));
+}
+
+int nsd_gru_dw_f32(const void* ys, const void* dxp, const void* dhpn, void* dw, int n_steps,
+                   int n_dirs, int batch, int hidden, void* stream) {
+  return static_cast<int>(run_dw<float>(ys, dxp, dhpn, dw, n_steps, n_dirs, batch, hidden,
+                                        static_cast<cudaStream_t>(stream)));
 }
 
 

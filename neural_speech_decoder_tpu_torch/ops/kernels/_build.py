@@ -78,6 +78,8 @@ _SIGNATURES = {
 for _name in ("frontend", "gru_scan", "gru_scan_gates", "gru_bwd", "attn_fwd",
               "attn_bwd", "ffn_fwd", "ffn_bwd", "conv_fwd", "conv_bwd", "matmul"):
     _SIGNATURES[f"nsd_{_name}_bf16"] = _SIGNATURES[f"nsd_{_name}_f32"]
+for _name in ("gru_scan_persistent", "gru_bwd_persistent", "gru_dw"):
+    _SIGNATURES[f"nsd_{_name}_f32"] = _SIGNATURES[f"nsd_{_name}_bf16"]
 _SIGNATURES["nsd_frontend_tc_bf16"] = _SIGNATURES["nsd_frontend_f32"]
 # workspace sizes in bytes -> long long: (b, t, d, f or k, bf16, bwd), (b, t,
 # d, f or k) for the sm90 forwards, (b, t, d, f or k, dW2 splits, dW1 splits)

@@ -14,12 +14,13 @@ the same function in plain PyTorch, for a CPU tensor; it raises for any
 other device. ``<wrapper>.launches`` counts its calls that launched the
 kernel (one call scans a whole layer), ``<wrapper>.launches_by_body`` the
 same by body. Two bodies: ``"persistent"``, one cooperative launch a layer
-whose blocks keep their slice of W_hh in shared memory and step on tensor
-cores (bfloat16), and ``"step"``, one launch a time step on FP32 FMAs
-(float32, and the bfloat16 shapes whose slice does not fit).
-``scan_plan`` chooses from the shape before any launch; a persistent
-launch that the card cannot hold at once raises, it never drops to the step
-body or the plain version. ``gru_scan`` is what the model
+whose blocks keep their slice of W_hh in shared memory for the whole walk
+(bfloat16: steps on tensor cores; float32: steps on FP32 FMAs), and
+``"step"``, one launch a time step on FP32 FMAs (the shapes whose slice
+does not fit, in either dtype); the dtype tells which instantiation ran.
+``scan_plan`` chooses from the shape and dtype before any launch; a
+persistent launch that the card cannot hold at once raises, it never drops
+to the step body or the plain version. ``gru_scan`` is what the model
 calls: under autograd it runs ``GRUScan``, the ``torch.autograd.Function``
 of the custom VJP (gates forward, then the backward kernel); otherwise the
 inference forward.
@@ -44,11 +45,19 @@ from ._build import check, load_library
 
 # The persistent bodies' tiling, as csrc/gru_scan.cu and gru_scan_bwd.cu
 # have it: units a block in multiples of 8 (one mma n-tile), batch rows in
-# 16-row mma tiles, the backward's ring of _BWD_STAGES chunks of _BWD_CHUNK
-# columns of dhp, at most _MAX_THREADS threads a block.
+# 16-row tiles, one warp a 16-row tile and 8 units, at most _MAX_THREADS
+# threads a block. bfloat16: the backward's ring of _BWD_STAGES chunks of
+# _BWD_CHUNK columns of dhp. float32: each warp streams the rows of its tile
+# (8 rows x 16 units where U % 16 == 0, else 16 rows x 8 units), the forward
+# through a ring of _F32_STAGES chunks of _F32_CHUNK columns of h, the
+# backward through a double buffer of _F32_BWD_CHUNK columns of dhp; W's
+# slice is padded to the chunk width.
 _UNIT_STEP = 8
 _BWD_CHUNK = 128
 _BWD_STAGES = 4
+_F32_CHUNK = 32
+_F32_STAGES = 4
+_F32_BWD_CHUNK = 64
 _MAX_THREADS = 256
 
 
@@ -71,16 +80,18 @@ def _round_up(v: int, m: int) -> int:
 
 def scan_plan(hidden: int, batch: int, dirs: int, dtype: torch.dtype, n_sms: int,
               smem_per_sm: int) -> ScanPlan | str:
-    """The body that runs a scan of this shape on a card of ``n_sms`` SMs
-    with ``smem_per_sm`` bytes of shared memory a block may hold: a
-    ``ScanPlan`` for the persistent body, or ``"step"`` for float32 and
-    for a shape whose slice does not fit (hidden not a multiple of 8, more
-    than ``_MAX_THREADS`` threads, or more shared memory than the card
-    gives one block). ``units`` is the smallest multiple of 8 that puts
-    every block on its own SM; the slices ``[k * units, (k + 1) * units)``
-    of each direction cover every hidden unit once. Plans the forward and
-    the backward together, so that a train step's two scans take one body."""
-    if dtype != torch.bfloat16 or hidden < 1 or hidden % _UNIT_STEP or batch < 1:
+    """The body that runs a scan of this shape and dtype on a card of
+    ``n_sms`` SMs with ``smem_per_sm`` bytes of shared memory a block may
+    hold: a ``ScanPlan`` for the persistent body (bfloat16 or float32), or
+    ``"step"`` for any other dtype and for a shape whose slice does not fit
+    (hidden not a multiple of 8, more than ``_MAX_THREADS`` threads, or more
+    shared memory than the card gives one block, in the dtype's element
+    size). ``units`` is the smallest multiple of 8 that puts every block on
+    its own SM; the slices ``[k * units, (k + 1) * units)`` of each
+    direction cover every hidden unit once. Plans the forward and the
+    backward together, so that a train step's two scans take one body."""
+    if (dtype not in (torch.bfloat16, torch.float32) or hidden < 1
+            or hidden % _UNIT_STEP or batch < 1):
         return "step"
     units = _UNIT_STEP
     while dirs * -(-hidden // units) > n_sms:
@@ -88,9 +99,17 @@ def scan_plan(hidden: int, batch: int, dirs: int, dtype: torch.dtype, n_sms: int
         if units > hidden:
             return "step"
     rows = _round_up(batch, 16)
-    smem_fwd = 2 * (3 * units + rows) * (_round_up(hidden, 16) + 8)
-    smem_bwd = 2 * (units * (_round_up(3 * hidden, _BWD_CHUNK) + 8)
-                    + _BWD_STAGES * rows * (_BWD_CHUNK + 8))
+    if dtype == torch.bfloat16:
+        smem_fwd = 2 * (3 * units + rows) * (_round_up(hidden, 16) + 8)
+        smem_bwd = 2 * (units * (_round_up(3 * hidden, _BWD_CHUNK) + 8)
+                        + _BWD_STAGES * rows * (_BWD_CHUNK + 8))
+    else:
+        # the rows of a chunk of each warp's tile, times the warps
+        tile_rows = (rows // 16) * (units // _UNIT_STEP) * (8 if units % 16 == 0 else 16)
+        smem_fwd = 4 * (3 * units * _round_up(hidden, _F32_CHUNK)
+                        + _F32_STAGES * tile_rows * _F32_CHUNK)
+        smem_bwd = 4 * (units * _round_up(3 * hidden, _F32_BWD_CHUNK)
+                        + 2 * tile_rows * _F32_BWD_CHUNK)
     threads = 32 * (rows // 16) * (units // _UNIT_STEP)
     if threads > _MAX_THREADS or max(smem_fwd, smem_bwd) > smem_per_sm:
         return "step"
@@ -283,6 +302,13 @@ def _entry(what, base, dtype):
     return getattr(load_library(), entry)
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (contiguous), or a copy of it where its data does not start on
+    16 bytes: the float32 persistent bodies read four elements at a time."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def scan_forward(xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor, *,
                  gates: bool, plan: ScanPlan | str | None = None):
     """Launch the forward scan on the card (``gru_sequence_gates``' kernel
@@ -295,14 +321,13 @@ def scan_forward(xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor, *,
     hdim = three_h // 3
     if plan is None:
         plan = plan_for(xp, hdim, b, d)
-    xp = xp.contiguous()
+    xp = _aligned(xp)
     w = w_hh.to(xp.dtype).contiguous()
     bias = b_hh.float().contiguous()
     ys = xp.new_empty((length, d, b, hdim))
     gates_out = xp.new_empty((length, d, b, 4 * hdim)) if gates else None
     if ys.numel() == 0:
         return ys, gates_out
-    lib = load_library()
     stream = torch.cuda.current_stream(xp.device).cuda_stream
     g_ptr = gates_out.data_ptr() if gates else None
     with torch.cuda.device(xp.device):
@@ -314,13 +339,11 @@ def scan_forward(xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor, *,
             rc = fn(*ptrs, *([g_ptr] if gates else []), carry.data_ptr(), length, d, b,
                     hdim, stream)
         else:
-            if xp.dtype != torch.bfloat16:
-                raise TypeError(f"{what}: the persistent body takes bfloat16, not {xp.dtype}")
+            fn = _entry(what, "nsd_gru_scan_persistent", xp.dtype)
             sync = torch.empty(2, dtype=torch.int32, device=xp.device)
-            rc = lib.nsd_gru_scan_persistent_bf16(
-                xp.data_ptr(), w.data_ptr(), bias.data_ptr(), ys.data_ptr(), g_ptr,
-                sync.data_ptr(), length, d, b, hdim, plan.units, plan.threads,
-                plan.smem_fwd, stream)
+            rc = fn(xp.data_ptr(), w.data_ptr(), bias.data_ptr(), ys.data_ptr(), g_ptr,
+                    sync.data_ptr(), length, d, b, hdim, plan.units, plan.threads,
+                    plan.smem_fwd, stream)
             _raise_if_too_large(rc, what, plan)
     check(rc, what)
     wrapper = gru_sequence_gates if gates else gru_sequence
@@ -360,22 +383,24 @@ def gru_sequence_gates(
 
 def dw_contraction(ys: torch.Tensor, dxp: torch.Tensor, dhp_n: torch.Tensor) -> torch.Tensor:
     """``hh_grads_plain``'s dW_hh, the persistent backward's contraction,
-    callable alone (``csrc/gru_scan_bwd.cu``: ``gru_bwd_dw_sm90`` on TMA +
-    wgmma where H % 256 == 0 and B divides or is divided by 64, else the step
-    body's FMA contraction ``gru_bwd_dw_kernel``): bfloat16 CUDA tensors,
-    H % 8 == 0 -> float32 ``[D, H, 3H]``. (The persistent body sums db_hh in
-    its recurrence.)"""
+    callable alone (``csrc/gru_scan_bwd.cu``): bfloat16 on
+    ``gru_bwd_dw_sm90`` (TMA + wgmma) where H % 256 == 0 and B divides or is
+    divided by 64, else on the step body's FMA contraction
+    ``gru_bwd_dw_kernel``; float32 on ``gemm_f32.cuh``'s pipelined FMA tile
+    (``gru_bwd_dw_f32``). CUDA tensors of one of the two dtypes, H % 8 == 0
+    -> float32 ``[D, H, 3H]``. (The persistent body sums db_hh in its
+    recurrence.)"""
     length, d, b, hdim = ys.shape
-    if (ys.dtype != torch.bfloat16 or dxp.dtype != ys.dtype or dhp_n.dtype != ys.dtype
-            or tuple(dxp.shape) != (length, d, b, 3 * hdim)
+    if (ys.dtype not in (torch.bfloat16, torch.float32) or dxp.dtype != ys.dtype
+            or dhp_n.dtype != ys.dtype or tuple(dxp.shape) != (length, d, b, 3 * hdim)
             or tuple(dhp_n.shape) != tuple(ys.shape) or hdim % _UNIT_STEP):
         raise ValueError(f"dw_contraction: ys {tuple(ys.shape)} {ys.dtype}, dxp "
                          f"{tuple(dxp.shape)}, dhp_n {tuple(dhp_n.shape)}: needs bfloat16 "
-                         "[L,D,B,H]/[L,D,B,3H]/[L,D,B,H], H % 8 == 0")
+                         "or float32 [L,D,B,H]/[L,D,B,3H]/[L,D,B,H], H % 8 == 0")
     ys, dxp, dhp_n = ys.contiguous(), dxp.contiguous(), dhp_n.contiguous()
     dw = torch.empty((d, hdim, 3 * hdim), dtype=torch.float32, device=ys.device)
     with torch.cuda.device(ys.device):
-        rc = load_library().nsd_gru_dw_bf16(
+        rc = _entry("dw_contraction", "nsd_gru_dw", ys.dtype)(
             ys.data_ptr(), dxp.data_ptr(), dhp_n.data_ptr(), dw.data_ptr(), length, d, b,
             hdim, torch.cuda.current_stream().cuda_stream)
     check(rc, "dw_contraction")
@@ -403,13 +428,11 @@ def scan_backward(gates: torch.Tensor, w_hh: torch.Tensor, ys: torch.Tensor,
     if plan is None:
         plan = plan_for(gates, hdim, b, d)
     dt = gates.dtype
-    if plan == "step":
-        fn = _entry("gru_sequence_bwd", "nsd_gru_bwd", dt)
-    elif dt != torch.bfloat16:
-        raise TypeError(f"gru_sequence_bwd: the persistent body takes bfloat16, not {dt}")
-    gates = gates.contiguous()
-    ys = ys.to(dt).contiguous()
-    dys = dys.to(dt).contiguous()
+    fn = _entry("gru_sequence_bwd", "nsd_gru_bwd" if plan == "step" else "nsd_gru_bwd_persistent",
+                dt)
+    gates = _aligned(gates)
+    ys = _aligned(ys.to(dt))
+    dys = _aligned(dys.to(dt))
     dxp = gates.new_empty((length, d, b, 3 * hdim))
     # dhp's n third; its r and z thirds are dxp's
     dhp_n = gates.new_empty((length, d, b, hdim))
@@ -417,7 +440,6 @@ def scan_backward(gates: torch.Tensor, w_hh: torch.Tensor, ys: torch.Tensor,
     db = torch.empty((d, 3 * hdim), dtype=torch.float32, device=gates.device)
     if dxp.numel() == 0:
         return dxp, dw.zero_(), db.zero_()
-    lib = load_library()
     with torch.cuda.device(gates.device):
         stream = torch.cuda.current_stream().cuda_stream
         if plan == "step":
@@ -431,11 +453,10 @@ def scan_backward(gates: torch.Tensor, w_hh: torch.Tensor, ys: torch.Tensor,
         else:
             w = w_hh.to(dt).contiguous()
             sync = torch.empty(2, dtype=torch.int32, device=gates.device)
-            rc = lib.nsd_gru_bwd_persistent_bf16(
-                gates.data_ptr(), w.data_ptr(), ys.data_ptr(), dys.data_ptr(),
-                dxp.data_ptr(), dhp_n.data_ptr(), dw.data_ptr(), db.data_ptr(),
-                sync.data_ptr(), length, d, b, hdim, plan.units, plan.threads,
-                plan.smem_bwd, stream)
+            rc = fn(gates.data_ptr(), w.data_ptr(), ys.data_ptr(), dys.data_ptr(),
+                    dxp.data_ptr(), dhp_n.data_ptr(), dw.data_ptr(), db.data_ptr(),
+                    sync.data_ptr(), length, d, b, hdim, plan.units, plan.threads,
+                    plan.smem_bwd, stream)
             _raise_if_too_large(rc, "gru_sequence_bwd", plan)
     check(rc, "gru_sequence_bwd")
     gru_sequence_bwd.launches += 1

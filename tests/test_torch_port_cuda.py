@@ -285,9 +285,9 @@ def test_gru_dw_contraction_matches_plain(cuda, h, b, d):
 
 
 def test_gru_scan_bodies_by_dtype_and_shape(cuda):
-    # float32, and bf16 with H % 8 != 0, take the step body
-    for dtype, h, body in ((torch.float32, 40, "step"), (torch.bfloat16, 36, "step"),
-                           (torch.bfloat16, 40, "persistent")):
+    # H % 8 != 0 takes the step body in either dtype, H=40 the persistent one
+    for dtype, h, body in ((torch.float32, 36, "step"), (torch.float32, 40, "persistent"),
+                           (torch.bfloat16, 36, "step"), (torch.bfloat16, 40, "persistent")):
         xp, w, bias, dys = _bf16_scan_case(cuda, h, 5, 2)
         xp, dys = xp.to(dtype), dys.to(dtype)
         before = _by_body(gru_sequence, gru_sequence_gates, gru_sequence_bwd)
@@ -332,6 +332,118 @@ def test_gru_bf16_step_body_matches_plain(cuda, d):
     for got, want in zip(out, ref):
         err = (got.float() - want.float()).abs().max().item()
         assert err <= 2e-2 * want.float().abs().max().item(), err
+
+
+# The persistent float32 bodies (W_hh's slice resident in shared memory, the
+# products on FP32 FMAs, the float32 dW_hh contraction on gemm_f32.cuh)
+# against the plain versions at the step body's float32 tolerance: the same
+# float32 arithmetic summed in another order, relative to each output's
+# largest entry (ys lies in (-1, 1); hp_n and the gradients do not).
+def _f32_scan_case(cuda, h, b, d, length=9):
+    xp, w, bias, dys = _bf16_scan_case(cuda, h, b, d, length)
+    return xp.float(), w, bias, dys.float()
+
+
+def _rel(got, want):
+    return (got - want).abs().max().item() / want.abs().max().clamp_min(1e-30).item()
+
+
+@pytest.mark.parametrize("h,b,d", PERSISTENT_SHAPES)
+def test_gru_persistent_f32_forward_matches_plain(cuda, h, b, d):
+    xp, w, bias, _ = _f32_scan_case(cuda, h, b, d)
+    assert plan_for(xp, h, b, d) != "step"
+    before = _by_body(gru_sequence, gru_sequence_gates)
+    ys = gru_sequence(xp, w, bias)
+    ys_g, gates = gru_sequence_gates(xp, w, bias)
+    ys_ref, gates_ref = gru_sequence_gates_plain(xp, w, bias)
+    again = gru_sequence(xp, w, bias)
+    torch.cuda.synchronize()
+    for old, new, n in zip(before, _by_body(gru_sequence, gru_sequence_gates), (2, 1)):
+        assert new == {"persistent": old["persistent"] + n, "step": old["step"]}
+    assert ys.dtype == gates.dtype == torch.float32
+    assert torch.equal(ys, ys_g) and torch.equal(ys, again)
+    assert _rel(ys, ys_ref) <= F32_TOL and _rel(gates, gates_ref) <= F32_TOL
+
+
+@pytest.mark.parametrize("h,b,d", PERSISTENT_SHAPES)
+def test_gru_persistent_f32_backward_matches_plain(cuda, h, b, d):
+    xp, w, bias, dys = _f32_scan_case(cuda, h, b, d)
+    ys, gates = gru_sequence_gates_plain(xp, w, bias)
+    before = gru_sequence_bwd.launches_by_body["persistent"]
+    out = gru_sequence_bwd(gates, w, ys, dys)
+    again = gru_sequence_bwd(gates, w, ys, dys)
+    ref = gru_sequence_bwd_plain(gates, w, ys, dys)
+    torch.cuda.synchronize()
+    assert gru_sequence_bwd.launches_by_body["persistent"] == before + 2
+    assert all(t.dtype == torch.float32 for t in out)
+    for got, rerun, want in zip(out, again, ref):
+        assert torch.equal(got, rerun)
+        assert _rel(got, want) <= F32_TOL
+
+
+@pytest.mark.parametrize("length", [1, 2])
+def test_gru_persistent_f32_short_sequences(cuda, length):
+    xp, w, bias, dys = _f32_scan_case(cuda, 128, 5, 2, length)
+    ys, gates = gru_sequence_gates(xp, w, bias)
+    ys_ref, gates_ref = gru_sequence_gates_plain(xp, w, bias)
+    out = gru_sequence_bwd(gates_ref, w, ys_ref, dys)
+    ref = gru_sequence_bwd_plain(gates_ref, w, ys_ref, dys)
+    torch.cuda.synchronize()
+    assert _rel(ys, ys_ref) <= F32_TOL and _rel(gates, gates_ref) <= F32_TOL
+    for got, want in zip(out, ref):
+        assert _rel(got, want) <= F32_TOL  # dW_hh is 0 at L=1 on both sides
+
+
+@pytest.mark.parametrize("h,b,d", [(40, 5, 1), (128, 64, 2), (1024, 64, 2)])
+def test_gru_dw_contraction_f32_matches_plain(cuda, h, b, d):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    length = 9
+    ys = torch.randn((length, d, b, h), generator=g, device=cuda)
+    dxp = torch.randn((length, d, b, 3 * h), generator=g, device=cuda)
+    dhp_n = torch.randn((length, d, b, h), generator=g, device=cuda)
+    dw = dw_contraction(ys, dxp, dhp_n)
+    dw2 = dw_contraction(ys, dxp, dhp_n)
+    dw_ref = hh_grads_plain(ys, dxp, dhp_n)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(dw, dw2)
+    # float32 sums of L*B products of size ~1 in another order
+    assert _rel(dw, dw_ref) <= F32_TOL
+
+
+@pytest.mark.parametrize("d", [1, 2])
+def test_gru_f32_step_body_matches_plain(cuda, d):
+    # the step body, kept for the float32 shapes the persistent body
+    # cannot hold and as the A/B's other arm, against the plain versions
+    xp, w, bias, dys = _scan_case(cuda, torch.float32, d)
+    before = _by_body(gru_sequence_gates, gru_sequence_bwd)
+    ys, gates = scan_forward(xp, w, bias, gates=True, plan="step")
+    ys_ref, gates_ref = gru_sequence_gates_plain(xp, w, bias)
+    out = scan_backward(gates_ref, w, ys_ref, dys, plan="step")
+    ref = gru_sequence_bwd_plain(gates_ref, w, ys_ref, dys)
+    torch.cuda.synchronize()
+    for old, new in zip(before, _by_body(gru_sequence_gates, gru_sequence_bwd)):
+        assert new == {"persistent": old["persistent"], "step": old["step"] + 1}
+    assert _rel(ys, ys_ref) <= F32_TOL and _rel(gates, gates_ref) <= F32_TOL
+    for got, want in zip(out, ref):
+        assert _rel(got, want) <= F32_TOL
+
+
+def test_gru_persistent_f32_plan_that_cannot_be_coresident_raises(cuda):
+    n_sms, smem = device_limits(cuda.index or 0)
+    h, b, d = 2048, 64, 2
+    # planned for a card with four times the SMs: 8 units a block, 512
+    # blocks, each with a 192 KiB slice, so one an SM
+    plan = scan_plan(h, b, d, torch.float32, 4 * n_sms, smem)
+    assert plan != "step" and plan.blocks > n_sms
+    xp, w, bias, dys = _f32_scan_case(cuda, h, b, d, length=3)
+    before = _by_body(gru_sequence, gru_sequence_gates, gru_sequence_bwd)
+    for gates_flag in (False, True):
+        with pytest.raises(RuntimeError, match="co-resident"):
+            scan_forward(xp, w, bias, gates=gates_flag, plan=plan)
+    ys, gates = gru_sequence_gates_plain(xp, w, bias)
+    with pytest.raises(RuntimeError, match="co-resident"):
+        scan_backward(gates, w, ys, dys, plan=plan)
+    assert _by_body(gru_sequence, gru_sequence_gates, gru_sequence_bwd) == before
 
 
 def test_gru_scan_function_bf16_grads_match_plain(cuda):

@@ -1,11 +1,11 @@
 """The GRU time scan's choice of body and the persistent backward's
 contraction, in the port, on the CPU.
 
-- ``ops/kernels/gru_scan.py::scan_plan``: bfloat16 scans whose slice fits
-  run on the persistent body, float32 and the shapes that do not fit on the
+- ``ops/kernels/gru_scan.py::scan_plan``: bfloat16 and float32 scans whose
+  slice fits run on the persistent body, the shapes that do not fit on the
   step body; a persistent plan owns every hidden unit once, in at most one
   block an SM, within the shared memory one block may hold (the H100's
-  132 SMs and 227 KB).
+  132 SMs and 227 KB) in the dtype's element size.
 - On a CPU tensor the three wrappers run their plain twins and count no
   launch.
 - ``hh_grads_plain``, the plain model of the contraction (dW_hh and db_hh
@@ -77,9 +77,44 @@ def test_scan_plan_at_the_recipe_shape():
                             smem_bwd=168_192)
 
 
-@pytest.mark.parametrize("h,b,d", [(40, 5, 1), (1024, 64, 2), (256, 37, 2)])
-def test_scan_plan_float32_takes_the_step_body(h, b, d):
-    assert scan_plan(h, b, d, torch.float32, H100_SMS, H100_SMEM) == "step"
+@pytest.mark.parametrize("h,b,d", [(40, 5, 1), (1024, 64, 2), (256, 37, 2),
+                                   (1024, 64, 1), (128, 16, 2)])
+def test_scan_plan_float32_owns_every_unit_once_within_the_card(h, b, d):
+    plan = scan_plan(h, b, d, torch.float32, H100_SMS, H100_SMEM)
+    assert isinstance(plan, ScanPlan)
+    per_dir = plan.blocks // d
+    assert plan.blocks == d * per_dir and plan.blocks <= H100_SMS and plan.units % 8 == 0
+    owners = np.zeros(h, dtype=int)
+    for k in range(per_dir):
+        assert k * plan.units < h
+        owners[k * plan.units : (k + 1) * plan.units] += 1
+    assert (owners == 1).all()
+    # 4-byte W slices ([3U, H] forward padded to 32 columns, [U, 3H] backward
+    # padded to 64) beside each warp's chunks of the rows of its tile (8 rows
+    # x 16 units, or 16 x 8 where U % 16 != 0): four of 32 columns forward,
+    # two of 64 backward
+    tile_rows = plan.threads // 32 * (8 if plan.units % 16 == 0 else 16)
+    assert plan.smem_fwd == 4 * (3 * plan.units * -(-h // 32) * 32 + 4 * tile_rows * 32)
+    assert plan.smem_bwd == 4 * (plan.units * -(-3 * h // 64) * 64 + 2 * tile_rows * 64)
+    assert max(plan.smem_fwd, plan.smem_bwd) <= H100_SMEM
+    assert plan.threads == 32 * -(-b // 16) * (plan.units // 8) <= 256
+
+
+def test_scan_plan_float32_at_the_recipe_shape():
+    # B=64, H=1024, both directions: 128 blocks of 16 units, W's slice 192
+    # KiB beside 32 KiB of warp buffers; one direction (the streaming
+    # config's offline forward): 128 blocks of 8 units, a 96 KiB slice
+    plan = scan_plan(1024, 64, 2, torch.float32, H100_SMS, H100_SMEM)
+    assert plan == ScanPlan(units=16, blocks=128, threads=256, smem_fwd=229_376,
+                            smem_bwd=229_376)
+    plan = scan_plan(1024, 64, 1, torch.float32, H100_SMS, H100_SMEM)
+    assert plan == ScanPlan(units=8, blocks=128, threads=128, smem_fwd=131_072,
+                            smem_bwd=131_072)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
+def test_scan_plan_takes_the_step_body_for_other_dtypes(dtype):
+    assert scan_plan(1024, 64, 2, dtype, H100_SMS, H100_SMEM) == "step"
 
 
 @pytest.mark.parametrize("h,b,sms,smem", [
@@ -91,6 +126,25 @@ def test_scan_plan_float32_takes_the_step_body(h, b, d):
 ])
 def test_scan_plan_takes_the_step_body_where_the_slice_does_not_fit(h, b, sms, smem):
     assert scan_plan(h, b, 2, torch.bfloat16, sms, smem) == "step"
+
+
+@pytest.mark.parametrize("h,b,sms,smem", [
+    (36, 5, H100_SMS, H100_SMEM),     # H not a multiple of 8: no 16-byte rows
+    (1024, 65, H100_SMS, H100_SMEM),  # 5 row tiles x 2 unit groups: 320 threads
+    (40, 300, H100_SMS, H100_SMEM),   # 19 row tiles: 608 threads
+    (1024, 64, 2, H100_SMEM),         # 2 SMs: every unit in two blocks
+    (1024, 64, H100_SMS, 100_000),    # a card with less shared memory
+])
+def test_scan_plan_float32_takes_the_step_body_where_the_slice_does_not_fit(h, b, sms, smem):
+    assert scan_plan(h, b, 2, torch.float32, sms, smem) == "step"
+
+
+def test_scan_plan_float32_slice_overfills_where_bfloat16_fits():
+    # B=16, H=1024 on a card of 200,000 bytes a block: the float32 forward
+    # needs 204,800 (a 192 KiB slice and 8 KiB of warp rings), the bf16 one
+    # 132,096
+    assert scan_plan(1024, 16, 2, torch.float32, H100_SMS, 200_000) == "step"
+    assert isinstance(scan_plan(1024, 16, 2, torch.bfloat16, H100_SMS, 200_000), ScanPlan)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

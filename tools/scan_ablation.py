@@ -1,4 +1,4 @@
-"""Where a step of the port's persistent bf16 GRU scan spends its time, on the card.
+"""Where a step of the port's persistent GRU scan spends its time, on the card.
 
 Builds ``csrc/gru_scan.cu`` and ``csrc/gru_scan_bwd.cu`` with parts of a
 step left out through the sources' ``NSD_SCAN_CUT`` bits (``csrc/common.cuh``):
@@ -6,13 +6,15 @@ the barrier between steps, the load of the previous state (forward) or dhp
 row (backward), the products. A build that leaves a part out computes wrong
 numbers; it is timed, never checked. The variants are built and loaded by
 ``tools/_ablation.py`` and timed with CUDA events at the recipe's shapes
-(B=64, L=313, H=1024, D=2), beside the backward's dW_hh contraction alone.
+(B=64, L=313, H=1024, D=2), beside the backward's dW_hh contraction alone,
+in bfloat16 (the default) or float32.
 
-    python tools/scan_ablation.py
+    python tools/scan_ablation.py [--dtype float32]
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import sys
 from pathlib import Path
@@ -35,21 +37,25 @@ VARIANTS = {
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
+    dtype = ap.parse_args().dtype
     if not torch.cuda.is_available():
         print("scan_ablation: no CUDA device", file=sys.stderr)
         return 1
-    libs = build_variants("scan_ablation", ["gru_scan.cu", "gru_scan_bwd.cu"],
+    libs = build_variants(f"scan_ablation_{dtype}", ["gru_scan.cu", "gru_scan_bwd.cu"],
                           "NSD_SCAN_CUT", VARIANTS)
     length, d, b, h = 313, 2, 64, 1024
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
-    bf = torch.bfloat16
-    xp = torch.randn((length, d, b, 3 * h), generator=g, device=dev).to(bf)
-    w = (torch.randn((d, h, 3 * h), generator=g, device=dev) / h**0.5).to(bf)
+    dt = getattr(torch, dtype)
+    sfx = "bf16" if dtype == "bfloat16" else "f32"
+    xp = torch.randn((length, d, b, 3 * h), generator=g, device=dev).to(dt)
+    w = (torch.randn((d, h, 3 * h), generator=g, device=dev) / h**0.5).to(dt)
     bias = torch.zeros((d, 3 * h), device=dev)
-    ys = torch.empty((length, d, b, h), device=dev, dtype=bf)
-    gates = torch.empty((length, d, b, 4 * h), device=dev, dtype=bf)
-    dys = torch.randn((length, d, b, h), generator=g, device=dev).to(bf)
+    ys = torch.empty((length, d, b, h), device=dev, dtype=dt)
+    gates = torch.empty((length, d, b, 4 * h), device=dev, dtype=dt)
+    dys = torch.randn((length, d, b, h), generator=g, device=dev).to(dt)
     dxp, dhpn = torch.empty_like(xp), torch.empty_like(ys)
     dw = torch.empty((d, h, 3 * h), device=dev)
     db = torch.empty((d, 3 * h), device=dev)
@@ -58,20 +64,23 @@ def main() -> int:
     P, I = ctypes.c_void_p, ctypes.c_int
     stream = lambda: P(torch.cuda.current_stream().cuda_stream)
     ptr = lambda t: P(t.data_ptr())
-    print(f"{torch.cuda.get_device_name(0)}; B={b} L={length} H={h} D={d}; {plan}")
+    print(f"{torch.cuda.get_device_name(0)}; {dtype} B={b} L={length} H={h} D={d}; {plan}")
     for name, lib in libs.items():
-        lib.nsd_gru_scan_persistent_bf16.argtypes = [P] * 6 + [I] * 7 + [P]
-        lib.nsd_gru_bwd_persistent_bf16.argtypes = [P] * 9 + [I] * 7 + [P]
-        lib.nsd_gru_dw_bf16.argtypes = [P] * 4 + [I] * 4 + [P]
+        scan_fn = getattr(lib, f"nsd_gru_scan_persistent_{sfx}")
+        bwd_fn = getattr(lib, f"nsd_gru_bwd_persistent_{sfx}")
+        dw_fn = getattr(lib, f"nsd_gru_dw_{sfx}")
+        scan_fn.argtypes = [P] * 6 + [I] * 7 + [P]
+        bwd_fn.argtypes = [P] * 9 + [I] * 7 + [P]
+        dw_fn.argtypes = [P] * 4 + [I] * 4 + [P]
         shape = (length, d, b, h, plan.units, plan.threads)
-        fwd = lambda: lib.nsd_gru_scan_persistent_bf16(
+        fwd = lambda: scan_fn(
             ptr(xp), ptr(w), ptr(bias), ptr(ys), ptr(gates), ptr(sync), *shape,
             plan.smem_fwd, stream())
-        bwd = lambda: lib.nsd_gru_bwd_persistent_bf16(
+        bwd = lambda: bwd_fn(
             ptr(gates), ptr(w), ptr(ys), ptr(dys), ptr(dxp), ptr(dhpn), ptr(dw), ptr(db),
             ptr(sync), *shape, plan.smem_bwd, stream())
-        contraction = lambda: lib.nsd_gru_dw_bf16(ptr(ys), ptr(dxp), ptr(dhpn), ptr(dw),
-                                                  length, d, b, h, stream())
+        contraction = lambda: dw_fn(ptr(ys), ptr(dxp), ptr(dhpn), ptr(dw), length, d, b, h,
+                                    stream())
         for fn in (fwd, bwd, contraction):
             rc = fn()
             if rc:
