@@ -56,20 +56,32 @@ random weights:
    beta) and a greedy decode.
 7. Attention kernels: the forward, the backward (dqkv) and the dropout masks
    against their plain versions at B=64, T'=313, H=8, dh=128 in float32 and
-   bfloat16, at dropout rates 0 and 0.3 (masks bit-equal), and once each
-   with a band (``left_context=128``), interleaved qkv columns, T'=1250 and
-   a row of length 0, forward reruns bit-equal; times of kernel, plain
-   version and ``F.scaled_dot_product_attention`` (forward and backward) as
-   the library yardstick, in both dtypes. The bfloat16 forward and backward
-   run on the tensor cores (every bf16 forward launch counted on the ``tc``
-   body), and their rows in the kernels line report bfloat16.
+   bfloat16 (float32 also at dh=64), at dropout rates 0 and 0.3 (masks
+   bit-equal), and once each with a band (``left_context=128``),
+   interleaved qkv columns, T'=1250 and a row of length 0; forward and
+   backward reruns bit-equal, every launch counted on the dtype's body
+   (bf16 ``tc``, the tensor cores; float32 ``f32``, the redesigned FMA body,
+   its backward from ``mhsa_qkv_residuals``' out and stats and once
+   forming them itself); the older float32 body (``body="fma"``) held against
+   the plain versions too. Times: the bf16 kernels in turns with the plain
+   versions; the float32 ``f32`` body in turns with the older one (plain, fma,
+   f32, f32, fma, plain); ``F.scaled_dot_product_attention`` (forward and
+   backward) as the library yardstick, in both dtypes; the bounds. The
+   sha256 of the bf16 forward's and backward's outputs on numpy-seeded
+   inputs equal to the pin taken before the float32 redesign. The kernels
+   line has the bf16 rows and the f32 body's own (``mhsa_qkv_f32``,
+   ``mhsa_qkv_bwd_f32``).
 8. Conformer train step at ``CONFORMER_ARGS`` (8 blocks, D=1024, bfloat16,
    label smoothing, InterCTC, AdamW; B=64, T=1280, U=64): 2 warm-up and 10
-   timed steps, median and seq/s, 8 attention forward (on the ``tc`` body)
-   and backward, 2 CTC alpha and beta launches per step; one float32 step (dropout, DropPath,
-   SpecAugment and noise on: both paths draw the same bits) whose every
-   gradient leaf is checked against the plain path; two bf16 runs of two
-   steps from one seed, bit-equal.
+   timed steps, median and seq/s, 8 attention forward and backward (on the
+   ``tc`` body), 2 CTC alpha and beta launches per step; one float32 step
+   (dropout, DropPath, SpecAugment and noise on: both paths draw the same
+   bits) whose every gradient leaf is checked against the plain path, its
+   attention on the ``f32`` body; two bf16 runs of two steps from one seed,
+   bit-equal. Then the float32 step A/B (``attention_body``): 2 warm-up
+   steps, then 3 timed steps a turn in turns fma, f32, f32, fma (every
+   float32 attention on the older ``fma`` bodies, then on ``f32``), with each
+   arm's median.
 9. ``train_model`` of the Conformer at full width (10 steps, evals and
    checkpoints every 5), ``load_model``, an eval pass that re-scores the
    best PER exactly (8 attention launches per eval batch), a greedy decode.
@@ -323,6 +335,7 @@ from neural_speech_decoder_tpu_torch.models.torch_import import load_checkpoint
 from neural_speech_decoder_tpu_torch.ops.ctc import ctc_loss
 from neural_speech_decoder_tpu_torch.ops.decode import greedy_decode
 from neural_speech_decoder_tpu_torch.ops.kernels import _build
+from neural_speech_decoder_tpu_torch.ops.kernels import attention as attention_mod
 from neural_speech_decoder_tpu_torch.ops.kernels.adam import (
     adam_scalars,
     adam_update,
@@ -335,6 +348,7 @@ from neural_speech_decoder_tpu_torch.ops.kernels.attention import (
     mhsa_qkv_bwd,
     mhsa_qkv_bwd_plain,
     mhsa_qkv_plain,
+    mhsa_qkv_residuals,
 )
 from neural_speech_decoder_tpu_torch.ops.kernels.conv_module import (
     conv_module,
@@ -519,6 +533,11 @@ SOURCES = {
                      "neural_speech_decoder_tpu/ops/pallas/matmul.py:61"),
 }
 KERNELS = tuple(SOURCES)
+# The float32 attention's redesigned body ("f32") has rows of its own
+# in the kernels line: its forward's and backward's launches by body
+# (``launch_counts()``'s keys), summed over the float32 main paths.
+F32_ATTN = {"mhsa_qkv_f32": "mhsa_qkv/f32", "mhsa_qkv_bwd_f32": "mhsa_qkv_bwd/f32"}
+COUNTED = KERNELS + tuple(F32_ATTN.values())
 # Published H100 SXM peaks (NVIDIA data sheet; dense, at 700 W): HBM bytes/s,
 # FP32 FMA flop/s outside the tensor cores, bf16 tensor-core flop/s.
 HBM_BPS = 3.35e12
@@ -790,9 +809,11 @@ def reset_launches() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
     for counts in (tiled_matmul.launches_by_body, mhsa_qkv.launches_by_body,
+                   mhsa_qkv_bwd.launches_by_body,
                    *(WRAPPERS[k].launches_by_body for k in SCANS + FUSED_BODIES + BY_BODY)):
         for body in counts:
             counts[body] = 0
+    mhsa_qkv_bwd.forward_recomputes = 0
 
 
 def read_launches(names=KERNELS) -> dict:
@@ -1499,7 +1520,8 @@ def train_model_phase(card: str) -> None:
 # ----------------------------------------------------------- the Conformer
 
 # Attention at the Conformer's train step: B=64, T'=313 frames, 8 heads of
-# dh=128 (D=1024).
+# dh=128 (D=1024); the float32 body also at dh=64, the tensor-parallel and
+# dryrun ranks' head width.
 A_HEADS, A_DH = 8, 128
 # Kernel vs plain, max abs error relative to the output's largest entry.
 # Float32: the same float32 sums in another order (T-long softmax sums and
@@ -1508,9 +1530,22 @@ A_HEADS, A_DH = 8, 128
 # moves an entry by one bf16 step (2**-8 relative), and up to four such
 # steps of the largest entry are allowed.
 ATTN_TOL = {"float32": 1e-5, "bfloat16": 2.0**-6}
-# The forward's body each dtype takes (mhsa_qkv.launches_by_body): the
-# tensor cores in bf16, FMAs in float32.
-ATTN_FWD_BODY = {"float32": "fma", "bfloat16": "tc"}
+# The body each dtype's forward and backward take (``attention_plan``;
+# ``launches_by_body``): the tensor cores in bf16, the redesigned FMA body
+# in float32 (the older FMA body, "fma", stays for the A/Bs).
+ATTN_BODY = {"float32": "f32", "bfloat16": "tc"}
+# sha256 of the bf16 tensor-core forward's and backward's outputs on
+# attn_tc_digests' numpy-seeded inputs, as they were computed on the commit
+# before the float32 redesign (f6ca10e): the bf16 bodies must not move a
+# bit.
+ATTN_TC_SHA256 = {
+    "mhsa_qkv": "2cd6f2246cf424fe27f89e0997704a79b0a71dc97dc0b9ee4038817ded21d793",
+    "mhsa_qkv_bwd": "ebf98227abe113dde1379fcf064dfd30d5f6cb4ddba6fce2fd2b7d10ce65240c",
+    "mhsa_qkv band interleaved":
+        "f3c5d89089cb8abd271b76864d67d17ceb793945b4ae4850a52d98b343c198e5",
+    "mhsa_qkv_bwd band interleaved":
+        "add4458f3d2e55a94b1e42abbb56cee42eebf7dc1fa39c667596a148a0e37443",
+}
 # One float32 Conformer train step, kernel path vs plain path, every
 # gradient leaf relative to its largest entry: 8 blocks of attention whose
 # sums run in other orders, the CTC recursions, and 128M parameters' worth
@@ -1519,8 +1554,8 @@ CONFORMER_GRAD_TOL = 5e-4
 CONFORMER_LAYERS = 8
 
 
-def attention_inputs(g, b, t, dtype, lens=None):
-    d = A_HEADS * A_DH
+def attention_inputs(g, b, t, dtype, lens=None, dh=A_DH):
+    d = A_HEADS * dh
     qkv = torch.randn((b, t, 3 * d), generator=g, device="cuda").to(dtype)
     gout = torch.randn((b, t, d), generator=g, device="cuda").to(dtype)
     if lens is None:
@@ -1533,29 +1568,42 @@ def attention_inputs(g, b, t, dtype, lens=None):
     return qkv, gout, lens, seed
 
 
-def attention_check(tag, qkv, gout, lens, seed, **kw) -> tuple[float, float]:
-    """Forward and dqkv, kernel vs plain; returns their abs errors."""
+def attention_check(tag, qkv, gout, lens, seed, body=None, **kw) -> tuple[float, float]:
+    """Forward and dqkv, kernel vs plain, on ``body`` (forced; the dtype's
+    planned body by default); forward and backward reruns bit-equal (the f32
+    body's backward from ``mhsa_qkv_residuals``' out and stats, as the train
+    step runs it, and once forming them itself). Returns the abs errors."""
     kw = dict(num_heads=A_HEADS, **kw)
     name = "float32" if qkv.dtype == torch.float32 else "bfloat16"
-    body = ATTN_FWD_BODY[name]
-    before = mhsa_qkv.launches_by_body[body]
+    want = body or ATTN_BODY[name]
+    forced = {} if body is None else {"body": body}
+    before = (mhsa_qkv.launches_by_body[want], mhsa_qkv_bwd.launches_by_body[want])
     with torch.inference_mode():
-        out, ref = mhsa_qkv(qkv, lens, seed, **kw), mhsa_qkv_plain(qkv, lens, seed, **kw)
-        again = mhsa_qkv(qkv, lens, seed, **kw)
-        dq, dref = (mhsa_qkv_bwd(qkv, lens, seed, gout, **kw),
-                    mhsa_qkv_bwd_plain(qkv, lens, seed, gout, **kw))
+        out, ref = (mhsa_qkv(qkv, lens, seed, **forced, **kw),
+                    mhsa_qkv_plain(qkv, lens, seed, **kw))
+        again = mhsa_qkv(qkv, lens, seed, **forced, **kw)
+        res = {}
+        if want == "f32":
+            res = dict(zip(("out", "stats"), mhsa_qkv_residuals(qkv, lens, seed, **kw)))
+        dq = mhsa_qkv_bwd(qkv, lens, seed, gout, **forced, **res, **kw)
+        dq_again = mhsa_qkv_bwd(qkv, lens, seed, gout, **forced, **kw)
+        dref = mhsa_qkv_bwd_plain(qkv, lens, seed, gout, **kw)
     torch.cuda.synchronize()
-    took = mhsa_qkv.launches_by_body[body] - before
+    took = (mhsa_qkv.launches_by_body[want] - before[0],
+            mhsa_qkv_bwd.launches_by_body[want] - before[1])
     e_f, e_b = rel_err(out, ref), rel_err(dq, dref)
     dead = lens <= 0
     zero_rows = not bool(out[dead].any()) if bool(dead.any()) else True
-    same = torch.equal(out, again)
+    same = torch.equal(out, again) and (not res or torch.equal(out, res["out"]))
+    same_b = torch.equal(dq, dq_again)
     tol = ATTN_TOL[name]
-    check(e_f <= tol and e_b <= tol and zero_rows and same and took == 2,
-          f"attention {tag} {name}: max abs err / max |ref| forward {e_f:.3e}, "
-          f"dqkv {e_b:.3e} <= {tol:.3g}; rows of length 0 are zero {zero_rows}; "
-          f"forward rerun bit-equal {same}; {took} of 2 forward launches on the "
-          f"{body} body")
+    n_fwd = 3 if res else 2
+    check(e_f <= tol and e_b <= tol and zero_rows and same and same_b and took == (n_fwd, 2),
+          f"attention {tag} {name} dh={qkv.shape[-1] // (3 * A_HEADS)} on the {want} body: "
+          f"max abs err / max |ref| forward {e_f:.3e}, dqkv {e_b:.3e} <= {tol:.3g}; rows of "
+          f"length 0 are zero {zero_rows}; forward reruns bit-equal {same}; backward reruns "
+          f"bit-equal {same_b}{' (from the residuals, then forming them)' if res else ''}; "
+          f"forward and backward launches on the {want} body {took} == {(n_fwd, 2)}")
     return ((out.float() - ref.float()).abs().max().item(),
             (dq.float() - dref.float()).abs().max().item())
 
@@ -1567,27 +1615,91 @@ def attention_flops(lens, t, n_products) -> float:
     return n_products * 2.0 * A_DH * A_HEADS * t * keys
 
 
+def sha256_of(tensors) -> str:
+    h = hashlib.sha256()
+    for x in tensors:
+        h.update(x.contiguous().reshape(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def attn_tc_digests() -> dict:
+    """The sha256 of the bf16 tensor-core forward's and backward's outputs at
+    rate 0.3, without a band and with one (128 frames, interleaved columns),
+    on numpy-seeded inputs at the recipe's shapes (two rows of length T' and
+    0)."""
+    rng = np.random.default_rng(21)
+    b, t, h, dh = B, L, A_HEADS, A_DH
+
+    def r(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda().bfloat16()
+
+    qkv, g = r(b, t, 3 * h * dh), r(b, t, h * dh)
+    lens = torch.from_numpy(((rng.integers(400, 1281, b) - 32) // 4).astype(np.int32)).cuda()
+    lens[1], lens[2] = t, 0
+    seed = torch.tensor([20251018], dtype=torch.int32, device="cuda")
+    out = {}
+    with torch.inference_mode():
+        for tag, kw in (("", dict(rate=0.3)),
+                        (" band interleaved", dict(rate=0.3, left_context=128,
+                                                   interleaved=True))):
+            kw = dict(num_heads=h, **kw)
+            out["mhsa_qkv" + tag] = sha256_of([mhsa_qkv(qkv, lens, seed, **kw)])
+            out["mhsa_qkv_bwd" + tag] = sha256_of([mhsa_qkv_bwd(qkv, lens, seed, g, **kw)])
+    return out
+
+
 # The dtype each attention row of the kernels line reports: the forward's and
 # the backward's bf16 bodies (tensor cores) are the ones the recipe runs; the
-# mask hook reports float32.
-ROW_DTYPE = {"mhsa_qkv": "bfloat16", "mhsa_qkv_bwd": "bfloat16", "dropout_masks": "float32"}
+# mask hook reports float32; the f32 body's rows (F32_ATTN) float32.
+ROW_DTYPE = {"mhsa_qkv": "bfloat16", "mhsa_qkv_bwd": "bfloat16", "dropout_masks": "float32",
+             "mhsa_qkv_f32": "float32", "mhsa_qkv_bwd_f32": "float32"}
+
+
+def attention_f32_turns(qkv, gout, lens, seed, kw) -> dict:
+    """The float32 forward and backward on the f32 body beside the older FMA
+    body, in turns fma, f32, f32, fma (the f32 backward from the forward's
+    residuals, as the train step runs it), with the plain versions before
+    and after; the f32 backward forming its residuals itself once. Returns
+    ms by arm and direction."""
+    res_out, res_stats = mhsa_qkv_residuals(qkv, lens, seed, **kw)
+    arms = {"f32": (lambda: mhsa_qkv(qkv, lens, seed, body="f32", **kw),
+                    lambda: mhsa_qkv_bwd(qkv, lens, seed, gout, out=res_out, stats=res_stats,
+                                         **kw)),
+            "fma": (lambda: mhsa_qkv(qkv, lens, seed, body="fma", **kw),
+                    lambda: mhsa_qkv_bwd(qkv, lens, seed, gout, body="fma", **kw))}
+    plain = (lambda: mhsa_qkv_plain(qkv, lens, seed, **kw),
+             lambda: mhsa_qkv_bwd_plain(qkv, lens, seed, gout, **kw))
+    got = {(a, k): [] for a in ("f32", "fma", "plain") for k in (0, 1)}
+    for arm in ("plain", "fma", "f32", "f32", "fma", "plain"):
+        for k in (0, 1):
+            fn, reps = (plain[k], 3) if arm == "plain" else (arms[arm][k], 10)
+            got[(arm, k)].append(time_ms(fn, reps))
+    got[("alone", 1)] = [time_ms(lambda: mhsa_qkv_bwd(qkv, lens, seed, gout, **kw), 10)]
+    return got
 
 
 def attention_kernel_phase() -> dict:
     g = torch.Generator(device="cuda").manual_seed(3)
     t = L
-    rows = {"mhsa_qkv": {}, "mhsa_qkv_bwd": {}, "dropout_masks": {}}
+    rows = {k: {} for k in ROW_DTYPE}
     inputs = {}
-    for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-        qkv, gout, lens, seed = attention_inputs(g, B, t, dt)
-        inputs[name] = (qkv, gout, lens, seed)
+    for name, dt, dh in (("float32", torch.float32, A_DH), ("float32", torch.float32, 64),
+                         ("bfloat16", torch.bfloat16, A_DH)):
+        qkv, gout, lens, seed = attention_inputs(g, B, t, dt, dh=dh)
+        if dh == A_DH:
+            inputs[name] = (qkv, gout, lens, seed)
         for rate in (0.0, 0.3):
             errs = attention_check(f"B={B} T'={t} rate {rate}", qkv, gout, lens,
                                    seed, rate=rate)
-            if rate > 0 and name == ROW_DTYPE["mhsa_qkv"]:
-                rows["mhsa_qkv"]["max_abs_err"] = errs[0]
-            if rate > 0 and name == ROW_DTYPE["mhsa_qkv_bwd"]:
-                rows["mhsa_qkv_bwd"]["max_abs_err"] = errs[1]
+            if rate > 0 and dh == A_DH:
+                for key in ("mhsa_qkv", "mhsa_qkv_f32"):
+                    if name == ROW_DTYPE[key]:
+                        rows[key]["max_abs_err"] = errs[0]
+                for key in ("mhsa_qkv_bwd", "mhsa_qkv_bwd_f32"):
+                    if name == ROW_DTYPE[key]:
+                        rows[key]["max_abs_err"] = errs[1]
+            if dh != A_DH:
+                continue
             masks = dropout_masks(B * A_HEADS, t, seed, rate)
             same = torch.equal(masks, dropout_masks_plain(B * A_HEADS, t, seed, rate))
             check(same, f"dropout_masks {B * A_HEADS}x{t}x{t} rate {rate}: "
@@ -1598,9 +1710,15 @@ def attention_kernel_phase() -> dict:
                         rate=0.3, left_context=128)
         attention_check("interleaved columns", qkv, gout, lens, seed,
                         rate=0.3, interleaved=True)
-        zq, zg, zl, zs = attention_inputs(g, 4, t, dt, lens=[t, 0, 17, 0])
+        if name == "float32" and dh == A_DH:
+            # the older float32 FMA body, the A/Bs' other arm
+            attention_check(f"B={B} T'={t} rate 0.3", qkv, gout, lens, seed, body="fma",
+                            rate=0.3)
+            attention_check("band left_context=128", qkv, gout, lens, seed, body="fma",
+                            rate=0.3, left_context=128)
+        zq, zg, zl, zs = attention_inputs(g, 4, t, dt, lens=[t, 0, 17, 0], dh=dh)
         attention_check("with rows of length 0", zq, zg, zl, zs, rate=0.3)
-        lq, lg, ll, ls = attention_inputs(g, 4, 1250, dt, lens=[1250, 1000, 700, 1249])
+        lq, lg, ll, ls = attention_inputs(g, 4, 1250, dt, lens=[1250, 1000, 700, 1249], dh=dh)
         attention_check("T'=1250", lq, lg, ll, ls, rate=0.3)
         attention_check("T'=1250 band", lq, lg, ll, ls, rate=0.3, left_context=128)
         del zq, zg, lq, lg
@@ -1609,14 +1727,32 @@ def attention_kernel_phase() -> dict:
         qkv, gout, lens, seed = inputs[name]
         kw = dict(num_heads=A_HEADS, rate=0.3)
         with torch.inference_mode():
-            ff = time_turns(lambda: mhsa_qkv(qkv, lens, seed, **kw),
-                            lambda: mhsa_qkv_plain(qkv, lens, seed, **kw), 10, 3)
-            fb = time_turns(lambda: mhsa_qkv_bwd(qkv, lens, seed, gout, **kw),
-                            lambda: mhsa_qkv_bwd_plain(qkv, lens, seed, gout, **kw),
-                            10, 3)
-            fm = time_turns(lambda: dropout_masks(B * A_HEADS, t, seed, 0.3),
-                            lambda: dropout_masks_plain(B * A_HEADS, t, seed, 0.3),
-                            10, 3)
+            if name == "float32":
+                turns = attention_f32_turns(qkv, gout, lens, seed, kw)
+                mean = {key: statistics.fmean(v) for key, v in turns.items()}
+                ff, fb = ((mean[("f32", k)], mean[("plain", k)]) for k in (0, 1))
+                for k, what in ((0, "mhsa_qkv"), (1, "mhsa_qkv_bwd")):
+                    times = {arm: "/".join(f"{v:.4f}" for v in turns[(arm, k)])
+                             for arm in ("f32", "fma", "plain")}
+                    print(f"time  {what} float32 B={B} T'={t} rate 0.3, in turns (plain, fma, "
+                          f"f32, f32, fma, plain): f32 body {times['f32']} ms, the fma body "
+                          f"{times['fma']} ms, plain {times['plain']} ms; f32 / fma "
+                          f"{mean[('f32', k)] / mean[('fma', k)]:.3f}"
+                          + (f"; the f32 backward forming its residuals itself "
+                             f"{mean[('alone', 1)]:.4f} ms" if k else ""), flush=True)
+            else:
+                ff = time_turns(lambda: mhsa_qkv(qkv, lens, seed, **kw),
+                                lambda: mhsa_qkv_plain(qkv, lens, seed, **kw), 10, 3)
+                fb = time_turns(lambda: mhsa_qkv_bwd(qkv, lens, seed, gout, **kw),
+                                lambda: mhsa_qkv_bwd_plain(qkv, lens, seed, gout, **kw),
+                                10, 3)
+                fm = time_turns(lambda: dropout_masks(B * A_HEADS, t, seed, 0.3),
+                                lambda: dropout_masks_plain(B * A_HEADS, t, seed, 0.3),
+                                10, 3)
+                for what, (_, _, turns) in (("mhsa_qkv", ff), ("mhsa_qkv_bwd", fb)):
+                    print(f"time  {what} bfloat16 B={B} T'={t} rate 0.3: kernel "
+                          f"{turns[0]:.4f}/{turns[1]:.4f} ms, plain {turns[2]:.4f}/"
+                          f"{turns[3]:.4f} ms", flush=True)
         # the library yardstick: F.scaled_dot_product_attention on the same
         # q, k, v (head-split copies) with the key-padding mask and dropout
         b_, t_, d3 = qkv.shape
@@ -1631,16 +1767,18 @@ def attention_kernel_phase() -> dict:
         lib_b = time_ms(lambda: torch.autograd.grad(out, (q, k, v), go,
                                                     retain_graph=True), 10)
         del out, q, k, v
-        for key, (kt, pt, turns), lib in (("mhsa_qkv", ff, lib_f),
-                                          ("mhsa_qkv_bwd", fb, lib_b),
-                                          ("dropout_masks", fm, None)):
-            print(f"time  {key} {name} B={B} T'={t} rate 0.3: kernel "
-                  f"{turns[0]:.4f}/{turns[1]:.4f} ms, plain {turns[2]:.4f}/"
-                  f"{turns[3]:.4f} ms" + (f", F.scaled_dot_product_attention "
-                  f"{'forward' if key == 'mhsa_qkv' else 'backward'} {lib:.4f} ms "
-                  f"(kernel / SDPA {kt / lib:.2f})" if lib is not None else ""), flush=True)
-            if name == ROW_DTYPE[key]:
-                rows[key].update(ms=kt, plain_ms=pt, library_ms=lib)
+        print(f"time  F.scaled_dot_product_attention {name} B={B} T'={t} rate 0.3: forward "
+              f"{lib_f:.4f} ms, backward {lib_b:.4f} ms; the {ATTN_BODY[name]} body / SDPA "
+              f"forward {ff[0] / lib_f:.2f}, backward {fb[0] / lib_b:.2f}", flush=True)
+        if name == "bfloat16":
+            kt, pt, turns = fm
+            print(f"time  dropout_masks B={B} T'={t} rate 0.3: kernel {turns[0]:.4f}/"
+                  f"{turns[1]:.4f} ms, plain {turns[2]:.4f}/{turns[3]:.4f} ms", flush=True)
+            rows["dropout_masks"].update(ms=kt, plain_ms=pt, library_ms=None)
+        for key, (kt, pt, *_), lib in (("mhsa_qkv", ff, lib_f), ("mhsa_qkv_bwd", fb, lib_b)):
+            if name == "float32":
+                key += "_f32"
+            rows[key].update(ms=kt, plain_ms=pt, library_ms=lib)
         # qkv read once and out written once (the backward also reads g and
         # writes dqkv); the forward's two products (scores, p @ V), the
         # backward's five (scores, dP, dV, dQ, dK), over the unmasked keys
@@ -1652,15 +1790,19 @@ def attention_kernel_phase() -> dict:
               f"{attention_flops(lens, t, 2) / 1e9:.2f} GFLOP; mhsa_qkv_bwd "
               f"{bwd_b[0]:.4f} ms ({bwd_b[1]}), {attention_flops(lens, t, 5) / 1e9:.2f} "
               f"GFLOP", flush=True)
-        if name == ROW_DTYPE["mhsa_qkv"]:
-            rows["mhsa_qkv"]["bound_ms"], rows["mhsa_qkv"]["bound_by"] = fwd_b
+        suffix = "_f32" if name == "float32" else ""
+        rows["mhsa_qkv" + suffix]["bound_ms"], rows["mhsa_qkv" + suffix]["bound_by"] = fwd_b
+        rows["mhsa_qkv_bwd" + suffix]["bound_ms"], rows["mhsa_qkv_bwd" + suffix]["bound_by"] = (
+            bwd_b)
         if name == ROW_DTYPE["dropout_masks"]:
             # one bool written per entry; the hash's integer work is not
             # counted (the table of peaks has no integer rate)
             rows["dropout_masks"]["bound_ms"], rows["dropout_masks"]["bound_by"] = (
                 bound_ms(B * A_HEADS * t * t + 4, 0, name))
-        if name == ROW_DTYPE["mhsa_qkv_bwd"]:
-            rows["mhsa_qkv_bwd"]["bound_ms"], rows["mhsa_qkv_bwd"]["bound_by"] = bwd_b
+    got = attn_tc_digests()
+    check(got == ATTN_TC_SHA256,
+          f"bf16 attention (tc) forward and backward outputs' sha256 on numpy-seeded inputs "
+          f"equal to the pin taken before the float32 redesign: {got}")
     for key, row in rows.items():
         row["dtype"] = ROW_DTYPE[key]
     return rows
@@ -1700,13 +1842,14 @@ def conformer_train_step_phase(card: str) -> tuple[dict, float]:
     want = {**NO_GRU, **NO_FUSED, "ctc_alpha": 2 * n, "ctc_beta": 2 * n,
             "mhsa_qkv": CONFORMER_LAYERS * n, "mhsa_qkv_bwd": CONFORMER_LAYERS * n,
             "dropout_masks": 0}
-    fwd_bodies = dict(mhsa_qkv.launches_by_body)
+    bodies = (dict(mhsa_qkv.launches_by_body), dict(mhsa_qkv_bwd.launches_by_body))
+    on_tc = {"tc": CONFORMER_LAYERS * n, "f32": 0, "fma": 0}
     check_front_ctc_bodies(f"{n} bf16 Conformer train steps (InterCTC)", alpha=2 * n,
                            beta=2 * n)
-    check(launches == want and fwd_bodies == {"tc": CONFORMER_LAYERS * n, "fma": 0},
+    check(launches == want and bodies == (on_tc, on_tc),
           f"launches over {n} bf16 Conformer train steps {launches} == per step 8 "
-          f"attention forward (by body {fwd_bodies}: all on the tensor cores), 8 "
-          f"backward, 2 alpha, 2 beta (main and InterCTC heads), no fused FF or conv "
+          f"attention forward and 8 backward (by body {bodies}: all on the tensor "
+          f"cores), 2 alpha, 2 beta (main and InterCTC heads), no fused FF or conv "
           f"kernel")
     check(all(math.isfinite(v) for v in losses),
           f"bf16 Conformer train losses finite: {', '.join(f'{v:.4f}' for v in losses)}")
@@ -1733,6 +1876,13 @@ def conformer_train_step_phase(card: str) -> tuple[dict, float]:
         torch.cuda.synchronize()
         out[plain] = (loss.item(), [p.grad.clone() for p in model.parameters()],
                       read_launches(KERNELS))
+        bodies = (dict(mhsa_qkv.launches_by_body), dict(mhsa_qkv_bwd.launches_by_body),
+                  mhsa_qkv_bwd.forward_recomputes)
+        if not plain:
+            on_f32 = {"tc": 0, "f32": CONFORMER_LAYERS, "fma": 0}
+            check(bodies == (on_f32, on_f32, 0),
+                  f"float32 Conformer step: attention forward and backward launches by body, "
+                  f"and forwards recomputed by the backward, {bodies} == {(on_f32, on_f32, 0)}")
     (loss_k, grads_k, launch_k), (loss_p, grads_p, launch_p) = out[False], out[True]
     check(launch_k == {k: v // n for k, v in want.items()}
           and not any(launch_p.values()),
@@ -1756,7 +1906,77 @@ def conformer_train_step_phase(card: str) -> tuple[dict, float]:
     same = l1 == l2 and all(torch.equal(a, b) for a, b in zip(p1, p2))
     check(same, f"two bf16 Conformer runs of 2 steps from one seed bit-equal: "
           f"losses {l1} / {l2}")
-    return {k: launches[k] for k in ("mhsa_qkv", "mhsa_qkv_bwd", "dropout_masks")}, med
+    return ({k: launches[k] for k in ("mhsa_qkv", "mhsa_qkv_bwd", "dropout_masks")}
+            | {k: launch_k[k.split("/")[0]] for k in F32_ATTN.values()}), med
+
+
+@contextlib.contextmanager
+def attention_body(body: str | None):
+    """Inside, every float32 attention of the model's normal entry points
+    runs on ``body`` (``"fma"``, the older bodies, the other arm of an A/B:
+    ``plan_for`` answers it for float32 whatever the shape), or on
+    ``attention_plan``'s choice (``None``)."""
+    saved = attention_mod.plan_for
+    if body is not None:
+        attention_mod.plan_for = (
+            lambda dtype, dh: body if dtype == torch.float32 else saved(dtype, dh))
+    try:
+        yield
+    finally:
+        attention_mod.plan_for = saved
+
+
+def conformer_float32_steps_phase(card: str) -> dict:
+    """The float32 Conformer train step at full width (``CONFORMER_ARGS`` in
+    float32, the JAX trainer's default dtype): after 2 warm-up steps,
+    ``AB_STEPS`` timed steps a turn in turns fma, f32, f32, fma
+    (``attention_body``): its 8 attention forwards and backwards a step on
+    the older ``fma`` bodies in the fma turns, on the f32 body (the backward
+    from the forward's residuals) in the others. The medians of each arm;
+    returns the f32 turns' launches by body."""
+    device = torch.device("cuda")
+    batch = batch_tensors(bench_batch(B, T, U), device)
+    args32 = {**CONFORMER_ARGS, "compute_dtype": "float32"}
+    model = build_model(args32, N_DAYS, device, seed=0)
+    opt, sched = make_optimizer(args32, model.parameters())
+    step = make_train_step(args32, model, opt, sched)
+    losses, i = [], 0
+    for _ in range(2):  # warm-up
+        losses.append(float(step(batch, step_generator(device, 0, i))["train/loss"]))
+        i += 1
+    times = {"fma": [], "f32": []}
+    ran = dict.fromkeys(F32_ATTN.values(), 0)
+    n = CONFORMER_LAYERS * AB_STEPS
+    for arm in ("fma", "f32", "f32", "fma"):
+        with attention_body("fma" if arm == "fma" else None):
+            torch.cuda.synchronize()
+            reset_launches()
+            for _ in range(AB_STEPS):
+                t0 = time.perf_counter()
+                losses.append(float(step(batch, step_generator(device, 0, i))["train/loss"]))
+                torch.cuda.synchronize()
+                times[arm].append(time.perf_counter() - t0)
+                i += 1
+        bodies = (dict(mhsa_qkv.launches_by_body), dict(mhsa_qkv_bwd.launches_by_body))
+        on_arm = {b: n if b == arm else 0 for b in ("tc", "f32", "fma")}
+        check(bodies == (on_arm, on_arm) and mhsa_qkv_bwd.forward_recomputes == 0,
+              f"{AB_STEPS} float32 Conformer train steps, a {arm} turn: attention forward and "
+              f"backward launches by body {bodies}, each {on_arm}; forwards recomputed by the "
+              f"backward {mhsa_qkv_bwd.forward_recomputes}")
+        if arm == "f32":
+            ran["mhsa_qkv/f32"] += bodies[0]["f32"]
+            ran["mhsa_qkv_bwd/f32"] += bodies[1]["f32"]
+    del model, opt, sched, step
+    check(all(math.isfinite(v) for v in losses),
+          f"float32 Conformer train losses finite: {', '.join(f'{v:.4f}' for v in losses)}")
+    med = {arm: statistics.median(v) for arm, v in times.items()}
+    print(f"conformer train step float32 B={B} T={T} U={U}, A/B in turns (fma, f32, f32, "
+          f"fma), {2 * AB_STEPS} steps an arm: f32 attention median {med['f32'] * 1e3:.2f} ms "
+          f"({', '.join(f'{t * 1e3:.2f}' for t in times['f32'])}), {B / med['f32']:.2f} "
+          f"seq/s; fma attention median {med['fma'] * 1e3:.2f} ms "
+          f"({', '.join(f'{t * 1e3:.2f}' for t in times['fma'])}); f32 - fma "
+          f"{(med['f32'] - med['fma']) * 1e3:+.2f} ms ({card})", flush=True)
+    return ran
 
 
 CONFORMER_RUN = Path("runs") / "chip_smoke_conformer"
@@ -2938,7 +3158,7 @@ def launch_bodies(want: dict) -> tuple[dict, dict]:
                    "gru_scan": {"persistent": want["gru_scan"], "step": 0},
                    "ffn": {"sm90": want["ffn"], "tile": 0},
                    "conv_module": {"sm90": want["conv_module"], "tile": 0},
-                   "mhsa_qkv": {"tc": want["mhsa_qkv"], "fma": 0}}
+                   "mhsa_qkv": {"tc": want["mhsa_qkv"], "f32": 0, "fma": 0}}
     return bodies, want_bodies
 
 
@@ -4023,13 +4243,13 @@ def dp_one_card_ranks(tag: str, args: dict, want: dict, bodies: dict, card: str)
     check(summaries[0] == summaries[1],
           f"dp {tag}: both ranks returned one summary ({summaries[0]})")
     err = dp_compare(tag, ranks, one, args["nBatch"])
-    total = {k: 0 for k in KERNELS}
+    total = {k: 0 for k in COUNTED}
     for r in (0, 1):
         launches = dp_rank_launches(ranks, r)
         ran = {k: v for k, v in launches.items() if v}
         check(all(launches.get(k) == v for k, v in want.items()),
               f"dp {tag}: rank {r} launched {ran}; per rank {want} (bodies {bodies})")
-        for k in KERNELS:
+        for k in COUNTED:
             total[k] += launches.get(k, 0)
     print(f"dp {tag}: 2 gloo ranks on one card {ranks_s:.1f} s (spawn, build load and "
           f"checkpoint included), 1 rank {one_s:.1f} s; updates within {err:.3e} "
@@ -4056,7 +4276,8 @@ def dp_conformer_want(steps: int, n_eval: int) -> tuple[dict, dict]:
     head: it needs 6): per step and eval batch 2 attention, 4 FF and 2 conv
     forwards and one CTC alpha; per step their backwards and one beta."""
     n, fwd = DP_CONFORMER_LAYERS, steps + n_eval
-    bodies = {"mhsa_qkv": ATTN_FWD_BODY["float32"], "ffn": "tile", "ffn_bwd": "tile",
+    bodies = {"mhsa_qkv": ATTN_BODY["float32"], "mhsa_qkv_bwd": ATTN_BODY["float32"],
+              "ffn": "tile", "ffn_bwd": "tile",
               "conv_module": "tile", "conv_module_bwd": "tile", "ctc_alpha": CTC_BODY,
               "ctc_beta": CTC_BODY}
     counts = {"mhsa_qkv": n * fwd, "mhsa_qkv_bwd": n * steps, "ffn": 2 * n * fwd,
@@ -4077,7 +4298,7 @@ def data_parallel_phase(card: str) -> dict:
     shutil.rmtree(DP_DIR, ignore_errors=True)
     ds = dp_dataset()
     n_eval = -(-pack_days(ds["test"]).n_trials // B)
-    launches = {k: 0 for k in KERNELS}
+    launches = {k: 0 for k in COUNTED}
 
     # (a) a one-rank NCCL group against no group: bit-equal
     t0 = time.perf_counter()
@@ -4184,7 +4405,8 @@ def tp_conformer_want(steps: int, n_eval: int, dtype: str) -> tuple[dict, dict]:
     refused under tensor parallelism)."""
     n, fwd = TP_CONFORMER_LAYERS, steps + n_eval
     fused = FUSED_BODY[dtype]
-    bodies = {"mhsa_qkv": ATTN_FWD_BODY[dtype], "conv_module": fused,
+    bodies = {"mhsa_qkv": ATTN_BODY[dtype], "mhsa_qkv_bwd": ATTN_BODY[dtype],
+              "conv_module": fused,
               "conv_module_bwd": fused, "ctc_alpha": CTC_BODY, "ctc_beta": CTC_BODY}
     counts = {"mhsa_qkv": n * fwd, "mhsa_qkv_bwd": n * steps, "conv_module": n * fwd,
               "conv_module_bwd": n * steps, "ffn": 0, "ffn_bwd": 0,
@@ -4239,7 +4461,7 @@ def tensor_parallel_phase(card: str) -> dict:
     ranks_s = time.perf_counter() - t0
     check(summaries[0] == summaries[1],
           f"tp: both model ranks returned the same summaries ({summaries[0]})")
-    launches = {k: 0 for k in KERNELS}
+    launches = {k: 0 for k in COUNTED}
     for k, (args, (want, bodies)) in cells.items():
         tag = f"({k}) {'gru' if k == 'a' else 'conformer'} {args['compute_dtype']}"
         one, tp = TP_DIR / f"{k}_one", TP_DIR / f"{k}_tp"
@@ -4258,7 +4480,7 @@ def tensor_parallel_phase(card: str) -> dict:
             ran = {n: v for n, v in got.items() if v}
             check(all(got.get(n) == v for n, v in want.items()),
                   f"tp {tag}: model rank {r} launched {ran}; per rank {want} (bodies {bodies})")
-            for n in KERNELS:
+            for n in COUNTED:
                 launches[n] += got.get(n, 0)
     alone = ", ".join(f"({k}) {v:.1f}" for k, v in one_s.items())
     print(f"tp: 2 gloo model ranks on one card {ranks_s:.1f} s for (a)-(c) (spawn, build "
@@ -4370,10 +4592,10 @@ def tpllm_scores_check(tag: str, got: np.ndarray, ref: np.ndarray, how: str) -> 
 def tpllm_dryrun_want(name: str, steps: int = 1) -> dict:
     """A dryrun rank's launches in a stage (float32: the scans on the body
     ``scan_plan`` picks, the CTC recursions on the prefetch body, the
-    attention forward on the FMA body): a GRU step's 2 layers'
-    gates-forward and backward scans and one alpha and beta; a Conformer
-    step's 2 attention forwards and backwards on the rank's heads and one
-    alpha and beta. The GRU stages' widths: nUnits 128 on 16 rows a rank
+    attention forward and backward on the f32 body): a GRU step's 2
+    layers' gates-forward and backward scans and one alpha and beta; a
+    Conformer step's 2 attention forwards and backwards on the rank's heads
+    and one alpha and beta. The GRU stages' widths: nUnits 128 on 16 rows a rank
     (``+pallas``), else 64 (any batch of up to 128 rows plans alike at that
     width)."""
     if name.startswith("gru_baseline"):
@@ -4381,7 +4603,7 @@ def tpllm_dryrun_want(name: str, steps: int = 1) -> dict:
         want = {"gru_scan_gates": 2, f"gru_scan_gates/{body}": 2, "gru_scan_bwd": 2,
                 f"gru_scan_bwd/{body}": 2}
     else:
-        want = {"mhsa_qkv": 2, "mhsa_qkv/fma": 2, "mhsa_qkv_bwd": 2}
+        want = {"mhsa_qkv": 2, "mhsa_qkv/f32": 2, "mhsa_qkv_bwd": 2, "mhsa_qkv_bwd/f32": 2}
     want |= {"ctc_alpha": 1, "ctc_alpha/prefetch": 1, "ctc_beta": 1, "ctc_beta/prefetch": 1}
     return {k: v * steps for k, v in want.items()}
 
@@ -4392,7 +4614,7 @@ def tpllm_dryrun(card: str) -> dict:
     the ranks and stages."""
     t0 = time.perf_counter()
     res = dryrun_multichip(2, "cuda", timeout_s=600)
-    launches = {k: 0 for k in KERNELS}
+    launches = {k: 0 for k in COUNTED}
     for r in res:
         for st in r["stages"]:
             steps = len(st.get("losses", [0]))
@@ -4408,7 +4630,7 @@ def tpllm_dryrun(card: str) -> dict:
                 check(got == want,
                       f"tpllm (d) dryrun rank {r['rank']} {st['name']}{what} on "
                       f"mesh={st['mesh']}: launches by body {got} == {want}")
-                for k in KERNELS:
+                for k in COUNTED:
                     launches[k] += got.get(k, 0)
     print(f"tpllm (d): dryrun_multichip(2) on {torch.cuda.device_count()} card(s), "
           f"{len(res[0]['lines'])} stages, {time.perf_counter() - t0:.1f} s (spawn included) "
@@ -4737,6 +4959,10 @@ def main() -> int:
     launches.update(conformer_launches)
     print(f"phase conformer train step: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
+    for k, n in conformer_float32_steps_phase(card).items():
+        launches[k] += n
+    print(f"phase float32 conformer train steps: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
     conformer_train_model_phase(card)
     print(f"phase conformer train_model: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
@@ -4787,13 +5013,14 @@ def main() -> int:
     print(f"phase export: {time.perf_counter() - t0:.1f} s", flush=True)
     # every kernel of the main paths ran there (the mask hooks excepted: the
     # attention and FF kernels draw their masks themselves)
-    idle = [k for k in KERNELS if k not in HOOKS and not launches[k]]
+    idle = [k for k in COUNTED if k not in HOOKS and not launches[k]]
     check(not idle, f"every kernel of the main paths launched there; idle: {idle}")
     out = []
-    for name in KERNELS:
-        source, replaces = SOURCES[name]
+    for name in KERNELS + tuple(F32_ATTN):
+        count = F32_ATTN.get(name, name)
+        source, replaces = SOURCES[count.split("/")[0]]
         out.append({"name": name, "route": "cuda", "source": source,
-                    "replaces": replaces, "launches": launches[name],
+                    "replaces": replaces, "launches": launches[count],
                     **rows[name]})
     print(json.dumps({"kernels": out}), flush=True)
     if failures:

@@ -45,13 +45,16 @@
 //
 // Design: the TPU kernel keeps a whole [Tp, Tp] float32 score tile per
 // (b, h) in VMEM (576 KB at Tp=384), more than a block's 227 KB of shared
-// memory. Here a block takes 64 query rows of one (b, h) and walks the keys
-// in tiles of 64: a first pass forms each row's max and sum (online, with
-// rescaling), a second recomputes the scores and forms p, its dropout and
-// the product with V. The backward is two kernels: the dQ kernel (per query
-// tile) forms the row statistics again, then rowsum(dP * p) over all keys,
-// then dS and dQ, and stores the three statistics; the dK/dV kernel (per key
-// tile) walks the query tiles with them. No atomics: every sum has a fixed
+// memory. The float32 kernels that run by default (body "f32", namespace
+// f32 at the end) walk the keys once in the forward and form S and dP once
+// in the backward. The first port's float32 kernels (body "fma", kept for
+// A/B runs) follow here: a block takes 64 query rows of one (b, h) and
+// walks the keys in tiles of 64: a first pass forms each row's max and sum
+// (online, with rescaling), a second recomputes the scores and forms p,
+// its dropout and the product with V. The backward is two kernels: the dQ
+// kernel (per query tile) forms the row statistics again, then rowsum(dP *
+// p) over all keys, then dS and dQ, and stores the three statistics; the
+// dK/dV kernel (per key tile) walks the query tiles with them. No atomics: every sum has a fixed
 // order, so a run is reproducible bit for bit. Tiles of keys that every row
 // of the block masks (past min(len, T), or outside the band) are skipped;
 // they add exact zeros. All operands stay in shared memory in their natural
@@ -1113,6 +1116,524 @@ cudaError_t launch_bwd(const void* qkv, const void* lens, const void* seed, cons
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// The float32 forward and backward redesigned for the H100 (body "f32"; the
+// FMA kernels above stay as body "fma"). Same semantics, still on float32
+// FMAs (no TF32), with fewer products and tiles that feed the FMAs better:
+//
+// - Forward, one walk over the key tiles (online softmax): a block takes
+//   64 query rows of one (b, h); for each 64-key tile it forms the scores,
+//   grows each row's running max m (the row's partial sums and its output
+//   accumulator are rescaled by exp(m_old - m_new)), adds exp(s - m) to the
+//   running sum l and the dropped exp(s - m) times V to the output; the
+//   output is divided by l at the end, and is 0 where m <= -1e9 (every key
+//   masked). Keys at j >= T score -inf, masked keys inside T -1e9, as
+//   row_stats above: a tile that holds only masked keys of a row leaves it
+//   exp(0) terms that the first unmasked key's rescale (exp(-1e9 - m) = 0)
+//   wipes out. Two products, not three. Optionally it stores each row's
+//   final (m, l), the residuals of the backward.
+// - Backward, 5 products, not 10: a pass forms Delta_i = g_i . out_i, which
+//   equals rowsum(dP * p) with the dropout scaling (out = sum_j dropped
+//   p_ij v_j); the dK/dV kernel (per 64 keys) walks the query tiles once:
+//   S^T, dP^T, p from the forward's (m, l), dV += P^T g, dS = p (dP -
+//   Delta), dK += dS^T q, and stores dS; the dQ kernel (per 64 query rows)
+//   is then one product, dQ = dS K, over the key tiles the rows see. dS
+//   lives in device memory between the two ([B*H][Tp][Tp] float32, Tp = T
+//   rounded up to 64: 210 MB at B=64, T'=313, H=8), so S and dP are formed
+//   once (the FlashAttention-2 split forms them again for dQ: 7 products).
+// - Tiles: 256 threads, each forming a 4 x 4 block of scores and a 4-row
+//   block of the output product (the dQ kernel: 128 threads, 8 rows), with
+//   128-bit shared loads that a quarter warp reads as one broadcast (the A
+//   rows) or 128 contiguous bytes (the B rows, on distinct banks: the row
+//   stride DH+4 is 4 mod 32). The forward and the dQ kernel take 99 KB of
+//   shared memory at dh=128 (Q, K and V one stage each, p staged over K;
+//   dS and K two stages), so two blocks share an SM and one block's loads
+//   and stores overlap the other's products; a 64-row forward block also
+//   pads T'=313 to 320 rows, not 384 (on an H100 at B=64, T'=313, H=8,
+//   dh=128 both beat a 128-row block with 8 x 4 scores a thread and K/V in
+//   two stages, one block an SM, and 256 threads beat 128 with 8 x 4
+//   scores). The dK/dV kernel
+//   (217 KB: K and V resident, q and g in two cp.async stages, the next
+//   tile's copies in flight while this one's products run) holds one block
+//   an SM.
+// No atomics: every sum runs in one fixed order, so reruns are bit-equal.
+namespace f32 {
+
+constexpr int kThreads = 256;    // the forward's and the dK/dV kernel's
+constexpr int kDqThreads = 128;  // the dQ kernel's
+constexpr int kLdS = kTile + 4;  // row stride of a staged [64][64] p / dS tile
+
+// Rows [row0, row0+ROWS) of a row-major float32 matrix (row stride ld),
+// columns [col, col+DH), into dst [ROWS][DH+4] by cp.async (NT threads);
+// rows >= n_rows are zero-filled.
+template <int ROWS, int DH, int NT>
+__device__ __forceinline__ void load_async(float* dst, const float* src, int row0, int n_rows,
+                                           size_t ld, int col) {
+  constexpr int C4 = DH / 4;
+  for (int idx = threadIdx.x; idx < ROWS * C4; idx += NT) {
+    const int r = idx / C4, c = (idx % C4) * 4;
+    const bool ok = row0 + r < n_rows;
+    nsd::cp_async16(dst + r * (DH + 4) + c, src + (size_t)(ok ? row0 + r : 0) * ld + col + c,
+                    ok);
+  }
+}
+
+// Row of a thread's i-th product row in a 64-row tile: with NT threads (NT
+// / 16 values of ty) and RG = 64 / (NT / 4) groups of rows, rows
+// rg * NT/4 + ty*4 + r, i = rg*4 + r.
+template <int NT>
+__device__ __forceinline__ int tile_row(int i, int ty) {
+  return (i / 4) * (NT / 4) + ty * 4 + i % 4;
+}
+
+// acc[i][c] += sum_k A[tile_row(i)][k] * B[tx + 16c][k], k < DH (A.B^T of
+// two [64][DH+4] tiles).
+template <int DH, int NT>
+__device__ __forceinline__ void mm_abt(const float* __restrict__ A, const float* __restrict__ B,
+                                       float (&acc)[1024 / NT][4], int ty, int tx) {
+  constexpr int LD = DH + 4, R = 1024 / NT;
+#pragma unroll 2
+  for (int k = 0; k < DH; k += 4) {
+    float4 a[R], b[4];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+      a[i] = *reinterpret_cast<const float4*>(A + tile_row<NT>(i, ty) * LD + k);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) b[c] = *reinterpret_cast<const float4*>(B + (tx + 16 * c) * LD + k);
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float s = acc[i][c];
+        s = fmaf(a[i].x, b[c].x, s);
+        s = fmaf(a[i].y, b[c].y, s);
+        s = fmaf(a[i].z, b[c].z, s);
+        s = fmaf(a[i].w, b[c].w, s);
+        acc[i][c] = s;
+      }
+    }
+  }
+}
+
+// acc[i][g*4+e] += sum_j P[tile_row(i)][j] * X[j][g*64 + tx*4 + e], j < 64
+// (a [64][kLdS] tile times a [64][DH+4] tile).
+template <int DH, int NT>
+__device__ __forceinline__ void mm_ab(const float* __restrict__ P, const float* __restrict__ X,
+                                      float (&acc)[1024 / NT][DH / 16], int ty, int tx) {
+  constexpr int LD = DH + 4, R = 1024 / NT;
+#pragma unroll 2
+  for (int j = 0; j < kTile; j += 4) {
+    float4 a[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+      a[i] = *reinterpret_cast<const float4*>(P + tile_row<NT>(i, ty) * kLdS + j);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+#pragma unroll
+      for (int g = 0; g < DH / 64; ++g) {
+        const float4 b = *reinterpret_cast<const float4*>(X + (j + jj) * LD + g * 64 + tx * 4);
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          const float av = comp(a[i], jj);
+          acc[i][g * 4 + 0] = fmaf(av, b.x, acc[i][g * 4 + 0]);
+          acc[i][g * 4 + 1] = fmaf(av, b.y, acc[i][g * 4 + 1]);
+          acc[i][g * 4 + 2] = fmaf(av, b.z, acc[i][g * 4 + 2]);
+          acc[i][g * 4 + 3] = fmaf(av, b.w, acc[i][g * 4 + 3]);
+        }
+      }
+    }
+  }
+}
+
+// Stores a thread's block of a 64-row product (rows q0 + tile_row, those
+// below T) times scale into the rows of dst (row stride ld), from column
+// col.
+template <int DH, int NT>
+__device__ __forceinline__ void store_rows(float* dst, size_t ld, int col, int q0, int n_time,
+                                           const float (&acc)[1024 / NT][DH / 16], float scale,
+                                           int ty, int tx) {
+#pragma unroll
+  for (int i = 0; i < 1024 / NT; ++i) {
+    const int row = q0 + tile_row<NT>(i, ty);
+    if (row >= n_time) continue;
+    float* d = dst + (size_t)row * ld + col;
+#pragma unroll
+    for (int g = 0; g < DH / 64; ++g)
+      *reinterpret_cast<float4*>(d + g * 64 + tx * 4) =
+          make_float4(acc[i][g * 4] * scale, acc[i][g * 4 + 1] * scale,
+                      acc[i][g * 4 + 2] * scale, acc[i][g * 4 + 3] * scale);
+  }
+}
+
+// The forward per 64 query rows; stats (may be null) [2][B*H][T] gets each
+// row's final max m and sum l. Q, K and V one stage each ([64][DH+4]); p
+// is staged over K once the scores are formed.
+template <int DH>
+__global__ void __launch_bounds__(kThreads, 2)
+    attn_fwd_f32(const float* __restrict__ qkv, const int32_t* __restrict__ lens,
+                 const int32_t* __restrict__ seed_ptr, float* __restrict__ out,
+                 float* __restrict__ stats, Params p) {
+  constexpr int NT = kThreads, LD = DH + 4, KT = kTile * LD, R = 1024 / NT;
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);
+  float* Ks = Qs + KT;
+  float* Vs = Ks + KT;
+  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int d = p.heads * DH;
+  const size_t ld = 3 * (size_t)d;
+  const float* base = qkv + (size_t)b * p.n_time * ld;
+  const int limit = min(lens[b], p.n_time);
+  const int seed = *seed_ptr, pid = b * p.heads + h;
+  int kt0, kt1;
+  key_tiles(p, q0, limit, kt0, kt1);
+  const int nt = max(kt1 - kt0, 0);
+  const int kcol = qkv_col(p, 1, h, DH), vcol = qkv_col(p, 2, h, DH);
+
+  load_async<kTile, DH, NT>(Qs, base, q0, p.n_time, ld, qkv_col(p, 0, h, DH));
+  auto fetch = [&](int t) {
+    const int k0 = (kt0 + t) * kTile;
+    load_async<kTile, DH, NT>(Ks, base, k0, p.n_time, ld, kcol);
+    load_async<kTile, DH, NT>(Vs, base, k0, p.n_time, ld, vcol);
+  };
+  if (nt > 0) fetch(0);
+  nsd::cp_async_commit();
+
+  float m[R], l[R], o[R][DH / 16];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;  // this thread's part of the row's sum
+#pragma unroll
+    for (int e = 0; e < DH / 16; ++e) o[i][e] = 0.f;
+  }
+  for (int t = 0; t < nt; ++t) {
+    nsd::cp_async_wait<0>();
+    __syncthreads();
+    const int k0 = (kt0 + t) * kTile;
+    float s[R][4];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[i][c] = 0.f;
+    mm_abt<DH, NT>(Qs, Ks, s, ty, tx);
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int row = q0 + tile_row<NT>(i, ty);
+      float mx = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int j = k0 + tx + 16 * c;
+        s[i][c] = j >= p.n_time ? -INFINITY : masked(p, row, j, limit) ? kNeg : s[i][c] * p.scale;
+        mx = fmaxf(mx, s[i][c]);
+      }
+      // every walked tile holds a key below T, so m_new >= -1e9
+      const float m_new = fmaxf(m[i], row_max(mx));
+      const float alpha = expf(m[i] - m_new);
+      m[i] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float e = expf(s[i][c] - m_new);
+        sum += e;
+        if (p.rate > 0.f) e = keep(p, seed, pid, row, k0 + tx + 16 * c) ? e * p.inv_keep : 0.f;
+        s[i][c] = e;
+      }
+      l[i] = l[i] * alpha + sum;
+#pragma unroll
+      for (int e = 0; e < DH / 16; ++e) o[i][e] *= alpha;
+    }
+    __syncthreads();  // every thread's reads of K are done: p takes its place
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) Ks[tile_row<NT>(i, ty) * kLdS + tx + 16 * c] = s[i][c];
+    __syncthreads();
+    mm_ab<DH, NT>(Ks, Vs, o, ty, tx);
+    if (t + 1 < nt) {
+      __syncthreads();  // every thread's reads of p and V are done
+      fetch(t + 1);
+      nsd::cp_async_commit();
+    }
+  }
+  nsd::cp_async_wait<0>();
+  const size_t bh = (size_t)b * p.heads + h;
+  const size_t plane = (size_t)p.batch * p.heads * p.n_time;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const float sum = row_sum(l[i]);
+    const bool dead = m[i] <= kNeg;  // every key masked (or none walked): 0
+#pragma unroll
+    for (int e = 0; e < DH / 16; ++e) o[i][e] = dead ? 0.f : o[i][e] / sum;
+    const int row = q0 + tile_row<NT>(i, ty);
+    if (stats != nullptr && tx == 0 && row < p.n_time) {
+      stats[bh * p.n_time + row] = m[i];
+      stats[plane + bh * p.n_time + row] = sum;
+    }
+  }
+  store_rows<DH, NT>(out + (size_t)b * p.n_time * d, d, h * DH, q0, p.n_time, o, 1.f, ty, tx);
+}
+
+// Delta_i = g_i . out_i of every row (b, i, h) into dsum [B*H][T]: DH/4
+// lanes a row, a float4 each, summed across the lanes in a fixed order.
+template <int DH>
+__global__ void __launch_bounds__(256)
+    attn_bwd_delta_f32(const float* __restrict__ gout, const float* __restrict__ out,
+                       float* __restrict__ dsum, Params p) {
+  constexpr int LANES = DH / 4, ROWS = 256 / LANES;
+  const int lane = threadIdx.x % LANES;
+  const size_t r = (size_t)blockIdx.x * ROWS + threadIdx.x / LANES;  // of [B*T*H]
+  const size_t n = (size_t)p.batch * p.n_time * p.heads;
+  float dot = 0.f;
+  if (r < n) {
+    const float4 gv = *reinterpret_cast<const float4*>(gout + r * DH + lane * 4);
+    const float4 ov = *reinterpret_cast<const float4*>(out + r * DH + lane * 4);
+    dot = fmaf(gv.x, ov.x, dot);
+    dot = fmaf(gv.y, ov.y, dot);
+    dot = fmaf(gv.z, ov.z, dot);
+    dot = fmaf(gv.w, ov.w, dot);
+  }
+#pragma unroll
+  for (int o = LANES / 2; o >= 1; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
+  if (r < n && lane == 0) {
+    const size_t bi = r / p.heads, h = r % p.heads;
+    const size_t b = bi / p.n_time, i = bi % p.n_time;
+    dsum[(b * p.heads + h) * p.n_time + i] = dot;
+  }
+}
+
+// dK and dV per 64 keys, walking the query tiles that see them; each thread
+// forms S^T and dP^T (its 4 keys by 4 queries) directly. Stores dS [B*H]
+// [Tp][Tp] (row: query, column: key) for every (query tile, key tile) it
+// walks, every entry of the 64 x 64 block (0 past T).
+template <int DH>
+__global__ void __launch_bounds__(kThreads, 1)
+    attn_bwd_dkv_f32(const float* __restrict__ qkv, const int32_t* __restrict__ lens,
+                     const int32_t* __restrict__ seed_ptr, const float* __restrict__ gout,
+                     const float* __restrict__ stats, const float* __restrict__ dsum,
+                     float* __restrict__ ds, float* __restrict__ dqkv, Params p) {
+  constexpr int NT = kThreads, LD = DH + 4, KT = kTile * LD;
+  extern __shared__ float4 smem4[];
+  float* Ks = reinterpret_cast<float*>(smem4);
+  float* Vs = Ks + KT;
+  float* Qs = Vs + KT;      // two stages
+  float* Gs = Qs + 2 * KT;  // two stages
+  float* Xs = Gs + 2 * KT;  // P^T, then dS^T [64][kLdS]
+  float* St = Xs + kTile * kLdS;  // [2][3][64]: m, l, Delta
+  const int k0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int d = p.heads * DH;
+  const size_t ld = 3 * (size_t)d;
+  const float* base = qkv + (size_t)b * p.n_time * ld;
+  const float* gbase = gout + (size_t)b * p.n_time * d;
+  const int limit = min(lens[b], p.n_time);
+  const int seed = *seed_ptr, pid = b * p.heads + h;
+  const size_t bh = (size_t)b * p.heads + h;
+  const size_t plane = (size_t)p.batch * p.heads * p.n_time;
+  const int tp = nsd::round_up(p.n_time, kTile);
+  // query tiles whose rows see an unmasked key of this tile
+  int qt0 = 0, qt1 = tp / kTile;
+  if (k0 >= limit) qt1 = 0;
+  if (p.left >= 0) {
+    qt0 = k0 / kTile;
+    qt1 = min(qt1, (k0 + kTile - 1 + p.left) / kTile + 1);
+  }
+  const int steps = max(qt1 - qt0, 0);
+  const int qcol = qkv_col(p, 0, h, DH);
+
+  load_async<kTile, DH, NT>(Ks, base, k0, p.n_time, ld, qkv_col(p, 1, h, DH));
+  load_async<kTile, DH, NT>(Vs, base, k0, p.n_time, ld, qkv_col(p, 2, h, DH));
+  auto fetch = [&](int s) {
+    const int q0 = (qt0 + s) * kTile, buf = s & 1;
+    load_async<kTile, DH, NT>(Qs + buf * KT, base, q0, p.n_time, ld, qcol);
+    load_async<kTile, DH, NT>(Gs + buf * KT, gbase, q0, p.n_time, d, h * DH);
+    if (threadIdx.x < kTile) {
+      const int i = q0 + threadIdx.x;
+      const bool ok = i < p.n_time;
+      float* st = St + buf * 3 * kTile + threadIdx.x;
+      st[0] = ok ? stats[bh * p.n_time + i] : -INFINITY;
+      st[kTile] = ok ? stats[plane + bh * p.n_time + i] : 1.f;
+      st[2 * kTile] = ok ? dsum[bh * p.n_time + i] : 0.f;
+    }
+  };
+  if (steps > 0) fetch(0);
+  nsd::cp_async_commit();
+
+  float dk[4][DH / 16], dv[4][DH / 16];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int e = 0; e < DH / 16; ++e) dk[r][e] = dv[r][e] = 0.f;
+  for (int s = 0; s < steps; ++s) {
+    // tile s has landed, and every thread is done with tile s-1, whose
+    // stages the copies of tile s+1 take
+    nsd::cp_async_wait<0>();
+    __syncthreads();
+    if (s + 1 < steps) {
+      fetch(s + 1);
+      nsd::cp_async_commit();
+    }
+    const int q0 = (qt0 + s) * kTile, buf = s & 1;
+    const float* Q = Qs + buf * KT;
+    const float* G = Gs + buf * KT;
+    const float* st = St + buf * 3 * kTile;
+    float sc[4][4], dp[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) sc[r][c] = dp[r][c] = 0.f;
+    mm_abt<DH, NT>(Ks, Q, sc, ty, tx);
+    mm_abt<DH, NT>(Vs, G, dp, ty, tx);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int j = k0 + ty * 4 + r;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int qi = tx + 16 * c, i = q0 + qi;
+        const float pr = prob(p, sc[r][c], i, j, limit, st[qi], st[kTile + qi]);
+        float dropped = pr, dpr = dp[r][c];
+        if (p.rate > 0.f) {
+          const bool kept = keep(p, seed, pid, i, j);
+          dropped = kept ? pr * p.inv_keep : 0.f;
+          dpr = kept ? dpr * p.inv_keep : 0.f;
+        }
+        Xs[(ty * 4 + r) * kLdS + qi] = dropped;
+        sc[r][c] = pr * (dpr - st[2 * kTile + qi]);  // dS^T
+      }
+    }
+    // dS, row i = q0 + tx + 16c, this thread's 4 keys k0 + ty*4..
+    float* dsrow = ds + (bh * tp + q0) * tp + k0 + ty * 4;
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      *reinterpret_cast<float4*>(dsrow + (size_t)(tx + 16 * c) * tp) =
+          make_float4(sc[0][c], sc[1][c], sc[2][c], sc[3][c]);
+    __syncthreads();
+    mm_ab<DH, NT>(Xs, G, dv, ty, tx);
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) Xs[(ty * 4 + r) * kLdS + tx + 16 * c] = sc[r][c];
+    __syncthreads();
+    mm_ab<DH, NT>(Xs, Q, dk, ty, tx);
+  }
+  nsd::cp_async_wait<0>();
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int j = k0 + ty * 4 + r;
+    if (j >= p.n_time) continue;
+    float* row = dqkv + ((size_t)b * p.n_time + j) * ld;
+    float* krow = row + qkv_col(p, 1, h, DH);
+    float* vrow = row + qkv_col(p, 2, h, DH);
+#pragma unroll
+    for (int g = 0; g < DH / 64; ++g) {
+      *reinterpret_cast<float4*>(krow + g * 64 + tx * 4) =
+          make_float4(dk[r][g * 4] * p.scale, dk[r][g * 4 + 1] * p.scale,
+                      dk[r][g * 4 + 2] * p.scale, dk[r][g * 4 + 3] * p.scale);
+      *reinterpret_cast<float4*>(vrow + g * 64 + tx * 4) =
+          make_float4(dv[r][g * 4], dv[r][g * 4 + 1], dv[r][g * 4 + 2], dv[r][g * 4 + 3]);
+    }
+  }
+}
+
+// dQ = (dS K) * scale per 64 query rows, over the key tiles the rows see
+// (each of those blocks of dS was stored by the dK/dV kernel); dS and K
+// tiles in two cp.async stages.
+template <int DH>
+__global__ void __launch_bounds__(kDqThreads, 2)
+    attn_bwd_dq_f32(const float* __restrict__ qkv, const int32_t* __restrict__ lens,
+                    const float* __restrict__ ds, float* __restrict__ dqkv, Params p) {
+  constexpr int NT = kDqThreads, LD = DH + 4, KT = kTile * LD, ST = kTile * kLdS;
+  extern __shared__ float4 smem4[];
+  float* Ss = reinterpret_cast<float*>(smem4);  // two stages
+  float* Ks = Ss + 2 * ST;                      // two stages
+  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int d = p.heads * DH;
+  const size_t ld = 3 * (size_t)d;
+  const float* base = qkv + (size_t)b * p.n_time * ld;
+  const int limit = min(lens[b], p.n_time);
+  const int tp = nsd::round_up(p.n_time, kTile);
+  const float* dsb = ds + ((size_t)b * p.heads + h) * tp * tp + (size_t)q0 * tp;
+  int kt0, kt1;
+  key_tiles(p, q0, limit, kt0, kt1);
+  const int nt = max(kt1 - kt0, 0);
+  const int kcol = qkv_col(p, 1, h, DH);
+  auto fetch = [&](int t) {
+    const int k0 = (kt0 + t) * kTile, buf = t & 1;
+    load_async<kTile, kTile, NT>(Ss + buf * ST, dsb, 0, kTile, tp, k0);
+    load_async<kTile, DH, NT>(Ks + buf * KT, base, k0, p.n_time, ld, kcol);
+  };
+  if (nt > 0) fetch(0);
+  nsd::cp_async_commit();
+
+  float dq[8][DH / 16];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < DH / 16; ++e) dq[i][e] = 0.f;
+  for (int t = 0; t < nt; ++t) {
+    nsd::cp_async_wait<0>();
+    __syncthreads();
+    if (t + 1 < nt) {
+      fetch(t + 1);
+      nsd::cp_async_commit();
+    }
+    const int buf = t & 1;
+    mm_ab<DH, NT>(Ss + buf * ST, Ks + buf * KT, dq, ty, tx);
+  }
+  nsd::cp_async_wait<0>();
+  store_rows<DH, NT>(dqkv + (size_t)b * p.n_time * ld, ld, qkv_col(p, 0, h, DH), q0, p.n_time, dq,
+                  p.scale, ty, tx);
+}
+
+template <int DH>
+cudaError_t launch_fwd(const void* qkv, const void* lens, const void* seed, void* out,
+                       void* stats, const Params& p, cudaStream_t stream) {
+  constexpr size_t smem = sizeof(float) * 3 * kTile * (DH + 4);
+  auto kernel = attn_fwd_f32<DH>;
+  NSD_TRY(set_smem(reinterpret_cast<const void*>(kernel), smem));
+  const dim3 grid((p.n_time + kTile - 1) / kTile, p.heads, p.batch);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(qkv), static_cast<const int32_t*>(lens),
+      static_cast<const int32_t*>(seed), static_cast<float*>(out), static_cast<float*>(stats), p);
+  return cudaGetLastError();
+}
+
+// The backward's three launches: Delta, dK/dV (and dS), dQ. dsum [B*H][T]
+// and ds [B*H][Tp][Tp] are scratch.
+template <int DH>
+cudaError_t launch_bwd(const void* qkv, const void* lens, const void* seed, const void* g,
+                       const void* out, const void* stats, void* dsum, void* ds, void* dqkv,
+                       const Params& p, cudaStream_t stream) {
+  constexpr size_t smem_dkv = sizeof(float) * (6 * kTile * (DH + 4) + kTile * kLdS + 2 * 3 * kTile);
+  constexpr size_t smem_dq = sizeof(float) * 2 * (kTile * kLdS + kTile * (DH + 4));
+  auto dkv_kernel = attn_bwd_dkv_f32<DH>;
+  auto dq_kernel = attn_bwd_dq_f32<DH>;
+  NSD_TRY(set_smem(reinterpret_cast<const void*>(dkv_kernel), smem_dkv));
+  NSD_TRY(set_smem(reinterpret_cast<const void*>(dq_kernel), smem_dq));
+  const size_t rows = (size_t)p.batch * p.n_time * p.heads;
+  constexpr int kDeltaRows = 256 / (DH / 4);
+  attn_bwd_delta_f32<DH><<<static_cast<unsigned>((rows + kDeltaRows - 1) / kDeltaRows), 256, 0,
+                           stream>>>(static_cast<const float*>(g),
+                                     static_cast<const float*>(out), static_cast<float*>(dsum),
+                                     p);
+  NSD_TRY(cudaGetLastError());
+  const dim3 grid((p.n_time + kTile - 1) / kTile, p.heads, p.batch);
+  dkv_kernel<<<grid, kThreads, smem_dkv, stream>>>(
+      static_cast<const float*>(qkv), static_cast<const int32_t*>(lens),
+      static_cast<const int32_t*>(seed), static_cast<const float*>(g),
+      static_cast<const float*>(stats), static_cast<const float*>(dsum),
+      static_cast<float*>(ds), static_cast<float*>(dqkv), p);
+  NSD_TRY(cudaGetLastError());
+  dq_kernel<<<grid, kDqThreads, smem_dq, stream>>>(
+      static_cast<const float*>(qkv), static_cast<const int32_t*>(lens),
+      static_cast<const float*>(ds), static_cast<float*>(dqkv), p);
+  return cudaGetLastError();
+}
+
+}  // namespace f32
+
 template <typename T, int DH>
 cudaError_t launch_fwd(const void* qkv, const void* lens, const void* seed, void* out,
                        const Params& p, cudaStream_t stream) {
@@ -1194,6 +1715,33 @@ extern "C" {
 
 NSD_ATTN_ENTRIES(f32, float)
 NSD_ATTN_ENTRIES(bf16, __nv_bfloat16)
+
+// The float32 body "f32": the one-walk forward (stats, if not null, gets
+// each row's max and sum, [2][B*H][T]) and the backward from the forward's
+// out and stats (scratch: dsum [B*H][T] for the rows' g . out, ds
+// [B*H][Tp][Tp] for dS, Tp = T rounded up to 64).
+int nsd_attn_fwd_online_f32(const void* qkv, const void* lens, const void* seed, void* out,
+                            void* stats, int batch, int n_time, int heads, int dh, int left,
+                            float scale, float rate, float inv_keep, int interleaved,
+                            void* stream) {
+  if (bad_shape(batch, n_time, heads, dh)) return static_cast<int>(cudaErrorInvalidValue);
+  const Params p = make_params(batch, n_time, heads, left, scale, rate, inv_keep, interleaved);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(dh == 64 ? f32::launch_fwd<64>(qkv, lens, seed, out, stats, p, s)
+                                   : f32::launch_fwd<128>(qkv, lens, seed, out, stats, p, s));
+}
+
+int nsd_attn_bwd_split_f32(const void* qkv, const void* lens, const void* seed, const void* g,
+                           const void* out, const void* stats, void* dsum, void* ds, void* dqkv,
+                           int batch, int n_time, int heads, int dh, int left, float scale,
+                           float rate, float inv_keep, int interleaved, void* stream) {
+  if (bad_shape(batch, n_time, heads, dh)) return static_cast<int>(cudaErrorInvalidValue);
+  const Params p = make_params(batch, n_time, heads, left, scale, rate, inv_keep, interleaved);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      dh == 64 ? f32::launch_bwd<64>(qkv, lens, seed, g, out, stats, dsum, ds, dqkv, p, s)
+               : f32::launch_bwd<128>(qkv, lens, seed, g, out, stats, dsum, ds, dqkv, p, s));
+}
 
 int nsd_attn_dropout_masks(const void* seed, void* out, int bh, int t,
                            float rate, void* stream) {

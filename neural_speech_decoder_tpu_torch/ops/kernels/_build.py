@@ -56,6 +56,8 @@ _SIGNATURES = {
     "nsd_attn_bwd_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _F, _F, _F, _I, _P],
     "nsd_attn_dropout_masks": [_P, _P, _I, _I, _F, _P],
+    "nsd_attn_fwd_online_f32": [_P] * 5 + [_I] * 5 + [_F] * 3 + [_I, _P],
+    "nsd_attn_bwd_split_f32": [_P] * 9 + [_I] * 5 + [_F] * 3 + [_I, _P],
     "nsd_ffn_fwd_f32": [_P] * 10 + [_I] * 4 + [_F] * 3 + [_P],
     "nsd_ffn_bwd_f32": [_P] * 16 + [_I] * 4 + [_F] * 3 + [_P],
     "nsd_ffn_dropout_masks": [_P, _P, _P, _I, _I, _I, _I, _F, _P],

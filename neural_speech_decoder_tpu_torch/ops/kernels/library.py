@@ -20,7 +20,7 @@ same operators:
 
 Each op takes tensors and int/float/bool scalars. Its CUDA implementation
 is the wrapper's launch path: the body plan (``frontend_plan``,
-``scan_plan``, ``fwd_plan``), the alignment checks on ``data_ptr()`` and the
+``scan_plan``, ``attention_plan``, ``fwd_plan``), the alignment checks on ``data_ptr()`` and the
 launch counters run there, at call time, never at trace time; it launches
 the kernel or raises. Its CPU implementation is the plain twin (as JAX's
 rule: a CPU export embeds the portable twins). No other device has an

@@ -25,6 +25,7 @@ from neural_speech_decoder_tpu_torch.ops.kernels.attention import (
     mhsa_qkv_bwd,
     mhsa_qkv_bwd_plain,
     mhsa_qkv_plain,
+    mhsa_qkv_residuals,
 )
 from neural_speech_decoder_tpu_torch.ops.kernels.conv_module import (
     conv_module,
@@ -614,18 +615,80 @@ def test_attention_kernels_match_plain(cuda, dtype, b, t, h, dh, lens, rate, lef
     kw = dict(num_heads=h, rate=rate, left_context=left, interleaved=interleaved)
     f0, b0 = mhsa_qkv.launches, mhsa_qkv_bwd.launches
     by_body = dict(mhsa_qkv.launches_by_body)
+    bwd_by_body = dict(mhsa_qkv_bwd.launches_by_body)
     out, ref = mhsa_qkv(qkv, lens, seed, **kw), mhsa_qkv_plain(qkv, lens, seed, **kw)
     d, dref = (mhsa_qkv_bwd(qkv, lens, seed, gout, **kw),
                mhsa_qkv_bwd_plain(qkv, lens, seed, gout, **kw))
     torch.cuda.synchronize()
     assert (mhsa_qkv.launches, mhsa_qkv_bwd.launches) == (f0 + 1, b0 + 1)
-    # the bf16 forward runs on the tensor cores, the float32 one on FMAs
-    body = "tc" if dtype == torch.bfloat16 else "fma"
+    # bf16 runs on the tensor cores, float32 on the redesigned FMA body
+    body = "tc" if dtype == torch.bfloat16 else "f32"
     assert {k: v - by_body[k] for k, v in mhsa_qkv.launches_by_body.items()} == {
         k: int(k == body) for k in by_body}
+    assert {k: v - bwd_by_body[k] for k, v in mhsa_qkv_bwd.launches_by_body.items()} == {
+        k: int(k == body) for k in bwd_by_body}
     assert out.dtype == dtype and d.dtype == dtype and d.shape == qkv.shape
     assert _rel(out, ref) <= ATTN_TOL[dtype] and _rel(d, dref) <= ATTN_TOL[dtype]
     assert not out[lens == 0].any()
+
+
+@pytest.mark.parametrize("b,t,h,dh,lens,rate,left,interleaved", [
+    (3, 37, 2, 128, [37, 0, 20], 0.0, None, False),
+    (3, 130, 2, 128, [130, 5, 64], 0.3, None, True),
+    (2, 200, 3, 64, [200, 150], 0.3, 40, False),
+    (2, 70, 1, 64, [0, 0], 0.1, 8, True),
+])
+def test_attention_fma_body_matches_plain(cuda, b, t, h, dh, lens, rate, left, interleaved):
+    """The first port's float32 FMA bodies (``body="fma"``, kept for A/B
+    runs) at test_attention_kernels_match_plain's cases."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    qkv = torch.randn((b, t, 3 * h * dh), generator=g, device=cuda)
+    gout = torch.randn((b, t, h * dh), generator=g, device=cuda)
+    lens = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    seed = torch.tensor([-123], dtype=torch.int32, device=cuda)
+    kw = dict(num_heads=h, rate=rate, left_context=left, interleaved=interleaved)
+    f0, b0 = mhsa_qkv.launches_by_body["fma"], mhsa_qkv_bwd.launches_by_body["fma"]
+    out = mhsa_qkv(qkv, lens, seed, body="fma", **kw)
+    d = mhsa_qkv_bwd(qkv, lens, seed, gout, body="fma", **kw)
+    torch.cuda.synchronize()
+    assert (mhsa_qkv.launches_by_body["fma"], mhsa_qkv_bwd.launches_by_body["fma"]) == (
+        f0 + 1, b0 + 1)
+    tol = ATTN_TOL[torch.float32]
+    assert _rel(out, mhsa_qkv_plain(qkv, lens, seed, **kw)) <= tol
+    assert _rel(d, mhsa_qkv_bwd_plain(qkv, lens, seed, gout, **kw)) <= tol
+    assert not out[lens == 0].any()
+
+
+@pytest.mark.parametrize("dh", [128, 64])
+def test_attention_f32_reruns_bit_equal(cuda, dh):
+    """The f32 body at the Conformer's T'=313 (8 heads, rate 0.3, a band,
+    rows of length 0): forward and backward reruns give the same bits; the
+    backward from ``mhsa_qkv_residuals``' out and stats gives the bits of
+    the call that forms them itself; a row's max is <= -1e9 exactly where
+    every key is masked."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    b, t, h = 6, 313, 8
+    qkv = torch.randn((b, t, 3 * h * dh), generator=g, device=cuda)
+    gout = torch.randn((b, t, h * dh), generator=g, device=cuda)
+    lens = torch.tensor([t, 0, 200, 5, 290, 0], dtype=torch.int32, device=cuda)
+    seed = torch.tensor([31337], dtype=torch.int32, device=cuda)
+    for left in (None, 128):
+        kw = dict(num_heads=h, rate=0.3, left_context=left)
+        out, again = mhsa_qkv(qkv, lens, seed, **kw), mhsa_qkv(qkv, lens, seed, **kw)
+        res, stats = mhsa_qkv_residuals(qkv, lens, seed, **kw)
+        recomputes = mhsa_qkv_bwd.forward_recomputes
+        d1 = mhsa_qkv_bwd(qkv, lens, seed, gout, **kw)
+        d2 = mhsa_qkv_bwd(qkv, lens, seed, gout, **kw)
+        d3 = mhsa_qkv_bwd(qkv, lens, seed, gout, out=res, stats=stats, **kw)
+        torch.cuda.synchronize()
+        assert mhsa_qkv_bwd.forward_recomputes == recomputes + 2
+        assert torch.equal(out, again) and torch.equal(out, res)
+        assert torch.equal(d1, d2) and torch.equal(d1, d3)
+        assert _rel(d1, mhsa_qkv_bwd_plain(qkv, lens, seed, gout, **kw)) <= 1e-5
+        # a row's max is -1e9 or less where every key is masked, as the
+        # plain version's
+        live = mhsa_qkv_residuals(qkv.cpu(), lens.cpu(), seed.cpu(), **kw)[1][0] > -1e9
+        assert torch.equal(stats[0].cpu() > -1e9, live)
 
 
 def test_attention_bf16_forward_reruns_bit_equal(cuda):
@@ -664,11 +727,15 @@ def test_attention_function_grads_match_plain(cuda):
     seed = torch.tensor([7], dtype=torch.int32, device=cuda)
     w = torch.randn((2, 90, 256), generator=g, device=cuda)
     grads = []
+    recomputes, f32 = mhsa_qkv_bwd.forward_recomputes, mhsa_qkv_bwd.launches_by_body["f32"]
     for plain in (False, True):
         x = qkv.clone().requires_grad_()
         out = MHSA.apply(x, lens, seed, 2, 0.3, None, False, plain)
         (out * w).sum().backward()
         grads.append(x.grad)
+    # the backward took the forward's residuals
+    assert mhsa_qkv_bwd.launches_by_body["f32"] == f32 + 1
+    assert mhsa_qkv_bwd.forward_recomputes == recomputes
     assert _rel(grads[0], grads[1]) <= 1e-5
 
 
