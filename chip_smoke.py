@@ -92,23 +92,31 @@ random weights:
     times of kernel, plain version and the unfused module (forward and
     backward) as the yardstick, and the bounds. The four wrappers' launches
     by body: every bfloat16 forward and backward on the sm90 body (TMA +
-    wgmma), every float32 one on the tile body; the bf16 sm90 reruns
-    bit-equal; the sha256 of the bf16 sm90 backwards' outputs on
-    numpy-seeded inputs pinned; the bf16 tile body (``body="tile"``) at
-    rate 0.3, centred and causal conv, forward and backward, against the
-    plain versions at the same tolerance; the tile body timed beside the
-    sm90 one, the device time of one call of each by kernel and by stage
+    wgmma), every float32 forward on the tile body and every float32
+    backward on the f32 body (``gemm_f32.cuh``'s pipelined FP32 tile); the
+    bf16 sm90 and the float32 f32 backwards' reruns bit-equal; the sha256
+    of the bf16 sm90 backwards' outputs on numpy-seeded inputs pinned; the
+    tile body (``body="tile"``) at rate 0.3, centred and causal conv,
+    against the plain versions at the dtype's tolerance: bf16 forward and
+    backward, float32 backward; in each dtype the tile body timed in turns
+    with the default one (tile, default, default, tile), the device time of
+    one call of each by kernel and by stage
     (``training/profile.py::device_split``), and, as context, the products
-    of each forward and backward as ``torch.mm(out_dtype=float32)`` at their
-    shapes. The forwards' and backwards' rows in the kernels line report
-    bfloat16.
+    of each forward and backward as one ``torch.mm`` each at their shapes
+    (bf16 ``out_dtype=float32``; float32 cuBLAS SGEMM, TF32 off). The
+    forwards' and backwards' rows in the kernels line report bfloat16; the
+    f32 body's own rows (``ffn_bwd_f32``, ``conv_module_bwd_f32``) float32.
 11. The bf16 Conformer train step with both fused flags: 2 warm-up and 10
     timed steps, median and seq/s beside phase 8's default step, 16 FF and 8
     conv forward and backward launches per step (every one on the sm90
     body); one float32 step (randomness on) checked leaf by leaf against the
-    plain path (its forwards and backwards on the tile body); two bf16 runs
-    of 2 steps from one seed bit-equal; one eval forward launching 16 FF and
-    8 conv forwards on the sm90 body and no backward.
+    plain path (its forwards on the tile body, its backwards on f32); two
+    bf16 runs of 2 steps from one seed bit-equal; one eval forward launching
+    16 FF and 8 conv forwards on the sm90 body and no backward. Then the
+    float32 fused step A/B (``fused_bwd_body``): 2 warm-up steps, then 3
+    timed steps a turn in turns tile, f32, f32, tile (every float32 fused
+    backward on the tile body, then on f32), each arm's median beside phase
+    8's unfused float32 step's.
 12. The GRU's opt-in kernels (``fused_optimizer``, ``use_pallas_matmul``):
     the projection matmul in its three layouts (``nn`` with the bias, ``nt``,
     ``tn``) at M=B*L=20032, K=2048, N=6144 and at a ragged M=1001, and Adam
@@ -236,7 +244,8 @@ random weights:
     rank's launches by body (from the run's last metrics.jsonl record)
     exact for the bodies ``scan_plan`` picks at B/2 rows; (c) the same for
     the float32 Conformer with ``fused_ffn``/``fused_conv``, depth cut to
-    ``DP_CONFORMER_LAYERS`` blocks, the kernels' dropout 0; (d) with two
+    ``DP_CONFORMER_LAYERS`` blocks, the kernels' dropout 0, its backwards
+    on the f32 body; (d) with two
     cards or more, (b) over nccl on two cards (``n_data_devices: 2``),
     else one line saying it did not run. The ranks' launches count in the
     kernels line.
@@ -363,7 +372,9 @@ from neural_speech_decoder_tpu_torch.ops.kernels.ctc import (
     ctc_beta_plain,
     prepare,
 )
+from neural_speech_decoder_tpu_torch.ops.kernels import ffn as ffn_mod
 from neural_speech_decoder_tpu_torch.ops.kernels.ffn import (
+    BwdPlan,
     ffn,
     ffn_bwd,
     ffn_bwd_plain,
@@ -533,11 +544,14 @@ SOURCES = {
                      "neural_speech_decoder_tpu/ops/pallas/matmul.py:61"),
 }
 KERNELS = tuple(SOURCES)
-# The float32 attention's redesigned body ("f32") has rows of its own
-# in the kernels line: its forward's and backward's launches by body
-# (``launch_counts()``'s keys), summed over the float32 main paths.
+# The float32 attention's redesigned body ("f32") and the fused FF and conv
+# backwards' ("f32") have rows of their own in the kernels line: their
+# launches by body (``launch_counts()``'s keys), summed over the float32
+# main paths.
 F32_ATTN = {"mhsa_qkv_f32": "mhsa_qkv/f32", "mhsa_qkv_bwd_f32": "mhsa_qkv_bwd/f32"}
-COUNTED = KERNELS + tuple(F32_ATTN.values())
+F32_FUSED = {"ffn_bwd_f32": "ffn_bwd/f32", "conv_module_bwd_f32": "conv_module_bwd/f32"}
+F32_ROWS = {**F32_ATTN, **F32_FUSED}
+COUNTED = KERNELS + tuple(F32_ROWS.values())
 # Published H100 SXM peaks (NVIDIA data sheet; dense, at 700 W): HBM bytes/s,
 # FP32 FMA flop/s outside the tensor cores, bf16 tensor-core flop/s.
 HBM_BPS = 3.35e12
@@ -1933,7 +1947,7 @@ def conformer_float32_steps_phase(card: str) -> dict:
     (``attention_body``): its 8 attention forwards and backwards a step on
     the older ``fma`` bodies in the fma turns, on the f32 body (the backward
     from the forward's residuals) in the others. The medians of each arm;
-    returns the f32 turns' launches by body."""
+    returns the f32 turns' launches by body and the f32 arm's median (s)."""
     device = torch.device("cuda")
     batch = batch_tensors(bench_batch(B, T, U), device)
     args32 = {**CONFORMER_ARGS, "compute_dtype": "float32"}
@@ -1976,7 +1990,7 @@ def conformer_float32_steps_phase(card: str) -> dict:
           f"seq/s; fma attention median {med['fma'] * 1e3:.2f} ms "
           f"({', '.join(f'{t * 1e3:.2f}' for t in times['fma'])}); f32 - fma "
           f"{(med['f32'] - med['fma']) * 1e3:+.2f} ms ({card})", flush=True)
-    return ran
+    return ran, med["f32"]
 
 
 CONFORMER_RUN = Path("runs") / "chip_smoke_conformer"
@@ -2119,12 +2133,20 @@ def unfused_module(kind, x, gout, params, rate, causal=False):
 
 # The dtype each fused row of the kernels line reports: the forwards' and
 # backwards' bf16 bodies are the ones the main path runs (the sm90 body);
-# the mask hook keeps its float32 row.
+# the mask hook keeps its float32 row; the float32 backwards' f32 body
+# (F32_FUSED) its own rows.
 FUSED_ROW_DTYPE = {"ffn": "bfloat16", "ffn_bwd": "bfloat16", "ffn_dropout_masks": "float32",
-                   "conv_module": "bfloat16", "conv_module_bwd": "bfloat16"}
-# The body each dtype's forwards and backwards take at these shapes
-# (ops/kernels/ffn.py::bwd_plan).
-FUSED_BODY = {"float32": "tile", "bfloat16": "sm90"}
+                   "conv_module": "bfloat16", "conv_module_bwd": "bfloat16",
+                   "ffn_bwd_f32": "float32", "conv_module_bwd_f32": "float32"}
+# The body each dtype's forwards ("fwd") and backwards ("bwd") take at these
+# shapes (ops/kernels/ffn.py::bwd_plan, fwd_plan).
+FUSED_BODY = {"fwd": {"float32": "tile", "bfloat16": "sm90"},
+              "bwd": {"float32": "f32", "bfloat16": "sm90"}}
+
+
+def fused_body(key: str, dtype: str) -> str:
+    """The body the fused wrapper ``key`` takes in ``dtype``."""
+    return FUSED_BODY["bwd" if key in FUSED_BWDS else "fwd"][dtype]
 # sha256 of the bf16 sm90 backwards' outputs (every gradient's bits, in
 # order) on fused_bwd_digests' numpy-seeded inputs, as the backwards
 # computed them before the forwards moved onto gemm_sm90.cuh (commit
@@ -2168,15 +2190,18 @@ def fused_bwd_digests() -> dict:
     return out
 
 
-def fused_products(ff, conv) -> dict:
+def fused_products(ff, conv, dtype) -> dict:
     """The products of each forward (two) and backward (five) at its shapes
-    (bf16 operands, M = B*T' rows), each as one ``torch.mm(out_dtype=
-    float32)`` call: context for the kernels' times, never called by the
-    port."""
+    (operands in ``dtype``, M = B*T' rows), each as one ``torch.mm`` call
+    (bf16 with ``out_dtype=float32``; float32 cuBLAS SGEMM, TF32 off):
+    context for the kernels' times, never called by the port."""
     m, d, f = B * L, A_HEADS * A_DH, F_FF
     g = torch.Generator(device="cuda").manual_seed(9)
-    r = lambda *s: torch.randn(s, generator=g, device="cuda").to(torch.bfloat16)  # noqa: E731
-    mm = lambda a, b: torch.mm(a, b, out_dtype=torch.float32)  # noqa: E731
+    r = lambda *s: torch.randn(s, generator=g, device="cuda").to(dtype)  # noqa: E731
+    if dtype == torch.bfloat16:
+        mm = lambda a, b: torch.mm(a, b, out_dtype=torch.float32)  # noqa: E731
+    else:
+        mm = torch.mm
     xn, gq, s_, hq, dsq, dhq = r(m, d), r(m, d), r(m, d), r(m, f), r(m, f), r(m, 2 * d)
     w1, w2, cw1, cw2 = ff[2], ff[4], conv[2], conv[8]
     return {
@@ -2192,71 +2217,80 @@ def fused_products(ff, conv) -> dict:
     }
 
 
-def fused_tile_check(key, tag, call, plain, names) -> None:
-    """One bf16 call of a forward or backward forced onto the tile body
-    (``body="tile"``, the body ``bwd_plan`` still picks where TMA cannot
-    read a shape) against its plain version at ``FUSED_TOL["bfloat16"]``
-    (``call`` and ``plain`` return tuples of outputs); its one launch
-    counted on the tile body."""
+def fused_tile_check(key, tag, call, plain, names, name) -> None:
+    """One ``name`` call of a forward or backward forced onto the tile body
+    (``body="tile"``, the body ``bwd_plan`` still picks where neither sm90
+    nor f32 can read a shape, and an A/B's other arm) against its plain
+    version at ``FUSED_TOL[name]`` (``call`` and ``plain`` return tuples of
+    outputs); its one launch counted on the tile body."""
     before = dict(WRAPPERS[key].launches_by_body)
     with torch.inference_mode():
         grads, refs = call(body="tile"), plain()
     torch.cuda.synchronize()
     took = {b: n - before[b] for b, n in WRAPPERS[key].launches_by_body.items()}
-    tol = FUSED_TOL["bfloat16"]
+    tol = FUSED_TOL[name]
     errs = {k: rel_err(a, b) for k, a, b in zip(names, grads, refs)}
     dtypes = all(a.dtype == b.dtype for a, b in zip(grads, refs))
     check(max(errs.values()) <= tol and dtypes and took["tile"] == 1
           and sum(took.values()) == 1,
-          f"{key} bfloat16 {tag} on the tile body: max abs err / max |ref| " + ", ".join(
+          f"{key} {name} {tag} on the tile body: max abs err / max |ref| " + ", ".join(
               f"{k} {v:.3e}" for k, v in errs.items()) + f" <= {tol:.3g}; dtypes equal "
           f"{dtypes}; launches by body {took}")
 
 
-def fused_bodies(x, gout, ff, conv, seed) -> None:
-    """The bf16 forwards and backwards at rate 0.3: the tile body against the
-    plain version (centred and causal conv), reruns bit-equal, the
-    backwards' sha256 pins, one call of each body by kernel and by stage,
-    the tile body timed beside the sm90 one, and the products of each as
+def fused_bodies(x, gout, ff, conv, seed, name) -> None:
+    """At rate 0.3, the calls that have a tile body beside their default one
+    (bf16: the forwards and backwards, on sm90; float32: the backwards, on
+    f32): the tile body against the plain version (centred and causal
+    conv), the default body's reruns bit-equal, the bf16 backwards' sha256
+    pins, one call of each body by kernel and by stage, the tile body timed
+    in turns with the default one, and the products of each as
     ``torch.mm`` as context."""
     kw = dict(rate=0.3)
     tag = f"B={B} T'={L} rate 0.3"
-    fused_tile_check("ffn", tag, lambda **b: (ffn(x, *ff, seed, **kw, **b),),
-                     lambda: (ffn_plain(x, *ff, seed, **kw),), ("out",))
+    bf16 = name == "bfloat16"
+    if bf16:
+        fused_tile_check("ffn", tag, lambda **b: (ffn(x, *ff, seed, **kw, **b),),
+                         lambda: (ffn_plain(x, *ff, seed, **kw),), ("out",), name)
     fused_tile_check("ffn_bwd", tag, lambda **b: ffn_bwd(x, *ff[:5], seed, gout, **kw, **b),
-                     lambda: ffn_bwd_plain(x, *ff[:5], seed, gout, **kw), FF_NAMES)
+                     lambda: ffn_bwd_plain(x, *ff[:5], seed, gout, **kw), FF_NAMES, name)
     for causal in (False, True):
         ck = dict(rate=0.3, causal=causal)
         ctag = tag + (" causal" if causal else "")
-        fused_tile_check("conv_module", ctag,
-                         lambda **b: (conv_module(x, *conv, seed, **ck, **b),),
-                         lambda: (conv_module_plain(x, *conv, seed, **ck),), ("out",))
+        if bf16:
+            fused_tile_check("conv_module", ctag,
+                             lambda **b: (conv_module(x, *conv, seed, **ck, **b),),
+                             lambda: (conv_module_plain(x, *conv, seed, **ck),), ("out",),
+                             name)
         fused_tile_check(
             "conv_module_bwd", ctag,
             lambda **b: conv_module_bwd(x, *conv[:9], seed, gout, **ck, **b),
-            lambda: conv_module_bwd_plain(x, *conv[:9], seed, gout, **ck), CONV_NAMES)
-    digests = fused_bwd_digests()
-    check(digests == FUSED_BWD_SHA256, f"sha256 of the bf16 sm90 backwards' outputs "
-          f"{digests} == the pinned {FUSED_BWD_SHA256}")
+            lambda: conv_module_bwd_plain(x, *conv[:9], seed, gout, **ck), CONV_NAMES, name)
+    if bf16:
+        digests = fused_bwd_digests()
+        check(digests == FUSED_BWD_SHA256, f"sha256 of the bf16 sm90 backwards' outputs "
+              f"{digests} == the pinned {FUSED_BWD_SHA256}")
     calls = {"ffn": lambda **b: (ffn(x, *ff, seed, **kw, **b),),
              "conv_module": lambda **b: (conv_module(x, *conv, seed, **kw, **b),),
              "ffn_bwd": lambda **b: ffn_bwd(x, *ff[:5], seed, gout, **kw, **b),
              "conv_module_bwd": lambda **b: conv_module_bwd(x, *conv[:9], seed, gout,
                                                             **kw, **b)}
-    products = fused_products(ff, conv)
+    products = fused_products(ff, conv, x.dtype)
+    mm_what = "torch.mm(out_dtype=float32)" if bf16 else "torch.mm (cuBLAS SGEMM, TF32 off)"
     with torch.inference_mode():
-        for key, call in calls.items():
+        for key in FUSED_BODIES if bf16 else FUSED_BWDS:
+            call, body = calls[key], fused_body(key, name)
             one, two = call(), call()
             torch.cuda.synchronize()
             same = all(torch.equal(a, b) for a, b in zip(one, two))
-            check(same, f"{key} bfloat16 {tag} on the sm90 body: reruns bit-equal {same}")
+            check(same, f"{key} {name} {tag} on the {body} body: reruns bit-equal {same}")
             del one, two
-            for body in ("sm90", "tile"):
-                split = device_split(lambda: call(body=body))
-                for name, n, ms in split:
-                    print(f"  split {key} {body}: {ms:9.4f} ms {n:3d}x  {name[:100]}")
+            for b in (body, "tile"):
+                split = device_split(lambda: call(body=b))
+                for kname, n, ms in split:
+                    print(f"  split {key} {name} {b}: {ms:9.4f} ms {n:3d}x  {kname[:100]}")
                 stages = by_stage(split)
-                print(f"split {key} bfloat16 {body} body, one call: " + ", ".join(
+                print(f"split {key} {name} {b} body, one call: " + ", ".join(
                     f"{k} {v:.4f}" for k, v in stages.items())
                     + f"; device total {sum(stages.values()):.4f} ms", flush=True)
             t1 = time_ms(lambda: call(body="tile"), 3)
@@ -2264,16 +2298,41 @@ def fused_bodies(x, gout, ff, conv, seed) -> None:
             s2 = time_ms(call, 5)
             t2 = time_ms(lambda: call(body="tile"), 3)
             mm_ms = {k: time_ms(fn, 5) for k, fn in products[key].items()}
-            print(f"time  {key} bfloat16 {tag}: sm90 body {s1:.4f}/{s2:.4f} "
-                  f"ms, tile body {t1:.4f}/{t2:.4f} ms (turns tile, sm90, sm90, tile); "
-                  f"context, its products as torch.mm(out_dtype=float32): " + ", ".join(
+            print(f"time  {key} {name} {tag}: {body} body {s1:.4f}/{s2:.4f} "
+                  f"ms, tile body {t1:.4f}/{t2:.4f} ms (turns tile, {body}, {body}, tile); "
+                  f"context, its products as {mm_what}: " + ", ".join(
                       f"{k} {v:.4f}" for k, v in mm_ms.items())
                   + f" = {sum(mm_ms.values()):.4f} ms", flush=True)
+    del products
+
+
+def fused_workspaces(name: str) -> None:
+    """Prints the bytes of scratch each backward body takes at the recipe's
+    shapes in ``name`` (the workspace queries of csrc/ffn.cu and
+    csrc/conv_module.cu, with the plan's K ranges)."""
+    lib = _build.load_library()
+    d, f, bf16 = A_HEADS * A_DH, F_FF, int(name == "bfloat16")
+    body = FUSED_BODY["bwd"][name]
+    props = torch.cuda.get_device_properties(0)
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    for key, query, shapes, width in (("ffn_bwd", "ffn", ((f, d), (d, f)), f),
+                                      ("conv_module_bwd", "conv", ((d, d), (d, 2 * d)), KW)):
+        plan = ffn_mod.bwd_plan(dtype, B * L, shapes, props.multi_processor_count)
+        own = getattr(lib, f"nsd_{query}_bwd_{body}_workspace")(B, L, d, width, *plan.splits)
+        tile = getattr(lib, f"nsd_{query}_workspace")(B, L, d, width, bf16, 1)
+        print(f"workspace {key} {name} B={B} T'={L}: {body} body {own} bytes (dW K ranges "
+              f"{plan.splits}), tile body {tile} bytes, {own - tile:+d}", flush=True)
+
+
+def fused_rows(key: str, name: str) -> list[str]:
+    """The kernels line's rows that report wrapper ``key``'s ``name`` calls
+    (its own, and the f32 body's for a float32 backward)."""
+    return [k for k in (key, key + "_f32") if FUSED_ROW_DTYPE.get(k) == name]
 
 
 def fused_kernel_phase() -> dict:
     g = torch.Generator(device="cuda").manual_seed(4)
-    rows = {k: {} for k in NO_FUSED}
+    rows = {k: {} for k in FUSED_ROW_DTYPE}
     seed = torch.randint(0, 2**31 - 1, (1,), generator=g, device="cuda", dtype=torch.int32)
     d, f = A_HEADS * A_DH, F_FF
     for name, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
@@ -2302,8 +2361,8 @@ def fused_kernel_phase() -> dict:
                         "conv_module": max(e[0] for e in e_conv),
                         "conv_module_bwd": max(e[1] for e in e_conv)}
                 for key, err in errs.items():
-                    if FUSED_ROW_DTYPE[key] == name:
-                        rows[key]["max_abs_err"] = err
+                    for row in fused_rows(key, name):
+                        rows[row]["max_abs_err"] = err
             if name == "float32":
                 m1, m2 = ffn_dropout_masks(B, L, d, f, seed, rate)
                 r1, r2 = ffn_dropout_masks_plain(B, L, d, f, seed, rate)
@@ -2311,14 +2370,15 @@ def fused_kernel_phase() -> dict:
                 check(same, f"ffn_dropout_masks {B}x{L}x({f}, {d}) rate {rate}: "
                       f"bit-equal to the plain version {same}")
                 rows["ffn_dropout_masks"]["max_abs_err"] = 0.0 if same else 1.0
-        body = FUSED_BODY[name]
         ran = {k: {b: n - by_body[k][b] for b, n in WRAPPERS[k].launches_by_body.items()}
                for k in FUSED_BODIES}
-        check(all(c[body] > 0 and sum(c.values()) == c[body] for c in ran.values()),
-              f"{name} fused forwards' and backwards' launches by body {ran}: all on the "
-              f"{body} body")
-        if name == "bfloat16":
-            fused_bodies(x, gout, ff, conv, seed)
+        check(all(c[fused_body(k, name)] > 0 and sum(c.values()) == c[fused_body(k, name)]
+                  for k, c in ran.items()),
+              f"{name} fused forwards' and backwards' launches by body {ran}: the forwards on "
+              f"the {FUSED_BODY['fwd'][name]} body, the backwards on the "
+              f"{FUSED_BODY['bwd'][name]} body")
+        fused_workspaces(name)
+        fused_bodies(x, gout, ff, conv, seed, name)
 
         kw = dict(rate=0.3)
         with torch.inference_mode():
@@ -2343,10 +2403,11 @@ def fused_kernel_phase() -> dict:
         for key, (kt, pt, turns) in (("ffn", t_ff), ("ffn_bwd", t_ffb),
                                      ("conv_module", t_cv), ("conv_module_bwd", t_cvb),
                                      ("ffn_dropout_masks", t_m)):
-            print(f"time  {key} {name} B={B} T'={L} rate 0.3: kernel {turns[0]:.4f}/"
-                  f"{turns[1]:.4f} ms, plain {turns[2]:.4f}/{turns[3]:.4f} ms", flush=True)
-            if FUSED_ROW_DTYPE[key] == name:
-                rows[key].update(ms=kt, plain_ms=pt, library_ms=None)
+            print(f"time  {key} {name} B={B} T'={L} rate 0.3 ({fused_body(key, name)} body): "
+                  f"kernel {turns[0]:.4f}/{turns[1]:.4f} ms, plain {turns[2]:.4f}/"
+                  f"{turns[3]:.4f} ms", flush=True)
+            for row in fused_rows(key, name):
+                rows[row].update(ms=kt, plain_ms=pt, library_ms=None)
         print(f"time  {name} forward+backward, fused kernels vs the unfused module "
               f"(autograd): FF {fused_ff:.4f} vs {ref_ff:.4f} ms, conv {fused_cv:.4f} vs "
               f"{ref_cv:.4f} ms", flush=True)
@@ -2370,22 +2431,41 @@ def fused_kernel_phase() -> dict:
         }
         for key, (bt, by) in bounds.items():
             print(f"bound {key} {name}: {bt:.4f} ms ({by})", flush=True)
-            if FUSED_ROW_DTYPE[key] == name:
-                rows[key]["bound_ms"], rows[key]["bound_by"] = bt, by
+            for row in fused_rows(key, name):
+                rows[row]["bound_ms"], rows[row]["bound_by"] = bt, by
         del x, gout, ff, conv
     for key, row in rows.items():
         row["dtype"] = FUSED_ROW_DTYPE[key]
     return rows
 
 
+@contextlib.contextmanager
+def fused_bwd_body(body: str | None):
+    """Inside, every float32 fused backward of the model's normal entry
+    points runs on ``body`` (``"tile"``, the other arm of an A/B: the
+    replaced ``ffn.py::bwd_plan`` answers it for float32 whatever the shape;
+    the float32 forwards are on the tile body either way), or on
+    ``bwd_plan``'s choice (``None``)."""
+    saved = ffn_mod.bwd_plan
+    if body is not None:
+        ffn_mod.bwd_plan = (lambda dtype, *a, **k: BwdPlan(body) if dtype == torch.float32
+                            else saved(dtype, *a, **k))
+    try:
+        yield
+    finally:
+        ffn_mod.bwd_plan = saved
+
+
 FUSED_ARGS = {**CONFORMER_ARGS, **FUSED_FLAGS["conformer"]}
 
 
-def fused_conformer_phase(card: str, default_median: float) -> dict:
+def fused_conformer_phase(card: str, default_median: float, unfused32_median: float) -> dict:
     """The bf16 Conformer train step with the fused FF and conv modules,
     beside the default step's median (``default_median``, phase 8); one
     float32 step against the plain path; two seeded runs bit-equal; one
-    eval forward."""
+    eval forward; the float32 fused step's A/B (``fused_float32_steps``)
+    beside the unfused float32 step's median (``unfused32_median``, phase
+    8)."""
     device = torch.device("cuda")
     batch = batch_tensors(bench_batch(B, T, U), device)
     n = 10
@@ -2398,7 +2478,8 @@ def fused_conformer_phase(card: str, default_median: float) -> dict:
     want = {k: v * n for k, v in per_step.items()}
     check_front_ctc_bodies(f"{n} fused bf16 Conformer train steps", alpha=2 * n, beta=2 * n)
     bodies = {k: dict(WRAPPERS[k].launches_by_body) for k in FUSED_BODIES}
-    want_bodies = {k: {"sm90": per_step[k] * n, "tile": 0} for k in FUSED_BODIES}
+    want_bodies = {k: {b: per_step[k] * n * (b == "sm90") for b in WRAPPERS[k].launches_by_body}
+                   for k in FUSED_BODIES}
     check(launches == want and bodies == want_bodies,
           f"launches over {n} fused bf16 Conformer train steps {launches} == per step 16 "
           f"FF forward and backward, 8 conv forward and backward, 8/8 attention, 2/2 CTC; "
@@ -2444,10 +2525,12 @@ def fused_conformer_phase(card: str, default_median: float) -> dict:
         if not plain:
             bodies32 = {k: dict(WRAPPERS[k].launches_by_body) for k in FUSED_BODIES}
     (loss_k, grads_k, launch_k), (loss_p, grads_p, launch_p) = out[False], out[True]
-    check(launch_k == per_step and not any(launch_p.values())
-          and all(c["sm90"] == 0 and c["tile"] > 0 for c in bodies32.values()),
+    on_body = all(c[fused_body(k, "float32")] == per_step[k] == sum(c.values())
+                  for k, c in bodies32.items())
+    check(launch_k == per_step and not any(launch_p.values()) and on_body,
           f"float32 fused Conformer step launches: kernel path {launch_k} (forwards and "
-          f"backwards by body {bodies32}: all on the tile body), plain path {launch_p}")
+          f"backwards by body {bodies32}: the forwards on the tile body, the backwards on "
+          f"f32), plain path {launch_p}")
     errs = [rel_err(a, b) for a, b in zip(grads_k, grads_p)]
     check(abs(loss_k - loss_p) <= CONFORMER_GRAD_TOL * abs(loss_p)
           and max(errs) <= CONFORMER_GRAD_TOL,
@@ -2466,7 +2549,63 @@ def fused_conformer_phase(card: str, default_median: float) -> dict:
     same = l1 == l2 and all(torch.equal(a, b) for a, b in zip(p1, p2))
     check(same, f"two fused bf16 Conformer runs of 2 steps from one seed bit-equal: "
           f"losses {l1} / {l2}")
-    return {k: launches[k] for k in NO_FUSED}
+    del p1, p2, runs
+    ran = fused_float32_steps(card, batch, unfused32_median)
+    for k in FUSED_BWDS:
+        ran[f"{k}/f32"] += bodies32[k]["f32"]
+    return {k: launches[k] for k in NO_FUSED} | ran
+
+
+def fused_float32_steps(card: str, batch, unfused_median: float) -> dict:
+    """The float32 fused Conformer train step (``FUSED_ARGS`` in float32):
+    after 2 warm-up steps, ``AB_STEPS`` timed steps a turn in turns tile,
+    f32, f32, tile (``fused_bwd_body``): its 16 FF and 8 conv backwards a
+    step on the tile body in the tile turns, on the f32 body in the others.
+    Each arm's median beside the unfused float32 step's
+    (``unfused_median``, phase 8); returns the f32 turns' launches."""
+    device = torch.device("cuda")
+    args32 = {**FUSED_ARGS, "compute_dtype": "float32"}
+    model = build_model(args32, N_DAYS, device, seed=0)
+    opt, sched = make_optimizer(args32, model.parameters())
+    step = make_train_step(args32, model, opt, sched)
+    losses, i = [], 0
+    for _ in range(2):  # warm-up
+        losses.append(float(step(batch, step_generator(device, 0, i))["train/loss"]))
+        i += 1
+    times = {"tile": [], "f32": []}
+    ran = dict.fromkeys(F32_FUSED.values(), 0)
+    per_step = {"ffn_bwd": 2 * CONFORMER_LAYERS, "conv_module_bwd": CONFORMER_LAYERS}
+    for arm in ("tile", "f32", "f32", "tile"):
+        with fused_bwd_body("tile" if arm == "tile" else None):
+            torch.cuda.synchronize()
+            reset_launches()
+            for _ in range(AB_STEPS):
+                t0 = time.perf_counter()
+                losses.append(float(step(batch, step_generator(device, 0, i))["train/loss"]))
+                torch.cuda.synchronize()
+                times[arm].append(time.perf_counter() - t0)
+                i += 1
+        bodies = {k: dict(WRAPPERS[k].launches_by_body) for k in FUSED_BWDS}
+        want = {k: {b: n * AB_STEPS if b == arm else 0 for b in ("sm90", "f32", "tile")}
+                for k, n in per_step.items()}
+        check(bodies == want, f"{AB_STEPS} float32 fused Conformer train steps, a {arm} turn: "
+              f"backwards by body {bodies} == {want}")
+        if arm == "f32":
+            for k in FUSED_BWDS:
+                ran[f"{k}/f32"] += bodies[k]["f32"]
+    del model, opt, sched, step
+    check(all(math.isfinite(v) for v in losses),
+          f"float32 fused Conformer train losses finite: "
+          f"{', '.join(f'{v:.4f}' for v in losses)}")
+    med = {arm: statistics.median(v) for arm, v in times.items()}
+    print(f"conformer train step fused FF + conv float32 B={B} T={T} U={U}, A/B in turns "
+          f"(tile, f32, f32, tile), {2 * AB_STEPS} steps an arm: f32 backwards median "
+          f"{med['f32'] * 1e3:.2f} ms ({', '.join(f'{t * 1e3:.2f}' for t in times['f32'])}), "
+          f"{B / med['f32']:.2f} seq/s; tile backwards median {med['tile'] * 1e3:.2f} ms "
+          f"({', '.join(f'{t * 1e3:.2f}' for t in times['tile'])}); f32 - tile "
+          f"{(med['f32'] - med['tile']) * 1e3:+.2f} ms; the unfused float32 step's median "
+          f"(phase 8) {unfused_median * 1e3:.2f} ms ({card})", flush=True)
+    return ran
 
 
 # ------------------------------- the GRU's opt-in kernels: Adam and the matmul
@@ -4277,8 +4416,7 @@ def dp_conformer_want(steps: int, n_eval: int) -> tuple[dict, dict]:
     forwards and one CTC alpha; per step their backwards and one beta."""
     n, fwd = DP_CONFORMER_LAYERS, steps + n_eval
     bodies = {"mhsa_qkv": ATTN_BODY["float32"], "mhsa_qkv_bwd": ATTN_BODY["float32"],
-              "ffn": "tile", "ffn_bwd": "tile",
-              "conv_module": "tile", "conv_module_bwd": "tile", "ctc_alpha": CTC_BODY,
+              **{k: fused_body(k, "float32") for k in FUSED_BODIES}, "ctc_alpha": CTC_BODY,
               "ctc_beta": CTC_BODY}
     counts = {"mhsa_qkv": n * fwd, "mhsa_qkv_bwd": n * steps, "ffn": 2 * n * fwd,
               "ffn_bwd": 2 * n * steps, "conv_module": n * fwd, "conv_module_bwd": n * steps,
@@ -4404,10 +4542,10 @@ def tp_conformer_want(steps: int, n_eval: int, dtype: str) -> tuple[dict, dict]:
     step their backwards and one beta; the FFs unfused (``fused_ffn`` is
     refused under tensor parallelism)."""
     n, fwd = TP_CONFORMER_LAYERS, steps + n_eval
-    fused = FUSED_BODY[dtype]
     bodies = {"mhsa_qkv": ATTN_BODY[dtype], "mhsa_qkv_bwd": ATTN_BODY[dtype],
-              "conv_module": fused,
-              "conv_module_bwd": fused, "ctc_alpha": CTC_BODY, "ctc_beta": CTC_BODY}
+              "conv_module": fused_body("conv_module", dtype),
+              "conv_module_bwd": fused_body("conv_module_bwd", dtype), "ctc_alpha": CTC_BODY,
+              "ctc_beta": CTC_BODY}
     counts = {"mhsa_qkv": n * fwd, "mhsa_qkv_bwd": n * steps, "conv_module": n * fwd,
               "conv_module_bwd": n * steps, "ffn": 0, "ffn_bwd": 0,
               "ctc_alpha": steps + n_eval, "ctc_beta": steps, **NO_GRU}
@@ -4959,7 +5097,8 @@ def main() -> int:
     launches.update(conformer_launches)
     print(f"phase conformer train step: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    for k, n in conformer_float32_steps_phase(card).items():
+    attn_f32, conformer32_median = conformer_float32_steps_phase(card)
+    for k, n in attn_f32.items():
         launches[k] += n
     print(f"phase float32 conformer train steps: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
@@ -4969,7 +5108,7 @@ def main() -> int:
     rows.update(fused_kernel_phase())
     print(f"phase fused FF and conv kernels: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    launches.update(fused_conformer_phase(card, conformer_median))
+    launches.update(fused_conformer_phase(card, conformer_median, conformer32_median))
     print(f"phase fused conformer: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     rows["tiled_matmul"] = matmul_kernel_phase()
@@ -5016,8 +5155,8 @@ def main() -> int:
     idle = [k for k in COUNTED if k not in HOOKS and not launches[k]]
     check(not idle, f"every kernel of the main paths launched there; idle: {idle}")
     out = []
-    for name in KERNELS + tuple(F32_ATTN):
-        count = F32_ATTN.get(name, name)
+    for name in KERNELS + tuple(F32_ROWS):
+        count = F32_ROWS.get(name, name)
         source, replaces = SOURCES[count.split("/")[0]]
         out.append({"name": name, "route": "cuda", "source": source,
                     "replaces": replaces, "launches": launches[count],

@@ -45,9 +45,18 @@
 // glu_dwconv_wide_kernel (8 channels a thread, 16-byte loads, several
 // frames a thread); the tile body keeps glu_dwconv_kernel, which takes any D
 // and any alignment.
+//
+// The f32 backward (float32, D a multiple of 4) is the sm90 backward's
+// stages with every product on gemm_f32.cuh's pipelined FP32 FMA tile (no
+// TF32), as the FF module's (csrc/ffn.cu): xn = LN(x) and s =
+// SiLU(LN2(cq)) written once by row passes (the loaders' values), hq with
+// b1 in the tile's store, cq by glu_dwconv_kernel; gm and dh, float32
+// already, are the products' operands as they lie; SiLU' of the recomputed
+// cn in the sm90 body's pass, 4 columns a thread.
 #include <stdint.h>
 
 #include "common.cuh"
+#include "gemm_f32.cuh"
 #include "gemm_sm90.cuh"
 #include "gemm_tile.cuh"
 #include "hashrng.cuh"
@@ -57,6 +66,7 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 namespace sm90 = nsd::sm90;
+namespace f32 = nsd::f32;
 
 using nsd::Carve;
 using nsd::LnLoad;
@@ -146,26 +156,27 @@ struct DcnEpi {
   }
 };
 
-// dcn = DcnEpi's value of the stored ds (in place in dcn), cn recomputed 8
-// columns at a time: the sm90 body's pass after its ds product, which only
-// stores (an epilogue runs behind the main loop on one block an SM, where
-// the norm's loads and SiLU' cost more than the product).
+// dcn = DcnEpi's value of the stored ds (in place in dcn), cn recomputed 16
+// bytes of T at a time (8 bf16 or 4 float32 columns): the operand bodies'
+// pass after their ds product, which only stores (an sm90 epilogue runs
+// behind the main loop on one block an SM, where the norm's loads and SiLU'
+// cost more than the product).
+template <typename T>
 struct DcnPass {
-  LnLoad<bf16> ln2;
+  static constexpr int kCols = 16 / sizeof(T);
+  LnLoad<T> ln2;
   float* dcn;
   __device__ __forceinline__ void operator()(int m, int n) const {
     const size_t i = (size_t)m * ln2.ld + n;
-    float v[8], cn[8];
-    nsd::load8_raw(dcn + i, v);
-    ln2.load8(m, n, cn);
+    float v[kCols], cn[kCols];
+    nsd::load_raw<kCols>(dcn + i, v);
+    ln2.template load_n<kCols>(m, n, cn);
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
+    for (int k = 0; k < kCols; ++k) {
       const float sig = nsd::sigmoid(cn[k]);
       v[k] = v[k] * sig * (1.f + cn[k] * (1.f - sig));
     }
-    float4* out = reinterpret_cast<float4*>(dcn + i);
-    out[0] = make_float4(v[0], v[1], v[2], v[3]);
-    out[1] = make_float4(v[4], v[5], v[6], v[7]);
+    nsd::store_raw<kCols>(dcn + i, v);
   }
 };
 
@@ -303,7 +314,7 @@ __global__ void __launch_bounds__(256, 2)
     }
   }
   float bias[8];
-  nsd::load8_raw(dw_b + ch, bias);
+  nsd::load_raw<8>(dw_b + ch, bias);
 #pragma unroll
   for (int j = 0; j < kWideFrames; ++j) {
     if (t0 + r0 + j >= p.t) break;
@@ -404,28 +415,28 @@ __global__ void __launch_bounds__(256)
 }
 
 // The pieces of the workspace (pointers from base, or sizes from nullptr).
-// s2, s1: the sm90 backward's K ranges of dW2 and dW1, 1 and 1 for the sm90
-// forward, or 0 for the tile body.
+// s2, s1: the sm90 or f32 backward's K ranges of dW2 and dW1, 1 and 1 for
+// the sm90 forward, or 0 for the tile body.
 template <typename T>
 struct Work {
   float2 *st1, *st2;
   T *hq, *cq;
   float *gm, *dcn, *dc, *dh, *split, *part, *taps_part;
   float* o;              // the sm90 forward: s . W2 + b2 in float32 (rate > 0)
-  T *xn, *s, *gq, *dhq;  // the sm90 operands (gq, dhq: the backward's)
+  T *xn, *s, *gq, *dhq;  // the operand bodies' (gq, dhq: the sm90 backward's)
   size_t bytes;
   Work(const Shape& p, bool bwd, char* base, int s2 = 0, int s1 = 0) {
     Carve c;
     c.base = base;
     const size_t m = p.m(), d = p.d;
-    const bool sm90 = s2 > 0 || s1 > 0;
+    const bool operands = s2 > 0 || s1 > 0;  // an operand body (sm90, f32)
     st1 = c.take<float2>(m);
     st2 = c.take<float2>(m);
     hq = c.take<T>(m * 2 * d);
     cq = c.take<T>(m * d);
     gm = dcn = dc = dh = split = part = taps_part = o = nullptr;
     xn = s = gq = dhq = nullptr;
-    if (!bwd && sm90) {
+    if (!bwd && operands) {
       xn = c.take<T>(m * d);
       s = c.take<T>(m * d);
       o = c.take<float>(m * d);
@@ -436,21 +447,23 @@ struct Work {
       dc = c.take<float>(m * d);
       dh = c.take<float>(m * 2 * d);
       // the tile body's split sums always go through the workspace; the
-      // sm90 body's only where a product has more than one K range
-      if (!sm90) {
+      // operand bodies' only where a product has more than one K range
+      if (!operands) {
         s1 = nsd::gemm_splits(p.d, 2 * p.d, p.m());
         s2 = nsd::gemm_splits(p.d, p.d, p.m());
       }
-      const size_t n1 = !sm90 || s1 > 1 ? (size_t)s1 * 2 * d * d : 0;
-      const size_t n2 = !sm90 || s2 > 1 ? (size_t)s2 * d * d : 0;
+      const size_t n1 = !operands || s1 > 1 ? (size_t)s1 * 2 * d * d : 0;
+      const size_t n2 = !operands || s2 > 1 ? (size_t)s2 * d * d : 0;
       split = c.take<float>(n1 > n2 ? n1 : n2);
       part = c.take<float>((size_t)nsd::kColChunks * 2 * d);
       taps_part = c.take<float>((size_t)p.b * p.kw * d);
-      if (sm90) {
+      if (operands) {
         xn = c.take<T>(m * d);
         s = c.take<T>(m * d);
-        gq = c.take<T>(m * d);
-        dhq = c.take<T>(m * 2 * d);
+        if (sizeof(T) == 2) {  // float32's are gm and dh themselves
+          gq = c.take<T>(m * d);
+          dhq = c.take<T>(m * 2 * d);
+        }
       }
     }
     bytes = c.off;
@@ -459,6 +472,15 @@ struct Work {
 
 size_t window_bytes(const Shape& p, int n) {
   return sizeof(float) * n * (kTimeTile + p.kw - 1) * kChanTile;
+}
+
+// cq from hq on glu_dwconv_kernel (any D, any alignment).
+template <typename T>
+cudaError_t glu_dwconv(const T* hq, const float* taps, const float* dwb, T* cq, const Shape& p,
+                       cudaStream_t st) {
+  const dim3 grid((p.d + kChanTile - 1) / kChanTile, (p.t + kTimeTile - 1) / kTimeTile, p.b);
+  glu_dwconv_kernel<T><<<grid, 256, window_bytes(p, 1), st>>>(hq, taps, dwb, cq, p);
+  return cudaGetLastError();
 }
 
 // Forward up to cq and the second norm's statistics (shared by both
@@ -472,9 +494,7 @@ cudaError_t conv_front(const T* x, const float* lns, const float* lnb, const T* 
   NSD_TRY(nsd::ln_stats(x, w.st1, M, p.d, st));
   NSD_TRY(nsd::gemm(bf16, M, 2 * p.d, p.d, 1, LnLoad<T>{x, w.st1, lns, lnb, p.d},
                     Mat<T, T>{w1, 2 * p.d}, BiasRoundEpi<T>{b1, w.hq, 2 * p.d}, st));
-  const dim3 grid((p.d + kChanTile - 1) / kChanTile, (p.t + kTimeTile - 1) / kTimeTile, p.b);
-  glu_dwconv_kernel<T><<<grid, 256, window_bytes(p, 1), st>>>(w.hq, taps, dwb, w.cq, p);
-  NSD_TRY(cudaGetLastError());
+  NSD_TRY(glu_dwconv(w.hq, taps, dwb, w.cq, p, st));
   return nsd::ln_stats(w.cq, w.st2, M, p.d, st);
 }
 
@@ -571,7 +591,7 @@ cudaError_t conv_fwd_sm90(const bf16* x, const float* lns, const float* lnb, con
   if (p.rate <= 0.f)
     return sm90::gemm<false, true>(w.s, w2, b2, sm90::StoreBf16{out, D}, M, D, D, 1, st);
   NSD_TRY((sm90::gemm<false, true>(w.s, w2, b2, nsd::StoreF32{w.o, D}, M, D, D, 1, st)));
-  return nsd::each8(nsd::DropRoundPass{w.o, seed, out, p.t, 0, D, p.rate, p.inv}, M, D, st);
+  return nsd::each_cols(nsd::DropRoundPass{w.o, seed, out, p.t, 0, D, p.rate, p.inv}, M, D, st);
 }
 
 // The backward's sm90 body (bf16): conv_bwd's stages, every product on
@@ -596,7 +616,7 @@ cudaError_t conv_bwd_sm90(const bf16* x, const float* lns, const float* lnb, con
   // backward
   NSD_TRY((sm90::gemm<false, false>(w.gq, w2, nullptr, nsd::StoreF32{w.dcn, D}, M, D, D, 1,
                                     st)));
-  NSD_TRY(nsd::each8(DcnPass{ln2, w.dcn}, M, D, st));
+  NSD_TRY(nsd::each_cols(DcnPass<bf16>{ln2, w.dcn}, M, D, st));
   NSD_TRY(nsd::colsum(nsd::ElemTimesXhat<bf16>{w.dcn, w.cq, w.st2, D}, w.part, dln2s, M, D,
                       st));
   NSD_TRY(nsd::colsum(nsd::Elem{w.dcn, D}, w.part, dln2b, M, D, st));
@@ -616,6 +636,55 @@ cudaError_t conv_bwd_sm90(const bf16* x, const float* lns, const float* lnb, con
   NSD_TRY((sm90::gemm<false, false>(w.dhq, w1, nullptr, nsd::StoreF32{dxn, D}, M, D, 2 * D, 1,
                                     st)));
   NSD_TRY(nsd::colsum(nsd::ElemTimesXhat<bf16>{dxn, x, w.st1, D}, w.part, dlns, M, D, st));
+  NSD_TRY(nsd::colsum(nsd::Elem{dxn, D}, w.part, dlnb, M, D, st));
+  return nsd::ln_bwd(dxn, x, w.st1, lns, dx, M, D, st);
+}
+
+// The backward's f32 body (float32): conv_bwd's stages, every product on
+// gemm_f32.cuh reading float32 arrays where they lie (see the header); s2
+// and s1 are the K ranges of dW2 and dW1.
+cudaError_t conv_bwd_f32(const float* x, const float* lns, const float* lnb, const float* w1,
+                         const float* b1, const float* taps, const float* dwb,
+                         const float* ln2s, const float* ln2b, const float* w2,
+                         const int32_t* seed, const float* g, float* dx, float* dlns,
+                         float* dlnb, float* dw1, float* db1, float* dtaps, float* ddwb,
+                         float* dln2s, float* dln2b, float* dw2, float* db2, char* ws,
+                         const Shape& p, int s2, int s1, cudaStream_t st) {
+  Work<float> w(p, true, ws, s2, s1);
+  const int M = p.m(), D = p.d;
+  // the forward again: xn, hq = xn . W1 + b1 (nn), cq, then s and the second
+  // norm's statistics by a row pass
+  NSD_TRY((nsd::ln_apply<float, false>(x, w.st1, lns, lnb, w.xn, M, D, st)));
+  NSD_TRY((f32::gemm<false, true>(w.xn, D, w1, 2 * D, b1, w.hq, M, 2 * D, D, st)));
+  NSD_TRY(glu_dwconv(w.hq, taps, dwb, w.cq, p, st));
+  NSD_TRY((nsd::ln_apply<float, true>(w.cq, w.st2, ln2s, ln2b, w.s, M, D, st)));
+  const LnLoad<float> ln2{w.cq, w.st2, ln2s, ln2b, D};
+  // through the output dropout; db2; dW2 = s^T . gm (tn)
+  NSD_TRY(nsd::mask_grad(g, seed, w.gm, static_cast<float*>(nullptr), p.b, p.t, D, 0, p.rate,
+                         p.inv, st));
+  NSD_TRY(nsd::colsum(nsd::Elem{w.gm, D}, w.part, db2, M, D, st));
+  NSD_TRY(f32::gemm_tn_split(w.s, w.gm, dw2, D, D, M, s2, w.split, st));
+  // ds = gm . W2^T (nt, into dcn's room) -> dcn through SiLU'; the second
+  // norm's backward
+  NSD_TRY((f32::gemm<false, false>(w.gm, D, w2, D, nullptr, w.dcn, M, D, D, st)));
+  NSD_TRY(nsd::each_cols(DcnPass<float>{ln2, w.dcn}, M, D, st));
+  NSD_TRY(nsd::colsum(nsd::ElemTimesXhat<float>{w.dcn, w.cq, w.st2, D}, w.part, dln2s, M, D,
+                      st));
+  NSD_TRY(nsd::colsum(nsd::Elem{w.dcn, D}, w.part, dln2b, M, D, st));
+  NSD_TRY(nsd::ln_bwd(w.dcn, w.cq, w.st2, ln2s, w.dc, M, D, st));
+  NSD_TRY(nsd::colsum(nsd::Elem{w.dc, D}, w.part, ddwb, M, D, st));
+  // the depthwise conv's and the GLU's backward; the taps' gradient
+  dwconv_bwd_kernel<float><<<dim3((D + kChanTile - 1) / kChanTile, p.b), 256,
+                             window_bytes(p, 2), st>>>(w.hq, w.dc, taps, w.dh, nullptr,
+                                                       w.taps_part, p);
+  NSD_TRY(cudaGetLastError());
+  NSD_TRY(nsd::sum_parts(w.taps_part, dtaps, p.b, p.kw * D, st));
+  // db1; dW1 = xn^T . dh (tn); dxn = dh . W1^T (nt, into gm's room)
+  NSD_TRY(nsd::colsum(nsd::Elem{w.dh, 2 * D}, w.part, db1, M, 2 * D, st));
+  NSD_TRY(f32::gemm_tn_split(w.xn, w.dh, dw1, D, 2 * D, M, s1, w.split, st));
+  float* dxn = w.gm;
+  NSD_TRY((f32::gemm<false, false>(w.dh, 2 * D, w1, 2 * D, nullptr, dxn, M, D, 2 * D, st)));
+  NSD_TRY(nsd::colsum(nsd::ElemTimesXhat<float>{dxn, x, w.st1, D}, w.part, dlns, M, D, st));
   NSD_TRY(nsd::colsum(nsd::Elem{dxn, D}, w.part, dlnb, M, D, st));
   return nsd::ln_bwd(dxn, x, w.st1, lns, dx, M, D, st);
 }
@@ -689,8 +758,8 @@ long long nsd_conv_workspace(int b, int t, int d, int kw, int bf16, int bwd) {
         make_shape(b, t, d, kw, pad_l, rate, inv), static_cast<cudaStream_t>(stream)));     \
   }
 
-NSD_CONV_ENTRIES(f32, float)
-NSD_CONV_ENTRIES(bf16, __nv_bfloat16)
+NSD_CONV_ENTRIES(tile_f32, float)
+NSD_CONV_ENTRIES(tile_bf16, __nv_bfloat16)
 
 // Bytes of workspace the sm90 forward takes.
 long long nsd_conv_fwd_sm90_workspace(int b, int t, int d, int kw) {
@@ -698,7 +767,7 @@ long long nsd_conv_fwd_sm90_workspace(int b, int t, int d, int kw) {
   return static_cast<long long>(Work<bf16>(p, false, nullptr, 1, 1).bytes);
 }
 
-// The bf16 forward on gemm_sm90.cuh: nsd_conv_fwd_bf16's arguments. D a
+// The bf16 forward on gemm_sm90.cuh: nsd_conv_fwd_tile_bf16's arguments. D a
 // multiple of 8, x, W1, W2 and out 16-byte aligned: cudaErrorInvalidValue
 // otherwise.
 int nsd_conv_fwd_sm90(const void* x, const void* lns, const void* lnb, const void* w1,
@@ -726,9 +795,9 @@ long long nsd_conv_bwd_sm90_workspace(int b, int t, int d, int kw, int s2, int s
   return static_cast<long long>(Work<bf16>(p, true, nullptr, s2, s1).bytes);
 }
 
-// The bf16 backward on gemm_sm90.cuh: nsd_conv_bwd_bf16's arguments, and the
-// K ranges of dW2 (s2) and dW1 (s1). D a multiple of 8, W1 and W2 16-byte
-// aligned: cudaErrorInvalidValue otherwise.
+// The bf16 backward on gemm_sm90.cuh: nsd_conv_bwd_tile_bf16's arguments,
+// and the K ranges of dW2 (s2) and dW1 (s1). D a multiple of 8, W1 and W2
+// 16-byte aligned: cudaErrorInvalidValue otherwise.
 int nsd_conv_bwd_sm90(const void* x, const void* lns, const void* lnb, const void* w1,
                       const void* b1, const void* taps, const void* dwb, const void* ln2s,
                       const void* ln2b, const void* w2, const void* seed, const void* g,
@@ -748,6 +817,39 @@ int nsd_conv_bwd_sm90(const void* x, const void* lns, const void* lnb, const voi
       static_cast<float*>(dlns), static_cast<float*>(dlnb), static_cast<bf16*>(dw1),
       static_cast<float*>(db1), static_cast<float*>(dtaps), static_cast<float*>(ddwb),
       static_cast<float*>(dln2s), static_cast<float*>(dln2b), static_cast<bf16*>(dw2),
+      static_cast<float*>(db2), static_cast<char*>(ws),
+      make_shape(b, t, d, kw, pad_l, rate, inv), s2, s1, static_cast<cudaStream_t>(stream)));
+}
+
+// Bytes of workspace the f32 backward takes with s2 and s1 K ranges.
+long long nsd_conv_bwd_f32_workspace(int b, int t, int d, int kw, int s2, int s1) {
+  const Shape p = make_shape(b, t, d, kw, 0, 0.f, 1.f);
+  return static_cast<long long>(Work<float>(p, true, nullptr, s2, s1).bytes);
+}
+
+// The float32 backward on gemm_f32.cuh: nsd_conv_bwd_tile_f32's arguments,
+// and the K ranges of dW2 (s2) and dW1 (s1). D a multiple of 4, W1, W2, dW1
+// and dW2 16-byte aligned: cudaErrorInvalidValue otherwise.
+int nsd_conv_bwd_f32(const void* x, const void* lns, const void* lnb, const void* w1,
+                     const void* b1, const void* taps, const void* dwb, const void* ln2s,
+                     const void* ln2b, const void* w2, const void* seed, const void* g,
+                     void* dx, void* dlns, void* dlnb, void* dw1, void* db1, void* dtaps,
+                     void* ddwb, void* dln2s, void* dln2b, void* dw2, void* db2, void* ws,
+                     int b, int t, int d, int kw, int pad_l, int s2, int s1, float rate,
+                     float inv, void* stream) {
+  if (bad_shape(b, t, d, kw, pad_l) || d % 4 || s2 < 1 || s1 < 1 || !aligned16(w1) ||
+      !aligned16(w2) || !aligned16(dw1) || !aligned16(dw2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(conv_bwd_f32(
+      static_cast<const float*>(x), static_cast<const float*>(lns),
+      static_cast<const float*>(lnb), static_cast<const float*>(w1),
+      static_cast<const float*>(b1), static_cast<const float*>(taps),
+      static_cast<const float*>(dwb), static_cast<const float*>(ln2s),
+      static_cast<const float*>(ln2b), static_cast<const float*>(w2),
+      static_cast<const int32_t*>(seed), static_cast<const float*>(g), static_cast<float*>(dx),
+      static_cast<float*>(dlns), static_cast<float*>(dlnb), static_cast<float*>(dw1),
+      static_cast<float*>(db1), static_cast<float*>(dtaps), static_cast<float*>(ddwb),
+      static_cast<float*>(dln2s), static_cast<float*>(dln2b), static_cast<float*>(dw2),
       static_cast<float*>(db2), static_cast<char*>(ws),
       make_shape(b, t, d, kw, pad_l, rate, inv), s2, s1, static_cast<cudaStream_t>(stream)));
 }

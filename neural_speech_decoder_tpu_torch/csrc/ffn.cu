@@ -42,9 +42,10 @@
 // vector gradients are column sums in a fixed order: no atomics, so a run
 // repeats bit for bit (csrc/gemm_tile.cuh, csrc/rowops.cuh).
 //
-// Two bodies in each direction. The tile body (float32, and any shape TMA
-// cannot read) runs the products on gemm_tile.cuh, whose loaders apply the
-// norm and round gm and ds to cdt as the tiles load. The sm90 body (bf16, D
+// Two bodies in each direction, and a third backward. The tile body (the
+// float32 forward, and any shape the others cannot read) runs the products
+// on gemm_tile.cuh, whose loaders apply the norm and round gm and ds to cdt
+// as the tiles load. The sm90 body (bf16, D
 // and F multiples of 8) runs every product on gemm_sm90.cuh's TMA ring into
 // wgmma, which reads bf16 arrays where they lie and applies nothing as it
 // loads: so each operand is written once as the bf16 array the loader would
@@ -57,9 +58,19 @@
 // rounding at rate 0 and float32 sums for a dropout pass otherwise. The dW
 // products take the K-range counts of the caller's plan
 // (ops/kernels/ffn.py::bwd_plan), their partial sums added in order.
+//
+// The f32 backward (float32, D and F multiples of 4) is the sm90 body's
+// stages with every product on gemm_f32.cuh's pipelined FP32 FMA tile (two
+// cp.async stages, 8 x 8 outputs a thread; no TF32, which would change the
+// numbers), which reads float32 arrays where they lie: xn = LN(x) written
+// once by a row pass (LnLoad's values, 82 MB at the recipe), s with b1 in
+// the tile's store, h by a pass; cdt being float32, gm and ds are the
+// products' operands as they are (no copies); the element math (SiLU,
+// dropout site 0, SiLU') in the sm90 body's passes, 4 columns a thread.
 #include <stdint.h>
 
 #include "common.cuh"
+#include "gemm_f32.cuh"
 #include "gemm_sm90.cuh"
 #include "gemm_tile.cuh"
 #include "hashrng.cuh"
@@ -69,6 +80,7 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 namespace sm90 = nsd::sm90;
+namespace f32 = nsd::f32;
 
 using nsd::Carve;
 using nsd::LnLoad;
@@ -154,53 +166,49 @@ struct DsEpi {
   }
 };
 
-// The sm90 body keeps its products' epilogues to plain stores (an epilogue
-// runs on the two consumer warpgroups of one block an SM, behind the main
-// loop, where SiLU, the dropout hash and the loads of s cost more than the
-// product) and applies Lin1Epi's and DsEpi's element math in passes over
-// the stored arrays at full occupancy, 8 columns a thread (nsd::each8).
+// The operand bodies (sm90, f32) keep their products' epilogues to plain
+// stores (an sm90 epilogue runs on the two consumer warpgroups of one block
+// an SM, behind the main loop, where SiLU, the dropout hash and the loads of
+// s cost more than the product) and apply Lin1Epi's and DsEpi's element
+// math in passes over the stored arrays at full occupancy, 16 bytes of T a
+// thread (nsd::each_cols: 8 bf16 or 4 float32 columns).
 
 // h = Lin1Epi's h of the stored s.
+template <typename T>
 struct SiluDropPass {
-  Lin1Epi<bf16> e;
+  static constexpr int kCols = 16 / sizeof(T);
+  Lin1Epi<T> e;
   __device__ __forceinline__ void operator()(int m, int n) const {
     const size_t i = (size_t)m * e.ld + n;
-    float sv[8];
-    nsd::load8_raw(e.s_out + i, sv);
-    uint4 u;
-    __nv_bfloat162* hv = reinterpret_cast<__nv_bfloat162*>(&u);
+    float v[kCols];
+    nsd::load_raw<kCols>(e.s_out + i, v);
 #pragma unroll
-    for (int k = 0; k < 4; ++k)
-      hv[k] = __floats2bfloat162_rn(e.h_of(m, n + 2 * k, sv[2 * k]),
-                                    e.h_of(m, n + 2 * k + 1, sv[2 * k + 1]));
-    *reinterpret_cast<uint4*>(e.h + i) = u;
+    for (int k = 0; k < kCols; ++k) v[k] = e.h_of(m, n + k, v[k]);
+    nsd::store_raw<kCols>(e.h + i, v);
   }
 };
 
-// ds = DsEpi's ds of the stored dh (in place in e.ds), and dsq = cdt(ds).
+// ds = DsEpi's ds of the stored dh (in place in e.ds), and in bf16 dsq =
+// cdt(ds) (float32's cdt(ds) is ds itself).
+template <typename T>
 struct DsPass {
-  DsEpi<bf16> e;
-  bf16* dsq;
+  static constexpr int kCols = 16 / sizeof(T);
+  DsEpi<T> e;
+  T* dsq;
   __device__ __forceinline__ void operator()(int m, int n) const {
     const size_t i = (size_t)m * e.ld + n;
-    float v[8], sv[8];
-    nsd::load8_raw(e.ds + i, v);
-    nsd::load8_raw(e.s + i, sv);
+    float v[kCols], sv[kCols];
+    nsd::load_raw<kCols>(e.ds + i, v);
+    nsd::load_raw<kCols>(e.s + i, sv);
 #pragma unroll
-    for (int k = 0; k < 8; ++k) v[k] = e.value(m, n + k, v[k], sv[k]);
-    float4* out = reinterpret_cast<float4*>(e.ds + i);
-    out[0] = make_float4(v[0], v[1], v[2], v[3]);
-    out[1] = make_float4(v[4], v[5], v[6], v[7]);
-    uint4 u;
-    __nv_bfloat162* q = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) q[k] = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
-    *reinterpret_cast<uint4*>(dsq + i) = u;
+    for (int k = 0; k < kCols; ++k) v[k] = e.value(m, n + k, v[k], sv[k]);
+    nsd::store_raw<kCols>(e.ds + i, v);
+    if constexpr (sizeof(T) == 2) nsd::store_raw<kCols>(dsq + i, v);
   }
 };
 
 // The pieces of the workspace (pointers from base, or sizes from nullptr).
-// sm90_splits: the sm90 backward's larger dW range count, 1 for the sm90
+// splits: the sm90 or f32 backward's larger dW range count, 1 for the sm90
 // forward, or 0 for the tile body.
 template <typename T>
 struct Work {
@@ -212,9 +220,9 @@ struct Work {
   float* split;
   float* part;
   float* o;          // the sm90 forward: h . W2 + b2 in float32 (rate > 0)
-  T *xn, *gq, *dsq;  // the sm90 operands: cdt(LN(x)); backward cdt(gm), cdt(ds)
+  T *xn, *gq, *dsq;  // the operand bodies' cdt(LN(x)); the sm90 backward's cdt(gm), cdt(ds)
   size_t bytes;
-  Work(const Shape& p, bool bwd, char* base, int sm90_splits = 0) {
+  Work(const Shape& p, bool bwd, char* base, int splits = 0) {
     Carve c;
     c.base = base;
     const size_t m = p.m();
@@ -223,7 +231,7 @@ struct Work {
     s = nullptr;
     gm = ds = split = part = o = nullptr;
     xn = gq = dsq = nullptr;
-    if (!bwd && sm90_splits > 0) {
+    if (!bwd && splits > 0) {
       xn = c.take<T>(m * p.d);
       s = c.take<T>(m * p.f);
       o = c.take<float>(m * p.d);
@@ -235,13 +243,15 @@ struct Work {
       const int tile = nsd::gemm_splits(p.d, p.f, p.m()) > nsd::gemm_splits(p.f, p.d, p.m())
                            ? nsd::gemm_splits(p.d, p.f, p.m())
                            : nsd::gemm_splits(p.f, p.d, p.m());
-      const int sp = sm90_splits > 0 ? (sm90_splits > 1 ? sm90_splits : 0) : tile;
+      const int sp = splits > 0 ? (splits > 1 ? splits : 0) : tile;
       split = c.take<float>((size_t)sp * p.d * p.f);
       part = c.take<float>((size_t)nsd::kColChunks * (p.f > p.d ? p.f : p.d));
-      if (sm90_splits > 0) {
+      if (splits > 0) {
         xn = c.take<T>(m * p.d);
-        gq = c.take<T>(m * p.d);
-        dsq = c.take<T>(m * p.f);
+        if (sizeof(T) == 2) {  // float32's are gm and ds themselves
+          gq = c.take<T>(m * p.d);
+          dsq = c.take<T>(m * p.f);
+        }
       }
     }
     bytes = c.off;
@@ -311,7 +321,7 @@ cudaError_t ffn_front_sm90(const bf16* x, const float* scale, const float* bias,
   NSD_TRY((sm90::gemm<false, true>(w.xn, w1, b1, sm90::StoreBf16{w.s, p.f}, M, p.f, p.d, 1,
                                    st)));
   const Lin1Epi<bf16> lin1{b1, seed, w.h, w.s, p.t, p.f, p.rate, p.inv_h};
-  return nsd::each8(SiluDropPass{lin1}, M, p.f, st);
+  return nsd::each_cols(SiluDropPass<bf16>{lin1}, M, p.f, st);
 }
 
 // The forward's sm90 body (bf16): the front, then o = h . W2 + b2 on
@@ -328,8 +338,8 @@ cudaError_t ffn_fwd_sm90(const bf16* x, const float* scale, const float* bias, c
   if (p.rate <= 0.f)
     return sm90::gemm<false, true>(w.h, w2, b2, sm90::StoreBf16{out, p.d}, M, p.d, p.f, 1, st);
   NSD_TRY((sm90::gemm<false, true>(w.h, w2, b2, nsd::StoreF32{w.o, p.d}, M, p.d, p.f, 1, st)));
-  return nsd::each8(nsd::DropRoundPass{w.o, seed, out, p.t, p.b, p.d, p.rate, p.inv}, M, p.d,
-                    st);
+  return nsd::each_cols(nsd::DropRoundPass{w.o, seed, out, p.t, p.b, p.d, p.rate, p.inv}, M,
+                        p.d, st);
 }
 
 // The backward's sm90 body (bf16): ffn_bwd's stages, every product on
@@ -351,7 +361,8 @@ cudaError_t ffn_bwd_sm90(const bf16* x, const float* scale, const float* bias, c
   // dh = gq . W2^T (into ds's room) -> ds and dsq = cdt(ds); db1; dW1 = xn^T . dsq
   NSD_TRY((sm90::gemm<false, false>(w.gq, w2, nullptr, nsd::StoreF32{w.ds, p.f}, M, p.f, p.d,
                                     1, st)));
-  NSD_TRY(nsd::each8(DsPass{{w.s, seed, w.ds, p.t, p.f, p.rate, p.inv}, w.dsq}, M, p.f, st));
+  NSD_TRY(nsd::each_cols(DsPass<bf16>{{w.s, seed, w.ds, p.t, p.f, p.rate, p.inv}, w.dsq}, M, p.f,
+                         st));
   NSD_TRY(nsd::colsum(nsd::Elem{w.ds, p.f}, w.part, db1, M, p.f, st));
   NSD_TRY(sm90::gemm_tn_split(w.xn, w.dsq, dw1, p.d, p.f, M, s1, w.split, st));
   // dxn = dsq . W1^T (into gm's room), then the norm's backward
@@ -362,6 +373,41 @@ cudaError_t ffn_bwd_sm90(const bf16* x, const float* scale, const float* bias, c
                       st));
   NSD_TRY(nsd::colsum(nsd::Elem{dxn, p.d}, w.part, dbias, M, p.d, st));
   return nsd::ln_bwd(dxn, x, w.stats, scale, dx, M, p.d, st);
+}
+
+// The backward's f32 body (float32): ffn_bwd's stages, every product on
+// gemm_f32.cuh reading float32 arrays where they lie (see the header); s2
+// and s1 are the K ranges of dW2 and dW1.
+cudaError_t ffn_bwd_f32(const float* x, const float* scale, const float* bias, const float* w1,
+                        const float* b1, const float* w2, const int32_t* seed, const float* g,
+                        float* dx, float* dscale, float* dbias, float* dw1, float* db1,
+                        float* dw2, float* db2, char* ws, const Shape& p, int s2, int s1,
+                        cudaStream_t st) {
+  Work<float> w(p, true, ws, s2 > s1 ? s2 : s1);
+  const int M = p.m(), D = p.d, F = p.f;
+  // the forward again: xn by a row pass, s = xn . W1 + b1 (nn), h by a pass
+  NSD_TRY((nsd::ln_apply<float, false>(x, w.stats, scale, bias, w.xn, M, D, st)));
+  NSD_TRY((f32::gemm<false, true>(w.xn, D, w1, F, b1, w.s, M, F, D, st)));
+  const Lin1Epi<float> lin1{b1, seed, w.h, w.s, p.t, F, p.rate, p.inv_h};
+  NSD_TRY(nsd::each_cols(SiluDropPass<float>{lin1}, M, F, st));
+  // through the output dropout; db2; dW2 = h^T . gm (tn)
+  NSD_TRY(nsd::mask_grad(g, seed, w.gm, static_cast<float*>(nullptr), p.b, p.t, D, p.b, p.rate,
+                         p.inv, st));
+  NSD_TRY(nsd::colsum(nsd::Elem{w.gm, D}, w.part, db2, M, D, st));
+  NSD_TRY(f32::gemm_tn_split(w.h, w.gm, dw2, F, D, M, s2, w.split, st));
+  // dh = gm . W2^T (nt, into ds's room) -> ds; db1; dW1 = xn^T . ds (tn)
+  NSD_TRY((f32::gemm<false, false>(w.gm, D, w2, D, nullptr, w.ds, M, F, D, st)));
+  NSD_TRY(nsd::each_cols(DsPass<float>{{w.s, seed, w.ds, p.t, F, p.rate, p.inv}, nullptr}, M, F,
+                         st));
+  NSD_TRY(nsd::colsum(nsd::Elem{w.ds, F}, w.part, db1, M, F, st));
+  NSD_TRY(f32::gemm_tn_split(w.xn, w.ds, dw1, D, F, M, s1, w.split, st));
+  // dxn = ds . W1^T (nt, into gm's room), then the norm's backward
+  float* dxn = w.gm;
+  NSD_TRY((f32::gemm<false, false>(w.ds, F, w1, F, nullptr, dxn, M, D, F, st)));
+  NSD_TRY(nsd::colsum(nsd::ElemTimesXhat<float>{dxn, x, w.stats, D}, w.part, dscale, M, D,
+                      st));
+  NSD_TRY(nsd::colsum(nsd::Elem{dxn, D}, w.part, dbias, M, D, st));
+  return nsd::ln_bwd(dxn, x, w.stats, scale, dx, M, D, st);
 }
 
 __global__ void ffn_masks_kernel(const int32_t* __restrict__ seed, uint8_t* __restrict__ m1,
@@ -441,8 +487,8 @@ long long nsd_ffn_workspace(int b, int t, int d, int f, int bf16, int bwd) {
         make_shape(b, t, d, f, rate, inv, inv_h), static_cast<cudaStream_t>(stream))); \
   }
 
-NSD_FFN_ENTRIES(f32, float)
-NSD_FFN_ENTRIES(bf16, __nv_bfloat16)
+NSD_FFN_ENTRIES(tile_f32, float)
+NSD_FFN_ENTRIES(tile_bf16, __nv_bfloat16)
 
 // Bytes of workspace the sm90 forward takes.
 long long nsd_ffn_fwd_sm90_workspace(int b, int t, int d, int f) {
@@ -450,9 +496,9 @@ long long nsd_ffn_fwd_sm90_workspace(int b, int t, int d, int f) {
   return static_cast<long long>(Work<bf16>(p, false, nullptr, 1).bytes);
 }
 
-// The bf16 forward on gemm_sm90.cuh: nsd_ffn_fwd_bf16's arguments. D and F
-// multiples of 8, x, W1, W2 and out 16-byte aligned: cudaErrorInvalidValue
-// otherwise.
+// The bf16 forward on gemm_sm90.cuh: nsd_ffn_fwd_tile_bf16's arguments. D
+// and F multiples of 8, x, W1, W2 and out 16-byte aligned:
+// cudaErrorInvalidValue otherwise.
 int nsd_ffn_fwd_sm90(const void* x, const void* scale, const void* bias, const void* w1,
                      const void* b1, const void* w2, const void* b2, const void* seed,
                      void* out, void* ws, int b, int t, int d, int f, float rate, float inv,
@@ -475,9 +521,9 @@ long long nsd_ffn_bwd_sm90_workspace(int b, int t, int d, int f, int s2, int s1)
   return static_cast<long long>(Work<bf16>(p, true, nullptr, s2 > s1 ? s2 : s1).bytes);
 }
 
-// The bf16 backward on gemm_sm90.cuh: nsd_ffn_bwd_bf16's arguments, and the
-// K ranges of dW2 (s2) and dW1 (s1). D and F multiples of 8, W1 and W2
-// 16-byte aligned: cudaErrorInvalidValue otherwise.
+// The bf16 backward on gemm_sm90.cuh: nsd_ffn_bwd_tile_bf16's arguments,
+// and the K ranges of dW2 (s2) and dW1 (s1). D and F multiples of 8, W1 and
+// W2 16-byte aligned: cudaErrorInvalidValue otherwise.
 int nsd_ffn_bwd_sm90(const void* x, const void* scale, const void* bias, const void* w1,
                      const void* b1, const void* w2, const void* seed, const void* g, void* dx,
                      void* dscale, void* dbias, void* dw1, void* db1, void* dw2, void* db2,
@@ -492,6 +538,34 @@ int nsd_ffn_bwd_sm90(const void* x, const void* scale, const void* bias, const v
       static_cast<const int32_t*>(seed), static_cast<const bf16*>(g), static_cast<bf16*>(dx),
       static_cast<float*>(dscale), static_cast<float*>(dbias), static_cast<bf16*>(dw1),
       static_cast<float*>(db1), static_cast<bf16*>(dw2), static_cast<float*>(db2),
+      static_cast<char*>(ws), make_shape(b, t, d, f, rate, inv, inv_h), s2, s1,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// Bytes of workspace the f32 backward takes with s2 and s1 K ranges.
+long long nsd_ffn_bwd_f32_workspace(int b, int t, int d, int f, int s2, int s1) {
+  const Shape p = make_shape(b, t, d, f, 0.f, 1.f, 1.f);
+  return static_cast<long long>(Work<float>(p, true, nullptr, s2 > s1 ? s2 : s1).bytes);
+}
+
+// The float32 backward on gemm_f32.cuh: nsd_ffn_bwd_tile_f32's arguments,
+// and the K ranges of dW2 (s2) and dW1 (s1). D and F multiples of 4, W1,
+// W2, dW1 and dW2 16-byte aligned: cudaErrorInvalidValue otherwise.
+int nsd_ffn_bwd_f32(const void* x, const void* scale, const void* bias, const void* w1,
+                    const void* b1, const void* w2, const void* seed, const void* g,
+                    void* dx, void* dscale, void* dbias, void* dw1, void* db1, void* dw2,
+                    void* db2, void* ws, int b, int t, int d, int f, int s2, int s1,
+                    float rate, float inv, float inv_h, void* stream) {
+  if (bad_shape(b, t, d, f) || d % 4 || f % 4 || s2 < 1 || s1 < 1 || !aligned16(w1) ||
+      !aligned16(w2) || !aligned16(dw1) || !aligned16(dw2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(ffn_bwd_f32(
+      static_cast<const float*>(x), static_cast<const float*>(scale),
+      static_cast<const float*>(bias), static_cast<const float*>(w1),
+      static_cast<const float*>(b1), static_cast<const float*>(w2),
+      static_cast<const int32_t*>(seed), static_cast<const float*>(g), static_cast<float*>(dx),
+      static_cast<float*>(dscale), static_cast<float*>(dbias), static_cast<float*>(dw1),
+      static_cast<float*>(db1), static_cast<float*>(dw2), static_cast<float*>(db2),
       static_cast<char*>(ws), make_shape(b, t, d, f, rate, inv, inv_h), s2, s1,
       static_cast<cudaStream_t>(stream)));
 }

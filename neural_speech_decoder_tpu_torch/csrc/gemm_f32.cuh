@@ -28,11 +28,19 @@
 // come in groups (GroupedSlabs: row k at (k / group) * gstride + (k % group)
 // * ld), the strided time-step views that gru_scan_bwd.cu's float32 dW_hh
 // contraction reads, and an output row stride of its own.
+//
+// gemm_split (the fused FF and conv-module backwards' f32 bodies) launches
+// the tile over K ranges: grid.z cuts K into `splits` ranges, each a
+// multiple of the 16-deep slab (the last ends at K), whose float32 partial
+// sums go to ws [splits][M][N] and are added in order by split_sum
+// (gemm_tn_split); one range writes the product itself. gemm (matmul.cu)
+// is its one range.
 #pragma once
 
 #include <stdint.h>
 
 #include "common.cuh"
+#include "gemm_tile.cuh"  // split_sum
 
 namespace nsd {
 namespace f32 {
@@ -190,31 +198,80 @@ __device__ __forceinline__ void gemm_f32_tile(SA& sa, SB& sb, int M, int N, int 
   }
 }
 
+// The length of each of `splits` K ranges: a multiple of the slab
+// (ops/kernels/ffn.py::split_len with the slab as its step).
+inline int split_len(int K, int splits) { return round_up((K + splits - 1) / splits, kSlab); }
+
 // out [M, N] (row stride N) = A . B + bias (bias [N] may be null); A's
-// extent is M, B's N, both K long along the sum. kBlocks: the blocks an SM
+// extent is M, B's N, both K long along the sum. kSplit: K is cut into
+// gridDim.z ranges kc long (the last ending at K), range z summed into out +
+// z * M * N with no bias, each operand read from the range's first k (p +
+// k_lo * ld k-major, p + k_lo i-major: 16-byte aligned, kc being a multiple
+// of 16). Else one range with the operands and out as given: kernel
+// parameters, which the loop reads where they lie, where pointers derived
+// from them would take registers (at nt's 128-register cap they spilled and
+// slowed the projection's nt product on an H100). kBlocks: the blocks an SM
 // is to hold (2 caps the registers at 128 a thread).
-template <bool kAK, bool kBK, int kBlocks>
+template <bool kAK, bool kBK, int kBlocks, bool kSplit>
 __global__ void __launch_bounds__(kThreads, kBlocks)
-    gemm_f32_kernel(int M, int N, int K, const float* __restrict__ a, int lda,
+    gemm_f32_kernel(int M, int N, int K, int kc, const float* __restrict__ a, int lda,
                     const float* __restrict__ b, int ldb, const float* __restrict__ bias,
                     float* __restrict__ out) {
-  Slabs<kAK> sa{a, lda, M, (int)blockIdx.y * kTile};
-  Slabs<kBK> sb{b, ldb, N, (int)blockIdx.x * kTile};
-  gemm_f32_tile(sa, sb, M, N, K, bias, out, N);
+  if constexpr (kSplit) {
+    const int k_lo = (int)blockIdx.z * kc;
+    Slabs<kAK> sa{a + (kAK ? (size_t)k_lo * lda : (size_t)k_lo), lda, M,
+                  (int)blockIdx.y * kTile};
+    Slabs<kBK> sb{b + (kBK ? (size_t)k_lo * ldb : (size_t)k_lo), ldb, N,
+                  (int)blockIdx.x * kTile};
+    gemm_f32_tile(sa, sb, M, N, min(K, k_lo + kc) - k_lo, nullptr,
+                  out + (size_t)blockIdx.z * M * N, N);
+  } else {
+    Slabs<kAK> sa{a, lda, M, (int)blockIdx.y * kTile};
+    Slabs<kBK> sb{b, ldb, N, (int)blockIdx.x * kTile};
+    gemm_f32_tile(sa, sb, M, N, K, bias, out, N);
+  }
 }
 
-// Launch out = A . B (+ bias) on stream st; see gemm_f32_kernel. Two blocks
-// an SM, but one for an i-major A with a k-major B (nn): capped at 128
-// registers that one spills, and on an H100 one block without the cap ran
-// faster at the GRU projection's shapes.
+// Launch out = A . B (+ bias) over `splits` K ranges on stream st; see
+// gemm_f32_kernel. Every range must hold rows, and a bias goes with one
+// range only: cudaErrorInvalidValue otherwise. N is a multiple of 4 with
+// out 16-byte aligned. Two blocks an SM, but one for an i-major A with a
+// k-major B (nn): capped at 128 registers that one spills, and on an H100
+// one block without the cap ran faster at the GRU projection's shapes.
+template <bool kAK, bool kBK>
+cudaError_t gemm_split(const float* a, int lda, const float* b, int ldb, const float* bias,
+                       float* out, int M, int N, int K, int splits, cudaStream_t st) {
+  constexpr int kBlocks = !kAK && kBK ? 1 : 2;
+  if (M < 1 || N < 1 || K < 1 || splits < 1 || splits > 65535 || (bias && splits > 1) ||
+      (long long)(splits - 1) * split_len(K, splits) >= K || (M + kTile - 1) / kTile > 65535)
+    return cudaErrorInvalidValue;
+  const dim3 grid((N + kTile - 1) / kTile, (M + kTile - 1) / kTile, splits);
+  const int kc = split_len(K, splits);
+  if (splits == 1)
+    gemm_f32_kernel<kAK, kBK, kBlocks, false>
+        <<<grid, kThreads, 0, st>>>(M, N, K, kc, a, lda, b, ldb, bias, out);
+  else
+    gemm_f32_kernel<kAK, kBK, kBlocks, true>
+        <<<grid, kThreads, 0, st>>>(M, N, K, kc, a, lda, b, ldb, bias, out);
+  return cudaGetLastError();
+}
+
+// out [M, N] = A . B (+ bias) in one K range (matmul.cu).
 template <bool kAK, bool kBK>
 cudaError_t gemm(const float* a, int lda, const float* b, int ldb, const float* bias,
                  float* out, int M, int N, int K, cudaStream_t st) {
-  constexpr int kBlocks = !kAK && kBK ? 1 : 2;
-  const dim3 grid((N + kTile - 1) / kTile, (M + kTile - 1) / kTile);
-  gemm_f32_kernel<kAK, kBK, kBlocks>
-      <<<grid, kThreads, 0, st>>>(M, N, K, a, lda, b, ldb, bias, out);
-  return cudaGetLastError();
+  return gemm_split<kAK, kBK>(a, lda, b, ldb, bias, out, M, N, K, 1, st);
+}
+
+// out [M, N] = a^T . b summed over K, a [K, M] and b [K, N] row-major (a dW
+// over all B*T rows): in `splits` K ranges whose float32 partial sums go to
+// ws [splits][M][N] and are added in order (split_sum); one range writes
+// out itself.
+inline cudaError_t gemm_tn_split(const float* a, const float* b, float* out, int M, int N,
+                                 int K, int splits, float* ws, cudaStream_t st) {
+  if (splits <= 1) return gemm<true, true>(a, M, b, N, nullptr, out, M, N, K, st);
+  NSD_TRY((gemm_split<true, true>(a, M, b, N, nullptr, ws, M, N, K, splits, st)));
+  return split_sum<float>(ws, out, splits, (size_t)M * N, st);
 }
 
 }  // namespace f32

@@ -43,7 +43,7 @@
 // gemm_tile.cuh have it beside the tile's operator()(m, n, acc, split). An
 // epilogue is kept to stores: it runs on the two consumer warpgroups of
 // one block an SM, behind the main loop, so element math belongs in a pass
-// of its own (rowops.cuh::each8). The bias is the kernel's own: the tile's 256 columns are
+// of its own (rowops.cuh::each_cols). The bias is the kernel's own: the tile's 256 columns are
 // staged in shared memory while the first stages load and added to the
 // float32 sums before the epilogue, so that no load of it waits behind the
 // epilogue's stores. The projection matmul (matmul.cu) is bias + StoreBf16,

@@ -53,32 +53,60 @@ struct Tr {
   __device__ __forceinline__ void load8(int r, int c, float* v) const { l.load8(c, r, v); }
 };
 
-// v[0..8) = q[0..8) as float: one 16-byte load (two for float) where q is
-// 16-byte aligned, else element by element.
-__device__ __forceinline__ void load8_raw(const float* q, float* v) {
+// v[0..kN) = q[0..kN) as float: 16-byte loads (kN * sizeof(T) a multiple
+// of 16) where q is 16-byte aligned, else element by element.
+template <int kN>
+__device__ __forceinline__ void load_raw(const float* q, float* v) {
   if ((reinterpret_cast<uintptr_t>(q) & 15) == 0) {
-    const float4 a = *reinterpret_cast<const float4*>(q);
-    const float4 b = *reinterpret_cast<const float4*>(q + 4);
-    v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
-    v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
-  } else {
 #pragma unroll
-    for (int e = 0; e < 8; ++e) v[e] = q[e];
-  }
-}
-__device__ __forceinline__ void load8_raw(const __nv_bfloat16* q, float* v) {
-  if ((reinterpret_cast<uintptr_t>(q) & 15) == 0) {
-    const uint4 u = *reinterpret_cast<const uint4*>(q);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      v[2 * i] = f.x;
-      v[2 * i + 1] = f.y;
+    for (int j = 0; j < kN / 4; ++j) {
+      const float4 a = reinterpret_cast<const float4*>(q)[j];
+      v[4 * j] = a.x, v[4 * j + 1] = a.y, v[4 * j + 2] = a.z, v[4 * j + 3] = a.w;
     }
   } else {
 #pragma unroll
-    for (int e = 0; e < 8; ++e) v[e] = to_f32(q[e]);
+    for (int e = 0; e < kN; ++e) v[e] = q[e];
+  }
+}
+template <int kN>
+__device__ __forceinline__ void load_raw(const __nv_bfloat16* q, float* v) {
+  if ((reinterpret_cast<uintptr_t>(q) & 15) == 0) {
+#pragma unroll
+    for (int j = 0; j < kN / 8; ++j) {
+      const uint4 u = reinterpret_cast<const uint4*>(q)[j];
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 f = __bfloat1622float2(h[i]);
+        v[8 * j + 2 * i] = f.x;
+        v[8 * j + 2 * i + 1] = f.y;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < kN; ++e) v[e] = to_f32(q[e]);
+  }
+}
+
+// q[0..kN) = v[0..kN) (rounded to nearest for bf16): 16-byte stores, q
+// 16-byte aligned and kN * sizeof(T) a multiple of 16.
+template <int kN>
+__device__ __forceinline__ void store_raw(float* q, const float* v) {
+#pragma unroll
+  for (int j = 0; j < kN / 4; ++j)
+    reinterpret_cast<float4*>(q)[j] =
+        make_float4(v[4 * j], v[4 * j + 1], v[4 * j + 2], v[4 * j + 3]);
+}
+template <int kN>
+__device__ __forceinline__ void store_raw(__nv_bfloat16* q, const float* v) {
+#pragma unroll
+  for (int j = 0; j < kN / 8; ++j) {
+    uint4 u;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      h[i] = __floats2bfloat162_rn(v[8 * j + 2 * i], v[8 * j + 2 * i + 1]);
+    reinterpret_cast<uint4*>(q)[j] = u;
   }
 }
 
@@ -93,7 +121,7 @@ struct Mat {
     return round_to<T>(to_f32(p[(size_t)r * ld + c]));
   }
   __device__ __forceinline__ void load8(int r, int c, float* v) const {
-    load8_raw(p + (size_t)r * ld + c, v);
+    load_raw<8>(p + (size_t)r * ld + c, v);
 #pragma unroll
     for (int e = 0; e < 8; ++e) v[e] = round_to<T>(v[e]);
   }

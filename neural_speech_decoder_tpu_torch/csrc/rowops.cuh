@@ -1,6 +1,6 @@
 // Row and column passes shared by the fused FF and conv-module kernels: the
 // layer norm's float32 statistics and its backward (one warp per row), the
-// normalised rows written once as a product's bf16 operand (ln_apply), and
+// normalised rows written once as a product's operand (ln_apply), and
 // column sums over all B*T' rows in a fixed order (per-chunk partials, then
 // their sum), which stand in for the TPU kernels' per-program partial
 // vectors summed outside. No atomics: a run repeats bit for bit.
@@ -60,8 +60,9 @@ cudaError_t ln_stats(const T* x, float2* stats, int M, int D, cudaStream_t st) {
 
 // ln_stats, and out[m, k] = the layer norm of x's element rounded to T, as
 // LnLoad loads it (kSilu: then cdt(SiLU) of that, as the conv module's
-// LnSiluLoad): the A operand of a product written once, so that TMA can
-// read it (gemm_sm90.cuh); the same bits as the loaders give.
+// LnSiluLoad): the A operand of a product written once, so that TMA
+// (gemm_sm90.cuh) or cp.async (gemm_f32.cuh) can read it; the same bits as
+// the loaders give.
 template <typename T, bool kSilu>
 __global__ void ln_apply_kernel(const T* __restrict__ x, float2* __restrict__ stats,
                                 const float* __restrict__ scale,
@@ -214,15 +215,18 @@ struct LnLoad {
     const float xhat = (to_f32(x[(size_t)m * ld + k]) - st.x) * st.y;
     return round_to<T>(xhat * scale[k] + bias[k]);
   }
-  __device__ __forceinline__ void load8(int m, int k, float* v) const {
+  // columns k .. k + kN of row m
+  template <int kN>
+  __device__ __forceinline__ void load_n(int m, int k, float* v) const {
     const float2 st = stats[m];
-    load8_raw(x + (size_t)m * ld + k, v);
+    load_raw<kN>(x + (size_t)m * ld + k, v);
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
+    for (int e = 0; e < kN; ++e) {
       const float xhat = (v[e] - st.x) * st.y;
       v[e] = round_to<T>(xhat * scale[k + e] + bias[k + e]);
     }
   }
+  __device__ __forceinline__ void load8(int m, int k, float* v) const { load_n<8>(m, k, v); }
 };
 
 // gm = g [batch * n_time, d] through a dropout site, in float32: kept where
@@ -261,8 +265,9 @@ cudaError_t mask_grad(const T* g, const int32_t* seed, float* gm, T* gq, int bat
 // out = bf16(o) through a dropout site, o [batch * n_time, ld] a product's
 // float32 sums with its bias: kept where uniform2d(seed, b + salt_offset, t,
 // col) >= rate and scaled by the float32 inv, then rounded once; 8 columns
-// a call (each8), o and out 16-byte aligned.
+// a call (each_cols), o and out 16-byte aligned.
 struct DropRoundPass {
+  static constexpr int kCols = 8;
   const float* o;
   const int32_t* seed;
   __nv_bfloat16* out;
@@ -270,38 +275,35 @@ struct DropRoundPass {
   float rate, inv;
   __device__ __forceinline__ void operator()(int m, int n) const {
     const size_t i = (size_t)m * ld + n;
-    float v[8];
-    load8_raw(o + i, v);
+    float v[kCols];
+    load_raw<kCols>(o + i, v);
     const int bb = m / n_time, t = m - bb * n_time;
 #pragma unroll
-    for (int k = 0; k < 8; ++k)
+    for (int k = 0; k < kCols; ++k)
       v[k] = hash_uniform(*seed, bb + salt_offset, t, n + k) >= rate ? v[k] * inv : 0.f;
-    uint4 u;
-    __nv_bfloat162* q = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) q[k] = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
-    *reinterpret_cast<uint4*>(out + i) = u;
+    store_raw<kCols>(out + i, v);
   }
 };
 
-// fn(m, n) for every row m < M and n = 0, 8, 16, ... < N: an elementwise
-// pass over an M x N array, 8 consecutive columns a thread (16-byte loads
-// and stores where N % 8 == 0), at full occupancy.
+// fn(m, n) for every row m < M and n = 0, kCols, 2 kCols, ... < N (kCols =
+// Fn::kCols, N a multiple of it): an elementwise pass over an M x N array,
+// kCols consecutive columns a thread (16-byte loads and stores), at full
+// occupancy.
 template <class Fn>
-__global__ void __launch_bounds__(256) each8_kernel(Fn fn, int M, int N) {
-  const int per_row = N / 8;
+__global__ void __launch_bounds__(256) each_cols_kernel(Fn fn, int M, int N) {
+  const int per_row = N / Fn::kCols;
   const size_t n = (size_t)M * per_row;
   for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += (size_t)gridDim.x * blockDim.x) {
     const int m = static_cast<int>(i / per_row);
-    fn(m, static_cast<int>(i - (size_t)m * per_row) * 8);
+    fn(m, static_cast<int>(i - (size_t)m * per_row) * Fn::kCols);
   }
 }
 
 template <class Fn>
-cudaError_t each8(const Fn& fn, int M, int N, cudaStream_t st) {
-  const size_t want = ((size_t)M * (N / 8) + 255) / 256;
-  each8_kernel<Fn><<<(unsigned)(want < 8192 ? want : 8192), 256, 0, st>>>(fn, M, N);
+cudaError_t each_cols(const Fn& fn, int M, int N, cudaStream_t st) {
+  const size_t want = ((size_t)M * (N / Fn::kCols) + 255) / 256;
+  each_cols_kernel<Fn><<<(unsigned)(want < 8192 ? want : 8192), 256, 0, st>>>(fn, M, N);
   return cudaGetLastError();
 }
 

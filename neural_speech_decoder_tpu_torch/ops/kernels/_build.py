@@ -58,15 +58,17 @@ _SIGNATURES = {
     "nsd_attn_dropout_masks": [_P, _P, _I, _I, _F, _P],
     "nsd_attn_fwd_online_f32": [_P] * 5 + [_I] * 5 + [_F] * 3 + [_I, _P],
     "nsd_attn_bwd_split_f32": [_P] * 9 + [_I] * 5 + [_F] * 3 + [_I, _P],
-    "nsd_ffn_fwd_f32": [_P] * 10 + [_I] * 4 + [_F] * 3 + [_P],
-    "nsd_ffn_bwd_f32": [_P] * 16 + [_I] * 4 + [_F] * 3 + [_P],
+    "nsd_ffn_fwd_tile_f32": [_P] * 10 + [_I] * 4 + [_F] * 3 + [_P],
+    "nsd_ffn_bwd_tile_f32": [_P] * 16 + [_I] * 4 + [_F] * 3 + [_P],
     "nsd_ffn_dropout_masks": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
-    "nsd_conv_fwd_f32": [_P] * 14 + [_I] * 5 + [_F] * 2 + [_P],
-    "nsd_conv_bwd_f32": [_P] * 24 + [_I] * 5 + [_F] * 2 + [_P],
+    "nsd_conv_fwd_tile_f32": [_P] * 14 + [_I] * 5 + [_F] * 2 + [_P],
+    "nsd_conv_bwd_tile_f32": [_P] * 24 + [_I] * 5 + [_F] * 2 + [_P],
     "nsd_ffn_bwd_sm90": [_P] * 16 + [_I] * 6 + [_F] * 3 + [_P],
     "nsd_conv_bwd_sm90": [_P] * 24 + [_I] * 7 + [_F] * 2 + [_P],
     "nsd_ffn_fwd_sm90": [_P] * 10 + [_I] * 4 + [_F] * 3 + [_P],
     "nsd_conv_fwd_sm90": [_P] * 14 + [_I] * 5 + [_F] * 2 + [_P],
+    "nsd_ffn_bwd_f32": [_P] * 16 + [_I] * 6 + [_F] * 3 + [_P],
+    "nsd_conv_bwd_f32": [_P] * 24 + [_I] * 7 + [_F] * 2 + [_P],
     "nsd_adam_max_leaves": [],
     "nsd_adam_f32": [_PP] * 4 + [ctypes.POINTER(ctypes.c_longlong), _I] + [_F] * 9 + [_P],
     "nsd_matmul_f32": [_P] * 5 + [_I] * 4 + [_P],
@@ -78,17 +80,19 @@ _SIGNATURES = {
     "nsd_device_limits": [ctypes.POINTER(_I)] * 2,
 }
 for _name in ("frontend", "gru_scan", "gru_scan_gates", "gru_bwd", "attn_fwd",
-              "attn_bwd", "ffn_fwd", "ffn_bwd", "conv_fwd", "conv_bwd", "matmul"):
+              "attn_bwd", "ffn_fwd_tile", "ffn_bwd_tile", "conv_fwd_tile", "conv_bwd_tile",
+              "matmul"):
     _SIGNATURES[f"nsd_{_name}_bf16"] = _SIGNATURES[f"nsd_{_name}_f32"]
 for _name in ("gru_scan_persistent", "gru_bwd_persistent", "gru_dw"):
     _SIGNATURES[f"nsd_{_name}_f32"] = _SIGNATURES[f"nsd_{_name}_bf16"]
 _SIGNATURES["nsd_frontend_tc_bf16"] = _SIGNATURES["nsd_frontend_f32"]
 # workspace sizes in bytes -> long long: (b, t, d, f or k, bf16, bwd), (b, t,
 # d, f or k) for the sm90 forwards, (b, t, d, f or k, dW2 splits, dW1 splits)
-# for the sm90 backwards, and (kind, rows, cols, red) for the matmul
+# for the sm90 and f32 backwards, and (kind, rows, cols, red) for the matmul
 _SIZES = {"nsd_ffn_workspace": [_I] * 6, "nsd_conv_workspace": [_I] * 6,
           "nsd_ffn_fwd_sm90_workspace": [_I] * 4, "nsd_conv_fwd_sm90_workspace": [_I] * 4,
           "nsd_ffn_bwd_sm90_workspace": [_I] * 6, "nsd_conv_bwd_sm90_workspace": [_I] * 6,
+          "nsd_ffn_bwd_f32_workspace": [_I] * 6, "nsd_conv_bwd_f32_workspace": [_I] * 6,
           "nsd_matmul_workspace": [_I] * 4}
 
 

@@ -14,12 +14,13 @@ other device or a shape the kernel does not take (taps beyond 64).
 The model reaches the forward through the operator
 ``torch.ops.nsd_torch.conv_module`` (``library.py``). ``ConvModule`` is the
 ``torch.autograd.Function``; it saves the inputs and
-the seed, and the backward recomputes the forward. The two bodies of each
-direction, ``"sm90"`` (bfloat16 with D a multiple of 8: the products on
-``csrc/gemm_sm90.cuh``, the GLU and depthwise conv on the wide window
-kernel) and ``"tile"``, are the FF module's (``ffn.py::bwd_plan``);
-``conv_module.launches_by_body`` and ``conv_module_bwd.launches_by_body``
-count them and ``body=`` forces one.
+the seed, and the backward recomputes the forward. The bodies are the FF
+module's (``ffn.py::bwd_plan``): ``"sm90"`` (bfloat16 with D
+a multiple of 8: the products on ``csrc/gemm_sm90.cuh``, the GLU and
+depthwise conv on the wide window kernel), ``"f32"`` (the float32
+backward with D a multiple of 4: the products on ``csrc/gemm_f32.cuh``)
+and ``"tile"``; ``conv_module.launches_by_body`` and
+``conv_module_bwd.launches_by_body`` count them and ``body=`` forces one.
 
 Semantics, the TPU kernel's (``models/conformer.py::_conv_module`` without
 the residual): layer norm (float32 statistics) cast to x's dtype (cdt) ->
@@ -238,7 +239,7 @@ def conv_module(x, ln_s, ln_b, w1, b1, dw_w, dw_b, ln2_s, ln2_b, w2, b2, seed, *
                                        stream)
         else:
             ws = _workspace(x, kw, False)
-            rc = getattr(lib, f"nsd_conv_fwd_{_DTYPES[x.dtype]}")(
+            rc = getattr(lib, f"nsd_conv_fwd_tile_{_DTYPES[x.dtype]}")(
                 *ptrs, ws.data_ptr(), *_launch_args(x, kw, rate, causal), stream)
     check(rc, f"conv_module ({plan.body})")
     conv_module.launches += 1
@@ -251,8 +252,8 @@ def conv_module_bwd(x, ln_s, ln_b, w1, b1, dw_w, dw_b, ln2_s, ln2_b, w2, seed, g
     """The gradients of ``conv_module``'s output with cotangent ``g [B, T,
     D]``: ``(dx, dln_s, dln_b, dw1, db1, ddw_w, ddw_b, dln2_s, dln2_b, dw2,
     db2)``; dx in x's dtype, dw1 and dw2 in the weights' dtype, the rest
-    float32. ``body`` (``"sm90"`` or ``"tile"``) overrides the plan's choice
-    on the card."""
+    float32. ``body`` (``"sm90"``, ``"f32"`` or ``"tile"``) overrides the
+    plan's choice on the card."""
     check_rate(rate)
     if not on_cuda("conv_module_bwd", x):
         return conv_module_bwd_plain(x, ln_s, ln_b, w1, b1, dw_w, dw_b, ln2_s, ln2_b, w2,
@@ -278,14 +279,14 @@ def conv_module_bwd(x, ln_s, ln_b, w1, b1, dw_w, dw_b, ln2_s, ln2_b, w2, seed, g
                 db2.data_ptr())
         b, t, d, kw, pad_l, r, inv = _launch_args(x, kw, rate, causal)
         stream = torch.cuda.current_stream().cuda_stream
-        if plan.body == "sm90":
-            ws = torch.empty(lib.nsd_conv_bwd_sm90_workspace(b, t, d, kw, *plan.splits),
-                             dtype=torch.uint8, device=x.device)
-            rc = lib.nsd_conv_bwd_sm90(*ptrs, ws.data_ptr(), b, t, d, kw, pad_l, *plan.splits,
-                                       r, inv, stream)
+        if plan.body != "tile":
+            ws = torch.empty(getattr(lib, f"nsd_conv_bwd_{plan.body}_workspace")(
+                b, t, d, kw, *plan.splits), dtype=torch.uint8, device=x.device)
+            rc = getattr(lib, f"nsd_conv_bwd_{plan.body}")(
+                *ptrs, ws.data_ptr(), b, t, d, kw, pad_l, *plan.splits, r, inv, stream)
         else:
             ws = _workspace(x, kw, True)
-            rc = getattr(lib, f"nsd_conv_bwd_{_DTYPES[x.dtype]}")(
+            rc = getattr(lib, f"nsd_conv_bwd_tile_{_DTYPES[x.dtype]}")(
                 *ptrs, ws.data_ptr(), b, t, d, kw, pad_l, r, inv, stream)
     check(rc, f"conv_module_bwd ({plan.body})")
     conv_module_bwd.launches += 1
@@ -296,7 +297,7 @@ def conv_module_bwd(x, ln_s, ln_b, w1, b1, dw_w, dw_b, ln2_s, ln2_b, w2, seed, g
 conv_module.launches = 0
 conv_module.launches_by_body = {"sm90": 0, "tile": 0}
 conv_module_bwd.launches = 0
-conv_module_bwd.launches_by_body = {"sm90": 0, "tile": 0}
+conv_module_bwd.launches_by_body = {"sm90": 0, "f32": 0, "tile": 0}
 
 
 class ConvModule(torch.autograd.Function):

@@ -20,15 +20,22 @@ column sums). The model reaches the forward through the operator
 ``(x, scale, bias, w1, b1, w2, seed)``, as the TPU kernel's residuals, and
 the backward recomputes the forward.
 
-The forward and the backward each have two bodies, which ``bwd_plan``
-picks from the dtype, the widths and the pointers' alignment before any
-launch: ``"sm90"`` (bfloat16: every product on ``csrc/gemm_sm90.cuh``'s
-TMA + wgmma pipeline, from bf16 operands written once; the backward's dW
-products cut into the K ranges the plan gives) and ``"tile"`` (float32, and
-what TMA cannot read: ``csrc/gemm_tile.cuh``). ``ffn.launches_by_body`` and
+The bodies are picked by ``bwd_plan`` from the dtype, the widths and the
+pointers' alignment before any launch: ``"sm90"`` (bfloat16, widths
+multiples of 8: every product on ``csrc/gemm_sm90.cuh``'s TMA + wgmma
+pipeline, from bf16 operands written once), ``"f32"`` (the float32
+backward, widths multiples of 4: every product on ``csrc/gemm_f32.cuh``'s
+pipelined FP32 FMA tile, from float32 arrays where they lie; the float32
+forward stays on the tile) and ``"tile"`` (what neither reads:
+``csrc/gemm_tile.cuh``); the backwards' dW products are cut into the K
+ranges the plan gives. ``ffn.launches_by_body`` and
 ``ffn_bwd.launches_by_body`` count launches by body; ``body="tile"``
-forces the tile body (an A/B), and a body the shape cannot take raises.
-The conv module (``conv_module.py``) shares the plan.
+forces the tile body (an A/B), and a body the dtype or shape cannot take
+raises. ``bwd_plan`` is the name an A/B harness replaces to force a body
+on every call that names none. The conv module (``conv_module.py``) shares
+the plan. The C entries are named by body: ``nsd_ffn_bwd_<body>`` and its
+``_workspace`` for ``"sm90"`` and ``"f32"``, and
+``nsd_ffn_{fwd,bwd}_tile_<dtype>`` for the tile body.
 
 Semantics, the TPU kernel's (``models/conformer.py::_ff_module`` without the
 0.5 half-step scale, DropPath and residual): layer norm with float32
@@ -61,65 +68,93 @@ SM90_TILE = (128, 256)
 SM90_BK = 64
 MAX_SPLITS = 16
 MIN_SPLIT_LEN = 4 * SM90_BK
+# csrc/gemm_f32.cuh's block tile of the output (rows and cols), k slab and
+# blocks an SM (its tn products); each K range at least 16 slabs
+F32_TILE = 128
+F32_SLAB = 16
+F32_BLOCKS_PER_SM = 2
+F32_MIN_SPLIT_LEN = 16 * F32_SLAB
 
 
 class BwdPlan(NamedTuple):
-    """How a fused backward runs: ``body`` ``"sm90"`` or ``"tile"``, and on
-    sm90 ``splits``, the K ranges of its two dW products (dW2, dW1), each
-    summed over all B*T rows (the tile body picks its own)."""
+    """How a fused backward runs: ``body`` ``"sm90"``, ``"f32"`` or
+    ``"tile"``, and on sm90 and f32 ``splits``, the K ranges of its two dW
+    products (dW2, dW1), each summed over all B*T rows (the tile body picks
+    its own)."""
     body: str
     splits: tuple[int, ...] = ()
 
 
-def split_len(k: int, splits: int) -> int:
+def split_len(k: int, splits: int, step: int = SM90_BK) -> int:
     """The length of each K range when K is cut into ``splits``: a multiple
-    of the 64-deep k-step (``gemm_sm90.cuh::split_len``)."""
+    of ``step``, the 64-deep k-step of ``gemm_sm90.cuh::split_len`` or the
+    16-deep slab of ``gemm_f32.cuh::split_len``."""
     per_range = -(-k // splits)
-    return -(-per_range // SM90_BK) * SM90_BK
+    return -(-per_range // step) * step
 
 
-def split_ranges(k: int, splits: int) -> list[tuple[int, int]]:
+def split_ranges(k: int, splits: int, step: int = SM90_BK) -> list[tuple[int, int]]:
     """The K ranges ``[lo, hi)`` of a product's blocks, in the order
     ``split_sum`` adds their partial sums."""
-    kc = split_len(k, splits)
+    kc = split_len(k, splits, step)
     return [(z * kc, min(k, z * kc + kc)) for z in range(splits)]
+
+
+def _splits(tiles: int, k: int, n_sms: int, per_sm: int, step: int, min_len: int) -> int:
+    """The K ranges of a product of ``tiles`` output blocks summed over
+    ``k`` rows, ``per_sm`` blocks an SM: the count whose whole waves of
+    blocks take least time (waves / ranges), ties to the fewest that put a
+    block on every SM, each range at least ``min_len`` long; then cut back
+    so that every range holds rows."""
+    best = None
+    for s in range(1, MAX_SPLITS + 1):
+        if s > 1 and k < s * min_len:
+            break
+        key = (Fraction(-(-tiles * s // (per_sm * n_sms)), s), tiles * s < n_sms, s)
+        best = key if best is None else min(best, key)
+    return -(-k // split_len(k, best[2], step))
 
 
 def dw_splits(rows: int, cols: int, k: int, n_sms: int) -> int:
     """The K ranges of a dW product (output ``[rows, cols]``, summed over
-    ``k`` rows) on a card of ``n_sms`` SMs, one 128 x 256 block an SM: the
-    count whose whole waves of blocks take least time (waves / ranges), ties
-    to the fewest that put a block on every SM, each range at least
-    ``MIN_SPLIT_LEN`` long; then cut back so that every range holds rows."""
+    ``k`` rows) on the sm90 body, on a card of ``n_sms`` SMs: ``_splits``
+    for 128 x 256 blocks, one an SM, ranges of ``MIN_SPLIT_LEN`` or more."""
     tiles = -(-rows // SM90_TILE[0]) * -(-cols // SM90_TILE[1])
-    best = None
-    for s in range(1, MAX_SPLITS + 1):
-        if s > 1 and k < s * MIN_SPLIT_LEN:
-            break
-        key = (Fraction(-(-tiles * s // n_sms), s), tiles * s < n_sms, s)
-        best = key if best is None else min(best, key)
-    return -(-k // split_len(k, best[2]))
+    return _splits(tiles, k, n_sms, 1, SM90_BK, MIN_SPLIT_LEN)
+
+
+def f32_dw_splits(rows: int, cols: int, k: int, n_sms: int) -> int:
+    """The K ranges of a dW product on the f32 body: ``_splits`` for 128 x
+    128 blocks, two an SM, ranges of ``F32_MIN_SPLIT_LEN`` or more, each a
+    multiple of the 16-deep slab (``split_ranges(k, s, F32_SLAB)``)."""
+    tiles = -(-rows // F32_TILE) * -(-cols // F32_TILE)
+    return _splits(tiles, k, n_sms, F32_BLOCKS_PER_SM, F32_SLAB, F32_MIN_SPLIT_LEN)
 
 
 def bwd_plan(dtype: torch.dtype, rows: int, dw_shapes, n_sms: int, *,
              aligned: bool = True) -> BwdPlan:
     """The body of a fused backward over ``rows`` = B*T rows whose dW
-    products have the output shapes ``dw_shapes`` (dW2's, dW1's): ``"sm90"``
-    for bfloat16 whose widths are multiples of 8 (TMA's 16-byte row strides)
-    and whose pointers are 16-byte aligned (``aligned``), with the split
-    counts of ``dw_splits``; else ``"tile"``. Float32 keeps the tile's FMAs:
-    wgmma's float32 is TF32, which would change the numbers."""
+    products have the output shapes ``dw_shapes`` (dW2's, dW1's), where the
+    pointers are 16-byte aligned (``aligned``): ``"sm90"`` for bfloat16
+    whose widths are multiples of 8 (TMA's 16-byte row strides), with the
+    split counts of ``dw_splits``; ``"f32"`` for float32 whose widths are
+    multiples of 4 (``gemm_f32.cuh``'s 16-byte copies), with those of
+    ``f32_dw_splits`` (FP32 FMAs: wgmma's float32 is TF32, which would
+    change the numbers); else ``"tile"``."""
     widths = [n for shape in dw_shapes for n in shape]
-    if dtype == torch.bfloat16 and aligned and all(n % 8 == 0 for n in widths):
+    if aligned and dtype == torch.bfloat16 and all(n % 8 == 0 for n in widths):
         return BwdPlan("sm90", tuple(dw_splits(r, c, rows, n_sms) for r, c in dw_shapes))
+    if aligned and dtype == torch.float32 and all(n % 4 == 0 for n in widths):
+        return BwdPlan("f32", tuple(f32_dw_splits(r, c, rows, n_sms) for r, c in dw_shapes))
     return BwdPlan("tile")
 
 
 def cuda_bwd_plan(what: str, x: torch.Tensor, tensors, dw_shapes, body) -> BwdPlan:
     """``bwd_plan`` for CUDA tensors on x's card (``tensors``: those whose
-    pointers TMA or the row passes read), or the tile body where ``body``
-    asks for it; raise where ``body`` names one the shape cannot take. A
-    forward passes its weights' shapes and uses only the body."""
+    pointers TMA, the cp.async copies or the row passes read), or the tile
+    body where ``body`` asks for it; raise where ``body`` names one the
+    dtype or shape cannot take. A forward passes its weights' shapes
+    (``fwd_plan``)."""
     plan = bwd_plan(x.dtype, x.shape[0] * x.shape[1], dw_shapes,
                     torch.cuda.get_device_properties(x.device).multi_processor_count,
                     aligned=all(t.data_ptr() % 16 == 0 for t in tensors))
@@ -128,7 +163,8 @@ def cuda_bwd_plan(what: str, x: torch.Tensor, tensors, dw_shapes, body) -> BwdPl
     if body == "tile":
         return BwdPlan("tile")
     raise ValueError(f"{what}: body {body!r} does not take {x.dtype} {tuple(x.shape)} with "
-                     f"dW shapes {dw_shapes} (bfloat16, widths multiples of 8, 16-byte "
+                     f"dW shapes {dw_shapes} ('sm90': bfloat16, widths multiples of 8; "
+                     f"'f32': a float32 backward, widths multiples of 4; both 16-byte "
                      f"aligned pointers)")
 
 
@@ -293,8 +329,13 @@ def _workspace(b, t, d, f, x, bwd: bool) -> torch.Tensor:
 def fwd_plan(what: str, x, w1, w2, body=None) -> BwdPlan:
     """A fused forward's body on x's card: ``cuda_bwd_plan`` with the
     weights' shapes (both modules' forwards read x, W1 and W2 by TMA or row
-    passes)."""
-    return cuda_bwd_plan(what, x, (x, w1, w2), (tuple(w1.shape), tuple(w2.shape)), body)
+    passes), the float32 forwards on the tile body (``"f32"`` is a
+    backward's)."""
+    if body == "f32":
+        raise ValueError(f"{what}: body 'f32' is the float32 backwards'; a forward takes "
+                         f"'sm90' or 'tile'")
+    plan = cuda_bwd_plan(what, x, (x, w1, w2), (tuple(w1.shape), tuple(w2.shape)), body)
+    return BwdPlan("tile") if plan.body == "f32" else plan
 
 
 def ffn(x, scale, bias, w1, b1, w2, b2, seed, *, rate: float = 0.0,
@@ -326,7 +367,7 @@ def ffn(x, scale, bias, w1, b1, w2, b2, seed, *, rate: float = 0.0,
             rc = lib.nsd_ffn_fwd_sm90(*ptrs, ws.data_ptr(), b, t, d, f, r, inv, inv_h, stream)
         else:
             ws = _workspace(b, t, d, f, x, False)
-            rc = getattr(lib, f"nsd_ffn_fwd_{_DTYPES[x.dtype]}")(
+            rc = getattr(lib, f"nsd_ffn_fwd_tile_{_DTYPES[x.dtype]}")(
                 *ptrs, ws.data_ptr(), b, t, d, f, r, inv, inv_h, stream)
     check(rc, f"ffn ({plan.body})")
     ffn.launches += 1
@@ -337,8 +378,8 @@ def ffn(x, scale, bias, w1, b1, w2, b2, seed, *, rate: float = 0.0,
 def ffn_bwd(x, scale, bias, w1, b1, w2, seed, g, *, rate: float = 0.0, body=None):
     """The gradients of ``ffn``'s output with cotangent ``g [B, T, D]``:
     ``(dx, dscale, dbias, dw1, db1, dw2, db2)``; dx in x's dtype, dw1 and
-    dw2 in the weights' dtype, the vectors float32. ``body`` (``"sm90"`` or
-    ``"tile"``) overrides ``bwd_plan``'s choice on the card."""
+    dw2 in the weights' dtype, the vectors float32. ``body`` (``"sm90"``,
+    ``"f32"`` or ``"tile"``) overrides ``bwd_plan``'s choice on the card."""
     check_rate(rate)
     if not on_cuda("ffn_bwd", x):
         return ffn_bwd_plain(x, scale, bias, w1, b1, w2, seed, g, rate=rate)
@@ -358,14 +399,14 @@ def ffn_bwd(x, scale, bias, w1, b1, w2, seed, g, *, rate: float = 0.0, body=None
                 dx.data_ptr(), dscale.data_ptr(), dbias.data_ptr(), dw1.data_ptr(),
                 db1.data_ptr(), dw2.data_ptr(), db2.data_ptr())
         stream = torch.cuda.current_stream().cuda_stream
-        if plan.body == "sm90":
-            ws = torch.empty(lib.nsd_ffn_bwd_sm90_workspace(b, t, d, f, *plan.splits),
-                             dtype=torch.uint8, device=x.device)
-            rc = lib.nsd_ffn_bwd_sm90(*ptrs, ws.data_ptr(), b, t, d, f, *plan.splits, r, inv,
-                                      inv_h, stream)
+        if plan.body != "tile":
+            ws = torch.empty(getattr(lib, f"nsd_ffn_bwd_{plan.body}_workspace")(
+                b, t, d, f, *plan.splits), dtype=torch.uint8, device=x.device)
+            rc = getattr(lib, f"nsd_ffn_bwd_{plan.body}")(
+                *ptrs, ws.data_ptr(), b, t, d, f, *plan.splits, r, inv, inv_h, stream)
         else:
             ws = _workspace(b, t, d, f, x, True)
-            rc = getattr(lib, f"nsd_ffn_bwd_{_DTYPES[x.dtype]}")(
+            rc = getattr(lib, f"nsd_ffn_bwd_tile_{_DTYPES[x.dtype]}")(
                 *ptrs, ws.data_ptr(), b, t, d, f, r, inv, inv_h, stream)
     check(rc, f"ffn_bwd ({plan.body})")
     ffn_bwd.launches += 1
@@ -398,7 +439,7 @@ def ffn_dropout_masks(b: int, t: int, d: int, f: int, seed: torch.Tensor, rate: 
 ffn.launches = 0
 ffn.launches_by_body = {"sm90": 0, "tile": 0}
 ffn_bwd.launches = 0
-ffn_bwd.launches_by_body = {"sm90": 0, "tile": 0}
+ffn_bwd.launches_by_body = {"sm90": 0, "f32": 0, "tile": 0}
 ffn_dropout_masks.launches = 0
 
 

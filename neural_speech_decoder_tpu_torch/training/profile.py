@@ -116,7 +116,7 @@ def device_split(fn, reps: int = 3) -> list[tuple[str, int, float]]:
 # names of their kernels: (stage, substrings of a kernel's name), matched in
 # this order
 FUSED_STAGES = (
-    ("products", ("gemm_sm90", "gemm_wmma", "gemm_fma")),
+    ("products", ("gemm_sm90", "gemm_wmma", "gemm_fma", "gemm_f32")),
     ("split_sum", ("split_sum",)),
     ("ln_stats / bf16 copies", ("ln_stats", "ln_apply")),
     ("mask_grad", ("mask_grad",)),
@@ -124,7 +124,7 @@ FUSED_STAGES = (
     ("ln_bwd", ("ln_bwd",)),
     ("glu_dwconv", ("glu_dwconv",)),
     ("dwconv_bwd", ("dwconv_bwd",)),
-    ("elementwise passes", ("each8",)),
+    ("elementwise passes", ("each_cols",)),
 )
 
 

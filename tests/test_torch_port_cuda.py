@@ -817,6 +817,24 @@ def test_ffn_kernels_match_plain(cuda, dtype, b, t, d, f, rate):
         assert _rel(a, r) <= FUSED_GRAD_TOL[dtype], (name, _rel(a, r))
 
 
+@pytest.mark.parametrize("b,t,d,f,rate", [(3, 37, 96, 200, 0.0), (2, 70, 128, 256, 0.3)])
+def test_ffn_float32_tile_backward_matches_plain(cuda, b, t, d, f, rate):
+    """The float32 backward forced onto the tile body (``body="tile"``, the
+    body the plan keeps for widths of 2 mod 4 and the other arm of the f32
+    A/B): the same checks as its default body."""
+    x, (sc, bi, w1, b1, w2, _), gout = _ffn_case(cuda, torch.float32, b, t, d, f)
+    seed = torch.tensor([-77], dtype=torch.int32, device=cuda)
+    before = dict(ffn_bwd.launches_by_body)
+    grads = ffn_bwd(x, sc, bi, w1, b1, w2, seed, gout, rate=rate, body="tile")
+    refs = ffn_bwd_plain(x, sc, bi, w1, b1, w2, seed, gout, rate=rate)
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in ffn_bwd.launches_by_body.items()} == {
+        "sm90": 0, "f32": 0, "tile": 1}
+    for name, a, r in zip(("dx", "dscale", "dbias", "dw1", "db1", "dw2", "db2"), grads, refs):
+        assert a.dtype == r.dtype and a.shape == r.shape, name
+        assert _rel(a, r) <= FUSED_GRAD_TOL[torch.float32], (name, _rel(a, r))
+
+
 def test_ffn_dropout_masks_kernel_equals_plain(cuda):
     seed = torch.tensor([2**31 - 1], dtype=torch.int32, device=cuda)
     for rate in (0.0, 0.3, 0.9):
@@ -858,6 +876,25 @@ def test_conv_module_kernels_match_plain(cuda, dtype, b, t, d, kw, causal, rate)
     for name, a, r in zip(names, grads, refs):
         assert a.dtype == r.dtype and a.shape == r.shape, name
         assert _rel(a, r) <= FUSED_GRAD_TOL[dtype], (name, _rel(a, r))
+
+
+@pytest.mark.parametrize("b,t,d,kw,causal,rate", [(3, 37, 96, 7, False, 0.0),
+                                                  (2, 70, 128, 31, True, 0.3)])
+def test_conv_module_float32_tile_backward_matches_plain(cuda, b, t, d, kw, causal, rate):
+    """The float32 conv backward forced onto the tile body (the A/B's other
+    arm), as ``test_ffn_float32_tile_backward_matches_plain``."""
+    x, params, gout = _conv_case(cuda, torch.float32, b, t, d, kw)
+    seed = torch.tensor([913], dtype=torch.int32, device=cuda)
+    kwargs = dict(rate=rate, causal=causal)
+    before = dict(conv_module_bwd.launches_by_body)
+    grads = conv_module_bwd(x, *params[:-1], seed, gout, body="tile", **kwargs)
+    refs = conv_module_bwd_plain(x, *params[:-1], seed, gout, **kwargs)
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in conv_module_bwd.launches_by_body.items()} == {
+        "sm90": 0, "f32": 0, "tile": 1}
+    for i, (a, r) in enumerate(zip(grads, refs)):
+        assert a.dtype == r.dtype and a.shape == r.shape, i
+        assert _rel(a, r) <= FUSED_GRAD_TOL[torch.float32], (i, _rel(a, r))
 
 
 def test_fused_functions_grads_match_plain(cuda):
@@ -921,6 +958,7 @@ def test_fused_bwd_sm90_body_matches_plain(cuda, module, b, t, d, f_or_kw, extra
     refs = _bwd_plain(module, x, params, seed, gout, rate=rate, **extra)
     torch.cuda.synchronize()
     assert {k: v - before[k] for k, v in wrapper.launches_by_body.items()} == {"sm90": 2,
+                                                                              "f32": 0,
                                                                               "tile": 0}
     for i, (a, a2, r) in enumerate(zip(grads, again, refs)):
         assert a.dtype == r.dtype and a.shape == r.shape, i
@@ -930,15 +968,18 @@ def test_fused_bwd_sm90_body_matches_plain(cuda, module, b, t, d, f_or_kw, extra
 
 @pytest.mark.parametrize("module", ["ffn", "conv"])
 def test_fused_bwd_bodies_by_dtype_and_shape(cuda, module):
-    """bf16 with widths that are multiples of 8 runs on sm90, float32 and a
-    bf16 D of 100 on the tile body; body="tile" forces the tile body, which
-    stays within the tolerance of the plain version; body="sm90" where it
-    cannot run raises."""
+    """bf16 with widths that are multiples of 8 runs on sm90, float32 with
+    widths that are multiples of 4 on f32 (a D of 100 too), a bf16 D of 100
+    and a float32 D of 98 on the tile body; body="tile" forces the tile
+    body, which stays within the tolerance of the plain version; body="sm90"
+    or body="f32" where it cannot run raises."""
     wrapper = _BWD_WRAPPER[module]
     seed = torch.tensor([5], dtype=torch.int32, device=cuda)
-    cases = [(torch.bfloat16, 96, {}, "sm90"), (torch.float32, 96, {}, "tile"),
+    cases = [(torch.bfloat16, 96, {}, "sm90"), (torch.float32, 96, {}, "f32"),
+             (torch.float32, 100, {}, "f32"), (torch.float32, 98, {}, "tile"),
              (torch.bfloat16, 100, {}, "tile"),
-             (torch.bfloat16, 96, {"body": "tile"}, "tile")]
+             (torch.bfloat16, 96, {"body": "tile"}, "tile"),
+             (torch.float32, 96, {"body": "tile"}, "tile")]
     for dtype, d, kw, body in cases:
         case = _ffn_case if module == "ffn" else _conv_case
         x, params, gout = case(cuda, dtype, 2, 37, d, 200 if module == "ffn" else 7)
@@ -950,10 +991,47 @@ def test_fused_bwd_bodies_by_dtype_and_shape(cuda, module):
             b: int(b == body) for b in before}, (dtype, d, kw)
         for a, r in zip(grads, refs):
             assert _rel(a, r) <= FUSED_GRAD_TOL[dtype]
-    x, params, gout = (_ffn_case if module == "ffn" else _conv_case)(
-        cuda, torch.float32, 2, 37, 96, 200 if module == "ffn" else 7)
+    case = _ffn_case if module == "ffn" else _conv_case
+    x, params, gout = case(cuda, torch.float32, 2, 37, 96, 200 if module == "ffn" else 7)
     with pytest.raises(ValueError, match="sm90"):
         _bwd_run(module, x, params, seed, gout, body="sm90")
+    for dtype, d in ((torch.bfloat16, 96), (torch.float32, 98)):
+        x, params, gout = case(cuda, dtype, 2, 37, d, 200 if module == "ffn" else 7)
+        with pytest.raises(ValueError, match="'f32'"):
+            _bwd_run(module, x, params, seed, gout, body="f32")
+
+
+@pytest.mark.parametrize("module, b, t, d, f_or_kw, extra", [
+    # B*T' = 129, F = 260 (not a multiple of 8), D = 132 (of 4, not of 8)
+    ("ffn", 3, 43, 132, 260, {}),
+    ("conv", 3, 43, 132, 7, {}),
+    ("conv", 3, 43, 132, 31, {"causal": True}),
+    # the recipe's shapes
+    ("ffn", 64, 313, 1024, 2048, {}),
+    ("conv", 64, 313, 1024, 31, {}),
+    ("conv", 64, 313, 1024, 31, {"causal": True}),
+])
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+def test_fused_bwd_f32_body_matches_plain(cuda, module, b, t, d, f_or_kw, extra, rate):
+    """The float32 backwards on the f32 body (gemm_f32.cuh's pipelined FP32
+    tile), every gradient against the plain version within FUSED_TOL
+    relative to its largest entry; reruns bit-equal."""
+    case = _ffn_case if module == "ffn" else _conv_case
+    x, params, gout = case(cuda, torch.float32, b, t, d, f_or_kw)
+    seed = torch.tensor([41], dtype=torch.int32, device=cuda)
+    wrapper = _BWD_WRAPPER[module]
+    before = dict(wrapper.launches_by_body)
+    grads = _bwd_run(module, x, params, seed, gout, rate=rate, **extra)
+    again = _bwd_run(module, x, params, seed, gout, rate=rate, **extra)
+    refs = _bwd_plain(module, x, params, seed, gout, rate=rate, **extra)
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in wrapper.launches_by_body.items()} == {"sm90": 0,
+                                                                              "f32": 2,
+                                                                              "tile": 0}
+    for i, (a, a2, r) in enumerate(zip(grads, again, refs)):
+        assert a.dtype == r.dtype and a.shape == r.shape, i
+        assert torch.equal(a, a2), i
+        assert _rel(a, r) <= FUSED_TOL[torch.float32], (i, _rel(a, r))
 
 
 def _fwd_run(module, x, params, seed, **kw):
@@ -1226,30 +1304,49 @@ SM90_ROW16_SHA256 = {
 }
 
 
-def _row16_operands(kind, device):
+# sha256 of the f32 body's float32 output (its int32 bits) at the same
+# shapes on the same operands in float32, as gemm_f32.cuh computed it when
+# matmul.cu had a kernel of its own: it now launches the fused backwards'
+# split-K kernel in one K range, and its bits must not move.
+F32_ROW16_SHA256 = {
+    "nn": "4c16502f0d496688cb34606ad0cece3d71d4517317ef9711403642d778112f62",
+    "nt": "a0110e8260f7dfa9659760686c8606a933d778ec0c1e923229870409ff985e3f",
+    "tn": "6ebe4d0b2117bda723076b48dd59af81c08f1aa61ced1541e0fd99669c8a0c8b",
+}
+
+
+def _row16_operands(kind, device, dtype=torch.bfloat16):
     m, k, n = 20032, 2048, 6144
     rng = np.random.default_rng(16)
     shapes = {"nn": ((m, k), (k, n)), "nt": ((m, n), (k, n)), "tn": ((m, k), (m, n))}[kind]
     a, b = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(device)
-            .to(torch.bfloat16) for s in shapes)
+            .to(dtype) for s in shapes)
     bias = (torch.from_numpy(rng.standard_normal(n, dtype=np.float32)).to(device)
             if kind == "nn" else None)
     return a, b, bias
 
 
-def row16_digest(kind, device) -> str:
-    """The sm90 body's output at row 16's shapes, as a sha256 of its bits."""
-    a, b, bias = _row16_operands(kind, device)
+def row16_digest(kind, device, dtype=torch.bfloat16) -> str:
+    """The sm90 (bf16) or f32 (float32) body's output at row 16's shapes, as
+    a sha256 of its bits."""
+    a, b, bias = _row16_operands(kind, device, dtype)
     before = dict(tiled_matmul.launches_by_body)
     out = tiled_matmul(a, b, kind=kind, bias=bias)
     torch.cuda.synchronize()
-    assert _by_body_since(before) == {"sm90": 1, "f32": 0, "tile": 0}
-    return hashlib.sha256(out.view(torch.int16).cpu().numpy().tobytes()).hexdigest()
+    body = "sm90" if dtype == torch.bfloat16 else "f32"
+    assert _by_body_since(before) == {"sm90": 0, "f32": 0, "tile": 0} | {body: 1}
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    return hashlib.sha256(out.view(bits).cpu().numpy().tobytes()).hexdigest()
 
 
 @pytest.mark.parametrize("kind", ["nn", "nt", "tn"])
 def test_matmul_sm90_bits_unchanged_by_epilogue_functor(cuda, kind):
     assert row16_digest(kind, cuda) == SM90_ROW16_SHA256[kind]
+
+
+@pytest.mark.parametrize("kind", ["nn", "nt", "tn"])
+def test_matmul_f32_bits_unchanged_by_split_k_kernel(cuda, kind):
+    assert row16_digest(kind, cuda, torch.float32) == F32_ROW16_SHA256[kind]
 
 
 # ------------------------------------- the serving kernels as operators

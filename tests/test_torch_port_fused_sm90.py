@@ -3,8 +3,9 @@ the port, on the CPU.
 
 - ``ops/kernels/ffn.py::bwd_plan`` (shared by ``conv_module.py``): bfloat16
   whose widths are multiples of 8 and whose pointers are 16-byte aligned
-  runs on the sm90 body (``csrc/gemm_sm90.cuh``: TMA + wgmma), float32 and
-  every other shape on the tile body (``csrc/gemm_tile.cuh``); the dW
+  runs on the sm90 body (``csrc/gemm_sm90.cuh``: TMA + wgmma), float32 on
+  the f32 body (``tests/test_torch_port_fused_f32.py``), every other bf16
+  shape on the tile body (``csrc/gemm_tile.cuh``); the dW
   products' K ranges cover all B*T rows once and in order, and at the
   recipe's shapes their grids reach the H100's 132 SMs. The forwards ask
   the same rule through ``fwd_plan`` with their weights' shapes.
@@ -78,16 +79,18 @@ def test_bf16_with_widths_of_eight_takes_the_sm90_body(rows, dw_shapes):
     assert all(1 <= s <= MAX_SPLITS for s in plan.splits)
 
 
-@pytest.mark.parametrize("dtype, rows, dw_shapes, aligned", [
-    (torch.float32, 64 * 313, _ffn_dw(1024, 2048), True),  # wgmma's float32 is TF32
-    (torch.bfloat16, 2 * 37, _ffn_dw(100, 200), True),  # D % 8 = 4
-    (torch.bfloat16, 2 * 37, _ffn_dw(96, 204), True),  # F % 8 = 4
-    (torch.bfloat16, 2 * 37, _conv_dw(100), True),
-    (torch.bfloat16, 64 * 313, _conv_dw(1024), False),  # a pointer off 16 bytes
+@pytest.mark.parametrize("dtype, rows, dw_shapes, aligned, want", [
+    # wgmma's float32 is TF32: float32 runs on the f32 body's FP32 FMA tile
+    (torch.float32, 64 * 313, _ffn_dw(1024, 2048), True, BwdPlan("f32", (2, 2))),
+    (torch.bfloat16, 2 * 37, _ffn_dw(100, 200), True, BwdPlan("tile")),  # D % 8 = 4
+    (torch.bfloat16, 2 * 37, _ffn_dw(96, 204), True, BwdPlan("tile")),  # F % 8 = 4
+    (torch.bfloat16, 2 * 37, _conv_dw(100), True, BwdPlan("tile")),
+    # a pointer off 16 bytes
+    (torch.bfloat16, 64 * 313, _conv_dw(1024), False, BwdPlan("tile")),
 ])
 def test_float32_and_what_tma_cannot_read_take_the_tile_body(dtype, rows, dw_shapes,
-                                                               aligned):
-    assert bwd_plan(dtype, rows, dw_shapes, H100_SMS, aligned=aligned) == BwdPlan("tile")
+                                                               aligned, want):
+    assert bwd_plan(dtype, rows, dw_shapes, H100_SMS, aligned=aligned) == want
 
 
 @pytest.mark.parametrize("k, splits", [(20032, 1), (20032, 4), (20032, 8), (20032, 16),

@@ -64,12 +64,13 @@ def main() -> int:
             lib.nsd_conv_fwd_sm90.argtypes = [P] * 14 + [I] * 5 + [F] * 2 + [P]
             lib.nsd_conv_fwd_sm90_workspace.argtypes = [I] * 4
             lib.nsd_conv_fwd_sm90_workspace.restype = LL
-            lib.nsd_conv_fwd_bf16.argtypes = [P] * 14 + [I] * 5 + [F] * 2 + [P]
+            lib.nsd_conv_fwd_tile_bf16.argtypes = [P] * 14 + [I] * 5 + [F] * 2 + [P]
             lib.nsd_conv_workspace.argtypes = [I] * 6
             lib.nsd_conv_workspace.restype = LL
             bodies = {"sm90": (lib.nsd_conv_fwd_sm90, lib.nsd_conv_fwd_sm90_workspace(b, t, d, kw))}
             if name == "as built":
-                bodies["tile"] = (lib.nsd_conv_fwd_bf16, lib.nsd_conv_workspace(b, t, d, kw, 1, 0))
+                bodies["tile"] = (lib.nsd_conv_fwd_tile_bf16,
+                                  lib.nsd_conv_workspace(b, t, d, kw, 1, 0))
             for body, (fn, n_ws) in bodies.items():
                 ws = torch.empty(n_ws, dtype=torch.uint8, device=dev)
 
