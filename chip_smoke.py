@@ -92,31 +92,35 @@ random weights:
     times of kernel, plain version and the unfused module (forward and
     backward) as the yardstick, and the bounds. The four wrappers' launches
     by body: every bfloat16 forward and backward on the sm90 body (TMA +
-    wgmma), every float32 forward on the tile body and every float32
-    backward on the f32 body (``gemm_f32.cuh``'s pipelined FP32 tile); the
-    bf16 sm90 and the float32 f32 backwards' reruns bit-equal; the sha256
-    of the bf16 sm90 backwards' outputs on numpy-seeded inputs pinned; the
-    tile body (``body="tile"``) at rate 0.3, centred and causal conv,
-    against the plain versions at the dtype's tolerance: bf16 forward and
-    backward, float32 backward; in each dtype the tile body timed in turns
+    wgmma), every float32 forward and backward on the f32 body
+    (``gemm_f32.cuh``'s pipelined FP32 tile); the bf16 sm90 and the float32
+    f32 forwards' and backwards' reruns bit-equal; the sha256 of the bf16
+    sm90 and the float32 f32 backwards' outputs on numpy-seeded inputs
+    pinned; the tile body (``body="tile"``) at rate 0.3, centred and causal
+    conv, against the plain versions at the dtype's tolerance, forward and
+    backward; in each dtype the tile body timed in turns
     with the default one (tile, default, default, tile), the device time of
     one call of each by kernel and by stage
     (``training/profile.py::device_split``), and, as context, the products
     of each forward and backward as one ``torch.mm`` each at their shapes
     (bf16 ``out_dtype=float32``; float32 cuBLAS SGEMM, TF32 off). The
     forwards' and backwards' rows in the kernels line report bfloat16; the
-    f32 body's own rows (``ffn_bwd_f32``, ``conv_module_bwd_f32``) float32.
+    f32 body's own rows (``ffn_f32``, ``ffn_bwd_f32``, ``conv_module_f32``,
+    ``conv_module_bwd_f32``) float32. The workspace bytes of each body.
 11. The bf16 Conformer train step with both fused flags: 2 warm-up and 10
     timed steps, median and seq/s beside phase 8's default step, 16 FF and 8
     conv forward and backward launches per step (every one on the sm90
     body); one float32 step (randomness on) checked leaf by leaf against the
-    plain path (its forwards on the tile body, its backwards on f32); two
+    plain path (its forwards and backwards on f32); two
     bf16 runs of 2 steps from one seed bit-equal; one eval forward launching
-    16 FF and 8 conv forwards on the sm90 body and no backward. Then the
-    float32 fused step A/B (``fused_bwd_body``): 2 warm-up steps, then 3
-    timed steps a turn in turns tile, f32, f32, tile (every float32 fused
-    backward on the tile body, then on f32), each arm's median beside phase
-    8's unfused float32 step's.
+    16 FF and 8 conv forwards on the sm90 body and no backward. Then two
+    float32 fused step A/Bs: 2 warm-up steps, then 3 timed steps a turn in
+    turns tile, f32, f32, tile, first of the backwards (``fused_bwd_body``:
+    every float32 fused backward on the tile body, then on f32, the
+    forwards on f32), then of the forwards (``fused_fwd_body``, the
+    backwards on f32), whose turns also time float32 eval forwards of the
+    fused model (B=64, T=1280) with their launches by body; each arm's
+    median beside phase 8's unfused float32 step's.
 12. The GRU's opt-in kernels (``fused_optimizer``, ``use_pallas_matmul``):
     the projection matmul in its three layouts (``nn`` with the bias, ``nt``,
     ``tn``) at M=B*L=20032, K=2048, N=6144 and at a ragged M=1001, and Adam
@@ -545,11 +549,12 @@ SOURCES = {
 }
 KERNELS = tuple(SOURCES)
 # The float32 attention's redesigned body ("f32") and the fused FF and conv
-# backwards' ("f32") have rows of their own in the kernels line: their
+# modules' ("f32") have rows of their own in the kernels line: their
 # launches by body (``launch_counts()``'s keys), summed over the float32
 # main paths.
 F32_ATTN = {"mhsa_qkv_f32": "mhsa_qkv/f32", "mhsa_qkv_bwd_f32": "mhsa_qkv_bwd/f32"}
-F32_FUSED = {"ffn_bwd_f32": "ffn_bwd/f32", "conv_module_bwd_f32": "conv_module_bwd/f32"}
+F32_FUSED = {"ffn_f32": "ffn/f32", "ffn_bwd_f32": "ffn_bwd/f32",
+             "conv_module_f32": "conv_module/f32", "conv_module_bwd_f32": "conv_module_bwd/f32"}
 F32_ROWS = {**F32_ATTN, **F32_FUSED}
 COUNTED = KERNELS + tuple(F32_ROWS.values())
 # Published H100 SXM peaks (NVIDIA data sheet; dense, at 700 W): HBM bytes/s,
@@ -2133,14 +2138,14 @@ def unfused_module(kind, x, gout, params, rate, causal=False):
 
 # The dtype each fused row of the kernels line reports: the forwards' and
 # backwards' bf16 bodies are the ones the main path runs (the sm90 body);
-# the mask hook keeps its float32 row; the float32 backwards' f32 body
-# (F32_FUSED) its own rows.
+# the mask hook keeps its float32 row; the float32 f32 body (F32_FUSED) its
+# own rows.
 FUSED_ROW_DTYPE = {"ffn": "bfloat16", "ffn_bwd": "bfloat16", "ffn_dropout_masks": "float32",
                    "conv_module": "bfloat16", "conv_module_bwd": "bfloat16",
-                   "ffn_bwd_f32": "float32", "conv_module_bwd_f32": "float32"}
+                   **dict.fromkeys(F32_FUSED, "float32")}
 # The body each dtype's forwards ("fwd") and backwards ("bwd") take at these
-# shapes (ops/kernels/ffn.py::bwd_plan, fwd_plan).
-FUSED_BODY = {"fwd": {"float32": "tile", "bfloat16": "sm90"},
+# shapes (ops/kernels/ffn.py::body_plan).
+FUSED_BODY = {"fwd": {"float32": "f32", "bfloat16": "sm90"},
               "bwd": {"float32": "f32", "bfloat16": "sm90"}}
 
 
@@ -2159,12 +2164,23 @@ FUSED_BWD_SHA256 = {
 }
 
 
-def fused_bwd_digests() -> dict:
-    """The sha256 of each bf16 sm90 backward's outputs at rate 0.3 (the
-    conv centred and causal) on numpy-seeded inputs at the recipe's
-    shapes."""
+# sha256 of the float32 f32 backwards' outputs on the same inputs in
+# float32, as the backwards computed them before the forwards moved onto
+# gemm_f32.cuh (commit b04dd14): the front they now share with the forwards
+# must not move a bit.
+FUSED_BWD_F32_SHA256 = {
+    "ffn_bwd": "f167fce3a215ba9254d1373bb0c52431531bce81093e0994e93f18e5cd94ccbf",
+    "conv_module_bwd": "1d7c586a817ed3ecc5efd961c30af767662a7f12f52ce94fd44f18a21d83781f",
+    "conv_module_bwd causal": "77994add583acb941e2a271b291811d458bb22da4c15a9def896a422e1bd8aa5",
+}
+
+
+def fused_bwd_digests(dtype: torch.dtype = torch.bfloat16, body: str = "sm90") -> dict:
+    """The sha256 of each ``dtype`` backward's outputs on ``body`` at rate
+    0.3 (the conv centred and causal) on numpy-seeded inputs at the
+    recipe's shapes."""
     rng = np.random.default_rng(10)
-    d, f, bf = A_HEADS * A_DH, F_FF, torch.bfloat16
+    d, f, cdt = A_HEADS * A_DH, F_FF, dtype
 
     def r(*s, sc=1.0, dt=torch.float32):
         return (sc * torch.from_numpy(rng.standard_normal(s, dtype=np.float32))).cuda().to(dt)
@@ -2175,18 +2191,18 @@ def fused_bwd_digests() -> dict:
             h.update(t.contiguous().reshape(-1).view(torch.uint8).cpu().numpy().tobytes())
         return h.hexdigest()
 
-    x, gout = r(B, L, d, dt=bf), r(B, L, d, dt=bf)
-    ff = (1.0 + r(d, sc=0.1), r(d, sc=0.1), r(d, f, sc=d**-0.5, dt=bf), r(f, sc=0.1),
-          r(f, d, sc=f**-0.5, dt=bf))
-    conv = (1.0 + r(d, sc=0.1), r(d, sc=0.1), r(d, 2 * d, sc=d**-0.5, dt=bf),
+    x, gout = r(B, L, d, dt=cdt), r(B, L, d, dt=cdt)
+    ff = (1.0 + r(d, sc=0.1), r(d, sc=0.1), r(d, f, sc=d**-0.5, dt=cdt), r(f, sc=0.1),
+          r(f, d, sc=f**-0.5, dt=cdt))
+    conv = (1.0 + r(d, sc=0.1), r(d, sc=0.1), r(d, 2 * d, sc=d**-0.5, dt=cdt),
             r(2 * d, sc=0.1), r(KW, d, sc=KW**-0.5), r(d, sc=0.1), 1.0 + r(d, sc=0.1),
-            r(d, sc=0.1), r(d, d, sc=d**-0.5, dt=bf))
+            r(d, sc=0.1), r(d, d, sc=d**-0.5, dt=cdt))
     seed = torch.tensor([20251017], dtype=torch.int32, device="cuda")
     with torch.inference_mode():
-        out = {"ffn_bwd": digest(ffn_bwd(x, *ff, seed, gout, rate=0.3, body="sm90"))}
+        out = {"ffn_bwd": digest(ffn_bwd(x, *ff, seed, gout, rate=0.3, body=body))}
         for causal in (False, True):
             out["conv_module_bwd" + (" causal" if causal else "")] = digest(conv_module_bwd(
-                x, *conv, seed, gout, rate=0.3, causal=causal, body="sm90"))
+                x, *conv, seed, gout, rate=0.3, causal=causal, body=body))
     return out
 
 
@@ -2239,29 +2255,25 @@ def fused_tile_check(key, tag, call, plain, names, name) -> None:
 
 
 def fused_bodies(x, gout, ff, conv, seed, name) -> None:
-    """At rate 0.3, the calls that have a tile body beside their default one
-    (bf16: the forwards and backwards, on sm90; float32: the backwards, on
-    f32): the tile body against the plain version (centred and causal
-    conv), the default body's reruns bit-equal, the bf16 backwards' sha256
-    pins, one call of each body by kernel and by stage, the tile body timed
-    in turns with the default one, and the products of each as
-    ``torch.mm`` as context."""
+    """At rate 0.3, the forwards and backwards, whose default body (bf16:
+    sm90; float32: f32) has the tile body beside it: the tile body against
+    the plain version (centred and causal conv), the default body's reruns
+    bit-equal, the backwards' sha256 pins, one call of each body by kernel
+    and by stage, the tile body timed in turns with the default one, and
+    the products of each as ``torch.mm`` as context."""
     kw = dict(rate=0.3)
     tag = f"B={B} T'={L} rate 0.3"
     bf16 = name == "bfloat16"
-    if bf16:
-        fused_tile_check("ffn", tag, lambda **b: (ffn(x, *ff, seed, **kw, **b),),
-                         lambda: (ffn_plain(x, *ff, seed, **kw),), ("out",), name)
+    fused_tile_check("ffn", tag, lambda **b: (ffn(x, *ff, seed, **kw, **b),),
+                     lambda: (ffn_plain(x, *ff, seed, **kw),), ("out",), name)
     fused_tile_check("ffn_bwd", tag, lambda **b: ffn_bwd(x, *ff[:5], seed, gout, **kw, **b),
                      lambda: ffn_bwd_plain(x, *ff[:5], seed, gout, **kw), FF_NAMES, name)
     for causal in (False, True):
         ck = dict(rate=0.3, causal=causal)
         ctag = tag + (" causal" if causal else "")
-        if bf16:
-            fused_tile_check("conv_module", ctag,
-                             lambda **b: (conv_module(x, *conv, seed, **ck, **b),),
-                             lambda: (conv_module_plain(x, *conv, seed, **ck),), ("out",),
-                             name)
+        fused_tile_check("conv_module", ctag,
+                         lambda **b: (conv_module(x, *conv, seed, **ck, **b),),
+                         lambda: (conv_module_plain(x, *conv, seed, **ck),), ("out",), name)
         fused_tile_check(
             "conv_module_bwd", ctag,
             lambda **b: conv_module_bwd(x, *conv[:9], seed, gout, **ck, **b),
@@ -2270,6 +2282,10 @@ def fused_bodies(x, gout, ff, conv, seed, name) -> None:
         digests = fused_bwd_digests()
         check(digests == FUSED_BWD_SHA256, f"sha256 of the bf16 sm90 backwards' outputs "
               f"{digests} == the pinned {FUSED_BWD_SHA256}")
+    else:
+        digests = fused_bwd_digests(torch.float32, "f32")
+        check(digests == FUSED_BWD_F32_SHA256, f"sha256 of the float32 f32 backwards' outputs "
+              f"{digests} == the pinned {FUSED_BWD_F32_SHA256}")
     calls = {"ffn": lambda **b: (ffn(x, *ff, seed, **kw, **b),),
              "conv_module": lambda **b: (conv_module(x, *conv, seed, **kw, **b),),
              "ffn_bwd": lambda **b: ffn_bwd(x, *ff[:5], seed, gout, **kw, **b),
@@ -2278,7 +2294,7 @@ def fused_bodies(x, gout, ff, conv, seed, name) -> None:
     products = fused_products(ff, conv, x.dtype)
     mm_what = "torch.mm(out_dtype=float32)" if bf16 else "torch.mm (cuBLAS SGEMM, TF32 off)"
     with torch.inference_mode():
-        for key in FUSED_BODIES if bf16 else FUSED_BWDS:
+        for key in FUSED_BODIES:
             call, body = calls[key], fused_body(key, name)
             one, two = call(), call()
             torch.cuda.synchronize()
@@ -2307,21 +2323,26 @@ def fused_bodies(x, gout, ff, conv, seed, name) -> None:
 
 
 def fused_workspaces(name: str) -> None:
-    """Prints the bytes of scratch each backward body takes at the recipe's
-    shapes in ``name`` (the workspace queries of csrc/ffn.cu and
-    csrc/conv_module.cu, with the plan's K ranges)."""
+    """Prints the bytes of scratch each forward and backward body takes at
+    the recipe's shapes in ``name`` (the workspace queries of csrc/ffn.cu
+    and csrc/conv_module.cu, with the plan's K ranges)."""
     lib = _build.load_library()
     d, f, bf16 = A_HEADS * A_DH, F_FF, int(name == "bfloat16")
-    body = FUSED_BODY["bwd"][name]
     props = torch.cuda.get_device_properties(0)
     dtype = torch.bfloat16 if bf16 else torch.float32
-    for key, query, shapes, width in (("ffn_bwd", "ffn", ((f, d), (d, f)), f),
-                                      ("conv_module_bwd", "conv", ((d, d), (d, 2 * d)), KW)):
-        plan = ffn_mod.bwd_plan(dtype, B * L, shapes, props.multi_processor_count)
-        own = getattr(lib, f"nsd_{query}_bwd_{body}_workspace")(B, L, d, width, *plan.splits)
-        tile = getattr(lib, f"nsd_{query}_workspace")(B, L, d, width, bf16, 1)
-        print(f"workspace {key} {name} B={B} T'={L}: {body} body {own} bytes (dW K ranges "
-              f"{plan.splits}), tile body {tile} bytes, {own - tile:+d}", flush=True)
+    for key, query, shapes, width in (("ffn", "ffn", ((f, d), (d, f)), f),
+                                      ("conv_module", "conv", ((d, d), (d, 2 * d)), KW)):
+        for bwd in (False, True):
+            direction = "bwd" if bwd else "fwd"
+            body = FUSED_BODY[direction][name]
+            plan = ffn_mod.body_plan(dtype, B * L, shapes, props.multi_processor_count)
+            splits = plan.splits if bwd else ()
+            own = getattr(lib, f"nsd_{query}_{direction}_{body}_workspace")(B, L, d, width,
+                                                                             *splits)
+            tile = getattr(lib, f"nsd_{query}_workspace")(B, L, d, width, bf16, int(bwd))
+            print(f"workspace {key}{'_bwd' if bwd else ''} {name} B={B} T'={L}: {body} body "
+                  f"{own} bytes" + (f" (dW K ranges {splits})" if bwd else "")
+                  + f", tile body {tile} bytes, {own - tile:+d}", flush=True)
 
 
 def fused_rows(key: str, name: str) -> list[str]:
@@ -2444,8 +2465,8 @@ def fused_bwd_body(body: str | None):
     """Inside, every float32 fused backward of the model's normal entry
     points runs on ``body`` (``"tile"``, the other arm of an A/B: the
     replaced ``ffn.py::bwd_plan`` answers it for float32 whatever the shape;
-    the float32 forwards are on the tile body either way), or on
-    ``bwd_plan``'s choice (``None``)."""
+    the forwards keep ``fwd_plan``'s body), or on ``bwd_plan``'s choice
+    (``None``)."""
     saved = ffn_mod.bwd_plan
     if body is not None:
         ffn_mod.bwd_plan = (lambda dtype, *a, **k: BwdPlan(body) if dtype == torch.float32
@@ -2454,6 +2475,22 @@ def fused_bwd_body(body: str | None):
         yield
     finally:
         ffn_mod.bwd_plan = saved
+
+
+@contextlib.contextmanager
+def fused_fwd_body(body: str):
+    """Inside, every float32 fused forward of the model's normal entry points
+    that names no body runs on ``body`` (``"tile"`` or ``"f32"``, an arm of
+    the forwards' A/B: the replaced ``ffn.py::fwd_plan`` answers it for
+    float32; the backwards keep ``bwd_plan``'s body)."""
+    saved = ffn_mod.fwd_plan
+    ffn_mod.fwd_plan = (lambda what, x, w1, w2, b=None:
+                        BwdPlan(body) if x.dtype == torch.float32 and b is None
+                        else saved(what, x, w1, w2, b))
+    try:
+        yield
+    finally:
+        ffn_mod.fwd_plan = saved
 
 
 FUSED_ARGS = {**CONFORMER_ARGS, **FUSED_FLAGS["conformer"]}
@@ -2504,7 +2541,7 @@ def fused_conformer_phase(card: str, default_median: float, unfused32_median: fl
                                          "conv_module": CONFORMER_LAYERS,
                                          "mhsa_qkv": CONFORMER_LAYERS}
     check(ev == want_ev and bool(torch.isfinite(log_probs).all())
-          and ev_bodies == {k: {"sm90": want_ev[k], "tile": 0} for k in FUSED_FWDS},
+          and ev_bodies == {k: {"sm90": want_ev[k], "f32": 0, "tile": 0} for k in FUSED_FWDS},
           f"eval forward of the fused model launched {ev}: 16 FF and 8 conv forwards "
           f"(by body {ev_bodies}: all on the sm90 body), 8 attention forwards, no "
           f"backward; log-probs finite")
@@ -2529,8 +2566,9 @@ def fused_conformer_phase(card: str, default_median: float, unfused32_median: fl
                   for k, c in bodies32.items())
     check(launch_k == per_step and not any(launch_p.values()) and on_body,
           f"float32 fused Conformer step launches: kernel path {launch_k} (forwards and "
-          f"backwards by body {bodies32}: the forwards on the tile body, the backwards on "
-          f"f32), plain path {launch_p}")
+          f"backwards by body {bodies32}: the forwards on the {FUSED_BODY['fwd']['float32']} "
+          f"body, the backwards on the {FUSED_BODY['bwd']['float32']} body), plain path "
+          f"{launch_p}")
     errs = [rel_err(a, b) for a, b in zip(grads_k, grads_p)]
     check(abs(loss_k - loss_p) <= CONFORMER_GRAD_TOL * abs(loss_p)
           and max(errs) <= CONFORMER_GRAD_TOL,
@@ -2551,18 +2589,23 @@ def fused_conformer_phase(card: str, default_median: float, unfused32_median: fl
           f"losses {l1} / {l2}")
     del p1, p2, runs
     ran = fused_float32_steps(card, batch, unfused32_median)
-    for k in FUSED_BWDS:
+    for k in FUSED_BODIES:
         ran[f"{k}/f32"] += bodies32[k]["f32"]
     return {k: launches[k] for k in NO_FUSED} | ran
 
 
 def fused_float32_steps(card: str, batch, unfused_median: float) -> dict:
     """The float32 fused Conformer train step (``FUSED_ARGS`` in float32):
-    after 2 warm-up steps, ``AB_STEPS`` timed steps a turn in turns tile,
-    f32, f32, tile (``fused_bwd_body``): its 16 FF and 8 conv backwards a
-    step on the tile body in the tile turns, on the f32 body in the others.
-    Each arm's median beside the unfused float32 step's
-    (``unfused_median``, phase 8); returns the f32 turns' launches."""
+    after 2 warm-up steps, two A/Bs of ``AB_STEPS`` timed steps a turn in
+    turns tile, f32, f32, tile: the backwards' (``fused_bwd_body``: their
+    16 FF and 8 conv launches a step on the tile body in the tile turns, on
+    f32 in the others; the forwards on ``fwd_plan``'s body throughout),
+    then the forwards' (``fused_fwd_body``, the backwards on ``bwd_plan``'s
+    body throughout), whose turns also time ``AB_EVALS`` eval forwards of
+    the model at the batch's shapes (B=64, T=1280: 16 FF and 8 conv
+    forwards each on the turn's body). Each arm's median beside the unfused
+    float32 step's (``unfused_median``, phase 8); returns the f32 launches
+    of the turns on f32."""
     device = torch.device("cuda")
     args32 = {**FUSED_ARGS, "compute_dtype": "float32"}
     model = build_model(args32, N_DAYS, device, seed=0)
@@ -2572,39 +2615,76 @@ def fused_float32_steps(card: str, batch, unfused_median: float) -> dict:
     for _ in range(2):  # warm-up
         losses.append(float(step(batch, step_generator(device, 0, i))["train/loss"]))
         i += 1
-    times = {"tile": [], "f32": []}
     ran = dict.fromkeys(F32_FUSED.values(), 0)
-    per_step = {"ffn_bwd": 2 * CONFORMER_LAYERS, "conv_module_bwd": CONFORMER_LAYERS}
-    for arm in ("tile", "f32", "f32", "tile"):
-        with fused_bwd_body("tile" if arm == "tile" else None):
-            torch.cuda.synchronize()
-            reset_launches()
-            for _ in range(AB_STEPS):
-                t0 = time.perf_counter()
-                losses.append(float(step(batch, step_generator(device, 0, i))["train/loss"]))
+    per_step = {"ffn": 2 * CONFORMER_LAYERS, "ffn_bwd": 2 * CONFORMER_LAYERS,
+                "conv_module": CONFORMER_LAYERS, "conv_module_bwd": CONFORMER_LAYERS}
+    fixed = {k: fused_body(k, "float32") for k in FUSED_BODIES}
+    for what, keys, arm_body in (("backwards", FUSED_BWDS, fused_bwd_body),
+                                 ("forwards", FUSED_FWDS, fused_fwd_body)):
+        times, evals = {"tile": [], "f32": []}, {"tile": [], "f32": []}
+        for arm in ("tile", "f32", "f32", "tile"):
+            on = {k: arm if k in keys else fixed[k] for k in FUSED_BODIES}
+            # the backwards' f32 arm is bwd_plan's own (its K ranges)
+            ctx = arm_body(arm) if what == "forwards" else arm_body(
+                "tile" if arm == "tile" else None)
+            with ctx:
                 torch.cuda.synchronize()
-                times[arm].append(time.perf_counter() - t0)
-                i += 1
-        bodies = {k: dict(WRAPPERS[k].launches_by_body) for k in FUSED_BWDS}
-        want = {k: {b: n * AB_STEPS if b == arm else 0 for b in ("sm90", "f32", "tile")}
-                for k, n in per_step.items()}
-        check(bodies == want, f"{AB_STEPS} float32 fused Conformer train steps, a {arm} turn: "
-              f"backwards by body {bodies} == {want}")
-        if arm == "f32":
-            for k in FUSED_BWDS:
-                ran[f"{k}/f32"] += bodies[k]["f32"]
+                reset_launches()
+                for _ in range(AB_STEPS):
+                    t0 = time.perf_counter()
+                    losses.append(float(step(batch, step_generator(device, 0, i))
+                                        ["train/loss"]))
+                    torch.cuda.synchronize()
+                    times[arm].append(time.perf_counter() - t0)
+                    i += 1
+                bodies = {k: dict(WRAPPERS[k].launches_by_body) for k in FUSED_BODIES}
+                n_eval = AB_EVALS if what == "forwards" else 0
+                for _ in range(n_eval):
+                    t0 = time.perf_counter()
+                    with torch.inference_mode():
+                        log_probs, _, _ = model_forward(model, batch[0], batch[4], batch[2])
+                    torch.cuda.synchronize()
+                    evals[arm].append(time.perf_counter() - t0)
+                if n_eval:
+                    check(bool(torch.isfinite(log_probs).all()),
+                          f"float32 fused eval forwards, a {arm} turn: log-probs finite")
+                    del log_probs
+                ev_bodies = {k: {b: n - bodies[k][b]
+                                 for b, n in WRAPPERS[k].launches_by_body.items()}
+                             for k in FUSED_BODIES}
+            want = {k: {b: n * AB_STEPS if b == on[k] else 0 for b in ("sm90", "f32", "tile")}
+                    for k, n in per_step.items()}
+            want_ev = {k: {b: n * n_eval if b == on[k] and k in FUSED_FWDS else 0
+                           for b in ("sm90", "f32", "tile")} for k, n in per_step.items()}
+            check(bodies == want and ev_bodies == want_ev,
+                  f"{AB_STEPS} float32 fused Conformer train steps, the {what}' A/B, a {arm} "
+                  f"turn: forwards and backwards by body {bodies} == {want}; {n_eval} eval "
+                  f"forwards {ev_bodies} == {want_ev}")
+            if arm == "f32":
+                for k in FUSED_BODIES:
+                    ran[f"{k}/f32"] += bodies[k]["f32"] + ev_bodies[k]["f32"]
+        med = {arm: statistics.median(v) for arm, v in times.items()}
+        print(f"conformer train step fused FF + conv float32 B={B} T={T} U={U}, the {what}' "
+              f"A/B in turns (tile, f32, f32, tile), {2 * AB_STEPS} steps an arm: f32 {what} "
+              f"median {med['f32'] * 1e3:.2f} ms "
+              f"({', '.join(f'{t * 1e3:.2f}' for t in times['f32'])}), "
+              f"{B / med['f32']:.2f} seq/s; tile {what} median {med['tile'] * 1e3:.2f} ms "
+              f"({', '.join(f'{t * 1e3:.2f}' for t in times['tile'])}); f32 - tile "
+              f"{(med['f32'] - med['tile']) * 1e3:+.2f} ms; the unfused float32 step's median "
+              f"(phase 8) {unfused_median * 1e3:.2f} ms ({card})", flush=True)
+        if what == "forwards":
+            ev = {arm: statistics.median(v) for arm, v in evals.items()}
+            print(f"conformer eval forward fused FF + conv float32 B={B} T={T}, in the same "
+                  f"turns, {2 * AB_EVALS} forwards an arm: f32 forwards median "
+                  f"{ev['f32'] * 1e3:.2f} ms "
+                  f"({', '.join(f'{t * 1e3:.2f}' for t in evals['f32'])}); tile forwards "
+                  f"median {ev['tile'] * 1e3:.2f} ms "
+                  f"({', '.join(f'{t * 1e3:.2f}' for t in evals['tile'])}); f32 - tile "
+                  f"{(ev['f32'] - ev['tile']) * 1e3:+.2f} ms ({card})", flush=True)
     del model, opt, sched, step
     check(all(math.isfinite(v) for v in losses),
           f"float32 fused Conformer train losses finite: "
           f"{', '.join(f'{v:.4f}' for v in losses)}")
-    med = {arm: statistics.median(v) for arm, v in times.items()}
-    print(f"conformer train step fused FF + conv float32 B={B} T={T} U={U}, A/B in turns "
-          f"(tile, f32, f32, tile), {2 * AB_STEPS} steps an arm: f32 backwards median "
-          f"{med['f32'] * 1e3:.2f} ms ({', '.join(f'{t * 1e3:.2f}' for t in times['f32'])}), "
-          f"{B / med['f32']:.2f} seq/s; tile backwards median {med['tile'] * 1e3:.2f} ms "
-          f"({', '.join(f'{t * 1e3:.2f}' for t in times['tile'])}); f32 - tile "
-          f"{(med['f32'] - med['tile']) * 1e3:+.2f} ms; the unfused float32 step's median "
-          f"(phase 8) {unfused_median * 1e3:.2f} ms ({card})", flush=True)
     return ran
 
 
@@ -2863,6 +2943,7 @@ def gru_fused_step_phase(card: str, default_median: float) -> dict:
 
 
 AB_STEPS = 3  # float32 train steps a turn of the step-body A/B
+AB_EVALS = 3  # float32 fused eval forwards a turn of the fused forwards' A/B
 
 
 def gru_float32_steps_phase(card: str) -> None:
@@ -3295,8 +3376,8 @@ def launch_bodies(want: dict) -> tuple[dict, dict]:
     want_bodies = {"tiled_matmul": {"sm90": want["tiled_matmul"], "f32": 0, "tile": 0},
                    "frontend": {"tc": want["frontend"], "fma": 0},
                    "gru_scan": {"persistent": want["gru_scan"], "step": 0},
-                   "ffn": {"sm90": want["ffn"], "tile": 0},
-                   "conv_module": {"sm90": want["conv_module"], "tile": 0},
+                   "ffn": {"sm90": want["ffn"], "f32": 0, "tile": 0},
+                   "conv_module": {"sm90": want["conv_module"], "f32": 0, "tile": 0},
                    "mhsa_qkv": {"tc": want["mhsa_qkv"], "f32": 0, "fma": 0}}
     return bodies, want_bodies
 

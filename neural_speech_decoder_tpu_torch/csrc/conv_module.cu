@@ -33,10 +33,10 @@
 // shared memory, and their backward (dglu by the flipped taps, the GLU's
 // backward, the taps' gradient) another. Every sum has a fixed order.
 //
-// Two bodies in each direction, as the FF module's (csrc/ffn.cu): the tile
-// body (float32, and any shape TMA cannot read) on gemm_tile.cuh, and the
-// sm90 body (bf16, D a multiple of 8), whose products run on gemm_sm90.cuh's
-// TMA ring into wgmma from bf16 operands written once, each the bits the
+// Three bodies in each direction, as the FF module's (csrc/ffn.cu): the tile
+// body (any shape the others cannot read) on gemm_tile.cuh, the sm90 body
+// (bf16, D a multiple of 8), whose products run on gemm_sm90.cuh's TMA
+// ring into wgmma from bf16 operands written once, each the bits the
 // tile body's loader would have given: xn = cdt(LN(x)) and s =
 // cdt(SiLU(cdt(LN2(cq)))) by row passes beside the norms' statistics, gq =
 // cdt(gm) beside the float32 gm that db2 sums, dhq = cdt(dh) beside the
@@ -46,12 +46,14 @@
 // frames a thread); the tile body keeps glu_dwconv_kernel, which takes any D
 // and any alignment.
 //
-// The f32 backward (float32, D a multiple of 4) is the sm90 backward's
-// stages with every product on gemm_f32.cuh's pipelined FP32 FMA tile (no
-// TF32), as the FF module's (csrc/ffn.cu): xn = LN(x) and s =
-// SiLU(LN2(cq)) written once by row passes (the loaders' values), hq with
-// b1 in the tile's store, cq by glu_dwconv_kernel; gm and dh, float32
-// already, are the products' operands as they lie; SiLU' of the recomputed
+// The f32 body (float32, D a multiple of 4) is the sm90 body's stages with
+// every product on gemm_f32.cuh's pipelined FP32 FMA tile (no TF32), as the
+// FF module's (csrc/ffn.cu): both directions share conv_front_f32, where
+// xn = LN(x) and s = SiLU(LN2(cq)) are written once by row passes (the
+// loaders' values), hq with b1 in the tile's store, cq by
+// glu_dwconv_kernel; the forward's second product stores out with b2 and
+// the output dropout runs as a pass in place; gm and dh, float32 already,
+// are the backward products' operands as they lie; SiLU' of the recomputed
 // cn in the sm90 body's pass, 4 columns a thread.
 #include <stdint.h>
 
@@ -416,7 +418,7 @@ __global__ void __launch_bounds__(256)
 
 // The pieces of the workspace (pointers from base, or sizes from nullptr).
 // s2, s1: the sm90 or f32 backward's K ranges of dW2 and dW1, 1 and 1 for
-// the sm90 forward, or 0 for the tile body.
+// the sm90 or f32 forward, or 0 for the tile body.
 template <typename T>
 struct Work {
   float2 *st1, *st2;
@@ -439,7 +441,7 @@ struct Work {
     if (!bwd && operands) {
       xn = c.take<T>(m * d);
       s = c.take<T>(m * d);
-      o = c.take<float>(m * d);
+      if (sizeof(T) == 2) o = c.take<float>(m * d);  // the f32 forward's o is out itself
     }
     if (bwd) {
       gm = c.take<float>(m * d);
@@ -591,7 +593,8 @@ cudaError_t conv_fwd_sm90(const bf16* x, const float* lns, const float* lnb, con
   if (p.rate <= 0.f)
     return sm90::gemm<false, true>(w.s, w2, b2, sm90::StoreBf16{out, D}, M, D, D, 1, st);
   NSD_TRY((sm90::gemm<false, true>(w.s, w2, b2, nsd::StoreF32{w.o, D}, M, D, D, 1, st)));
-  return nsd::each_cols(nsd::DropRoundPass{w.o, seed, out, p.t, 0, D, p.rate, p.inv}, M, D, st);
+  return nsd::each_cols(nsd::DropRoundPass<bf16>{w.o, seed, out, p.t, 0, D, p.rate, p.inv}, M,
+                        D, st);
 }
 
 // The backward's sm90 body (bf16): conv_bwd's stages, every product on
@@ -640,6 +643,39 @@ cudaError_t conv_bwd_sm90(const bf16* x, const float* lns, const float* lnb, con
   return nsd::ln_bwd(dxn, x, w.st1, lns, dx, M, D, st);
 }
 
+// The front of both f32 bodies (float32), up to cq, s and the second
+// norm's statistics: xn = LN(x) by a row pass, hq = xn . W1 + b1 on
+// gemm_f32.cuh (nn, b1 in the tile's store), the GLU and depthwise conv on
+// glu_dwconv_kernel, then s = SiLU(LN2(cq)) by a row pass.
+cudaError_t conv_front_f32(const float* x, const float* lns, const float* lnb, const float* w1,
+                           const float* b1, const float* taps, const float* dwb,
+                           const float* ln2s, const float* ln2b, const Work<float>& w,
+                           const Shape& p, cudaStream_t st) {
+  const int M = p.m(), D = p.d;
+  NSD_TRY((nsd::ln_apply<float, false>(x, w.st1, lns, lnb, w.xn, M, D, st)));
+  NSD_TRY((f32::gemm<false, true>(w.xn, D, w1, 2 * D, b1, w.hq, M, 2 * D, D, st)));
+  NSD_TRY(glu_dwconv(w.hq, taps, dwb, w.cq, p, st));
+  return nsd::ln_apply<float, true>(w.cq, w.st2, ln2s, ln2b, w.s, M, D, st);
+}
+
+// The forward's f32 body (float32): the front, then o = s . W2 + b2 on
+// gemm_f32.cuh (nn) straight into out, which is OutEpi's value at rate 0;
+// otherwise the output dropout (salt b, the float32 inv) by a pass over out
+// in place.
+cudaError_t conv_fwd_f32(const float* x, const float* lns, const float* lnb, const float* w1,
+                         const float* b1, const float* taps, const float* dwb,
+                         const float* ln2s, const float* ln2b, const float* w2,
+                         const float* b2, const int32_t* seed, float* out, char* ws,
+                         const Shape& p, cudaStream_t st) {
+  Work<float> w(p, false, ws, 1, 1);
+  const int M = p.m(), D = p.d;
+  NSD_TRY(conv_front_f32(x, lns, lnb, w1, b1, taps, dwb, ln2s, ln2b, w, p, st));
+  NSD_TRY((f32::gemm<false, true>(w.s, D, w2, D, b2, out, M, D, D, st)));
+  if (p.rate <= 0.f) return cudaSuccess;
+  return nsd::each_cols(nsd::DropRoundPass<float>{out, seed, out, p.t, 0, D, p.rate, p.inv}, M,
+                        D, st);
+}
+
 // The backward's f32 body (float32): conv_bwd's stages, every product on
 // gemm_f32.cuh reading float32 arrays where they lie (see the header); s2
 // and s1 are the K ranges of dW2 and dW1.
@@ -652,12 +688,8 @@ cudaError_t conv_bwd_f32(const float* x, const float* lns, const float* lnb, con
                          const Shape& p, int s2, int s1, cudaStream_t st) {
   Work<float> w(p, true, ws, s2, s1);
   const int M = p.m(), D = p.d;
-  // the forward again: xn, hq = xn . W1 + b1 (nn), cq, then s and the second
-  // norm's statistics by a row pass
-  NSD_TRY((nsd::ln_apply<float, false>(x, w.st1, lns, lnb, w.xn, M, D, st)));
-  NSD_TRY((f32::gemm<false, true>(w.xn, D, w1, 2 * D, b1, w.hq, M, 2 * D, D, st)));
-  NSD_TRY(glu_dwconv(w.hq, taps, dwb, w.cq, p, st));
-  NSD_TRY((nsd::ln_apply<float, true>(w.cq, w.st2, ln2s, ln2b, w.s, M, D, st)));
+  // the forward again, keeping xn, hq, cq and s
+  NSD_TRY(conv_front_f32(x, lns, lnb, w1, b1, taps, dwb, ln2s, ln2b, w, p, st));
   const LnLoad<float> ln2{w.cq, w.st2, ln2s, ln2b, D};
   // through the output dropout; db2; dW2 = s^T . gm (tn)
   NSD_TRY(nsd::mask_grad(g, seed, w.gm, static_cast<float*>(nullptr), p.b, p.t, D, 0, p.rate,
@@ -819,6 +851,34 @@ int nsd_conv_bwd_sm90(const void* x, const void* lns, const void* lnb, const voi
       static_cast<float*>(dln2s), static_cast<float*>(dln2b), static_cast<bf16*>(dw2),
       static_cast<float*>(db2), static_cast<char*>(ws),
       make_shape(b, t, d, kw, pad_l, rate, inv), s2, s1, static_cast<cudaStream_t>(stream)));
+}
+
+// Bytes of workspace the f32 forward takes.
+long long nsd_conv_fwd_f32_workspace(int b, int t, int d, int kw) {
+  const Shape p = make_shape(b, t, d, kw, 0, 0.f, 1.f);
+  return static_cast<long long>(Work<float>(p, false, nullptr, 1, 1).bytes);
+}
+
+// The float32 forward on gemm_f32.cuh: nsd_conv_fwd_tile_f32's arguments. D
+// a multiple of 4, W1, W2 and out 16-byte aligned: cudaErrorInvalidValue
+// otherwise.
+int nsd_conv_fwd_f32(const void* x, const void* lns, const void* lnb, const void* w1,
+                     const void* b1, const void* taps, const void* dwb, const void* ln2s,
+                     const void* ln2b, const void* w2, const void* b2, const void* seed,
+                     void* out, void* ws, int b, int t, int d, int kw, int pad_l, float rate,
+                     float inv, void* stream) {
+  if (bad_shape(b, t, d, kw, pad_l) || d % 4 || !aligned16(w1) || !aligned16(w2) ||
+      !aligned16(out))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(conv_fwd_f32(
+      static_cast<const float*>(x), static_cast<const float*>(lns),
+      static_cast<const float*>(lnb), static_cast<const float*>(w1),
+      static_cast<const float*>(b1), static_cast<const float*>(taps),
+      static_cast<const float*>(dwb), static_cast<const float*>(ln2s),
+      static_cast<const float*>(ln2b), static_cast<const float*>(w2),
+      static_cast<const float*>(b2), static_cast<const int32_t*>(seed), static_cast<float*>(out),
+      static_cast<char*>(ws), make_shape(b, t, d, kw, pad_l, rate, inv),
+      static_cast<cudaStream_t>(stream)));
 }
 
 // Bytes of workspace the f32 backward takes with s2 and s1 K ranges.

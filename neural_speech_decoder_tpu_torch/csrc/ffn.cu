@@ -42,10 +42,9 @@
 // vector gradients are column sums in a fixed order: no atomics, so a run
 // repeats bit for bit (csrc/gemm_tile.cuh, csrc/rowops.cuh).
 //
-// Two bodies in each direction, and a third backward. The tile body (the
-// float32 forward, and any shape the others cannot read) runs the products
-// on gemm_tile.cuh, whose loaders apply the norm and round gm and ds to cdt
-// as the tiles load. The sm90 body (bf16, D
+// Three bodies in each direction. The tile body (any shape the others cannot
+// read) runs the products on gemm_tile.cuh, whose loaders apply the norm and
+// round gm and ds to cdt as the tiles load. The sm90 body (bf16, D
 // and F multiples of 8) runs every product on gemm_sm90.cuh's TMA ring into
 // wgmma, which reads bf16 arrays where they lie and applies nothing as it
 // loads: so each operand is written once as the bf16 array the loader would
@@ -59,14 +58,17 @@
 // products take the K-range counts of the caller's plan
 // (ops/kernels/ffn.py::bwd_plan), their partial sums added in order.
 //
-// The f32 backward (float32, D and F multiples of 4) is the sm90 body's
-// stages with every product on gemm_f32.cuh's pipelined FP32 FMA tile (two
+// The f32 body (float32, D and F multiples of 4) is the sm90 body's stages
+// with every product on gemm_f32.cuh's pipelined FP32 FMA tile (two
 // cp.async stages, 8 x 8 outputs a thread; no TF32, which would change the
 // numbers), which reads float32 arrays where they lie: xn = LN(x) written
 // once by a row pass (LnLoad's values, 82 MB at the recipe), s with b1 in
-// the tile's store, h by a pass; cdt being float32, gm and ds are the
-// products' operands as they are (no copies); the element math (SiLU,
-// dropout site 0, SiLU') in the sm90 body's passes, 4 columns a thread.
+// the tile's store, h by a pass (ffn_front_f32, shared by both
+// directions); the forward's second product stores out with b2 (cdt being
+// float32, nothing rounds) and dropout site 1 runs as a pass in place; gm
+// and ds are the backward products' operands as they are (no copies); the
+// element math (SiLU, dropout, SiLU') in the sm90 body's passes, 4 columns
+// a thread.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -209,12 +211,12 @@ struct DsPass {
 
 // The pieces of the workspace (pointers from base, or sizes from nullptr).
 // splits: the sm90 or f32 backward's larger dW range count, 1 for the sm90
-// forward, or 0 for the tile body.
+// or f32 forward, or 0 for the tile body.
 template <typename T>
 struct Work {
   float2* stats;
   T* h;       // the dropped h that W2 multiplies
-  T* s;       // sm90 and backward: the rounded pre-activation
+  T* s;       // the operand bodies and the backward: the rounded pre-activation
   float* gm;  // backward: g through site 1; later dxn
   float* ds;
   float* split;
@@ -233,8 +235,12 @@ struct Work {
     xn = gq = dsq = nullptr;
     if (!bwd && splits > 0) {
       xn = c.take<T>(m * p.d);
-      s = c.take<T>(m * p.f);
-      o = c.take<float>(m * p.d);
+      if (sizeof(T) == 2) {
+        s = c.take<T>(m * p.f);
+        o = c.take<float>(m * p.d);
+      } else {  // the f32 forward: h overwrites s, and o is out itself
+        s = h;
+      }
     }
     if (bwd) {
       s = c.take<T>(m * p.f);
@@ -338,7 +344,7 @@ cudaError_t ffn_fwd_sm90(const bf16* x, const float* scale, const float* bias, c
   if (p.rate <= 0.f)
     return sm90::gemm<false, true>(w.h, w2, b2, sm90::StoreBf16{out, p.d}, M, p.d, p.f, 1, st);
   NSD_TRY((sm90::gemm<false, true>(w.h, w2, b2, nsd::StoreF32{w.o, p.d}, M, p.d, p.f, 1, st)));
-  return nsd::each_cols(nsd::DropRoundPass{w.o, seed, out, p.t, p.b, p.d, p.rate, p.inv}, M,
+  return nsd::each_cols(nsd::DropRoundPass<bf16>{w.o, seed, out, p.t, p.b, p.d, p.rate, p.inv}, M,
                         p.d, st);
 }
 
@@ -375,6 +381,37 @@ cudaError_t ffn_bwd_sm90(const bf16* x, const float* scale, const float* bias, c
   return nsd::ln_bwd(dxn, x, w.stats, scale, dx, M, p.d, st);
 }
 
+// The front of both f32 bodies (float32): xn = LN(x) by a row pass, s = xn
+// . W1 + b1 on gemm_f32.cuh (nn, b1 in the tile's store), and h = SiLU(s)
+// through dropout site 0 by a pass (Lin1Epi's values). The forward's h
+// overwrites s (w.h == w.s: nothing reads s after); the backward keeps s
+// for DsPass.
+cudaError_t ffn_front_f32(const float* x, const float* scale, const float* bias,
+                          const float* w1, const float* b1, const int32_t* seed,
+                          const Work<float>& w, const Shape& p, cudaStream_t st) {
+  const int M = p.m(), D = p.d, F = p.f;
+  NSD_TRY((nsd::ln_apply<float, false>(x, w.stats, scale, bias, w.xn, M, D, st)));
+  NSD_TRY((f32::gemm<false, true>(w.xn, D, w1, F, b1, w.s, M, F, D, st)));
+  const Lin1Epi<float> lin1{b1, seed, w.h, w.s, p.t, F, p.rate, p.inv_h};
+  return nsd::each_cols(SiluDropPass<float>{lin1}, M, F, st);
+}
+
+// The forward's f32 body (float32): the front, then o = h . W2 + b2 on
+// gemm_f32.cuh (nn) straight into out, which is Lin2Epi's value at rate 0
+// (float32 is cdt: nothing rounds); otherwise dropout site 1 (salt b + B,
+// the float32 inv) by a pass over out in place.
+cudaError_t ffn_fwd_f32(const float* x, const float* scale, const float* bias, const float* w1,
+                        const float* b1, const float* w2, const float* b2, const int32_t* seed,
+                        float* out, char* ws, const Shape& p, cudaStream_t st) {
+  Work<float> w(p, false, ws, 1);
+  const int M = p.m(), D = p.d, F = p.f;
+  NSD_TRY(ffn_front_f32(x, scale, bias, w1, b1, seed, w, p, st));
+  NSD_TRY((f32::gemm<false, true>(w.h, F, w2, D, b2, out, M, D, F, st)));
+  if (p.rate <= 0.f) return cudaSuccess;
+  return nsd::each_cols(nsd::DropRoundPass<float>{out, seed, out, p.t, p.b, D, p.rate, p.inv},
+                        M, D, st);
+}
+
 // The backward's f32 body (float32): ffn_bwd's stages, every product on
 // gemm_f32.cuh reading float32 arrays where they lie (see the header); s2
 // and s1 are the K ranges of dW2 and dW1.
@@ -385,11 +422,8 @@ cudaError_t ffn_bwd_f32(const float* x, const float* scale, const float* bias, c
                         cudaStream_t st) {
   Work<float> w(p, true, ws, s2 > s1 ? s2 : s1);
   const int M = p.m(), D = p.d, F = p.f;
-  // the forward again: xn by a row pass, s = xn . W1 + b1 (nn), h by a pass
-  NSD_TRY((nsd::ln_apply<float, false>(x, w.stats, scale, bias, w.xn, M, D, st)));
-  NSD_TRY((f32::gemm<false, true>(w.xn, D, w1, F, b1, w.s, M, F, D, st)));
-  const Lin1Epi<float> lin1{b1, seed, w.h, w.s, p.t, F, p.rate, p.inv_h};
-  NSD_TRY(nsd::each_cols(SiluDropPass<float>{lin1}, M, F, st));
+  // the forward again, keeping xn, s and the dropped h
+  NSD_TRY(ffn_front_f32(x, scale, bias, w1, b1, seed, w, p, st));
   // through the output dropout; db2; dW2 = h^T . gm (tn)
   NSD_TRY(nsd::mask_grad(g, seed, w.gm, static_cast<float*>(nullptr), p.b, p.t, D, p.b, p.rate,
                          p.inv, st));
@@ -539,6 +573,31 @@ int nsd_ffn_bwd_sm90(const void* x, const void* scale, const void* bias, const v
       static_cast<float*>(dscale), static_cast<float*>(dbias), static_cast<bf16*>(dw1),
       static_cast<float*>(db1), static_cast<bf16*>(dw2), static_cast<float*>(db2),
       static_cast<char*>(ws), make_shape(b, t, d, f, rate, inv, inv_h), s2, s1,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// Bytes of workspace the f32 forward takes.
+long long nsd_ffn_fwd_f32_workspace(int b, int t, int d, int f) {
+  const Shape p = make_shape(b, t, d, f, 0.f, 1.f, 1.f);
+  return static_cast<long long>(Work<float>(p, false, nullptr, 1).bytes);
+}
+
+// The float32 forward on gemm_f32.cuh: nsd_ffn_fwd_tile_f32's arguments. D
+// and F multiples of 4, W1, W2 and out 16-byte aligned:
+// cudaErrorInvalidValue otherwise.
+int nsd_ffn_fwd_f32(const void* x, const void* scale, const void* bias, const void* w1,
+                    const void* b1, const void* w2, const void* b2, const void* seed, void* out,
+                    void* ws, int b, int t, int d, int f, float rate, float inv, float inv_h,
+                    void* stream) {
+  if (bad_shape(b, t, d, f) || d % 4 || f % 4 || !aligned16(w1) || !aligned16(w2) ||
+      !aligned16(out))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(ffn_fwd_f32(
+      static_cast<const float*>(x), static_cast<const float*>(scale),
+      static_cast<const float*>(bias), static_cast<const float*>(w1),
+      static_cast<const float*>(b1), static_cast<const float*>(w2),
+      static_cast<const float*>(b2), static_cast<const int32_t*>(seed), static_cast<float*>(out),
+      static_cast<char*>(ws), make_shape(b, t, d, f, rate, inv, inv_h),
       static_cast<cudaStream_t>(stream)));
 }
 

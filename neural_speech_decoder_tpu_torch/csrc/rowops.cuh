@@ -262,15 +262,17 @@ cudaError_t mask_grad(const T* g, const int32_t* seed, float* gm, T* gq, int bat
   return cudaGetLastError();
 }
 
-// out = bf16(o) through a dropout site, o [batch * n_time, ld] a product's
+// out = T(o) through a dropout site, o [batch * n_time, ld] a product's
 // float32 sums with its bias: kept where uniform2d(seed, b + salt_offset, t,
-// col) >= rate and scaled by the float32 inv, then rounded once; 8 columns
-// a call (each_cols), o and out 16-byte aligned.
+// col) >= rate and scaled by the float32 inv, then rounded once to T; 16
+// bytes of T a call (each_cols: 8 bf16 or 4 float32 columns), o and out
+// 16-byte aligned. A float32 out may be o itself (the pass runs in place).
+template <typename T>
 struct DropRoundPass {
-  static constexpr int kCols = 8;
+  static constexpr int kCols = 16 / sizeof(T);
   const float* o;
   const int32_t* seed;
-  __nv_bfloat16* out;
+  T* out;
   int n_time, salt_offset, ld;
   float rate, inv;
   __device__ __forceinline__ void operator()(int m, int n) const {

@@ -15,12 +15,14 @@ The model reaches the forward through the operator
 ``torch.ops.nsd_torch.conv_module`` (``library.py``). ``ConvModule`` is the
 ``torch.autograd.Function``; it saves the inputs and
 the seed, and the backward recomputes the forward. The bodies are the FF
-module's (``ffn.py::bwd_plan``): ``"sm90"`` (bfloat16 with D
-a multiple of 8: the products on ``csrc/gemm_sm90.cuh``, the GLU and
-depthwise conv on the wide window kernel), ``"f32"`` (the float32
-backward with D a multiple of 4: the products on ``csrc/gemm_f32.cuh``)
-and ``"tile"``; ``conv_module.launches_by_body`` and
-``conv_module_bwd.launches_by_body`` count them and ``body=`` forces one.
+module's (``ffn.py::body_plan``), in both directions: ``"sm90"`` (bfloat16
+with D a multiple of 8: the products on ``csrc/gemm_sm90.cuh``, the GLU
+and depthwise conv on the wide window kernel), ``"f32"`` (float32 with D a
+multiple of 4: the products on ``csrc/gemm_f32.cuh``) and ``"tile"``;
+``conv_module.launches_by_body`` and ``conv_module_bwd.launches_by_body``
+count them and ``body=`` forces one. The forward asks ``ffn.fwd_plan`` and
+the backward ``ffn.bwd_plan`` at call time, the names an A/B harness
+replaces to force one direction's body in both modules.
 
 Semantics, the TPU kernel's (``models/conformer.py::_conv_module`` without
 the residual): layer norm (float32 statistics) cast to x's dtype (cdt) ->
@@ -41,13 +43,13 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from . import ffn
 from ._build import check, load_library
 from .ffn import (
     _DTYPES,
     check_args,
     check_rate,
     cuda_bwd_plan,
-    fwd_plan,
     inv_keep,
     keep_mask,
     mm_f32,
@@ -213,8 +215,8 @@ def conv_module(x, ln_s, ln_b, w1, b1, dw_w, dw_b, ln2_s, ln2_b, w2, b2, seed, *
     bfloat16): norms' scales and biases, ``b1 [2D]``, ``b2 [D]``, ``dw_w [k,
     D]`` and ``dw_b [D]`` float32; ``w1 [D, 2D]``, ``w2 [D, D]`` in x's
     dtype; dropout ``rate`` from ``seed [1]`` int32 -> ``[B, T, D]`` in x's
-    dtype. ``body`` (``"sm90"`` or ``"tile"``) overrides the plan's choice
-    on the card."""
+    dtype. ``body`` (``"sm90"``, ``"f32"`` or ``"tile"``) overrides
+    ``ffn.fwd_plan``'s choice on the card."""
     check_rate(rate)
     if not on_cuda("conv_module", x):
         return conv_module_plain(x, ln_s, ln_b, w1, b1, dw_w, dw_b, ln2_s, ln2_b, w2, b2,
@@ -225,18 +227,18 @@ def conv_module(x, ln_s, ln_b, w1, b1, dw_w, dw_b, ln2_s, ln2_b, w2, b2, seed, *
     x, w1, w2, dw_w = x.contiguous(), w1.contiguous(), w2.contiguous(), dw_w.contiguous()
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
-        plan = fwd_plan("conv_module", x, w1, w2, body)
+        plan = ffn.fwd_plan("conv_module", x, w1, w2, body)
         lib = load_library()
         ptrs = (x.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(), w1.data_ptr(), b1.data_ptr(),
                 dw_w.data_ptr(), dw_b.data_ptr(), ln2_s.data_ptr(), ln2_b.data_ptr(),
                 w2.data_ptr(), b2.data_ptr(), seed.data_ptr(), out.data_ptr())
         b, t, d = x.shape
         stream = torch.cuda.current_stream().cuda_stream
-        if plan.body == "sm90":
-            ws = torch.empty(lib.nsd_conv_fwd_sm90_workspace(b, t, d, kw), dtype=torch.uint8,
-                             device=x.device)
-            rc = lib.nsd_conv_fwd_sm90(*ptrs, ws.data_ptr(), *_launch_args(x, kw, rate, causal),
-                                       stream)
+        if plan.body != "tile":
+            ws = torch.empty(getattr(lib, f"nsd_conv_fwd_{plan.body}_workspace")(b, t, d, kw),
+                             dtype=torch.uint8, device=x.device)
+            rc = getattr(lib, f"nsd_conv_fwd_{plan.body}")(
+                *ptrs, ws.data_ptr(), *_launch_args(x, kw, rate, causal), stream)
         else:
             ws = _workspace(x, kw, False)
             rc = getattr(lib, f"nsd_conv_fwd_tile_{_DTYPES[x.dtype]}")(
@@ -295,7 +297,7 @@ def conv_module_bwd(x, ln_s, ln_b, w1, b1, dw_w, dw_b, ln2_s, ln2_b, w2, seed, g
 
 
 conv_module.launches = 0
-conv_module.launches_by_body = {"sm90": 0, "tile": 0}
+conv_module.launches_by_body = {"sm90": 0, "f32": 0, "tile": 0}
 conv_module_bwd.launches = 0
 conv_module_bwd.launches_by_body = {"sm90": 0, "f32": 0, "tile": 0}
 

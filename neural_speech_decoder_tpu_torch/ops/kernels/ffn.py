@@ -20,22 +20,25 @@ column sums). The model reaches the forward through the operator
 ``(x, scale, bias, w1, b1, w2, seed)``, as the TPU kernel's residuals, and
 the backward recomputes the forward.
 
-The bodies are picked by ``bwd_plan`` from the dtype, the widths and the
-pointers' alignment before any launch: ``"sm90"`` (bfloat16, widths
-multiples of 8: every product on ``csrc/gemm_sm90.cuh``'s TMA + wgmma
-pipeline, from bf16 operands written once), ``"f32"`` (the float32
-backward, widths multiples of 4: every product on ``csrc/gemm_f32.cuh``'s
-pipelined FP32 FMA tile, from float32 arrays where they lie; the float32
-forward stays on the tile) and ``"tile"`` (what neither reads:
-``csrc/gemm_tile.cuh``); the backwards' dW products are cut into the K
-ranges the plan gives. ``ffn.launches_by_body`` and
+The bodies are picked by ``body_plan`` from the dtype, the widths and the
+pointers' alignment before any launch, the same rule in both directions:
+``"sm90"`` (bfloat16, widths multiples of 8: every product on
+``csrc/gemm_sm90.cuh``'s TMA + wgmma pipeline, from bf16 operands written
+once), ``"f32"`` (float32, widths multiples of 4: every product on
+``csrc/gemm_f32.cuh``'s pipelined FP32 FMA tile, from float32 arrays where
+they lie) and ``"tile"`` (what neither reads: ``csrc/gemm_tile.cuh``); the
+backwards' dW products are cut into the K ranges the plan gives. The
+forward and the backward of one body share their front (the norm, the
+first product, the element pass). ``ffn.launches_by_body`` and
 ``ffn_bwd.launches_by_body`` count launches by body; ``body="tile"``
 forces the tile body (an A/B), and a body the dtype or shape cannot take
-raises. ``bwd_plan`` is the name an A/B harness replaces to force a body
-on every call that names none. The conv module (``conv_module.py``) shares
-the plan. The C entries are named by body: ``nsd_ffn_bwd_<body>`` and its
-``_workspace`` for ``"sm90"`` and ``"f32"``, and
-``nsd_ffn_{fwd,bwd}_tile_<dtype>`` for the tile body.
+raises. Every call that names no body asks one of two names at call time,
+which an A/B harness replaces to force a body in one direction alone:
+``fwd_plan`` (both modules' forwards) and ``bwd_plan`` (both modules'
+backwards, through ``cuda_bwd_plan``). The conv module
+(``conv_module.py``) shares the plans. The C entries are named by body:
+``nsd_ffn_{fwd,bwd}_<body>`` and its ``_workspace`` for ``"sm90"`` and
+``"f32"``, and ``nsd_ffn_{fwd,bwd}_tile_<dtype>`` for the tile body.
 
 Semantics, the TPU kernel's (``models/conformer.py::_ff_module`` without the
 0.5 half-step scale, DropPath and residual): layer norm with float32
@@ -77,10 +80,10 @@ F32_MIN_SPLIT_LEN = 16 * F32_SLAB
 
 
 class BwdPlan(NamedTuple):
-    """How a fused backward runs: ``body`` ``"sm90"``, ``"f32"`` or
-    ``"tile"``, and on sm90 and f32 ``splits``, the K ranges of its two dW
-    products (dW2, dW1), each summed over all B*T rows (the tile body picks
-    its own)."""
+    """How a fused call runs: ``body`` ``"sm90"``, ``"f32"`` or ``"tile"``,
+    and for a backward on sm90 and f32 ``splits``, the K ranges of its two
+    dW products (dW2, dW1), each summed over all B*T rows (the tile body
+    picks its own; a forward has none)."""
     body: str
     splits: tuple[int, ...] = ()
 
@@ -131,16 +134,16 @@ def f32_dw_splits(rows: int, cols: int, k: int, n_sms: int) -> int:
     return _splits(tiles, k, n_sms, F32_BLOCKS_PER_SM, F32_SLAB, F32_MIN_SPLIT_LEN)
 
 
-def bwd_plan(dtype: torch.dtype, rows: int, dw_shapes, n_sms: int, *,
-             aligned: bool = True) -> BwdPlan:
-    """The body of a fused backward over ``rows`` = B*T rows whose dW
-    products have the output shapes ``dw_shapes`` (dW2's, dW1's), where the
-    pointers are 16-byte aligned (``aligned``): ``"sm90"`` for bfloat16
-    whose widths are multiples of 8 (TMA's 16-byte row strides), with the
-    split counts of ``dw_splits``; ``"f32"`` for float32 whose widths are
-    multiples of 4 (``gemm_f32.cuh``'s 16-byte copies), with those of
-    ``f32_dw_splits`` (FP32 FMAs: wgmma's float32 is TF32, which would
-    change the numbers); else ``"tile"``."""
+def body_plan(dtype: torch.dtype, rows: int, dw_shapes, n_sms: int, *,
+              aligned: bool = True) -> BwdPlan:
+    """The body of a fused call over ``rows`` = B*T rows whose dW products
+    (a backward: dW2's, dW1's) or weights (a forward) have the shapes
+    ``dw_shapes``, where the pointers are 16-byte aligned
+    (``aligned``): ``"sm90"`` for bfloat16 whose widths are multiples of 8
+    (TMA's 16-byte row strides), with the split counts of ``dw_splits``;
+    ``"f32"`` for float32 whose widths are multiples of 4 (``gemm_f32.cuh``'s
+    16-byte copies), with those of ``f32_dw_splits`` (FP32 FMAs: wgmma's
+    float32 is TF32, which would change the numbers); else ``"tile"``."""
     widths = [n for shape in dw_shapes for n in shape]
     if aligned and dtype == torch.bfloat16 and all(n % 8 == 0 for n in widths):
         return BwdPlan("sm90", tuple(dw_splits(r, c, rows, n_sms) for r, c in dw_shapes))
@@ -149,23 +152,33 @@ def bwd_plan(dtype: torch.dtype, rows: int, dw_shapes, n_sms: int, *,
     return BwdPlan("tile")
 
 
-def cuda_bwd_plan(what: str, x: torch.Tensor, tensors, dw_shapes, body) -> BwdPlan:
-    """``bwd_plan`` for CUDA tensors on x's card (``tensors``: those whose
-    pointers TMA, the cp.async copies or the row passes read), or the tile
-    body where ``body`` asks for it; raise where ``body`` names one the
-    dtype or shape cannot take. A forward passes its weights' shapes
-    (``fwd_plan``)."""
-    plan = bwd_plan(x.dtype, x.shape[0] * x.shape[1], dw_shapes,
-                    torch.cuda.get_device_properties(x.device).multi_processor_count,
-                    aligned=all(t.data_ptr() % 16 == 0 for t in tensors))
+# The backwards' plan, the name both modules' backwards ask at call time
+# (``cuda_bwd_plan``): an A/B harness replaces it to force the backwards'
+# body, the forwards keeping theirs (``fwd_plan``).
+bwd_plan = body_plan
+
+
+def _card_plan(what: str, x: torch.Tensor, tensors, shapes, body, rule) -> BwdPlan:
+    """``rule`` (``body_plan`` or a replacement) for CUDA tensors on x's
+    card (``tensors``: those whose pointers TMA, the cp.async copies or the
+    row passes read), or the tile body where ``body`` asks for it; raise
+    where ``body`` names one the dtype or shape cannot take."""
+    plan = rule(x.dtype, x.shape[0] * x.shape[1], shapes,
+                torch.cuda.get_device_properties(x.device).multi_processor_count,
+                aligned=all(t.data_ptr() % 16 == 0 for t in tensors))
     if body is None or body == plan.body:
         return plan
     if body == "tile":
         return BwdPlan("tile")
     raise ValueError(f"{what}: body {body!r} does not take {x.dtype} {tuple(x.shape)} with "
-                     f"dW shapes {dw_shapes} ('sm90': bfloat16, widths multiples of 8; "
-                     f"'f32': a float32 backward, widths multiples of 4; both 16-byte "
-                     f"aligned pointers)")
+                     f"shapes {shapes} ('sm90': bfloat16, widths multiples of 8; 'f32': "
+                     f"float32, widths multiples of 4; both 16-byte aligned pointers)")
+
+
+def cuda_bwd_plan(what: str, x: torch.Tensor, tensors, dw_shapes, body) -> BwdPlan:
+    """A fused backward's plan on x's card: ``bwd_plan``, asked at call
+    time, with the dW products' shapes (``_card_plan``)."""
+    return _card_plan(what, x, tensors, dw_shapes, body, bwd_plan)
 
 
 def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -327,15 +340,15 @@ def _workspace(b, t, d, f, x, bwd: bool) -> torch.Tensor:
 
 
 def fwd_plan(what: str, x, w1, w2, body=None) -> BwdPlan:
-    """A fused forward's body on x's card: ``cuda_bwd_plan`` with the
-    weights' shapes (both modules' forwards read x, W1 and W2 by TMA or row
-    passes), the float32 forwards on the tile body (``"f32"`` is a
-    backward's)."""
-    if body == "f32":
-        raise ValueError(f"{what}: body 'f32' is the float32 backwards'; a forward takes "
-                         f"'sm90' or 'tile'")
-    plan = cuda_bwd_plan(what, x, (x, w1, w2), (tuple(w1.shape), tuple(w2.shape)), body)
-    return BwdPlan("tile") if plan.body == "f32" else plan
+    """A fused forward's body on x's card: ``body_plan`` with the weights'
+    shapes (both modules' forwards read x, W1 and W2 by TMA, the cp.async
+    copies or row passes) through ``_card_plan``, with no K ranges. Both
+    modules' forwards ask this name at call time: an A/B harness replaces
+    it to force the forwards' body, the backwards keeping theirs
+    (``bwd_plan``)."""
+    plan = _card_plan(what, x, (x, w1, w2), (tuple(w1.shape), tuple(w2.shape)), body,
+                      body_plan)
+    return BwdPlan(plan.body)
 
 
 def ffn(x, scale, bias, w1, b1, w2, b2, seed, *, rate: float = 0.0,
@@ -343,8 +356,8 @@ def ffn(x, scale, bias, w1, b1, w2, b2, seed, *, rate: float = 0.0,
     """The FF module over ``x [B, T, D]`` (float32 or bfloat16): ``scale,
     bias [D]``, ``b1 [F]``, ``b2 [D]`` float32, ``w1 [D, F]``, ``w2 [F, D]``
     in x's dtype, dropout ``rate`` drawn from ``seed [1]`` int32 -> ``[B, T,
-    D]`` in x's dtype. ``body`` (``"sm90"`` or ``"tile"``) overrides the
-    plan's choice on the card."""
+    D]`` in x's dtype. ``body`` (``"sm90"``, ``"f32"`` or ``"tile"``)
+    overrides ``fwd_plan``'s choice on the card."""
     check_rate(rate)
     if not on_cuda("ffn", x):
         return ffn_plain(x, scale, bias, w1, b1, w2, b2, seed, rate=rate)
@@ -361,10 +374,11 @@ def ffn(x, scale, bias, w1, b1, w2, b2, seed, *, rate: float = 0.0,
                 b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), seed.data_ptr(),
                 out.data_ptr())
         stream = torch.cuda.current_stream().cuda_stream
-        if plan.body == "sm90":
-            ws = torch.empty(lib.nsd_ffn_fwd_sm90_workspace(b, t, d, f), dtype=torch.uint8,
-                             device=x.device)
-            rc = lib.nsd_ffn_fwd_sm90(*ptrs, ws.data_ptr(), b, t, d, f, r, inv, inv_h, stream)
+        if plan.body != "tile":
+            ws = torch.empty(getattr(lib, f"nsd_ffn_fwd_{plan.body}_workspace")(b, t, d, f),
+                             dtype=torch.uint8, device=x.device)
+            rc = getattr(lib, f"nsd_ffn_fwd_{plan.body}")(
+                *ptrs, ws.data_ptr(), b, t, d, f, r, inv, inv_h, stream)
         else:
             ws = _workspace(b, t, d, f, x, False)
             rc = getattr(lib, f"nsd_ffn_fwd_tile_{_DTYPES[x.dtype]}")(
@@ -437,7 +451,7 @@ def ffn_dropout_masks(b: int, t: int, d: int, f: int, seed: torch.Tensor, rate: 
 
 
 ffn.launches = 0
-ffn.launches_by_body = {"sm90": 0, "tile": 0}
+ffn.launches_by_body = {"sm90": 0, "f32": 0, "tile": 0}
 ffn_bwd.launches = 0
 ffn_bwd.launches_by_body = {"sm90": 0, "f32": 0, "tile": 0}
 ffn_dropout_masks.launches = 0

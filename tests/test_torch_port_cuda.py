@@ -1070,22 +1070,57 @@ def test_fused_fwd_sm90_body_matches_plain(cuda, module, b, t, d, f_or_kw, extra
     ref = _fwd_plain(module, x, params, seed, rate=rate, **extra)
     torch.cuda.synchronize()
     assert {k: v - before[k] for k, v in wrapper.launches_by_body.items()} == {"sm90": 2,
+                                                                              "f32": 0,
                                                                               "tile": 0}
     assert out.dtype == ref.dtype and torch.equal(out, again)
     assert _rel(out, ref) <= FUSED_TOL[torch.bfloat16], _rel(out, ref)
 
 
+@pytest.mark.parametrize("module, b, t, d, f_or_kw, extra", [
+    # B*T' = 129, F = 260 (not a multiple of 8), D = 132 (of 4, not of 8)
+    ("ffn", 3, 43, 132, 260, {}),
+    ("conv", 3, 43, 132, 7, {}),
+    ("conv", 3, 43, 132, 31, {"causal": True}),
+    # the recipe's shapes
+    ("ffn", 64, 313, 1024, 2048, {}),
+    ("conv", 64, 313, 1024, 31, {}),
+    ("conv", 64, 313, 1024, 31, {"causal": True}),
+])
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+def test_fused_fwd_f32_body_matches_plain(cuda, module, b, t, d, f_or_kw, extra, rate):
+    """The float32 forwards on the f32 body (gemm_f32.cuh's pipelined FP32
+    tile, the front shared with the f32 backwards) against the plain
+    version within FUSED_TOL relative to its largest entry; reruns
+    bit-equal."""
+    case = _ffn_case if module == "ffn" else _conv_case
+    x, params, _ = case(cuda, torch.float32, b, t, d, f_or_kw)
+    seed = torch.tensor([41], dtype=torch.int32, device=cuda)
+    wrapper = _FWD_WRAPPER[module]
+    before = dict(wrapper.launches_by_body)
+    out = _fwd_run(module, x, params, seed, rate=rate, **extra)
+    again = _fwd_run(module, x, params, seed, rate=rate, **extra)
+    ref = _fwd_plain(module, x, params, seed, rate=rate, **extra)
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in wrapper.launches_by_body.items()} == {"sm90": 0,
+                                                                              "f32": 2,
+                                                                              "tile": 0}
+    assert out.dtype == ref.dtype and torch.equal(out, again)
+    assert _rel(out, ref) <= FUSED_TOL[torch.float32], _rel(out, ref)
+
+
 @pytest.mark.parametrize("module", ["ffn", "conv"])
 def test_fused_fwd_bodies_by_dtype_and_shape(cuda, module):
-    """bf16 with widths that are multiples of 8 runs on sm90, float32 and a
-    bf16 D of 100 on the tile body; body="tile" forces the tile body within
-    the plain version's tolerance; body="sm90" where it cannot run raises."""
+    """bf16 with widths that are multiples of 8 runs on sm90, float32 with
+    widths that are multiples of 4 on f32, a float32 D of 98 and a bf16 D of
+    100 on the tile body; body="tile" forces the tile body within the plain
+    version's tolerance; body="sm90" or "f32" where it cannot run raises."""
     wrapper = _FWD_WRAPPER[module]
     seed = torch.tensor([5], dtype=torch.int32, device=cuda)
     case = _ffn_case if module == "ffn" else _conv_case
-    cases = [(torch.bfloat16, 96, {}, "sm90"), (torch.float32, 96, {}, "tile"),
-             (torch.bfloat16, 100, {}, "tile"),
-             (torch.bfloat16, 96, {"body": "tile"}, "tile")]
+    cases = [(torch.bfloat16, 96, {}, "sm90"), (torch.float32, 96, {}, "f32"),
+             (torch.float32, 98, {}, "tile"), (torch.bfloat16, 100, {}, "tile"),
+             (torch.bfloat16, 96, {"body": "tile"}, "tile"),
+             (torch.float32, 96, {"body": "tile"}, "tile")]
     for dtype, d, kw, body in cases:
         x, params, _ = case(cuda, dtype, 2, 37, d, 200 if module == "ffn" else 7)
         before = dict(wrapper.launches_by_body)
@@ -1098,6 +1133,9 @@ def test_fused_fwd_bodies_by_dtype_and_shape(cuda, module):
     x, params, _ = case(cuda, torch.float32, 2, 37, 96, 200 if module == "ffn" else 7)
     with pytest.raises(ValueError, match="sm90"):
         _fwd_run(module, x, params, seed, body="sm90")
+    x, params, _ = case(cuda, torch.bfloat16, 2, 37, 96, 200 if module == "ffn" else 7)
+    with pytest.raises(ValueError, match="f32"):
+        _fwd_run(module, x, params, seed, body="f32")
 
 
 def test_conv_sm90_window_stages_unaligned_taps(cuda):

@@ -8,7 +8,8 @@ the port, on the CPU.
   shape on the tile body (``csrc/gemm_tile.cuh``); the dW
   products' K ranges cover all B*T rows once and in order, and at the
   recipe's shapes their grids reach the H100's 132 SMs. The forwards ask
-  the same rule through ``fwd_plan`` with their weights' shapes.
+  the same rule through ``fwd_plan`` with their weights' shapes (float32
+  that gemm_f32.cuh reads on the f32 body, ``test_torch_port_fused_f32.py``).
 - The premise of the sm90 body: it writes each product's operand once as a
   bf16 array (xn = cdt(LN(x)), gq = cdt(gm), dsq = cdt(ds) in the FF; xn,
   s = cdt(SiLU(cdt(LN2(cq)))), gq and dhq = cdt(dh) in the conv module)
@@ -319,8 +320,8 @@ def test_forward_plan_bf16_with_widths_of_eight_takes_sm90(monkeypatch, module, 
 
 
 @pytest.mark.parametrize("module, dtype, d, f, unaligned", [
-    ("ffn", torch.float32, 16, 40, None),  # wgmma's float32 is TF32
-    ("conv", torch.float32, 16, None, None),
+    ("ffn", torch.float32, 18, 40, None),  # D % 4 = 2: neither f32 nor sm90 reads it
+    ("conv", torch.float32, 18, None, None),
     ("ffn", torch.bfloat16, 20, 40, None),  # D % 8 = 4
     ("ffn", torch.bfloat16, 16, 36, None),  # F % 8 = 4
     ("conv", torch.bfloat16, 20, None, None),
