@@ -14,8 +14,10 @@ random weights:
    and bfloat16, with the max abs error, the tolerance, and both times. The
    bfloat16 frontend runs on the tensor-core body (``tc``, reruns
    bit-equal), timed in turns with its plain version beside PR 1's FMA body
-   (``body="fma"``, also held against the plain version), whose float32
-   row and bound the kernels line keeps. The
+   (``body="fma"``, also held against the plain version); the float32 one
+   on the ``f32`` body (``gemm_f32.cuh``'s tile), reruns bit-equal and bit
+   for bit equal to the FMA body, timed in turns with it and the plain
+   version (the kernels line's ``frontend_f32`` row). The
    scan runs on the persistent body in both dtypes (reruns bit-equal),
    timed in turns with its plain version, beside the step body at the
    same shapes (held against the plain version too) and cuDNN's
@@ -27,8 +29,10 @@ random weights:
    logits against the same model run through the plain versions; prints
    the median request latency and sequences per second; then the float32
    request A/B'd in turns against the same code forced onto the step body
-   (``scan_body("step")``), 3 requests a turn, with each arm's median. Then
-   one request in the recipe's bfloat16 compute, with the same checks.
+   (``scan_body("step")``), 3 requests a turn, with each arm's median, and
+   against the first frontend body (``frontend_body("fma")``) in
+   ``FRONT_AB_TURNS`` turns of one request an arm (responses bit-equal).
+   Then one request in the recipe's bfloat16 compute, with the same checks.
 4. Training kernels: the gates-storing scan, the scan's backward and the
    CTC alpha and beta recursions against their plain versions at the train
    step's shapes (L=313, B=64, H=1024, U=64), in float32 and bfloat16, with
@@ -49,7 +53,8 @@ random weights:
    and dropout whose every gradient leaf is checked against the plain path,
    and one bf16 step and one eval batch each with ``use_pallas: false`` and
    ``ctc_use_kernel: false`` held against the default path (the switched
-   kernels launch no time).
+   kernels launch no time); then the float32 eval batch A/B'd against the
+   first frontend body as the request is (outputs bit-equal).
 6. ``train_model`` at full width on the port's synthetic dataset (20 steps,
    evals and checkpoints every 10), then ``load_model``, an eval pass
    (checked to launch the frontend, the inference scan and alpha, and not
@@ -287,7 +292,7 @@ GRU's opt-in kernels launch no time there. Every GRU phase checks the scan
 launches by body: all bfloat16 scans at full width on the persistent body,
 all float32 ones on the body ``scan_plan`` picks (the persistent one on an
 H100), those of an A/B's step turns on the step body; every phase that counts launches checks
-the frontend's (``tc`` for bfloat16, ``fma`` for float32) and every CTC
+the frontend's (``tc`` for bfloat16, ``f32`` for float32) and every CTC
 recursion's (the prefetch body). Each phase prints its seconds.
 
 Run from the repository root:  python3 chip_smoke.py
@@ -386,7 +391,9 @@ from neural_speech_decoder_tpu_torch.ops.kernels.ffn import (
     ffn_dropout_masks_plain,
     ffn_plain,
 )
+from neural_speech_decoder_tpu_torch.ops.kernels import frontend as frontend_mod
 from neural_speech_decoder_tpu_torch.ops.kernels.frontend import (
+    frontend_plan,
     fused_frontend,
     fused_frontend_plain,
 )
@@ -555,7 +562,9 @@ KERNELS = tuple(SOURCES)
 F32_ATTN = {"mhsa_qkv_f32": "mhsa_qkv/f32", "mhsa_qkv_bwd_f32": "mhsa_qkv_bwd/f32"}
 F32_FUSED = {"ffn_f32": "ffn/f32", "ffn_bwd_f32": "ffn_bwd/f32",
              "conv_module_f32": "conv_module/f32", "conv_module_bwd_f32": "conv_module_bwd/f32"}
-F32_ROWS = {**F32_ATTN, **F32_FUSED}
+# The float32 frontend's redesigned body ("f32") likewise.
+F32_FRONT = {"frontend_f32": "frontend/f32"}
+F32_ROWS = {**F32_FRONT, **F32_ATTN, **F32_FUSED}
 COUNTED = KERNELS + tuple(F32_ROWS.values())
 # Published H100 SXM peaks (NVIDIA data sheet; dense, at 700 W): HBM bytes/s,
 # FP32 FMA flop/s outside the tensor cores, bf16 tensor-core flop/s.
@@ -640,10 +649,11 @@ def kernel_phase() -> list[dict]:
         lambda d: fused_frontend_plain(xs[d], day_w, day_b, day, **fe),
         reps_kernel=20, reps_plain=20,
     )
-    # float32 (PR 1's FMA body): x read and the output written once, every
-    # day's matrix and bias read once; the product and the 20-tap smoothing
+    # float32: x read and the output written once, every day's matrix and
+    # bias read once; the product and the 20-tap smoothing
     f32_bound = bound_ms(nbytes(x, x, day_w, day_b, day),
                          2 * B * T * C * C + 2 * fe["kernel_size"] * B * T * C, "float32")
+    front32 = frontend_f32_row(xs["float32"], day_w, day_b, day, fe, f32_bound)
     # bfloat16, the recipe's compute: the tensor-core body, reruns bit-equal,
     # timed in turns with the plain version, beside PR 1's FMA body on the
     # same inputs, itself still held against the plain version
@@ -669,9 +679,7 @@ def kernel_phase() -> list[dict]:
         fma_ms = time_ms(lambda: fused_frontend(xb, day_w, day_b, day, body="fma", **fe), 20)
     print(f"time  frontend bfloat16: tensor cores {turns[0]:.4f}/{turns[1]:.4f} ms, plain "
           f"{turns[2]:.4f}/{turns[3]:.4f} ms, PR 1's FMA body {fma_ms:.4f} ms", flush=True)
-    front.update(ms=k, plain_ms=p, fma_ms=fma_ms, f32_ms=front["ms"],
-                 f32_plain_ms=front["plain_ms"], f32_bound_ms=f32_bound[0],
-                 max_abs_err=err_tc, dtype="bfloat16")
+    front.update(ms=k, plain_ms=p, fma_ms=fma_ms, max_abs_err=err_tc, dtype="bfloat16")
     # x read and the output written once in bf16, W[day] (bf16) and the bias
     # read once; the product on the bf16 tensor cores and the 20-tap
     # smoothing on the float32 FMA units, other units: the longer of the two
@@ -763,7 +771,50 @@ def kernel_phase() -> list[dict]:
     # takes the layer input, not the projections xp (its time is context)
     scan["library_ms"] = None
     scan["dtype"] = "bfloat16"
-    return [front, scan]
+    return [front, scan, front32]
+
+
+FRONT_ARMS = ("f32", "fma", "plain", "plain", "fma", "f32")
+
+
+def frontend_f32_row(x32, day_w, day_b, day, fe, bound) -> dict:
+    """The float32 frontend's ``f32`` body (``gemm_f32.cuh``'s tile, the
+    smoothing in its A loader) at the serving shapes: two calls bit-equal,
+    bit-equal to the first body (``body="fma"``), within ``TOL`` of the
+    plain version; the three timed in turns (``FRONT_ARMS``). Its row of
+    the kernels line."""
+    reset_launches()
+    with torch.inference_mode():
+        o1 = fused_frontend(x32, day_w, day_b, day, **fe)
+        o2 = fused_frontend(x32, day_w, day_b, day, **fe)
+        o_fma = fused_frontend(x32, day_w, day_b, day, body="fma", **fe)
+        o_ref = fused_frontend_plain(x32, day_w, day_b, day, **fe)
+    torch.cuda.synchronize()
+    check_front_ctc_bodies("frontend float32, two calls and one with body='fma'", f32=2, fma=1)
+    err = (o1 - o_ref).abs().max().item()
+    err_fma = (o_fma - o_ref).abs().max().item()
+    tol = TOL[("frontend", "float32")]
+    same = torch.equal(o1, o_fma)
+    check(torch.equal(o1, o2) and same and max(err, err_fma) <= tol,
+          f"frontend float32: f32 body bit-equal to the first (FMA) body {same}, reruns bit-equal; "
+          f"max abs err {err:.3e} (fma {err_fma:.3e}) <= {tol:.2g}")
+    arms = {"f32": lambda: fused_frontend(x32, day_w, day_b, day, **fe),
+            "fma": lambda: fused_frontend(x32, day_w, day_b, day, body="fma", **fe),
+            "plain": lambda: fused_frontend_plain(x32, day_w, day_b, day, **fe)}
+    times = {a: [] for a in arms}
+    with torch.inference_mode():
+        for a in FRONT_ARMS:
+            times[a].append(time_ms(arms[a], 20))
+    mean = {a: sum(v) / len(v) for a, v in times.items()}
+    print(f"time  frontend float32 B={B} T={T} C={C}: f32 body "
+          f"{'/'.join(f'{v:.4f}' for v in times['f32'])} ms, the first (FMA) body "
+          f"{'/'.join(f'{v:.4f}' for v in times['fma'])} ms, plain "
+          f"{'/'.join(f'{v:.4f}' for v in times['plain'])} ms (turns {', '.join(FRONT_ARMS)}); "
+          f"f32 / fma {mean['f32'] / mean['fma']:.3f}; bound {bound[0]:.4f} ms ({bound[1]}), "
+          f"{bound[0] / mean['f32']:.1%} of it", flush=True)
+    return {"ms": mean["f32"], "plain_ms": mean["plain"], "fma_ms": mean["fma"],
+            "max_abs_err": err, "bit_equal_fma": same, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": None, "dtype": "float32"}
 
 
 def scan_flops() -> int:
@@ -818,7 +869,7 @@ SCANS = ("gru_scan", "gru_scan_gates", "gru_scan_bwd")
 FUSED_FWDS = ("ffn", "conv_module")
 FUSED_BWDS = ("ffn_bwd", "conv_module_bwd")
 FUSED_BODIES = FUSED_FWDS + FUSED_BWDS
-# the serving frontend ("tc" for bfloat16, "fma" for float32) and the CTC
+# the serving frontend ("tc" for bfloat16, "f32" for float32) and the CTC
 # recursions ("prefetch" for S <= 256, "block" beyond), counted by body
 BY_BODY = ("frontend", "ctc_alpha", "ctc_beta")
 CTC_BODY = "prefetch"  # ctc_plan(2 * U + 1)
@@ -859,6 +910,60 @@ def f32_scan_body(hidden: int = H, rows: int = B, dirs: int = D) -> str:
 
 
 @contextlib.contextmanager
+def frontend_body(body: str | None):
+    """Inside, every float32 frontend of the model's normal entry points
+    runs on ``body`` (``"fma"``, the first body, the other arm of an A/B:
+    ``plan_for`` answers it for float32 whatever the shape), or on
+    ``frontend_plan``'s choice (``None``)."""
+    saved = frontend_mod.plan_for
+    if body is not None:
+        frontend_mod.plan_for = (
+            lambda dtype, *a: body if dtype == torch.float32 else saved(dtype, *a))
+    try:
+        yield
+    finally:
+        frontend_mod.plan_for = saved
+
+
+FRONT_AB_TURNS = 30  # pairs of the float32 frontend A/B (one run an arm a pair)
+
+
+def front_ab(tag: str, run, card: str) -> None:
+    """``run()`` (a float32 request or eval batch, ending in a sync; returns
+    a tensor) in ``FRONT_AB_TURNS`` pairs, the order alternating (f32, fma),
+    (fma, f32), ...: the ``f32`` arm on the frontend's planned body, the
+    ``fma`` arm inside ``frontend_body("fma")``. Checks each run's frontend
+    launch on its arm's body and the arms' outputs bit-equal; prints both
+    medians, their quartile spreads, the pairs the f32 arm won and the
+    sign test's one-sided p of at least that many wins by chance."""
+    times, first, ok = {"f32": [], "fma": []}, {}, True
+    for i in range(FRONT_AB_TURNS):
+        for arm in (("f32", "fma") if i % 2 == 0 else ("fma", "f32")):
+            with frontend_body("fma" if arm == "fma" else None):
+                reset_launches()
+                t0 = time.perf_counter()
+                out = run()
+                torch.cuda.synchronize()
+                times[arm].append(time.perf_counter() - t0)
+            ok &= fused_frontend.launches_by_body == {"tc": 0, "f32": int(arm == "f32"),
+                                                      "fma": int(arm == "fma")}
+            first.setdefault(arm, out)
+    check(ok and torch.equal(first["f32"], first["fma"]),
+          f"{tag} frontend A/B: every run's frontend on its arm's body {ok}; the arms' "
+          f"outputs bit-equal")
+    med = {a: statistics.median(v) for a, v in times.items()}
+    iqr = {a: float(np.subtract(*np.percentile(v, [75, 25]))) for a, v in times.items()}
+    wins = sum(a < b for a, b in zip(times["f32"], times["fma"]))
+    p = sum(math.comb(FRONT_AB_TURNS, k) for k in range(wins, FRONT_AB_TURNS + 1))
+    print(f"{tag} frontend A/B in {FRONT_AB_TURNS} pairs (f32 first in even pairs): f32 "
+          f"median {med['f32'] * 1e3:.3f} ms (IQR {iqr['f32'] * 1e3:.3f}), fma median "
+          f"{med['fma'] * 1e3:.3f} ms (IQR {iqr['fma'] * 1e3:.3f}); f32 - fma "
+          f"{(med['f32'] - med['fma']) * 1e3:+.3f} ms; f32 faster in {wins} of "
+          f"{FRONT_AB_TURNS} pairs (sign test p = {p / 2 ** FRONT_AB_TURNS:.2g}) ({card})",
+          flush=True)
+
+
+@contextlib.contextmanager
 def scan_body(body: str | None):
     """Inside, every GRU scan of the model's normal entry points runs on the
     step body (``body="step"``, the other arm of an A/B: ``plan_for``
@@ -873,13 +978,13 @@ def scan_body(body: str | None):
         gru_scan_mod.plan_for = saved
 
 
-def check_front_ctc_bodies(tag: str, tc: int = 0, fma: int = 0, alpha: int = 0,
+def check_front_ctc_bodies(tag: str, tc: int = 0, f32: int = 0, fma: int = 0, alpha: int = 0,
                            beta: int = 0) -> None:
     """The frontend and CTC launches since the last reset, by body: ``tc``
-    bfloat16 and ``fma`` float32 frontends, and every CTC recursion on the
-    prefetch body."""
+    bfloat16 and ``f32`` float32 frontends, ``fma`` the first body (forced),
+    and every CTC recursion on the prefetch body."""
     bodies = {k: dict(WRAPPERS[k].launches_by_body) for k in BY_BODY}
-    want = {"frontend": {"tc": tc, "fma": fma},
+    want = {"frontend": {"tc": tc, "f32": f32, "fma": fma},
             "ctc_alpha": {CTC_BODY: alpha, "block": 0},
             "ctc_beta": {CTC_BODY: beta, "block": 0}}
     check(bodies == want, f"{tag}: frontend and CTC launches by body {bodies} == {want}")
@@ -949,13 +1054,15 @@ def serving_phase(card: str) -> dict:
         latencies.append(time.perf_counter() - t0)
         lo += n
     launches = read_launches(KERNELS)
+    front32 = fused_frontend.launches_by_body["f32"]
     body32 = f32_scan_body()
     check_scan_bodies("float32 serving", body32)
-    check_front_ctc_bodies("float32 serving", fma=3)
+    check_front_ctc_bodies("float32 serving", f32=3)
     want = {k: 0 for k in KERNELS} | {"frontend": 3, "gru_scan": 15}
     check(launches == want,
           f"launches over 3 requests {launches} == 1 frontend and "
           f"{cfg.num_layers} scans per request, no other kernel")
+    launches["frontend/f32"] = front32
     for n, (_, _, log_probs, out_lens, decoded) in zip(sizes, results):
         check_request("float32", n, log_probs, out_lens, decoded)
 
@@ -992,6 +1099,7 @@ def serving_phase(card: str) -> dict:
           f"step body median {med_step * 1e3:.2f} ms "
           f"({', '.join(f'{v * 1e3:.2f}' for v in ab['step'])}); {body32} / step "
           f"{med_plan / med_step:.3f} ({card})", flush=True)
+    front_ab(f"serving float32 B={B} T={T} request", lambda: request(model, 0, B)[2], card)
 
     # The recipe's bfloat16 compute (configs/gru_baseline.yaml) on the same
     # weights, for the second request's trials (23 padded rows).
@@ -1386,6 +1494,14 @@ def train_step_phase(card: str) -> tuple[dict, float]:
           f"{errs[worst]:.3e} vs {dists[worst]:.3e}")
     plain_switch_phase(args32, model, model16, batch, (loss_k, grads_k),
                        (loss_p16, grads_p16), (loss_p, grads_p))
+    x, y, x_lens, y_lens, days = batch
+    eval_step = make_eval_step(model, args32)
+
+    def eval_batch():
+        with torch.inference_mode():
+            return eval_step(x, y, x_lens, y_lens, days)[0]
+
+    front_ab(f"eval batch float32 B={B} T={T}", eval_batch, card)
     return {k: launches[k] for k in ("gru_scan_gates", "gru_scan_bwd",
                                      "ctc_alpha", "ctc_beta")}, med
 
@@ -1818,6 +1934,16 @@ def attention_kernel_phase() -> dict:
             # counted (the table of peaks has no integer rate)
             rows["dropout_masks"]["bound_ms"], rows["dropout_masks"]["bound_by"] = (
                 bound_ms(B * A_HEADS * t * t + 4, 0, name))
+    # the mask hook at the edges of its 16-byte walk: rows of 17 and 1 bytes
+    # (a chunk over several rows and salts) and a tail shorter than 16
+    seed = torch.tensor([7], dtype=torch.int32, device="cuda")
+    edge = {(bh, tt): torch.equal(dropout_masks(bh, tt, seed, 0.3),
+                                  dropout_masks_plain(bh, tt, seed, 0.3))
+            for bh, tt in ((5, 17), (7, 1), (3, L))}
+    check(all(edge.values()), f"dropout_masks at (bh, t) {list(edge)}: bit-equal to the "
+          f"plain version {list(edge.values())}")
+    if not all(edge.values()):
+        rows["dropout_masks"]["max_abs_err"] = 1.0
     got = attn_tc_digests()
     check(got == ATTN_TC_SHA256,
           f"bf16 attention (tc) forward and backward outputs' sha256 on numpy-seeded inputs "
@@ -2390,6 +2516,15 @@ def fused_kernel_phase() -> dict:
                 same = torch.equal(m1, r1) and torch.equal(m2, r2)
                 check(same, f"ffn_dropout_masks {B}x{L}x({f}, {d}) rate {rate}: "
                       f"bit-equal to the plain version {same}")
+                # and at the edges of the 16-byte walk: widths 36 and 20, 12
+                # and 4 (not multiples of 16), rows of T' = 17 and 1
+                for shape in ((2, 17, 20, 36), (2, 1, 4, 12)):
+                    e1, e2 = ffn_dropout_masks(*shape, seed, rate)
+                    q1, q2 = ffn_dropout_masks_plain(*shape, seed, rate)
+                    edge = torch.equal(e1, q1) and torch.equal(e2, q2)
+                    check(edge, f"ffn_dropout_masks (b, t, d, f) {shape} rate {rate}: "
+                          f"bit-equal to the plain version {edge}")
+                    same &= edge
                 rows["ffn_dropout_masks"]["max_abs_err"] = 0.0 if same else 1.0
         ran = {k: {b: n - by_body[k][b] for b, n in WRAPPERS[k].launches_by_body.items()}
                for k in FUSED_BODIES}
@@ -3374,7 +3509,7 @@ def launch_bodies(want: dict) -> tuple[dict, dict]:
         "mhsa_qkv": dict(mhsa_qkv.launches_by_body),
         "tiled_matmul": dict(tiled_matmul.launches_by_body)}
     want_bodies = {"tiled_matmul": {"sm90": want["tiled_matmul"], "f32": 0, "tile": 0},
-                   "frontend": {"tc": want["frontend"], "fma": 0},
+                   "frontend": {"tc": want["frontend"], "f32": 0, "fma": 0},
                    "gru_scan": {"persistent": want["gru_scan"], "step": 0},
                    "ffn": {"sm90": want["ffn"], "f32": 0, "tile": 0},
                    "conv_module": {"sm90": want["conv_module"], "f32": 0, "tile": 0},
@@ -4484,7 +4619,8 @@ def dp_gru_want(steps: int, n_eval: int) -> tuple[dict, dict]:
     bodies ``scan_plan``, ``frontend_plan`` and ``ctc_plan`` pick."""
     scan = f32_scan_body(H, B // 2)
     bodies = {"gru_scan_gates": scan, "gru_scan_bwd": scan, "gru_scan": scan,
-              "ctc_alpha": CTC_BODY, "ctc_beta": CTC_BODY, "frontend": "fma"}
+              "ctc_alpha": CTC_BODY, "ctc_beta": CTC_BODY,
+              "frontend": frontend_plan(torch.float32, C, 20)}
     counts = {"gru_scan_gates": 5 * steps, "gru_scan_bwd": 5 * steps,
               "ctc_alpha": steps + n_eval, "ctc_beta": steps, "frontend": n_eval,
               "gru_scan": 5 * n_eval, **NO_ATTENTION, **NO_GRU_FUSED}
@@ -4607,8 +4743,8 @@ def tp_gru_want(steps: int, n_eval: int) -> tuple[dict, dict]:
     scan = f32_scan_body(H, TP_BATCH)
     n = TP_GRU_LAYERS
     bodies = {"gru_scan_gates": scan, "gru_scan_bwd": scan, "gru_scan": scan,
-              "ctc_alpha": CTC_BODY, "ctc_beta": CTC_BODY, "frontend": "fma",
-              "tiled_matmul": MM_BODY["float32"]}
+              "ctc_alpha": CTC_BODY, "ctc_beta": CTC_BODY,
+              "frontend": frontend_plan(torch.float32, C, 20), "tiled_matmul": MM_BODY["float32"]}
     counts = {"gru_scan_gates": n * steps, "gru_scan_bwd": n * steps, "gru_scan": n * n_eval,
               "ctc_alpha": steps + n_eval, "ctc_beta": steps, "frontend": n_eval,
               "tiled_matmul": (n - 1) * (3 * steps + n_eval), "adam_update": steps,
@@ -5157,7 +5293,7 @@ def main() -> int:
             print(line.strip(), flush=True)
 
     t0 = time.perf_counter()
-    rows = dict(zip(("frontend", "gru_scan"), kernel_phase()))
+    rows = dict(zip(("frontend", "gru_scan", "frontend_f32"), kernel_phase()))
     launches = serving_phase(card)
     print(f"phase serving: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()

@@ -24,8 +24,9 @@
 // Replaces the Pallas TPU kernels of
 // neural_speech_decoder_tpu/ops/pallas/attention_kernel.py: _fwd_kernel
 // (via fused_mhsa_qkv -> _call_fwd), _bwd_kernel (via _fused_bwd) and the
-// dropout_masks test hook. Their semantics are kept: the order of the score
-// product and the scale, the -1e9 mask constant, zero rows where every key
+// dropout_masks test hook (hashrng.cuh's hash_masks_kernel, the [bh, t, t]
+// masks). Their semantics are kept: the order of the score product and the
+// scale, the -1e9 mask constant, zero rows where every key
 // is masked (F.scaled_dot_product_attention gives NaN or uniform rows), the
 // casts of p and dS to the input's type before their products, and the
 // interpret-mode dropout bits (the murmur3 hash; the compiled TPU path's
@@ -531,20 +532,6 @@ __global__ void __launch_bounds__(kThreads, 1)
       store4<T>(vrow + g * 64 + tx * 4, dv[r][g * 4], dv[r][g * 4 + 1],
                 dv[r][g * 4 + 2], dv[r][g * 4 + 3]);
     }
-  }
-}
-
-__global__ void dropout_masks_kernel(const int32_t* __restrict__ seed_ptr,
-                                     uint8_t* __restrict__ out, int bh, int t,
-                                     float rate) {
-  const int seed = *seed_ptr;
-  const size_t n = (size_t)bh * t * t;
-  for (size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x; idx < n;
-       idx += (size_t)gridDim.x * blockDim.x) {
-    const int col = idx % t;
-    const int row = (idx / t) % t;
-    const int prog = idx / ((size_t)t * t);
-    out[idx] = nsd::hash_uniform(seed, prog, row, col) >= rate ? 1 : 0;
   }
 }
 
@@ -1746,12 +1733,9 @@ int nsd_attn_bwd_split_f32(const void* qkv, const void* lens, const void* seed, 
 int nsd_attn_dropout_masks(const void* seed, void* out, int bh, int t,
                            float rate, void* stream) {
   if (bh < 1 || t < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t n = (size_t)bh * t * t;
-  const size_t want = (n + 255) / 256;
-  const int blocks = static_cast<int>(want < 65535 ? want : 65535);
-  dropout_masks_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(seed), static_cast<uint8_t*>(out), bh, t, rate);
-  return static_cast<int>(cudaGetLastError());
+  nsd::MaskBufs<1> bufs{{nsd::mask_buf(out, (uint64_t)bh * t, t, t, 0)}};
+  return static_cast<int>(nsd::hash_masks(static_cast<const int32_t*>(seed), bufs, rate,
+                                          static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

@@ -25,8 +25,9 @@
 // Replaces the Pallas TPU kernels of
 // neural_speech_decoder_tpu/ops/pallas/ffn_kernel.py: _fwd_kernel (via
 // fused_ffn -> _ffn_fwd), _bwd_kernel (via _ffn_bwd) and the dropout_masks
-// test hook, with their interpret-mode dropout bits (the compiled TPU path's
-// hardware PRNG cannot be reproduced off the TPU).
+// test hook (hashrng.cuh's hash_masks_kernel over m1 and m2), with their
+// interpret-mode dropout bits (the compiled TPU path's hardware PRNG cannot
+// be reproduced off the TPU).
 //
 // What bounds it on an H100: the operations. At B=64, T'=313, D=1024,
 // F=2048 each product is 84 GFLOP: the forward has 2 (0.17 ms at the bf16
@@ -444,23 +445,6 @@ cudaError_t ffn_bwd_f32(const float* x, const float* scale, const float* bias, c
   return nsd::ln_bwd(dxn, x, w.stats, scale, dx, M, D, st);
 }
 
-__global__ void ffn_masks_kernel(const int32_t* __restrict__ seed, uint8_t* __restrict__ m1,
-                                 uint8_t* __restrict__ m2, int batch, int n_time, int d,
-                                 int f, float rate) {
-  const size_t n1 = (size_t)batch * n_time * f, n2 = (size_t)batch * n_time * d;
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n1 + n2;
-       i += (size_t)gridDim.x * blockDim.x) {
-    const bool first = i < n1;
-    const size_t j = first ? i : i - n1;
-    const int w = first ? f : d;
-    const int col = j % w;
-    const int m = j / w;
-    const int bb = m / n_time;
-    const uint8_t k = keep(seed, first ? bb : bb + batch, m - bb * n_time, col, rate);
-    (first ? m1 : m2)[j] = k;
-  }
-}
-
 bool bad_shape(int b, int t, int d, int f) { return b < 1 || t < 1 || d < 1 || f < 1; }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
@@ -632,12 +616,10 @@ int nsd_ffn_bwd_f32(const void* x, const void* scale, const void* bias, const vo
 int nsd_ffn_dropout_masks(const void* seed, void* m1, void* m2, int b, int t, int d, int f,
                           float rate, void* stream) {
   if (bad_shape(b, t, d, f)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t want = ((size_t)b * t * (d + f) + 255) / 256;
-  ffn_masks_kernel<<<(unsigned)(want < 65535 ? want : 65535), 256, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(seed), static_cast<uint8_t*>(m1),
-      static_cast<uint8_t*>(m2), b, t, d, f, rate);
-  return static_cast<int>(cudaGetLastError());
+  const uint64_t rows = (uint64_t)b * t;
+  nsd::MaskBufs<2> bufs{{nsd::mask_buf(m1, rows, f, t, 0), nsd::mask_buf(m2, rows, d, t, b)}};
+  return static_cast<int>(nsd::hash_masks(static_cast<const int32_t*>(seed), bufs, rate,
+                                          static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

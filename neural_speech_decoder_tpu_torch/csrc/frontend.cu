@@ -18,12 +18,13 @@
 // the 50 MB L2). Each output element costs 2*C flops for 8 bytes of that
 // traffic in f32 (64 flop/byte at C=256), which is above the ridge of the
 // card's FP32 FMA units (about 20 flop/byte) and below that of its tensor
-// cores. So the FMA body, whose product runs on FP32 FMAs, is bound by FMA
-// throughput; the tensor-core body (bf16) is bound by memory at its floor.
+// cores. So the FMA and float32 bodies, whose products run on FP32 FMAs, are
+// bound by FMA throughput; the tensor-core body (bf16) is bound by memory at
+// its floor.
 //
-// Two bodies. The FMA body (PR 1; float32, and the bf16 shapes the
-// tensor-core body does not take): one block per (tile of kRows time rows,
-// trial). The block copies
+// Three bodies. The FMA body (the first design; the shapes neither other
+// body takes, and an A/B's older arm): one block per (tile of kRows time
+// rows, trial). The block copies
 // the input rows its smoothing reads (the tile plus the n_taps-1 halo rows,
 // zero outside [0, T)) into shared memory with several loads in flight per
 // thread, then smooths them for all C channels into a channel-major slab.
@@ -55,9 +56,28 @@
 // all of it, are done), then written out in 16-byte stores. Why
 // wgmma: mma.sync reached about 240 TFLOP/s here, and an asynchronous
 // product lets the smoothing, on the FMA units, run under it.
+//
+// The float32 body (namespace f32; float32, C a multiple of 4, 16-byte
+// aligned x, W and out, at most kMaxTaps taps): the FMA body's arithmetic
+// on gemm_f32.cuh's pipelined FP32 tile, which the float32 projection and
+// fused bodies run at about 41 TFLOP/s: one block per (128 output columns,
+// 128 time rows, trial), so a tile never straddles two trials, two blocks an
+// SM. B is W[day] read k-major by cp.async; A is SmoothedSlabs, which
+// brings each 16-channel slab's 128 + taps - 1 input rows into a ring of two
+// in dynamic shared memory by cp.async two slabs ahead and smooths them into
+// the tile's A slab after the previous slab's FMAs (20 FMAs an A element
+// against the 128 uses of it in the product). The epilogue adds the bias,
+// applies Softsign and stores 16 bytes. Each output's taps are added in
+// order j = 0.. from 0 and its product over k = 0..C-1 from 0 in one
+// thread, then the bias, then y / (1 + |y|), as in the FMA body, so the two
+// give the same bits. Against the FMA body it reads W[day] once a block
+// into a 4x larger output tile (the FMA body stages all of it for every 32
+// rows), holds 8 x 8 outputs a thread (2 x 8 there), and keeps the input
+// loads in flight under the product.
 #include <stdint.h>
 
 #include "common.cuh"
+#include "gemm_f32.cuh"   // the pipelined FP32 tile and SmoothedSlabs
 #include "gemm_sm90.cuh"  // smem_desc: the wgmma shared-memory descriptor
 
 namespace {
@@ -505,6 +525,84 @@ cudaError_t launch(const void* x, const void* w, const void* bias, const void* d
 
 }  // namespace tc
 
+// ------------------------------------------------------------ float32 body
+namespace f32 {
+
+using nsd::f32::kTile;
+
+// Softsign on the tile's outputs, the bias already added.
+struct Softsign {
+  __device__ __forceinline__ float4 operator()(float4 v) const {
+    return make_float4(v.x / (1.f + fabsf(v.x)), v.y / (1.f + fabsf(v.y)),
+                       v.z / (1.f + fabsf(v.z)), v.w / (1.f + fabsf(v.w)));
+  }
+};
+
+// The kernel's parameters, one __grid_constant__ block that SmoothedSlabs
+// reads where it lies.
+struct Args {
+  const float* x;
+  const float* w;
+  const float* bias;
+  const int32_t* day;
+  float* out;
+  int n_time, n_ch, n_days, n_taps, pad_left;
+  Taps taps;
+};
+
+template <int kTaps>
+using Smoothed = nsd::f32::SmoothedSlabs<kTaps, Args>;
+
+// B, W[day]: Slabs<true> with its offsets formed inside the tile's loop.
+struct DaySlabs : nsd::f32::Slabs<true> {
+  __device__ __forceinline__ void fetch(float* dst, int k0, int K) {
+    Slabs<true>::fetch(dst, k0, K, nsd::f32::tid_anew());
+  }
+};
+
+// kTaps: the taps the body is built for (20, the GRU's), or 0 for any count
+// up to kMaxTaps, read at run time.
+template <int kTaps>
+__global__ void __launch_bounds__(nsd::f32::kThreads, 2)
+    frontend_f32_kernel(const __grid_constant__ Args a) {
+  const int b = blockIdx.z;
+  int d = a.day[b];
+  d = d < 0 ? 0 : (d >= a.n_days ? a.n_days - 1 : d);
+  const size_t trial = (size_t)b * a.n_time * a.n_ch;
+  Smoothed<kTaps> sa{a, a.x + trial, (int)blockIdx.y * kTile, 0};
+  DaySlabs sb{{a.w + (size_t)d * a.n_ch * a.n_ch, a.n_ch, a.n_ch, (int)blockIdx.x * kTile}};
+  nsd::f32::gemm_f32_tile(sa, sb, a.n_time, a.n_ch, a.n_ch, a.bias + (size_t)d * a.n_ch,
+                          a.out + trial, a.n_ch, Softsign{});
+}
+
+template <int kTaps>
+cudaError_t launch_taps(const Args& a, int batch, cudaStream_t stream) {
+  constexpr int smem = Smoothed<kTaps>::kRingFloats * sizeof(float);
+  NSD_TRY(cudaFuncSetAttribute(frontend_f32_kernel<kTaps>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+  const dim3 grid((a.n_ch + kTile - 1) / kTile, (a.n_time + kTile - 1) / kTile, batch);
+  frontend_f32_kernel<kTaps><<<grid, nsd::f32::kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+cudaError_t launch(const void* x, const void* w, const void* bias, const void* day, void* out,
+                   int batch, int n_time, int n_ch, int n_days, const float* taps_host,
+                   int n_taps, int pad_left, cudaStream_t stream) {
+  const bool aligned = (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
+                        reinterpret_cast<uintptr_t>(out)) % 16 == 0;
+  if (n_taps < 1 || n_taps > kMaxTaps || n_ch < 1 || n_ch % 4 != 0 || !aligned || batch < 1 ||
+      batch > 65535 || n_time < 1 || (n_time + kTile - 1) / kTile > 65535 || n_days < 1) {
+    return cudaErrorInvalidValue;
+  }
+  Args a{static_cast<const float*>(x), static_cast<const float*>(w),
+         static_cast<const float*>(bias), static_cast<const int32_t*>(day),
+         static_cast<float*>(out), n_time, n_ch, n_days, n_taps, pad_left, {}};
+  for (int j = 0; j < kMaxTaps; ++j) a.taps.v[j] = j < n_taps ? taps_host[j] : 0.f;
+  return n_taps == 20 ? launch_taps<20>(a, batch, stream) : launch_taps<0>(a, batch, stream);
+}
+
+}  // namespace f32
+
 }  // namespace
 
 extern "C" {
@@ -533,6 +631,13 @@ int nsd_frontend_tc_bf16(const void* x, const void* w, const void* bias,
                          int pad_left, void* stream) {
   return static_cast<int>(tc::launch(x, w, bias, day, out, batch, n_time, n_ch, n_days, taps,
                                      n_taps, pad_left, static_cast<cudaStream_t>(stream)));
+}
+
+int nsd_frontend_f32_tile(const void* x, const void* w, const void* bias, const void* day,
+                          void* out, int batch, int n_time, int n_ch, int n_days,
+                          const float* taps, int n_taps, int pad_left, void* stream) {
+  return static_cast<int>(f32::launch(x, w, bias, day, out, batch, n_time, n_ch, n_days, taps,
+                                      n_taps, pad_left, static_cast<cudaStream_t>(stream)));
 }
 
 const char* nsd_error_string(int code) {

@@ -27,7 +27,10 @@
 // The tile itself (gemm_f32_tile) also takes a k-major operand whose rows
 // come in groups (GroupedSlabs: row k at (k / group) * gstride + (k % group)
 // * ld), the strided time-step views that gru_scan_bwd.cu's float32 dW_hh
-// contraction reads, and an output row stride of its own.
+// contraction reads; an A operand that smooths a trial's rows along time as
+// its slabs load (SmoothedSlabs, frontend.cu's float32 body); an output row
+// stride of its own; and an epilogue functor applied to each 4-wide group of
+// outputs after the bias (NoEpilogue, the default, stores them as they are).
 //
 // gemm_split (the fused FF and conv-module backwards' f32 bodies) launches
 // the tile over K ranges: grid.z cuts K into `splits` ranges, each a
@@ -51,6 +54,16 @@ constexpr int kSlab = 16;       // k per stage
 constexpr int kLd = kTile + 4;  // row stride of a [kSlab][kTile] shared slab
 constexpr int kChunks = kSlab * kTile / 4 / kThreads;  // float4 a thread moves a slab
 
+// threadIdx.x read anew where it is used: a loader that takes its thread
+// index from here forms its per-thread offsets inside the tile's loop, where
+// the compiler would otherwise keep them in registers across it (and, next
+// to the tile's 64 sums at two blocks an SM, spill them).
+__device__ __forceinline__ int tid_anew() {
+  int t;
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(t));
+  return t;
+}
+
 // One operand's slabs for the block whose tile starts at i0 of the operand's
 // extent (rows of A, columns of B). fetch() starts slab k0's way into dst
 // (k-major) or into registers (i-major); put() stores the registers into dst
@@ -63,10 +76,10 @@ struct Slabs<true> {
   const float* p;
   int ld, extent, i0;
   // kSlab rows of 32 float4: chunks tid, tid + 256, ...
-  __device__ __forceinline__ void fetch(float* dst, int k0, int K) {
+  __device__ __forceinline__ void fetch(float* dst, int k0, int K, int tid = threadIdx.x) {
 #pragma unroll
     for (int r = 0; r < kChunks; ++r) {
-      const int c = threadIdx.x + r * kThreads, k = c / 32, i = (c % 32) * 4;
+      const int c = tid + r * kThreads, k = c / 32, i = (c % 32) * 4;
       const bool ok = k0 + k < K && i0 + i < extent;
       cp_async16(dst + k * kLd + i, ok ? p + (size_t)(k0 + k) * ld + i0 + i : p, ok);
     }
@@ -121,13 +134,112 @@ struct GroupedSlabs {
   __device__ __forceinline__ void put(float*) const {}
 };
 
-// The block's tile of out [M, N] (row stride ldo) = A . B + bias (bias [N]
-// may be null), its rows from sa.i0 and columns from sb.i0; A's extent is
+// The A operand A(k, m) = sum_j a.taps.v[j] * x[m - a.pad_left + j][k] of
+// one trial x [a.n_time][a.n_ch] of a.x (rows outside [0, n_time) read as
+// zero): the serving frontend's smoothing along time, formed as the slabs
+// load. kTaps taps, or with kTaps = 0 a.n_taps of at most the capacity of
+// a.taps.v. `a` is the kernel's __grid_constant__ parameter block, held by
+// reference so that every read of it is a kernel-parameter operand and not
+// a register (the tile's 64 sums leave little room at two blocks an SM).
+//
+// fetch(k0) starts by cp.async the raw rows of the slab after k0's (the
+// tile's 128 rows and their taps - 1 halo rows, 16 channels; zero-filled
+// outside the trial and past K; offsets from tid_anew) into one of two
+// slots of a ring in dynamic shared memory (kRingFloats); put() smooths
+// slab k0's rows from its slot into dst. So each slab's rows are in flight
+// two slabs ahead, and the tile's wait and barrier before its FMAs make
+// them whole before the put that follows the FMAs. The first fetch (k0 = 0)
+// starts slab 0's rows too, in a group of their own, and the first put
+// waits for them and for every thread, smooths, and waits for every thread
+// again (the next fetch reuses slot 0). Thread (c, s) smooths channel c, rows 8s..8s+7 from a sliding
+// window of its column: each output's taps added in order j = 0, 1, ... by
+// fused multiply-adds from 0 (frontend.cu's FMA body's arithmetic). The two
+// 8-row strips a warp reads share banks (rows 8 apart, 16 floats each); on
+// an H100 that conflict cost less than the registers of a swizzled layout's
+// addresses, which spilled.
+template <int kTaps, class Args>
+struct SmoothedSlabs {
+  static constexpr int kWin =
+      kTaps ? kTaps : int(sizeof(decltype(Args::taps)) / sizeof(float));
+  static constexpr int kStrip = 8;  // rows a thread smooths
+  static constexpr int kRingRows = kTile + kWin - 1;
+  static constexpr int kSlotFloats = kRingRows * kSlab;
+  static constexpr int kRingFloats = 2 * kSlotFloats;
+  static_assert(kSlab * (kTile / kStrip) == kThreads, "a thread a (channel, strip)");
+  const Args& a;
+  const float* p;  // the trial's first row
+  int i0;          // the tile's first row
+  int slab;        // the slab the next put() smooths
+
+  static __device__ __forceinline__ float* ring() {
+    extern __shared__ __align__(16) float smoothed_ring[];
+    return smoothed_ring;
+  }
+
+  __device__ __forceinline__ void load(int s, int K) {
+    const int rows = kTile + (kTaps ? kTaps : a.n_taps) - 1;
+    float* slot = ring() + (s & 1) * kSlotFloats;
+    const int k = s * kSlab;
+#pragma unroll
+    for (int u = 0; u < (kRingRows * 4 + kThreads - 1) / kThreads; ++u) {
+      const int c = tid_anew() + u * kThreads, r = c / 4, ch = k + (c % 4) * 4;
+      const int src = i0 - a.pad_left + r;
+      if (r < rows) {
+        const bool ok = src >= 0 && src < a.n_time && ch < K;
+        cp_async16(slot + r * kSlab + (c % 4) * 4,
+                   ok ? p + (size_t)src * a.n_ch + ch : p, ok);
+      }
+    }
+  }
+  __device__ __forceinline__ void fetch(float*, int k0, int K) {
+    slab = k0 / kSlab;
+    if (k0 == 0) {
+      load(0, K);
+      cp_async_commit();
+    }
+    if (k0 + kSlab < K) load(slab + 1, K);
+  }
+  __device__ __forceinline__ void put(float* dst) const {
+    if (slab == 0) {
+      cp_async_wait<1>();
+      __syncthreads();
+    }
+    const float* slot = ring() + (slab & 1) * kSlotFloats;
+    const int c = threadIdx.x % kSlab, r0 = threadIdx.x / kSlab * kStrip;
+    float acc[kStrip];
+#pragma unroll
+    for (int r = 0; r < kStrip; ++r) acc[r] = 0.f;
+#pragma unroll
+    for (int q = 0; q < kStrip + kWin - 1; ++q) {
+      if (kTaps == 0 && q >= kStrip + a.n_taps - 1) continue;  // past the window's rows
+      const float v = slot[(r0 + q) * kSlab + c];
+#pragma unroll
+      for (int r = 0; r < kStrip; ++r) {
+        const int j = q - r;
+        if (j >= 0 && j < kWin && (kTaps != 0 || j < a.n_taps))
+          acc[r] = fmaf(a.taps.v[j], v, acc[r]);
+      }
+    }
+    *reinterpret_cast<float4*>(dst + c * kLd + r0) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+    *reinterpret_cast<float4*>(dst + c * kLd + r0 + 4) =
+        make_float4(acc[4], acc[5], acc[6], acc[7]);
+    if (slab == 0) __syncthreads();
+  }
+};
+
+// The tile's default epilogue: outputs stored as they are.
+struct NoEpilogue {
+  __device__ __forceinline__ float4 operator()(float4 v) const { return v; }
+};
+
+// The block's tile of out [M, N] (row stride ldo) = epi(A . B + bias) (bias
+// [N] may be null), its rows from sa.i0 and columns from sb.i0; A's extent is
 // M, B's N, both K long along the sum.
-template <class SA, class SB>
+template <class SA, class SB, class Epi = NoEpilogue>
 __device__ __forceinline__ void gemm_f32_tile(SA& sa, SB& sb, int M, int N, int K,
                                               const float* __restrict__ bias,
-                                              float* __restrict__ out, int ldo) {
+                                              float* __restrict__ out, int ldo,
+                                              Epi epi = Epi()) {
   __shared__ __align__(16) float As[2][kSlab * kLd];
   __shared__ __align__(16) float Bs[2][kSlab * kLd];
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
@@ -193,7 +305,7 @@ __device__ __forceinline__ void gemm_f32_tile(SA& sa, SB& sb, int M, int N, int 
         v.z += bias[n + 2];
         v.w += bias[n + 3];
       }
-      *reinterpret_cast<float4*>(out + (size_t)m * ldo + n) = v;
+      *reinterpret_cast<float4*>(out + (size_t)m * ldo + n) = epi(v);
     }
   }
 }

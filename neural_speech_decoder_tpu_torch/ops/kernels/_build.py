@@ -87,7 +87,8 @@ for _name in ("frontend", "gru_scan", "gru_scan_gates", "gru_bwd", "attn_fwd",
     _SIGNATURES[f"nsd_{_name}_bf16"] = _SIGNATURES[f"nsd_{_name}_f32"]
 for _name in ("gru_scan_persistent", "gru_bwd_persistent", "gru_dw"):
     _SIGNATURES[f"nsd_{_name}_f32"] = _SIGNATURES[f"nsd_{_name}_bf16"]
-_SIGNATURES["nsd_frontend_tc_bf16"] = _SIGNATURES["nsd_frontend_f32"]
+for _name in ("nsd_frontend_tc_bf16", "nsd_frontend_f32_tile"):
+    _SIGNATURES[_name] = _SIGNATURES["nsd_frontend_f32"]
 # workspace sizes in bytes -> long long: (b, t, d, f or k, bf16, bwd), (b, t,
 # d, f or k) for the sm90 and f32 forwards, (b, t, d, f or k, dW2 splits, dW1
 # splits) for the sm90 and f32 backwards, and (kind, rows, cols, red) for the

@@ -7,14 +7,19 @@ and runs ``fused_frontend_plain``, the same function in plain PyTorch, for a
 CPU tensor; it raises for any other device. ``fused_frontend.launches``
 counts the kernel's launches.
 
-Two bodies in ``csrc/frontend.cu``, which ``frontend_plan`` picks before
-the launch: ``"tc"`` (bfloat16 with 20 taps and C = 256, the width of
-every configuration, 16-byte aligned x, W and output: the product on the
-tensor cores, W staged once per block) and ``"fma"`` (PR 1's body: float32,
-whose product on the tensor cores would be TF32 and change the numbers, and
-every other shape). ``fused_frontend.launches_by_body`` counts launches by body;
-``body="fma"`` forces the FMA body (an A/B), and a body the call cannot
-take raises.
+Three bodies in ``csrc/frontend.cu``, which ``frontend_plan`` picks
+before the launch: ``"tc"`` (bfloat16 with 20 taps and C = 256, the width
+of every configuration, 16-byte aligned x, W and output: the product on the
+tensor cores, W staged once per block), ``"f32"`` (float32 with C a
+multiple of 4 and 16-byte aligned x, W and output: the product on
+``gemm_f32.cuh``'s pipelined FP32 tile, 128 rows of a trial by 128 columns
+a block, the smoothing formed as its A operand loads; float32 on the tensor
+cores would be TF32 and change the numbers) and ``"fma"`` (the first body,
+for every other shape; bit-equal to ``"f32"`` where both run).
+``fused_frontend.launches_by_body`` counts launches by body; ``body="fma"``
+forces the FMA body (an A/B), and a body the call cannot take raises.
+``plan_for``, which an A/B harness may replace, names the body a call that
+names none runs.
 """
 
 from __future__ import annotations
@@ -33,15 +38,28 @@ _MAX_TAPS = 32  # csrc/frontend.cu kMaxTaps
 TC_TAPS = 20
 TC_CHANNELS = 256
 TC_TILE_ROWS = 64
+# csrc/frontend.cu namespace f32 (csrc/gemm_f32.cuh): time rows and output
+# columns a block, channels a slab of the product
+F32_TILE = 128
+F32_SLAB = 16
 
 
 def frontend_plan(dtype: torch.dtype, n_ch: int, n_taps: int, aligned: bool = True) -> str:
     """The body ``fused_frontend`` runs on: ``"tc"`` for bfloat16 with
     ``TC_TAPS`` taps, ``TC_CHANNELS`` channels and 16-byte aligned pointers
-    (``aligned``), else ``"fma"``."""
+    (``aligned``), ``"f32"`` for float32 with C a multiple of 4, aligned
+    pointers and at most 32 taps, else ``"fma"``."""
     if dtype == torch.bfloat16 and n_taps == TC_TAPS and n_ch == TC_CHANNELS and aligned:
         return "tc"
+    if dtype == torch.float32 and n_ch % 4 == 0 and aligned and 1 <= n_taps <= _MAX_TAPS:
+        return "f32"
     return "fma"
+
+
+def plan_for(dtype: torch.dtype, n_ch: int, n_taps: int, aligned: bool) -> str:
+    """The body ``fused_frontend`` launches when the caller names none
+    (``frontend_plan``'s; an A/B harness may replace this function)."""
+    return frontend_plan(dtype, n_ch, n_taps, aligned)
 
 
 def _check_args(x, day_w, day_b, day_idx, kernel_size, sigma):
@@ -97,8 +115,8 @@ def fused_frontend(
 
     ``x [B, T, C]`` float32 or bfloat16, ``day_w [nDays, C, C]``,
     ``day_b [nDays, C]``, ``day_idx [B]`` (clipped to the table) ->
-    ``[B, T, C]`` in x's dtype. ``body`` (``"tc"`` or ``"fma"``) overrides
-    ``frontend_plan`` on the card.
+    ``[B, T, C]`` in x's dtype. ``body`` (``"tc"``, ``"f32"`` or ``"fma"``)
+    overrides ``plan_for`` on the card.
     """
     if x.device.type == "cpu":
         return fused_frontend_plain(
@@ -120,18 +138,16 @@ def fused_frontend(
     bias = day_b.float().contiguous()
     day = day_idx.to(torch.int32).contiguous()
     out = torch.empty_like(x)
-    plan = frontend_plan(x.dtype, c, kernel_size,
-                         aligned=all(p.data_ptr() % 16 == 0 for p in (x, w, out)))
-    if body is not None and body not in (plan, "fma"):
+    aligned = all(p.data_ptr() % 16 == 0 for p in (x, w, out))
+    if body is not None and body not in (frontend_plan(x.dtype, c, kernel_size, aligned), "fma"):
         raise ValueError(f"fused_frontend: body {body!r} does not take {x.dtype} "
-                         f"{tuple(x.shape)} with {kernel_size} taps (bfloat16, "
-                         f"{TC_TAPS} taps, C = {TC_CHANNELS}, 16-byte aligned "
-                         f"pointers)")
-    body = body or plan
+                         f"{tuple(x.shape)} with {kernel_size} taps ('tc': bfloat16, "
+                         f"{TC_TAPS} taps, C = {TC_CHANNELS}; 'f32': float32, C a "
+                         f"multiple of 4; both 16-byte aligned pointers)")
+    body = body or plan_for(x.dtype, c, kernel_size, aligned)
     if out.numel() == 0:
         return out
-    if body == "tc":
-        entry = "nsd_frontend_tc_bf16"
+    entry = {"tc": "nsd_frontend_tc_bf16", "f32": "nsd_frontend_f32_tile"}.get(body, entry)
     taps = gaussian_kernel(kernel_size, sigma)
     taps_c = (ctypes.c_float * len(taps))(*taps.tolist())
     pad_left, _ = same_padding(kernel_size)
@@ -149,4 +165,4 @@ def fused_frontend(
 
 
 fused_frontend.launches = 0
-fused_frontend.launches_by_body = {"tc": 0, "fma": 0}
+fused_frontend.launches_by_body = {"tc": 0, "f32": 0, "fma": 0}

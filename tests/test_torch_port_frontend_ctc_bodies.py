@@ -21,14 +21,20 @@ marked ``cuda`` below skip here).
   ring of four frames, is bit-equal to the plain versions for the same S
   and lengths.
 - ``ops/kernels/frontend.py::frontend_plan``: the tensor-core body for
-  bfloat16 with 20 taps, C = 256 and aligned pointers, the FMA body
+  bfloat16 with 20 taps, C = 256 and aligned pointers, the float32 body for
+  float32 with C a multiple of 4 and aligned pointers, the FMA body
   otherwise. A plain model of the tensor-core body's
   tiling (64-row tiles, each smoothing its rows from the tile and its
   19-row halo, zero outside [0, T), rounded to bf16, a float32 product,
   bias, Softsign, one rounding), with T not a multiple of the tile and day
   indices -1 and 24 clipped, agrees with ``frontend_kernel.py::
   fused_frontend(interpret=True)``; the launch's cut of a trial's tiles
-  into runs, one block each, covers every tile once.
+  into runs, one block each, covers every tile once. A plain model of the
+  float32 body's tiling (128-row tiles of a trial smoothed from their
+  19-row halo, zero outside [0, T), 16-channel slabs summed in order into
+  128-column tiles, bias, Softsign) agrees with ``fused_frontend(interpret=
+  True)`` in float32, and its grid covers each (trial, row tile, column
+  tile) once.
 - On a CPU tensor both wrappers run their plain versions and count no
   launch.
 
@@ -57,6 +63,8 @@ from neural_speech_decoder_tpu_torch.ops.kernels.ctc import (
     prepare,
 )
 from neural_speech_decoder_tpu_torch.ops.kernels.frontend import (
+    F32_SLAB,
+    F32_TILE,
     TC_CHANNELS,
     TC_TAPS,
     TC_TILE_ROWS,
@@ -417,16 +425,103 @@ def test_frontend_recipe_grid_fills_the_card():
     assert tile_runs(64, 1280, H100_SMS) == [(0, 10), (10, 20)]
 
 
+def frontend_f32_tiles(x, day_w, day_b, day_idx, *, kernel_size, sigma):
+    """The float32 body's tiling (``csrc/frontend.cu::f32`` on ``gemm_f32.cuh``)
+    in plain PyTorch: a block per (trial, 128-row tile, 128-column tile);
+    its A operand, slab by slab of 16 channels, the tile's rows smoothed
+    from its input rows and their ``kernel_size - 1`` halo rows (zero
+    outside [0, T)), each row's taps in order; the slabs' products summed
+    in order into the tile's float32 sums; then the bias and Softsign. Rows
+    past T and columns past C are dropped."""
+    bsz, t_max, c = x.shape
+    taps = torch.as_tensor(gaussian_kernel(kernel_size, sigma), dtype=torch.float32)
+    pad_left, _ = same_padding(kernel_size)
+    days = day_idx.long().clamp(0, day_w.shape[0] - 1)
+    out = torch.full_like(x, float("nan"))
+    for b, t0, n0 in f32_grid(bsz, t_max, c):
+        src = torch.arange(t0 - pad_left, t0 + F32_TILE + kernel_size - 1 - pad_left)
+        ok = (src >= 0) & (src < t_max)
+        raw = torch.where(ok[:, None], x[b, src.clamp(0, t_max - 1)].float(), 0.0)
+        w = day_w[days[b], :, n0: n0 + F32_TILE].float()
+        acc = torch.zeros((F32_TILE, w.shape[1]))
+        for k0 in range(0, c, F32_SLAB):
+            a = torch.zeros((F32_TILE, min(F32_SLAB, c - k0)))
+            for j in range(kernel_size):
+                a = a + taps[j] * raw[j: j + F32_TILE, k0: k0 + F32_SLAB]
+            acc = acc + a @ w[k0: k0 + F32_SLAB]
+        n = min(F32_TILE, t_max - t0)
+        out[b, t0: t0 + n, n0: n0 + F32_TILE] = F.softsign(
+            acc[:n] + day_b[days[b], n0: n0 + F32_TILE].float())
+    return out
+
+
+def f32_grid(batch, n_time, n_ch):
+    """The float32 body's launch (``csrc/frontend.cu::f32::launch_taps``):
+    grid (ceil(C/128), ceil(T/128), B), block (x, y, z) the output columns
+    from 128x, the rows from 128y of trial z; returns each block's (trial,
+    first row, first column) in launch order."""
+    return [(b, F32_TILE * y, F32_TILE * xx) for b in range(batch)
+            for y in range(-(-n_time // F32_TILE)) for xx in range(-(-n_ch // F32_TILE))]
+
+
+@pytest.mark.parametrize("t_max, c", [(150, 256), (20, 256), (150, 132)])
+def test_frontend_f32_tile_model_matches_jax_pallas_interpret(t_max, c):
+    """float32, the float32 body's dtype, with days -1 and 24 clipped: the
+    JAX kernel smooths the whole trial and multiplies once, the model sums
+    16-channel slabs; the two float32 sums differ by rounding, under 1e-5
+    of the output (|y| < 1)."""
+    import jax.numpy as jnp
+
+    from neural_speech_decoder_tpu.ops.pallas.frontend_kernel import (
+        fused_frontend as jax_fused_frontend,
+    )
+
+    x, w, bias = _frontend_inputs(t_max + c, 3, t_max, c)
+    day = np.asarray([-1, 24, 5], np.int32)  # 24 days: -1 and 24 clip to 0 and 23
+    ref = jax_fused_frontend(jnp.asarray(x), jnp.asarray(w), jnp.asarray(bias),
+                             jnp.asarray(day), kernel_size=20, sigma=2.0, interpret=True)
+    ours = frontend_f32_tiles(*(torch.from_numpy(a) for a in (x, w, bias, day)),
+                              kernel_size=20, sigma=2.0)
+    assert ours.dtype == torch.float32 and not ours.isnan().any()
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("batch, n_time, n_ch", [(64, 1280, 256), (3, 150, 256), (2, 20, 132),
+                                                 (1, 129, 4), (5, 1281, 260)])
+def test_frontend_f32_grid_covers_every_output_once(batch, n_time, n_ch):
+    blocks = f32_grid(batch, n_time, n_ch)
+    assert len(set(blocks)) == len(blocks)
+    seen = np.zeros((batch, n_time, n_ch), np.int8)
+    for b, t0, n0 in blocks:
+        assert t0 < n_time and n0 < n_ch  # no block without an output
+        seen[b, t0: t0 + F32_TILE, n0: n0 + F32_TILE] += 1
+    assert (seen == 1).all()
+
+
+def test_frontend_f32_recipe_grid():
+    """B=64, T=1280, C=256: two column tiles, ten row tiles a trial, 1280
+    blocks, 4.85 waves of two blocks on each of the H100's 132 SMs."""
+    assert len(f32_grid(64, 1280, 256)) == 2 * 10 * 64
+
+
 @pytest.mark.parametrize("dtype, n_ch, n_taps, aligned, body", [
     (torch.bfloat16, 256, 20, True, "tc"),
     (torch.bfloat16, 16, 20, True, "fma"),
     (torch.bfloat16, 144, 20, True, "fma"),
-    (torch.float32, 256, 20, True, "fma"),
+    (torch.float32, 256, 20, True, "f32"),
     (torch.bfloat16, 130, 20, True, "fma"),
     (torch.bfloat16, 8, 20, True, "fma"),
     (torch.bfloat16, TC_CHANNELS + 16, 20, True, "fma"),
     (torch.bfloat16, 256, 19, True, "fma"),
     (torch.bfloat16, 256, 20, False, "fma"),
+    (torch.float32, 132, 20, True, "f32"),
+    (torch.float32, 4, 1, True, "f32"),
+    (torch.float32, 256, 32, True, "f32"),
+    (torch.float32, 256, 9, True, "f32"),
+    (torch.float32, 130, 20, True, "fma"),
+    (torch.float32, 258, 20, True, "fma"),
+    (torch.float32, 256, 20, False, "fma"),
+    (torch.float32, 256, 33, True, "fma"),
 ])
 def test_frontend_plan(dtype, n_ch, n_taps, aligned, body):
     assert frontend_plan(dtype, n_ch, n_taps, aligned) == body
@@ -444,7 +539,7 @@ def test_frontend_wrapper_runs_plain_on_cpu_and_counts_nothing(dtype):
                                kernel_size=20, sigma=2.0)
     assert torch.equal(ours, ref)
     assert (fused_frontend.launches, fused_frontend.launches_by_body) == before
-    assert set(fused_frontend.launches_by_body) == {"tc", "fma"}
+    assert set(fused_frontend.launches_by_body) == {"tc", "f32", "fma"}
 
 
 # ------------------------------------------------------- on the card
@@ -494,8 +589,49 @@ def test_frontend_tc_body_matches_plain_and_fma_body(cuda, t_max):
     again = fused_frontend(xb, w, bias, day, kernel_size=20, sigma=2.0)
     fma = fused_frontend(xb, w, bias, day, kernel_size=20, sigma=2.0, body="fma")
     ref = fused_frontend_plain(xb, w, bias, day, kernel_size=20, sigma=2.0)
-    assert fused_frontend.launches_by_body == {"tc": before["tc"] + 2,
+    assert fused_frontend.launches_by_body == {"tc": before["tc"] + 2, "f32": before["f32"],
                                                "fma": before["fma"] + 1}
     assert torch.equal(out, again)
     assert (out.float() - ref.float()).abs().max().item() <= 1.6e-2
     assert (out.float() - fma.float()).abs().max().item() <= 1.6e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t_max, c, n_taps", [(1280, 256, 20), (150, 256, 20), (20, 256, 20),
+                                              (150, 132, 20), (37, 12, 7), (300, 256, 32)])
+def test_frontend_f32_body_bit_equal_to_fma_body(cuda, t_max, c, n_taps):
+    """The float32 body keeps the FMA body's arithmetic (taps in order from
+    0, the product over k in order from 0 in one thread, + bias, Softsign),
+    so the two agree bit for bit; both within 1e-5 of the plain version.
+    20 taps run the body built for them, 7 and 32 the one that reads the
+    count at run time."""
+    x, w, bias = _frontend_inputs(t_max + c, 5, t_max, c)
+    x = torch.from_numpy(x).to(cuda)
+    w, bias = torch.from_numpy(w).to(cuda), torch.from_numpy(bias).to(cuda)
+    day = torch.tensor([-1, 24, 5, 0, 23], dtype=torch.int32, device=cuda)
+    fe = dict(kernel_size=n_taps, sigma=2.0)
+    before = dict(fused_frontend.launches_by_body)
+    out = fused_frontend(x, w, bias, day, **fe)
+    again = fused_frontend(x, w, bias, day, **fe)
+    fma = fused_frontend(x, w, bias, day, body="fma", **fe)
+    ref = fused_frontend_plain(x, w, bias, day, **fe)
+    assert fused_frontend.launches_by_body == {"tc": before["tc"], "f32": before["f32"] + 2,
+                                               "fma": before["fma"] + 1}
+    assert torch.equal(out, again) and torch.equal(out, fma)
+    assert (out - ref).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_frontend_f32_body_refuses_what_it_cannot_take(cuda):
+    """C not a multiple of 4 and a misaligned x go to the FMA body; asking
+    for ``"f32"`` there raises (no quiet fallback)."""
+    x, w, bias = _frontend_inputs(3, 2, 40, 130, n_days=4)
+    x, w, bias = (torch.from_numpy(a).to(cuda) for a in (x, w, bias))
+    day = torch.tensor([0, 3], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="does not take"):
+        fused_frontend(x, w, bias, day, kernel_size=20, sigma=2.0, body="f32")
+    x4 = torch.zeros((2 * 40 * 128 + 1,), device=cuda)[1:].view(2, 40, 128)  # 4-byte offset
+    before = dict(fused_frontend.launches_by_body)
+    fused_frontend(x4, w[:, :128, :128].contiguous(), bias[:, :128].contiguous(), day,
+                   kernel_size=20, sigma=2.0)
+    assert fused_frontend.launches_by_body["fma"] == before["fma"] + 1
